@@ -1,0 +1,239 @@
+"""Canonical quantized-weight representation (PyTorch).
+
+Counterpart of ``blazr_tpu/quant/qtensor.py`` with the same layout, so the
+two packages hold bit-identical weights:
+
+    w[k, n] = q[k, n] * scales[k // gs, n] - mins[k // gs, n]
+
+  * ``qweight``: [K*bits/32, N] 32-bit words, **K-packed**: word row ``w``
+    holds logical rows ``w*r + j`` (``r = 32/bits``) in bits
+    ``[bits*j, bits*j+bits)``. PyTorch has no right shift for ``uint32`` on
+    the CPU, so the words are held as an ``int32`` view of the same bits and
+    every shift is followed by a mask.
+  * ``scales``/``mins``: float32 [K/gs, N].
+  * ``perm``: optional int32 [K] activation permutation (GPTQ desc-act
+    checkpoints are sorted group-contiguous at load; the gather moves to
+    the activation side).
+
+Format mapping (exact — same integers, same affine):
+  AWQ INT4  → bits=4, m = s·z;  GPTQ INT4 → bits=4, m = s·(z+1).
+Unsigned 4-bit payloads are sign-biased at load (``_finish``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..utils.device import DeviceLike, resolve_device
+
+# AWQ nibble order: column 8w+j uses shift AWQ_SHIFTS[j]
+# (reference src/loader/safetensors/awq.rs:29-32).
+AWQ_SHIFTS = np.array([0, 16, 4, 20, 8, 24, 12, 28], dtype=np.uint32)
+
+
+@dataclasses.dataclass
+class QuantTensor:
+    """Grouped-affine integer weight. Logical shape [K, N] (in, out)."""
+
+    qweight: torch.Tensor                 # int32 view of u32 [K*bits/32, N]
+    scales: torch.Tensor                  # f32 [K/gs, N]
+    mins: torch.Tensor                    # f32 [K/gs, N]
+    perm: Optional[torch.Tensor]          # int32 [K] or None
+    bits: int
+    group_size: int
+    signed: bool
+    in_features: int
+    out_features: int
+    fmt: str
+
+    @property
+    def device(self) -> torch.device:
+        return self.qweight.device
+
+
+def _pack_k(q: np.ndarray, bits: int) -> np.ndarray:
+    """Pack int rows along K into uint32 words: [K, N] → [K*bits/32, N]."""
+    k, n = q.shape
+    r = 32 // bits
+    if k % r:
+        raise ValueError(f"K={k} is not a multiple of {r} rows per word")
+    q = q.astype(np.uint32) & ((1 << bits) - 1)
+    q = q.reshape(k // r, r, n)
+    words = np.zeros((k // r, n), dtype=np.uint32)
+    for j in range(r):
+        words |= q[:, j, :] << np.uint32(bits * j)
+    return words
+
+
+def unpack_k(words: np.ndarray, bits: int, signed: bool) -> np.ndarray:
+    """Inverse of :func:`_pack_k` (numpy reference / test helper). Accepts
+    uint32 words or their int32 view."""
+    words = np.asarray(words).view(np.uint32)
+    kw, n = words.shape
+    r = 32 // bits
+    out = np.empty((kw, r, n), dtype=np.int32)
+    mask = (1 << bits) - 1
+    for j in range(r):
+        vals = (words >> np.uint32(bits * j)) & mask
+        vals = vals.astype(np.int32)
+        if signed:
+            vals = np.where(vals >= (1 << (bits - 1)), vals - (1 << bits), vals)
+        out[:, j, :] = vals
+    return out.reshape(kw * r, n)
+
+
+def words_to_torch(words: np.ndarray, device: torch.device) -> torch.Tensor:
+    """uint32 words → the int32 tensor view the port holds."""
+    arr = np.ascontiguousarray(np.asarray(words).view(np.int32))
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _finish(q_int: np.ndarray, scales: np.ndarray, mins: np.ndarray, *,
+            bits: int, group_size: int, signed: bool, fmt: str,
+            perm: Optional[np.ndarray] = None,
+            device: DeviceLike = None) -> QuantTensor:
+    dev = resolve_device(device)
+    k, n = q_int.shape
+    if scales.shape != (k // group_size, n):
+        raise ValueError(f"scales {scales.shape} do not match K={k} N={n} "
+                         f"gs={group_size}")
+    if bits == 4 and not signed:
+        # Sign-bias the nibbles (q' = q - 8 as int4 two's complement, i.e.
+        # n' = n XOR 8); the +8 offset folds into the affine:
+        # w = q·s − m = (q' + 8)·s − m = q'·s − (m − 8·s).
+        q_int = np.bitwise_xor(q_int.astype(np.uint8), 8)
+        mins = mins - 8.0 * scales
+        signed = True
+    return QuantTensor(
+        qweight=words_to_torch(_pack_k(q_int, bits), dev),
+        scales=torch.as_tensor(np.asarray(scales, np.float32)).to(dev),
+        mins=torch.as_tensor(np.asarray(mins, np.float32)).to(dev),
+        perm=None if perm is None else torch.as_tensor(
+            np.asarray(perm, np.int32)).to(dev),
+        bits=bits, group_size=group_size, signed=signed,
+        in_features=k, out_features=n, fmt=fmt,
+    )
+
+
+def from_awq(qweight_u32: np.ndarray, scales: np.ndarray,
+             qzeros_u32: np.ndarray, group_size: int, *,
+             device: DeviceLike = None) -> QuantTensor:
+    """AWQ triplet (HF-AWQ checkpoint layout) → canonical.
+
+      qweight [K, N/8] uint32 (AWQ interleaved nibbles along N)
+      scales  [K/gs, N] (f16/f32)
+      qzeros  [K/gs, N/8] uint32 (same interleave)
+    """
+    qweight_u32 = np.asarray(qweight_u32).view(np.uint32)
+    qzeros_u32 = np.asarray(qzeros_u32).view(np.uint32)
+    k, n8 = qweight_u32.shape
+    n = n8 * 8
+    q = np.empty((k, n), dtype=np.uint8)
+    for j in range(8):
+        q[:, j::8] = (qweight_u32 >> AWQ_SHIFTS[j]).astype(np.uint32) & 0xF
+    g = qzeros_u32.shape[0]
+    z = np.empty((g, n), dtype=np.float32)
+    for j in range(8):
+        z[:, j::8] = ((qzeros_u32 >> AWQ_SHIFTS[j]) & 0xF).astype(np.float32)
+    s = np.asarray(scales).astype(np.float32)
+    return _finish(q, s, s * z, bits=4, group_size=group_size, signed=False,
+                   fmt="awq", device=device)
+
+
+def from_gptq(qweight_u32: np.ndarray, scales: np.ndarray,
+              qzeros_u32: np.ndarray, g_idx: Optional[np.ndarray],
+              group_size: int, *, v2: bool = False,
+              device: DeviceLike = None) -> QuantTensor:
+    """GPTQ group → canonical.
+
+      qweight [K/8, N] uint32 (sequential 4-bit, K-packed), qzeros
+      [K/gs, N/8] uint32 (stored zero-1 in v1), scales [K/gs, N],
+      g_idx [K] optional.
+
+    desc-act checkpoints (non-trivial g_idx) are stable-sorted by group so
+    groups are contiguous; the activation side carries the permutation.
+    """
+    qweight_u32 = np.asarray(qweight_u32).view(np.uint32)
+    qzeros_u32 = np.asarray(qzeros_u32).view(np.uint32)
+    k8, n = qweight_u32.shape
+    k = k8 * 8
+    q = unpack_k(qweight_u32, 4, signed=False).astype(np.uint8)   # [K, N]
+    g = qzeros_u32.shape[0]
+    z = np.empty((g, n), dtype=np.float32)
+    for j in range(8):
+        z[:, j::8] = ((qzeros_u32 >> np.uint32(4 * j)) & 0xF).astype(np.float32)
+    if not v2:
+        z = z + 1.0                       # classic GPTQ stores zero-1
+    s = np.asarray(scales).astype(np.float32)
+    perm = None
+    if g_idx is not None:
+        g_idx = np.asarray(g_idx, dtype=np.int64)
+        if not np.array_equal(g_idx, np.arange(k) // group_size):
+            perm = np.argsort(g_idx, kind="stable").astype(np.int32)
+            q = q[perm]
+    return _finish(q, s, s * z, bits=4, group_size=group_size, signed=False,
+                   fmt="gptq", perm=perm, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Dequantization (the plain path the kernels are held against)
+# ---------------------------------------------------------------------------
+
+def unpack(qweight: torch.Tensor, bits: int, signed: bool) -> torch.Tensor:
+    """K-packed int32 words [K/r, N] → int32 values [K, N] (signed payloads
+    de-biased). Shift then mask, so the arithmetic right shift of the int32
+    view never leaks sign bits."""
+    r = 32 // bits
+    kw, n = qweight.shape
+    shifts = torch.arange(r, dtype=torch.int32, device=qweight.device) * bits
+    vals = (qweight[:, None, :] >> shifts[None, :, None]) & ((1 << bits) - 1)
+    if signed:
+        half = 1 << (bits - 1)
+        vals = torch.where(vals >= half, vals - (1 << bits), vals)
+    return vals.reshape(kw * r, n)
+
+
+def dequantize_planes(qweight: torch.Tensor, scales: torch.Tensor,
+                      mins: torch.Tensor, bits: int, signed: bool,
+                      group_size: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Dense [K, N] weight ``q·s − m`` in float32, cast to ``dtype``."""
+    q = unpack(qweight, bits, signed).to(torch.float32)
+    s = scales.to(torch.float32).repeat_interleave(group_size, dim=0)
+    m = mins.to(torch.float32).repeat_interleave(group_size, dim=0)
+    return (q * s - m).to(dtype)
+
+
+def dequantize(qt: QuantTensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Dense [K, N] weight in the *sorted* (physical) row order."""
+    return dequantize_planes(qt.qweight, qt.scales, qt.mins, qt.bits,
+                             qt.signed, qt.group_size, dtype)
+
+
+def dequantize_np(qt: QuantTensor) -> np.ndarray:
+    """Host-side numpy dequant to f32 [K, N] (test helper)."""
+    q = unpack_k(qt.qweight.cpu().numpy(), qt.bits, qt.signed).astype(np.float32)
+    s = np.repeat(qt.scales.cpu().numpy().astype(np.float32), qt.group_size, 0)
+    m = np.repeat(qt.mins.cpu().numpy().astype(np.float32), qt.group_size, 0)
+    return q * s - m
+
+
+def apply_quant_compute(params, mode: Optional[str]):
+    """Apply an ``inference.quant_compute`` mode to a param tree.
+
+    ``auto`` resolves to ``w4a16`` off the TPU, so it and ``w4a16``/None
+    leave the tree untouched: every quantized matmul runs kernel B1 with
+    bf16 activations. The int8-activation modes need kernel B3, which is
+    not ported yet (ROADMAP queue B, row B3)."""
+    if mode in (None, "auto", "w4a16"):
+        return params
+    if mode in ("w4a8", "w8a8", "w4a8-prefill"):
+        raise NotImplementedError(
+            f"quant_compute={mode!r} needs the int8-activation kernel "
+            "(ROADMAP queue B, row B3: _qmm_int8_kernel), not ported yet")
+    raise ValueError(f"unknown quant_compute mode {mode!r}")
+
