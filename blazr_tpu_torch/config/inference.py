@@ -1,10 +1,11 @@
 """Inference engine feature flags.
 
 Counterpart of ``blazr_tpu/config/inference.py``: the same fields and
-defaults, so a config file reads the same in both packages. This slice of
-the port serves the paged KV cache, batched prefill and the multi-step
-decode horizon; the other knobs are kept for layout and are rejected by the
-engine where they would change behaviour (see ``engine/batch_engine.py``).
+defaults, so a config file reads the same in both packages. The port serves
+the paged KV cache, batched prefill and the multi-step decode horizon
+(``engine/batch_engine.py``), the contiguous cache with session reuse
+(``engine/executor.py``) and every ``quant_compute`` mode; the other knobs
+are kept for layout and are rejected where they would change behaviour.
 """
 
 from __future__ import annotations
@@ -32,15 +33,19 @@ class InferenceConfig:
 
     # KV cache
     kv_cache: bool = True
-    # auto (model dtype) | int8 (per-token-per-head absmax scales). int4 is
-    # refused on the paged path instead of being downgraded.
+    # auto (model dtype) | int8 (per-token-per-head absmax scales) | int4
+    # (the Executor's contiguous cache only: int4 values held in int8
+    # storage; refused on the paged path instead of being downgraded).
     kv_cache_dtype: str = "auto"
     max_batch_size: int = 8
     max_seq_len: Optional[int] = None
 
     # Quantized-matmul compute mode for signed 4/8-bit weights:
-    #   auto / w4a16 — int4 weight stream, bf16 activations (kernel B1)
-    #   w4a8 / w8a8 / w4a8-prefill — int8 activation kernel, not ported yet
+    #   auto / w4a16 — int4 weight stream, bf16 activations (kernel B1;
+    #     ``auto`` stays w4a16 on every device, ROADMAP §C)
+    #   w4a8 — int8 activations on the int4 weights (kernel B3)
+    #   w8a8 — weights widened to int8, int8 activations (kernel B3)
+    #   w4a8-prefill — B3 for matmuls of 256+ rows, B1 below
     quant_compute: str = "auto"
 
     # Paged attention.

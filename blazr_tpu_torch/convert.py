@@ -61,5 +61,7 @@ def params_from_jax(tree: Any, *, device: DeviceLike = None,
                 np.asarray(tree.perm, np.int32), dev, None),
             bits=int(tree.bits), group_size=int(tree.group_size),
             signed=bool(tree.signed), in_features=int(tree.in_features),
-            out_features=int(tree.out_features), fmt=str(tree.fmt))
+            out_features=int(tree.out_features), fmt=str(tree.fmt),
+            act_quant=bool(getattr(tree, "act_quant", False)),
+            act_quant_min_m=int(getattr(tree, "act_quant_min_m", 0)))
     return _tensor(tree, dev, dtype)

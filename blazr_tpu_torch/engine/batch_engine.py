@@ -15,6 +15,11 @@ What is ported is the engine's semantics, not its TPU machinery:
     hid round-trips of a remote-attached chip; PyTorch runs eagerly on a
     local card, so this engine passes tensors directly and fetches every
     round.
+  * prefill groups run at their real number of prompts P, except while a
+    weight carries a row threshold (``w4a8-prefill``): then the group is
+    padded to the next power of two, as the JAX engine pads every group
+    (batch_engine.py:1338), so the row count that picks B3 or B1 is the
+    JAX engine's (P x bucket) and the two engines compute alike.
 Left out of this slice (ROADMAP queue A): speculation, grammars and JSON
 mode, LoRA, host samplers (mirostat/DRY/typical/dynatemp), the prefix
 cache, tensor/sequence parallel meshes and recurrent-state families. A
@@ -41,7 +46,7 @@ from ..kvcache.block_allocator import BlockAllocator, blocks_needed
 from ..kvcache.paged import PAD_BLOCK, pad_block_table
 from ..models.paged_multi import init_engine_cache, make_paged_forward
 from ..models.registry import Model
-from ..quant.qtensor import apply_quant_compute
+from ..quant.qtensor import apply_quant_compute, quant_leaves
 from .sampling import (PENALTY_WINDOW, SamplingParams, make_bias_rows,
                        make_window, sample_tokens)
 from .sequence_scheduler import (SchedulerConfig, Sequence, SequenceScheduler,
@@ -112,6 +117,17 @@ def _not_served(what: str) -> NotImplementedError:
         f"{what} is not served by blazr_tpu_torch yet (ROADMAP queue A)")
 
 
+def check_request(gen_cfg: GenerationConfig) -> None:
+    """Raise for a request that asks for what the port does not serve yet."""
+    if gen_cfg.grammar or gen_cfg.json_mode or gen_cfg.json_schema:
+        raise _not_served("constrained decoding (grammar / JSON mode)")
+    if gen_cfg.lora_adapter:
+        raise _not_served("LoRA")
+    if (gen_cfg.mirostat == 2 or gen_cfg.dry_multiplier > 0.0
+            or gen_cfg.typical_p < 1.0 or gen_cfg.dynatemp_range > 0.0):
+        raise _not_served("host-side sampling (mirostat/DRY/typical/dynatemp)")
+
+
 class BatchEngine:
     """Paged-KV continuous-batching executor + scheduler loop. Runs on the
     device the model's params lie on."""
@@ -144,6 +160,10 @@ class BatchEngine:
                 max_seq_len=self.max_seq_len,
             ))
         model.params = apply_quant_compute(model.params, inf.quant_compute)
+        # Row-count routing (w4a8-prefill) needs the JAX engine's padded
+        # prefill groups; other modes run the real number of prompts.
+        self._pad_groups = any(qt.act_quant_min_m > 0
+                               for qt in quant_leaves(model.params))
         self.cache, _ = init_engine_cache(
             model.cfg, num_blocks, self.block_size, self.max_batch,
             dtype=model.dtype, quantized=inf.kv_cache_dtype == "int8",
@@ -186,13 +206,7 @@ class BatchEngine:
                gen_cfg: Optional[GenerationConfig] = None) -> RequestHandle:
         gen_cfg = gen_cfg or GenerationConfig()
         gen_cfg.validate()
-        if gen_cfg.grammar or gen_cfg.json_mode or gen_cfg.json_schema:
-            raise _not_served("constrained decoding (grammar / JSON mode)")
-        if gen_cfg.lora_adapter:
-            raise _not_served("LoRA")
-        if (gen_cfg.mirostat == 2 or gen_cfg.dry_multiplier > 0.0
-                or gen_cfg.typical_p < 1.0 or gen_cfg.dynatemp_range > 0.0):
-            raise _not_served("host-side sampling (mirostat/DRY/typical/dynatemp)")
+        check_request(gen_cfg)
         seq_id = self.scheduler.add_request(prompt_tokens, gen_cfg)
         handle = RequestHandle(seq_id=seq_id, queue=asyncio.Queue(),
                                prompt_tokens=len(prompt_tokens))
@@ -335,13 +349,15 @@ class BatchEngine:
     def _prefill_group(self, group: list[Sequence], bucket: int, chunk_cfg: int):
         """Queue one [P, T] prefill over same-bucket chunks; returns the
         un-fetched outputs."""
-        p = len(group)
+        n_real = len(group)
+        p = _next_pow2(n_real, minimum=1) if self._pad_groups else n_real
         bs = self.block_size
         starts = [s.prefilled_tokens for s in group]
         chunks = [min(chunk_cfg, len(s.prompt_tokens) - st)
                   for s, st in zip(group, starts)]
         # Tables only as wide as this chunk's keys need.
         mb = max(blocks_needed(st + c, bs) for st, c in zip(starts, chunks))
+        # Pad rows: one token at position 0 on the trash slot, no blocks.
         toks = np.zeros((p, bucket), dtype=np.int64)
         pos = np.zeros((p, bucket), dtype=np.int64)
         slots = np.full((p, bucket), self._trash, dtype=np.int64)
@@ -360,9 +376,11 @@ class BatchEngine:
             if start + chunk >= len(seq.prompt_tokens):
                 finishing.append((seq, i))
         dev = self.device
-        seq_lens = torch.tensor([st + c for st, c in zip(starts, chunks)],
+        pad = p - n_real
+        seq_lens = torch.tensor([st + c for st, c in zip(starts, chunks)] + [1] * pad,
                                 dtype=torch.int32, device=dev)
-        last_idx = torch.tensor([max(c - 1, 0) for c in chunks], device=dev)
+        last_idx = torch.tensor([max(c - 1, 0) for c in chunks] + [0] * pad,
+                                device=dev)
         logits, self.cache = self._fwd(
             self.model.params, self.model.cfg, torch.from_numpy(toks).to(dev),
             self.cache, torch.from_numpy(pos).to(dev),
@@ -371,7 +389,7 @@ class BatchEngine:
         packed = None
         if finishing:
             sp, window, bias_ids, bias_vals = self._sampling(cfgs, 0, wins)
-            tok, logprobs = sample_tokens(logits[:, 0, :], sp, window,
+            tok, logprobs = sample_tokens(logits[:n_real, 0, :], sp, window,
                                           bias_ids, bias_vals)
             use_topk = any(s.gen_cfg.logprobs for s, _ in finishing)
             packed = self._pack(tok, logprobs, use_topk)

@@ -6,7 +6,8 @@ Copy of ``blazr_tpu/engine/types.py`` (reference src/engine/types.rs:4-73).
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+import json
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -40,3 +41,31 @@ class GeneratedToken:
     text: str = ""
     logprob: Optional[float] = None
     top_logprobs: Optional[list[TokenLogprob]] = None
+
+
+@dataclass
+class GenerationResult:
+    text: str
+    tokens: list[int] = field(default_factory=list)
+    finish_reason: FinishReason = FinishReason.LENGTH
+    prompt_tokens: int = 0
+    completion_tokens: int = 0
+    logprobs: Optional[list[TokenLogprob]] = None
+    top_logprobs: Optional[list[list[TokenLogprob]]] = None
+    # Full per-token records (text + logprob + top-k) for the HTTP
+    # logprobs blocks; populated only when cfg.logprobs.
+    gen_tokens: Optional[list[GeneratedToken]] = None
+    thinking: Optional[str] = None
+    # timing (seconds)
+    load_duration: float = 0.0
+    prompt_eval_duration: float = 0.0
+    eval_duration: float = 0.0
+
+
+def is_valid_json(text: str) -> bool:
+    """JSON-mode retry check (reference types.rs / generate_text.rs:46-58)."""
+    try:
+        json.loads(text)
+        return True
+    except (json.JSONDecodeError, ValueError):
+        return False

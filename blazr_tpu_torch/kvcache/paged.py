@@ -76,10 +76,11 @@ def init_paged_cache(num_layers: int, num_blocks: int, block_size: int,
     )
 
 
-def quantize_tokens(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """[..., D] float → (int8 values, [...] absmax scales); the int8 scheme
-    of ``blazr_tpu/kvcache/contiguous.py::_quantize_tokens``."""
-    qmax = 127.0
+def quantize_tokens(x: torch.Tensor, qmax: float = 127.0
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] float → (int8 values in ±qmax, [...] absmax scales); the
+    scheme of ``blazr_tpu/kvcache/contiguous.py::_quantize_tokens`` (qmax 127
+    for int8 KV, 7 for int4 KV)."""
     xf = x.to(torch.float32)
     scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / qmax
     q = torch.clamp(torch.round(xf / scale[..., None]), -qmax, qmax)

@@ -13,15 +13,14 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..attention.paged_attention import paged_attention_decode
 from ..config.model_config import UniversalConfig
 from ..kvcache.paged import (PagedKVCache, gather_page_scales, gather_pages,
                              write_paged_layer)
 from ..utils.device import DeviceLike, check_on, resolve_device
-from .layers import (alibi_slopes, apply_rope, attend, linear, rms_norm,
-                     rope_cos_sin, rope_frequencies, swiglu_mlp)
+from .layers import attend, linear, rms_norm
+from .llama import forward_embed, forward_head, mlp, project_qkv, rope_and_alibi
 
 
 def _paged_attention_block(
@@ -40,28 +39,7 @@ def _paged_attention_block(
 ) -> torch.Tensor:
     att = cfg.attention
     b, t, _ = x.shape
-    head_dim = att.resolved_head_dim(cfg.hidden_size)
-    n_heads = att.num_heads
-    n_kv = att.kv_heads()
-
-    if p.get("qkv") is not None:
-        qkv = linear(x, p["qkv"], p.get("qkv_bias"))
-        q_dim = n_heads * head_dim
-        kv_dim = n_kv * head_dim
-        q = qkv[..., :q_dim].reshape(b, t, n_heads, head_dim)
-        k = qkv[..., q_dim : q_dim + kv_dim].reshape(b, t, n_kv, head_dim)
-        v = qkv[..., q_dim + kv_dim :].reshape(b, t, n_kv, head_dim)
-    else:
-        q = linear(x, p["q"], p.get("q_bias")).reshape(b, t, n_heads, head_dim)
-        k = linear(x, p["k"], p.get("k_bias")).reshape(b, t, n_kv, head_dim)
-        v = linear(x, p["v"], p.get("v_bias")).reshape(b, t, n_kv, head_dim)
-    if p.get("q_norm") is not None:
-        q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps)
-    if alibi is None:
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-
+    q, k, v = project_qkv(p, cfg, x, cos, sin, alibi)
     write_paged_layer(cache, layer, k, v, slot_mapping)
 
     if t == 1:
@@ -82,7 +60,7 @@ def _paged_attention_block(
                      sliding_window=att.sliding_window,
                      logit_softcap=cfg.attn_logit_softcapping,
                      k_scale=ks_all, v_scale=vs_all, alibi=alibi)
-    out = out.reshape(b, t, n_heads * head_dim).to(x.dtype)
+    out = out.reshape(b, t, q.shape[2] * q.shape[3]).to(x.dtype)
     return linear(out, p["o"], p.get("o_bias"))
 
 
@@ -109,15 +87,8 @@ def forward_paged(
         raise NotImplementedError(
             f"forward_paged serves the llama/mistral family, not "
             f"{cfg.model_type!r} (ROADMAP queue A)")
-    x = params["embed"][tokens.to(torch.long)]
-    if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype, device=dev)
-
-    att = cfg.attention
-    head_dim = att.resolved_head_dim(cfg.hidden_size)
-    cos, sin = rope_cos_sin(positions, rope_frequencies(att, head_dim, dev))
-    alibi = (alibi_slopes(att.num_heads, dev) * head_dim ** -0.5
-             if att.use_alibi else None)
+    x = forward_embed(params, cfg, tokens)
+    cos, sin, alibi = rope_and_alibi(cfg, positions)
 
     for i, p in enumerate(params["layers"]):
         h = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
@@ -125,26 +96,11 @@ def forward_paged(
                                        slot_mapping, block_tables, seq_lens,
                                        cos, sin, alibi)
         h = rms_norm(x, p["post_norm"], cfg.rms_norm_eps)
-        if p.get("gateup") is not None:          # fused gate+up matmul
-            gu = linear(h, p["gateup"])
-            inter = gu.shape[-1] // 2
-            x = x + linear(F.silu(gu[..., :inter]) * gu[..., inter:], p["down"])
-        else:
-            x = x + swiglu_mlp(h, p["gate"], p["up"], p["down"])
+        x = x + mlp(p, h)
 
     if last_idx is not None:
         # Prefill needs the last position's logits only: slice before the
         # head so the [B, T, V] logits never materialize.
         idx = last_idx.to(torch.long)[:, None, None].expand(-1, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    lm_head = params.get("lm_head")
-    if lm_head is None:
-        logits = x.to(torch.float32) @ params["embed"].t().to(x.dtype).to(torch.float32)
-    else:
-        logits = linear(x, lm_head)
-    logits = logits.to(torch.float32)
-    if cfg.final_logit_softcapping:
-        c = cfg.final_logit_softcapping
-        logits = torch.tanh(logits / c) * c
-    return logits, cache
+    return forward_head(params, cfg, x), cache

@@ -1,4 +1,5 @@
-from .kernels import qmm, qmm_reference
+from .int8 import qmm_int8, qmm_int8_reference, quantize_rows
+from .kernels import qmm, qmm_reference, qmm_stream, qmm_stream_reference
 from .matmul import quant_matmul
 from .qtensor import (
     QuantTensor,
@@ -7,8 +8,10 @@ from .qtensor import (
     dequantize_np,
     from_awq,
     from_gptq,
+    mark_act_quant,
     unpack,
     unpack_k,
+    widen_to_int8,
 )
 
 __all__ = [
@@ -18,9 +21,16 @@ __all__ = [
     "dequantize_np",
     "from_awq",
     "from_gptq",
+    "mark_act_quant",
     "qmm",
+    "qmm_int8",
+    "qmm_int8_reference",
     "qmm_reference",
+    "qmm_stream",
+    "qmm_stream_reference",
     "quant_matmul",
+    "quantize_rows",
     "unpack",
     "unpack_k",
+    "widen_to_int8",
 ]

@@ -49,6 +49,13 @@ class QuantTensor:
     in_features: int
     out_features: int
     fmt: str
+    # Serve-time compute mode: route matmuls through kernel B3 (dynamic
+    # per-row int8 activation quant, W4A8/W8A8). Set by mark_act_quant /
+    # widen_to_int8, never by the format decoders.
+    act_quant: bool = False
+    # Fewest matmul rows for the B3 route: 0 = always (w4a8/w8a8);
+    # _PREFILL_A8_MIN_M = prefill-shaped matmuls only (w4a8-prefill).
+    act_quant_min_m: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -222,18 +229,102 @@ def dequantize_np(qt: QuantTensor) -> np.ndarray:
     return q * s - m
 
 
-def apply_quant_compute(params, mode: Optional[str]):
-    """Apply an ``inference.quant_compute`` mode to a param tree.
+def widen_to_int8(qt: QuantTensor) -> QuantTensor:
+    """4-bit → 8-bit storage for W8A8: the same integers, scales and mins,
+    repacked 4 int8 values per K-packed word (twice the weight bytes), and
+    tagged for kernel B3. An 8-bit signed tensor is only tagged."""
+    if qt.bits == 8 and qt.signed:
+        return qt if qt.act_quant else dataclasses.replace(qt, act_quant=True)
+    if qt.bits != 4 or not qt.signed:
+        raise NotImplementedError(
+            f"widen_to_int8: only signed 4-bit payloads (got bits={qt.bits} "
+            f"signed={qt.signed})")
+    q = unpack(qt.qweight, 4, True).reshape(
+        qt.in_features // 4, 4, qt.out_features)           # int32 values
+    # Bytes 0-2 as unsigned fields; byte 3 signed, so the word is the int32
+    # view of the u32 word with no overflow.
+    lo = q[:, :3] & 0xFF
+    words = lo[:, 0] + (lo[:, 1] << 8) + (lo[:, 2] << 16) + q[:, 3] * (1 << 24)
+    return dataclasses.replace(qt, qweight=words.contiguous(), bits=8,
+                               act_quant=True)
 
-    ``auto`` resolves to ``w4a16`` off the TPU, so it and ``w4a16``/None
-    leave the tree untouched: every quantized matmul runs kernel B1 with
-    bf16 activations. The int8-activation modes need kernel B3, which is
-    not ported yet (ROADMAP queue B, row B3)."""
+
+# Row count from which a matmul counts as prefill-shaped under
+# ``w4a8-prefill`` (the JAX package's threshold, qtensor.py:465).
+_PREFILL_A8_MIN_M = 256
+
+
+def mark_act_quant(qt: QuantTensor, min_m: int = 0) -> QuantTensor:
+    """Tag a signed 4/8-bit tensor for kernel B3 without widening it (W4A8).
+    ``min_m`` restricts the route to matmuls with at least that many rows."""
+    if qt.act_quant and qt.act_quant_min_m == min_m:
+        return qt
+    if not qt.signed or qt.bits not in (4, 8):
+        raise NotImplementedError(
+            f"act-quant compute: only signed 4/8-bit payloads (got "
+            f"bits={qt.bits} signed={qt.signed})")
+    return dataclasses.replace(qt, act_quant=True, act_quant_min_m=min_m)
+
+
+def _tag(leaf: QuantTensor, mode: str) -> QuantTensor:
+    if not leaf.signed or leaf.bits not in (4, 8) or leaf.qweight.dim() != 2:
+        return leaf                     # unsigned / 2-bit leaves pass through
+    if mode == "w8a8":
+        return widen_to_int8(leaf)
+    if mode == "w4a8-prefill":
+        return mark_act_quant(leaf, min_m=_PREFILL_A8_MIN_M)
+    return mark_act_quant(leaf)
+
+
+def quant_leaves(params):
+    """Every QuantTensor of a param tree of dicts, lists and tuples."""
+    if isinstance(params, QuantTensor):
+        yield params
+    elif isinstance(params, dict):
+        for v in params.values():
+            yield from quant_leaves(v)
+    elif isinstance(params, (list, tuple)):
+        for v in params:
+            yield from quant_leaves(v)
+
+
+def apply_quant_compute(params, mode: Optional[str], *, inplace: bool = False):
+    """Apply an ``inference.quant_compute`` mode to a param tree of dicts
+    and lists.
+
+    ``w4a8`` tags signed 4/8-bit QuantTensors for kernel B3; ``w8a8`` also
+    widens 4-bit storage to int8; ``w4a8-prefill`` tags them with
+    ``min_m=256`` so only prefill-shaped matmuls take B3. Unsigned and
+    2-bit leaves pass through untouched. ``auto`` is ``w4a16`` on every
+    device (the JAX package resolves it to ``w4a8-prefill`` on a TPU only,
+    from TPU timings; ROADMAP §C), so it, ``w4a16`` and None return the
+    tree as it is.
+
+    The tree is rebuilt; with ``inplace=True`` the leaves are replaced in
+    the given dicts and lists instead, one at a time, so a widened weight's
+    4-bit copy is freed as soon as it is replaced."""
     if mode in (None, "auto", "w4a16"):
         return params
-    if mode in ("w4a8", "w8a8", "w4a8-prefill"):
-        raise NotImplementedError(
-            f"quant_compute={mode!r} needs the int8-activation kernel "
-            "(ROADMAP queue B, row B3: _qmm_int8_kernel), not ported yet")
-    raise ValueError(f"unknown quant_compute mode {mode!r}")
+    if mode not in ("w4a8", "w8a8", "w4a8-prefill"):
+        raise ValueError(f"unknown quant_compute mode {mode!r}")
 
+    def walk(node):
+        if isinstance(node, QuantTensor):
+            return _tag(node, mode)
+        if isinstance(node, dict):
+            if not inplace:
+                return {k: walk(v) for k, v in node.items()}
+            for k in list(node):
+                node[k] = walk(node[k])
+            return node
+        if isinstance(node, list):
+            if not inplace:
+                return [walk(v) for v in node]
+            for i, v in enumerate(node):
+                node[i] = walk(v)
+            return node
+        if isinstance(node, tuple):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)

@@ -1,33 +1,45 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``blazr_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase, result lines
+    python3 chip_smoke.py --phases build,b3    # a subset, no result lines
 
 Phases, in order; any failure raises and the script exits non-zero:
-  1. print the card (name, power limit) and build csrc/*.cu with nvcc,
-     one process per source, all started together;
-  2. kernel B1 (fused dequant-matmul) against its plain version at the
-     Mistral-7B projection shapes and small edge cases;
-  3. kernel B2 (paged decode attention) against its plain version at the
-     Mistral geometry and edge cases;
-  4. a full-width 2-layer Mistral-7B AWQ forward_paged, prefill + 4
-     teacher-forced decode steps, on the card (bf16, kernels) against the
-     CPU (f32, plain versions) on the same weights;
-  5. the 32-layer Mistral-7B AWQ BatchEngine serving 8 requests in two
-     waves, with the kernels' launch counts read around the run;
-  6. one ``{"kernels": [...]}`` JSON line with each kernel's launches, max
-     error, time, bound, plain time and library-call time.
-The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or run
-outside a checkout that holds ``blazr_tpu_torch/``, it prints no result and
-exits non-zero. The compiler's full report goes to
+  1.  print the card (name, power limit) and build csrc/*.cu (B1-B4) with
+      nvcc, one process per source, all started together;
+  2.  kernel B1 (fused dequant-matmul) against its plain version at the
+      Mistral-7B projection shapes and small edge cases;
+  3.  kernel B2 (paged decode attention) against its plain version;
+  3b. kernel B3 (int8-activation matmul) against its plain version: the four
+      projections at m ∈ {1, 8, 256, 512}, w4a8 and w8a8, bf16 and f32,
+      a GPTQ desc-act perm, all-zero rows, integer-equal activation quant;
+  3c. kernel B4 (streaming decode matmul) against its plain version;
+  4.  a full-width 2-layer Mistral-7B AWQ forward_paged, prefill + 4
+      teacher-forced decode steps, on the card (bf16) against the CPU (f32);
+  4b. the same for the contiguous llama.forward under w8a8 (B3 on the card);
+  4c. the Δppl gate: w4a8-prefill and w8a8 within 2% of w4a16;
+  5.  the 32-layer Mistral-7B AWQ BatchEngine serving 8 requests (w4a16);
+  5b. the 32-layer Executor under w8a8: a 512-token prompt, 128 greedy
+      tokens, B3 launched 128 times per forward and B1 never;
+  5c. the 8 requests of phase 5 under w4a8-prefill with
+      BLAZR_TPU_STREAM_KERNEL=1: B3 (prefill), B4 (decode) and B2 launched;
+  6.  timings, and one ``{"kernels": [...]}`` JSON line with each kernel's
+      launches in its serving phase, max error, time, bound, plain time and
+      library-call time.
+Each serving phase sets the launch counts to 0 just before it and reads
+them just after. The last line is ``{"ok": true, "device": {...}}``. Without
+CUDA, or run outside a checkout that holds ``blazr_tpu_torch/``, it prints no
+result and exits non-zero. The compiler's full report goes to
 ``blazr_tpu_torch/csrc/_build/build.log``.
 """
 
 from __future__ import annotations
 
+import argparse
 import asyncio
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -37,6 +49,7 @@ REPO = Path(__file__).resolve().parent
 SEED = 0
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
+H100_INT8_OPS = 1979e12             # dense int8 tensor-core peak
 
 # Mistral-7B projections (K, N): fused qkv, o, fused gate+up, down.
 B1_SHAPES = {"qkv": (4096, 6144), "o": (4096, 4096), "gateup": (4096, 28672),
@@ -70,9 +83,11 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, rate: float = H100_BF16_FLOPS) -> tuple[float, str]:
+    """The least time (ms) for moving ``nbytes`` and doing ``ops`` at
+    ``rate``, and which of the two bounds it."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_BF16_FLOPS * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -233,6 +248,106 @@ def b1_variants(dev, gen) -> None:
                 t[name].append(time_ms(fn, iters=20))
             row.append(f"m={m} {min(t['simt']):.4f}/{min(t['wmma']):.4f}")
         log(f"  B1 {pname} CUDA-core/WMMA ms: " + ", ".join(row))
+
+
+# ---------------------------------------------------------------------------
+# phase 3b/3c: B3 and B4
+# ---------------------------------------------------------------------------
+
+def check_b3(dev, gen) -> dict:
+    """B3 against its plain version: the four Mistral-7B projections at
+    m ∈ {1, 8, 256, 512}, w4a8 and w8a8 weights, bf16 and f32 activations
+    (from m=8 with one all-zero row), and a GPTQ desc-act permutation. The
+    activation quant is plain PyTorch on both sides; its integers must be
+    equal on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.quant import qtensor
+    from blazr_tpu_torch.quant.int8 import qmm_int8, qmm_int8_reference, quantize_rows
+    from blazr_tpu_torch.quant.matmul import quant_matmul
+
+    # Both sides sum exact int32 group partials; they differ by the order of
+    # the f32 affine sums (f32: 1e-3 of the largest output) and, in bf16, by
+    # the output rounding (2^-9 relative; 8e-3 leaves room for the sums).
+    tols = {torch.float32: 1e-3, torch.bfloat16: 8e-3}
+    worst = 0.0
+
+    def one(name, x, qw, s, mn, bits, gs):
+        nonlocal worst
+        got = qmm_int8(x, qw, s, mn, bits=bits, group_size=gs, device=dev)
+        ref = qmm_int8_reference(x.float(), qw, s, mn, bits=bits, group_size=gs)
+        xq, xs = quantize_rows(x)
+        xq_cpu, xs_cpu = quantize_rows(x.cpu())
+        torch.cuda.synchronize()
+        assert torch.equal(xq.cpu(), xq_cpu) and torch.equal(xs.cpu(), xs_cpu), \
+            f"B3 {name}: activation quant differs between card and CPU"
+        assert got.shape == ref.shape and torch.isfinite(got).all(), name
+        err = (got.float() - ref).abs().max().item()
+        tol = tols[x.dtype] * ref.abs().max().item()
+        log(f"  B3 {name:40s} max_abs_err {err:.4g}  tol {tol:.4g}")
+        assert err <= tol, f"B3 {name}: {err} > {tol}"
+        worst = max(worst, err)
+
+    for pname, (k, n) in B1_SHAPES.items():
+        for mode, bits in (("w4a8", 4), ("w8a8", 8)):
+            qw, s, mn = rand_planes(k, n, bits, 128, gen, dev)
+            for m in (1, 8, 256, 512):
+                for dt in (torch.bfloat16, torch.float32):
+                    x = torch.randn((m, k), device=dev, generator=gen).to(dt)
+                    if m > 1:
+                        x[m // 2] = 0
+                    one(f"{pname} {mode} m={m} {str(dt)[6:]}", x, qw, s, mn, bits, 128)
+    rng = np.random.default_rng(SEED + 3)
+    k, n, gs = 512, 128, 128
+    qweight = rng.integers(0, 2 ** 32, (k // 8, n), dtype=np.uint64).astype(np.uint32)
+    qzeros = rng.integers(0, 2 ** 32, (k // gs, n // 8), dtype=np.uint64).astype(np.uint32)
+    scales = (rng.random((k // gs, n)) * 0.01 + 0.001).astype(np.float32)
+    g_idx = rng.permutation(np.arange(k) // gs).astype(np.int32)
+    qt = qtensor.mark_act_quant(qtensor.from_gptq(qweight, scales, qzeros, g_idx, gs,
+                                                  device=dev))
+    assert qt.perm is not None
+    x = torch.randn((4, k), device=dev, generator=gen).to(torch.bfloat16)
+    before = qmm_int8.launches
+    got = quant_matmul(x, qt)
+    assert qmm_int8.launches == before + 1, "GPTQ w4a8 did not route to B3"
+    ref = qmm_int8_reference(x.index_select(-1, qt.perm).float(), qt.qweight,
+                             qt.scales, qt.mins, bits=4, group_size=gs)
+    torch.cuda.synchronize()
+    err = (got.float() - ref).abs().max().item()
+    tol = tols[torch.bfloat16] * ref.abs().max().item()
+    log(f"  B3 {'GPTQ desc-act perm':40s} max_abs_err {err:.4g}  tol {tol:.4g}")
+    assert err <= tol
+    return {"max_abs_err": max(worst, err)}
+
+
+def check_b4(dev, gen) -> dict:
+    """B4 against its plain version: m ∈ {1, 8, 32}, signed 4- and 8-bit
+    weights, the four Mistral-7B projections, and f32 activations once."""
+    import torch
+
+    from blazr_tpu_torch.quant.kernels import qmm_stream, qmm_stream_reference
+
+    rel_tol = 8e-3                       # as B1: bf16 output, f32 sums
+    worst = 0.0
+    cases = [(pname, k, n, bits, m, torch.bfloat16)
+             for pname, (k, n) in B1_SHAPES.items() for bits in (4, 8)
+             for m in (1, 8, 32)]
+    cases += [("o f32", 4096, 4096, 4, 5, torch.float32)]
+    for pname, k, n, bits, m, dt in cases:
+        qw, s, mn = rand_planes(k, n, bits, 128, gen, dev)
+        x = torch.randn((m, k), device=dev, generator=gen).to(dt)
+        got = qmm_stream(x, qw, s, mn, bits=bits, group_size=128, device=dev)
+        ref = qmm_stream_reference(x.float(), qw, s, mn, bits=bits, group_size=128)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and torch.isfinite(got).all(), pname
+        err = (got.float() - ref).abs().max().item()
+        tol = rel_tol * ref.abs().max().item()
+        log(f"  B4 {pname} {bits}-bit m={m:<3d} {str(dt)[6:]:9s} max_abs_err "
+            f"{err:.4g}  tol {tol:.4g}")
+        assert err <= tol, f"B4 {pname} {bits}-bit m={m}: {err} > {tol}"
+        worst = max(worst, err)
+    return {"max_abs_err": worst}
 
 
 # ---------------------------------------------------------------------------
@@ -480,26 +595,56 @@ async def serve(engine, waves) -> list[dict]:
     return results
 
 
-def full_depth(dev, card: str) -> dict:
-    import numpy as np
+def reset_counts() -> None:
+    from blazr_tpu_torch.attention.paged_attention import paged_attention_decode
+    from blazr_tpu_torch.quant.int8 import qmm_int8
+    from blazr_tpu_torch.quant.kernels import qmm, qmm_stream
+
+    for fn in (qmm, paged_attention_decode, qmm_int8, qmm_stream):
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    from blazr_tpu_torch.attention.paged_attention import paged_attention_decode
+    from blazr_tpu_torch.quant.int8 import qmm_int8
+    from blazr_tpu_torch.quant.kernels import qmm, qmm_stream
+
+    return {"qmm": qmm.launches, "paged_attention": paged_attention_decode.launches,
+            "qmm_int8": qmm_int8.launches, "qmm_stream": qmm_stream.launches}
+
+
+def mistral_model(dev, layers: int | None = None):
     import torch
 
-    from blazr_tpu_torch.attention.paged_attention import paged_attention_decode
-    from blazr_tpu_torch.config import AppConfig, GenerationConfig
-    from blazr_tpu_torch.engine.batch_engine import BatchEngine
     from blazr_tpu_torch.models.registry import Model
-    from blazr_tpu_torch.quant.kernels import qmm
     from blazr_tpu_torch.utils.synthetic import mistral_7b_config, synth_llama_params
 
     cfg = mistral_7b_config()
+    if layers is not None:
+        cfg.num_layers = layers
     t0 = time.perf_counter()
     params = synth_llama_params(cfg, quant="awq", dtype=torch.bfloat16, seed=SEED,
                                 device=dev)
     torch.cuda.synchronize()
     log(f"  synthesized {cfg.num_layers}-layer Mistral-7B AWQ-INT4 on the card "
         f"in {time.perf_counter() - t0:.1f} s")
-    model = Model(cfg, params, torch.bfloat16)
+    return Model(cfg, params, torch.bfloat16)
+
+
+def full_depth(dev, card: str, quant_compute: str = "w4a16",
+               stream: bool = False) -> dict:
+    """The 32-layer BatchEngine serving 8 requests in two waves; returns the
+    kernels' launch counts over the run."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+
+    model = mistral_model(dev)
+    cfg = model.cfg
     app = AppConfig(model=cfg)
+    app.inference.quant_compute = quant_compute
     engine = BatchEngine(model, StubTokenizer(), app)
     rng = np.random.default_rng(SEED + 5)
     lens = [64, 512, 200, 333, 128, 480, 96, 256]
@@ -509,13 +654,20 @@ def full_depth(dev, card: str) -> dict:
         gen = (GenerationConfig(max_tokens=64, temperature=0.7, top_p=0.9, seed=100 + i)
                if i in (2, 6) else GenerationConfig(max_tokens=64, temperature=0.0))
         reqs.append((prompt, gen))
-    qmm.launches = 0
-    paged_attention_decode.launches = 0
-    t0 = time.perf_counter()
-    results = asyncio.run(serve(engine, [reqs[:4], reqs[4:]]))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"qmm": qmm.launches, "paged_attention": paged_attention_decode.launches}
+    old = os.environ.get("BLAZR_TPU_STREAM_KERNEL")
+    os.environ["BLAZR_TPU_STREAM_KERNEL"] = "1" if stream else "0"
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        results = asyncio.run(serve(engine, [reqs[:4], reqs[4:]]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        if old is None:
+            os.environ.pop("BLAZR_TPU_STREAM_KERNEL")
+        else:
+            os.environ["BLAZR_TPU_STREAM_KERNEL"] = old
     total = 0
     for i, r in enumerate(results):
         toks = r["tokens"]
@@ -527,6 +679,7 @@ def full_depth(dev, card: str) -> dict:
             f"done at {r['wall']:.2f} s")
     log(f"  served {total} tokens for {len(results)} requests in {wall:.2f} s: "
         f"{total / wall:.1f} tok/s aggregate ({card}); depth {cfg.num_layers} layers; "
+        f"quant_compute {quant_compute}, stream kernel {'on' if stream else 'off'}; "
         f"horizon rounds {engine.horizon_dispatches}, steps {engine.horizon_steps}")
     perf = engine.perf
     log(f"  engine wall: prefill dispatch {perf['prefill']:.2f} s over "
@@ -534,13 +687,328 @@ def full_depth(dev, card: str) -> dict:
         f"{engine.horizon_steps} steps ({perf['decode'] / engine.horizon_steps * 1e3:.1f} "
         f"ms/step), first-token fetch {perf['p_finish']:.2f} s")
     log(f"  launches during serving: {launches}")
-    assert launches["qmm"] > 0 and launches["paged_attention"] > 0, launches
-    del engine, model, params
+    assert launches["paged_attention"] > 0, launches
+    if stream:
+        assert launches["qmm_int8"] > 0 and launches["qmm_stream"] > 0, launches
+    else:
+        assert launches["qmm"] > 0, launches
+    del engine, model
     torch.cuda.empty_cache()
     return launches
 
 
+def serve_stream(dev, card: str) -> dict:
+    """Phase 5c: the same 8 requests under w4a8-prefill with the stream
+    kernel on: prefill groups of 256+ rows take B3, decode takes B4."""
+    return full_depth(dev, card, quant_compute="w4a8-prefill", stream=True)
+
+
+def device_busy(fn) -> tuple[float, float, int]:
+    """(wall s, summed device time s, device events) of ``fn()`` under
+    torch.profiler (kernels and copies on one stream do not overlap); the
+    device time is 0 where the profiler sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, count = 0.0, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += ev.time_range.elapsed_us()
+            count += 1
+    return wall, busy_us / 1e6, count
+
+
+def serve_executor(dev, card: str) -> dict:
+    """Phase 5b: the 32-layer single-stream Executor under w8a8: a 512-token
+    prompt and 128 greedy tokens through collect_generation. Every
+    projection of every forward launches B3; B1 never launches."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.engine.generate_text import collect_generation
+
+    model = mistral_model(dev)
+    cfg = model.cfg
+    app = AppConfig(model=cfg)
+    app.inference.quant_compute = "w8a8"
+    t0 = time.perf_counter()
+    ex = Executor(model, StubTokenizer(), app)
+    torch.cuda.synchronize()
+    qkv = model.params["layers"][0]["qkv"]
+    assert qkv.bits == 8 and qkv.act_quant
+    log(f"  widened to int8 in place in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
+    ex.warmup()
+    prompt = np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size, 512).tolist()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = collect_generation(ex, prompt, GenerationConfig(max_tokens=128, temperature=0.0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n = len(res.tokens)
+    assert n == 128 and all(0 <= t < cfg.vocab_size for t in res.tokens), n
+    forwards = n                       # one prefill + n - 1 decode steps
+    per_forward = 4 * cfg.num_layers
+    log(f"  Executor w8a8, {cfg.num_layers} layers, prompt 512, {n} greedy tokens: "
+        f"TTFT {res.prompt_eval_duration * 1e3:.1f} ms, "
+        f"{res.eval_duration / (n - 1) * 1e3:.2f} ms per decode token, "
+        f"{n / wall:.1f} tok/s end to end, {(n - 1) / res.eval_duration:.1f} tok/s "
+        f"decode ({card})")
+    log(f"  launches: {launches} ({forwards} forwards x {per_forward} projections)")
+    assert launches["qmm_int8"] == forwards * per_forward, launches
+    assert launches["qmm"] == 0 and launches["qmm_stream"] == 0, launches
+    # Where a decode step's time goes: 16 more greedy tokens under the
+    # profiler, kernel time against wall time.
+    wall_p, busy, kernels = device_busy(lambda: collect_generation(
+        ex, prompt[:16], GenerationConfig(max_tokens=17, temperature=0.0)))
+    log(f"  profiled 16-token prompt + 17 tokens: wall {wall_p * 1e3:.1f} ms, CUDA "
+        f"kernels {busy * 1e3:.1f} ms over {kernels} kernels "
+        f"({kernels / 17:.0f} per token); device idle share "
+        + (f"{1 - busy / wall_p:.2f}" if busy > 0 else "not measured (no device events)"))
+    del ex, model
+    torch.cuda.empty_cache()
+    return dict(launches, ttft_ms=res.prompt_eval_duration * 1e3,
+                ms_per_token=res.eval_duration / (n - 1) * 1e3, tok_s=n / wall)
+
+
+def teacher_forced_w8a8(dev) -> None:
+    """Phase 4b: 2-layer full-width Mistral-7B under w8a8 through the
+    contiguous llama.forward: the card (bf16, B3) against the CPU (f32,
+    plain versions) on the same widened weights, teacher-forced over a
+    100-token prefill and 4 decode steps."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.kvcache.contiguous import init_kv_cache
+    from blazr_tpu_torch.models.llama import forward
+    from blazr_tpu_torch.quant.qtensor import apply_quant_compute
+
+    model = mistral_model(dev, layers=2)
+    cfg = model.cfg
+    params = apply_quant_compute(model.params, "w8a8")
+    cpu_params = to_cpu_f32(params)
+    rng = np.random.default_rng(SEED + 1)
+    n, steps = 100, 4
+    toks = rng.integers(0, cfg.vocab_size, n + steps)
+    inputs = [(toks[None, :n], np.arange(n)[None, :], np.array([n]))]
+    inputs += [(toks[None, n + i:n + i + 1], np.array([[n + i]]), np.array([n + i + 1]))
+               for i in range(steps)]
+    caches = {name: init_kv_cache(2, 1, 256, model.num_kv_heads, model.head_dim,
+                                  dtype=dt, device=d)
+              for name, d, dt in (("gpu", dev, torch.bfloat16),
+                                  ("cpu", torch.device("cpu"), torch.float32))}
+    rel_tol = 5e-2                     # as phase 4: bf16 between every op
+    reset_counts()
+    for step, (tk, ps, sl) in enumerate(inputs):
+        out = {}
+        for name, d, pr in (("gpu", dev, params), ("cpu", torch.device("cpu"), cpu_params)):
+            def tt(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+            with torch.no_grad():
+                logits, _ = forward(pr, cfg, tt(tk), caches[name], tt(ps),
+                                    tt(sl.astype(np.int32)))
+            out[name] = logits.float().cpu()
+        g, c = out["gpu"], out["cpu"]
+        assert g.shape == c.shape and torch.isfinite(g).all()
+        rel = ((g - c).abs().max() / c.abs().max()).item()
+        agree = (g.argmax(-1) == c.argmax(-1)).float().mean().item()
+        log(f"  w8a8 forward step {step} ({'prefill' if step == 0 else 'decode'}): "
+            f"max|gpu-cpu|/max|cpu| {rel:.4g} (tol {rel_tol}), argmax agreement {agree:.2f}")
+        assert rel <= rel_tol, f"w8a8 teacher-forced step {step}: {rel} > {rel_tol}"
+    launches = read_counts()
+    assert launches["qmm_int8"] == 4 * 2 * len(inputs) and launches["qmm"] == 0, launches
+    del model, params, caches
+    torch.cuda.empty_cache()
+
+
+def ppl_gate(dev) -> dict:
+    """Phase 4c: the Δppl gate. A 2-layer full-width model on a fixed
+    512-token stream in windows of 256: w4a8-prefill and w8a8 each within 2%
+    of w4a16 (the JAX gate's bound, tests/test_int8_mxu.py:237)."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.quant.qtensor import apply_quant_compute
+    from blazr_tpu_torch.utils.ppl import perplexity
+
+    base = mistral_model(dev, layers=2)
+    stream = (np.random.default_rng(SEED + 2).integers(1, base.cfg.vocab_size, 64)
+              .tolist() * 8)[:512]
+    out = {"w4a16": perplexity(base, stream, window=256)}
+    for mode in ("w4a8-prefill", "w8a8"):
+        m = Model(base.cfg, apply_quant_compute(base.params, mode), torch.bfloat16)
+        reset_counts()
+        out[mode] = perplexity(m, stream, window=256)
+        b3 = read_counts()["qmm_int8"]
+        rel = abs(out[mode] - out["w4a16"]) / out["w4a16"]
+        log(f"  ppl {mode} {out[mode]:.4f} vs w4a16 {out['w4a16']:.4f}: "
+            f"|dppl|/ppl {rel:.5f} (bound 0.02), B3 launches {b3}")
+        assert b3 > 0 and np.isfinite(out[mode]) and rel < 0.02, (mode, out)
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_b3(dev, gen) -> dict:
+    """B3 at the gate+up shape for w4a8 and w8a8 at m ∈ {8, 512, 4096}, with
+    its bound, plain version, B1 on the same 4-bit weight, torch.matmul on a
+    pre-dequantized bf16 weight and torch._int_mm at the same (m, K, N)
+    (the int8 GEMM rate: not the same function; it takes m > 16)."""
+    import torch
+
+    from blazr_tpu_torch.quant.int8 import qmm_int8, qmm_int8_reference
+    from blazr_tpu_torch.quant.kernels import qmm
+    from blazr_tpu_torch.quant.qtensor import dequantize_planes, unpack
+
+    k, n = B1_SHAPES["gateup"]
+    gs = 128
+    rows = {}
+    qw4, s, mn = rand_planes(k, n, 4, gs, gen, dev)
+    w_bf16 = dequantize_planes(qw4, s, mn, 4, True, gs, torch.bfloat16)
+    for mode, bits in (("w4a8", 4), ("w8a8", 8)):
+        qw = qw4 if bits == 4 else rand_planes(k, n, 8, gs, gen, dev)[0]
+        w_i8 = unpack(qw, bits, True).to(torch.int8).t().contiguous().t()
+        for m in (8, 512, 4096):
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            ms = time_ms(lambda: qmm_int8(x, qw, s, mn, bits=bits, group_size=gs,
+                                          device=dev), iters=20)
+            plain_ms = time_ms(lambda: qmm_int8_reference(x, qw, s, mn, bits=bits,
+                                                          group_size=gs),
+                               iters=2, warmup=1)
+            lib_ms = time_ms(lambda: torch.matmul(x, w_bf16), iters=20)
+            int_mm_ms = None
+            if m > 16:
+                xq = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
+                                   dtype=torch.int8)
+                int_mm_ms = time_ms(lambda: torch._int_mm(xq, w_i8), iters=20)
+            b1_ms = (time_ms(lambda: qmm(x, qw4, s, mn, bits=4, signed=True,
+                                         group_size=gs, device=dev), iters=20)
+                     if bits == 4 else None)
+            nbytes = qw.numel() * 4 + s.numel() * 8 + m * k * 2 + m * n * 2
+            bms, by = bound(nbytes, 2.0 * m * k * n, H100_INT8_OPS)
+            rows[(mode, m)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                   int_mm_ms=int_mm_ms, b1_ms=b1_ms, bound_ms=bms,
+                                   bound_by=by, mbytes=nbytes / 1e6)
+            log(f"  B3 gateup {mode} m={m}: kernel {ms:.4f} ms "
+                f"({2.0 * m * k * n / ms / 1e9:.1f} TOP/s), bound {bms:.4f} ms ({by}, "
+                f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.3f} ms, torch.matmul(bf16 "
+                f"dequantized) {lib_ms:.4f} ms, torch._int_mm (int8 GEMM rate, not the "
+                f"same function) {'n/a (m <= 16)' if int_mm_ms is None else f'{int_mm_ms:.4f} ms'}"
+                + ("" if b1_ms is None else f", B1 w4a16 {b1_ms:.4f} ms"))
+    return rows
+
+
+def time_b4(dev, gen) -> dict:
+    """B4 at m ∈ {1, 8, 32} on the four projections beside B1 on the same
+    weights, in turns (B4, B1, B1, B4), best of each pair; the gate+up rows
+    also with the plain version and torch.matmul on a dequantized weight."""
+    import torch
+
+    from blazr_tpu_torch.quant.kernels import qmm, qmm_stream, qmm_stream_reference
+    from blazr_tpu_torch.quant.qtensor import dequantize_planes
+
+    gs = 128
+    rows = {}
+    for pname, (k, n) in B1_SHAPES.items():
+        qw, s, mn = rand_planes(k, n, 4, gs, gen, dev)
+        w_bf16 = (dequantize_planes(qw, s, mn, 4, True, gs, torch.bfloat16)
+                  if pname == "gateup" else None)
+        line = []
+        for m in (1, 8, 32):
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            t = {"b4": [], "b1": []}
+            for name in ("b4", "b1", "b1", "b4"):
+                fn = qmm_stream if name == "b4" else qmm
+                kw = dict(bits=4, group_size=gs, device=dev)
+                if name == "b1":
+                    kw["signed"] = True
+                t[name].append(time_ms(lambda: fn(x, qw, s, mn, **kw), iters=50))
+            ms, b1_ms = min(t["b4"]), min(t["b1"])
+            nbytes = qw.numel() * 4 + s.numel() * 8 + m * k * 2 + m * n * 2
+            bms, by = bound(nbytes, 2.0 * m * k * n)
+            row = dict(ms=ms, b1_ms=b1_ms, bound_ms=bms, bound_by=by, plain_ms=None,
+                       library_ms=None)
+            if w_bf16 is not None:
+                row["plain_ms"] = time_ms(lambda: qmm_stream_reference(
+                    x, qw, s, mn, bits=4, group_size=gs), iters=5, warmup=1)
+                row["library_ms"] = time_ms(lambda: torch.matmul(x, w_bf16), iters=50)
+            rows[(pname, m)] = row
+            line.append(f"m={m} {ms:.4f}/{b1_ms:.4f} (bound {bms:.4f})")
+        log(f"  B4/B1 {pname} K={k} N={n} ms: " + ", ".join(line))
+    for m in (1, 8, 32):
+        r = rows[("gateup", m)]
+        log(f"  B4 gateup m={m}: plain {r['plain_ms']:.4f} ms, torch.matmul(bf16 "
+            f"dequantized) {r['library_ms']:.4f} ms")
+    return rows
+
+
+def timings(dev, gen, res: dict) -> list:
+    """Phase 6: every kernel's time, bound, plain and library time, and the
+    launches of the serving phase that ran it; returns the kernels line."""
+    t1 = time_b1(dev, gen)
+    b1_variants(dev, gen)
+    t2 = time_b2(dev, gen)
+    t3 = time_b3(dev, gen)
+    t4 = time_b4(dev, gen)
+
+    def got(phase, key):
+        return res.get(phase, {}).get(key)
+
+    b3 = t3[("w8a8", 512)]
+    b4 = t4[("gateup", 8)]
+    k, n = B1_SHAPES["gateup"]
+    return [
+        dict(name="qmm_w4a16 (B1)", route="cuda", source="blazr_tpu_torch/csrc/qmm.cu",
+             replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
+             launches=got("serve", "qmm"), max_abs_err=got("b1", "max_abs_err"),
+             ms=t1["ms"], plain_ms=t1["plain_ms"], bound_ms=t1["bound_ms"],
+             bound_by=t1["bound_by"], library_ms=t1["library_ms"], shape=t1["shape"]),
+        dict(name="paged_attention_decode (B2)", route="cuda",
+             source="blazr_tpu_torch/csrc/paged_attention.cu",
+             replaces="blazr_tpu/attention/paged_attention.py:34",
+             launches=got("serve", "paged_attention"), max_abs_err=got("b2", "max_abs_err"),
+             ms=t2["ms"], plain_ms=t2["plain_ms"], bound_ms=t2["bound_ms"],
+             bound_by=t2["bound_by"], library_ms=t2["library_ms"], shape=t2["shape"]),
+        dict(name="qmm_int8 (B3)", route="cuda", source="blazr_tpu_torch/csrc/qmm_int8.cu",
+             replaces="blazr_tpu/quant/pallas/int_matmul.py:276",
+             launches=got("executor", "qmm_int8"), max_abs_err=got("b3", "max_abs_err"),
+             ms=b3["ms"], plain_ms=b3["plain_ms"], bound_ms=b3["bound_ms"],
+             bound_by=b3["bound_by"], library_ms=b3["library_ms"],
+             int_mm_ms=b3["int_mm_ms"], shape=f"w8a8 m=512 K={k} N={n}"),
+        dict(name="qmm_stream (B4)", route="cuda",
+             source="blazr_tpu_torch/csrc/qmm_stream.cu",
+             replaces="blazr_tpu/quant/pallas/int_matmul.py:170",
+             launches=got("serve_int8", "qmm_stream"), max_abs_err=got("b4", "max_abs_err"),
+             ms=b4["ms"], plain_ms=b4["plain_ms"], bound_ms=b4["bound_ms"],
+             bound_by=b4["bound_by"], library_ms=b4["library_ms"],
+             shape=f"w4 m=8 K={k} N={n}"),
+    ]
+
+
+PHASES = ("build", "b1", "b2", "b3", "b4", "forward", "forward_w8a8", "ppl",
+          "serve", "executor", "serve_int8", "timings")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (default: all; a subset prints no result lines)")
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
     try:
         import torch
     except ImportError:
@@ -566,9 +1034,10 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
-    logs = cuda_build.build_all(["qmm", "paged_attention"])
-    log(f"  built csrc/qmm.cu and csrc/paged_attention.cu for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s (in parallel)")
+    sources = ["qmm", "paged_attention", "qmm_int8", "qmm_stream"]
+    logs = cuda_build.build_all(sources)
+    log(f"  built {', '.join(f'csrc/{n}.cu' for n in sources)} for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     (cuda_build.BUILD_DIR / "build.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     for name, text in logs.items():
@@ -578,33 +1047,35 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    log("phase 2: B1 fused dequant-matmul vs plain")
-    b1 = check_b1(dev, gen)
-    log("phase 3: B2 paged decode attention vs plain")
-    b2 = check_b2(dev, gen)
-    log("phase 4: 2-layer full-width forward, card (bf16) vs CPU (f32)")
-    teacher_forced(dev)
-    log("phase 5: 32-layer Mistral-7B AWQ BatchEngine, 8 requests in two waves")
-    launches = full_depth(dev, card)
-    log("phase 6: kernel timings")
-    t1 = time_b1(dev, gen)
-    b1_variants(dev, gen)
-    t2 = time_b2(dev, gen)
-    kernels = [
-        dict(name="qmm_w4a16 (B1)", route="cuda", source="blazr_tpu_torch/csrc/qmm.cu",
-             replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
-             launches=launches["qmm"], max_abs_err=b1["max_abs_err"],
-             ms=t1["ms"], plain_ms=t1["plain_ms"], bound_ms=t1["bound_ms"],
-             bound_by=t1["bound_by"], library_ms=t1["library_ms"], shape=t1["shape"]),
-        dict(name="paged_attention_decode (B2)", route="cuda",
-             source="blazr_tpu_torch/csrc/paged_attention.cu",
-             replaces="blazr_tpu/attention/paged_attention.py:34",
-             launches=launches["paged_attention"], max_abs_err=b2["max_abs_err"],
-             ms=t2["ms"], plain_ms=t2["plain_ms"], bound_ms=t2["bound_ms"],
-             bound_by=t2["bound_by"], library_ms=t2["library_ms"], shape=t2["shape"]),
+    res: dict = {}
+    steps = [
+        ("b1", "phase 2: B1 fused dequant-matmul vs plain", lambda: check_b1(dev, gen)),
+        ("b2", "phase 3: B2 paged decode attention vs plain", lambda: check_b2(dev, gen)),
+        ("b3", "phase 3b: B3 int8-activation matmul vs plain", lambda: check_b3(dev, gen)),
+        ("b4", "phase 3c: B4 streaming decode matmul vs plain", lambda: check_b4(dev, gen)),
+        ("forward", "phase 4: 2-layer full-width paged forward, card (bf16) vs CPU (f32)",
+         lambda: teacher_forced(dev)),
+        ("forward_w8a8", "phase 4b: 2-layer full-width contiguous forward under w8a8, "
+         "card (bf16, B3) vs CPU (f32, plain)", lambda: teacher_forced_w8a8(dev)),
+        ("ppl", "phase 4c: delta-ppl gate of the int8 modes against w4a16",
+         lambda: ppl_gate(dev)),
+        ("serve", "phase 5: 32-layer Mistral-7B AWQ BatchEngine (w4a16), 8 requests "
+         "in two waves", lambda: full_depth(dev, card)),
+        ("executor", "phase 5b: 32-layer Mistral-7B AWQ Executor under w8a8, 512-token "
+         "prompt, 128 greedy tokens", lambda: serve_executor(dev, card)),
+        ("serve_int8", "phase 5c: 32-layer BatchEngine under w4a8-prefill with "
+         "BLAZR_TPU_STREAM_KERNEL=1", lambda: serve_stream(dev, card)),
+        ("timings", "phase 6: kernel timings", lambda: timings(dev, gen, res)),
     ]
+    for name, title, fn in steps:
+        if name in phases:
+            log(title)
+            res[name] = fn()
     log(f"total {time.perf_counter() - t_start:.1f} s; card: {card}")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    if phases != list(PHASES):
+        log("subset of phases: no result lines")
+        return 0
+    print(json.dumps({"kernels": res["timings"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -240,12 +240,16 @@ def test_port_imports_without_jax_or_blazr_tpu():
             importlib.import_module(n)
         assert not any(k == 'jax' or k.startswith('jax.') for k, v in
                        sys.modules.items() if v is not None)
-        print(len(names))
+        print(' '.join(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
                          capture_output=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 38
+    assert {f"blazr_tpu_torch.{m}" for m in (
+        "quant.int8", "kvcache.contiguous", "models.llama", "engine.executor",
+        "engine.generate_text", "model_meta.think", "utils.ppl")} <= names
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

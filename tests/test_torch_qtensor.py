@@ -181,5 +181,12 @@ def test_apply_quant_compute_noop(mode):
 
 @pytest.mark.parametrize("mode", ["w4a8", "w8a8", "w4a8-prefill"])
 def test_apply_quant_compute_int8_modes_name_b3(mode):
-    with pytest.raises(NotImplementedError, match="B3"):
-        tq.apply_quant_compute({}, mode)
+    """The int8-activation modes tag signed 4/8-bit weights for kernel B3
+    (w8a8 also widens them to 8 bits); 2-bit and None leaves pass through."""
+    qt = _port(_rand_awq_qt(jax.random.key(1), 256, 128, group_size=64))
+    two = _port(_direct_qt(2, False, np.random.default_rng(0), k=256, n=128))
+    out = tq.apply_quant_compute({"w": qt, "two": two, "b": None}, mode)
+    assert out["w"].act_quant and out["two"] is two and out["b"] is None
+    assert out["w"].bits == (8 if mode == "w8a8" else 4)
+    assert out["w"].act_quant_min_m == (256 if mode == "w4a8-prefill" else 0)
+    assert not qt.act_quant                    # the input tree is not changed
