@@ -26,7 +26,7 @@ from ..kvcache.paged import page_slot_index
 from ..utils import cuda_build
 from ..utils.device import DeviceLike, check_on, resolve_device
 
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 
 
 def _lib() -> ctypes.CDLL:
@@ -118,7 +118,7 @@ def paged_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
     quantized = k_scale is not None
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"B2 takes bfloat16 or float32 queries, got {q.dtype}")
+        raise TypeError(f"B2 takes bfloat16, float32 or float16 queries, got {q.dtype}")
     if quantized:
         if k_cache.dtype != torch.int8 or k_scale.dtype != torch.float32:
             raise TypeError("int8 KV needs int8 caches and float32 scales")

@@ -1,8 +1,8 @@
 """Model configuration dataclasses.
 
-A copy of the dataclasses of ``blazr_tpu/config/model_config.py`` (the port
-imports nothing of the JAX package). The HF ``config.json`` conversion
-comes with checkpoint loading, in a later slice.
+A copy of ``blazr_tpu/config/model_config.py`` (the port imports nothing of
+the JAX package): the dataclasses and the HF ``config.json`` conversion
+``universal_from_hf_config`` that checkpoint loading uses.
 
 ``UniversalConfig`` is the single model-architecture description every
 subsystem consumes: loaders fill it from checkpoint metadata (HF
@@ -276,3 +276,205 @@ def _asdict_not_none(obj) -> dict[str, Any]:
             v = _asdict_not_none(v)
         out[f.name] = v
     return out
+
+
+# ---------------------------------------------------------------------------
+# HuggingFace config.json → UniversalConfig
+# (reference: HuggingFaceConfig::from_json → to_universal, SURVEY §2.9;
+#  src/loader/safetensors/config.rs:30-57 parse-priority chain)
+# ---------------------------------------------------------------------------
+
+_HF_ARCH_TO_MODEL_TYPE = {
+    "LlamaForCausalLM": "llama",
+    "MistralForCausalLM": "mistral",
+    "Qwen2ForCausalLM": "qwen2",
+    "Qwen3ForCausalLM": "qwen3",
+    "Phi3ForCausalLM": "phi3",
+    "GemmaForCausalLM": "gemma",
+    "Gemma2ForCausalLM": "gemma2",
+    "MixtralForCausalLM": "mixtral",
+    "DeepseekV2ForCausalLM": "deepseek",
+    "DeepseekV3ForCausalLM": "deepseek",
+    "Mamba2ForCausalLM": "mamba2",
+    "FalconForCausalLM": "falcon",
+    "Starcoder2ForCausalLM": "starcoder2",
+}
+
+
+def vision_config_from_hf(vc: Optional[dict]) -> Optional[VisionConfig]:
+    """HF ``vision_config`` (CLIP naming) → :class:`VisionConfig`."""
+    if not isinstance(vc, dict):
+        return None
+    hidden = vc.get("hidden_size", 1024)
+    return VisionConfig(
+        hidden_size=hidden,
+        num_layers=vc.get("num_hidden_layers", vc.get("num_layers", 24)),
+        num_heads=vc.get("num_attention_heads", vc.get("num_heads", 16)),
+        image_size=vc.get("image_size", 336),
+        patch_size=vc.get("patch_size", 14),
+        intermediate_size=vc.get("intermediate_size", hidden * 4),
+        projection_dim=vc.get("projection_dim", vc.get("proj_dim", 4096)),
+    )
+
+
+def universal_from_hf_config(cfg: dict[str, Any]) -> UniversalConfig:
+    """Convert a HuggingFace ``config.json`` dict to :class:`UniversalConfig`.
+
+    Mirrors the reference's HuggingFaceConfig::to_universal conversion
+    (behavior inferred from src/loader/safetensors/config.rs usage).
+    """
+    # LLaVA-style multimodal configs nest the LLM under "text_config" and
+    # the vision tower under "vision_config": recurse on the text config
+    # and attach the parsed VisionConfig (reference loader/vision.rs:25-80).
+    if isinstance(cfg.get("text_config"), dict):
+        out = universal_from_hf_config(cfg["text_config"])
+        out.vision = vision_config_from_hf(cfg.get("vision_config"))
+        return out
+
+    model_type = cfg.get("model_type")
+    if not model_type:
+        archs = cfg.get("architectures") or []
+        model_type = next(
+            (_HF_ARCH_TO_MODEL_TYPE[a] for a in archs if a in _HF_ARCH_TO_MODEL_TYPE),
+            "llama",
+        )
+    is_deepseek_v3 = model_type == "deepseek_v3"
+    if model_type in ("deepseek_v2", "deepseek_v3"):
+        model_type = "deepseek"
+
+    hidden_size = cfg.get("hidden_size", cfg.get("d_model", 4096))
+    num_layers = cfg.get("num_hidden_layers", cfg.get("num_layers", 32))
+    vocab_size = cfg.get("vocab_size", 32000)
+    max_seq_len = cfg.get("max_position_embeddings", cfg.get("max_seq_len", 4096))
+    rms_norm_eps = cfg.get("rms_norm_eps", cfg.get(
+        "norm_epsilon", cfg.get("layer_norm_epsilon", 1e-5)))
+    intermediate = cfg.get("intermediate_size")
+
+    is_ssm = model_type in ("mamba2", "mamba3", "mamba")
+
+    # Falcon head-count semantics: old arch is MQA unless multi_query=False;
+    # only the new decoder architecture carries an explicit num_kv_heads.
+    falcon_kv_heads = None
+    if model_type == "falcon":
+        n_heads = cfg.get("num_attention_heads", cfg.get("n_head", 32))
+        if cfg.get("new_decoder_architecture"):
+            falcon_kv_heads = cfg.get("num_kv_heads", n_heads)
+        else:
+            falcon_kv_heads = 1 if cfg.get("multi_query", True) else n_heads
+
+    attention: Optional[AttentionConfig] = None
+    if not is_ssm:
+        rope_scaling = None
+        if isinstance(cfg.get("rope_scaling"), dict):
+            rope_scaling = RopeScaling.from_dict(cfg["rope_scaling"])
+        attention = AttentionConfig(
+            num_heads=cfg.get("num_attention_heads", cfg.get("n_head", 32)),
+            num_kv_heads=(falcon_kv_heads if model_type == "falcon"
+                          else cfg.get("num_key_value_heads")),
+            head_dim=cfg.get("head_dim"),
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rope_scaling=rope_scaling,
+            kv_latent_dim=cfg.get("kv_lora_rank"),
+            q_latent_dim=cfg.get("q_lora_rank"),
+            d_rope=cfg.get("qk_rope_head_dim"),
+            d_nope=cfg.get("qk_nope_head_dim"),
+            v_head_dim=cfg.get("v_head_dim"),
+            sliding_window=cfg.get("sliding_window"),
+            use_alibi=bool(cfg.get("alibi", False)),
+            rope_interleave=bool(cfg.get("rope_interleave", True)),
+            qkv_bias=bool(
+                cfg.get("attention_bias", model_type == "qwen2")
+            ),
+        )
+
+    ssm: Optional[SsmConfig] = None
+    if is_ssm or cfg.get("ssm_cfg") or "state_size" in cfg:
+        head_dim = cfg.get("head_dim", 64)
+        expand = cfg.get("expand", 2)
+        inner = cfg.get("intermediate_size") or expand * hidden_size
+        ssm = SsmConfig(
+            variant=model_type if is_ssm else "mamba2",
+            num_heads=cfg.get("num_heads", inner // head_dim),
+            head_dim=head_dim,
+            state_size=cfg.get("state_size", cfg.get("ssm_state_size", 64)),
+            chunk_size=cfg.get("chunk_size", 256),
+            n_groups=cfg.get("n_groups", 1),
+            conv_kernel=cfg.get("conv_kernel", 4),
+            expand=expand,
+            # mamba3 knobs (reference config.rs:51-57; defaults resolved
+            # at use: complex_rope→True, mimo_rank→0, use_conv→False)
+            complex_rope=cfg.get("mamba3_complex_rope",
+                                 cfg.get("complex_rope")),
+            mimo_rank=cfg.get("mamba3_mimo_rank", cfg.get("mimo_rank")),
+            use_conv=cfg.get("mamba3_use_conv", cfg.get("use_conv")),
+        )
+        if cfg.get("mamba3_enabled"):
+            ssm.variant = "mamba3"
+
+    moe: Optional[MoeConfig] = None
+    n_experts = cfg.get("n_routed_experts", cfg.get("num_local_experts", cfg.get("num_experts")))
+    if n_experts:
+        moe = MoeConfig(
+            num_experts=n_experts,
+            experts_per_tok=cfg.get("num_experts_per_tok", 2),
+            shared_expert=cfg.get("n_shared_experts"),
+            intermediate_size=cfg.get("moe_intermediate_size"),
+            num_dense_layers=cfg.get("first_k_dense_replace", 0),
+            routed_scaling_factor=cfg.get("routed_scaling_factor", 1.0),
+            # Mixtral/Qwen-MoE always renormalize the top-k weights.
+            norm_topk_prob=bool(cfg.get(
+                "norm_topk_prob",
+                model_type in ("mixtral", "qwen2_moe", "qwen3_moe"))),
+            # DeepSeek-V3 routes with sigmoid + correction bias by default.
+            scoring_func=cfg.get("scoring_func")
+            or ("sigmoid" if is_deepseek_v3 else "softmax"),
+            n_group=cfg.get("n_group", 1),
+            topk_group=cfg.get("topk_group", 1),
+        )
+        if moe.intermediate_size is None:
+            moe.intermediate_size = intermediate
+
+    hybrid_layers = None
+    if isinstance(cfg.get("layer_types"), list) and cfg.get("layer_types"):
+        mapping = {
+            "attention": LAYER_ATTENTION,
+            "full_attention": LAYER_ATTENTION,
+            "sliding_attention": LAYER_ATTENTION,
+            "mamba": LAYER_MAMBA2,
+            "mamba2": LAYER_MAMBA2,
+            "mamba3": LAYER_MAMBA2,   # variant carried by ssm.variant
+            "recurrent": LAYER_MAMBA2,
+        }
+        types = [mapping.get(t, LAYER_ATTENTION) for t in cfg["layer_types"]]
+        if any(t == LAYER_MAMBA2 for t in types):
+            hybrid_layers = types
+
+    return UniversalConfig(
+        model_type=model_type,
+        vocab_size=vocab_size,
+        hidden_size=hidden_size,
+        num_layers=num_layers,
+        max_seq_len=max_seq_len,
+        intermediate_size=intermediate,
+        rms_norm_eps=rms_norm_eps,
+        attention=attention,
+        ssm=ssm,
+        moe=moe,
+        vision=vision_config_from_hf(cfg.get("vision_config")),
+        hybrid_layers=hybrid_layers,
+        tie_word_embeddings=bool(cfg.get(
+            "tie_word_embeddings", model_type == "starcoder2")),
+        final_logit_softcapping=cfg.get("final_logit_softcapping"),
+        attn_logit_softcapping=cfg.get("attn_logit_softcapping"),
+        scale_embeddings=model_type in ("gemma", "gemma2"),
+        norm_type=("layernorm" if model_type in ("starcoder2", "falcon")
+                   else "rmsnorm"),
+        mlp_type="plain" if model_type in ("starcoder2", "falcon") else "gated",
+        # HF FalconMLP uses exact (erf) GELU.
+        hidden_act=("gelu_exact" if model_type == "falcon"
+                    else str(cfg.get("hidden_act", "silu")).replace(
+                        "_pytorch_tanh", "_tanh")),
+        parallel_residual=(model_type == "falcon"
+                           and bool(cfg.get("new_decoder_architecture")
+                                    or cfg.get("parallel_attn", True))),
+    )

@@ -34,6 +34,7 @@
 // three barriers per KV block.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,6 +50,7 @@ template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; 
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) { return __half2float(v); }
 template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t v) { return (float)v; }
 
 // Round an f32 value to the compute dtype (the probabilities' cast).
@@ -57,12 +59,16 @@ template <> __device__ __forceinline__ float round_to<float>(float v) { return v
 template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
+template <> __device__ __forceinline__ float round_to<__half>(float v) {
+  return __half2float(__float2half(v));
+}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half(v); }
 
 // Eight consecutive cache elements as f32 (one 16/8/32-byte vector read;
 // rows start on 16-byte boundaries because D is a multiple of 32).
@@ -72,6 +78,16 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const __half* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
@@ -270,7 +286,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
 
 }  // namespace
 
-// q_dtype: 0 = bfloat16, 1 = float32 (q, out, and the cache unless kv_int8).
+// q_dtype: 0 = bfloat16, 1 = float32, 2 = float16 (q, out, and the cache
+// unless kv_int8).
 // ks/vs (int8 KV scales) and alibi may be null. window <= 0: no window;
 // softcap <= 0: no softcap. Returns a cudaError_t code.
 extern "C" int pa_decode_launch(const void* q, const void* k, const void* v,
@@ -284,20 +301,16 @@ extern "C" int pa_decode_launch(const void* q, const void* k, const void* v,
       reinterpret_cast<uintptr_t>(k) % 16 != 0 || reinterpret_cast<uintptr_t>(v) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0) {
+  auto by_kv = [&](auto tag) {
+    using TQ = decltype(tag);
     if (kv_int8)
-      return launch<__nv_bfloat16, int8_t>(q, k, v, ks, vs, bt, sl, alibi, out, B, Hq,
-                                           Hkv, D, BS, NB, MB, window, softcap, scale, st);
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, bt, sl, alibi,
-                                                 out, B, Hq, Hkv, D, BS, NB, MB, window,
-                                                 softcap, scale, st);
-  }
-  if (q_dtype == 1) {
-    if (kv_int8)
-      return launch<float, int8_t>(q, k, v, ks, vs, bt, sl, alibi, out, B, Hq, Hkv, D,
-                                   BS, NB, MB, window, softcap, scale, st);
-    return launch<float, float>(q, k, v, nullptr, nullptr, bt, sl, alibi, out, B, Hq,
-                                Hkv, D, BS, NB, MB, window, softcap, scale, st);
-  }
+      return launch<TQ, int8_t>(q, k, v, ks, vs, bt, sl, alibi, out, B, Hq, Hkv, D, BS, NB,
+                                MB, window, softcap, scale, st);
+    return launch<TQ, TQ>(q, k, v, nullptr, nullptr, bt, sl, alibi, out, B, Hq, Hkv, D, BS,
+                          NB, MB, window, softcap, scale, st);
+  };
+  if (q_dtype == 0) return by_kv(__nv_bfloat16());
+  if (q_dtype == 1) return by_kv(float());
+  if (q_dtype == 2) return by_kv(__half());
   return (int)cudaErrorInvalidValue;
 }

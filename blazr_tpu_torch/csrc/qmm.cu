@@ -34,7 +34,7 @@
 //
 // Two variants of the same function, chosen by the wrapper from the row
 // count (quant/kernels.py, TC_MIN_ROWS): below 16 rows (decode) the CUDA-core
-// kernel above; from 16 rows (prefill) and bf16 x, a WMMA tensor-core kernel
+// kernel above; from 16 rows (prefill) and bf16 or f16 x, a WMMA tensor-core kernel
 // (below) that stages the dequantized integer tile in shared memory.
 // Known limits, left for later PRs: the grid has only ceil(N/64) blocks at
 // decode (64 for o_proj's N=4096, fewer than 132 SMs x a few) and there is
@@ -42,6 +42,7 @@
 // and neither variant pipelines its loads (no cp.async/TMA).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
@@ -56,10 +57,27 @@ template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; 
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+// f16 x is rounded to bf16 first, as the TPU kernel rounds x (:94).
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) {
+  return __bfloat162float(__float2bfloat16(__half2float(v)));
+}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half(v); }
+
+// Eight x values as bf16 (the tensor-core operand): a copy for bf16 x, a
+// rounding for f16 x.
+__device__ __forceinline__ uint4 to_bf16x8(uint4 v, const __nv_bfloat16*) { return v; }
+__device__ __forceinline__ uint4 to_bf16x8(uint4 v, const __half*) {
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+  uint4 out;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = __float22bfloat162_rn(__half22float2(h[i]));
+  return out;
 }
 
 template <int BITS, int BM, typename T>
@@ -210,7 +228,7 @@ int launch_dtype(const void* x, const void* qw, const void* s, const void* mn, v
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core variant (bf16 activations, 2 <= m): the same function with the
+// Tensor-core variant (bf16 or f16 activations, 2 <= m): the same function with the
 // per-group partials x_g . q_g taken by WMMA 16x16x16 bf16 products with f32
 // sums. The integer payload is exact in bf16, so only the order of the f32
 // sums differs from the CUDA-core path. Per chunk of kc rows of K (one group,
@@ -223,11 +241,11 @@ int launch_dtype(const void* x, const void* qw, const void* s, const void* mn, v
 constexpr int kTcThreads = 128;
 constexpr int kTcBN = 64;
 
-template <int BITS, int BM>
+template <int BITS, int BM, typename T>
 __global__ void __launch_bounds__(kTcThreads)
-qmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ qw,
+qmm_tc_kernel(const T* __restrict__ x, const uint32_t* __restrict__ qw,
               const float* __restrict__ scales, const float* __restrict__ mins,
-              __nv_bfloat16* __restrict__ y, int M, int K, int N, int gs, int kc,
+              T* __restrict__ y, int M, int K, int N, int gs, int kc,
               int is_signed) {
   using namespace nvcuda;
   constexpr int R = 32 / BITS;
@@ -266,7 +284,8 @@ qmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ 
       const int r = i / (kc / 8), c8 = i - r * (kc / 8);
       const int row = m0 + r;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < M) v = *reinterpret_cast<const uint4*>(x + (size_t)row * K + k0 + c8 * 8);
+      if (row < M)
+        v = to_bf16x8(*reinterpret_cast<const uint4*>(x + (size_t)row * K + k0 + c8 * 8), x);
       *reinterpret_cast<uint4*>(a_s + r * lda + c8 * 8) = v;
     }
     for (int i = tid; i < (kc / R) * kTcBN; i += kTcThreads) {
@@ -328,17 +347,17 @@ qmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ 
     const int e = tid + i * kTcThreads;
     const int r = e / kTcBN, c = e - r * kTcBN;
     if (m0 + r < M && n0 + c < N)
-      y[(size_t)(m0 + r) * N + n0 + c] = __float2bfloat16(acc[i]);
+      y[(size_t)(m0 + r) * N + n0 + c] = from_f32<T>(acc[i]);
   }
 }
 
-template <int BITS, int BM>
+template <int BITS, int BM, typename T>
 int launch_tc_bm(const void* x, const void* qw, const void* scales, const void* mins,
                  void* y, int M, int K, int N, int gs, int is_signed, cudaStream_t stream) {
   const int kc = gs <= 128 ? gs : 128;
   const size_t smem = (size_t)BM * (kc + 8) * 2 + (size_t)kc * (kTcBN + 8) * 2 +
                       (size_t)BM * (kTcBN + 4) * 4 + (size_t)BM * 4;
-  auto kern = qmm_tc_kernel<BITS, BM>;
+  auto kern = qmm_tc_kernel<BITS, BM, T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -346,22 +365,34 @@ int launch_tc_bm(const void* x, const void* qw, const void* scales, const void* 
   }
   dim3 grid((M + BM - 1) / BM, (N + kTcBN - 1) / kTcBN);
   kern<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(qw),
+      static_cast<const T*>(x), static_cast<const uint32_t*>(qw),
       static_cast<const float*>(scales), static_cast<const float*>(mins),
-      static_cast<__nv_bfloat16*>(y), M, K, N, gs, kc, is_signed);
+      static_cast<T*>(y), M, K, N, gs, kc, is_signed);
   return (int)cudaGetLastError();
 }
 
-template <int BITS>
+template <int BITS, typename T>
 int launch_tc_bits(const void* x, const void* qw, const void* s, const void* mn, void* y,
                    int M, int K, int N, int gs, int sg, cudaStream_t st) {
-  if (M <= 16) return launch_tc_bm<BITS, 16>(x, qw, s, mn, y, M, K, N, gs, sg, st);
-  return launch_tc_bm<BITS, 64>(x, qw, s, mn, y, M, K, N, gs, sg, st);
+  if (M <= 16) return launch_tc_bm<BITS, 16, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
+  return launch_tc_bm<BITS, 64, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
+}
+
+template <typename T>
+int launch_tc_dtype(const void* x, const void* qw, const void* s, const void* mn, void* y,
+                    int M, int K, int N, int bits, int gs, int sg, cudaStream_t st) {
+  switch (bits) {
+    case 2: return launch_tc_bits<2, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
+    case 4: return launch_tc_bits<4, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
+    case 8: return launch_tc_bits<8, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32 (x and y). Returns a cudaError_t code.
+// dtype: 0 = bfloat16, 1 = float32, 2 = float16 (x and y; f16 x is rounded
+// to bf16). Returns a cudaError_t code.
 extern "C" int qmm_launch(const void* x, const void* qweight, const void* scales,
                           const void* mins, void* y, int M, int K, int N, int bits,
                           int is_signed, int group_size, int dtype, void* stream) {
@@ -375,23 +406,28 @@ extern "C" int qmm_launch(const void* x, const void* qweight, const void* scales
   if (dtype == 1)
     return launch_dtype<float>(x, qweight, scales, mins, y, M, K, N, bits, group_size,
                                is_signed, st);
+  if (dtype == 2)
+    return launch_dtype<__half>(x, qweight, scales, mins, y, M, K, N, bits, group_size,
+                                is_signed, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Tensor-core path: bfloat16 x and y only; x 16-byte aligned; group size a
-// multiple of 16 that is at most 128 or a multiple of 128.
+// Tensor-core path: x and y in dtype (0 = bfloat16, 2 = float16, rounded to
+// bf16 on staging); x 16-byte aligned; group size a multiple of 16 that is at
+// most 128 or a multiple of 128.
 extern "C" int qmm_tc_launch(const void* x, const void* qweight, const void* scales,
                              const void* mins, void* y, int M, int K, int N, int bits,
-                             int is_signed, int group_size, void* stream) {
+                             int is_signed, int group_size, int dtype, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || group_size % 16 != 0 || K % group_size != 0 ||
       (group_size > 128 && group_size % 128 != 0) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (bits) {
-    case 2: return launch_tc_bits<2>(x, qweight, scales, mins, y, M, K, N, group_size, is_signed, st);
-    case 4: return launch_tc_bits<4>(x, qweight, scales, mins, y, M, K, N, group_size, is_signed, st);
-    case 8: return launch_tc_bits<8>(x, qweight, scales, mins, y, M, K, N, group_size, is_signed, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 0)
+    return launch_tc_dtype<__nv_bfloat16>(x, qweight, scales, mins, y, M, K, N, bits,
+                                          group_size, is_signed, st);
+  if (dtype == 2)
+    return launch_tc_dtype<__half>(x, qweight, scales, mins, y, M, K, N, bits, group_size,
+                                   is_signed, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -45,6 +45,7 @@
 // 16; the wrapper checks. wgmma, TMA and a persistent schedule are later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,6 +62,7 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) { return v
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half(v); }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -343,7 +345,7 @@ int launch_bits(const void* xq, const void* xs, const void* qw, const void* s,
 
 // xq int8 [M,K]; xs f32 [M]; qweight u32 [K*bits/32, N]; scales, mins f32
 // [K/gs, N]; part f32 [splits, M, N] scratch (unused when splits == 1); y
-// [M,N] in dtype (0 = bfloat16, 1 = float32). per: K rows per split, a
+// [M,N] in dtype (0 = bfloat16, 1 = float32, 2 = float16). per: K rows per split, a
 // multiple of max(gs, 64). Returns a cudaError_t code.
 extern "C" int qmm_int8_launch(const void* xq, const void* xs, const void* qweight,
                                const void* scales, const void* mins, void* part,
@@ -355,17 +357,18 @@ extern "C" int qmm_int8_launch(const void* xq, const void* xs, const void* qweig
       (long long)splits * per < K || (long long)(splits - 1) * per >= K)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 4 && dtype == 0)
-    return launch_bits<4, __nv_bfloat16>(xq, xs, qweight, scales, mins, part, y, M, K, N,
-                                         group_size, splits, per, st);
-  if (bits == 4 && dtype == 1)
-    return launch_bits<4, float>(xq, xs, qweight, scales, mins, part, y, M, K, N,
-                                 group_size, splits, per, st);
-  if (bits == 8 && dtype == 0)
-    return launch_bits<8, __nv_bfloat16>(xq, xs, qweight, scales, mins, part, y, M, K, N,
-                                         group_size, splits, per, st);
-  if (bits == 8 && dtype == 1)
-    return launch_bits<8, float>(xq, xs, qweight, scales, mins, part, y, M, K, N,
-                                 group_size, splits, per, st);
+  auto by_bits = [&](auto tag) {
+    using T = decltype(tag);
+    if (bits == 4)
+      return launch_bits<4, T>(xq, xs, qweight, scales, mins, part, y, M, K, N, group_size,
+                               splits, per, st);
+    if (bits == 8)
+      return launch_bits<8, T>(xq, xs, qweight, scales, mins, part, y, M, K, N, group_size,
+                               splits, per, st);
+    return (int)cudaErrorInvalidValue;
+  };
+  if (dtype == 0) return by_bits(__nv_bfloat16());
+  if (dtype == 1) return by_bits(float());
+  if (dtype == 2) return by_bits(__half());
   return (int)cudaErrorInvalidValue;
 }

@@ -35,6 +35,7 @@
 // Requires N % 128 == 0 and K a multiple of max(128, gs); the wrapper checks.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,11 +51,13 @@ template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; 
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half(v); }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -272,7 +275,7 @@ int launch_bits(const void* x, const void* qw, const void* s, const void* mn, vo
 
 }  // namespace
 
-// x [M,K] in dtype (0 = bfloat16, 1 = float32), 16-byte aligned; qweight u32
+// x [M,K] in dtype (0 = bfloat16, 1 = float32, 2 = float16), 16-byte aligned; qweight u32
 // [K*bits/32, N] signed 4- or 8-bit; scales, mins f32 [K/gs, N]; part f32
 // [splits, M, N] scratch; y [M,N] in dtype. per: K rows per split, a multiple
 // of max(128, gs). Returns a cudaError_t code.
@@ -286,17 +289,18 @@ extern "C" int qmm_stream_launch(const void* x, const void* qweight, const void*
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 4 && dtype == 0)
-    return launch_bits<4, __nv_bfloat16>(x, qweight, scales, mins, part, y, M, K, N,
-                                         group_size, splits, per, st);
-  if (bits == 4 && dtype == 1)
-    return launch_bits<4, float>(x, qweight, scales, mins, part, y, M, K, N, group_size,
-                                 splits, per, st);
-  if (bits == 8 && dtype == 0)
-    return launch_bits<8, __nv_bfloat16>(x, qweight, scales, mins, part, y, M, K, N,
-                                         group_size, splits, per, st);
-  if (bits == 8 && dtype == 1)
-    return launch_bits<8, float>(x, qweight, scales, mins, part, y, M, K, N, group_size,
-                                 splits, per, st);
+  auto by_bits = [&](auto tag) {
+    using T = decltype(tag);
+    if (bits == 4)
+      return launch_bits<4, T>(x, qweight, scales, mins, part, y, M, K, N, group_size,
+                               splits, per, st);
+    if (bits == 8)
+      return launch_bits<8, T>(x, qweight, scales, mins, part, y, M, K, N, group_size,
+                               splits, per, st);
+    return (int)cudaErrorInvalidValue;
+  };
+  if (dtype == 0) return by_bits(__nv_bfloat16());
+  if (dtype == 1) return by_bits(float());
+  if (dtype == 2) return by_bits(__half());
   return (int)cudaErrorInvalidValue;
 }

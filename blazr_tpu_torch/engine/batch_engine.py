@@ -215,6 +215,12 @@ class BatchEngine:
         self._notify.set()
         return handle
 
+    def cancel(self, seq_id: int) -> None:
+        """Abort a sequence (a stop sequence matched, or its client left):
+        its blocks go back to the pool and its stream ends."""
+        self.scheduler.abort_sequence(seq_id)
+        self._finish(seq_id, None)
+
     def stop(self) -> None:
         self._stop = True
         self._notify.set()

@@ -32,7 +32,7 @@ from ..utils import cuda_build
 from ..utils.device import DeviceLike, check_on, resolve_device
 from .qtensor import unpack
 
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 # Aim for at least two blocks per SM of the H100 (132 SMs) before the K
 # loop is split across blocks; at most this many splits.
 _TARGET_BLOCKS = 264
@@ -127,7 +127,7 @@ def qmm_int8(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
         return qmm_int8_reference(x, qweight, scales, mins, bits=bits,
                                   group_size=group_size)
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"B3 takes bfloat16 or float32 activations, got {x.dtype}")
+        raise TypeError(f"B3 takes bfloat16, float32 or float16 activations, got {x.dtype}")
     if n % 128 or k % 64 or group_size % 16:
         raise ValueError(f"B3 needs N % 128 == 0, K % 64 == 0 and a group size "
                          f"that is a multiple of 16 (N={n} K={k} gs={group_size})")

@@ -22,7 +22,7 @@ from ..utils import cuda_build
 from ..utils.device import DeviceLike, check_on, resolve_device
 from .qtensor import dequantize_planes
 
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 # Fewest rows for the tensor-core variant of B1: below 16 rows the
 # CUDA-core variant is faster at every Mistral-7B projection, from 16 up
 # the tensor-core one (H100 timings in PERF.md, PR 1).
@@ -40,17 +40,17 @@ def _lib() -> ctypes.CDLL:
         lib.qmm_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                                    + [ctypes.c_void_p])
         lib.qmm_launch.restype = ctypes.c_int
-        lib.qmm_tc_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        lib.qmm_tc_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                                       + [ctypes.c_void_p])
         lib.qmm_tc_launch.restype = ctypes.c_int
     return lib
 
 
 def _tensor_core_path(x: torch.Tensor, m: int, group_size: int) -> bool:
-    """The WMMA variant takes bf16 rows from TC_MIN_ROWS up, groups that
-    tile into 16-row steps, and 16-byte aligned x; the CUDA-core variant
-    takes everything else."""
-    return (x.dtype == torch.bfloat16 and m >= TC_MIN_ROWS
+    """The WMMA variant takes bf16 or f16 rows from TC_MIN_ROWS up, groups
+    that tile into 16-row steps, and 16-byte aligned x; the CUDA-core
+    variant takes everything else."""
+    return (x.dtype in (torch.bfloat16, torch.float16) and m >= TC_MIN_ROWS
             and group_size % 16 == 0
             and (group_size <= 128 or group_size % 128 == 0)
             and x.data_ptr() % 16 == 0)
@@ -60,9 +60,11 @@ def qmm_reference(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                   mins: torch.Tensor, *, bits: int, signed: bool,
                   group_size: int) -> torch.Tensor:
     """Plain version of B1: ``x [M, K] @ (q·s − m) [K, N]`` in float32,
-    returned in x's dtype."""
+    returned in x's dtype. f16 x is rounded to bf16 first, as
+    ``_qmm_kernel`` rounds x (int_matmul.py:94)."""
     w = dequantize_planes(qweight, scales, mins, bits, signed, group_size)
-    return (x.to(torch.float32) @ w).to(x.dtype)
+    xf = x.to(torch.bfloat16) if x.dtype == torch.float16 else x
+    return (xf.to(torch.float32) @ w).to(x.dtype)
 
 
 def _check(x, qweight, scales, mins, bits, group_size):
@@ -99,7 +101,7 @@ def qmm(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
         return qmm_reference(x, qweight, scales, mins, bits=bits, signed=signed,
                              group_size=group_size)
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"B1 takes bfloat16 or float32 activations, got {x.dtype}")
+        raise TypeError(f"B1 takes bfloat16, float32 or float16 activations, got {x.dtype}")
     if not (x.is_contiguous() and qweight.is_contiguous()
             and scales.is_contiguous() and mins.is_contiguous()):
         raise ValueError("B1 needs contiguous operands")
@@ -111,7 +113,7 @@ def qmm(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
             y.data_ptr(), m, k, n, bits, int(signed), group_size)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if _tensor_core_path(x, m, group_size):
-        err = lib.qmm_tc_launch(*ptrs, stream)
+        err = lib.qmm_tc_launch(*ptrs, _DTYPE_CODE[x.dtype], stream)
     else:
         err = lib.qmm_launch(*ptrs, _DTYPE_CODE[x.dtype], stream)
     if err:
@@ -175,7 +177,7 @@ def qmm_stream(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
         return qmm_stream_reference(x, qweight, scales, mins, bits=bits,
                                     group_size=group_size)
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"B4 takes bfloat16 or float32 activations, got {x.dtype}")
+        raise TypeError(f"B4 takes bfloat16, float32 or float16 activations, got {x.dtype}")
     unit = max(_STREAM_KST, group_size)
     if n % 128 or k % unit or unit % group_size:
         raise ValueError(f"B4 needs N % 128 == 0 and K a multiple of "

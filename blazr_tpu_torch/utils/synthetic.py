@@ -110,3 +110,138 @@ def synth_llama_params(cfg: UniversalConfig, quant: str = "awq",
         "lm_head": None if cfg.tie_word_embeddings
         else _rand_dense(gen, h, cfg.vocab_size, dtype, dev),
     }
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints and tokenizers on disk (the normal entry point's inputs)
+# ---------------------------------------------------------------------------
+
+def hf_config(cfg: UniversalConfig) -> dict:
+    """The HF ``config.json`` fields of a llama-family ``cfg``."""
+    att = cfg.attention
+    out = {
+        "architectures": ["MistralForCausalLM" if cfg.model_type == "mistral"
+                          else "LlamaForCausalLM"],
+        "model_type": cfg.model_type, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.resolved_intermediate_size(),
+        "num_hidden_layers": cfg.num_layers, "num_attention_heads": att.num_heads,
+        "num_key_value_heads": att.kv_heads(),
+        "head_dim": att.resolved_head_dim(cfg.hidden_size),
+        "vocab_size": cfg.vocab_size, "max_position_embeddings": cfg.max_seq_len,
+        "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": att.rope_theta,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+    }
+    if att.sliding_window is not None:
+        out["sliding_window"] = att.sliding_window
+    return out
+
+
+def write_awq_checkpoint(path, cfg: UniversalConfig, group_size: int = 128,
+                         seed: int = 0) -> None:
+    """Write a random AWQ-INT4 checkpoint of ``cfg`` to the directory
+    ``path``: AutoAWQ's own packed ``qweight``/``qzeros`` (uint32, eight
+    interleaved nibbles along N) and f16 ``scales`` for every projection,
+    f16 embeddings, norms and head, and a ``config.json`` with its
+    ``quantization_config``. The weight distribution is that of
+    ``synth_llama_params`` (scales in [0.001, 0.011], zeros in [0, 16))."""
+    import json
+    from pathlib import Path
+
+    import numpy as np
+
+    from ..formats.safetensors import write_safetensors
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    att = cfg.attention
+    h = cfg.hidden_size
+    hd = att.resolved_head_dim(h)
+    inter = cfg.resolved_intermediate_size()
+
+    def words(shape):
+        return rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+
+    def dense(*shape):
+        return (rng.standard_normal(shape, dtype=np.float32) * 0.02).astype(np.float16)
+
+    tensors = {"model.embed_tokens.weight": dense(cfg.vocab_size, h),
+               "model.norm.weight": np.ones(h, np.float16)}
+    if not cfg.tie_word_embeddings:
+        tensors["lm_head.weight"] = dense(cfg.vocab_size, h)
+    projections = {"self_attn.q_proj": (h, att.num_heads * hd),
+                   "self_attn.k_proj": (h, att.kv_heads() * hd),
+                   "self_attn.v_proj": (h, att.kv_heads() * hd),
+                   "self_attn.o_proj": (att.num_heads * hd, h),
+                   "mlp.gate_proj": (h, inter), "mlp.up_proj": (h, inter),
+                   "mlp.down_proj": (inter, h)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        tensors[p + "input_layernorm.weight"] = np.ones(h, np.float16)
+        tensors[p + "post_attention_layernorm.weight"] = np.ones(h, np.float16)
+        for name, (k, n) in projections.items():
+            tensors[f"{p}{name}.qweight"] = words((k, n // 8))
+            tensors[f"{p}{name}.qzeros"] = words((k // group_size, n // 8))
+            tensors[f"{p}{name}.scales"] = (rng.random((k // group_size, n), np.float32)
+                                            * 0.01 + 0.001).astype(np.float16)
+    write_safetensors(path / "model.safetensors", tensors)
+    config = hf_config(cfg)
+    config["torch_dtype"] = "float16"
+    config["quantization_config"] = {"quant_method": "awq", "bits": 4,
+                                     "group_size": group_size, "zero_point": True,
+                                     "version": "gemm"}
+    (path / "config.json").write_text(json.dumps(config, indent=1))
+
+
+def write_bpe_tokenizer_json(path, vocab_size: int, seed: int = 0,
+                             eos_token: str = "</s>") -> list[bytes]:
+    """Write a byte-level BPE ``tokenizer.json`` (+ ``tokenizer_config.json``)
+    whose vocab covers ids 0 .. vocab_size-1: the 256 byte tokens, merged
+    tokens of lower-case letters and spaces up to vocab_size - 1, and the
+    special EOS token last. Each merge joins two earlier tokens, so a token's
+    id is its merge rank. Returns the merged tokens' bytes."""
+    import json
+    from pathlib import Path
+
+    import numpy as np
+
+    from ..tokenizer.bpe import gpt2_byte_encoder
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    enc = gpt2_byte_encoder()
+    alphabet = [bytes([c]) for c in b"abcdefghijklmnopqrstuvwxyz "]
+    pieces = list(alphabet)
+    seen = set(pieces)
+    merged: list[bytes] = []
+    merges: list[str] = []
+    want = vocab_size - 1 - 256
+    while len(merged) < want:
+        for ia, ib in rng.integers(0, len(pieces), (4096, 2)):
+            a, b = pieces[ia], pieces[ib]
+            if len(merged) == want or len(a) + len(b) > 12 or a + b in seen:
+                continue
+            seen.add(a + b)
+            pieces.append(a + b)
+            merged.append(a + b)
+            merges.append("".join(enc[x] for x in a) + " " + "".join(enc[x] for x in b))
+
+    def unicode(bs: bytes) -> str:
+        return "".join(enc[x] for x in bs)
+
+    vocab = {enc[b]: b for b in range(256)}
+    for i, tok in enumerate(merged):
+        vocab[unicode(tok)] = 256 + i
+    data = {
+        "version": "1.0",
+        "model": {"type": "BPE", "vocab": vocab, "merges": merges},
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                          "trim_offsets": True, "use_regex": True},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": False,
+                    "trim_offsets": True, "use_regex": True},
+        "added_tokens": [{"id": vocab_size - 1, "content": eos_token, "special": True}],
+    }
+    (path / "tokenizer.json").write_text(json.dumps(data))
+    (path / "tokenizer_config.json").write_text(json.dumps({"eos_token": eos_token}))
+    return merged

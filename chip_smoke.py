@@ -5,15 +5,18 @@
     python3 chip_smoke.py --phases build,b3    # a subset, no result lines
 
 Phases, in order; any failure raises and the script exits non-zero:
-  1.  print the card (name, power limit) and build csrc/*.cu (B1-B4) with
+  1.  print the card (name, power limit) and build csrc/*.cu (B1-B6) with
       nvcc, one process per source, all started together;
   2.  kernel B1 (fused dequant-matmul) against its plain version at the
-      Mistral-7B projection shapes and small edge cases;
+      Mistral-7B projection shapes and small edge cases, f16 included;
   3.  kernel B2 (paged decode attention) against its plain version;
   3b. kernel B3 (int8-activation matmul) against its plain version: the four
-      projections at m ∈ {1, 8, 256, 512}, w4a8 and w8a8, bf16 and f32,
+      projections at m ∈ {1, 8, 256, 512}, w4a8 and w8a8, bf16, f32 and f16,
       a GPTQ desc-act perm, all-zero rows, integer-equal activation quant;
   3c. kernel B4 (streaming decode matmul) against its plain version;
+  3d. kernel B5 (wide KV view) and 3e. kernel B6 (head-major KV cache)
+      against their plain versions, bf16 and f32, bs 64/128, B 8/32;
+  3f. the layout tools' sweeps (their main path): B2 vs B5, B2 vs B6;
   4.  a full-width 2-layer Mistral-7B AWQ forward_paged, prefill + 4
       teacher-forced decode steps, on the card (bf16) against the CPU (f32);
   4b. the same for the contiguous llama.forward under w8a8 (B3 on the card);
@@ -23,7 +26,11 @@ Phases, in order; any failure raises and the script exits non-zero:
       tokens, B3 launched 128 times per forward and B1 never;
   5c. the 8 requests of phase 5 under w4a8-prefill with
       BLAZR_TPU_STREAM_KERNEL=1: B3 (prefill), B4 (decode) and B2 launched;
-  6.  timings, and one ``{"kernels": [...]}`` JSON line with each kernel's
+  7.  the normal entry point: an 8-layer full-width AWQ checkpoint and a
+      BPE tokenizer.json written to disk, loaded by load_model (f16) and
+      served over HTTP with continuous batching (8 concurrent requests), then
+      ``python -m blazr_tpu_torch.cli serve`` as a subprocess;
+  8.  timings, and one ``{"kernels": [...]}`` JSON line with each kernel's
       launches in its serving phase, max error, time, bound, plain time and
       library-call time.
 Each serving phase sets the launch counts to 0 just before it and reads
@@ -122,8 +129,10 @@ def check_b1(dev, gen) -> dict:
     def one(name, x, qw, s, m, bits, signed, gs):
         nonlocal worst
         got = qmm(x, qw, s, m, bits=bits, signed=signed, group_size=gs, device=dev)
-        ref = qmm_reference(x.float(), qw, s, m, bits=bits, signed=signed,
-                            group_size=gs)
+        # f16 x: the plain version rounds it to bf16 as the kernel does.
+        xr = x if x.dtype == torch.float16 else x.float()
+        ref = qmm_reference(xr, qw, s, m, bits=bits, signed=signed,
+                            group_size=gs).float()
         torch.cuda.synchronize()
         assert got.shape == ref.shape and torch.isfinite(got).all(), name
         err = (got.float() - ref).abs().max().item()
@@ -151,6 +160,11 @@ def check_b1(dev, gen) -> dict:
         ("ragged N=70 m=1", 1, 256, 70, 4, True, 64, torch.bfloat16),
         ("f32 activations", 6, 512, 256, 4, True, 128, torch.float32),
         ("f32 activations m=40", 40, 512, 256, 4, True, 128, torch.float32),
+        ("f16 activations", 6, 4096, 4096, 4, True, 128, torch.float16),
+        ("f16 activations m=64 (tensor cores)", 64, 4096, 6144, 4, True, 128,
+         torch.float16),
+        ("f16 activations m=512 (tensor cores)", 512, 4096, 4096, 4, True, 128,
+         torch.float16),
     ]
     for name, m, k, n, bits, signed, gs, dt in small:
         qw, s, mn = rand_planes(k, n, bits, gs, gen, dev)
@@ -209,11 +223,15 @@ def time_b1(dev, gen) -> dict:
     library_ms = time_ms(lambda: torch.matmul(x, w), iters=50)
     nbytes = qw.numel() * 4 + s.numel() * 4 + mn.numel() * 4 + x.numel() * 2 + m * n * 2
     bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
-    log(f"  B1 gateup m={m}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.matmul(bf16 dequantized) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}, {nbytes / 1e6:.1f} MB)")
+    x16 = x.to(torch.float16)
+    f16_ms = time_ms(lambda: qmm(x16, qw, s, mn, bits=4, signed=True, group_size=gs,
+                                 device=dev), iters=50)
+    log(f"  B1 gateup m={m}: kernel {ms:.4f} ms (f16 x: {f16_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, torch.matmul(bf16 dequantized) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, shape=f"m={m} K={k} N={n}")
+                bound_ms=bound_ms, bound_by=bound_by, shape=f"m={m} K={k} N={n}",
+                f16_ms=f16_ms)
 
 
 def b1_variants(dev, gen) -> None:
@@ -240,7 +258,7 @@ def b1_variants(dev, gen) -> None:
                 assert lib.qmm_launch(*args, 0, stream) == 0
 
             def wmma():
-                assert lib.qmm_tc_launch(*args, stream) == 0
+                assert lib.qmm_tc_launch(*args, 0, stream) == 0
 
             t = {"simt": [], "wmma": []}
             for name, fn in (("simt", simt), ("wmma", wmma), ("wmma", wmma),
@@ -270,7 +288,7 @@ def check_b3(dev, gen) -> dict:
     # Both sides sum exact int32 group partials; they differ by the order of
     # the f32 affine sums (f32: 1e-3 of the largest output) and, in bf16, by
     # the output rounding (2^-9 relative; 8e-3 leaves room for the sums).
-    tols = {torch.float32: 1e-3, torch.bfloat16: 8e-3}
+    tols = {torch.float32: 1e-3, torch.bfloat16: 8e-3, torch.float16: 8e-3}
     worst = 0.0
 
     def one(name, x, qw, s, mn, bits, gs):
@@ -298,6 +316,9 @@ def check_b3(dev, gen) -> dict:
                     if m > 1:
                         x[m // 2] = 0
                     one(f"{pname} {mode} m={m} {str(dt)[6:]}", x, qw, s, mn, bits, 128)
+            for m in (8, 512):
+                x = torch.randn((m, k), device=dev, generator=gen).to(torch.float16)
+                one(f"{pname} {mode} m={m} float16", x, qw, s, mn, bits, 128)
     rng = np.random.default_rng(SEED + 3)
     k, n, gs = 512, 128, 128
     qweight = rng.integers(0, 2 ** 32, (k // 8, n), dtype=np.uint64).astype(np.uint32)
@@ -333,7 +354,9 @@ def check_b4(dev, gen) -> dict:
     cases = [(pname, k, n, bits, m, torch.bfloat16)
              for pname, (k, n) in B1_SHAPES.items() for bits in (4, 8)
              for m in (1, 8, 32)]
-    cases += [("o f32", 4096, 4096, 4, 5, torch.float32)]
+    cases += [("o f32", 4096, 4096, 4, 5, torch.float32),
+              ("o f16", 4096, 4096, 4, 5, torch.float16),
+              ("gateup f16", 4096, 28672, 4, 32, torch.float16)]
     for pname, k, n, bits, m, dt in cases:
         qw, s, mn = rand_planes(k, n, bits, 128, gen, dev)
         x = torch.randn((m, k), device=dev, generator=gen).to(dt)
@@ -354,7 +377,8 @@ def check_b4(dev, gen) -> dict:
 # phase 3: B2
 # ---------------------------------------------------------------------------
 
-def pa_inputs(dev, gen, *, b, h_q, h_kv, d, bs, seq_lens, int8=False, nb_extra=8):
+def pa_inputs(dev, gen, *, b, h_q, h_kv, d, bs, seq_lens, int8=False, nb_extra=8,
+              dtype=None):
     import torch
 
     mb = max(-(-int(s) // bs) for s in seq_lens)
@@ -368,10 +392,11 @@ def pa_inputs(dev, gen, *, b, h_q, h_kv, d, bs, seq_lens, int8=False, nb_extra=8
         vc = torch.randint(-127, 128, shape, device=dev, generator=gen).to(torch.int8)
         ks = torch.rand(shape[:2], device=dev, generator=gen) / 64 + 1 / 128
         vs = torch.rand(shape[:2], device=dev, generator=gen) / 64 + 1 / 128
-    else:
-        kc = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
-        vc = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
-    q = torch.randn((b, h_q, d), device=dev, generator=gen).to(torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    if not int8:
+        kc = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        vc = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    q = torch.randn((b, h_q, d), device=dev, generator=gen).to(dtype)
     sl = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
     return dict(q=q, kc=kc, vc=vc, ks=ks, vs=vs, bt=tables, sl=sl, nb=nb, bs=bs)
 
@@ -392,6 +417,9 @@ def check_b2(dev, gen) -> dict:
         ("alibi", dict(d=128, bs=64), dict(alibi=True)),
         ("head_dim 64", dict(d=64, bs=64), {}),
         ("block size 16 + window 100", dict(d=128, bs=16), dict(sliding_window=100)),
+        ("f16 W=4096", dict(d=128, bs=64, dtype=torch.float16), dict(sliding_window=4096)),
+        ("f16 int8 KV + window 256", dict(d=128, bs=64, int8=True, dtype=torch.float16),
+         dict(sliding_window=256)),
     ]
     worst = 0.0
     for name, geo, opt in cases:
@@ -407,8 +435,9 @@ def check_b2(dev, gen) -> dict:
         torch.cuda.synchronize()
         assert got.shape == ref.shape and torch.isfinite(got).all(), name
         err = (got.float() - ref).abs().max().item()
-        # Probabilities drop to bf16 before the AV product and the output is
-        # bf16: 2^-9 relative each, against outputs of order max|v|.
+        # Probabilities drop to bf16 (f16) before the AV product and the
+        # output is bf16 (f16): 2^-9 (2^-11) relative each, against outputs
+        # of order max|v|.
         tol = 1e-2 * max(1.0, ref.abs().max().item())
         log(f"  B2 {name:34s} max_abs_err {err:.4g}  tol {tol:.4g}")
         assert err <= tol, f"B2 {name}: {err} > {tol}"
@@ -449,11 +478,119 @@ def time_b2(dev, gen) -> dict:
     nbytes = (2 * b * ctx * h_kv * d * 2 + 2 * b * h_q * d * 2
               + s["bt"].numel() * 4 + b * 4)
     bound_ms, bound_by = bound(nbytes, 4.0 * b * h_q * ctx * d)
-    log(f"  B2 B={b} ctx={ctx}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA(GQA, gathered KV) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}, {nbytes / 1e6:.1f} MB)")
+    q16, k16, v16 = (s[n].to(torch.float16) for n in ("q", "kc", "vc"))
+    f16_ms = time_ms(lambda: paged_attention_decode(
+        q16, k16, v16, s["bt"], s["sl"], num_blocks=s["nb"], device=dev, **kw), iters=100)
+    log(f"  B2 B={b} ctx={ctx}: kernel {ms:.4f} ms (f16: {f16_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, SDPA(GQA, gathered KV) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, shape=f"B={b} ctx={ctx}")
+                bound_ms=bound_ms, bound_by=bound_by, shape=f"B={b} ctx={ctx}",
+                f16_ms=f16_ms)
+
+
+# ---------------------------------------------------------------------------
+# phases 3d/3e: B5 (wide KV view) and B6 (head-major KV cache); the tools
+# ---------------------------------------------------------------------------
+
+def layout_kernel(layout: str):
+    """(wrapper, prepare(flat k, flat v) -> the layout's k, v) of B5 or B6."""
+    from blazr_tpu_torch.tools.bench_pa_headmajor import pa_headmajor, to_head_major
+    from blazr_tpu_torch.tools.bench_pa_wide import pa_wide
+
+    if layout == "wide":
+        return pa_wide, lambda k, v: (k, v)
+    return pa_headmajor, lambda k, v: (to_head_major(k), to_head_major(v))
+
+
+def check_layout(dev, gen, layout: str) -> dict:
+    """B5 or B6 against its plain version at the tools' geometry (G=8, 4
+    query heads each, D=128): bf16 and f32, bs 64 and 128, B 8 and 32,
+    ragged seq_lens with 1 and partial last blocks. The probabilities stay
+    f32 on both sides: 2e-2 absolute in bf16 (output rounding on outputs of
+    order max|v|), 1e-4 in f32 (sum order)."""
+    import torch
+
+    from blazr_tpu_torch.tools.bench_pa_wide import pa_wide_reference
+
+    fn, prepare = layout_kernel(layout)
+    tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for bs in (64, 128):
+            for b in (8, 32):
+                lens = torch.randint(1, 1025, (b,), device=dev, generator=gen)
+                lens[0], lens[1], lens[2] = 1, 1024, bs + 5
+                s = pa_inputs(dev, gen, b=b, h_q=32, h_kv=8, d=128, bs=bs,
+                              seq_lens=lens.tolist(), dtype=dtype)
+                k, v = prepare(s["kc"], s["vc"])
+                got = fn(s["q"], k, v, s["bt"], s["sl"], block_size=bs,
+                         num_blocks=s["nb"], device=dev)
+                ref = pa_wide_reference(s["q"].float(), s["kc"].float(), s["vc"].float(),
+                                        s["bt"], s["sl"], block_size=bs)
+                torch.cuda.synchronize()
+                assert got.shape == ref.shape and torch.isfinite(got).all()
+                err = (got.float() - ref).abs().max().item()
+                name = f"{layout} {str(dtype)[6:]} bs={bs} B={b}"
+                log(f"  {name:34s} max_abs_err {err:.4g}  tol {tols[dtype]}")
+                assert err <= tols[dtype], f"{name}: {err} > {tols[dtype]}"
+                worst = max(worst, err)
+                del s, k, v, ref, got
+    return {"max_abs_err": worst}
+
+
+def run_tools() -> dict:
+    """Phase 3f: both layout tools' sweeps in-process (their main path):
+    B2 against B5, then B2 against B6, at bs {64, 128} x B {8, 32}."""
+    from blazr_tpu_torch.tools import bench_pa_headmajor, bench_pa_wide
+
+    reset_counts()
+    rows = {"wide": bench_pa_wide.main([]), "headmajor": bench_pa_headmajor.main([])}
+    launches = read_counts()
+    log(f"  launches during the sweeps: {launches}")
+    assert launches["pa_wide"] > 0 and launches["pa_headmajor"] > 0, launches
+    return dict(launches, rows=rows)
+
+
+def time_layout(dev, gen, layout: str) -> dict:
+    """B5 or B6 at B=8, ctx 1024 (seq_len 1023), bs 64, bf16: time, plain
+    time, SDPA over pre-gathered KV (the library call) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from blazr_tpu_torch.kvcache.paged import page_slot_index
+    from blazr_tpu_torch.tools.bench_pa_wide import pa_wide_reference
+
+    fn, prepare = layout_kernel(layout)
+    b, h_q, h_kv, d, bs, ctx = 8, 32, 8, 128, 64, 1023
+    s = pa_inputs(dev, gen, b=b, h_q=h_q, h_kv=h_kv, d=d, bs=bs, seq_lens=[ctx] * b,
+                  nb_extra=0)
+    k, v = prepare(s["kc"], s["vc"])
+    ms = time_ms(lambda: fn(s["q"], k, v, s["bt"], s["sl"], block_size=bs,
+                            num_blocks=s["nb"], device=dev), iters=100)
+    plain_ms = time_ms(lambda: pa_wide_reference(s["q"], s["kc"], s["vc"], s["bt"],
+                                                 s["sl"], block_size=bs), iters=10)
+    idx = page_slot_index(bs, s["bt"])[:, :ctx]
+    kg = s["kc"][idx].permute(0, 2, 1, 3).contiguous()
+    vg = s["vc"][idx].permute(0, 2, 1, 3).contiguous()
+    qg = s["q"][:, :, None, :]
+    try:
+        F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, enable_gqa=True), iters=100)
+    except TypeError:                   # PyTorch without enable_gqa
+        ke = kg.repeat_interleave(h_q // h_kv, dim=1)
+        ve = vg.repeat_interleave(h_q // h_kv, dim=1)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qg, ke, ve),
+                             iters=100)
+    nbytes = (2 * b * ctx * h_kv * d * 2 + 2 * b * h_q * d * 2
+              + s["bt"].numel() * 4 + b * 4)
+    bound_ms, bound_by = bound(nbytes, 4.0 * b * h_q * ctx * d)
+    log(f"  {layout} B={b} seq_len={ctx} bs={bs}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA(GQA, gathered KV) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, shape=f"B={b} seq_len={ctx} bs={bs}")
 
 
 # ---------------------------------------------------------------------------
@@ -595,22 +732,26 @@ async def serve(engine, waves) -> list[dict]:
     return results
 
 
-def reset_counts() -> None:
+def counted() -> dict:
+    """Every kernel wrapper of the port by the key its launches go under."""
     from blazr_tpu_torch.attention.paged_attention import paged_attention_decode
     from blazr_tpu_torch.quant.int8 import qmm_int8
     from blazr_tpu_torch.quant.kernels import qmm, qmm_stream
+    from blazr_tpu_torch.tools.bench_pa_headmajor import pa_headmajor
+    from blazr_tpu_torch.tools.bench_pa_wide import pa_wide
 
-    for fn in (qmm, paged_attention_decode, qmm_int8, qmm_stream):
+    return {"qmm": qmm, "paged_attention": paged_attention_decode,
+            "qmm_int8": qmm_int8, "qmm_stream": qmm_stream, "pa_wide": pa_wide,
+            "pa_headmajor": pa_headmajor}
+
+
+def reset_counts() -> None:
+    for fn in counted().values():
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    from blazr_tpu_torch.attention.paged_attention import paged_attention_decode
-    from blazr_tpu_torch.quant.int8 import qmm_int8
-    from blazr_tpu_torch.quant.kernels import qmm, qmm_stream
-
-    return {"qmm": qmm.launches, "paged_attention": paged_attention_decode.launches,
-            "qmm_int8": qmm_int8.launches, "qmm_stream": qmm_stream.launches}
+    return {k: fn.launches for k, fn in counted().items()}
 
 
 def mistral_model(dev, layers: int | None = None):
@@ -701,6 +842,257 @@ def serve_stream(dev, card: str) -> dict:
     """Phase 5c: the same 8 requests under w4a8-prefill with the stream
     kernel on: prefill groups of 256+ rows take B3, decode takes B4."""
     return full_depth(dev, card, quant_compute="w4a8-prefill", stream=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the normal entry point (checkpoint on disk, tokenizer, HTTP, CLI)
+# ---------------------------------------------------------------------------
+
+HTTP_LAYERS = 8
+
+
+def _prompt_text(tok, n_tokens: int, rng) -> str:
+    """Text of about ``n_tokens`` tokens: words of the tokenizer's merged
+    vocab, added until the encoding is long enough."""
+    words: list[str] = []
+    while True:
+        ids = rng.integers(256, tok.vocab_size - 1, 32).tolist()
+        words.append(tok.decode(ids))
+        text = " ".join(words)
+        ids = tok.encode(text)
+        if len(ids) >= n_tokens:
+            return tok.decode(ids[:n_tokens])
+
+
+def _http(port: int, method: str, path: str, body=None, timeout: float = 600):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _stream_chat(port: int, body: dict) -> dict:
+    """One streamed chat request over http.client: content deltas, the
+    time to the first content delta, the finish chunk and [DONE]."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200, (resp.status, resp.read())
+    assert resp.getheader("Content-Type") == "text/event-stream"
+    out = dict(deltas=[], ttft=None, finish=None, usage=None, done=False, role=None)
+    for raw in resp:
+        line = raw.decode().strip()
+        if not line.startswith("data: "):
+            continue
+        data = line[len("data: "):]
+        if data == "[DONE]":
+            out["done"] = True
+            continue
+        ev = json.loads(data)
+        choice = ev["choices"][0]
+        if choice["delta"].get("role"):
+            out["role"] = choice["delta"]["role"]
+        elif choice["delta"].get("content"):
+            if out["ttft"] is None:
+                out["ttft"] = time.perf_counter() - t0
+            out["deltas"].append(choice["delta"]["content"])
+        if choice.get("finish_reason"):
+            out["finish"] = choice["finish_reason"]
+            out["usage"] = ev.get("usage")
+    conn.close()
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def serve_http(dev, card: str) -> dict:
+    """Phase 7: write a full-width Mistral-7B AWQ-INT4 checkpoint (group
+    128, 8 layers) and a 32000-token byte-level BPE tokenizer.json to a
+    temporary directory; load it through ModelScheduler -> load_model (f16,
+    the AWQ default) and serve it from the port's HTTP server with
+    continuous batching; 8 concurrent requests over http.client (4 streamed
+    chats, 4 completions, prompts of 64-512 tokens, 64 greedy tokens each).
+    Then ``python -m blazr_tpu_torch.cli serve`` as a subprocess answers
+    /health and one chat completion."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.config.server import ServerConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
+    from blazr_tpu_torch.server import create_app, serve
+    from blazr_tpu_torch.utils.synthetic import (mistral_7b_config, write_awq_checkpoint,
+                                                 write_bpe_tokenizer_json)
+
+    cfg = mistral_7b_config()
+    cfg.num_layers = HTTP_LAYERS
+    ckpt = Path(tempfile.mkdtemp(prefix="blazr_awq_"))
+    out: dict = {}
+    try:
+        t0 = time.perf_counter()
+        write_awq_checkpoint(ckpt, cfg, group_size=128, seed=SEED)
+        write_bpe_tokenizer_json(ckpt, cfg.vocab_size, seed=SEED)
+        size = sum(f.stat().st_size for f in ckpt.iterdir())
+        log(f"  wrote {HTTP_LAYERS}-layer Mistral-7B AWQ-INT4 checkpoint ({size / 1e9:.2f} GB) "
+            f"and tokenizer.json in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        sched = ModelScheduler(ckpt, device=dev)
+        ex = sched.get_executor("default")
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        model = ex.model
+        assert model.dtype == torch.float16 and model.num_layers == HTTP_LAYERS
+        assert model.params["layers"][0]["q"].fmt == "awq"
+        log(f"  load_model + tokenizer: {out['load_s']:.1f} s; dtype {model.dtype}; "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
+        inf = ex.app_cfg.inference
+        inf.max_batch_size = 8
+        inf.prefix_cache = False
+        engine = BatchEngine(model, ex.tokenizer, ex.app_cfg)
+        app = create_app(sched, ServerConfig(host="127.0.0.1", port=0),
+                         batch_engine=engine)
+        loop = asyncio.new_event_loop()
+        stop = asyncio.Event()
+        ready = threading.Event()
+        bound: dict = {}
+
+        def run_loop():
+            asyncio.set_event_loop(loop)
+            loop.run_until_complete(serve(app, "127.0.0.1", 0, stop=stop,
+                                          started=lambda p: (bound.update(port=p),
+                                                             ready.set())))
+
+        server = threading.Thread(target=run_loop, daemon=True)
+        server.start()
+        assert ready.wait(60), "server did not start"
+        port = bound["port"]
+        st, body = _http(port, "GET", "/health")
+        assert st == 200 and json.loads(body)["status"] == "ok", body
+
+        rng = np.random.default_rng(SEED + 11)
+        lens = [64, 512, 200, 333, 128, 480, 96, 256]
+        texts = [_prompt_text(ex.tokenizer, n, rng) for n in lens]
+        results: list = [None] * 8
+
+        def one(i: int) -> None:
+            if i % 2 == 0:                 # streamed chat
+                results[i] = _stream_chat(port, {
+                    "messages": [{"role": "user", "content": texts[i]}],
+                    "max_tokens": 64, "temperature": 0, "stream": True})
+            else:                          # non-streamed completion
+                t0 = time.perf_counter()
+                st, body = _http(port, "POST", "/v1/completions", {
+                    "prompt": texts[i], "max_tokens": 64, "temperature": 0})
+                assert st == 200, (st, body)
+                results[i] = dict(json.loads(body), wall=time.perf_counter() - t0)
+
+        reset_counts()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        total = 0
+        ttfts = []
+        for i, r in enumerate(results):
+            assert r is not None, f"request {i} did not finish"
+            if i % 2 == 0:
+                n = len(r["deltas"])
+                assert r["role"] == "assistant" and r["done"] and r["finish"], r
+                assert r["usage"]["completion_tokens"] == n, (r["usage"], n)
+                assert r["finish"] == "stop" or n == 64, (r["finish"], n)
+                ttfts.append(r["ttft"])
+                log(f"  request {i}: streamed chat, prompt {r['usage']['prompt_tokens']} "
+                    f"tokens, {n} content deltas, finish {r['finish']}, client TTFT "
+                    f"{r['ttft'] * 1e3:.1f} ms, done at {r['wall']:.2f} s")
+            else:
+                choice, usage = r["choices"][0], r["usage"]
+                n = usage["completion_tokens"]
+                st, body = _http(port, "POST", "/tokenize", {"content": texts[i]})
+                assert usage["prompt_tokens"] == json.loads(body)["count"], usage
+                assert choice["finish_reason"] in ("stop", "length"), choice
+                assert choice["finish_reason"] == "stop" or n == 64, (choice, n)
+                log(f"  request {i}: completion, prompt {usage['prompt_tokens']} tokens, "
+                    f"{n} tokens, finish {choice['finish_reason']}, done at "
+                    f"{r['wall']:.2f} s")
+            total += n
+        out.update(ttft_ms=[t * 1e3 for t in ttfts], tok_s=total / wall, wall_s=wall,
+                   tokens=total, **launches)
+        log(f"  served {total} tokens for 8 HTTP requests in {wall:.2f} s: "
+            f"{total / wall:.1f} tok/s aggregate; streamed-chat client TTFT "
+            f"median {sorted(ttfts)[len(ttfts) // 2] * 1e3:.1f} ms, max "
+            f"{max(ttfts) * 1e3:.1f} ms ({card}); depth {HTTP_LAYERS} layers, f16")
+        log(f"  launches during the HTTP run: {launches}")
+        assert launches["qmm"] > 0 and launches["paged_attention"] > 0, launches
+        st, _ = _http(port, "GET", "/metrics")
+        assert st == 501, st
+        loop.call_soon_threadsafe(stop.set)
+        server.join(120)
+        del engine, app, sched, ex, model
+        torch.cuda.empty_cache()
+
+        # The CLI entry point in its own process.
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            cli_port = s.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "blazr_tpu_torch.cli", "serve", "--model", str(ckpt),
+             "--continuous-batching", "--host", "127.0.0.1", "--port", str(cli_port),
+             "--no-warmup"], cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            t0 = time.perf_counter()
+            while True:
+                if proc.poll() is not None:
+                    raise RuntimeError(f"cli serve exited {proc.returncode}: "
+                                       f"{proc.stderr.read()[-4000:]}")
+                try:
+                    st, body = _http(cli_port, "GET", "/health", timeout=5)
+                    if st == 200:
+                        break
+                except OSError:
+                    pass
+                assert time.perf_counter() - t0 < 300, "cli serve did not come up"
+                time.sleep(1.0)
+            up = time.perf_counter() - t0
+            st, body = _http(cli_port, "POST", "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": texts[0]}], "max_tokens": 16,
+                "temperature": 0})
+            assert st == 200, (st, body)
+            reply = json.loads(body)
+            assert reply["choices"][0]["finish_reason"] in ("stop", "length"), reply
+            log(f"  cli serve (pid {proc.pid}) answered /health after {up:.1f} s and a "
+                f"chat completion of {reply['usage']['completion_tokens']} tokens")
+            out["cli_up_s"] = up
+        finally:
+            os.kill(proc.pid, 15)
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                os.kill(proc.pid, 9)
+                proc.wait(60)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return out
 
 
 def device_busy(fn) -> tuple[float, float, int]:
@@ -960,6 +1352,8 @@ def timings(dev, gen, res: dict) -> list:
     t2 = time_b2(dev, gen)
     t3 = time_b3(dev, gen)
     t4 = time_b4(dev, gen)
+    t5 = time_layout(dev, gen, "wide")
+    t6 = time_layout(dev, gen, "headmajor")
 
     def got(phase, key):
         return res.get(phase, {}).get(key)
@@ -992,11 +1386,22 @@ def timings(dev, gen, res: dict) -> list:
              ms=b4["ms"], plain_ms=b4["plain_ms"], bound_ms=b4["bound_ms"],
              bound_by=b4["bound_by"], library_ms=b4["library_ms"],
              shape=f"w4 m=8 K={k} N={n}"),
+        dict(name="pa_wide (B5)", route="cuda", source="blazr_tpu_torch/csrc/pa_wide.cu",
+             replaces="tools/bench_pa_wide.py:31",
+             launches=got("tools", "pa_wide"), max_abs_err=got("b5", "max_abs_err"),
+             ms=t5["ms"], plain_ms=t5["plain_ms"], bound_ms=t5["bound_ms"],
+             bound_by=t5["bound_by"], library_ms=t5["library_ms"], shape=t5["shape"]),
+        dict(name="pa_headmajor (B6)", route="cuda",
+             source="blazr_tpu_torch/csrc/pa_headmajor.cu",
+             replaces="tools/bench_pa_headmajor.py:27",
+             launches=got("tools", "pa_headmajor"), max_abs_err=got("b6", "max_abs_err"),
+             ms=t6["ms"], plain_ms=t6["plain_ms"], bound_ms=t6["bound_ms"],
+             bound_by=t6["bound_by"], library_ms=t6["library_ms"], shape=t6["shape"]),
     ]
 
 
-PHASES = ("build", "b1", "b2", "b3", "b4", "forward", "forward_w8a8", "ppl",
-          "serve", "executor", "serve_int8", "timings")
+PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
+          "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "http", "timings")
 
 
 def main() -> int:
@@ -1034,7 +1439,8 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
-    sources = ["qmm", "paged_attention", "qmm_int8", "qmm_stream"]
+    sources = ["qmm", "paged_attention", "qmm_int8", "qmm_stream", "pa_wide",
+               "pa_headmajor"]
     logs = cuda_build.build_all(sources)
     log(f"  built {', '.join(f'csrc/{n}.cu' for n in sources)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
@@ -1053,6 +1459,11 @@ def main() -> int:
         ("b2", "phase 3: B2 paged decode attention vs plain", lambda: check_b2(dev, gen)),
         ("b3", "phase 3b: B3 int8-activation matmul vs plain", lambda: check_b3(dev, gen)),
         ("b4", "phase 3c: B4 streaming decode matmul vs plain", lambda: check_b4(dev, gen)),
+        ("b5", "phase 3d: B5 wide-view paged attention vs plain",
+         lambda: check_layout(dev, gen, "wide")),
+        ("b6", "phase 3e: B6 head-major paged attention vs plain",
+         lambda: check_layout(dev, gen, "headmajor")),
+        ("tools", "phase 3f: the layout tools' sweeps (B2 vs B5, B2 vs B6)", run_tools),
         ("forward", "phase 4: 2-layer full-width paged forward, card (bf16) vs CPU (f32)",
          lambda: teacher_forced(dev)),
         ("forward_w8a8", "phase 4b: 2-layer full-width contiguous forward under w8a8, "
@@ -1065,7 +1476,10 @@ def main() -> int:
          "prompt, 128 greedy tokens", lambda: serve_executor(dev, card)),
         ("serve_int8", "phase 5c: 32-layer BatchEngine under w4a8-prefill with "
          "BLAZR_TPU_STREAM_KERNEL=1", lambda: serve_stream(dev, card)),
-        ("timings", "phase 6: kernel timings", lambda: timings(dev, gen, res)),
+        ("http", "phase 7: AWQ checkpoint on disk -> load_model -> OpenAI HTTP server "
+         "(8 concurrent requests) and the CLI serve subprocess",
+         lambda: serve_http(dev, card)),
+        ("timings", "phase 8: kernel timings", lambda: timings(dev, gen, res)),
     ]
     for name, title, fn in steps:
         if name in phases:

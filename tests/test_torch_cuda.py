@@ -1,4 +1,4 @@
-"""Kernels B1-B4 of blazr_tpu_torch against their plain versions on the
+"""Kernels B1-B6 of blazr_tpu_torch against their plain versions on the
 card, and the w8a8 Executor on a tiny config. A CUDA kernel has no interpret
 mode, so these tests need an NVIDIA GPU with nvcc and skip without one;
 ``python3 chip_smoke.py`` runs the same checks at the served shapes.
@@ -7,7 +7,9 @@ Tolerances are in bf16 where the output is bf16: the kernels and the plain
 versions sum in f32, so they differ by the bf16 rounding of the outputs
 (2^-9 relative) and, for B2, of the probabilities; 1e-2 of the largest
 output covers both. With f32 outputs B3 and B4 differ only in the order of
-their f32 sums: 1e-3."""
+their f32 sums: 1e-3. In f16 (2^-11 relative per rounding) 4e-3 of the
+largest output. B5 and B6 keep the probabilities in f32: 2e-2 absolute in
+bf16 and 1e-4 in f32 on outputs of order max|v|."""
 
 import math
 
@@ -21,6 +23,8 @@ from blazr_tpu_torch.quant.int8 import qmm_int8, qmm_int8_reference
 from blazr_tpu_torch.quant.kernels import (qmm, qmm_reference, qmm_stream,
                                            qmm_stream_reference)
 from blazr_tpu_torch.quant.matmul import quant_matmul
+from blazr_tpu_torch.tools.bench_pa_headmajor import pa_headmajor, to_head_major
+from blazr_tpu_torch.tools.bench_pa_wide import pa_wide, pa_wide_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -177,3 +181,74 @@ def test_executor_w8a8_runs_b3_only(cuda):
     torch.cuda.synchronize()
     assert len(toks) == 6 and all(0 <= t < 256 for t in toks)
     assert qmm.launches == b1 and qmm_int8.launches - b3 == 6 * 4 * 2
+
+
+@pytest.mark.parametrize("kernel", ["b1_decode", "b1_prefill", "b3", "b4"])
+def test_f16_matmul_kernels_match_plain(cuda, kernel):
+    gen = torch.Generator(device=cuda).manual_seed(len(kernel))
+    k, n, gs = 1024, 256, 128
+    qw, s, mn = _planes(k, n, 4, gs, gen, cuda)
+    m = 40 if kernel == "b1_prefill" else 5
+    x = torch.randn((m, k), device=cuda, generator=gen).to(torch.float16)
+    if kernel.startswith("b1"):
+        got = qmm(x, qw, s, mn, bits=4, signed=True, group_size=gs)
+        ref = qmm_reference(x.cpu(), qw.cpu(), s.cpu(), mn.cpu(), bits=4, signed=True,
+                            group_size=gs)
+    elif kernel == "b3":
+        got = qmm_int8(x, qw, s, mn, bits=4, group_size=gs)
+        ref = qmm_int8_reference(x.cpu(), qw.cpu(), s.cpu(), mn.cpu(), bits=4,
+                                 group_size=gs)
+    else:
+        got = qmm_stream(x, qw, s, mn, bits=4, group_size=gs)
+        ref = qmm_stream_reference(x.cpu(), qw.cpu(), s.cpu(), mn.cpu(), bits=4,
+                                   group_size=gs)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16 and ref.dtype == torch.float16
+    err = (got.float().cpu() - ref.float()).abs().max().item()
+    assert err <= 4e-3 * ref.float().abs().max().item(), err
+
+
+def test_f16_paged_attention_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    b, h_q, h_kv, d, bs, nb = 4, 8, 2, 128, 16, 64
+    seq_lens = torch.tensor([1, 37, 200, 150], dtype=torch.int32, device=cuda)
+    mb = -(-200 // bs)
+    tables = torch.randperm(nb, device=cuda, generator=gen)[: b * mb].reshape(b, mb)
+    tables = tables.to(torch.int32)
+    kc = torch.randn((nb * bs + 1, h_kv, d), device=cuda, generator=gen).half()
+    vc = torch.randn((nb * bs + 1, h_kv, d), device=cuda, generator=gen).half()
+    q = torch.randn((b, h_q, d), device=cuda, generator=gen).half()
+    got = paged_attention_decode(q, kc, vc, tables, seq_lens, block_size=bs,
+                                 num_blocks=nb, sliding_window=96)
+    ref = paged_attention_reference(q.float(), kc, vc, tables, seq_lens, block_size=bs,
+                                    sliding_window=96)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16
+    assert (got.float() - ref).abs().max().item() <= 4e-3 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("layout", ["wide", "headmajor"])
+@pytest.mark.parametrize("dtype,bs", [(torch.bfloat16, 64), (torch.bfloat16, 128),
+                                      (torch.float32, 128), (torch.float16, 64)])
+def test_layout_kernels_match_plain(cuda, layout, dtype, bs):
+    """B5 and B6 at the tools' geometry (G=8, 4 query heads each, D=128),
+    ragged lengths including 1 and a partial last block."""
+    gen = torch.Generator(device=cuda).manual_seed(bs)
+    seq_lens = torch.tensor([1, 1023, bs + 5, 300, 64], dtype=torch.int32, device=cuda)
+    b, mb = 5, -(-1023 // bs)
+    nb = b * mb + 3
+    tables = torch.randperm(nb, device=cuda, generator=gen)[: b * mb].reshape(b, mb)
+    tables = tables.to(torch.int32)
+    kf = torch.randn((nb * bs + 1, 8, 128), device=cuda, generator=gen).to(dtype)
+    vf = torch.randn((nb * bs + 1, 8, 128), device=cuda, generator=gen).to(dtype)
+    q = torch.randn((b, 32, 128), device=cuda, generator=gen).to(dtype)
+    if layout == "wide":
+        got = pa_wide(q, kf, vf, tables, seq_lens, block_size=bs, num_blocks=nb)
+    else:
+        got = pa_headmajor(q, to_head_major(kf), to_head_major(vf), tables, seq_lens,
+                           block_size=bs, num_blocks=nb)
+    ref = pa_wide_reference(q.float(), kf.float(), vf.float(), tables, seq_lens,
+                            block_size=bs)
+    torch.cuda.synchronize()
+    tol = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 1e-4}[dtype]
+    assert (got.float() - ref).abs().max().item() <= tol

@@ -227,18 +227,27 @@ def test_greedy_rows_are_exact_argmax():
 # package rules
 # ---------------------------------------------------------------------------
 
+# Packages the port and chip_smoke.py must not import: JAX, the JAX package,
+# and what the JAX entry path leans on that the card's machine lacks.
+FORBIDDEN = ("jax", "blazr_tpu", "aiohttp", "regex", "prometheus_client",
+             "ml_dtypes", "safetensors", "tokenizers")
+
+
 def test_port_imports_without_jax_or_blazr_tpu():
-    code = textwrap.dedent("""
+    code = textwrap.dedent(f"""
         import sys
-        sys.modules['jax'] = None
-        sys.modules['blazr_tpu'] = None
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None      # any import of it raises ImportError
         import importlib, pkgutil
         import blazr_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
-            blazr_tpu_torch.__path__, 'blazr_tpu_torch.')]
+            blazr_tpu_torch.__path__, 'blazr_tpu_torch.')
+            if not m.name.endswith('.__main__')]
         for n in names:
             importlib.import_module(n)
-        assert not any(k == 'jax' or k.startswith('jax.') for k, v in
+        sys.path.insert(0, '.')
+        import chip_smoke
+        assert not any(k.split('.')[0] in {FORBIDDEN!r} for k, v in
                        sys.modules.items() if v is not None)
         print(' '.join(names))
     """)
@@ -246,10 +255,14 @@ def test_port_imports_without_jax_or_blazr_tpu():
                          capture_output=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 38
+    assert len(names) >= 58
     assert {f"blazr_tpu_torch.{m}" for m in (
         "quant.int8", "kvcache.contiguous", "models.llama", "engine.executor",
-        "engine.generate_text", "model_meta.think", "utils.ppl")} <= names
+        "engine.generate_text", "model_meta.think", "utils.ppl",
+        "tools.bench_pa_wide", "tools.bench_pa_headmajor", "formats.safetensors",
+        "formats.detect", "loader.varmap", "loader.api", "tokenizer.bpe",
+        "tokenizer.hf_tokenizer", "model_meta.chat_template", "engine.model_scheduler",
+        "server.app", "server.api_types", "server.streaming", "cli.main")} <= names
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -277,3 +290,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
                                num_blocks=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         forward_paged(params, cfg, None, None, None, None, None, None)
+    from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
+    from blazr_tpu_torch.loader import load_model
+    from blazr_tpu_torch.tools.bench_pa_wide import pa_wide
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_model(REPO)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelScheduler(REPO)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pa_wide(z, torch.zeros(9, 2, 16), torch.zeros(9, 2, 16),
+                torch.zeros(1, 1, dtype=torch.int32), torch.ones(1, dtype=torch.int32),
+                block_size=8, num_blocks=1)

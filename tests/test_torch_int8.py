@@ -191,3 +191,32 @@ def test_params_from_jax_carries_tags():
                                                    group_size=64)}, "w4a8-prefill")
     pt = params_from_jax(jax.tree.map(np.asarray, jt), device=CPU)
     assert pt["a"].act_quant and pt["a"].act_quant_min_m == 256
+
+
+@pytest.mark.parametrize("path", ["b3_w4a8", "b3_w8a8", "b4_stream"])
+def test_f16_plain_matches_jax_kernels(path, monkeypatch):
+    """f16 activations (the AWQ/GPTQ loader default) through B3's and B4's
+    plain versions against the JAX kernels in interpret mode: both quantize
+    (B3) or round to bf16 (B4) from the f16 values, sum in f32 and write
+    f16. 2e-3 of max|y|: one f16 rounding of the output (2^-11 relative)
+    with room for the sum order."""
+    rng = np.random.default_rng(len(path))
+    if path == "b4_stream":
+        monkeypatch.setenv("BLAZR_TPU_STREAM_KERNEL", "1")
+        jt = _rand_awq_qt(jax.random.key(5), 1024, 256, group_size=128)
+        x = rng.standard_normal((3, 1024)).astype(np.float16)
+        ref = np.asarray(im.quant_matmul_pallas(jnp.asarray(x), jt))
+        pt = _port(jt)
+        got = qmm_stream(torch.from_numpy(x), pt.qweight, pt.scales, pt.mins,
+                         bits=4, group_size=128, device=CPU)
+    else:
+        jt = _jax_qt(path[3:])
+        x = rng.standard_normal((5, 512)).astype(np.float16)
+        ref = np.asarray(im.quant_matmul_int8mxu(jnp.asarray(x), jt))
+        pt = _port(jt)
+        got = qmm_int8(torch.from_numpy(x), pt.qweight, pt.scales, pt.mins,
+                       bits=pt.bits, group_size=pt.group_size, device=CPU)
+    assert ref.dtype == np.float16 and got.dtype == torch.float16
+    tol = 2e-3 * float(np.abs(ref.astype(np.float32)).max())
+    np.testing.assert_allclose(got.float().numpy(), ref.astype(np.float32),
+                               rtol=0, atol=tol)

@@ -140,3 +140,31 @@ def test_wrapper_rejects_mismatched_cache():
             torch.from_numpy(s["q"][:, :, :64].copy()), torch.from_numpy(s["kc"]),
             torch.from_numpy(s["vc"]), torch.from_numpy(s["bt"]),
             torch.from_numpy(s["sl"]), block_size=8, num_blocks=16, device=CPU)
+
+
+@pytest.mark.parametrize("case", ["plain", "window_12", "int8", "softcap"])
+def test_plain_f16_matches_jax_kernel_interpret(case):
+    """f16 queries and caches (the AWQ/GPTQ loader default): the JAX kernel
+    computes in f16 with f32 sums and rounds the probabilities to f16; the
+    plain version keeps them in f32 and rounds only the output. 3e-3 covers
+    both f16 roundings (2^-11 relative each) on outputs of order max|v|."""
+    setup_kw, kw = _CASES[case]
+    s = _setup(40 + sorted(_CASES).index(case), **setup_kw)
+    f16 = {k: (s[k] if s[k] is None or s[k].dtype != np.float32 or k in ("ks", "vs")
+               else s[k].astype(np.float16)) for k in ("q", "kc", "vc", "ks", "vs")}
+    jkw = dict(kw)
+    if f16["ks"] is not None:
+        jkw.update(k_scale=jnp.asarray(f16["ks"]), v_scale=jnp.asarray(f16["vs"]))
+    ref = np.asarray(jax_pa(jnp.asarray(f16["q"]), jnp.asarray(f16["kc"]),
+                            jnp.asarray(f16["vc"]), jnp.asarray(s["bt"]),
+                            jnp.asarray(s["sl"]), block_size=s["bs"],
+                            num_blocks=s["nb"], interpret=True, **jkw))
+    assert ref.dtype == np.float16
+    t = {k: (None if v is None else torch.from_numpy(v)) for k, v in f16.items()}
+    got = paged_attention_decode(
+        t["q"], t["kc"], t["vc"], torch.from_numpy(s["bt"]), torch.from_numpy(s["sl"]),
+        block_size=s["bs"], num_blocks=s["nb"], k_scale=t["ks"], v_scale=t["vs"],
+        device=CPU, **kw)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), ref.astype(np.float32),
+                               rtol=0, atol=3e-3)

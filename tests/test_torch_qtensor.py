@@ -190,3 +190,24 @@ def test_apply_quant_compute_int8_modes_name_b3(mode):
     assert out["w"].bits == (8 if mode == "w8a8" else 4)
     assert out["w"].act_quant_min_m == (256 if mode == "w4a8-prefill" else 0)
     assert not qt.act_quant                    # the input tree is not changed
+
+
+@pytest.mark.parametrize("bits,signed", [(4, True), (8, True), (2, False)])
+def test_qmm_plain_f16_matches_pallas_interpret(bits, signed):
+    """f16 activations, the compute dtype the AWQ/GPTQ loaders default to:
+    the plain version rounds x to bf16, sums in f32 and writes f16, as the
+    Pallas kernel B1 does (interpret mode). 2e-3 of max|y|: one f16 rounding
+    of the output (2^-11 relative) with room for f32 sums in another
+    order."""
+    rng = np.random.default_rng(60 + bits)
+    jt = _direct_qt(bits, signed, rng, k=256, n=128, gs=128)
+    pt = _port(jt)
+    x = (rng.standard_normal((4, 256)) * 0.5).astype(np.float16)
+    ref = np.asarray(quant_matmul_pallas(jnp.asarray(x), jt))
+    assert ref.dtype == np.float16
+    got = qmm(torch.from_numpy(x), pt.qweight, pt.scales, pt.mins, bits=bits,
+              signed=pt.signed, group_size=pt.group_size, device=CPU)
+    assert got.dtype == torch.float16
+    tol = 2e-3 * float(np.abs(ref.astype(np.float32)).max())
+    np.testing.assert_allclose(got.float().numpy(), ref.astype(np.float32),
+                               rtol=0, atol=tol)
