@@ -17,6 +17,7 @@ Output: [B, H_q, D] in q's dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -27,17 +28,43 @@ from ..utils import cuda_build
 from ..utils.device import DeviceLike, check_on, resolve_device
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+# The split plan: the most blocks one wave holds (two a SM on 132 SMs; a
+# second, partial wave costs more than fewer splits save: the split sweep of
+# chip_smoke.py), and the fewest keys a split takes.
+_TARGET_BLOCKS = 264
+_MIN_SPLIT_KEYS = 128
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("paged_attention")
     fn = lib.pa_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def walk_slots(max_blocks: int, block_size: int, sliding_window: Optional[int]) -> int:
+    """Table slots B2 walks for a sequence at most: the table width, or
+    under a window ``min(MB, W/BS + 2)`` from the first in-window slot."""
+    if sliding_window:
+        return min(max_blocks, sliding_window // block_size + 2)
+    return max_blocks
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(batch: int, num_kv_heads: int, max_blocks: int, block_size: int,
+               sliding_window: Optional[int] = None) -> tuple[int, int]:
+    """(splits, slots per split) of B2's sequence split: as many splits as
+    keep the (sequence, kv head) pairs within _TARGET_BLOCKS blocks, none
+    shorter than _MIN_SPLIT_KEYS keys; short walks take one split."""
+    walk = walk_slots(max_blocks, block_size, sliding_window)
+    most = max(1, walk // max(1, -(-_MIN_SPLIT_KEYS // block_size)))
+    splits = max(1, min(most, _TARGET_BLOCKS // (batch * num_kv_heads)))
+    per = -(-walk // splits)
+    return -(-walk // per), per
 
 
 def paged_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
@@ -136,6 +163,12 @@ def paged_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    mb = block_tables.shape[1]
+    splits, per = split_plan(b, h_kv, mb, block_size, sliding_window)
+    part_acc = part_ml = None
+    if splits > 1:
+        part_acc = torch.empty((b, h_q, splits, d), dtype=torch.float32, device=dev)
+        part_ml = torch.empty((b, h_q, splits, 2), dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -143,10 +176,10 @@ def paged_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     err = _lib().pa_decode_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
         ptr(v_scale), block_tables.data_ptr(), seq_lens.data_ptr(), ptr(alibi),
-        out.data_ptr(), b, h_q, h_kv, d, block_size, num_blocks,
-        block_tables.shape[1], int(sliding_window or 0),
-        float(logit_softcap or 0.0), 1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype],
-        int(quantized), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), ptr(part_acc), ptr(part_ml), b, h_q, h_kv, d, block_size,
+        num_blocks, mb, int(sliding_window or 0), float(logit_softcap or 0.0),
+        1.0 / math.sqrt(d), splits, per, _DTYPE_CODE[q.dtype], int(quantized),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"paged attention launch failed with CUDA error {err}")
     paged_attention_decode.launches += 1

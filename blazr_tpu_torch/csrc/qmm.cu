@@ -5,52 +5,79 @@
 //
 //     y[m,n] = sum_g  s[g,n] * (x_g . q_g)[m,n]  -  (sum_{k in g} x[m,k]) * mins[g,n]
 //
-// with the per-group partial x_g . q_g and the group sums of x in f32, the
-// output in x's dtype. The weight is the canonical K-packed layout of
-// quant/qtensor.py: word row w of qweight [K*bits/32, N] holds logical rows
-// w*r+j in bits [bits*j, bits*j+bits), r = 32/bits. Signed payloads are
-// two's complement in their field (4-bit AWQ/GPTQ are sign-biased at load).
+// with f32 sums and the output in x's dtype; f16 x is rounded to bf16 first,
+// as the TPU kernel rounds x (:94). The weight is the canonical K-packed
+// layout of quant/qtensor.py: word row w of qweight [K*bits/32, N] holds
+// logical rows w*r+j in bits [bits*j, bits*j+bits), r = 32/bits. Signed
+// payloads are two's complement in their field (4-bit AWQ/GPTQ are
+// sign-biased at load). Both variants below compute the sum in its folded
+// form, sum_k x[m,k] * (q[k,n]*s[g,n] - mins[g,n]): the same function.
 //
-// What bounds it on the H100: at decode (m <= 8) the weight stream — K*N/2
-// bytes of int4 words plus 2*(K/gs)*N*4 bytes of scale/min planes — against
-// 3.35 TB/s; at prefill the 2*m*K*N multiply-adds.
+// What bounds it on the H100, at the Mistral-7B shapes:
+//   * prefill (m = 512): the 2*m*K*N multiply-adds at 989 TFLOP/s bf16
+//     (gate+up K=4096 N=28672: 120 GFLOP, 0.122 ms);
+//   * decode (m <= 8): the weight stream, K*N/2 bytes of int4 words plus
+//     2*(K/gs)*N*4 bytes of scale/min planes at 3.35 TB/s (gate+up 66.6 MB,
+//     0.020 ms; o 9.5 MB, 0.003 ms).
 //
-// Design (simple and right first):
-//   * one block of 64 threads per (m-tile of BM rows, 64 output columns);
-//     each thread owns one column n and BM f32 accumulators;
-//   * x for the tile is staged in shared memory in chunks of kc rows of K
-//     (a multiple of the group size; the last chunk may be short, so K need
-//     not be a multiple of any tile), converted to f32 and stored k-major so
-//     one k reads the BM values of a thread's rows as a broadcast;
-//   * each thread reads whole u32 words of its column straight from device
-//     memory: neighbouring threads read neighbouring words, 8 words of a
-//     group are loaded before any is used so several loads are in flight;
-//   * unpack by shift and mask, sign-extend signed payloads, FMA in f32;
-//     at the end of each group the partial is scaled by s[g,n] and the
-//     group sum of x times mins[g,n] is subtracted;
-//   * m-tiles vary fastest over the grid, so blocks resident together read
-//     the same weight columns and the other m-tiles find them in L2.
-// Ragged N and ragged m are masked.
+// Two variants, chosen by the wrapper from the row count (quant/kernels.py,
+// TC_MIN_ROWS) and dtype:
 //
-// Two variants of the same function, chosen by the wrapper from the row
-// count (quant/kernels.py, TC_MIN_ROWS): below 16 rows (decode) the CUDA-core
-// kernel above; from 16 rows (prefill) and bf16 or f16 x, a WMMA tensor-core kernel
-// (below) that stages the dequantized integer tile in shared memory.
-// Known limits, left for later PRs: the grid has only ceil(N/64) blocks at
-// decode (64 for o_proj's N=4096, fewer than 132 SMs x a few) and there is
-// no split-K; the tensor-core variant uses mma.sync-class WMMA, not wgmma,
-// and neither variant pipelines its loads (no cp.async/TMA).
+// Tensor-core variant (qmm_wgmma_kernel; bf16 or f16 x, m >= TC_MIN_ROWS,
+// K % 64 == 0, a group size that is a multiple of 8 and that 64 divides or
+// that divides 64):
+//   * wgmma (sm_90a, m64nNk16, bf16 in, f32 sums in registers): two consumer
+//     warpgroups own a 128x128 output tile (each 64 rows x 128 columns), or
+//     64x128 for m <= 64 (each 64 x 64). K steps of 64.
+//   * One producer warp keeps a 3-stage ring full: the x tile by TMA (one
+//     thread, a 64 x BM box of a tensor map, rows 128-byte swizzled, rows past
+//     M zero-filled by the copy engine), the packed weight words and the
+//     tile's scale/min rows by 16-byte cp.async (columns past N zero-filled).
+//     Each stage has two mbarriers: full (the producer's copies and the x
+//     tile's bytes have landed) and empty (all 8 consumer warps are done with
+//     it). The consumers never issue a copy and never wait for one in flight.
+//     The x tile comes by TMA because one warp's 16-byte copies of it could
+//     not keep the ring full (17-25% slower at 512 rows than 256 threads
+//     issuing them, PERF.md); the weight words and planes are 4x fewer.
+//   * The consumers dequantize the int4 words of step kt into a bf16 B tile
+//     (K-major no-swizzle core matrices, double-buffered) while the products
+//     of step kt-1 run: the fields go to f32 exactly by the magic-number trick
+//     (0x4B000000 | v), then q*s - m in f32, then one bf16 rounding. That
+//     rounding of each weight element is the one rounding this variant adds
+//     to the function (2^-9 relative per element, unbiased); the kernel-vs-
+//     plain tolerance of 8e-3 x max|y| holds it (chip_smoke.py). One barrier
+//     of the 256 consumer threads per step.
+//   * When the output tiles give too few blocks, K is split across blocks
+//     (grid z); each split writes f32 partials and a second kernel sums them
+//     in a fixed order (no atomics: a run repeats bit for bit).
+//   * f16 x is first rounded to bf16 into a scratch buffer by a small kernel.
+//
+// Split-K CUDA-core variant (qmm_splitk_kernel; every other case: decode rows,
+// f32 x, groups that are not a multiple of 8, K % 64 != 0):
+//   * one output column per thread, 128 columns per block; K split across
+//     blocks (the N/128 column tiles alone give 32 blocks for o and down;
+//     the wrapper's decode_plan aims at several waves); fixed-order split
+//     reduction as above;
+//   * each block streams its K slab of packed words, scale/min rows and x
+//     through a 4-stage cp.async ring of 128 K rows (16-byte copies; 4-byte
+//     copies when N % 4 != 0);
+//   * x goes to f32 k-major in shared memory, so one K row of all BM rows is
+//     a broadcast float4 read; each weight is dequantized once in f32 (no
+//     bf16 rounding) and multiplied into BM f32 accumulators.
+//
+// Known limits: the x tile is still read from L2 once per 128-column tile
+// (no cluster multicast), the dequantized B tile goes through shared memory
+// (no register-sourced operand), and there is no persistent schedule. Rows
+// below TC_MIN_ROWS run on CUDA cores (the swapped-operand tensor-core
+// decode is not written).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 64;
-constexpr int kWordBatch = 16;     // one 4-bit group of 128 rows
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -68,366 +95,824 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half(v); }
 
-// Eight x values as bf16 (the tensor-core operand): a copy for bf16 x, a
-// rounding for f16 x.
-__device__ __forceinline__ uint4 to_bf16x8(uint4 v, const __nv_bfloat16*) { return v; }
-__device__ __forceinline__ uint4 to_bf16x8(uint4 v, const __half*) {
-  const __half2* h = reinterpret_cast<const __half2*>(&v);
-  uint4 out;
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = __float22bfloat162_rn(__half22float2(h[i]));
-  return out;
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of BYTES (4, 8 or 16) bytes; when !pred nothing is read and the
+// destination is zero-filled.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool pred) {
+  const int n = pred ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "n"(BYTES), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+template <int BITS> struct Pack {
+  static constexpr int R = 32 / BITS;                 // K rows per word
+  static constexpr uint32_t MASK = (1u << BITS) - 1u;
+  static constexpr int HALF = 1 << (BITS - 1);
+  // XOR with this turns every two's-complement field into field + HALF.
+  static constexpr uint32_t SIGN =
+      BITS == 2 ? 0xAAAAAAAAu : (BITS == 4 ? 0x88888888u : 0x80808080u);
+};
+
+// Field j of a word (already XORed with SIGN for signed payloads) as an exact
+// f32: 0x4B000000 | v is 2^23 + v; off is 2^23 (+ HALF when signed).
+template <int BITS>
+__device__ __forceinline__ float field(uint32_t w, int j, float off) {
+  return __int_as_float(0x4B000000u | ((w >> (BITS * j)) & Pack<BITS>::MASK)) - off;
+}
+
+// Sum the K splits in order (z = 0, 1, ...) and cast: deterministic.
+template <typename T>
+__global__ void reduce_splits(const float* __restrict__ part, T* __restrict__ y,
+                              int splits, size_t mn) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int z = 0; z < splits; ++z) s += part[(size_t)z * mn + i];
+    y[i] = from_f32<T>(s);
+  }
+}
+
+template <typename T>
+int launch_reduce(const void* part, void* y, int splits, size_t total, cudaStream_t st) {
+  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+  reduce_splits<T><<<blocks, 256, 0, st>>>(static_cast<const float*>(part),
+                                           static_cast<T*>(y), splits, total);
+  return (int)cudaGetLastError();
+}
+
+// Lets `kern` take `bytes` of dynamic shared memory. Each launcher keeps its
+// kernel's `allowed` size in a static, so the attribute is set once per kernel
+// and size, not on every launch (the call costs host time).
+cudaError_t allow_smem(const void* kern, size_t bytes, size_t& allowed) {
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
+}
+
+// ---------------------------------------------------------------------------
+// Split-K CUDA-core variant
+// ---------------------------------------------------------------------------
+
+constexpr int kDecThreads = 128;   // one output column per thread
+constexpr int kDecBN = 128;
+constexpr int kDecKst = 128;       // K rows per pipeline stage
+constexpr int kDecStages = 4;
+constexpr size_t kSmemMax = 227 * 1024;
+
+struct DecLayout {
+  size_t w_bytes, x_ld, x_bytes, sm_bytes, stage, xf_off, total;
+};
+
+template <int BITS, int BM, typename T>
+__host__ __device__ __forceinline__ DecLayout dec_layout(int ng) {
+  DecLayout l;
+  l.w_bytes = (size_t)(kDecKst / Pack<BITS>::R) * kDecBN * 4;
+  l.x_ld = (size_t)kDecKst * sizeof(T) + 16;          // padded x row, bytes
+  l.x_bytes = (size_t)BM * l.x_ld;
+  l.sm_bytes = (size_t)ng * kDecBN * 4;               // one plane: scales or mins
+  l.stage = l.w_bytes + l.x_bytes + 2 * l.sm_bytes;
+  l.xf_off = kDecStages * l.stage;
+  l.total = l.xf_off + (size_t)kDecKst * BM * 4;
+  return l;
 }
 
 template <int BITS, int BM, typename T>
-__global__ void __launch_bounds__(kThreads)
-qmm_kernel(const T* __restrict__ x, const uint32_t* __restrict__ qw,
-           const float* __restrict__ scales, const float* __restrict__ mins,
-           T* __restrict__ y, int M, int K, int N, int gs, int kc,
-           int is_signed) {
-  constexpr int R = 32 / BITS;
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  constexpr int HALF = 1 << (BITS - 1);
-  extern __shared__ float smem[];
-  float* xs = smem;                  // [kc][BM]   x chunk, k-major, f32
-  float* gsum = smem + kc * BM;      // [kc/gs][BM] group sums of x
+__global__ void __launch_bounds__(kDecThreads)
+qmm_splitk_kernel(const T* __restrict__ x, const uint32_t* __restrict__ qw,
+                  const float* __restrict__ scales, const float* __restrict__ mins,
+                  float* __restrict__ part, T* __restrict__ y, int M, int K, int N,
+                  int gs, int per, int ng, int is_signed) {
+  using P = Pack<BITS>;
+  constexpr int R = P::R;
+  constexpr int X4 = 4 * (int)sizeof(T);        // bytes of one 4-element x copy
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DecLayout l = dec_layout<BITS, BM, T>(ng);
+  float* xf = reinterpret_cast<float*>(smem + l.xf_off);   // [kst][BM]
 
-  const int m0 = blockIdx.x * BM;
-  const int n = blockIdx.y * kThreads + threadIdx.x;
-  const bool live = n < N;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wpg = gs / R;            // words per group
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kDecBN, n = n0 + tid;
+  const int z = blockIdx.y;
+  const int m0 = blockIdx.z * BM;
+  const int kb = z * per, ke = min(K, kb + per);
+  const int nst = (ke - kb + kDecKst - 1) / kDecKst;
+  const bool vec = (N & 3) == 0;
+  const uint32_t xmask = is_signed ? P::SIGN : 0u;
+  const float off = 8388608.f + (is_signed ? (float)P::HALF : 0.f);
+
+  auto load = [&](int c, int s) {
+    unsigned char* base = smem + (size_t)s * l.stage;
+    uint32_t* w_s = reinterpret_cast<uint32_t*>(base);
+    unsigned char* x_s = base + l.w_bytes;
+    float* s_s = reinterpret_cast<float*>(x_s + l.x_bytes);
+    float* m_s = s_s + (size_t)ng * kDecBN;
+    const int k0 = kb + c * kDecKst;
+    const int krows = min(kDecKst, ke - k0);
+    const int wrows = krows / R;
+    const int g_lo = k0 / gs;
+    const int nrow = (k0 + krows - 1) / gs - g_lo + 1;
+    if (vec) {
+      for (int i = tid; i < wrows * (kDecBN / 4); i += kDecThreads) {
+        const int r = i / (kDecBN / 4), c4 = (i % (kDecBN / 4)) * 4;
+        const bool ok = n0 + c4 < N;
+        cp_async<16>(w_s + r * kDecBN + c4,
+                     qw + (size_t)(k0 / R + r) * N + (ok ? n0 + c4 : 0), ok);
+      }
+      for (int i = tid; i < nrow * (kDecBN / 4); i += kDecThreads) {
+        const int r = i / (kDecBN / 4), c4 = (i % (kDecBN / 4)) * 4;
+        const bool ok = n0 + c4 < N;
+        const size_t src = (size_t)(g_lo + r) * N + (ok ? n0 + c4 : 0);
+        cp_async<16>(s_s + r * kDecBN + c4, scales + src, ok);
+        cp_async<16>(m_s + r * kDecBN + c4, mins + src, ok);
+      }
+    } else {
+      for (int i = tid; i < wrows * kDecBN; i += kDecThreads) {
+        const int r = i / kDecBN, c = i % kDecBN;
+        const bool ok = n0 + c < N;
+        cp_async<4>(w_s + i, qw + (size_t)(k0 / R + r) * N + (ok ? n0 + c : 0), ok);
+      }
+      for (int i = tid; i < nrow * kDecBN; i += kDecThreads) {
+        const int r = i / kDecBN, c = i % kDecBN;
+        const bool ok = n0 + c < N;
+        const size_t src = (size_t)(g_lo + r) * N + (ok ? n0 + c : 0);
+        cp_async<4>(s_s + i, scales + src, ok);
+        cp_async<4>(m_s + i, mins + src, ok);
+      }
+    }
+    const int xc = krows / 4;
+    for (int i = tid; i < BM * xc; i += kDecThreads) {
+      const int r = i / xc, c = i - r * xc;
+      const bool ok = m0 + r < M;
+      cp_async<X4>(x_s + r * l.x_ld + c * X4,
+                   x + (size_t)(ok ? m0 + r : 0) * K + k0 + 4 * c, ok);
+    }
+  };
 
   float acc[BM];
+  float acc1 = 0.f;                  // BM == 1: the odd K rows' partial sum
 #pragma unroll
-  for (int m = 0; m < BM; ++m) acc[m] = 0.f;
+  for (int i = 0; i < BM; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += kc) {
-    const int kcur = min(kc, K - k0);          // a multiple of gs
-    const int groups = kcur / gs;
-    __syncthreads();                           // previous chunk fully read
-    for (int i = threadIdx.x; i < kcur * BM; i += kThreads) {
-      const int m = i / kcur, kk = i - m * kcur;   // row-major read: coalesced
-      const int row = m0 + m;
-      xs[kk * BM + m] = row < M ? to_f32<T>(x[(size_t)row * K + k0 + kk]) : 0.f;
+#pragma unroll
+  for (int s = 0; s < kDecStages - 1; ++s) {
+    if (s < nst) load(s, s);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nst; ++c) {
+    if (c + kDecStages - 1 < nst) load(c + kDecStages - 1, (c + kDecStages - 1) % kDecStages);
+    cp_async_commit();
+    cp_async_wait<kDecStages - 1>();
+    __syncthreads();
+    const unsigned char* base = smem + (size_t)(c % kDecStages) * l.stage;
+    const uint32_t* w_s = reinterpret_cast<const uint32_t*>(base);
+    const unsigned char* x_s = base + l.w_bytes;
+    const float* s_s = reinterpret_cast<const float*>(x_s + l.x_bytes);
+    const float* m_s = s_s + (size_t)ng * kDecBN;
+    const int k0 = kb + c * kDecKst;
+    const int krows = min(kDecKst, ke - k0);
+    const int wrows = krows / R;
+
+    // x -> f32, k-major (f16 rounded to bf16); rows past M were zero-filled.
+    for (int i = tid; i < BM * krows; i += kDecThreads) {
+      const int r = i % BM, kk = i / BM;
+      xf[kk * BM + r] = to_f32<T>(reinterpret_cast<const T*>(x_s + r * l.x_ld)[kk]);
     }
     __syncthreads();
-    for (int p = warp; p < groups * BM; p += kThreads / 32) {
-      const int g = p / BM, m = p - g * BM;
-      float s = 0.f;
-      for (int i = lane; i < gs; i += 32) s += xs[(g * gs + i) * BM + m];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) gsum[p] = s;
-    }
-    __syncthreads();
-    if (!live) continue;
 
-    // The column's words of this chunk, in batches of kWordBatch: batch b+1
-    // is loaded before batch b is unpacked, so its loads are in flight
-    // while this one computes. A group spans `batches` batches.
-    const int batches = (wpg + kWordBatch - 1) / kWordBatch;
-    const int nbatch = groups * batches;
-    auto load_batch = [&](int b, uint32_t* dst) {
-      const int g = b / batches, w0 = (b - g * batches) * kWordBatch;
-      const uint32_t* wp = qw + (size_t)((k0 + g * gs) / R + w0) * N + n;
+    if (n < N) {
+      // Walk the groups without a division per word: `left` words remain in
+      // the current group, whose scale/min row of this stage is `g`.
+      const int wpg = gs / R;
+      int g = 0, left = (gs - k0 % gs) / R;
+      float sc = s_s[tid], mn = m_s[tid];
+      for (int w = 0; w < wrows; ++w) {
+        if (left == 0) {
+          ++g;
+          left = wpg;
+          sc = s_s[g * kDecBN + tid];
+          mn = m_s[g * kDecBN + tid];
+        }
+        --left;
+        const uint32_t word = w_s[w * kDecBN + tid] ^ xmask;
+        const float* xk = xf + (size_t)w * R * BM;
+        if constexpr (BM == 1) {         // one row: x of 4 consecutive K rows at once
 #pragma unroll
-      for (int u = 0; u < kWordBatch; ++u)
-        dst[u] = (w0 + u < wpg) ? __ldg(wp + (size_t)u * N) : 0u;
-    };
-    uint32_t next[kWordBatch];
-    load_batch(0, next);
-    float gacc[BM];
-#pragma unroll
-    for (int m = 0; m < BM; ++m) gacc[m] = 0.f;
-    float s = 0.f, mn = 0.f;
-    for (int b = 0; b < nbatch; ++b) {
-      uint32_t words[kWordBatch];
-#pragma unroll
-      for (int u = 0; u < kWordBatch; ++u) words[u] = next[u];
-      if (b + 1 < nbatch) load_batch(b + 1, next);
-      const int g = b / batches, w0 = (b - g * batches) * kWordBatch;
-      const int gg = k0 / gs + g;
-      if (w0 == 0) {                   // needed at the group's end
-        s = scales[(size_t)gg * N + n];
-        mn = mins[(size_t)gg * N + n];
-      }
-      const float* xg = xs + (g * gs + w0 * R) * BM;
-#pragma unroll
-      for (int u = 0; u < kWordBatch; ++u) {
-        if (w0 + u < wpg) {
-          const float* xw = xg + u * R * BM;
+          for (int j = 0; j < R; j += 4) {
+            const float4 xv = *reinterpret_cast<const float4*>(xk + j);
+            acc[0] = fmaf(xv.x, fmaf(field<BITS>(word, j, off), sc, -mn), acc[0]);
+            acc1 = fmaf(xv.y, fmaf(field<BITS>(word, j + 1, off), sc, -mn), acc1);
+            acc[0] = fmaf(xv.z, fmaf(field<BITS>(word, j + 2, off), sc, -mn), acc[0]);
+            acc1 = fmaf(xv.w, fmaf(field<BITS>(word, j + 3, off), sc, -mn), acc1);
+          }
+        } else {
 #pragma unroll
           for (int j = 0; j < R; ++j) {
-            int v = (int)((words[u] >> (BITS * j)) & MASK);
-            if (is_signed) v = (v ^ HALF) - HALF;      // sign-extend the field
-            const float q = (float)v;
+            const float wv = fmaf(field<BITS>(word, j, off), sc, -mn);
+            if constexpr (BM % 4 == 0) {
+              const float4* x4 = reinterpret_cast<const float4*>(xk + j * BM);
 #pragma unroll
-            for (int m = 0; m < BM; ++m) gacc[m] = fmaf(xw[j * BM + m], q, gacc[m]);
+              for (int i4 = 0; i4 < BM / 4; ++i4) {
+                const float4 xv = x4[i4];
+                acc[4 * i4] = fmaf(xv.x, wv, acc[4 * i4]);
+                acc[4 * i4 + 1] = fmaf(xv.y, wv, acc[4 * i4 + 1]);
+                acc[4 * i4 + 2] = fmaf(xv.z, wv, acc[4 * i4 + 2]);
+                acc[4 * i4 + 3] = fmaf(xv.w, wv, acc[4 * i4 + 3]);
+              }
+            } else {
+#pragma unroll
+              for (int i = 0; i < BM; ++i) acc[i] = fmaf(xk[j * BM + i], wv, acc[i]);
+            }
           }
         }
       }
-      if (w0 + kWordBatch >= wpg) {     // last batch of group g
-#pragma unroll
-        for (int m = 0; m < BM; ++m) {
-          acc[m] += s * gacc[m] - gsum[g * BM + m] * mn;
-          gacc[m] = 0.f;
-        }
-      }
     }
+    __syncthreads();                 // stage and xf fully read before reuse
   }
-  if (!live) return;
+  if (n >= N) return;
+  acc[0] += acc1;
 #pragma unroll
-  for (int m = 0; m < BM; ++m)
-    if (m0 + m < M) y[(size_t)(m0 + m) * N + n] = from_f32<T>(acc[m]);
+  for (int i = 0; i < BM; ++i) {
+    const int row = m0 + i;
+    if (row >= M) continue;
+    if (gridDim.y == 1)
+      y[(size_t)row * N + n] = from_f32<T>(acc[i]);
+    else
+      part[((size_t)z * M + row) * N + n] = acc[i];
+  }
 }
 
 template <int BITS, int BM, typename T>
-int launch_bm(const void* x, const void* qw, const void* scales, const void* mins,
-              void* y, int M, int K, int N, int gs, int is_signed, cudaStream_t stream) {
-  // Chunk of K staged per pass: 1024 rows, or one group when groups are larger.
-  int kc = gs >= 1024 ? gs : (1024 / gs) * gs;
-  if (kc > K) kc = K;
-  const size_t smem = (size_t)(kc * BM + (kc / gs) * BM) * sizeof(float);
-  auto kern = qmm_kernel<BITS, BM, T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((M + BM - 1) / BM, (N + kThreads - 1) / kThreads);
-  kern<<<grid, kThreads, smem, stream>>>(
+int launch_dec(const void* x, const void* qw, const void* s, const void* mn, void* part,
+               void* y, int M, int K, int N, int gs, int splits, int per, int sg,
+               cudaStream_t st) {
+  const int ng = (kDecKst - 1) / gs + 2;     // most group rows one stage spans
+  const DecLayout l = dec_layout<BITS, BM, T>(ng);
+  if (l.total > kSmemMax) return (int)cudaErrorInvalidValue;
+  auto kern = qmm_splitk_kernel<BITS, BM, T>;
+  static size_t allowed = 48 * 1024;
+  const cudaError_t ea = allow_smem(reinterpret_cast<const void*>(kern), l.total, allowed);
+  if (ea != cudaSuccess) return (int)ea;
+  const dim3 grid((N + kDecBN - 1) / kDecBN, splits, (M + BM - 1) / BM);
+  kern<<<grid, kDecThreads, l.total, st>>>(
       static_cast<const T*>(x), static_cast<const uint32_t*>(qw),
-      static_cast<const float*>(scales), static_cast<const float*>(mins),
-      static_cast<T*>(y), M, K, N, gs, kc, is_signed);
-  return (int)cudaGetLastError();
+      static_cast<const float*>(s), static_cast<const float*>(mn),
+      static_cast<float*>(part), static_cast<T*>(y), M, K, N, gs, per, ng, sg);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return launch_reduce<T>(part, y, splits, (size_t)M * N, st);
 }
 
 template <int BITS, typename T>
-int launch_bits(const void* x, const void* qw, const void* s, const void* mn, void* y,
-                int M, int K, int N, int gs, int sg, cudaStream_t st) {
-  // Decode row counts; more rows (f32 x, or groups the tensor-core variant
-  // does not tile) take several m-tiles of 8.
-  if (M <= 1) return launch_bm<BITS, 1, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
-  if (M <= 4) return launch_bm<BITS, 4, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
-  return launch_bm<BITS, 8, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
-}
-
-template <typename T>
-int launch_dtype(const void* x, const void* qw, const void* s, const void* mn, void* y,
-                 int M, int K, int N, int bits, int gs, int sg, cudaStream_t st) {
-  switch (bits) {
-    case 2: return launch_bits<2, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
-    case 4: return launch_bits<4, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
-    case 8: return launch_bits<8, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
+int launch_dec_bm(const void* x, const void* qw, const void* s, const void* mn, void* part,
+                  void* y, int M, int K, int N, int gs, int bm, int splits, int per,
+                  int sg, cudaStream_t st) {
+  switch (bm) {
+    case 1: return launch_dec<BITS, 1, T>(x, qw, s, mn, part, y, M, K, N, gs, splits, per, sg, st);
+    case 4: return launch_dec<BITS, 4, T>(x, qw, s, mn, part, y, M, K, N, gs, splits, per, sg, st);
+    case 8: return launch_dec<BITS, 8, T>(x, qw, s, mn, part, y, M, K, N, gs, splits, per, sg, st);
+    case 16:   // 16 rows, unless their stages overflow shared memory (8-bit, gs 4)
+      if (dec_layout<BITS, 16, T>((kDecKst - 1) / gs + 2).total <= kSmemMax)
+        return launch_dec<BITS, 16, T>(x, qw, s, mn, part, y, M, K, N, gs, splits, per, sg, st);
+      return launch_dec<BITS, 8, T>(x, qw, s, mn, part, y, M, K, N, gs, splits, per, sg, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-
 // ---------------------------------------------------------------------------
-// Tensor-core variant (bf16 or f16 activations, 2 <= m): the same function with the
-// per-group partials x_g . q_g taken by WMMA 16x16x16 bf16 products with f32
-// sums. The integer payload is exact in bf16, so only the order of the f32
-// sums differs from the CUDA-core path. Per chunk of kc rows of K (one group,
-// or 128 rows of a larger group): the x tile and the dequantized integer tile
-// are staged in shared memory, the four warps take their 16x16 fragments, and
-// at the end of each group the fragments go through shared memory so each
-// thread can scale its elements by s[g,n] and subtract xsum*mins[g,n].
+// Tensor-core (wgmma) variant
 // ---------------------------------------------------------------------------
 
-constexpr int kTcThreads = 128;
-constexpr int kTcBN = 64;
+constexpr int kTcConsumers = 256;            // two consumer warpgroups
+constexpr int kTcThreads = kTcConsumers + 32; // ... and one producer warp
+constexpr int kTcBN = 128;
+constexpr int kTcBK = 64;
+constexpr int kTcChunk = 8;                   // K rows dequantized under one scale
+constexpr int kTcStages = 3;
+constexpr int kBTile = kTcBN * kTcBK * 2;     // one dequantized bf16 B tile, bytes
+constexpr int kBarBytes = 128;                // the ring's mbarriers, padded
+constexpr int kAlign = 1024;                  // a 128-byte-swizzled tile's alignment
 
-template <int BITS, int BM, typename T>
-__global__ void __launch_bounds__(kTcThreads)
-qmm_tc_kernel(const T* __restrict__ x, const uint32_t* __restrict__ qw,
-              const float* __restrict__ scales, const float* __restrict__ mins,
-              T* __restrict__ y, int M, int K, int N, int gs, int kc,
-              int is_signed) {
-  using namespace nvcuda;
-  constexpr int R = 32 / BITS;
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  constexpr int HALF = 1 << (BITS - 1);
-  constexpr int WM = BM == 64 ? 2 : 1;        // warps along m
-  constexpr int WN = 4 / WM;                  // warps along n
-  constexpr int FM = BM / WM / 16;            // fragments per warp along m
-  constexpr int FN = kTcBN / WN / 16;         // fragments per warp along n
-  constexpr int LDB = kTcBN + 8;              // padded leading dims (bank spread)
-  constexpr int LDC = kTcBN + 4;
-  constexpr int PER_THREAD = BM * kTcBN / kTcThreads;
-  const int lda = kc + 8;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(tc_smem);   // [BM][lda]
-  __nv_bfloat16* b_s = a_s + BM * lda;                                // [kc][LDB]
-  float* c_s = reinterpret_cast<float*>(b_s + kc * LDB);              // [BM][LDC]
-  float* xsum = c_s + BM * LDC;                                       // [BM]
+struct TcLayout {
+  int x_bytes, w_bytes, sm_bytes, stage, b_off, bar_off, total;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp / WN, wn = warp % WN;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kTcBN;
+// From a 1024-byte aligned base: the ring (each stage the x tile, the packed
+// words and the scale/min rows of one K step; every part a multiple of 1024
+// bytes), two dequantized B tiles, the mbarriers; plus the alignment slack.
+template <int BITS, int BM>
+__host__ __device__ __forceinline__ TcLayout tc_layout(int ngt) {
+  TcLayout l;
+  l.x_bytes = BM * kTcBK * 2;
+  l.w_bytes = (kTcBK / Pack<BITS>::R) * kTcBN * 4;
+  l.sm_bytes = ngt * kTcBN * 4;
+  l.stage = l.x_bytes + l.w_bytes + 2 * l.sm_bytes;
+  l.b_off = kTcStages * l.stage;
+  l.bar_off = l.b_off + 2 * kBTile;
+  l.total = kAlign + l.bar_off + kBarBytes;
+  return l;
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> gacc[FM][FN];
+// wgmma shared-memory descriptor: start address, leading byte offset
+// (between the two core matrices along K; unused with the 128-byte swizzle)
+// and stride byte offset (between 8-row groups along M or N), all in 16-byte
+// units; layout 0 = no swizzle, 1 = 128-byte swizzle.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t layout) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(gacc[i][j], 0.f);
-  float acc[PER_THREAD];
-#pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) acc[i] = 0.f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
 
-  for (int k0 = 0; k0 < K; k0 += kc) {
-    __syncthreads();                           // previous chunk fully read
-    for (int i = tid; i < BM * (kc / 8); i += kTcThreads) {
-      const int r = i / (kc / 8), c8 = i - r * (kc / 8);
-      const int row = m0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < M)
-        v = to_bf16x8(*reinterpret_cast<const uint4*>(x + (size_t)row * K + k0 + c8 * 8), x);
-      *reinterpret_cast<uint4*>(a_s + r * lda + c8 * 8) = v;
+// mbarriers of the ring (CTA scope).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+// Arrive on `bar` expecting `bytes` more from the tensor copies that name it.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// TMA: the box at (c0 innermost, c1) of `map` into `dst`; completes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_u32(bar)) : "memory");
+}
+// Arrive on `bar` once every cp.async this thread issued so far has landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// The consumer warpgroups' barrier (id 1); the producer warp never joins it.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kTcConsumers) : "memory");
+}
+
+#define D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+              "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D[64 x N] += A[64 x 16] * B[16 x N], bf16 in, f32 sums; A and B K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "l"(a), "l"(b), "r"(1));
+}
+#undef D8
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Shared-memory tiles are K-major no-swizzle core matrices: element (r, k) of
+// a tile with RT rows sits at ((k/8)*(RT/8) + r/8)*128 + (r%8)*16 + (k%8)*2.
+//
+// Warp roles: warps 0-7 are the two consumer warpgroups, warp 8 the producer.
+// Stage s of the ring is guarded by two mbarriers: full[s] (the producer's 32
+// lanes arrive once their copies into s have landed) and empty[s] (the 8
+// consumer warps arrive once their products on s are done).
+template <int BITS, int BM, typename TO>
+__global__ void __launch_bounds__(kTcThreads, 2)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const uint32_t* __restrict__ qw,
+                 const float* __restrict__ scales, const float* __restrict__ mins,
+                 float* __restrict__ part, TO* __restrict__ y, int M, int K, int N,
+                 int gs, int per, int ngt, int is_signed) {
+  using P = Pack<BITS>;
+  constexpr int R = P::R;
+  constexpr int NW = BM == 128 ? 128 : 64;    // output columns per warpgroup
+  constexpr int NACC = NW / 2;                // f32 accumulators per thread
+  extern __shared__ __align__(128) unsigned char smem[];
+  const TcLayout l = tc_layout<BITS, BM>(ngt);
+  unsigned char* ring = smem + ((kAlign - (smem_u32(smem) & (kAlign - 1))) & (kAlign - 1));
+  unsigned char* b_s = ring + l.b_off;        // [2][kBTile] dequantized weights
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + l.bar_off);
+  uint64_t* empty = full + kTcStages;
+
+  const int tid = threadIdx.x, warp_id = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kTcBN, z = blockIdx.z;
+  const int kb = z * per, ke = min(K, kb + per);
+  const int KT = (ke - kb) / kTcBK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full + s, 33);      // 32 lanes' copies and the x tile's bytes
+      mbar_init(empty + s, kTcConsumers / 32);
     }
-    for (int i = tid; i < (kc / R) * kTcBN; i += kTcThreads) {
-      const int wr = i / kTcBN, c = i - wr * kTcBN;
-      const int n = n0 + c;
-      const uint32_t w = n < N ? __ldg(qw + (size_t)(k0 / R + wr) * N + n) : 0u;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        int v = (int)((w >> (BITS * j)) & MASK);
-        if (is_signed) v = (v ^ HALF) - HALF;
-        b_s[(wr * R + j) * LDB + c] = __int2bfloat16_rn(v);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp_id == kTcConsumers / 32) {
+    // Producer: x tile (TMA), packed words and scale/min rows (cp.async) of
+    // step kt into stage kt % kTcStages, once the consumers have released it.
+    const bool vec = (N & 3) == 0;
+    constexpr int WROWS = kTcBK / R;
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % kTcStages;
+      if (kt >= kTcStages) mbar_wait(empty + s, ((kt / kTcStages) + 1) & 1);
+      unsigned char* x_s = ring + s * l.stage;
+      uint32_t* w_s = reinterpret_cast<uint32_t*>(x_s + l.x_bytes);
+      float* s_s = reinterpret_cast<float*>(x_s + l.x_bytes + l.w_bytes);
+      float* m_s = s_s + ngt * kTcBN;
+      const int k0 = kb + kt * kTcBK;
+      // x: BM rows of 128 bytes, 128-byte swizzled; rows past M read as 0.
+      if (lane == 0) {
+        mbar_arrive_expect(full + s, l.x_bytes);
+        tma_load_2d(x_s, &xmap, k0, m0, full + s);
       }
-    }
-    __syncthreads();
-    if (tid < BM) {                            // group sums of x, f32
-      float s = 0.f;
-      for (int c = 0; c < kc; ++c) s += __bfloat162float(a_s[tid * lda + c]);
-      xsum[tid] = (k0 % gs == 0) ? s : xsum[tid] + s;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kc; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(af[i], a_s + ((wm * FM + i) * 16) * lda + kk, lda);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(bf[j], b_s + kk * LDB + (wn * FN + j) * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(gacc[i][j], af[i], bf[j], gacc[i][j]);
-    }
-    if ((k0 + kc) % gs == 0) {                 // the group ends here: apply its affine
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::store_matrix_sync(c_s + ((wm * FM + i) * 16) * LDC + (wn * FN + j) * 16,
-                                  gacc[i][j], LDC, wmma::mem_row_major);
-          wmma::fill_fragment(gacc[i][j], 0.f);
+      const int g0 = k0 / gs;
+      if (vec) {
+        for (int i = lane; i < WROWS * 32; i += 32) {
+          const int r = i >> 5, c4 = (i & 31) * 4;
+          const bool ok = n0 + c4 < N;
+          cp_async<16>(w_s + r * kTcBN + c4,
+                       qw + (size_t)(k0 / R + r) * N + (ok ? n0 + c4 : 0), ok);
         }
-      __syncthreads();
-      const int g = (k0 + kc) / gs - 1;
+        for (int i = lane; i < ngt * 32; i += 32) {
+          const int r = i >> 5, c4 = (i & 31) * 4;
+          const bool ok = n0 + c4 < N;
+          const size_t src = (size_t)(g0 + r) * N + (ok ? n0 + c4 : 0);
+          cp_async<16>(s_s + r * kTcBN + c4, scales + src, ok);
+          cp_async<16>(m_s + r * kTcBN + c4, mins + src, ok);
+        }
+      } else {
+        for (int i = lane; i < WROWS * kTcBN; i += 32) {
+          const int r = i >> 7, c = i & 127;
+          const bool ok = n0 + c < N;
+          cp_async<4>(w_s + i, qw + (size_t)(k0 / R + r) * N + (ok ? n0 + c : 0), ok);
+        }
+        for (int i = lane; i < ngt * kTcBN; i += 32) {
+          const int r = i >> 7, c = i & 127;
+          const bool ok = n0 + c < N;
+          const size_t src = (size_t)(g0 + r) * N + (ok ? n0 + c : 0);
+          cp_async<4>(s_s + i, scales + src, ok);
+          cp_async<4>(m_s + i, mins + src, ok);
+        }
+      }
+      cp_async_arrive(full + s);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    return;
+  }
+
+  // Consumers. Each thread dequantizes 4 chunks of 8 K rows of one column n
+  // into a B tile: bf16(q*s - m). An 8-thread phase writes 8 consecutive
+  // columns of one chunk: one 128-byte core matrix.
+  const uint32_t xmask = is_signed ? P::SIGN : 0u;
+  const float off = 8388608.f + (is_signed ? (float)P::HALF : 0.f);
+  auto dequant = [&](int s, unsigned char* bt) {
+    const unsigned char* base = ring + s * l.stage;
+    const uint32_t* w_s = reinterpret_cast<const uint32_t*>(base + l.x_bytes);
+    const float* s_s = reinterpret_cast<const float*>(base + l.x_bytes + l.w_bytes);
+    const float* m_s = s_s + ngt * kTcBN;
+    const int n = tid & 127;
 #pragma unroll
-      for (int i = 0; i < PER_THREAD; ++i) {
-        const int e = tid + i * kTcThreads;
-        const int r = e / kTcBN, c = e - r * kTcBN;
-        const int n = n0 + c;
-        if (n < N)
-          acc[i] += scales[(size_t)g * N + n] * c_s[r * LDC + c] -
-                    xsum[r] * mins[(size_t)g * N + n];
+    for (int j = 0; j < 4; ++j) {
+      const int kc = (tid >> 7) + 2 * j;
+      const int gr = gs >= kTcBK ? 0 : (kc * kTcChunk) / gs;   // gs % 8 == 0
+      const float sc = s_s[gr * kTcBN + n], mn = m_s[gr * kTcBN + n];
+      float v[8];
+      if constexpr (BITS == 4) {
+        const uint32_t w = w_s[kc * kTcBN + n] ^ xmask;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = field<4>(w, e, off);
+      } else if constexpr (BITS == 8) {
+        const uint32_t w0 = w_s[(2 * kc) * kTcBN + n] ^ xmask;
+        const uint32_t w1 = w_s[(2 * kc + 1) * kTcBN + n] ^ xmask;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[e] = field<8>(w0, e, off);
+          v[4 + e] = field<8>(w1, e, off);
+        }
+      } else {                                 // 2-bit: this chunk is half a word
+        const uint32_t w = (w_s[(kc >> 1) * kTcBN + n] ^ xmask) >> ((kc & 1) * 16);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = field<2>(w, e, off);
+      }
+      uint4 out;
+      out.x = pack_bf16x2(fmaf(v[0], sc, -mn), fmaf(v[1], sc, -mn));
+      out.y = pack_bf16x2(fmaf(v[2], sc, -mn), fmaf(v[3], sc, -mn));
+      out.z = pack_bf16x2(fmaf(v[4], sc, -mn), fmaf(v[5], sc, -mn));
+      out.w = pack_bf16x2(fmaf(v[6], sc, -mn), fmaf(v[7], sc, -mn));
+      *reinterpret_cast<uint4*>(bt + (kc * (kTcBN / 8) + (n >> 3)) * 128 + (n & 7) * 16) = out;
+    }
+  };
+
+  const int wg = tid >> 7;
+  float d[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) d[i] = 0.f;
+  const uint32_t ring_a = smem_u32(ring), b_a = smem_u32(b_s);
+
+  // Step kt: wait for its stage, dequantize its weights while the products
+  // of step kt-1 run, then issue its products and release step kt-1's stage.
+  // B tile kt & 1 was last read by step kt-2, whose stage release (by all 8
+  // consumer warps) says that both warpgroups' products on it are done.
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % kTcStages;
+    mbar_wait(full + s, (kt / kTcStages) & 1);
+    if (kt >= 2) mbar_wait(empty + (kt - 2) % kTcStages, ((kt - 2) / kTcStages) & 1);
+    dequant(s, b_s + (kt & 1) * kBTile);
+    fence_async_smem();                // the B tile, to wgmma
+    consumers_sync();
+    const uint32_t xa = ring_a + s * l.stage;
+    const uint32_t ba = b_a + (kt & 1) * kBTile;
+    fence_regs(d);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kTcBK / 16; ++ks) {
+      // A: this warpgroup's 64 rows (128-byte swizzled rows, 8-row groups
+      // 1024 bytes apart), K bytes 32ks..32ks+31; B: its columns.
+      const uint64_t da =
+          gmma_desc(xa + (BM == 128 ? 8192 * wg : 0) + 32 * ks, 16, 1024, 1);
+      const uint64_t db = gmma_desc(
+          ba + (2 * ks * (kTcBN / 8) + (BM == 128 ? 0 : 8 * wg)) * 128, kTcBN * 16, 128, 0);
+      if constexpr (BM == 128) wgmma_n128(d, da, db);
+      else wgmma_n64(d, da, db);
+    }
+    wgmma_commit();
+    fence_regs(d);
+    wgmma_wait<1>();                   // step kt-1's products are done
+    fence_regs(d);
+    if (kt > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (kt - 1) % kTcStages);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(d);
+
+  // Accumulator layout (per warpgroup, per n8 block j): d[4j + 2h + c] is row
+  // 16*warp + lane/4 + 8h, column 8j + 2*(lane%4) + c.
+  const int warp = warp_id & 3;
+  const int row0 = m0 + (BM == 128 ? 64 * wg : 0) + 16 * warp + (lane >> 2);
+  const int col0 = n0 + (BM == 128 ? 0 : 64 * wg) + 2 * (lane & 3);
+  const bool split = gridDim.z > 1;
+  const bool pair = (N & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h, col = col0 + 8 * j;
+      if (row >= M || col >= N) continue;
+      const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+      if (split) {
+        float* p = part + ((size_t)z * M + row) * N + col;
+        if (pair) {
+          store2(p, v0, v1);
+        } else {
+          p[0] = v0;
+          if (col + 1 < N) p[1] = v1;
+        }
+      } else {
+        TO* p = y + (size_t)row * N + col;
+        if (pair) {
+          store2(p, v0, v1);
+        } else {
+          p[0] = from_f32<TO>(v0);
+          if (col + 1 < N) p[1] = from_f32<TO>(v1);
+        }
       }
     }
   }
+}
+
+// f16 x rounded to bf16, 8 values a thread (n % 8 == 0, 16-byte aligned).
+__global__ void round_to_bf16(const __half* __restrict__ x, __nv_bfloat16* __restrict__ xb,
+                              size_t n8) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n8;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const uint4 v = reinterpret_cast<const uint4*>(x)[i];
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+    uint4 o;
+    __nv_bfloat162* b = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const int e = tid + i * kTcThreads;
-    const int r = e / kTcBN, c = e - r * kTcBN;
-    if (m0 + r < M && n0 + c < N)
-      y[(size_t)(m0 + r) * N + n0 + c] = from_f32<T>(acc[i]);
+    for (int e = 0; e < 4; ++e) b[e] = __float22bfloat162_rn(__half22float2(h[e]));
+    reinterpret_cast<uint4*>(xb)[i] = o;
   }
 }
 
-template <int BITS, int BM, typename T>
-int launch_tc_bm(const void* x, const void* qw, const void* scales, const void* mins,
-                 void* y, int M, int K, int N, int gs, int is_signed, cudaStream_t stream) {
-  const int kc = gs <= 128 ? gs : 128;
-  const size_t smem = (size_t)BM * (kc + 8) * 2 + (size_t)kc * (kTcBN + 8) * 2 +
-                      (size_t)BM * (kTcBN + 4) * 4 + (size_t)BM * 4;
-  auto kern = qmm_tc_kernel<BITS, BM, T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up once through the runtime.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) == cudaSuccess && q == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-  dim3 grid((M + BM - 1) / BM, (N + kTcBN - 1) / kTcBN);
-  kern<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint32_t*>(qw),
-      static_cast<const float*>(scales), static_cast<const float*>(mins),
-      static_cast<T*>(y), M, K, N, gs, kc, is_signed);
-  return (int)cudaGetLastError();
+  return fn;
 }
 
-template <int BITS, typename T>
-int launch_tc_bits(const void* x, const void* qw, const void* s, const void* mn, void* y,
-                   int M, int K, int N, int gs, int sg, cudaStream_t st) {
-  if (M <= 16) return launch_tc_bm<BITS, 16, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
-  return launch_tc_bm<BITS, 64, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
+template <int BITS, int BM, typename TO>
+int launch_tc(const __nv_bfloat16* xb, const void* qw, const void* s, const void* mn,
+              void* part, void* y, int M, int K, int N, int gs, int splits, int per,
+              int sg, cudaStream_t st) {
+  const int ngt = gs >= kTcBK ? 1 : kTcBK / gs;
+  const TcLayout l = tc_layout<BITS, BM>(ngt);
+  if ((size_t)l.total > kSmemMax) return (int)cudaErrorInvalidValue;
+  // x [M, K] bf16 as a TMA map of 64 x BM boxes (128-byte rows, swizzled).
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap xmap;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {kTcBK, BM};
+  const cuuint32_t estr[2] = {1, 1};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(xb),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  auto kern = qmm_wgmma_kernel<BITS, BM, TO>;
+  static size_t allowed = 48 * 1024;
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), l.total, allowed);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((M + BM - 1) / BM, (N + kTcBN - 1) / kTcBN, splits);
+  kern<<<grid, kTcThreads, l.total, st>>>(
+      xmap, static_cast<const uint32_t*>(qw), static_cast<const float*>(s),
+      static_cast<const float*>(mn), static_cast<float*>(part), static_cast<TO*>(y),
+      M, K, N, gs, per, ngt, sg);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return launch_reduce<TO>(part, y, splits, (size_t)M * N, st);
 }
 
-template <typename T>
-int launch_tc_dtype(const void* x, const void* qw, const void* s, const void* mn, void* y,
-                    int M, int K, int N, int bits, int gs, int sg, cudaStream_t st) {
-  switch (bits) {
-    case 2: return launch_tc_bits<2, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
-    case 4: return launch_tc_bits<4, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
-    case 8: return launch_tc_bits<8, T>(x, qw, s, mn, y, M, K, N, gs, sg, st);
-    default: return (int)cudaErrorInvalidValue;
+template <typename TO>
+int launch_tc_bits(const __nv_bfloat16* xb, const void* qw, const void* s, const void* mn,
+                   void* part, void* y, int M, int K, int N, int bits, int gs, int bm,
+                   int splits, int per, int sg, cudaStream_t st) {
+#define QMM_TC(B, BMV) \
+  launch_tc<B, BMV, TO>(xb, qw, s, mn, part, y, M, K, N, gs, splits, per, sg, st)
+  if (bm == 64) {
+    if (bits == 2) return QMM_TC(2, 64);
+    if (bits == 4) return QMM_TC(4, 64);
+    if (bits == 8) return QMM_TC(8, 64);
+  } else if (bm == 128) {
+    if (bits == 2) return QMM_TC(2, 128);
+    if (bits == 4) return QMM_TC(4, 128);
+    if (bits == 8) return QMM_TC(8, 128);
   }
+#undef QMM_TC
+  return (int)cudaErrorInvalidValue;
+}
+
+bool split_ok(int K, int splits, int per, int unit) {
+  return splits > 0 && per > 0 && per % unit == 0 && (long long)splits * per >= K &&
+         (long long)(splits - 1) * per < K;
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32, 2 = float16 (x and y; f16 x is rounded
-// to bf16). Returns a cudaError_t code.
+// Split-K CUDA-core variant. x [M,K] and y [M,N] in dtype (0 = bfloat16,
+// 1 = float32, 2 = float16; f16 x is rounded to bf16), x 16-byte aligned;
+// qweight u32 [K*bits/32, N]; scales, mins f32 [K/gs, N]; part f32
+// [splits, M, N] scratch (unused when splits == 1); bm in {1, 4, 8, 16} rows
+// per block; per: K rows per split, a multiple of 128. Returns a cudaError_t.
 extern "C" int qmm_launch(const void* x, const void* qweight, const void* scales,
-                          const void* mins, void* y, int M, int K, int N, int bits,
-                          int is_signed, int group_size, int dtype, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || group_size <= 0 || K % group_size != 0 ||
-      group_size % (32 / (bits > 0 ? bits : 32)) != 0)
+                          const void* mins, void* part, void* y, int M, int K, int N,
+                          int bits, int is_signed, int group_size, int bm, int splits,
+                          int per, int dtype, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || (bits != 2 && bits != 4 && bits != 8) ||
+      group_size <= 0 || K % group_size != 0 || group_size % (32 / bits) != 0 ||
+      !split_ok(K, splits, per, kDecKst) || (splits > 1 && part == nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dtype<__nv_bfloat16>(x, qweight, scales, mins, y, M, K, N, bits,
-                                       group_size, is_signed, st);
-  if (dtype == 1)
-    return launch_dtype<float>(x, qweight, scales, mins, y, M, K, N, bits, group_size,
-                               is_signed, st);
-  if (dtype == 2)
-    return launch_dtype<__half>(x, qweight, scales, mins, y, M, K, N, bits, group_size,
-                                is_signed, st);
+  auto by_bits = [&](auto tag) {
+    using T = decltype(tag);
+    if (bits == 2)
+      return launch_dec_bm<2, T>(x, qweight, scales, mins, part, y, M, K, N, group_size, bm,
+                                 splits, per, is_signed, st);
+    if (bits == 4)
+      return launch_dec_bm<4, T>(x, qweight, scales, mins, part, y, M, K, N, group_size, bm,
+                                 splits, per, is_signed, st);
+    return launch_dec_bm<8, T>(x, qweight, scales, mins, part, y, M, K, N, group_size, bm,
+                               splits, per, is_signed, st);
+  };
+  if (dtype == 0) return by_bits(__nv_bfloat16());
+  if (dtype == 1) return by_bits(float());
+  if (dtype == 2) return by_bits(__half());
   return (int)cudaErrorInvalidValue;
 }
 
-// Tensor-core path: x and y in dtype (0 = bfloat16, 2 = float16, rounded to
-// bf16 on staging); x 16-byte aligned; group size a multiple of 16 that is at
-// most 128 or a multiple of 128.
+// Tensor-core variant. x [M,K] and y [M,N] in dtype (0 = bfloat16,
+// 2 = float16), x 16-byte aligned; xbf: bf16 [M,K] scratch for f16 x (null
+// for bf16); K % 64 == 0; a group size that is a multiple of 8 and that 64
+// divides or that divides 64; bm in {64, 128}; per: K rows per split, a multiple of 64; part as above.
 extern "C" int qmm_tc_launch(const void* x, const void* qweight, const void* scales,
-                             const void* mins, void* y, int M, int K, int N, int bits,
-                             int is_signed, int group_size, int dtype, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || group_size % 16 != 0 || K % group_size != 0 ||
-      (group_size > 128 && group_size % 128 != 0) ||
+                             const void* mins, void* xbf, void* part, void* y, int M,
+                             int K, int N, int bits, int is_signed, int group_size, int bm,
+                             int splits, int per, int dtype, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % kTcBK != 0 ||
+      (bits != 2 && bits != 4 && bits != 8) || group_size <= 0 ||
+      K % group_size != 0 || group_size % kTcChunk != 0 ||
+      (group_size % kTcBK != 0 && kTcBK % group_size != 0) ||
+      !split_ok(K, splits, per, kTcBK) || (splits > 1 && part == nullptr) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_tc_dtype<__nv_bfloat16>(x, qweight, scales, mins, y, M, K, N, bits,
-                                          group_size, is_signed, st);
-  if (dtype == 2)
-    return launch_tc_dtype<__half>(x, qweight, scales, mins, y, M, K, N, bits, group_size,
-                                   is_signed, st);
+    return launch_tc_bits<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), qweight,
+                                         scales, mins, part, y, M, K, N, bits, group_size,
+                                         bm, splits, per, is_signed, st);
+  if (dtype == 2) {
+    if (xbf == nullptr || reinterpret_cast<uintptr_t>(xbf) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    const size_t n8 = (size_t)M * K / 8;
+    const int blocks = (int)((n8 + 255) / 256 < 4096 ? (n8 + 255) / 256 : 4096);
+    round_to_bf16<<<blocks, 256, 0, st>>>(static_cast<const __half*>(x),
+                                          static_cast<__nv_bfloat16*>(xbf), n8);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    return launch_tc_bits<__half>(static_cast<const __nv_bfloat16*>(xbf), qweight, scales,
+                                  mins, part, y, M, K, N, bits, group_size, bm, splits, per,
+                                  is_signed, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -15,6 +15,7 @@ back: a CUDA tensor a kernel does not take, or a failed launch, raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,37 +24,99 @@ from ..utils.device import DeviceLike, check_on, resolve_device
 from .qtensor import dequantize_planes
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
-# Fewest rows for the tensor-core variant of B1: below 16 rows the
-# CUDA-core variant is faster at every Mistral-7B projection, from 16 up
-# the tensor-core one (H100 timings in PERF.md, PR 1).
-TC_MIN_ROWS = 16
-# B4: rows the streaming variant takes (the JAX branch's m <= 32), the K rows
-# its blocks stream per stage, and the blocks it aims for on 132 SMs.
+# Fewest rows for B1's tensor-core (wgmma) variant; below it the split-K
+# CUDA-core variant runs. From the row sweep of chip_smoke.py phase 8
+# (PERF.md): at 4 rows the CUDA-core variant wins on all four projections,
+# from 6 the wgmma one does, and 5 rows cost the CUDA-core variant what 8
+# do (its 8-row tile).
+TC_MIN_ROWS = 5
+# Blocks B1 and B4 aim for on the H100's 132 SMs. B4, and B1's tensor-core
+# variant at 128-row tiles: one wave of two blocks a SM. B1 at decode rows
+# (its split-K variant, and 64-row wgmma tiles) runs several waves of short
+# blocks faster than one wave of long ones (the K-split sweep of
+# chip_smoke.py phase 8, PERF.md).
+_TARGET_BLOCKS = 264
+_DEC_TARGET_BLOCKS = 2048
+_TC64_TARGET_BLOCKS = 800
+_MAX_SPLITS = 16
+# B1: K rows a stage of the split-K variant streams; K rows a step of the
+# tensor-core variant, the K rows it dequantizes under one scale, and the
+# fewest steps one of its K splits takes.
+_DEC_KST = 128
+_TC_BK = 64
+_TC_CHUNK = 8
+_TC_MIN_STEPS = 8
+# B4: rows the streaming variant takes (the JAX branch's m <= 32) and the K
+# rows its blocks stream per stage.
 STREAM_MAX_ROWS = 32
 _STREAM_KST = 128
-_STREAM_TARGET_BLOCKS = 264
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("qmm")
     if lib.qmm_launch.argtypes is None:
-        lib.qmm_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        lib.qmm_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                                    + [ctypes.c_void_p])
         lib.qmm_launch.restype = ctypes.c_int
-        lib.qmm_tc_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        lib.qmm_tc_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                                       + [ctypes.c_void_p])
         lib.qmm_tc_launch.restype = ctypes.c_int
     return lib
 
 
-def _tensor_core_path(x: torch.Tensor, m: int, group_size: int) -> bool:
-    """The WMMA variant takes bf16 or f16 rows from TC_MIN_ROWS up, groups
-    that tile into 16-row steps, and 16-byte aligned x; the CUDA-core
-    variant takes everything else."""
-    return (x.dtype in (torch.bfloat16, torch.float16) and m >= TC_MIN_ROWS
-            and group_size % 16 == 0
-            and (group_size <= 128 or group_size % 128 == 0)
-            and x.data_ptr() % 16 == 0)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split(units: int, tiles: int, max_splits: int, target: int) -> tuple[int, int]:
+    """(splits, units per split): enough splits of ``units`` K steps that
+    ``tiles`` output tiles give about ``target`` blocks, at most
+    ``max_splits``; the last split may be short."""
+    splits = max(1, min(max_splits, _cdiv(target, tiles)))
+    per = _cdiv(units, splits)
+    return _cdiv(units, per), per
+
+
+def _partials_cap(m: int, k: int) -> int:
+    """Most splits whose f32 partials (written and read, 8*m*N*splits bytes)
+    move no more bytes than the int4 weight's K*N/2."""
+    return max(1, k // (16 * m))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """(rows per block, K splits, K rows per split) of B1's split-K CUDA-core
+    variant: 128 columns a block, a split at least two 128-row stages."""
+    bm = 1 if m <= 1 else 4 if m <= 4 else 8 if m <= 8 else 16
+    units = _cdiv(k, _DEC_KST)
+    cap = min(_MAX_SPLITS, max(1, units // 2), _partials_cap(m, k))
+    splits, per = _split(units, _cdiv(m, bm) * _cdiv(n, 128), cap, _DEC_TARGET_BLOCKS)
+    return bm, splits, per * _DEC_KST
+
+
+@functools.lru_cache(maxsize=None)
+def tc_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """(rows per block, K splits, K rows per split) of B1's tensor-core
+    variant: 64x128 tiles up to 64 rows, 128x128 beyond; a split takes at
+    least _TC_MIN_STEPS steps of 64 K rows."""
+    units = k // _TC_BK
+    cap = min(_MAX_SPLITS, max(1, units // _TC_MIN_STEPS))
+    if m <= 64:
+        splits, per = _split(units, _cdiv(n, 128), min(cap, _partials_cap(m, k)),
+                             _TC64_TARGET_BLOCKS)
+        return 64, splits, per * _TC_BK
+    splits, per = _split(units, _cdiv(m, 128) * _cdiv(n, 128), cap, _TARGET_BLOCKS)
+    return 128, splits, per * _TC_BK
+
+
+def tensor_core_path(dtype: torch.dtype, m: int, k: int, group_size: int) -> bool:
+    """The wgmma variant takes bf16 or f16 rows from TC_MIN_ROWS up, K a
+    multiple of 64 and a group size that 64 divides or that divides 64 and
+    is a multiple of 8 (it dequantizes 8 K rows under one scale); the
+    split-K CUDA-core variant takes everything else."""
+    return (dtype in (torch.bfloat16, torch.float16) and m >= TC_MIN_ROWS
+            and k % _TC_BK == 0 and group_size % _TC_CHUNK == 0
+            and (group_size % _TC_BK == 0 or _TC_BK % group_size == 0))
 
 
 def qmm_reference(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
@@ -65,6 +128,10 @@ def qmm_reference(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     w = dequantize_planes(qweight, scales, mins, bits, signed, group_size)
     xf = x.to(torch.bfloat16) if x.dtype == torch.float16 else x
     return (xf.to(torch.float32) @ w).to(x.dtype)
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _check(x, qweight, scales, mins, bits, group_size):
@@ -108,14 +175,28 @@ def qmm(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
-    lib = _lib()
-    ptrs = (x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), mins.data_ptr(),
-            y.data_ptr(), m, k, n, bits, int(signed), group_size)
+    if x.data_ptr() % 16:
+        x = x.clone()                      # a fresh allocation is 16-byte aligned
+    code = _DTYPE_CODE[x.dtype]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if _tensor_core_path(x, m, group_size):
-        err = lib.qmm_tc_launch(*ptrs, _DTYPE_CODE[x.dtype], stream)
+    if tensor_core_path(x.dtype, m, k, group_size):
+        bm, splits, per = tc_plan(m, k, n)
+        part = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+                if splits > 1 else None)
+        xbf = (torch.empty((m, k), dtype=torch.bfloat16, device=dev)
+               if x.dtype == torch.float16 else None)
+        err = _lib().qmm_tc_launch(
+            x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), mins.data_ptr(),
+            _ptr(xbf), _ptr(part), y.data_ptr(), m, k, n, bits, int(signed),
+            group_size, bm, splits, per, code, stream)
     else:
-        err = lib.qmm_launch(*ptrs, _DTYPE_CODE[x.dtype], stream)
+        bm, splits, per = decode_plan(m, k, n)
+        part = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+                if splits > 1 else None)
+        err = _lib().qmm_launch(
+            x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), mins.data_ptr(),
+            _ptr(part), y.data_ptr(), m, k, n, bits, int(signed), group_size, bm,
+            splits, per, code, stream)
     if err:
         raise RuntimeError(f"qmm kernel launch failed with CUDA error {err} "
                            f"(M={m} K={k} N={n} bits={bits} gs={group_size})")
@@ -151,11 +232,11 @@ def qmm_stream_reference(x: torch.Tensor, qweight: torch.Tensor,
 
 def stream_splits(k: int, n: int, group_size: int) -> tuple[int, int]:
     """(splits, K rows per split) for B4: enough K splits that the N/128
-    column tiles give about _STREAM_TARGET_BLOCKS blocks; a split is a whole
+    column tiles give about _TARGET_BLOCKS blocks; a split is a whole
     number of stages of max(128, group) rows."""
     unit = max(_STREAM_KST, group_size)
     units = k // unit
-    splits = min(units, max(1, -(-_STREAM_TARGET_BLOCKS // (n // 128))))
+    splits = min(units, max(1, -(-_TARGET_BLOCKS // (n // 128))))
     per = -(-units // splits) * unit
     return -(-k // per), per
 

@@ -8,8 +8,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   1.  print the card (name, power limit) and build csrc/*.cu (B1-B6) with
       nvcc, one process per source, all started together;
   2.  kernel B1 (fused dequant-matmul) against its plain version at the
-      Mistral-7B projection shapes and small edge cases, f16 included;
-  3.  kernel B2 (paged decode attention) against its plain version;
+      Mistral-7B projection shapes (gate+up at the rows around its variants'
+      tile edges) and small edge cases, f16 and f32 included;
+  3.  kernel B2 (paged decode attention) against its plain version, with
+      its sequence splits (one sequence over 32 splits, split edges, empty
+      splits under a window);
   3b. kernel B3 (int8-activation matmul) against its plain version: the four
       projections at m ∈ {1, 8, 256, 512}, w4a8 and w8a8, bf16, f32 and f16,
       a GPTQ desc-act perm, all-zero rows, integer-equal activation quant;
@@ -21,7 +24,9 @@ Phases, in order; any failure raises and the script exits non-zero:
       teacher-forced decode steps, on the card (bf16) against the CPU (f32);
   4b. the same for the contiguous llama.forward under w8a8 (B3 on the card);
   4c. the Δppl gate: w4a8-prefill and w8a8 within 2% of w4a16;
-  5.  the 32-layer Mistral-7B AWQ BatchEngine serving 8 requests (w4a16);
+  5.  the 32-layer Mistral-7B AWQ BatchEngine serving 8 requests (w4a16),
+      then a torch.profiler pass over one prefill group and 16 decode steps
+      (device idle share and the top device operations);
   5b. the 32-layer Executor under w8a8: a 512-token prompt, 128 greedy
       tokens, B3 launched 128 times per forward and B1 never;
   5c. the 8 requests of phase 5 under w4a8-prefill with
@@ -30,9 +35,15 @@ Phases, in order; any failure raises and the script exits non-zero:
       BPE tokenizer.json written to disk, loaded by load_model (f16) and
       served over HTTP with continuous batching (8 concurrent requests), then
       ``python -m blazr_tpu_torch.cli serve`` as a subprocess;
-  8.  timings, and one ``{"kernels": [...]}`` JSON line with each kernel's
-      launches in its serving phase, max error, time, bound, plain time and
-      library-call time.
+  8.  the sweeps behind B1's and B2's launch plans, straight through the
+      libraries: B1's two variants over rows (TC_MIN_ROWS) and over K splits
+      at decode rows (the planners' block targets), B2 over its split count;
+  9.  timings (device time of one call: CUDA graphs of many calls), B1 over
+      rows 1-512 at every projection, B2 at three batch/context points,
+      B3-B6 at one point each; then one ``{"kernels": [...]}`` JSON line
+      with each kernel's launches in its serving phase, max error, time,
+      bound, plain time and library-call time (B1: prefill, with its decode
+      point under "decode").
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after. The last line is ``{"ok": true, "device": {...}}``. Without
 CUDA, or run outside a checkout that holds ``blazr_tpu_torch/``, it prints no
@@ -75,6 +86,33 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time (ms) of one ``fn()``: ``iters`` calls captured in one CUDA
+    graph, replayed once between two events, so a wrapper's host time does
+    not hide in the kernel's."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def time_eager(fn, iters: int, warmup: int = 2) -> float:
+    """Time (ms) of one eager ``fn()`` over ``iters`` calls on the stream:
+    the plain versions, and host-bound calls as a caller sees them."""
     import torch
 
     for _ in range(warmup):
@@ -143,7 +181,8 @@ def check_b1(dev, gen) -> dict:
 
     for pname, (k, n) in B1_SHAPES.items():
         qw, s, mn = rand_planes(k, n, 4, 128, gen, dev)
-        for m in (1, 8, 64, 512):
+        rows = (1, 4, 5, 8, 16, 64, 65, 128, 129, 512) if pname == "gateup" else (1, 8, 64, 512)
+        for m in rows:
             x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
             one(f"{pname} K={k} N={n} m={m}", x, qw, s, mn, 4, True, 128)
     small = [  # name, m, k, n, bits, signed, gs, x dtype (m >= 16: tensor cores)
@@ -156,6 +195,11 @@ def check_b1(dev, gen) -> dict:
         ("8-bit unsigned gs64 m=130 N=136", 130, 512, 136, 8, False, 64, torch.bfloat16),
         ("4-bit unsigned gs128", 5, 512, 256, 4, False, 128, torch.bfloat16),
         ("4-bit gs256 m=17", 17, 512, 256, 4, True, 256, torch.bfloat16),
+        # groups of 8 rows: one per dequantized chunk on tensor cores; 8-bit
+        # groups of 4 split a chunk, so they take the split-K variant
+        ("4-bit gs8 m=40", 40, 512, 256, 4, True, 8, torch.bfloat16),
+        ("8-bit signed gs4 m=40", 40, 512, 128, 8, True, 4, torch.bfloat16),
+        ("8-bit unsigned gs4 f32 m=40", 40, 512, 128, 8, False, 4, torch.float32),
         ("ragged N=200 K=384 m=37", 37, 384, 200, 4, True, 128, torch.bfloat16),
         ("ragged N=70 m=1", 1, 256, 70, 4, True, 64, torch.bfloat16),
         ("f32 activations", 6, 512, 256, 4, True, 128, torch.float32),
@@ -192,80 +236,159 @@ def check_b1(dev, gen) -> dict:
     return {"max_abs_err": max(worst, err)}
 
 
+B1_ROWS = (1, 8, 16, 32, 64, 128, 512)
+
+
 def time_b1(dev, gen) -> dict:
-    """B1 at every projection's decode shape (m=8); the fused gate+up one
-    also against the plain version and the library call."""
+    """B1 at every projection over B1_ROWS, and gate+up at m=4096: kernel
+    time, bound and torch.matmul on the bf16-dequantized weight (the library
+    call); the plain version at gate+up m=8 and m=512; f16 x at the same two
+    points."""
     import torch
 
     from blazr_tpu_torch.quant.kernels import qmm, qmm_reference
     from blazr_tpu_torch.quant.qtensor import dequantize_planes
 
     gs = 128
+    rows = {}
     for pname, (k, n) in B1_SHAPES.items():
         qw, s, mn = rand_planes(k, n, 4, gs, gen, dev)
-        for m in (1, 8, 512):
+        w = dequantize_planes(qw, s, mn, 4, True, gs, torch.bfloat16)
+        for m in B1_ROWS + ((4096,) if pname == "gateup" else ()):
             x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
-            ms = time_ms(lambda: qmm(x, qw, s, mn, bits=4, signed=True,
-                                     group_size=gs, device=dev), iters=20)
+            iters = 5 if m >= 4096 else 20
+            ms = time_ms(lambda: qmm(x, qw, s, mn, bits=4, signed=True, group_size=gs,
+                                     device=dev), iters=iters)
+            library_ms = time_ms(lambda: torch.matmul(x, w), iters=iters)
             nbytes = qw.numel() * 4 + s.numel() * 8 + x.numel() * 2 + m * n * 2
             bms, by = bound(nbytes, 2.0 * m * k * n)
-            log(f"  B1 {pname} m={m} K={k} N={n}: kernel {ms:.4f} ms, bound "
-                f"{bms:.4f} ms ({by}), {2.0 * m * k * n / ms / 1e9:.1f} TFLOP/s")
-    m = 8
-    k, n = B1_SHAPES["gateup"]
-    qw, s, mn = rand_planes(k, n, 4, gs, gen, dev)
-    x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
-    ms = time_ms(lambda: qmm(x, qw, s, mn, bits=4, signed=True, group_size=gs,
-                             device=dev), iters=50)
-    plain_ms = time_ms(lambda: qmm_reference(x, qw, s, mn, bits=4, signed=True,
-                                             group_size=gs), iters=5, warmup=1)
-    w = dequantize_planes(qw, s, mn, 4, True, gs, torch.bfloat16)
-    library_ms = time_ms(lambda: torch.matmul(x, w), iters=50)
-    nbytes = qw.numel() * 4 + s.numel() * 4 + mn.numel() * 4 + x.numel() * 2 + m * n * 2
-    bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
-    x16 = x.to(torch.float16)
-    f16_ms = time_ms(lambda: qmm(x16, qw, s, mn, bits=4, signed=True, group_size=gs,
-                                 device=dev), iters=50)
-    log(f"  B1 gateup m={m}: kernel {ms:.4f} ms (f16 x: {f16_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, torch.matmul(bf16 dequantized) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, shape=f"m={m} K={k} N={n}",
-                f16_ms=f16_ms)
+            row = dict(ms=ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
+                       plain_ms=None, shape=f"{pname} m={m} K={k} N={n}")
+            if pname == "gateup" and m in (8, 512):
+                row["plain_ms"] = time_eager(lambda: qmm_reference(
+                    x, qw, s, mn, bits=4, signed=True, group_size=gs), iters=3, warmup=1)
+                x16 = x.to(torch.float16)
+                row["f16_ms"] = time_ms(lambda: qmm(x16, qw, s, mn, bits=4, signed=True,
+                                                    group_size=gs, device=dev), iters=iters)
+            rows[(pname, m)] = row
+            log(f"  B1 {pname} m={m} K={k} N={n}: kernel {ms:.4f} ms "
+                f"({2.0 * m * k * n / ms / 1e9:.1f} TFLOP/s), bound {bms:.4f} ms ({by}, "
+                f"x{ms / bms:.1f}), torch.matmul(bf16 dequantized) {library_ms:.4f} ms "
+                f"(x{ms / library_ms:.2f})"
+                + ("" if row["plain_ms"] is None else
+                   f", plain {row['plain_ms']:.4f} ms, f16 x {row['f16_ms']:.4f} ms"))
+        del w
+    return rows
+
+
+def b1_launcher(lib, variant, x, qw, s, mn, y, part, m, k, n, bm, splits, per):
+    """One launch of a B1 variant straight through the library (its own
+    rows per block and K split), on the current stream; not counted."""
+    import torch
+
+    ptrs = (x.data_ptr(), qw.data_ptr(), s.data_ptr(), mn.data_ptr())
+
+    def simt():
+        stream = torch.cuda.current_stream(x.device).cuda_stream   # the capture's
+        assert lib.qmm_launch(*ptrs, part.data_ptr(), y.data_ptr(), m, k, n, 4, 1,
+                              128, bm, splits, per, 0, stream) == 0
+
+    def wgmma():
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        assert lib.qmm_tc_launch(*ptrs, None, part.data_ptr(), y.data_ptr(), m, k,
+                                 n, 4, 1, 128, bm, splits, per, 0, stream) == 0
+
+    return simt if variant == "simt" else wgmma
 
 
 def b1_variants(dev, gen) -> None:
-    """B1's two variants against each other at the Mistral projections, in
-    turns (CUDA-core, WMMA, WMMA, CUDA-core), best of each pair: the
-    measurement behind the wrapper's TC_MIN_ROWS. Calls the library directly,
-    so these launches do not count."""
+    """B1's two variants against each other at the Mistral projections and
+    the rows around TC_MIN_ROWS, in turns (split-K CUDA-core, wgmma, wgmma,
+    CUDA-core), best of each pair: the sweep behind the wrapper's
+    TC_MIN_ROWS. Then each variant over its K split count at decode rows:
+    the sweep behind the planners' block targets (quant/kernels.py). Calls
+    the library directly, so these launches do not count."""
     import torch
 
     from blazr_tpu_torch.quant import kernels
 
     lib = kernels._lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     for pname, (k, n) in B1_SHAPES.items():
         qw, s, mn = rand_planes(k, n, 4, 128, gen, dev)
         row = []
-        for m in (8, 16, 64, 512):
+        for m in (1, 4, 6, 8, 12, 16, 32, 64):
             x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
             y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-            args = (x.data_ptr(), qw.data_ptr(), s.data_ptr(), mn.data_ptr(),
-                    y.data_ptr(), m, k, n, 4, 1, 128)
-
-            def simt():
-                assert lib.qmm_launch(*args, 0, stream) == 0
-
-            def wmma():
-                assert lib.qmm_tc_launch(*args, 0, stream) == 0
-
-            t = {"simt": [], "wmma": []}
-            for name, fn in (("simt", simt), ("wmma", wmma), ("wmma", wmma),
+            plan_d = kernels.decode_plan(m, k, n)
+            plan_t = kernels.tc_plan(m, k, n)
+            part = torch.empty((max(plan_d[1], plan_t[1]), m, n), dtype=torch.float32,
+                               device=dev)
+            simt = b1_launcher(lib, "simt", x, qw, s, mn, y, part, m, k, n, *plan_d)
+            wgmma = b1_launcher(lib, "wgmma", x, qw, s, mn, y, part, m, k, n, *plan_t)
+            t = {"simt": [], "wgmma": []}
+            for name, fn in (("simt", simt), ("wgmma", wgmma), ("wgmma", wgmma),
                              ("simt", simt)):
                 t[name].append(time_ms(fn, iters=20))
-            row.append(f"m={m} {min(t['simt']):.4f}/{min(t['wmma']):.4f}")
-        log(f"  B1 {pname} CUDA-core/WMMA ms: " + ", ".join(row))
+            row.append(f"m={m} {min(t['simt']):.4f}/{min(t['wgmma']):.4f}")
+        log(f"  B1 {pname} split-K CUDA-core/wgmma ms: " + ", ".join(row))
+    for pname, (k, n) in B1_SHAPES.items():
+        qw, s, mn = rand_planes(k, n, 4, 128, gen, dev)
+        for variant, m, unit in (("simt", 1, 128), ("simt", 4, 128), ("wgmma", 8, 64),
+                                 ("wgmma", 64, 64)):
+            plan = (kernels.decode_plan if variant == "simt" else kernels.tc_plan)(m, k, n)
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+            part = torch.empty((16, m, n), dtype=torch.float32, device=dev)
+            row = []
+            for want in (1, 2, 4, 8, 16):
+                per = -(-(k // unit) // want) * unit
+                splits = -(-k // per)
+                fn = b1_launcher(lib, variant, x, qw, s, mn, y, part, m, k, n, plan[0],
+                                 splits, per)
+                mark = "*" if splits == plan[1] else ""
+                row.append(f"{splits}{mark}: {time_ms(fn, iters=20):.4f}")
+            tiles = -(-m // plan[0]) * -(-n // 128)
+            log(f"  B1 {variant} {pname} m={m} ({tiles} tiles) ms by K splits "
+                f"(* the plan's): " + ", ".join(row))
+
+
+def b2_splits(dev, gen) -> None:
+    """B2 over its split count at B2_SHAPES, straight through the library
+    (not counted): the sweep behind split_plan's one-wave rule."""
+    import math
+
+    import torch
+
+    from blazr_tpu_torch.attention import paged_attention as pa
+
+    lib = pa._lib()
+    h_q, h_kv, d, bs, window = 32, 8, 128, 64, 4096
+    for b, ctx in B2_SHAPES:
+        s = pa_inputs(dev, gen, b=b, h_q=h_q, h_kv=h_kv, d=d, bs=bs, seq_lens=[ctx] * b)
+        mb = s["bt"].shape[1]
+        walk = pa.walk_slots(mb, bs, window)
+        plan = pa.split_plan(b, h_kv, mb, bs, window)[0]
+        out = torch.empty_like(s["q"])
+        acc = torch.empty((b, h_q, walk, d), dtype=torch.float32, device=dev)
+        ml = torch.empty((b, h_q, walk, 2), dtype=torch.float32, device=dev)
+        row = []
+        for want in sorted({1, 2, 3, 4, 5, 6, 8, 12, 16} & set(range(1, walk + 1))):
+            per = -(-walk // want)
+            splits = -(-walk // per)
+
+            def fn():
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                assert lib.pa_decode_launch(
+                    s["q"].data_ptr(), s["kc"].data_ptr(), s["vc"].data_ptr(), None, None,
+                    s["bt"].data_ptr(), s["sl"].data_ptr(), None, out.data_ptr(),
+                    acc.data_ptr(), ml.data_ptr(), b, h_q, h_kv, d, bs, s["nb"], mb,
+                    window, 0.0, 1.0 / math.sqrt(d), splits, per, 0, 0, stream) == 0
+
+            mark = "*" if splits == plan else ""
+            row.append(f"{splits}{mark} ({b * h_kv * splits} blocks): "
+                       f"{time_ms(fn, iters=100):.4f}")
+        log(f"  B2 B={b} ctx={ctx} ms by splits (* the plan's): " + ", ".join(row))
+        del s, acc, ml
 
 
 # ---------------------------------------------------------------------------
@@ -420,10 +543,21 @@ def check_b2(dev, gen) -> dict:
         ("f16 W=4096", dict(d=128, bs=64, dtype=torch.float16), dict(sliding_window=4096)),
         ("f16 int8 KV + window 256", dict(d=128, bs=64, int8=True, dtype=torch.float16),
          dict(sliding_window=256)),
+        # the sequence splits: one sequence over 32 splits; 32 sequences in
+        # one split; block 16 with the window starting inside a split, whole
+        # splits empty, a row ending at a split edge and one past it
+        ("B=1 ctx 4096 W=4096 (32 splits)", dict(d=128, bs=64, lens=[4096]),
+         dict(sliding_window=4096)),
+        ("B=32 ragged<=1024 (1 split)", dict(d=128, bs=64, lens=ragged * 4), {}),
+        ("split edges bs 16 W=700", dict(d=128, bs=16, lens=[1400, 100, 288, 289, 1, 700,
+                                                             701, 1024]),
+         dict(sliding_window=700)),
     ]
     worst = 0.0
     for name, geo, opt in cases:
-        s = pa_inputs(dev, gen, b=8, h_q=32, h_kv=8, seq_lens=ragged, **geo)
+        geo = dict(geo)
+        lens = geo.pop("lens", ragged)
+        s = pa_inputs(dev, gen, b=len(lens), h_q=32, h_kv=8, seq_lens=lens, **geo)
         opt = dict(opt)
         if opt.pop("alibi", False):
             opt["alibi"] = alibi_slopes(32, dev) * geo["d"] ** -0.5
@@ -445,48 +579,69 @@ def check_b2(dev, gen) -> dict:
     return {"max_abs_err": worst}
 
 
-def time_b2(dev, gen) -> dict:
-    """Mistral decode attention, B=8 at 1024 tokens each, bf16 KV."""
-    import torch
+def sdpa_ms(q, k, v, h_q, h_kv) -> float:
+    """One scaled_dot_product_attention call over pre-gathered KV [B, H_kv,
+    S, D] (GQA), the library call beside the attention kernels."""
     import torch.nn.functional as F
+
+    qg = q[:, :, None, :]                                      # [B, H_q, 1, D]
+    try:
+        F.scaled_dot_product_attention(qg, k, v, enable_gqa=True)
+        return time_ms(lambda: F.scaled_dot_product_attention(qg, k, v, enable_gqa=True),
+                       iters=100)
+    except TypeError:                   # PyTorch without enable_gqa
+        ke = k.repeat_interleave(h_q // h_kv, dim=1)
+        ve = v.repeat_interleave(h_q // h_kv, dim=1)
+        return time_ms(lambda: F.scaled_dot_product_attention(qg, ke, ve), iters=100)
+
+
+B2_SHAPES = ((8, 1024), (8, 4096), (32, 1024))          # (B, context), bf16 KV
+
+
+def time_b2(dev, gen) -> dict:
+    """Mistral decode attention (32/8 heads, D 128, bs 64, window 4096) at
+    B2_SHAPES: kernel, bound, SDPA on pre-gathered KV; the plain version and
+    f16 at B=8, ctx 1024."""
+    import torch
 
     from blazr_tpu_torch.attention.paged_attention import (
         paged_attention_decode, paged_attention_reference)
     from blazr_tpu_torch.kvcache.paged import page_slot_index
 
-    b, h_q, h_kv, d, bs, ctx = 8, 32, 8, 128, 64, 1024
-    s = pa_inputs(dev, gen, b=b, h_q=h_q, h_kv=h_kv, d=d, bs=bs, seq_lens=[ctx] * b)
-    kw = dict(block_size=bs, sliding_window=4096)
-    ms = time_ms(lambda: paged_attention_decode(
-        s["q"], s["kc"], s["vc"], s["bt"], s["sl"], num_blocks=s["nb"],
-        device=dev, **kw), iters=100)
-    plain_ms = time_ms(lambda: paged_attention_reference(
-        s["q"], s["kc"], s["vc"], s["bt"], s["sl"], **kw), iters=10)
-    idx = page_slot_index(bs, s["bt"])                         # [B, ctx]
-    k = s["kc"][idx].permute(0, 2, 1, 3).contiguous()          # [B, H_kv, S, D]
-    v = s["vc"][idx].permute(0, 2, 1, 3).contiguous()
-    q = s["q"][:, :, None, :]                                  # [B, H_q, 1, D]
-    try:
-        F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, enable_gqa=True), iters=100)
-    except TypeError:                   # PyTorch without enable_gqa
-        ke = k.repeat_interleave(h_q // h_kv, dim=1)
-        ve = v.repeat_interleave(h_q // h_kv, dim=1)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve),
-                             iters=100)
-    nbytes = (2 * b * ctx * h_kv * d * 2 + 2 * b * h_q * d * 2
-              + s["bt"].numel() * 4 + b * 4)
-    bound_ms, bound_by = bound(nbytes, 4.0 * b * h_q * ctx * d)
-    q16, k16, v16 = (s[n].to(torch.float16) for n in ("q", "kc", "vc"))
-    f16_ms = time_ms(lambda: paged_attention_decode(
-        q16, k16, v16, s["bt"], s["sl"], num_blocks=s["nb"], device=dev, **kw), iters=100)
-    log(f"  B2 B={b} ctx={ctx}: kernel {ms:.4f} ms (f16: {f16_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, SDPA(GQA, gathered KV) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, shape=f"B={b} ctx={ctx}",
-                f16_ms=f16_ms)
+    h_q, h_kv, d, bs, window = 32, 8, 128, 64, 4096
+    rows = {}
+    for b, ctx in B2_SHAPES:
+        s = pa_inputs(dev, gen, b=b, h_q=h_q, h_kv=h_kv, d=d, bs=bs, seq_lens=[ctx] * b)
+        kw = dict(block_size=bs, sliding_window=window)
+        ms = time_ms(lambda: paged_attention_decode(
+            s["q"], s["kc"], s["vc"], s["bt"], s["sl"], num_blocks=s["nb"],
+            device=dev, **kw), iters=100)
+        idx = page_slot_index(bs, s["bt"])                         # [B, ctx]
+        k = s["kc"][idx].permute(0, 2, 1, 3).contiguous()          # [B, H_kv, S, D]
+        v = s["vc"][idx].permute(0, 2, 1, 3).contiguous()
+        library_ms = sdpa_ms(s["q"], k, v, h_q, h_kv)
+        del k, v
+        keys = min(ctx, window)
+        nbytes = (2 * b * keys * h_kv * d * 2 + 2 * b * h_q * d * 2
+                  + s["bt"].numel() * 4 + b * 4)
+        bms, by = bound(nbytes, 4.0 * b * h_q * keys * d)
+        row = dict(ms=ms, library_ms=library_ms, bound_ms=bms, bound_by=by, plain_ms=None,
+                   shape=f"B={b} ctx={ctx}")
+        extra = ""
+        if (b, ctx) == B2_SHAPES[0]:
+            row["plain_ms"] = time_eager(lambda: paged_attention_reference(
+                s["q"], s["kc"], s["vc"], s["bt"], s["sl"], **kw), iters=10)
+            q16, k16, v16 = (s[n].to(torch.float16) for n in ("q", "kc", "vc"))
+            row["f16_ms"] = time_ms(lambda: paged_attention_decode(
+                q16, k16, v16, s["bt"], s["sl"], num_blocks=s["nb"], device=dev, **kw),
+                iters=100)
+            extra = f", plain {row['plain_ms']:.4f} ms, f16 {row['f16_ms']:.4f} ms"
+        rows[(b, ctx)] = row
+        log(f"  B2 B={b} ctx={ctx}: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+            f"{nbytes / 1e6:.1f} MB, x{ms / bms:.1f}), SDPA(GQA, gathered KV) "
+            f"{library_ms:.4f} ms{extra}")
+        del s
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -555,9 +710,6 @@ def run_tools() -> dict:
 def time_layout(dev, gen, layout: str) -> dict:
     """B5 or B6 at B=8, ctx 1024 (seq_len 1023), bs 64, bf16: time, plain
     time, SDPA over pre-gathered KV (the library call) and the bound."""
-    import torch
-    import torch.nn.functional as F
-
     from blazr_tpu_torch.kvcache.paged import page_slot_index
     from blazr_tpu_torch.tools.bench_pa_wide import pa_wide_reference
 
@@ -568,21 +720,12 @@ def time_layout(dev, gen, layout: str) -> dict:
     k, v = prepare(s["kc"], s["vc"])
     ms = time_ms(lambda: fn(s["q"], k, v, s["bt"], s["sl"], block_size=bs,
                             num_blocks=s["nb"], device=dev), iters=100)
-    plain_ms = time_ms(lambda: pa_wide_reference(s["q"], s["kc"], s["vc"], s["bt"],
+    plain_ms = time_eager(lambda: pa_wide_reference(s["q"], s["kc"], s["vc"], s["bt"],
                                                  s["sl"], block_size=bs), iters=10)
     idx = page_slot_index(bs, s["bt"])[:, :ctx]
     kg = s["kc"][idx].permute(0, 2, 1, 3).contiguous()
     vg = s["vc"][idx].permute(0, 2, 1, 3).contiguous()
-    qg = s["q"][:, :, None, :]
-    try:
-        F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qg, kg, vg, enable_gqa=True), iters=100)
-    except TypeError:                   # PyTorch without enable_gqa
-        ke = kg.repeat_interleave(h_q // h_kv, dim=1)
-        ve = vg.repeat_interleave(h_q // h_kv, dim=1)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qg, ke, ve),
-                             iters=100)
+    library_ms = sdpa_ms(s["q"], kg, vg, h_q, h_kv)
     nbytes = (2 * b * ctx * h_kv * d * 2 + 2 * b * h_q * d * 2
               + s["bt"].numel() * 4 + b * 4)
     bound_ms, bound_by = bound(nbytes, 4.0 * b * h_q * ctx * d)
@@ -833,6 +976,7 @@ def full_depth(dev, card: str, quant_compute: str = "w4a16",
         assert launches["qmm_int8"] > 0 and launches["qmm_stream"] > 0, launches
     else:
         assert launches["qmm"] > 0, launches
+        launches = dict(launches, profile=profile_serving(dev, model, card))
     del engine, model
     torch.cuda.empty_cache()
     return launches
@@ -1095,10 +1239,11 @@ def serve_http(dev, card: str) -> dict:
     return out
 
 
-def device_busy(fn) -> tuple[float, float, int]:
-    """(wall s, summed device time s, device events) of ``fn()`` under
-    torch.profiler (kernels and copies on one stream do not overlap); the
-    device time is 0 where the profiler sees no device activity."""
+def device_busy(fn) -> tuple[float, float, int, dict]:
+    """(wall s, summed device time s, device events, {name: [device s,
+    calls]}) of ``fn()`` under torch.profiler (kernels and copies on one
+    stream do not overlap); the device time is 0 where the profiler sees no
+    device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1109,11 +1254,81 @@ def device_busy(fn) -> tuple[float, float, int]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us, count = 0.0, 0
+    by_name: dict = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += ev.time_range.elapsed_us()
+            us = ev.time_range.elapsed_us()
+            busy_us += us
             count += 1
-    return wall, busy_us / 1e6, count
+            entry = by_name.setdefault(ev.name, [0.0, 0])
+            entry[0] += us / 1e6
+            entry[1] += 1
+    return wall, busy_us / 1e6, count, by_name
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its template arguments and namespaces."""
+    for key in ("qmm_wgmma_kernel", "qmm_splitk_kernel", "pa_split_kernel",
+                "pa_combine_kernel", "reduce_splits", "round_to_bf16"):
+        if key in name:
+            return key
+    return name[:60]
+
+
+def profile_serving(dev, model, card: str) -> dict:
+    """Phase 5's profile: the w4a16 BatchEngine under torch.profiler, first
+    over one prefill group of 4 prompts (64-512 tokens) that stop after
+    their first token, then over the same group run to 17 tokens (one
+    prefill, 16 decode steps). The decode steps are the difference of the
+    two runs: their wall time, device-busy time, idle share and the device
+    time of each kernel."""
+    import numpy as np
+
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (64, 512, 200, 333)]
+
+    def run(tokens: int):
+        engine = BatchEngine(model, StubTokenizer(), AppConfig(model=cfg))
+        wave = [(p, GenerationConfig(max_tokens=tokens, temperature=0.0)) for p in prompts]
+        return device_busy(lambda: asyncio.run(serve(engine, [wave])))
+
+    run(2)                                       # warm the engine's first calls
+    wall_p, busy_p, n_p, names_p = run(1)
+    wall_a, busy_a, n_a, names_a = run(17)
+    steps = 16
+    wall_d, busy_d = wall_a - wall_p, busy_a - busy_p
+    idle = 1 - busy_d / wall_d if busy_d > 0 else None
+    log(f"  profiled prefill group (4 prompts, 1109 tokens): wall {wall_p * 1e3:.1f} ms, "
+        f"device busy {busy_p * 1e3:.1f} ms over {n_p} device events; idle share "
+        + (f"{1 - busy_p / wall_p:.2f}" if busy_p > 0 else "not measured"))
+    log(f"  profiled 16 decode steps (batch 4): wall {wall_d / steps * 1e3:.2f} ms/step, "
+        f"device busy {busy_d / steps * 1e3:.2f} ms/step, "
+        f"{(n_a - n_p) / steps:.0f} device events/step; device idle share "
+        + (f"{idle:.2f}" if idle is not None else "not measured (no device events)")
+        + f" ({card}; under the profiler)")
+
+    def top(names, minus=None, k=8):
+        rows = {}
+        for name, (sec, calls) in names.items():
+            base = (minus or {}).get(name, [0.0, 0])
+            key = short_name(name)
+            r = rows.setdefault(key, [0.0, 0])
+            r[0] += sec - base[0]
+            r[1] += calls - base[1]
+        return sorted(rows.items(), key=lambda kv: -kv[1][0])[:k]
+
+    top_p, top_d = top(names_p), top(names_a, names_p)
+    log("  top device ops, prefill group: " + "; ".join(
+        f"{n} {sec * 1e3:.2f} ms/{calls}" for n, (sec, calls) in top_p))
+    log("  top device ops, per decode step: " + "; ".join(
+        f"{n} {sec / steps * 1e3:.3f} ms/{calls // steps}" for n, (sec, calls) in top_d))
+    return dict(prefill_wall_ms=wall_p * 1e3, prefill_busy_ms=busy_p * 1e3,
+                step_wall_ms=wall_d / steps * 1e3, step_busy_ms=busy_d / steps * 1e3,
+                step_idle_share=idle)
 
 
 def serve_executor(dev, card: str) -> dict:
@@ -1160,7 +1375,7 @@ def serve_executor(dev, card: str) -> dict:
     assert launches["qmm"] == 0 and launches["qmm_stream"] == 0, launches
     # Where a decode step's time goes: 16 more greedy tokens under the
     # profiler, kernel time against wall time.
-    wall_p, busy, kernels = device_busy(lambda: collect_generation(
+    wall_p, busy, kernels, _ = device_busy(lambda: collect_generation(
         ex, prompt[:16], GenerationConfig(max_tokens=17, temperature=0.0)))
     log(f"  profiled 16-token prompt + 17 tokens: wall {wall_p * 1e3:.1f} ms, CUDA "
         f"kernels {busy * 1e3:.1f} ms over {kernels} kernels "
@@ -1274,7 +1489,7 @@ def time_b3(dev, gen) -> dict:
             x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
             ms = time_ms(lambda: qmm_int8(x, qw, s, mn, bits=bits, group_size=gs,
                                           device=dev), iters=20)
-            plain_ms = time_ms(lambda: qmm_int8_reference(x, qw, s, mn, bits=bits,
+            plain_ms = time_eager(lambda: qmm_int8_reference(x, qw, s, mn, bits=bits,
                                                           group_size=gs),
                                iters=2, warmup=1)
             lib_ms = time_ms(lambda: torch.matmul(x, w_bf16), iters=20)
@@ -1331,7 +1546,7 @@ def time_b4(dev, gen) -> dict:
             row = dict(ms=ms, b1_ms=b1_ms, bound_ms=bms, bound_by=by, plain_ms=None,
                        library_ms=None)
             if w_bf16 is not None:
-                row["plain_ms"] = time_ms(lambda: qmm_stream_reference(
+                row["plain_ms"] = time_eager(lambda: qmm_stream_reference(
                     x, qw, s, mn, bits=4, group_size=gs), iters=5, warmup=1)
                 row["library_ms"] = time_ms(lambda: torch.matmul(x, w_bf16), iters=50)
             rows[(pname, m)] = row
@@ -1345,10 +1560,12 @@ def time_b4(dev, gen) -> dict:
 
 
 def timings(dev, gen, res: dict) -> list:
-    """Phase 6: every kernel's time, bound, plain and library time, and the
-    launches of the serving phase that ran it; returns the kernels line."""
+    """Phase 9: every kernel's time, bound, plain and library time, and the
+    launches of the serving phase that ran it; returns the kernels line.
+    Uses only the kernels' public wrappers, so ``--phases build,timings``
+    also times another checkout's kernels when this script is copied
+    there."""
     t1 = time_b1(dev, gen)
-    b1_variants(dev, gen)
     t2 = time_b2(dev, gen)
     t3 = time_b3(dev, gen)
     t4 = time_b4(dev, gen)
@@ -1361,18 +1578,20 @@ def timings(dev, gen, res: dict) -> list:
     b3 = t3[("w8a8", 512)]
     b4 = t4[("gateup", 8)]
     k, n = B1_SHAPES["gateup"]
+    b1p, b1d = t1[("gateup", 512)], t1[("gateup", 8)]
+    b2 = t2[B2_SHAPES[0]]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     return [
         dict(name="qmm_w4a16 (B1)", route="cuda", source="blazr_tpu_torch/csrc/qmm.cu",
              replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
              launches=got("serve", "qmm"), max_abs_err=got("b1", "max_abs_err"),
-             ms=t1["ms"], plain_ms=t1["plain_ms"], bound_ms=t1["bound_ms"],
-             bound_by=t1["bound_by"], library_ms=t1["library_ms"], shape=t1["shape"]),
+             **{key: b1p[key] for key in keys},
+             decode={key: b1d[key] for key in keys}),
         dict(name="paged_attention_decode (B2)", route="cuda",
              source="blazr_tpu_torch/csrc/paged_attention.cu",
              replaces="blazr_tpu/attention/paged_attention.py:34",
              launches=got("serve", "paged_attention"), max_abs_err=got("b2", "max_abs_err"),
-             ms=t2["ms"], plain_ms=t2["plain_ms"], bound_ms=t2["bound_ms"],
-             bound_by=t2["bound_by"], library_ms=t2["library_ms"], shape=t2["shape"]),
+             **{key: b2[key] for key in keys}),
         dict(name="qmm_int8 (B3)", route="cuda", source="blazr_tpu_torch/csrc/qmm_int8.cu",
              replaces="blazr_tpu/quant/pallas/int_matmul.py:276",
              launches=got("executor", "qmm_int8"), max_abs_err=got("b3", "max_abs_err"),
@@ -1401,7 +1620,8 @@ def timings(dev, gen, res: dict) -> list:
 
 
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
-          "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "http", "timings")
+          "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "http", "sweep",
+          "timings")
 
 
 def main() -> int:
@@ -1448,7 +1668,7 @@ def main() -> int:
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning")):
                 log(f"  ptxas[{name}]: {line.strip()}")
 
     gen = torch.Generator(device=dev)
@@ -1479,7 +1699,9 @@ def main() -> int:
         ("http", "phase 7: AWQ checkpoint on disk -> load_model -> OpenAI HTTP server "
          "(8 concurrent requests) and the CLI serve subprocess",
          lambda: serve_http(dev, card)),
-        ("timings", "phase 8: kernel timings", lambda: timings(dev, gen, res)),
+        ("sweep", "phase 8: the sweeps behind B1's and B2's launch plans",
+         lambda: (b1_variants(dev, gen), b2_splits(dev, gen))),
+        ("timings", "phase 9: kernel timings", lambda: timings(dev, gen, res)),
     ]
     for name, title, fn in steps:
         if name in phases:

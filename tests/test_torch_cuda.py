@@ -44,34 +44,78 @@ def _planes(k, n, bits, gs, gen, dev):
     return qw, s, m
 
 
-@pytest.mark.parametrize("m,k,n,bits,signed,gs", [
-    (1, 512, 384, 4, True, 128), (8, 4096, 640, 4, True, 128),
-    (70, 384, 200, 4, False, 128), (5, 256, 128, 2, False, 16),
-    (100, 256, 128, 2, False, 16), (33, 256, 96, 8, True, 32),
-    (3, 256, 130, 8, False, 64), (17, 512, 256, 4, True, 256),
-])
-def test_qmm_kernel_matches_plain(cuda, m, k, n, bits, signed, gs):
+_QMM_CASES = [
+    (1, 512, 384, 4, True, 128, torch.bfloat16), (8, 4096, 640, 4, True, 128, torch.bfloat16),
+    (70, 384, 200, 4, False, 128, torch.bfloat16), (5, 256, 128, 2, False, 16, torch.bfloat16),
+    (100, 256, 128, 2, False, 16, torch.bfloat16), (33, 256, 96, 8, True, 32, torch.bfloat16),
+    (3, 256, 130, 8, False, 64, torch.bfloat16), (17, 512, 256, 4, True, 256, torch.bfloat16),
+]
+# The tile edges of B1's two variants: rows around TC_MIN_ROWS, 64 and 128,
+# N=200 against 128-column tiles.
+_QMM_CASES += [(m, 1024, 200, 4, True, 128, torch.bfloat16)
+               for m in (1, 8, 15, 16, 17, 63, 64, 65, 127, 128, 129, 512)]
+_QMM_CASES += [
+    (8, 128, 256, 4, True, 128, torch.bfloat16),      # K of a single group
+    (64, 64, 136, 8, True, 64, torch.bfloat16),
+    (16, 512, 256, 4, True, 16, torch.bfloat16),      # group sizes 16 ... 256
+    (16, 512, 256, 4, False, 32, torch.bfloat16),
+    (16, 512, 256, 4, True, 64, torch.bfloat16),
+    (24, 1024, 256, 4, False, 256, torch.bfloat16),
+    (20, 480, 256, 4, True, 48, torch.bfloat16),      # gs 48: the split-K variant
+    (40, 512, 256, 2, True, 32, torch.bfloat16),      # 2- and 8-bit on tensor cores
+    (40, 512, 256, 2, False, 16, torch.bfloat16),
+    (40, 512, 128, 8, True, 128, torch.bfloat16),
+    (40, 512, 130, 8, False, 64, torch.bfloat16),     # N % 4 != 0: 4-byte copies
+    (3, 512, 130, 2, True, 32, torch.bfloat16),
+    (6, 512, 256, 4, True, 128, torch.float16),       # f16 x, rounded to bf16
+    (100, 512, 200, 4, False, 128, torch.float16),
+    (1, 512, 70, 4, False, 64, torch.float32),        # f32 x: CUDA cores
+    (129, 512, 200, 8, True, 128, torch.float32),
+    (40, 512, 256, 4, True, 8, torch.bfloat16),       # gs 8: one group per chunk
+    (40, 512, 128, 8, True, 4, torch.bfloat16),       # 8-bit gs 4: split-K variant
+    (40, 512, 128, 8, False, 4, torch.float32),       # ... 16-row tile too large
+]
+
+
+@pytest.mark.parametrize("m,k,n,bits,signed,gs,dtype", _QMM_CASES)
+def test_qmm_kernel_matches_plain(cuda, m, k, n, bits, signed, gs, dtype):
     gen = torch.Generator(device=cuda).manual_seed(m * 7 + bits)
     qw, s, mn = _planes(k, n, bits, gs, gen, cuda)
-    x = torch.randn((m, k), device=cuda, generator=gen).to(torch.bfloat16)
+    x = torch.randn((m, k), device=cuda, generator=gen).to(dtype)
     got = qmm(x, qw, s, mn, bits=bits, signed=signed, group_size=gs)
-    ref = qmm_reference(x.float(), qw, s, mn, bits=bits, signed=signed,
-                        group_size=gs)
+    # f16 x: the plain version rounds it to bf16 as the kernel does.
+    ref = qmm_reference(x if dtype == torch.float16 else x.float(), qw, s, mn,
+                        bits=bits, signed=signed, group_size=gs).float()
     torch.cuda.synchronize()
+    assert got.dtype == dtype
     err = (got.float() - ref).abs().max().item()
-    assert err <= 1e-2 * ref.abs().max().item(), err
+    assert err <= _rel_tol(dtype) * ref.abs().max().item(), err
 
 
-@pytest.mark.parametrize("d,bs,window,softcap,alibi,int8", [
-    (128, 64, None, None, False, False), (128, 64, 96, None, False, False),
-    (128, 16, None, 30.0, False, True), (64, 16, 40, None, True, False),
-])
+_PA_RAGGED = (1, 37, 200, 150)
+_PA_CASES = [
+    (128, 64, None, None, False, False, _PA_RAGGED), (128, 64, 96, None, False, False, _PA_RAGGED),
+    (128, 16, None, 30.0, False, True, _PA_RAGGED), (64, 16, 40, None, True, False, _PA_RAGGED),
+    # B2's sequence splits (attention/paged_attention.py::split_plan): block
+    # 16, window 700 gives 5 splits of 9 slots (144 keys): the window starts
+    # inside a split, splits 1-4 of the 100-token row are empty, 288 tokens
+    # end exactly at a split edge and 289 one past it.
+    (128, 16, 700, None, False, False, (1400, 100, 288, 289)),
+    (128, 64, None, None, False, True, (1, 600, 513, 1024)),   # int8 KV, 8 splits
+    (64, 64, None, 30.0, True, False, (1, 600, 513, 1024)),    # softcap + ALiBi
+    (128, 64, None, None, False, False, (4096,)),              # B=1: 32 splits
+    (128, 64, 4096, None, False, False, (4096,)),
+]
+
+
+@pytest.mark.parametrize("d,bs,window,softcap,alibi,int8,lens", _PA_CASES)
 def test_paged_attention_kernel_matches_plain(cuda, d, bs, window, softcap,
-                                              alibi, int8):
-    gen = torch.Generator(device=cuda).manual_seed(d + bs)
-    b, h_q, h_kv, nb = 4, 8, 2, 64
-    seq_lens = torch.tensor([1, 37, 200, 150], dtype=torch.int32, device=cuda)
-    mb = -(-200 // bs)
+                                              alibi, int8, lens):
+    gen = torch.Generator(device=cuda).manual_seed(d + bs + len(lens))
+    b, h_q, h_kv = len(lens), 8, 2
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    mb = -(-max(lens) // bs)
+    nb = b * mb + 8
     perm = torch.randperm(nb, device=cuda, generator=gen)[: b * mb]
     tables = perm.reshape(b, mb).to(torch.int32)
     shape = (nb * bs + 1, h_kv, d)
@@ -97,7 +141,7 @@ def test_paged_attention_kernel_matches_plain(cuda, d, bs, window, softcap,
 
 
 def _rel_tol(dtype):
-    return 1e-2 if dtype == torch.bfloat16 else 1e-3
+    return {torch.bfloat16: 1e-2, torch.float16: 4e-3, torch.float32: 1e-3}[dtype]
 
 
 @pytest.mark.parametrize("m,k,n,bits,gs,dtype", [

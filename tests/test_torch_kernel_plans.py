@@ -1,0 +1,251 @@
+"""The launch plans of kernels B1 and B2 (pure Python), and B2's split-and-
+combine rule emulated in plain PyTorch on the CPU.
+
+B1 splits K across blocks and B2 splits each sequence's walk of table slots
+across blocks; the planners decide how. The emulation follows
+``csrc/paged_attention.cu`` step for step in f32: each split runs the online
+softmax over its own slots and ends with (m, l, acc), and the splits of a
+(sequence, head) combine as sum_z e^{m_z-M} acc_z / max(sum_z e^{m_z-M} l_z,
+1e-30). It must equal the unsplit plain version (1e-5 in f32: the same sums
+in another order) and JAX's dense reference on the same numpy inputs, for
+every split plan, including splits that hold no valid key."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from blazr_tpu.attention.paged_attention import \
+    paged_attention_reference as jax_reference
+from blazr_tpu.kvcache import paged as jpaged
+from blazr_tpu_torch.attention.paged_attention import (
+    paged_attention_reference, split_plan, walk_slots)
+from blazr_tpu_torch.quant.kernels import (TC_MIN_ROWS, decode_plan, tc_plan,
+                                           tensor_core_path)
+
+MISTRAL = {"qkv": (4096, 6144), "o": (4096, 4096), "gateup": (4096, 28672),
+           "down": (14336, 4096)}
+
+
+# ---------------------------------------------------------------------------
+# B1's plans
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("plan,unit", [(decode_plan, 128), (tc_plan, 64)])
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 16, 64, 65, 512, 4096])
+@pytest.mark.parametrize("proj", sorted(MISTRAL))
+def test_b1_plan_covers_k(plan, unit, m, proj):
+    k, n = MISTRAL[proj]
+    bm, splits, per = plan(m, k, n)
+    assert per % unit == 0 and splits * per >= k and (splits - 1) * per < k
+    assert splits <= 16
+    if splits > 1:     # the f32 partials move no more bytes than the weight
+        assert 8 * m * n * splits <= k * n / 2 or bm == 128
+
+
+def test_b1_plans_fill_the_card_at_decode():
+    """o and down have 32 column tiles: K is split into many blocks."""
+    for proj in ("o", "down"):
+        k, n = MISTRAL[proj]
+        _, splits, _ = decode_plan(1, k, n)
+        assert splits == 16
+        _, splits, per = tc_plan(8, k, n)
+        assert 32 * splits >= 256 and per >= 8 * 64
+    assert tc_plan(8, 4096, 28672)[1] == 4             # 224 tiles: 896 blocks
+    assert tc_plan(64, 4096, 28672)[1] == 4            # the partials' cap
+    assert tc_plan(512, 4096, 28672) == (128, 1, 4096)   # 896 tiles: no split
+    assert tc_plan(512, 4096, 4096)[1] == 3                # 128 tiles: 3 splits
+    assert tc_plan(64, 4096, 4096)[0] == 64 and tc_plan(65, 4096, 4096)[0] == 128
+    assert [decode_plan(m, 4096, 4096)[0] for m in (1, 3, 4, 8, 9, 40)] == \
+        [1, 4, 4, 8, 16, 16]
+
+
+@pytest.mark.parametrize("dtype,m,k,gs,want", [
+    (torch.bfloat16, TC_MIN_ROWS, 4096, 128, True),
+    (torch.bfloat16, TC_MIN_ROWS - 1, 4096, 128, False),
+    (torch.float16, 512, 4096, 128, True),
+    (torch.float32, 512, 4096, 128, False),      # f32 x keeps f32 products
+    (torch.bfloat16, 512, 416, 32, False),       # 64 must divide K
+    (torch.bfloat16, 512, 512, 16, True),        # groups that divide 64
+    (torch.bfloat16, 512, 480, 48, False),       # ... or that 64 divides
+    (torch.bfloat16, 512, 1024, 256, True),
+    (torch.bfloat16, 512, 512, 8, True),         # one group per 8-row chunk
+    (torch.bfloat16, 512, 512, 4, False),        # 8-bit groups of 4 split a chunk
+    (torch.float16, 64, 512, 4, False),
+])
+def test_b1_routes_by_rows_dtype_and_group(dtype, m, k, gs, want):
+    assert tensor_core_path(dtype, m, k, gs) is want
+
+
+# ---------------------------------------------------------------------------
+# B2's plan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,mb,bs,window", [
+    (8, 16, 64, 4096), (8, 64, 64, 4096), (32, 16, 64, None), (1, 64, 64, None),
+    (8, 2, 64, None), (8, 64, 16, 100), (3, 513, 16, None), (64, 16, 64, None),
+    (2, 64, 16, 4096), (16, 128, 64, None), (1, 1, 64, None), (5, 33, 16, 700),
+])
+def test_b2_split_plan_covers_the_walk(b, mb, bs, window):
+    splits, per = split_plan(b, 8, mb, bs, window)
+    walk = walk_slots(mb, bs, window)
+    assert splits * per >= walk and (splits - 1) * per < walk
+    if splits > 1:
+        assert b * 8 * splits <= 264 and per * bs >= 128
+
+
+def test_b2_split_plan_mistral_points():
+    assert split_plan(8, 8, 16, 64, 4096) == (4, 4)      # 256 blocks, 256 keys each
+    assert split_plan(32, 8, 16, 64, 4096)[0] == 1       # 256 blocks already
+    assert split_plan(1, 8, 64, 64, None) == (32, 2)     # one sequence of 4096
+    assert split_plan(8, 8, 2, 64, None) == (1, 2)       # short walks: one split
+    assert walk_slots(64, 64, 4096) == 64 and walk_slots(64, 16, 100) == 8
+
+
+# ---------------------------------------------------------------------------
+# B2's split-and-combine rule
+# ---------------------------------------------------------------------------
+
+def split_combine(q, kc, vc, bt, sl, *, block_size, num_blocks, splits, per,
+                  window=None, k_scale=None, v_scale=None, softcap=None, alibi=None):
+    """csrc/paged_attention.cu's function in plain f32 PyTorch: each split
+    walks its table slots with an online softmax, then the splits combine."""
+    b_n, h_q, d = q.shape
+    h_kv = kc.shape[1]
+    hpg = h_q // h_kv
+    mb = bt.shape[1]
+    bs = block_size
+    scale = 1.0 / math.sqrt(d)
+    out = torch.zeros((b_n, h_q, d))
+    for b in range(b_n):
+        seq = int(sl[b])
+        lo, walk = 0, mb
+        if window:
+            lo = max(seq - window, 0) // bs
+            walk = min(mb, window // bs + 2)
+        stop = -(-seq // bs) - lo
+        parts = []
+        for z in range(splits):
+            m = torch.full((h_q,), -1e30)
+            l = torch.zeros(h_q)
+            acc = torch.zeros((h_q, d))
+            for t in range(z * per, min(walk, z * per + per, stop)):
+                tt = lo + t
+                blk = int(bt[b, min(tt, mb - 1)])
+                blk = blk if 0 <= blk < num_blocks else 0
+                slots = blk * bs + torch.arange(bs)
+                pos = tt * bs + torch.arange(bs)
+                k = kc[slots].float().repeat_interleave(hpg, dim=1)     # [BS, Hq, D]
+                v = vc[slots].float().repeat_interleave(hpg, dim=1)
+                logits = torch.einsum("hd,shd->hs", q[b].float(), k) * scale
+                if k_scale is not None:
+                    logits = logits * k_scale[slots].repeat_interleave(hpg, dim=1).T
+                if softcap:
+                    logits = torch.tanh(logits / softcap) * softcap
+                if alibi is not None:
+                    logits = logits + alibi[:, None] * (pos - (seq - 1)).float()[None]
+                valid = pos < seq
+                if window:
+                    valid &= pos > seq - 1 - window
+                logits = torch.where(valid[None], logits, torch.tensor(-1e30))
+                m_new = torch.maximum(m, logits.max(-1).values)
+                p = torch.where(valid[None], torch.exp(logits - m_new[:, None]),
+                                torch.tensor(0.0))
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1)
+                if v_scale is not None:
+                    p = p * v_scale[slots].repeat_interleave(hpg, dim=1).T
+                acc = acc * alpha[:, None] + torch.einsum("hs,shd->hd", p, v)
+                m = m_new
+            parts.append((m, l, acc))
+        big = torch.stack([p[0] for p in parts]).max(0).values
+        w = [torch.exp(m - big) for m, _, _ in parts]
+        denom = sum(wz * lz for wz, (_, lz, _) in zip(w, parts))
+        num = sum(wz[:, None] * az for wz, (_, _, az) in zip(w, parts))
+        out[b] = num / torch.clamp(denom, min=1e-30)[:, None]
+    return out
+
+
+def _inputs(seed, *, seq_lens, bs=8, mb=8, h_q=8, h_kv=2, d=64, int8=False):
+    rng = np.random.default_rng(seed)
+    b = len(seq_lens)
+    nb = b * mb + 2
+    shape = (nb * bs + 1, h_kv, d)
+    if int8:
+        kc = rng.integers(-127, 128, shape).astype(np.int8)
+        vc = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = rng.uniform(0.005, 0.02, shape[:2]).astype(np.float32)
+        vs = rng.uniform(0.005, 0.02, shape[:2]).astype(np.float32)
+    else:
+        kc = rng.standard_normal(shape).astype(np.float32)
+        vc = rng.standard_normal(shape).astype(np.float32)
+        ks = vs = None
+    q = rng.standard_normal((b, h_q, d)).astype(np.float32)
+    bt = rng.permutation(nb)[: b * mb].reshape(b, mb).astype(np.int32)
+    bt[-1, -1] = jpaged.PAD_BLOCK                      # a padded table entry
+    sl = np.asarray(seq_lens, dtype=np.int32)
+    return dict(q=q, kc=kc, vc=vc, ks=ks, vs=vs, bt=bt, sl=sl, bs=bs, nb=nb)
+
+
+# (seq_lens, block size, table width, window, split plans (splits, per))
+_SPLIT_CASES = {
+    # seq_len 1; exactly at a split edge (16 = 2 slots of 8) and one past it
+    "edges": ([1, 16, 17, 33], 8, 8, None, [(1, 8), (4, 2), (8, 1), (3, 3)]),
+    # a window that starts inside a split; whole splits empty under it
+    "window_inside": ([61, 40, 9, 64], 8, 8, 20, [(1, 4), (2, 2), (4, 1)]),
+    # short sequences in a long table: most splits hold no valid key
+    "mostly_empty": ([3, 1, 12, 64], 8, 8, None, [(8, 1), (2, 4)]),
+    # one sequence over many slots (as B=1 at 4096 tokens, cut to size)
+    "one_long": ([256], 16, 16, None, [(16, 1), (4, 4), (1, 16)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+def test_split_combine_matches_unsplit_and_jax(case):
+    seq_lens, bs, mb, window, plans = _SPLIT_CASES[case]
+    s = _inputs(sorted(_SPLIT_CASES).index(case), seq_lens=seq_lens, bs=bs, mb=mb)
+    t = {k: torch.from_numpy(s[k]) for k in ("q", "kc", "vc", "bt", "sl")}
+    ref = paged_attention_reference(t["q"], t["kc"], t["vc"], t["bt"], t["sl"],
+                                    block_size=bs, sliding_window=window)
+    jref = np.asarray(jax_reference(jnp.asarray(s["q"]), jnp.asarray(s["kc"]),
+                                    jnp.asarray(s["vc"]), jnp.asarray(s["bt"]),
+                                    jnp.asarray(s["sl"]), block_size=bs,
+                                    sliding_window=window))
+    for splits, per in plans:
+        got = split_combine(t["q"], t["kc"], t["vc"], t["bt"], t["sl"], block_size=bs,
+                            num_blocks=s["nb"], splits=splits, per=per, window=window)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), jref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("opts", ["int8", "softcap_alibi"])
+def test_split_combine_with_scales_softcap_alibi(opts):
+    s = _inputs(11, seq_lens=[1, 30, 17, 64], int8=opts == "int8")
+    t = {k: (None if s[k] is None else torch.from_numpy(s[k]))
+         for k in ("q", "kc", "vc", "ks", "vs", "bt", "sl")}
+    kw = dict(k_scale=t["ks"], v_scale=t["vs"])
+    if opts == "softcap_alibi":
+        kw = dict(softcap=20.0, alibi=torch.tensor([2.0 ** -(i + 1) for i in range(8)]))
+    ref = paged_attention_reference(
+        t["q"], t["kc"], t["vc"], t["bt"], t["sl"], block_size=8, k_scale=t["ks"],
+        v_scale=t["vs"], logit_softcap=kw.get("softcap"), alibi=kw.get("alibi"))
+    for splits, per in ((1, 8), (4, 2), (8, 1)):
+        got = split_combine(t["q"], t["kc"], t["vc"], t["bt"], t["sl"], block_size=8,
+                            num_blocks=s["nb"], splits=splits, per=per, **kw)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_split_combine_all_empty_gives_zero():
+    """A row whose every split is empty (m = -1e30, l = 0 in each) combines
+    to 0 without NaN: every weight is exp(0) = 1 and every acc is 0."""
+    s = _inputs(5, seq_lens=[0, 20])
+    t = {k: torch.from_numpy(s[k]) for k in ("q", "kc", "vc", "bt", "sl")}
+    got = split_combine(t["q"], t["kc"], t["vc"], t["bt"], t["sl"], block_size=8,
+                        num_blocks=s["nb"], splits=4, per=2)
+    assert torch.isfinite(got).all() and torch.equal(got[0], torch.zeros_like(got[0]))
+    ref = paged_attention_reference(t["q"], t["kc"], t["vc"], t["bt"], t["sl"],
+                                    block_size=8)
+    np.testing.assert_allclose(got[1].numpy(), ref[1].numpy(), rtol=1e-5, atol=1e-5)
