@@ -71,11 +71,7 @@
 // below TC_MIN_ROWS run on CUDA cores (the swapped-operand tensor-core
 // decode is not written).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -87,45 +83,6 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16
 // f16 x is rounded to bf16 first, as the TPU kernel rounds x (:94).
 template <> __device__ __forceinline__ float to_f32<__half>(__half v) {
   return __bfloat162float(__float2bfloat16(__half2float(v)));
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half(v); }
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(__half* p, float a, float b) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of BYTES (4, 8 or 16) bytes; when !pred nothing is read and the
-// destination is zero-filled.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool pred) {
-  const int n = pred ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "n"(BYTES), "r"(n) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 template <int BITS> struct Pack {
@@ -142,37 +99,6 @@ template <int BITS> struct Pack {
 template <int BITS>
 __device__ __forceinline__ float field(uint32_t w, int j, float off) {
   return __int_as_float(0x4B000000u | ((w >> (BITS * j)) & Pack<BITS>::MASK)) - off;
-}
-
-// Sum the K splits in order (z = 0, 1, ...) and cast: deterministic.
-template <typename T>
-__global__ void reduce_splits(const float* __restrict__ part, T* __restrict__ y,
-                              int splits, size_t mn) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += part[(size_t)z * mn + i];
-    y[i] = from_f32<T>(s);
-  }
-}
-
-template <typename T>
-int launch_reduce(const void* part, void* y, int splits, size_t total, cudaStream_t st) {
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  reduce_splits<T><<<blocks, 256, 0, st>>>(static_cast<const float*>(part),
-                                           static_cast<T*>(y), splits, total);
-  return (int)cudaGetLastError();
-}
-
-// Lets `kern` take `bytes` of dynamic shared memory. Each launcher keeps its
-// kernel's `allowed` size in a static, so the attribute is set once per kernel
-// and size, not on every launch (the call costs host time).
-cudaError_t allow_smem(const void* kern, size_t bytes, size_t& allowed) {
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) allowed = bytes;
-  return e;
 }
 
 // ---------------------------------------------------------------------------
@@ -437,72 +363,6 @@ __host__ __device__ __forceinline__ TcLayout tc_layout(int ngt) {
   return l;
 }
 
-// wgmma shared-memory descriptor: start address, leading byte offset
-// (between the two core matrices along K; unused with the 128-byte swizzle)
-// and stride byte offset (between 8-row groups along M or N), all in 16-byte
-// units; layout 0 = no swizzle, 1 = 128-byte swizzle.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t layout) {
-  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// mbarriers of the ring (CTA scope).
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-// Arrive on `bar` expecting `bytes` more from the tensor copies that name it.
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// TMA: the box at (c0 innermost, c1) of `map` into `dst`; completes on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(smem_u32(bar)) : "memory");
-}
-// Arrive on `bar` once every cp.async this thread issued so far has landed.
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-// The consumer warpgroups' barrier (id 1); the producer warp never joins it.
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(kTcConsumers) : "memory");
-}
-
 #define D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
               "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
@@ -571,7 +431,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const uint32_t* __res
       mbar_init(full + s, 33);      // 32 lanes' copies and the x tile's bytes
       mbar_init(empty + s, kTcConsumers / 32);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -688,7 +548,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const uint32_t* __res
     if (kt >= 2) mbar_wait(empty + (kt - 2) % kTcStages, ((kt - 2) / kTcStages) & 1);
     dequant(s, b_s + (kt & 1) * kBTile);
     fence_async_smem();                // the B tile, to wgmma
-    consumers_sync();
+    consumers_sync<kTcConsumers>();
     const uint32_t xa = ring_a + s * l.stage;
     const uint32_t ba = b_a + (kt & 1) * kBTile;
     fence_regs(d);
@@ -766,29 +626,6 @@ __global__ void round_to_bf16(const __half* __restrict__ x, __nv_bfloat16* __res
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up once through the runtime.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) == cudaSuccess && q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess && q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 template <int BITS, int BM, typename TO>
 int launch_tc(const __nv_bfloat16* xb, const void* qw, const void* s, const void* mn,
               void* part, void* y, int M, int K, int N, int gs, int splits, int per,
@@ -797,18 +634,10 @@ int launch_tc(const __nv_bfloat16* xb, const void* qw, const void* s, const void
   const TcLayout l = tc_layout<BITS, BM>(ngt);
   if ((size_t)l.total > kSmemMax) return (int)cudaErrorInvalidValue;
   // x [M, K] bf16 as a TMA map of 64 x BM boxes (128-byte rows, swizzled).
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap xmap;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box[2] = {kTcBK, BM};
-  const cuuint32_t estr[2] = {1, 1};
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(xb),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  const int ee = encode_rows_128b(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xb, M, K,
+                                  kTcBK, BM);
+  if (ee != 0) return ee;
   auto kern = qmm_wgmma_kernel<BITS, BM, TO>;
   static size_t allowed = 48 * 1024;
   cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), l.total, allowed);
@@ -840,11 +669,6 @@ int launch_tc_bits(const __nv_bfloat16* xb, const void* qw, const void* s, const
   }
 #undef QMM_TC
   return (int)cudaErrorInvalidValue;
-}
-
-bool split_ok(int K, int splits, int per, int unit) {
-  return splits > 0 && per > 0 && per % unit == 0 && (long long)splits * per >= K &&
-         (long long)(splits - 1) * per < K;
 }
 
 }  // namespace

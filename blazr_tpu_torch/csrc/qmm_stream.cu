@@ -1,50 +1,58 @@
 // Kernel B4: streaming decode variant of B1 (fused grouped-affine dequant +
-// matmul) for signed 4- and 8-bit weights at m <= 32, for Hopper.
+// matmul) for signed 4- and 8-bit weights at m <= 32, on the H100's bf16
+// tensor cores.
 //
 // Replaces blazr_tpu/quant/pallas/int_matmul.py::_qmm_stream_kernel (:170),
 // launched there by _qmm_stream (:244) from the opt-in branch of
-// quant_matmul_pallas (:478-496, BLAZR_TPU_STREAM_KERNEL=1). Same function as
-// B1 (csrc/qmm.cu), with x rounded to bf16 before the products as the TPU
-// kernel rounds it (:215):
+// quant_matmul_pallas (:478-496, BLAZR_TPU_STREAM_KERNEL=1). Same function,
+// in the TPU kernel's formulation (:211-225): x is rounded to bf16 once, the
+// int weights (exact in bf16) are multiplied with it in bf16 into f32 group
+// partials, and each partial is scaled by s[g,n] minus the group sum of the
+// rounded x times mins[g,n]:
 //
 //   y[m,n] = sum_g s[g,n] * (bf16(x)_g . q_g)[m,n] - (sum_{k in g} bf16(x)[m,k]) * mins[g,n]
 //
 // with f32 sums and the output in x's dtype.
 //
 // What bounds it on the H100: the weight stream. At decode every K-packed word
-// is read once: gateup (K=4096, N=28672, int4, gs 128) moves 66.6 MB with its
+// is read once: gate+up (K=4096, N=28672, int4, gs 128) moves 66.6 MB with its
 // scale and min planes, 0.0199 ms at 3.35 TB/s.
 //
-// The TPU kernel walks the whole of K on one core and copies whole-N row slabs
-// through an nbuf-deep DMA ring. On the card the same idea has to fill 132
-// SMs, so the design:
-//   * splits K across blocks (grid y) as well as N (grid x, 128 columns a
-//     block, one column a thread): the wrapper picks the splits so that about
-//     264 blocks run;
-//   * each block streams its contiguous K slab of the packed weight, and the
-//     matching x columns, through a cp.async ring of nbuf stages (4, as the
-//     TPU kernel; fewer only if a large group would not fit) of max(128, gs)
-//     K rows: 16-byte copies, neighbouring threads on neighbouring words;
-//   * after a stage lands, x is rounded to bf16 and stored k-major in f32 so
-//     that one K row's values of every m row are read as a broadcast vector;
-//     the group sums of the rounded x are taken in a fixed order;
-//   * each thread keeps per-group f32 partials for its column, scales them by
-//     s[g,n] at the group's end and subtracts the group sum times mins[g,n];
-//   * each split writes f32 partials [splits, m, N]; a second kernel sums the
-//     splits in a fixed order and casts: no atomics, a run repeats bit for bit.
-// Requires N % 128 == 0 and K a multiple of max(128, gs); the wrapper checks.
+// Design:
+//   * round_rows_kernel, once per call: x -> bf16 [M, K] and the f32 group
+//     sums of the rounded x [M, K/gs], each sum taken by one warp in a fixed
+//     order. No block of the product redoes either.
+//   * qmm_stream_kernel: mma.sync m16n8k16 bf16 -> f32 with swapped operands.
+//     The weights are the 16-row A operand, converted in registers from their
+//     packed words by exponent tricks (no trip through shared memory as bf16,
+//     no int-to-float instruction); the <= 32 x rows
+//     are the n8 tiles of B. Within a k16 step thread t takes four K-adjacent
+//     weights of one word (8-bit: the whole word; 4-bit: half a word) and the
+//     matching four bf16 values of x, so A and B agree on one K order and x
+//     needs no transpose.
+//   * A producer warp streams each K split's contiguous word slab and the
+//     rounded x columns through a 4-stage cp.async ring with mbarriers; the
+//     four consumer warps (32 columns each) never meet at a barrier.
+//   * Groups of 4 or 8 rows (SMALL) end inside a k16 step: thread t's four
+//     rows lie in group t / (gs/4) of the step, so each group's products run
+//     as one more mma with the other threads' x zeroed, folded at once.
+//   * K is split across blocks so that about two waves fill 132 SMs; each
+//     split writes f32 partials [splits, m, N] and a second kernel sums them
+//     in a fixed order and casts: no atomics, a run repeats bit for bit.
+// Requires N % 128 == 0, a group size of 4, 8 or a multiple of 16 dividing K,
+// and K rows per split a multiple of the group and of 16; the wrapper checks.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;    // one output column per thread
 constexpr int kBN = 128;
-constexpr int kMaxNbuf = 4;
-constexpr size_t kSmemMax = 227 * 1024;
+constexpr int kBK = 128;                   // K rows per ring stage
+constexpr int kConsumers = 128;            // four warps, 32 columns each
+constexpr int kThreads = kConsumers + 32;  // ... and one producer warp
+constexpr int kStages = 4;
+constexpr int kLDW = kBN + 8;              // words per staged row (bank spread)
+constexpr int kLDX = kBK * 2 + 16;         // bytes per staged bf16 x row
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -52,253 +60,327 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16
   return __bfloat162float(v);
 }
 template <> __device__ __forceinline__ float to_f32<__half>(__half v) { return __half2float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half(v); }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most n of the committed groups are pending (n < kMaxNbuf).
-__device__ __forceinline__ void cp_async_wait_pending(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+// One warp per (row, group): the group's values rounded to bf16, written out,
+// and their f32 sum in a fixed order (lane strides, then a shuffle tree).
+template <typename T>
+__global__ void __launch_bounds__(256)
+round_rows_kernel(const T* __restrict__ x, __nv_bfloat16* __restrict__ xb,
+                  float* __restrict__ xsum, int M, int K, int gs) {
+  const int ng = K / gs;
+  const int item = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (item >= M * ng) return;
+  const int row = item / ng, g = item - row * ng;
+  const size_t base = (size_t)row * K + (size_t)g * gs;
+  float sum = 0.f;
+  for (int i = lane; i < gs; i += 32) {
+    const __nv_bfloat16 b = __float2bfloat16(to_f32<T>(x[base + i]));
+    xb[base + i] = b;
+    sum += __bfloat162float(b);
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  if (lane == 0) xsum[item] = sum;
 }
 
+template <int BITS, int NT>
 struct Layout {
-  int kst, wrows;
-  size_t w_bytes, x_ld, x_bytes, stage;
+  static constexpr int W_BYTES = (kBK * BITS / 32) * kLDW * 4;
+  static constexpr int X_BYTES = 8 * NT * kLDX;
+  static constexpr int STAGE = W_BYTES + X_BYTES;
+  static constexpr int BAR_OFF = kStages * STAGE;
+  static constexpr int TOTAL = BAR_OFF + 2 * kStages * 8;
 };
 
-template <int BITS, int BM, typename T>
-__host__ __device__ __forceinline__ Layout layout(int gs) {
-  Layout l;
-  l.kst = gs > 128 ? gs : 128;                      // K rows per stage
-  l.wrows = l.kst / (32 / BITS);
-  l.w_bytes = (size_t)l.wrows * kBN * 4;
-  l.x_ld = (size_t)l.kst * sizeof(T) + 16;           // padded x row, bytes
-  l.x_bytes = (size_t)BM * l.x_ld;
-  l.stage = l.w_bytes + l.x_bytes;
-  return l;
+// Signed fields j and j+1 of a word as a bf16x2 (field j in the low half),
+// exact, without the int-to-float instruction (a sixteenth of the FMA rate).
+// 4-bit: the biased field u = v + 8 in the mantissa of bf16 128 (bits 0x4300
+// | u are 128 + u), minus 136. 8-bit: u = v + 128 in the mantissa of f32 2^23,
+// minus 2^23 + 128; the integer is exact in bf16, so its f32's upper half is
+// its bf16.
+template <int BITS>
+__device__ __forceinline__ uint32_t pair_bf16(uint32_t w, int j) {
+  if constexpr (BITS == 4) {
+    const uint32_t y = (w ^ 0x88888888u) >> (4 * j);
+    uint32_t h = (y & 0xFu) | ((y << 12) & 0xF0000u) | 0x43004300u;
+    __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&h);
+    v = __hsub2(v, __float2bfloat162_rn(136.f));
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const uint32_t y = w ^ 0x80808080u;
+    const float lo = __int_as_float(__byte_perm(y, 0x4B000000u, 0x7640 | j)) - 8388736.f;
+    const float hi = __int_as_float(__byte_perm(y, 0x4B000000u, 0x7640 | (j + 1))) - 8388736.f;
+    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+  }
 }
 
-template <int BITS, int BM, typename T>
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Block: 128 columns x one K split (grid y), all M <= 8*NT rows. Warp w's A
+// rows are columns 32w + 16ms + {g, g+8} (ms = 0, 1); its C tile (ms, nt)
+// holds c0,c1 = column 32w+16ms+g, x rows 8nt+2t, +1 and c2,c3 the same rows
+// of column +8 (g = lane/4, t = lane%4). Stage s is guarded by full[s] (the
+// producer's 32 lanes' copies have landed) and empty[s] (the 4 consumer warps
+// are done with it).
+template <int BITS, int NT, bool SMALL>
 __global__ void __launch_bounds__(kThreads)
-qmm_stream_kernel(const T* __restrict__ x, const uint32_t* __restrict__ qw,
-                  const float* __restrict__ scales, const float* __restrict__ mins,
-                  float* __restrict__ part, int M, int K, int N, int gs, int per,
-                  int nbuf) {
+qmm_stream_kernel(const __nv_bfloat16* __restrict__ xb, const float* __restrict__ xsum,
+                  const uint32_t* __restrict__ qw, const float* __restrict__ scales,
+                  const float* __restrict__ mins, float* __restrict__ part, int M, int K,
+                  int N, int gs, int per) {
+  using L = Layout<BITS, NT>;
   constexpr int R = 32 / BITS;
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  constexpr int HALF = 1 << (BITS - 1);
-  constexpr int PER16 = 16 / (int)sizeof(T);        // x values per 16 bytes
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout l = layout<BITS, BM, T>(gs);
-  const int kst = l.kst;
-  float* xf = reinterpret_cast<float*>(smem + nbuf * l.stage);   // [kst][BM]
-  float* gsum = xf + (size_t)kst * BM;                            // [kst/gs][BM]
+  constexpr int XR = 8 * NT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + kStages;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * kBN, n = n0 + tid;
-  const int z = blockIdx.y;
-  const int kb = z * per;
-  const int nst = (min(K, kb + per) - kb) / kst;
-  const int ng = kst / gs;                 // groups per stage
-  const int wpg = gs / R;                  // words per group
+  const int n0 = blockIdx.x * kBN, z = blockIdx.y;
+  const int kb = z * per, ke = min(K, kb + per);
+  const int KT = (ke - kb + kBK - 1) / kBK;
 
-  auto load = [&](int c, int s) {
-    unsigned char* base = smem + s * l.stage;
-    uint32_t* w_s = reinterpret_cast<uint32_t*>(base);
-    unsigned char* x_s = base + l.w_bytes;
-    const int k0 = kb + c * kst;
-    for (int i = tid; i < l.wrows * (kBN / 4); i += kThreads) {
-      const int r = i / (kBN / 4), c4 = i - r * (kBN / 4);
-      cp_async16(w_s + r * kBN + c4 * 4, qw + (size_t)(k0 / R + r) * N + n0 + c4 * 4);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, kConsumers / 32);
     }
-    const int chunks = kst / PER16;
-    for (int i = tid; i < M * chunks; i += kThreads) {
-      const int r = i / chunks, c16 = i - r * chunks;
-      cp_async16(x_s + r * l.x_ld + c16 * 16, x + (size_t)r * K + k0 + c16 * PER16);
-    }
-  };
-
-  float acc[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) acc[i] = 0.f;
-
-  for (int s = 0; s < nbuf - 1; ++s) {
-    if (s < nst) load(s, s);
-    cp_async_commit();
+    mbar_init_fence();
   }
-  for (int c = 0; c < nst; ++c) {
-    if (c + nbuf - 1 < nst) load(c + nbuf - 1, (c + nbuf - 1) % nbuf);
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % kStages;
+      if (kt >= kStages) mbar_wait(empty + s, ((kt / kStages) + 1) & 1);
+      uint32_t* w_s = reinterpret_cast<uint32_t*>(smem + s * L::STAGE);
+      unsigned char* x_s = smem + s * L::STAGE + L::W_BYTES;
+      const int k0 = kb + kt * kBK;
+      const int krows = min(kBK, ke - k0);
+      for (int i = lane; i < (krows / R) * (kBN / 4); i += 32) {
+        const int r = i / (kBN / 4), c4 = (i % (kBN / 4)) * 4;
+        cp_async<16>(w_s + r * kLDW + c4, qw + (size_t)(k0 / R + r) * N + n0 + c4, true);
+      }
+      const int xc = krows / 8;                          // 16-byte chunks a row
+      for (int i = lane; i < XR * xc; i += 32) {
+        const int r = i / xc, c = i - r * xc;
+        const bool ok = r < M;
+        cp_async<16>(x_s + r * kLDX + 16 * c, xb + (size_t)(ok ? r : 0) * K + k0 + 8 * c, ok);
+      }
+      cp_async_arrive(full + s);
+    }
     cp_async_commit();
-    cp_async_wait_pending(nbuf - 1);
-    __syncthreads();
-    const unsigned char* base = smem + (c % nbuf) * l.stage;
-    const uint32_t* w_s = reinterpret_cast<const uint32_t*>(base);
-    const unsigned char* x_s = base + l.w_bytes;
+    cp_async_wait<0>();
+    return;
+  }
 
-    // x -> bf16-rounded f32, k-major; rows past M are zero.
-    for (int i = tid; i < BM * (kst / PER16); i += kThreads) {
-      const int r = i % BM, seg = i / BM;
-      const T* src = reinterpret_cast<const T*>(x_s + r * l.x_ld) + seg * PER16;
+  const int g = lane >> 2, t = lane & 3;
+  const int cb = 32 * warp + g;
+  const int ng = K / gs;
+  float acc[2][NT][4], out[2][NT][4];
 #pragma unroll
-      for (int j = 0; j < PER16; ++j) {
-        const float v = r < M ? __bfloat162float(__float2bfloat16(to_f32<T>(src[j]))) : 0.f;
-        xf[(seg * PER16 + j) * BM + r] = v;
-      }
-    }
-    __syncthreads();
-    // Group sums of the rounded x, in a fixed order.
-    if constexpr (BM >= 32) {
-      for (int p = tid; p < ng * BM; p += kThreads) {
-        const int gi = p / BM, r = p - gi * BM;
-        float sum = 0.f;
-        for (int i = 0; i < gs; ++i) sum += xf[(gi * gs + i) * BM + r];
-        gsum[p] = sum;
-      }
-    } else {
-      for (int p = warp; p < ng * BM; p += kThreads / 32) {
-        const int gi = p / BM, r = p - gi * BM;
-        float sum = 0.f;
-        for (int i = lane; i < gs; i += 32) sum += xf[(gi * gs + i) * BM + r];
+  for (int ms = 0; ms < 2; ++ms)
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        if (lane == 0) gsum[p] = sum;
-      }
-    }
-    __syncthreads();
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) { acc[ms][nt][r] = 0.f; out[ms][nt][r] = 0.f; }
 
-    const int g0 = (kb + c * kst) / gs;
-    for (int gi = 0; gi < ng; ++gi) {
-      float gacc[BM];
+  // The scale, min and x group sums of group gi, loaded a group ahead.
+  float sv[2][2], mv[2][2], xg[NT][2];
+  auto load_group = [&](int gi) {
 #pragma unroll
-      for (int i = 0; i < BM; ++i) gacc[i] = 0.f;
-      const float sc = scales[(size_t)(g0 + gi) * N + n];
-      const float mn = mins[(size_t)(g0 + gi) * N + n];
-      for (int w = 0; w < wpg; ++w) {
-        const uint32_t word = w_s[(gi * wpg + w) * kBN + tid];
-        const float* xk = xf + (size_t)(gi * gs + w * R) * BM;
+    for (int ms = 0; ms < 2; ++ms)
 #pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int v = ((int)((word >> (BITS * j)) & MASK) ^ HALF) - HALF;
-          const float q = (float)v;
-          if constexpr (BM % 4 == 0) {
-            const float4* x4 = reinterpret_cast<const float4*>(xk + j * BM);
+      for (int h = 0; h < 2; ++h) {
+        const size_t o = (size_t)gi * N + n0 + cb + 16 * ms + 8 * h;
+        sv[ms][h] = __ldg(scales + o);
+        mv[ms][h] = __ldg(mins + o);
+      }
 #pragma unroll
-            for (int i4 = 0; i4 < BM / 4; ++i4) {
-              const float4 xv = x4[i4];
-              gacc[4 * i4] = fmaf(xv.x, q, gacc[4 * i4]);
-              gacc[4 * i4 + 1] = fmaf(xv.y, q, gacc[4 * i4 + 1]);
-              gacc[4 * i4 + 2] = fmaf(xv.z, q, gacc[4 * i4 + 2]);
-              gacc[4 * i4 + 3] = fmaf(xv.w, q, gacc[4 * i4 + 3]);
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        xg[nt][c] = __ldg(xsum + (size_t)min(8 * nt + 2 * t + c, M - 1) * ng + gi);
+  };
+  load_group(kb / gs);
+
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(full + s, (kt / kStages) & 1);
+    const uint32_t* w_s = reinterpret_cast<const uint32_t*>(smem + s * L::STAGE);
+    const unsigned char* x_s = smem + s * L::STAGE + L::W_BYTES;
+    const int k0 = kb + kt * kBK;
+    const int krows = min(kBK, ke - k0);
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      if (kk >= krows) break;
+      // Thread t's K rows in this step: kk+4t .. kk+4t+3 (A slots 2t, 2t+1
+      // and 2t+8, 2t+9; the same slots of B).
+      uint32_t a[2][4];
+#pragma unroll
+      for (int ms = 0; ms < 2; ++ms) {
+        const int c0 = cb + 16 * ms;
+        uint32_t w0, w1;
+        int j;
+        if constexpr (BITS == 8) {
+          w0 = w_s[(kk / 4 + t) * kLDW + c0];
+          w1 = w_s[(kk / 4 + t) * kLDW + c0 + 8];
+          j = 0;
+        } else {
+          w0 = w_s[(kk / 8 + (t >> 1)) * kLDW + c0];
+          w1 = w_s[(kk / 8 + (t >> 1)) * kLDW + c0 + 8];
+          j = 4 * (t & 1);
+        }
+        a[ms][0] = pair_bf16<BITS>(w0, j);
+        a[ms][1] = pair_bf16<BITS>(w1, j);
+        a[ms][2] = pair_bf16<BITS>(w0, j + 2);
+        a[ms][3] = pair_bf16<BITS>(w1, j + 2);
+      }
+      if constexpr (SMALL) {                             // groups of 4 or 8 rows
+        const int gk = (k0 + kk) / gs;
+        for (int j = 0; j < 16 / gs; ++j) {
+          load_group(gk + j);
+          const bool mine = t / (gs / 4) == j;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const uint2 v = *reinterpret_cast<const uint2*>(x_s + (8 * nt + g) * kLDX +
+                                                            2 * (kk + 4 * t));
+            const uint32_t b0 = mine ? v.x : 0u, b1 = mine ? v.y : 0u;
+#pragma unroll
+            for (int ms = 0; ms < 2; ++ms) {
+              float c[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16(c, a[ms][0], a[ms][1], a[ms][2], a[ms][3], b0, b1);
+#pragma unroll
+              for (int r = 0; r < 4; ++r)
+                out[ms][nt][r] += sv[ms][r >> 1] * c[r] - xg[nt][r & 1] * mv[ms][r >> 1];
             }
-          } else {
-#pragma unroll
-            for (int i = 0; i < BM; ++i) gacc[i] = fmaf(xk[j * BM + i], q, gacc[i]);
           }
         }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint2 v = *reinterpret_cast<const uint2*>(x_s + (8 * nt + g) * kLDX +
+                                                          2 * (kk + 4 * t));
+#pragma unroll
+          for (int ms = 0; ms < 2; ++ms)
+            mma_bf16(acc[ms][nt], a[ms][0], a[ms][1], a[ms][2], a[ms][3], v.x, v.y);
+        }
+        const int k = k0 + kk + 16;
+        if (k % gs == 0) {                                 // group k/gs - 1 ends
+#pragma unroll
+          for (int ms = 0; ms < 2; ++ms)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                const int h = r >> 1, c = r & 1;
+                out[ms][nt][r] += sv[ms][h] * acc[ms][nt][r] - xg[nt][c] * mv[ms][h];
+                acc[ms][nt][r] = 0.f;
+              }
+          if (k < ke) load_group(k / gs);
+        }
       }
-#pragma unroll
-      for (int i = 0; i < BM; ++i) acc[i] += sc * gacc[i] - gsum[gi * BM + i] * mn;
     }
-    __syncthreads();                 // stage and xf fully read before reuse
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
   }
+
 #pragma unroll
-  for (int i = 0; i < BM; ++i)
-    if (i < M) part[((size_t)z * M + i) * N + n] = acc[i];
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int row = 8 * nt + 2 * t + c;
+      if (row >= M) continue;
+#pragma unroll
+      for (int ms = 0; ms < 2; ++ms)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          part[((size_t)z * M + row) * N + n0 + cb + 16 * ms + 8 * h] = out[ms][nt][2 * h + c];
+    }
 }
 
-// Sum the K splits in order (z = 0, 1, ...) and cast: deterministic.
-template <typename T>
-__global__ void reduce_splits(const float* __restrict__ part, T* __restrict__ y,
-                              int splits, size_t mn) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += part[(size_t)z * mn + i];
-    y[i] = from_f32<T>(s);
-  }
-}
-
-template <int BITS, int BM, typename T>
-int launch(const void* x, const void* qw, const void* s, const void* mn, void* part,
-           void* y, int M, int K, int N, int gs, int splits, int per, cudaStream_t st) {
-  const Layout l = layout<BITS, BM, T>(gs);
-  if (K % l.kst != 0 || per % l.kst != 0 || l.kst % gs != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t fixed = (size_t)l.kst * BM * 4 + (size_t)(l.kst / gs) * BM * 4;
-  int nbuf = kMaxNbuf;
-  while (nbuf > 2 && nbuf * l.stage + fixed > kSmemMax) --nbuf;
-  const size_t smem = nbuf * l.stage + fixed;
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  auto kern = qmm_stream_kernel<BITS, BM, T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<dim3(N / kBN, splits), kThreads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const uint32_t*>(qw),
-      static_cast<const float*>(s), static_cast<const float*>(mn),
-      static_cast<float*>(part), M, K, N, gs, per, nbuf);
-  cudaError_t e = cudaGetLastError();
+template <int BITS, int NT, bool SMALL, typename T>
+int launch(const void* xb, const void* xsum, const void* qw, const void* s, const void* mn,
+           void* part, void* y, int M, int K, int N, int gs, int splits, int per,
+           cudaStream_t st) {
+  using L = Layout<BITS, NT>;
+  auto kern = qmm_stream_kernel<BITS, NT, SMALL>;
+  static size_t allowed = 48 * 1024;
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), L::TOTAL, allowed);
   if (e != cudaSuccess) return (int)e;
-  const size_t total = (size_t)M * N;
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  reduce_splits<T><<<blocks, 256, 0, st>>>(static_cast<const float*>(part),
-                                           static_cast<T*>(y), splits, total);
-  return (int)cudaGetLastError();
+  kern<<<dim3(N / kBN, splits), kThreads, L::TOTAL, st>>>(
+      static_cast<const __nv_bfloat16*>(xb), static_cast<const float*>(xsum),
+      static_cast<const uint32_t*>(qw), static_cast<const float*>(s),
+      static_cast<const float*>(mn), static_cast<float*>(part), M, K, N, gs, per);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_reduce<T>(part, y, splits, (size_t)M * N, st);
+}
+
+template <int BITS, bool SMALL, typename T>
+int launch_rows(const void* xb, const void* xsum, const void* qw, const void* s,
+                const void* mn, void* part, void* y, int M, int K, int N, int gs, int splits,
+                int per, cudaStream_t st) {
+#define B4_ARGS xb, xsum, qw, s, mn, part, y, M, K, N, gs, splits, per, st
+  if (M <= 8) return launch<BITS, 1, SMALL, T>(B4_ARGS);
+  if (M <= 16) return launch<BITS, 2, SMALL, T>(B4_ARGS);
+  return launch<BITS, 4, SMALL, T>(B4_ARGS);
 }
 
 template <int BITS, typename T>
-int launch_bits(const void* x, const void* qw, const void* s, const void* mn, void* part,
-                void* y, int M, int K, int N, int gs, int splits, int per, cudaStream_t st) {
-  if (M <= 1) return launch<BITS, 1, T>(x, qw, s, mn, part, y, M, K, N, gs, splits, per, st);
-  if (M <= 8) return launch<BITS, 8, T>(x, qw, s, mn, part, y, M, K, N, gs, splits, per, st);
-  if (M <= 16) return launch<BITS, 16, T>(x, qw, s, mn, part, y, M, K, N, gs, splits, per, st);
-  return launch<BITS, 32, T>(x, qw, s, mn, part, y, M, K, N, gs, splits, per, st);
+int launch_bits(const void* xb, const void* xsum, const void* qw, const void* s,
+                const void* mn, void* part, void* y, int M, int K, int N, int gs, int splits,
+                int per, cudaStream_t st) {
+  if (gs < 16) return launch_rows<BITS, true, T>(B4_ARGS);
+  return launch_rows<BITS, false, T>(B4_ARGS);
+#undef B4_ARGS
+}
+
+template <typename T>
+int launch_round(const void* x, void* xb, void* xsum, int M, int K, int gs, cudaStream_t st) {
+  const int items = M * (K / gs);
+  round_rows_kernel<T><<<(items + 7) / 8, 256, 0, st>>>(
+      static_cast<const T*>(x), static_cast<__nv_bfloat16*>(xb), static_cast<float*>(xsum),
+      M, K, gs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x [M,K] in dtype (0 = bfloat16, 1 = float32, 2 = float16), 16-byte aligned; qweight u32
-// [K*bits/32, N] signed 4- or 8-bit; scales, mins f32 [K/gs, N]; part f32
-// [splits, M, N] scratch; y [M,N] in dtype. per: K rows per split, a multiple
-// of max(128, gs). Returns a cudaError_t code.
+// x [M,K] in dtype (0 = bfloat16, 1 = float32, 2 = float16); xb bf16 [M,K]
+// and xsum f32 [M, K/gs] scratch (16-byte aligned); qweight u32 [K*bits/32, N]
+// signed 4- or 8-bit; scales, mins f32 [K/gs, N]; part f32 [splits, M, N]
+// scratch; y [M,N] in dtype. per: K rows per split, a multiple of the group
+// and of 16. Returns a cudaError_t code.
 extern "C" int qmm_stream_launch(const void* x, const void* qweight, const void* scales,
-                                 const void* mins, void* part, void* y, int M, int K,
-                                 int N, int bits, int group_size, int splits, int per,
-                                 int dtype, void* stream) {
-  if (M <= 0 || M > 32 || N <= 0 || K <= 0 || N % kBN != 0 || group_size <= 0 ||
-      K % group_size != 0 || splits <= 0 || per <= 0 ||
-      (long long)splits * per < K || (long long)(splits - 1) * per >= K ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+                                 const void* mins, void* xb, void* xsum, void* part, void* y,
+                                 int M, int K, int N, int bits, int group_size, int splits,
+                                 int per, int dtype, void* stream) {
+  if (M <= 0 || M > 32 || N <= 0 || K <= 0 || N % kBN != 0 ||
+      (group_size != 4 && group_size != 8 && (group_size <= 0 || group_size % 16 != 0)) ||
+      K % group_size != 0 || per % group_size != 0 || !split_ok(K, splits, per, 16) || reinterpret_cast<uintptr_t>(xb) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto by_bits = [&](auto tag) {
     using T = decltype(tag);
+    int e = launch_round<T>(x, xb, xsum, M, K, group_size, st);
+    if (e != 0) return e;
     if (bits == 4)
-      return launch_bits<4, T>(x, qweight, scales, mins, part, y, M, K, N, group_size,
+      return launch_bits<4, T>(xb, xsum, qweight, scales, mins, part, y, M, K, N, group_size,
                                splits, per, st);
     if (bits == 8)
-      return launch_bits<8, T>(x, qweight, scales, mins, part, y, M, K, N, group_size,
+      return launch_bits<8, T>(xb, xsum, qweight, scales, mins, part, y, M, K, N, group_size,
                                splits, per, st);
     return (int)cudaErrorInvalidValue;
   };
+  if (bits != 4 && bits != 8) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return by_bits(__nv_bfloat16());
   if (dtype == 1) return by_bits(float());
   if (dtype == 2) return by_bits(__half());

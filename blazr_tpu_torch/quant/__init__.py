@@ -1,4 +1,5 @@
-from .int8 import qmm_int8, qmm_int8_reference, quantize_rows
+from .int8 import (qmm_int8, qmm_int8_reference, quantize_activations,
+                   quantize_activations_reference, quantize_rows)
 from .kernels import qmm, qmm_reference, qmm_stream, qmm_stream_reference
 from .matmul import quant_matmul
 from .qtensor import (
@@ -29,6 +30,8 @@ __all__ = [
     "qmm_stream",
     "qmm_stream_reference",
     "quant_matmul",
+    "quantize_activations",
+    "quantize_activations_reference",
     "quantize_rows",
     "unpack",
     "unpack_k",

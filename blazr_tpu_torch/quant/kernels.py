@@ -3,9 +3,9 @@ variant): wrappers, launch counts and plain versions.
 
 B1 is ``csrc/qmm.cu`` and replaces
 ``blazr_tpu/quant/pallas/int_matmul.py::_qmm_kernel``; B4 is
-``csrc/qmm_stream.cu`` and replaces ``_qmm_stream_kernel`` (CUDA C++ for
-sm_90a). Their notes say what bounds them on the H100 and how their designs
-answer that.
+``csrc/qmm_stream.cu`` (a bf16 pre-pass and a tensor-core product) and
+replaces ``_qmm_stream_kernel`` (CUDA C++ for sm_90a). Their notes say what
+bounds them on the H100 and how their designs answer that.
 
 ``qmm`` and ``qmm_stream`` launch their kernels for CUDA tensors and run
 ``qmm_reference`` / ``qmm_stream_reference`` for CPU tensors. Nothing falls
@@ -30,11 +30,11 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 # from 6 the wgmma one does, and 5 rows cost the CUDA-core variant what 8
 # do (its 8-row tile).
 TC_MIN_ROWS = 5
-# Blocks B1 and B4 aim for on the H100's 132 SMs. B4, and B1's tensor-core
-# variant at 128-row tiles: one wave of two blocks a SM. B1 at decode rows
-# (its split-K variant, and 64-row wgmma tiles) runs several waves of short
-# blocks faster than one wave of long ones (the K-split sweep of
-# chip_smoke.py phase 8, PERF.md).
+# Blocks B1 aims for on the H100's 132 SMs. Its tensor-core variant at
+# 128-row tiles: one wave of two blocks a SM. At decode rows (its split-K
+# variant, and 64-row wgmma tiles) it runs several waves of short blocks
+# faster than one wave of long ones (the K-split sweep of chip_smoke.py
+# phase 8, PERF.md).
 _TARGET_BLOCKS = 264
 _DEC_TARGET_BLOCKS = 2048
 _TC64_TARGET_BLOCKS = 800
@@ -46,10 +46,13 @@ _DEC_KST = 128
 _TC_BK = 64
 _TC_CHUNK = 8
 _TC_MIN_STEPS = 8
-# B4: rows the streaming variant takes (the JAX branch's m <= 32) and the K
-# rows its blocks stream per stage.
+# B4: rows the streaming variant takes (the JAX branch's m <= 32), the K
+# rows its blocks stream per stage, and the blocks its K splits aim for
+# (the split sweep of chip_smoke.py phase 8: 16 splits of o and down, 4 of
+# gate+up).
 STREAM_MAX_ROWS = 32
 _STREAM_KST = 128
+_STREAM_TARGET_BLOCKS = 896
 
 
 def _lib() -> ctypes.CDLL:
@@ -208,13 +211,13 @@ qmm.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# B4: streaming decode variant (split-K, cp.async ring)
+# B4: streaming decode variant (tensor cores, split-K, mbarrier ring)
 # ---------------------------------------------------------------------------
 
 def _stream_lib() -> ctypes.CDLL:
     lib = cuda_build.load("qmm_stream")
     if lib.qmm_stream_launch.argtypes is None:
-        lib.qmm_stream_launch.argtypes = ([ctypes.c_void_p] * 6
+        lib.qmm_stream_launch.argtypes = ([ctypes.c_void_p] * 8
                                           + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.qmm_stream_launch.restype = ctypes.c_int
     return lib
@@ -230,15 +233,14 @@ def qmm_stream_reference(x: torch.Tensor, qweight: torch.Tensor,
                          group_size=group_size).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def stream_splits(k: int, n: int, group_size: int) -> tuple[int, int]:
     """(splits, K rows per split) for B4: enough K splits that the N/128
-    column tiles give about _TARGET_BLOCKS blocks; a split is a whole
-    number of stages of max(128, group) rows."""
+    column tiles give about _STREAM_TARGET_BLOCKS blocks, at most
+    _MAX_SPLITS; a split is a whole number of max(128, group) rows."""
     unit = max(_STREAM_KST, group_size)
-    units = k // unit
-    splits = min(units, max(1, -(-_TARGET_BLOCKS // (n // 128))))
-    per = -(-units // splits) * unit
-    return -(-k // per), per
+    splits, per = _split(k // unit, n // 128, _MAX_SPLITS, _STREAM_TARGET_BLOCKS)
+    return splits, per * unit
 
 
 def qmm_stream(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
@@ -260,23 +262,31 @@ def qmm_stream(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"B4 takes bfloat16, float32 or float16 activations, got {x.dtype}")
     unit = max(_STREAM_KST, group_size)
-    if n % 128 or k % unit or unit % group_size:
-        raise ValueError(f"B4 needs N % 128 == 0 and K a multiple of "
-                         f"max(128, group) that the group divides (N={n} K={k} "
-                         f"gs={group_size})")
+    if n % 128 or k % unit or unit % group_size or (group_size % 16 and group_size not in (4, 8)):
+        raise ValueError(f"B4 needs N % 128 == 0, a group size of 4, 8 or a multiple "
+                         f"of 16 and K a multiple of max(128, group) that the group "
+                         f"divides (N={n} K={k} gs={group_size})")
     if not (x.is_contiguous() and qweight.is_contiguous()
-            and scales.is_contiguous() and mins.is_contiguous()
-            and x.data_ptr() % 16 == 0):
-        raise ValueError("B4 needs contiguous operands and 16-byte aligned x")
+            and scales.is_contiguous() and mins.is_contiguous()):
+        raise ValueError("B4 needs contiguous operands")
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
     splits, per = stream_splits(k, n, group_size)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+    # One f32 workspace: x rounded to bf16 [m, k] (written once per call by
+    # the kernel's pre-pass and read by every block), the split partials
+    # [splits, m, n] and x's group sums [m, k/gs]. k % 128 == 0 keeps each
+    # part 16-byte aligned.
+    xb_words, part_words = m * k // 2, splits * m * n
+    ws = torch.empty((xb_words + part_words + m * (k // group_size),), dtype=torch.float32,
+                     device=dev)
+    xb = ws.data_ptr()
+    part = xb + 4 * xb_words
+    xsum = part + 4 * part_words
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _stream_lib().qmm_stream_launch(
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), mins.data_ptr(),
-        part.data_ptr(), y.data_ptr(), m, k, n, bits, group_size, splits, per,
+        xb, xsum, part, y.data_ptr(), m, k, n, bits, group_size, splits, per,
         _DTYPE_CODE[x.dtype], stream)
     if err:
         raise RuntimeError(f"qmm_stream kernel launch failed with CUDA error {err} "

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`` into ``csrc/_build/lib<name>-<hash>.so`` (the hash covers
-the source and the flags, so an edited source is rebuilt). The build
+the source, every ``csrc/`` header it includes with ``#include "..."``, and
+the flags, so an edited source or header is rebuilt). The build
 directory is listed in ``.gitignore``. Nothing here runs at import time.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -38,10 +40,29 @@ def nvcc_path() -> str:
                        "machine with the card")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly or
+    through another header, in a fixed order."""
+    seen: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start_build(name: str) -> tuple[Path, subprocess.Popen | None, Path]:

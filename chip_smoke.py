@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                      # every phase, result lines
     python3 chip_smoke.py --phases build,b3    # a subset, no result lines
+    python3 chip_smoke.py --tree DIR --phases build,timings,executor,serve_int8
+        # this script's phases on another checkout's package in DIR (an A/B)
 
 Phases, in order; any failure raises and the script exits non-zero:
   1.  print the card (name, power limit) and build csrc/*.cu (B1-B6) with
@@ -14,9 +16,12 @@ Phases, in order; any failure raises and the script exits non-zero:
       its sequence splits (one sequence over 32 splits, split edges, empty
       splits under a window);
   3b. kernel B3 (int8-activation matmul) against its plain version: the four
-      projections at m ∈ {1, 8, 256, 512}, w4a8 and w8a8, bf16, f32 and f16,
-      a GPTQ desc-act perm, all-zero rows, integer-equal activation quant;
-  3c. kernel B4 (streaming decode matmul) against its plain version;
+      projections at m ∈ {1, 5, 8, 16, 17, 32, 33, 64, 65, 256, 512, 4096}
+      (its decode and wgmma variants and their tile edges), groups 32, 64
+      and 128, w4a8 and w8a8, bf16, f16 and f32, a GPTQ desc-act perm,
+      all-zero rows; its quant kernel's integers equal the CPU's;
+  3c. kernel B4 (streaming decode matmul) against its plain version at
+      m ∈ {1, 5, 8, 9, 16, 17, 32}, groups 32, 64 and 128, three dtypes;
   3d. kernel B5 (wide KV view) and 3e. kernel B6 (head-major KV cache)
       against their plain versions, bf16 and f32, bs 64/128, B 8/32;
   3f. the layout tools' sweeps (their main path): B2 vs B5, B2 vs B6;
@@ -28,24 +33,32 @@ Phases, in order; any failure raises and the script exits non-zero:
       then a torch.profiler pass over one prefill group and 16 decode steps
       (device idle share and the top device operations);
   5b. the 32-layer Executor under w8a8: a 512-token prompt, 128 greedy
-      tokens, B3 launched 128 times per forward and B1 never;
+      tokens, B3 launched 128 times per forward and B1 never; then profiled
+      (idle share, top device operations, at most 3 kernels a B3 call);
   5c. the 8 requests of phase 5 under w4a8-prefill with
       BLAZR_TPU_STREAM_KERNEL=1: B3 (prefill), B4 (decode) and B2 launched;
+      then profiled as phase 5;
   7.  the normal entry point: an 8-layer full-width AWQ checkpoint and a
       BPE tokenizer.json written to disk, loaded by load_model (f16) and
       served over HTTP with continuous batching (8 concurrent requests), then
       ``python -m blazr_tpu_torch.cli serve`` as a subprocess;
-  8.  the sweeps behind B1's and B2's launch plans, straight through the
-      libraries: B1's two variants over rows (TC_MIN_ROWS) and over K splits
-      at decode rows (the planners' block targets), B2 over its split count;
+  8.  the sweeps behind the launch plans, straight through the libraries:
+      B1's two variants over rows (TC_MIN_ROWS) and over K splits at decode
+      rows, B2 over its split count, B3's two variants over rows
+      (DEC_MAX_ROWS) and K splits, B4's K splits;
   9.  timings (device time of one call: CUDA graphs of many calls), B1 over
-      rows 1-512 at every projection, B2 at three batch/context points,
-      B3-B6 at one point each; then one ``{"kernels": [...]}`` JSON line
+      rows 1-512 at every projection, B2 at three batch/context points, B3
+      at every projection at m ∈ {1, 8, 512} (w4a8, w8a8) and gate+up at
+      4096, its quant kernel, B4 at every projection at m ∈ {1, 8, 16, 32},
+      B5 and B6 at one point each; then one ``{"kernels": [...]}`` JSON line
       with each kernel's launches in its serving phase, max error, time,
-      bound, plain time and library-call time (B1: prefill, with its decode
-      point under "decode").
+      bound, plain time and library-call time (B1 and B3: prefill, with
+      their decode point under "decode").
 Each serving phase sets the launch counts to 0 just before it and reads
-them just after. The last line is ``{"ok": true, "device": {...}}``. Without
+them just after. Under ``--tree`` (another checkout, a subset of phases)
+phase 5b reports that tree's kernels per B3 call without holding it to this
+one's limit, and phase 9 leaves out B3's quant kernel where that tree has
+none. The last line is ``{"ok": true, "device": {...}}``. Without
 CUDA, or run outside a checkout that holds ``blazr_tpu_torch/``, it prints no
 result and exits non-zero. The compiler's full report goes to
 ``blazr_tpu_torch/csrc/_build/build.log``.
@@ -64,6 +77,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+TREE = REPO                         # the checkout whose blazr_tpu_torch runs (--tree)
 SEED = 0
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
@@ -83,6 +97,30 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def entry_name(mangled: str) -> str:
+    """'qmm_int8_wgmma_kernel<8,128,2,bf16>' from a mangled kernel name
+    ('...<len><kernel>I<template arguments>E...')."""
+    import re
+
+    for run in re.finditer(r"\d+", mangled):       # a hash may run into the length
+        start = run.end()
+        for i in range(run.start(), start):
+            name = mangled[start:start + int(mangled[i:start])]
+            if name.endswith(("kernel", "splits", "bf16")):
+                break
+        after = mangled[start + len(name):start + len(name) + 1]
+        if name.endswith(("kernel", "splits", "bf16")) and after == "E":
+            return name                                  # not a template
+        if name.endswith(("kernel", "splits", "bf16")) and after == "I":
+            args = mangled[start + len(name) + 1:].split("EEv")[0]
+            args = re.sub(r"Li(\d+)E", r"\1,", args)
+            for code, short in (("13__nv_bfloat16", "bf16"), ("6__half", "f16")):
+                args = args.replace(code, short)
+            args = re.sub(r"(^|,)f$", r"\1f32", args)
+            return f"{name}<{args}>"
+    return mangled[:60]
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -391,21 +429,140 @@ def b2_splits(dev, gen) -> None:
         del s, acc, ml
 
 
+def b3_launcher(lib, acts, qw, s, mn, y, part, m, k, n, bits, variant, rows, splits, per):
+    """One launch of a B3 product variant straight through the library, on
+    the quantized activations ``acts`` (xq, xs, group sums); not counted."""
+    import torch
+
+    xq, xs, gsum = acts
+    code = 1 if variant == "wgmma" else 0
+
+    def fn():
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        assert lib.qmm_int8_launch(xq.data_ptr(), xs.data_ptr(), gsum.data_ptr(),
+                                   qw.data_ptr(), s.data_ptr(), mn.data_ptr(),
+                                   part.data_ptr(), y.data_ptr(), m, k, n, bits, 128, code,
+                                   rows, splits, per, 0, stream) == 0
+
+    return fn
+
+
+def turns(fns: dict, iters: int = 20) -> dict:
+    """Best time of each named launcher over two turns (a, b, b, a)."""
+    names = list(fns)
+    t = {name: [] for name in names}
+    for name in names + names[::-1]:
+        t[name].append(time_ms(fns[name], iters=iters))
+    return {name: min(v) for name, v in t.items()}
+
+
+def b3_sweeps(dev, gen) -> None:
+    """Phase 8 for B3, straight through the library on pre-quantized
+    activations (not counted): the decode (mma) variant against wgmma over
+    rows 8-64 (the sweep behind DEC_MAX_ROWS), and each variant over its K
+    splits (the planners' block targets)."""
+    import torch
+
+    from blazr_tpu_torch.quant import int8
+
+    lib = int8._lib()
+    for pname, (k, n) in B1_SHAPES.items():
+        for bits in ((4, 8) if pname == "gateup" else (8,)):
+            qw, s, mn = rand_planes(k, n, bits, 128, gen, dev)
+            part = torch.empty((16 * 64 * n,), dtype=torch.float32, device=dev)
+            row = []
+            for m in (8, 16, 24, 32, 40, 48, 64):
+                x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+                acts = int8.quantize_activations(x, group_size=128, device=dev)
+                y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+                fns = {}
+                for variant, (rows, splits, per) in (
+                        ("mma", int8.mma_plan(m, k, n, 128, bits)),
+                        ("wgmma", int8.wgmma_plan(m, k, n, 128))):
+                    fns[variant] = b3_launcher(lib, acts, qw, s, mn, y, part, m, k, n, bits,
+                                               variant, rows, splits, per)
+                t = turns(fns)
+                row.append(f"m={m} {t['mma']:.4f}/{t['wgmma']:.4f}")
+            log(f"  B3 w{bits}a8 {pname} mma/wgmma ms: " + ", ".join(row))
+    for pname, (k, n) in B1_SHAPES.items():
+        qw, s, mn = rand_planes(k, n, 8, 128, gen, dev)
+        part = torch.empty((16 * 512 * n,), dtype=torch.float32, device=dev)
+        for variant, m in (("mma", 1), ("mma", 8), ("wgmma", 64), ("wgmma", 512)):
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            acts = int8.quantize_activations(x, group_size=128, device=dev)
+            y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+            if variant == "mma":
+                rows, plan, _ = int8.mma_plan(m, k, n, 128, 8)
+            else:
+                rows, plan, _ = int8.wgmma_plan(m, k, n, 128)
+            row = []
+            for want in ((1, 2, 4, 8, 16) if variant == "mma" else (1, 2, 4, 8)):
+                per = -(-(k // 128) // want) * 128
+                splits = -(-k // per)
+                fn = b3_launcher(lib, acts, qw, s, mn, y, part, m, k, n, 8, variant, rows,
+                                 splits, per)
+                row.append(f"{splits}{'*' if splits == plan else ''}: "
+                           f"{time_ms(fn, iters=20):.4f}")
+            log(f"  B3 w8a8 {variant} {pname} m={m} ms by K splits (* the plan's): "
+                + ", ".join(row))
+
+
+def b4_splits(dev, gen) -> None:
+    """Phase 8 for B4: its K split count at m ∈ {1, 8, 32} on the four
+    projections, straight through the library (not counted): the sweep
+    behind stream_splits' block target."""
+    import torch
+
+    from blazr_tpu_torch.quant import kernels
+
+    lib = kernels._stream_lib()
+    for pname, (k, n) in B1_SHAPES.items():
+        qw, s, mn = rand_planes(k, n, 4, 128, gen, dev)
+        plan = kernels.stream_splits(k, n, 128)[0]
+        for m in (1, 8, 32):
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+            xb = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
+            xsum = torch.empty((m, k // 128), dtype=torch.float32, device=dev)
+            part = torch.empty((16, m, n), dtype=torch.float32, device=dev)
+            row = []
+            for want in (1, 2, 4, 8, 16):
+                per = -(-(k // 128) // want) * 128
+                splits = -(-k // per)
+
+                def fn(splits=splits, per=per):
+                    stream = torch.cuda.current_stream(dev).cuda_stream
+                    assert lib.qmm_stream_launch(
+                        x.data_ptr(), qw.data_ptr(), s.data_ptr(), mn.data_ptr(),
+                        xb.data_ptr(), xsum.data_ptr(), part.data_ptr(), y.data_ptr(), m, k,
+                        n, 4, 128, splits, per, 0, stream) == 0
+
+                row.append(f"{splits}{'*' if splits == plan else ''}: "
+                           f"{time_ms(fn, iters=20):.4f}")
+            log(f"  B4 {pname} m={m} ms by K splits (* the plan's): " + ", ".join(row))
+
+
 # ---------------------------------------------------------------------------
 # phase 3b/3c: B3 and B4
 # ---------------------------------------------------------------------------
 
+B3_ROWS = (1, 5, 8, 16, 17, 32, 33, 64, 65, 256, 512, 4096)
+DTYPES = ("bfloat16", "float16", "float32")
+
+
 def check_b3(dev, gen) -> dict:
     """B3 against its plain version: the four Mistral-7B projections at
-    m ∈ {1, 8, 256, 512}, w4a8 and w8a8 weights, bf16 and f32 activations
-    (from m=8 with one all-zero row), and a GPTQ desc-act permutation. The
-    activation quant is plain PyTorch on both sides; its integers must be
-    equal on the card and on the CPU."""
+    m ∈ B3_ROWS (both variants and their tile edges), w4a8 and w8a8 weights,
+    group 128, the activation dtype turning over bf16, f16, f32 with the
+    row count (from m=5 with one all-zero row); groups 32 and 64 on qkv in
+    all three dtypes; a GPTQ desc-act permutation. The quant kernel's xq, xs
+    and group sums must equal the CPU's plain quant as integers."""
     import numpy as np
     import torch
 
     from blazr_tpu_torch.quant import qtensor
-    from blazr_tpu_torch.quant.int8 import qmm_int8, qmm_int8_reference, quantize_rows
+    from blazr_tpu_torch.quant.int8 import (qmm_int8, qmm_int8_reference, quantize_activations,
+                                            quantize_activations_reference)
     from blazr_tpu_torch.quant.matmul import quant_matmul
 
     # Both sides sum exact int32 group partials; they differ by the order of
@@ -413,16 +570,19 @@ def check_b3(dev, gen) -> dict:
     # the output rounding (2^-9 relative; 8e-3 leaves room for the sums).
     tols = {torch.float32: 1e-3, torch.bfloat16: 8e-3, torch.float16: 8e-3}
     worst = 0.0
+    quant_err = 0.0
 
     def one(name, x, qw, s, mn, bits, gs):
-        nonlocal worst
+        nonlocal worst, quant_err
         got = qmm_int8(x, qw, s, mn, bits=bits, group_size=gs, device=dev)
         ref = qmm_int8_reference(x.float(), qw, s, mn, bits=bits, group_size=gs)
-        xq, xs = quantize_rows(x)
-        xq_cpu, xs_cpu = quantize_rows(x.cpu())
+        card = quantize_activations(x, group_size=gs, device=dev)
+        cpu = quantize_activations_reference(x.cpu(), gs)
         torch.cuda.synchronize()
-        assert torch.equal(xq.cpu(), xq_cpu) and torch.equal(xs.cpu(), xs_cpu), \
-            f"B3 {name}: activation quant differs between card and CPU"
+        for a, b in zip(card, cpu):
+            quant_err = max(quant_err, (a.cpu().double() - b.double()).abs().max().item())
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)), \
+            f"B3 {name}: the quant kernel's integers differ from the CPU's"
         assert got.shape == ref.shape and torch.isfinite(got).all(), name
         err = (got.float() - ref).abs().max().item()
         tol = tols[x.dtype] * ref.abs().max().item()
@@ -433,15 +593,20 @@ def check_b3(dev, gen) -> dict:
     for pname, (k, n) in B1_SHAPES.items():
         for mode, bits in (("w4a8", 4), ("w8a8", 8)):
             qw, s, mn = rand_planes(k, n, bits, 128, gen, dev)
-            for m in (1, 8, 256, 512):
-                for dt in (torch.bfloat16, torch.float32):
-                    x = torch.randn((m, k), device=dev, generator=gen).to(dt)
-                    if m > 1:
-                        x[m // 2] = 0
-                    one(f"{pname} {mode} m={m} {str(dt)[6:]}", x, qw, s, mn, bits, 128)
-            for m in (8, 512):
-                x = torch.randn((m, k), device=dev, generator=gen).to(torch.float16)
-                one(f"{pname} {mode} m={m} float16", x, qw, s, mn, bits, 128)
+            for i, m in enumerate(B3_ROWS):
+                dt = getattr(torch, DTYPES[(i + bits) % 3])
+                x = torch.randn((m, k), device=dev, generator=gen).to(dt)
+                if m > 1:
+                    x[m // 2] = 0
+                one(f"{pname} {mode} m={m} {str(dt)[6:]}", x, qw, s, mn, bits, 128)
+    k, n = B1_SHAPES["qkv"]
+    for gs in (32, 64):
+        for mode, bits in (("w4a8", 4), ("w8a8", 8)):
+            qw, s, mn = rand_planes(k, n, bits, gs, gen, dev)
+            for i, m in enumerate((1, 17, 64, 512)):
+                for dname in DTYPES if m in (17, 512) else DTYPES[i % 2:i % 2 + 1]:
+                    x = torch.randn((m, k), device=dev, generator=gen).to(getattr(torch, dname))
+                    one(f"qkv {mode} gs={gs} m={m} {dname}", x, qw, s, mn, bits, gs)
     rng = np.random.default_rng(SEED + 3)
     k, n, gs = 512, 128, 128
     qweight = rng.integers(0, 2 ** 32, (k // 8, n), dtype=np.uint64).astype(np.uint32)
@@ -462,34 +627,38 @@ def check_b3(dev, gen) -> dict:
     tol = tols[torch.bfloat16] * ref.abs().max().item()
     log(f"  B3 {'GPTQ desc-act perm':40s} max_abs_err {err:.4g}  tol {tol:.4g}")
     assert err <= tol
-    return {"max_abs_err": max(worst, err)}
+    return {"max_abs_err": max(worst, err), "quant_max_abs_err": quant_err}
+
+
+B4_ROWS = (1, 5, 8, 9, 16, 17, 32)
 
 
 def check_b4(dev, gen) -> dict:
-    """B4 against its plain version: m ∈ {1, 8, 32}, signed 4- and 8-bit
-    weights, the four Mistral-7B projections, and f32 activations once."""
+    """B4 against its plain version: m ∈ B4_ROWS (its 8-, 16- and 32-row x
+    tiles and their edges), signed 4- and 8-bit weights, the four Mistral-7B
+    projections at group 128, the activation dtype turning over bf16, f16,
+    f32 with the row count; groups 32 and 64 on o in all three dtypes."""
     import torch
 
     from blazr_tpu_torch.quant.kernels import qmm_stream, qmm_stream_reference
 
     rel_tol = 8e-3                       # as B1: bf16 output, f32 sums
     worst = 0.0
-    cases = [(pname, k, n, bits, m, torch.bfloat16)
+    cases = [(pname, k, n, bits, m, DTYPES[(i + bits) % 3], 128)
              for pname, (k, n) in B1_SHAPES.items() for bits in (4, 8)
-             for m in (1, 8, 32)]
-    cases += [("o f32", 4096, 4096, 4, 5, torch.float32),
-              ("o f16", 4096, 4096, 4, 5, torch.float16),
-              ("gateup f16", 4096, 28672, 4, 32, torch.float16)]
-    for pname, k, n, bits, m, dt in cases:
-        qw, s, mn = rand_planes(k, n, bits, 128, gen, dev)
-        x = torch.randn((m, k), device=dev, generator=gen).to(dt)
-        got = qmm_stream(x, qw, s, mn, bits=bits, group_size=128, device=dev)
-        ref = qmm_stream_reference(x.float(), qw, s, mn, bits=bits, group_size=128)
+             for i, m in enumerate(B4_ROWS)]
+    cases += [("o", 4096, 4096, bits, m, dname, gs) for gs in (32, 64) for bits in (4, 8)
+              for m in (1, 9, 32) for dname in DTYPES]
+    for pname, k, n, bits, m, dname, gs in cases:
+        qw, s, mn = rand_planes(k, n, bits, gs, gen, dev)
+        x = torch.randn((m, k), device=dev, generator=gen).to(getattr(torch, dname))
+        got = qmm_stream(x, qw, s, mn, bits=bits, group_size=gs, device=dev)
+        ref = qmm_stream_reference(x.float(), qw, s, mn, bits=bits, group_size=gs)
         torch.cuda.synchronize()
         assert got.shape == ref.shape and torch.isfinite(got).all(), pname
         err = (got.float() - ref).abs().max().item()
         tol = rel_tol * ref.abs().max().item()
-        log(f"  B4 {pname} {bits}-bit m={m:<3d} {str(dt)[6:]:9s} max_abs_err "
+        log(f"  B4 {pname} {bits}-bit gs={gs:<3d} m={m:<3d} {dname:9s} max_abs_err "
             f"{err:.4g}  tol {tol:.4g}")
         assert err <= tol, f"B4 {pname} {bits}-bit m={m}: {err} > {tol}"
         worst = max(worst, err)
@@ -878,14 +1047,17 @@ async def serve(engine, waves) -> list[dict]:
 def counted() -> dict:
     """Every kernel wrapper of the port by the key its launches go under."""
     from blazr_tpu_torch.attention.paged_attention import paged_attention_decode
-    from blazr_tpu_torch.quant.int8 import qmm_int8
+    from blazr_tpu_torch.quant import int8
     from blazr_tpu_torch.quant.kernels import qmm, qmm_stream
     from blazr_tpu_torch.tools.bench_pa_headmajor import pa_headmajor
     from blazr_tpu_torch.tools.bench_pa_wide import pa_wide
 
-    return {"qmm": qmm, "paged_attention": paged_attention_decode,
-            "qmm_int8": qmm_int8, "qmm_stream": qmm_stream, "pa_wide": pa_wide,
-            "pa_headmajor": pa_headmajor}
+    out = {"qmm": qmm, "paged_attention": paged_attention_decode,
+           "qmm_int8": int8.qmm_int8, "qmm_stream": qmm_stream, "pa_wide": pa_wide,
+           "pa_headmajor": pa_headmajor}
+    if hasattr(int8, "quantize_activations"):      # absent in trees before its kernel
+        out["act_quant"] = int8.quantize_activations
+    return out
 
 
 def reset_counts() -> None:
@@ -947,6 +1119,7 @@ def full_depth(dev, card: str, quant_compute: str = "w4a16",
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
+        profile = profile_serving(dev, model, card, quant_compute)
     finally:
         if old is None:
             os.environ.pop("BLAZR_TPU_STREAM_KERNEL")
@@ -976,7 +1149,7 @@ def full_depth(dev, card: str, quant_compute: str = "w4a16",
         assert launches["qmm_int8"] > 0 and launches["qmm_stream"] > 0, launches
     else:
         assert launches["qmm"] > 0, launches
-        launches = dict(launches, profile=profile_serving(dev, model, card))
+    launches = dict(launches, profile=profile)
     del engine, model
     torch.cuda.empty_cache()
     return launches
@@ -1197,11 +1370,11 @@ def serve_http(dev, card: str) -> dict:
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             cli_port = s.getsockname()[1]
-        env = dict(os.environ, PYTHONPATH=str(REPO))
+        env = dict(os.environ, PYTHONPATH=str(TREE))
         proc = subprocess.Popen(
             [sys.executable, "-m", "blazr_tpu_torch.cli", "serve", "--model", str(ckpt),
              "--continuous-batching", "--host", "127.0.0.1", "--port", str(cli_port),
-             "--no-warmup"], cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+             "--no-warmup"], cwd=TREE, env=env, stdout=subprocess.DEVNULL,
             stderr=subprocess.PIPE, text=True)
         try:
             t0 = time.perf_counter()
@@ -1269,14 +1442,16 @@ def device_busy(fn) -> tuple[float, float, int, dict]:
 def short_name(name: str) -> str:
     """A kernel's name without its template arguments and namespaces."""
     for key in ("qmm_wgmma_kernel", "qmm_splitk_kernel", "pa_split_kernel",
-                "pa_combine_kernel", "reduce_splits", "round_to_bf16"):
+                "pa_combine_kernel", "reduce_splits", "round_to_bf16", "act_quant_kernel",
+                "qmm_int8_wgmma_kernel", "qmm_int8_dec_kernel", "qmm_int8_kernel",
+                "qmm_stream_kernel", "round_rows_kernel"):
         if key in name:
             return key
     return name[:60]
 
 
-def profile_serving(dev, model, card: str) -> dict:
-    """Phase 5's profile: the w4a16 BatchEngine under torch.profiler, first
+def profile_serving(dev, model, card: str, quant_compute: str = "w4a16") -> dict:
+    """Phases 5's and 5c's profile: the BatchEngine under torch.profiler, first
     over one prefill group of 4 prompts (64-512 tokens) that stop after
     their first token, then over the same group run to 17 tokens (one
     prefill, 16 decode steps). The decode steps are the difference of the
@@ -1292,7 +1467,9 @@ def profile_serving(dev, model, card: str) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (64, 512, 200, 333)]
 
     def run(tokens: int):
-        engine = BatchEngine(model, StubTokenizer(), AppConfig(model=cfg))
+        app = AppConfig(model=cfg)
+        app.inference.quant_compute = quant_compute
+        engine = BatchEngine(model, StubTokenizer(), app)
         wave = [(p, GenerationConfig(max_tokens=tokens, temperature=0.0)) for p in prompts]
         return device_busy(lambda: asyncio.run(serve(engine, [wave])))
 
@@ -1331,10 +1508,13 @@ def profile_serving(dev, model, card: str) -> dict:
                 step_idle_share=idle)
 
 
-def serve_executor(dev, card: str) -> dict:
+def serve_executor(dev, card: str, hold: bool = True) -> dict:
     """Phase 5b: the 32-layer single-stream Executor under w8a8: a 512-token
     prompt and 128 greedy tokens through collect_generation. Every
-    projection of every forward launches B3; B1 never launches."""
+    projection of every forward launches B3; B1 never launches. Then under
+    the profiler: 16 more tokens, and B3 alone on the model's gate+up weight
+    at 1 and 512 rows, where every device kernel counts: at most 3 a call
+    (``hold=False``, another checkout: reported only)."""
     import numpy as np
     import torch
 
@@ -1375,16 +1555,67 @@ def serve_executor(dev, card: str) -> dict:
     assert launches["qmm"] == 0 and launches["qmm_stream"] == 0, launches
     # Where a decode step's time goes: 16 more greedy tokens under the
     # profiler, kernel time against wall time.
-    wall_p, busy, kernels, _ = device_busy(lambda: collect_generation(
+    b3_before = read_counts()["qmm_int8"]
+    wall_p, busy, kernels, names = device_busy(lambda: collect_generation(
         ex, prompt[:16], GenerationConfig(max_tokens=17, temperature=0.0)))
+    b3_calls = read_counts()["qmm_int8"] - b3_before
     log(f"  profiled 16-token prompt + 17 tokens: wall {wall_p * 1e3:.1f} ms, CUDA "
         f"kernels {busy * 1e3:.1f} ms over {kernels} kernels "
         f"({kernels / 17:.0f} per token); device idle share "
-        + (f"{1 - busy / wall_p:.2f}" if busy > 0 else "not measured (no device events)"))
+        + (f"{1 - busy / wall_p:.2f}" if busy > 0 else "not measured (no device events)")
+        + f" ({card}; under the profiler)")
+    by_key: dict = {}
+    for name, (sec, calls) in names.items():
+        r = by_key.setdefault(short_name(name), [0.0, 0])
+        r[0] += sec
+        r[1] += calls
+    log("  top device ops: " + "; ".join(
+        f"{n} {sec * 1e3:.2f} ms/{calls}"
+        for n, (sec, calls) in sorted(by_key.items(), key=lambda kv: -kv[1][0])[:8]))
+    assert kernels > 0, "the profiler saw no device kernels"
+    # B3's own kernels: the quant, a product and the split reduction (the
+    # only reduce_splits under w8a8, where B1 and B4 never launch).
+    b3_kernels = sum(calls for n, (_, calls) in by_key.items()
+                     if n in ("act_quant_kernel", "qmm_int8_wgmma_kernel",
+                              "qmm_int8_dec_kernel", "qmm_int8_kernel", "reduce_splits"))
+    log(f"  B3: {b3_kernels} of its own device kernels over {b3_calls} qmm_int8 calls "
+        f"({b3_kernels / b3_calls:.2f} a call)")
+    # Every device kernel of a B3 call, the activation quant included, on the
+    # model's own gate+up weight: 8 calls profiled alone (CUDA activity only),
+    # after a warm-up step of the profiler (a fresh trace drops its first
+    # kernels).
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from blazr_tpu_torch.quant.int8 import qmm_int8
+    gu = model.params["layers"][0]["gateup"]
+    per_call = {}
+    for m in (1, 512):
+        x = torch.randn((m, gu.in_features), device=dev).to(torch.bfloat16)
+
+        def calls(n):
+            for _ in range(n):
+                qmm_int8(x, gu.qweight, gu.scales, gu.mins, bits=gu.bits,
+                         group_size=gu.group_size, device=dev)
+            torch.cuda.synchronize()
+
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            calls(4)
+            prof.step()
+            calls(8)
+        per_call[m] = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                          for e in prof.events()) / 8
+    log(f"  B3 alone on gate+up: device kernels a call {per_call} (at most 3)")
+    assert all(v > 0 for v in per_call.values()), per_call
+    if hold:
+        assert b3_kernels <= 3 * b3_calls, (b3_kernels, b3_calls)
+        assert all(v <= 3 for v in per_call.values()), per_call
     del ex, model
     torch.cuda.empty_cache()
     return dict(launches, ttft_ms=res.prompt_eval_duration * 1e3,
-                ms_per_token=res.eval_duration / (n - 1) * 1e3, tok_s=n / wall)
+                ms_per_token=res.eval_duration / (n - 1) * 1e3, tok_s=n / wall,
+                idle_share=1 - busy / wall_p if busy > 0 else None,
+                b3_kernels_per_call=per_call)
 
 
 def teacher_forced_w8a8(dev) -> None:
@@ -1466,59 +1697,93 @@ def ppl_gate(dev) -> dict:
     return out
 
 
+B3_TIMED_ROWS = (1, 8, 512)
+
+
 def time_b3(dev, gen) -> dict:
-    """B3 at the gate+up shape for w4a8 and w8a8 at m ∈ {8, 512, 4096}, with
-    its bound, plain version, B1 on the same 4-bit weight, torch.matmul on a
-    pre-dequantized bf16 weight and torch._int_mm at the same (m, K, N)
-    (the int8 GEMM rate: not the same function; it takes m > 16)."""
+    """B3 at the four projections, m ∈ B3_TIMED_ROWS, w4a8 and w8a8, plus
+    gate+up at m=4096: the whole call (quant, product, split reduction), its
+    bound, its plain version, torch.matmul on a bf16-dequantized weight of
+    the same shape, torch._int_mm at the same (m, K, N) where m > 16 (the
+    int8 GEMM rate: not the same function), and B1 (w4a16) on the 4-bit
+    gate+up weight."""
     import torch
 
     from blazr_tpu_torch.quant.int8 import qmm_int8, qmm_int8_reference
     from blazr_tpu_torch.quant.kernels import qmm
     from blazr_tpu_torch.quant.qtensor import dequantize_planes, unpack
 
-    k, n = B1_SHAPES["gateup"]
     gs = 128
     rows = {}
-    qw4, s, mn = rand_planes(k, n, 4, gs, gen, dev)
-    w_bf16 = dequantize_planes(qw4, s, mn, 4, True, gs, torch.bfloat16)
-    for mode, bits in (("w4a8", 4), ("w8a8", 8)):
-        qw = qw4 if bits == 4 else rand_planes(k, n, 8, gs, gen, dev)[0]
-        w_i8 = unpack(qw, bits, True).to(torch.int8).t().contiguous().t()
-        for m in (8, 512, 4096):
-            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
-            ms = time_ms(lambda: qmm_int8(x, qw, s, mn, bits=bits, group_size=gs,
-                                          device=dev), iters=20)
-            plain_ms = time_eager(lambda: qmm_int8_reference(x, qw, s, mn, bits=bits,
-                                                          group_size=gs),
-                               iters=2, warmup=1)
-            lib_ms = time_ms(lambda: torch.matmul(x, w_bf16), iters=20)
-            int_mm_ms = None
-            if m > 16:
-                xq = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
-                                   dtype=torch.int8)
-                int_mm_ms = time_ms(lambda: torch._int_mm(xq, w_i8), iters=20)
-            b1_ms = (time_ms(lambda: qmm(x, qw4, s, mn, bits=4, signed=True,
-                                         group_size=gs, device=dev), iters=20)
-                     if bits == 4 else None)
-            nbytes = qw.numel() * 4 + s.numel() * 8 + m * k * 2 + m * n * 2
-            bms, by = bound(nbytes, 2.0 * m * k * n, H100_INT8_OPS)
-            rows[(mode, m)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                   int_mm_ms=int_mm_ms, b1_ms=b1_ms, bound_ms=bms,
-                                   bound_by=by, mbytes=nbytes / 1e6)
-            log(f"  B3 gateup {mode} m={m}: kernel {ms:.4f} ms "
-                f"({2.0 * m * k * n / ms / 1e9:.1f} TOP/s), bound {bms:.4f} ms ({by}, "
-                f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.3f} ms, torch.matmul(bf16 "
-                f"dequantized) {lib_ms:.4f} ms, torch._int_mm (int8 GEMM rate, not the "
-                f"same function) {'n/a (m <= 16)' if int_mm_ms is None else f'{int_mm_ms:.4f} ms'}"
-                + ("" if b1_ms is None else f", B1 w4a16 {b1_ms:.4f} ms"))
+    for pname, (k, n) in B1_SHAPES.items():
+        qw4, s, mn = rand_planes(k, n, 4, gs, gen, dev)
+        w_bf16 = dequantize_planes(qw4, s, mn, 4, True, gs, torch.bfloat16)
+        for mode, bits in (("w4a8", 4), ("w8a8", 8)):
+            qw = qw4 if bits == 4 else rand_planes(k, n, 8, gs, gen, dev)[0]
+            w_i8 = unpack(qw, bits, True).to(torch.int8).t().contiguous().t()
+            for m in B3_TIMED_ROWS + ((4096,) if pname == "gateup" else ()):
+                x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+                iters = 5 if m >= 4096 else 20
+                ms = time_ms(lambda: qmm_int8(x, qw, s, mn, bits=bits, group_size=gs,
+                                              device=dev), iters=iters)
+                plain_ms = time_eager(lambda: qmm_int8_reference(x, qw, s, mn, bits=bits,
+                                                              group_size=gs),
+                                      iters=2, warmup=1)
+                lib_ms = time_ms(lambda: torch.matmul(x, w_bf16), iters=iters)
+                int_mm_ms = None
+                if m > 16:
+                    xq = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
+                                       dtype=torch.int8)
+                    int_mm_ms = time_ms(lambda: torch._int_mm(xq, w_i8), iters=iters)
+                b1_ms = (time_ms(lambda: qmm(x, qw4, s, mn, bits=4, signed=True,
+                                             group_size=gs, device=dev), iters=iters)
+                         if bits == 4 and pname == "gateup" else None)
+                nbytes = qw.numel() * 4 + s.numel() * 8 + m * k * 2 + m * n * 2
+                bms, by = bound(nbytes, 2.0 * m * k * n, H100_INT8_OPS)
+                rows[(pname, mode, m)] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, int_mm_ms=int_mm_ms,
+                    b1_ms=b1_ms, bound_ms=bms, bound_by=by,
+                    shape=f"{pname} {mode} m={m} K={k} N={n}")
+                log(f"  B3 {pname} {mode} m={m}: kernel {ms:.4f} ms "
+                    f"({2.0 * m * k * n / ms / 1e9:.1f} TOP/s), bound {bms:.4f} ms ({by}, "
+                    f"{nbytes / 1e6:.1f} MB, x{ms / bms:.1f}), plain {plain_ms:.3f} ms, "
+                    f"torch.matmul(bf16 dequantized) {lib_ms:.4f} ms, torch._int_mm "
+                    + ("n/a (m <= 16)" if int_mm_ms is None else f"{int_mm_ms:.4f} ms")
+                    + ("" if b1_ms is None else f", B1 w4a16 {b1_ms:.4f} ms"))
+            del w_i8
+        del w_bf16
     return rows
 
 
+def time_quant(dev, gen) -> dict:
+    """B3's quant kernel at K=4096 (m ∈ {1, 512, 4096}) and K=14336 (m=1):
+    time, plain time and the byte bound (x read once; xq, xs and the group
+    sums written once). No single PyTorch call computes it."""
+    import torch
+
+    from blazr_tpu_torch.quant.int8 import quantize_activations, quantize_activations_reference
+
+    rows = {}
+    for m, k in ((1, 4096), (1, 14336), (512, 4096), (4096, 4096)):
+        x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+        ms = time_ms(lambda: quantize_activations(x, group_size=128, device=dev), iters=50)
+        plain_ms = time_eager(lambda: quantize_activations_reference(x, 128), iters=10)
+        nbytes = m * k * 2 + m * k + m * 4 + m * (k // 128) * 4
+        bms, by = bound(nbytes, 0.0)
+        rows[(m, k)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                            library_ms=None, shape=f"m={m} K={k} gs=128")
+        log(f"  B3 quant m={m} K={k}: kernel {ms:.4f} ms, bound {bms:.6f} ms ({by}, "
+            f"{nbytes / 1e6:.2f} MB), plain {plain_ms:.4f} ms")
+    return rows
+
+
+B4_TIMED_ROWS = (1, 8, 16, 32)
+
+
 def time_b4(dev, gen) -> dict:
-    """B4 at m ∈ {1, 8, 32} on the four projections beside B1 on the same
-    weights, in turns (B4, B1, B1, B4), best of each pair; the gate+up rows
-    also with the plain version and torch.matmul on a dequantized weight."""
+    """B4 at the four projections, m ∈ B4_TIMED_ROWS, beside B1 on the same
+    weights in turns (B4, B1, B1, B4), best of each pair; with its bound,
+    its plain version and torch.matmul on a bf16-dequantized weight."""
     import torch
 
     from blazr_tpu_torch.quant.kernels import qmm, qmm_stream, qmm_stream_reference
@@ -1528,46 +1793,39 @@ def time_b4(dev, gen) -> dict:
     rows = {}
     for pname, (k, n) in B1_SHAPES.items():
         qw, s, mn = rand_planes(k, n, 4, gs, gen, dev)
-        w_bf16 = (dequantize_planes(qw, s, mn, 4, True, gs, torch.bfloat16)
-                  if pname == "gateup" else None)
+        w_bf16 = dequantize_planes(qw, s, mn, 4, True, gs, torch.bfloat16)
         line = []
-        for m in (1, 8, 32):
+        for m in B4_TIMED_ROWS:
             x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
-            t = {"b4": [], "b1": []}
-            for name in ("b4", "b1", "b1", "b4"):
-                fn = qmm_stream if name == "b4" else qmm
-                kw = dict(bits=4, group_size=gs, device=dev)
-                if name == "b1":
-                    kw["signed"] = True
-                t[name].append(time_ms(lambda: fn(x, qw, s, mn, **kw), iters=50))
-            ms, b1_ms = min(t["b4"]), min(t["b1"])
+            t = turns({
+                "b4": lambda: qmm_stream(x, qw, s, mn, bits=4, group_size=gs, device=dev),
+                "b1": lambda: qmm(x, qw, s, mn, bits=4, signed=True, group_size=gs,
+                                  device=dev)}, iters=50)
             nbytes = qw.numel() * 4 + s.numel() * 8 + m * k * 2 + m * n * 2
             bms, by = bound(nbytes, 2.0 * m * k * n)
-            row = dict(ms=ms, b1_ms=b1_ms, bound_ms=bms, bound_by=by, plain_ms=None,
-                       library_ms=None)
-            if w_bf16 is not None:
-                row["plain_ms"] = time_eager(lambda: qmm_stream_reference(
-                    x, qw, s, mn, bits=4, group_size=gs), iters=5, warmup=1)
-                row["library_ms"] = time_ms(lambda: torch.matmul(x, w_bf16), iters=50)
+            row = dict(ms=t["b4"], b1_ms=t["b1"], bound_ms=bms, bound_by=by,
+                       shape=f"{pname} w4 m={m} K={k} N={n}")
+            row["plain_ms"] = time_eager(lambda: qmm_stream_reference(
+                x, qw, s, mn, bits=4, group_size=gs), iters=3, warmup=1)
+            row["library_ms"] = time_ms(lambda: torch.matmul(x, w_bf16), iters=50)
             rows[(pname, m)] = row
-            line.append(f"m={m} {ms:.4f}/{b1_ms:.4f} (bound {bms:.4f})")
-        log(f"  B4/B1 {pname} K={k} N={n} ms: " + ", ".join(line))
-    for m in (1, 8, 32):
-        r = rows[("gateup", m)]
-        log(f"  B4 gateup m={m}: plain {r['plain_ms']:.4f} ms, torch.matmul(bf16 "
-            f"dequantized) {r['library_ms']:.4f} ms")
+            line.append(f"m={m} {row['ms']:.4f}/{row['b1_ms']:.4f}/{row['library_ms']:.4f} "
+                        f"(bound {bms:.4f}, plain {row['plain_ms']:.3f})")
+        log(f"  B4/B1/torch.matmul {pname} K={k} N={n} ms: " + ", ".join(line))
+        del w_bf16
     return rows
 
 
-def timings(dev, gen, res: dict) -> list:
+def timings(dev, gen, res: dict, quant: bool = True) -> list:
     """Phase 9: every kernel's time, bound, plain and library time, and the
     launches of the serving phase that ran it; returns the kernels line.
-    Uses only the kernels' public wrappers, so ``--phases build,timings``
-    also times another checkout's kernels when this script is copied
-    there."""
+    Uses only the kernels' public wrappers, so ``--tree`` times another
+    checkout's kernels; ``quant=False`` (a checkout from before B3's
+    activation quant was one kernel) leaves that kernel out."""
     t1 = time_b1(dev, gen)
     t2 = time_b2(dev, gen)
     t3 = time_b3(dev, gen)
+    tq = time_quant(dev, gen) if quant else None
     t4 = time_b4(dev, gen)
     t5 = time_layout(dev, gen, "wide")
     t6 = time_layout(dev, gen, "headmajor")
@@ -1575,7 +1833,7 @@ def timings(dev, gen, res: dict) -> list:
     def got(phase, key):
         return res.get(phase, {}).get(key)
 
-    b3 = t3[("w8a8", 512)]
+    b3p, b3d = t3[("gateup", "w8a8", 512)], t3[("gateup", "w8a8", 1)]
     b4 = t4[("gateup", 8)]
     k, n = B1_SHAPES["gateup"]
     b1p, b1d = t1[("gateup", 512)], t1[("gateup", 8)]
@@ -1595,16 +1853,21 @@ def timings(dev, gen, res: dict) -> list:
         dict(name="qmm_int8 (B3)", route="cuda", source="blazr_tpu_torch/csrc/qmm_int8.cu",
              replaces="blazr_tpu/quant/pallas/int_matmul.py:276",
              launches=got("executor", "qmm_int8"), max_abs_err=got("b3", "max_abs_err"),
-             ms=b3["ms"], plain_ms=b3["plain_ms"], bound_ms=b3["bound_ms"],
-             bound_by=b3["bound_by"], library_ms=b3["library_ms"],
-             int_mm_ms=b3["int_mm_ms"], shape=f"w8a8 m=512 K={k} N={n}"),
+             int_mm_ms=b3p["int_mm_ms"], **{key: b3p[key] for key in keys},
+             decode={key: b3d[key] for key in keys}),
+    ] + ([
+        dict(name="act_quant (B3's activation quant)", route="cuda",
+             source="blazr_tpu_torch/csrc/qmm_int8.cu",
+             replaces="blazr_tpu/quant/pallas/int_matmul.py:391",
+             launches=got("executor", "act_quant"),
+             max_abs_err=got("b3", "quant_max_abs_err"),
+             **{key: tq[(1, 4096)][key] for key in keys}),
+    ] if quant else []) + [
         dict(name="qmm_stream (B4)", route="cuda",
              source="blazr_tpu_torch/csrc/qmm_stream.cu",
              replaces="blazr_tpu/quant/pallas/int_matmul.py:170",
              launches=got("serve_int8", "qmm_stream"), max_abs_err=got("b4", "max_abs_err"),
-             ms=b4["ms"], plain_ms=b4["plain_ms"], bound_ms=b4["bound_ms"],
-             bound_by=b4["bound_by"], library_ms=b4["library_ms"],
-             shape=f"w4 m=8 K={k} N={n}"),
+             **{key: b4[key] for key in keys}),
         dict(name="pa_wide (B5)", route="cuda", source="blazr_tpu_torch/csrc/pa_wide.cu",
              replaces="tools/bench_pa_wide.py:31",
              launches=got("tools", "pa_wide"), max_abs_err=got("b5", "max_abs_err"),
@@ -1629,11 +1892,19 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (default: all; a subset prints no result lines)")
+    ap.add_argument("--tree", type=Path, default=REPO,
+                    help="run these phases on the blazr_tpu_torch of another checkout "
+                    "(a subset of phases; for an A/B against another commit)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    global TREE
+    TREE = args.tree.resolve()
+    other = TREE != REPO
+    if other and phases == list(PHASES):
+        ap.error("--tree runs a subset of phases")
     try:
         import torch
     except ImportError:
@@ -1643,12 +1914,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
         return 2
-    if not (REPO / "blazr_tpu_torch" / "csrc").is_dir():
+    if not (TREE / "blazr_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(blazr_tpu_torch/ is missing)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(TREE))
+    from blazr_tpu_torch.quant import int8
     from blazr_tpu_torch.utils import cuda_build
+
+    if other:
+        log(f"blazr_tpu_torch from {TREE}")
+    quant = not other or hasattr(int8, "quantize_activations")
 
     torch.backends.cuda.matmul.allow_tf32 = False      # f32 references in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1667,9 +1943,12 @@ def main() -> int:
     (cuda_build.BUILD_DIR / "build.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     for name, text in logs.items():
+        entry = ""
         for line in text.splitlines():
-            if any(w in line for w in ("registers", "spill", "warning")):
-                log(f"  ptxas[{name}]: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = entry_name(line.split("'")[1])
+            elif any(w in line for w in ("registers", "spill", "warning")):
+                log(f"  ptxas[{name}] {entry}: {line.strip()}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1693,15 +1972,16 @@ def main() -> int:
         ("serve", "phase 5: 32-layer Mistral-7B AWQ BatchEngine (w4a16), 8 requests "
          "in two waves", lambda: full_depth(dev, card)),
         ("executor", "phase 5b: 32-layer Mistral-7B AWQ Executor under w8a8, 512-token "
-         "prompt, 128 greedy tokens", lambda: serve_executor(dev, card)),
+         "prompt, 128 greedy tokens", lambda: serve_executor(dev, card, hold=not other)),
         ("serve_int8", "phase 5c: 32-layer BatchEngine under w4a8-prefill with "
          "BLAZR_TPU_STREAM_KERNEL=1", lambda: serve_stream(dev, card)),
         ("http", "phase 7: AWQ checkpoint on disk -> load_model -> OpenAI HTTP server "
          "(8 concurrent requests) and the CLI serve subprocess",
          lambda: serve_http(dev, card)),
-        ("sweep", "phase 8: the sweeps behind B1's and B2's launch plans",
-         lambda: (b1_variants(dev, gen), b2_splits(dev, gen))),
-        ("timings", "phase 9: kernel timings", lambda: timings(dev, gen, res)),
+        ("sweep", "phase 8: the sweeps behind B1's, B2's, B3's and B4's launch plans",
+         lambda: (b1_variants(dev, gen), b2_splits(dev, gen), b3_sweeps(dev, gen),
+                  b4_splits(dev, gen))),
+        ("timings", "phase 9: kernel timings", lambda: timings(dev, gen, res, quant)),
     ]
     for name, title, fn in steps:
         if name in phases:

@@ -19,7 +19,9 @@ import torch
 from blazr_tpu_torch.attention.paged_attention import (
     paged_attention_decode, paged_attention_reference)
 from blazr_tpu_torch.quant import qtensor
-from blazr_tpu_torch.quant.int8 import qmm_int8, qmm_int8_reference
+from blazr_tpu_torch.quant import int8 as b3
+from blazr_tpu_torch.quant.int8 import (qmm_int8, qmm_int8_reference, quantize_activations,
+                                        quantize_activations_reference)
 from blazr_tpu_torch.quant.kernels import (qmm, qmm_reference, qmm_stream,
                                            qmm_stream_reference)
 from blazr_tpu_torch.quant.matmul import quant_matmul
@@ -144,12 +146,29 @@ def _rel_tol(dtype):
     return {torch.bfloat16: 1e-2, torch.float16: 4e-3, torch.float32: 1e-3}[dtype]
 
 
-@pytest.mark.parametrize("m,k,n,bits,gs,dtype", [
+_B3_CASES = [
     (1, 512, 256, 4, 128, torch.bfloat16), (17, 1024, 384, 8, 128, torch.float32),
     (300, 512, 256, 4, 64, torch.bfloat16), (5, 512, 128, 4, 16, torch.float32),
     (70, 256, 256, 8, 32, torch.bfloat16), (3, 2048, 128, 4, 256, torch.bfloat16),
     (64, 512, 128, 8, 16, torch.bfloat16),
-])
+]
+# The row edges of B3's variants (decode tiles of 8/16/32 x rows, the wgmma
+# variant's 64- and 128-row tiles past DEC_MAX_ROWS), its group sizes (32-256
+# on both; 16 and 48 only on the decode variant, tiled over M), K with a short
+# last stage (320, 192), f16 and f32 x, and split K (N=128: few tiles).
+_B3_CASES += [(m, 1024, 256, bits, 128, torch.bfloat16)
+              for m in (8, 9, 16, 31, 32, 33, 64, 65, 128, 129) for bits in (4, 8)]
+_B3_CASES += [
+    (40, 512, 256, 4, 32, torch.bfloat16), (40, 512, 256, 8, 64, torch.float16),
+    (200, 1024, 128, 8, 256, torch.bfloat16), (100, 512, 256, 4, 512, torch.float32),
+    (40, 384, 128, 4, 48, torch.bfloat16), (100, 512, 128, 8, 16, torch.float16),
+    (7, 320, 256, 8, 64, torch.bfloat16), (70, 320, 256, 4, 64, torch.bfloat16),
+    (150, 192, 128, 8, 64, torch.float32), (12, 4096, 128, 4, 128, torch.bfloat16),
+    (512, 4096, 128, 8, 128, torch.bfloat16), (24, 1024, 128, 4, 32, torch.float16),
+]
+
+
+@pytest.mark.parametrize("m,k,n,bits,gs,dtype", _B3_CASES)
 def test_qmm_int8_kernel_matches_plain(cuda, m, k, n, bits, gs, dtype):
     gen = torch.Generator(device=cuda).manual_seed(m * 3 + bits)
     qw, s, mn = _planes(k, n, bits, gs, gen, cuda)
@@ -166,6 +185,13 @@ def test_qmm_int8_kernel_matches_plain(cuda, m, k, n, bits, gs, dtype):
 @pytest.mark.parametrize("m,k,n,bits,gs,dtype", [
     (1, 1024, 256, 4, 128, torch.bfloat16), (8, 512, 384, 8, 128, torch.bfloat16),
     (32, 2048, 128, 4, 256, torch.bfloat16), (3, 1024, 256, 4, 64, torch.float32),
+    # the n8 tiles of x rows (1, 2 or 4), groups 16-256, f16, split K
+    (5, 1024, 256, 8, 32, torch.bfloat16), (9, 1024, 256, 4, 16, torch.bfloat16),
+    (16, 1024, 256, 8, 64, torch.float16), (17, 512, 128, 4, 128, torch.bfloat16),
+    (31, 4096, 128, 8, 128, torch.float32), (2, 4096, 640, 4, 32, torch.float16),
+    # groups of 8 and 4 rows, which end inside a k16 step
+    (8, 512, 256, 8, 8, torch.bfloat16), (20, 1024, 256, 4, 8, torch.float16),
+    (3, 512, 128, 8, 4, torch.float32), (32, 256, 128, 8, 4, torch.bfloat16),
 ])
 def test_qmm_stream_kernel_matches_plain(cuda, m, k, n, bits, gs, dtype):
     gen = torch.Generator(device=cuda).manual_seed(m * 5 + bits)
@@ -296,3 +322,46 @@ def test_layout_kernels_match_plain(cuda, layout, dtype, bs):
     torch.cuda.synchronize()
     tol = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 1e-4}[dtype]
     assert (got.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("m,k,gs,dtype", [
+    (1, 4096, 128, torch.bfloat16), (5, 14336, 32, torch.float16), (17, 512, 16, torch.float32),
+    (300, 1024, 64, torch.bfloat16), (3, 4096, 256, torch.float32), (8, 320, 64, torch.float16),
+])
+def test_quantize_activations_kernel_equals_cpu(cuda, m, k, gs, dtype):
+    """B3's quant kernel gives the CPU's integers exactly: xq, xs and the
+    group sums, with an all-zero row and ties at .5 (a row whose absmax is
+    127, so xs = 1 and x / xs = x)."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x = (torch.randn((m, k), device=cuda, generator=gen) * 3).to(dtype)
+    if m > 2:
+        x[1] = 0
+        ties = torch.arange(k, device=cuda) % 9 - 4.5
+        ties[0] = 127.0
+        x[2] = ties.to(dtype)
+    got = quantize_activations(x, group_size=gs)
+    want = quantize_activations_reference(x.cpu(), gs)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_qmm_int8_launches_at_most_three_kernels(cuda):
+    """A B3 call on the card is the quant, one product and, with K split,
+    the split reduction: three device kernels at most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qw, s, mn = _planes(4096, 4096, 8, 128, gen, cuda)
+    for m in (1, 512):
+        x = torch.randn((m, 4096), device=cuda, generator=gen).to(torch.bfloat16)
+        qmm_int8(x, qw, s, mn, bits=8, group_size=128)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                qmm_int8(x, qw, s, mn, bits=8, group_size=128)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        splits = b3.b3_plan(m, 4096, 4096, 128, 8)[2]
+        assert len(kernels) == 4 * (2 + (splits > 1)), [e.name for e in kernels]

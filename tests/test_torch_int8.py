@@ -22,7 +22,7 @@ from blazr_tpu.utils.synthetic import _rand_awq_qt
 from blazr_tpu_torch.convert import params_from_jax
 from blazr_tpu_torch.quant import matmul as tm
 from blazr_tpu_torch.quant import qtensor as tq
-from blazr_tpu_torch.quant.int8 import qmm_int8, quantize_rows
+from blazr_tpu_torch.quant.int8 import qmm_int8, quantize_activations, quantize_rows
 from blazr_tpu_torch.quant.kernels import qmm_stream
 
 CPU = "cpu"
@@ -220,3 +220,40 @@ def test_f16_plain_matches_jax_kernels(path, monkeypatch):
     tol = 2e-3 * float(np.abs(ref.astype(np.float32)).max())
     np.testing.assert_allclose(got.float().numpy(), ref.astype(np.float32),
                                rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("gs", [32, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_activation_quant_with_group_sums_equals_jax(dtype, gs, monkeypatch):
+    """The plain version of B3's quant kernel (xq, xs and the int32 group
+    sums of xq) against the quant lines of ``quant_matmul_int8mxu``
+    (int_matmul.py:391-394) and the group sums of ``_qmm_int8_kernel``
+    (:314), integer for integer: ties at .5 (a row whose absmax is 127, so
+    xs = 1), an all-zero row, and f32, bf16 and f16 inputs."""
+    jt = _rand_awq_qt(jax.random.key(9), 512, 256, group_size=gs)
+    jt = jq.widen_to_int8(jt)
+    seen = {}
+    real = im._qmm_int8
+
+    def spy(xq, xs, *a, **kw):
+        seen["xq"], seen["xs"] = np.asarray(xq), np.asarray(xs)
+        return real(xq, xs, *a, **kw)
+
+    monkeypatch.setattr(im, "_qmm_int8", spy)
+    rng = np.random.default_rng(gs)
+    x = (rng.standard_normal((6, 512)) * 3).astype(np.float32)
+    x[1] = 0
+    x[2] = np.arange(512) % 9 - 4.5
+    x[2, 0] = 127.0
+    x[3] = -x[2]
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(xt.float().numpy()).astype(getattr(jnp, dtype))
+    im.quant_matmul_int8mxu(xj, jt)
+    xq_j, xs_j = seen["xq"][:6], seen["xs"][:6, 0]
+    gsum_j = xq_j.astype(np.float32).reshape(6, 512 // gs, gs).sum(axis=2)
+    xq, xs, gsum = quantize_activations(xt, group_size=gs, device=CPU)
+    assert xq.dtype == torch.int8 and xs.dtype == torch.float32 and gsum.dtype == torch.int32
+    np.testing.assert_array_equal(xq.numpy(), xq_j)
+    np.testing.assert_array_equal(xs.numpy(), xs_j)
+    np.testing.assert_array_equal(gsum.numpy(), gsum_j.astype(np.int32))
+    assert xs[2].item() == 1.0 and xq[2, 1:9].tolist() == [-4, -2, -2, 0, 0, 2, 2, 4]

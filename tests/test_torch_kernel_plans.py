@@ -1,8 +1,8 @@
-"""The launch plans of kernels B1 and B2 (pure Python), and B2's split-and-
+"""The launch plans of kernels B1-B4 (pure Python), and B2's split-and-
 combine rule emulated in plain PyTorch on the CPU.
 
-B1 splits K across blocks and B2 splits each sequence's walk of table slots
-across blocks; the planners decide how. The emulation follows
+B1, B3 and B4 split K across blocks and B2 splits each sequence's walk of
+table slots across blocks; the planners decide how (B3 also its variant). The emulation follows
 ``csrc/paged_attention.cu`` step for step in f32: each split runs the online
 softmax over its own slots and ends with (m, l, acc), and the splits of a
 (sequence, head) combine as sum_z e^{m_z-M} acc_z / max(sum_z e^{m_z-M} l_z,
@@ -23,7 +23,9 @@ from blazr_tpu.attention.paged_attention import \
 from blazr_tpu.kvcache import paged as jpaged
 from blazr_tpu_torch.attention.paged_attention import (
     paged_attention_reference, split_plan, walk_slots)
-from blazr_tpu_torch.quant.kernels import (TC_MIN_ROWS, decode_plan, tc_plan,
+from blazr_tpu_torch.quant import int8 as b3
+from blazr_tpu_torch.quant.int8 import b3_plan
+from blazr_tpu_torch.quant.kernels import (TC_MIN_ROWS, decode_plan, stream_splits, tc_plan,
                                            tensor_core_path)
 
 MISTRAL = {"qkv": (4096, 6144), "o": (4096, 4096), "gateup": (4096, 28672),
@@ -249,3 +251,79 @@ def test_split_combine_all_empty_gives_zero():
     ref = paged_attention_reference(t["q"], t["kc"], t["vc"], t["bt"], t["sl"],
                                     block_size=8)
     np.testing.assert_allclose(got[1].numpy(), ref[1].numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# B3's and B4's plans
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 16, 17, 32, 33, 64, 65, 512, 4096])
+@pytest.mark.parametrize("proj", sorted(MISTRAL))
+def test_b3_plan_covers_k(proj, m, gs):
+    """Every split is a whole number of lcm(group, 128) K rows (a ring stage
+    never holds two splits, a group never spans two) and the splits cover K
+    exactly; the variant and its tile follow the row count."""
+    k, n = MISTRAL[proj]
+    variant, rows, splits, per = b3_plan(m, k, n, gs, 8)
+    assert per % math.lcm(gs, 128) == 0 and splits <= 16
+    assert splits * per >= k and (splits - 1) * per < k
+    if m > b3.DEC_MAX_ROWS and gs % 128 == 0:
+        assert (variant, rows) == ("wgmma", 64 if m <= 64 else 128)
+        assert splits == 1 or per >= 4 * 128                # a split: at least 4 stages
+    else:
+        assert (variant, rows) == ("mma", 8 if m <= 8 else 16 if m <= 16 else 32)
+
+
+@pytest.mark.parametrize("gs,variant", [(16, "mma"), (48, "mma"), (96, "mma"), (32, "mma"),
+                                        (64, "mma"), (128, "wgmma"), (256, "wgmma"),
+                                        (512, "wgmma")])
+def test_b3_variant_by_group(gs, variant):
+    """wgmma folds groups at the ends of its 128-row stages: groups that are
+    a multiple of 128 (and K too); every other group takes the decode
+    variant at every row count, tiled over M. A wgmma split holds whole
+    groups, an odd number of stages included."""
+    assert b3.wgmma_takes(3072, gs) is (variant == "wgmma")
+    assert b3_plan(512, 3072, 256, gs, 4)[0] == variant
+    assert b3_plan(1, 3072, 256, gs, 4)[0] == "mma"
+    assert b3_plan(512, 3136, 256, 64, 4)[0] == "mma"             # K % 128 != 0
+    if variant == "wgmma":
+        assert b3.wgmma_plan(64, 3072, 256, gs)[2] % gs == 0
+    assert b3.wgmma_plan(64, 3200, 128, 128)[1:] == (5, 640)      # 25 stages, 5 a split
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 32])
+@pytest.mark.parametrize("proj", sorted(MISTRAL))
+def test_b3_plan_fills_the_card_at_decode(proj, m):
+    """At decode rows the column tiles times the K splits give at least 256
+    blocks, unless the tiles alone fill a wave of the H100's 132 SMs (then K
+    is not split) or the partials' byte cap stops it."""
+    k, n = MISTRAL[proj]
+    _, rows, splits, per = b3_plan(m, k, n, 128, 8)
+    tiles = -(-m // rows) * (n // 128)
+    cap = max(1, k * 8 // (64 * m))
+    if tiles >= 132:
+        assert splits == 1
+    else:
+        assert tiles * splits >= 256 or splits == min(16, cap, -(-k // 128))
+    if splits > 1:             # the f32 partials move no more bytes than the weight
+        assert 8 * m * n * splits <= k * n
+
+
+def test_b3_plan_mistral_points():
+    assert b3_plan(512, 4096, 28672, 128, 8) == ("wgmma", 128, 1, 4096)   # 896 tiles
+    assert b3_plan(4096, 14336, 4096, 128, 8)[2] == 1
+    assert b3_plan(1, 4096, 4096, 128, 8) == ("mma", 8, 8, 512)            # 32 tiles
+    assert b3_plan(1, 4096, 28672, 128, 8) == ("mma", 8, 1, 4096)          # 224 tiles
+    assert b3_plan(64, 4096, 4096, 128, 8)[:2] == ("wgmma", 64)
+
+
+@pytest.mark.parametrize("gs", [4, 8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("proj", sorted(MISTRAL))
+def test_b4_split_plan_covers_k_and_fills_the_card(proj, gs):
+    k, n = MISTRAL[proj]
+    splits, per = stream_splits(k, n, gs)
+    unit = max(128, gs)
+    assert per % unit == 0 and per % gs == 0 and splits <= 16
+    assert splits * per >= k and (splits - 1) * per < k
+    assert (n // 128) * splits >= 896 or per // unit == -(-(k // unit) // 16)   # capped at 16
