@@ -23,8 +23,8 @@ from pathlib import Path
 # item that ports them.
 NOT_PORTED = {
     "generate": "item 9", "chat": "item 9", "bench": "item 6", "info": "item 9",
-    "list": "item 9", "ps": "item 9", "tokenize": "item 9", "swarm": "item 5a",
-    "disagg": "item 5a", "completions": "item 9", "pull": "item 9",
+    "list": "item 9", "ps": "item 9", "tokenize": "item 9", "swarm": "item 13",
+    "disagg": "item 13", "completions": "item 9", "pull": "item 9",
     "convert": "item 10",
 }
 

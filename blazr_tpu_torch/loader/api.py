@@ -5,7 +5,7 @@ Counterpart of ``blazr_tpu/loader/api.py``: auto-detect the format
 a VarMap and build the Model on the device. AWQ and GPTQ checkpoints compute
 in f16 by default (their scales are f16), as in the JAX package. GGUF
 checkpoints (queue A item 10), configs without a ``config.json`` (item 10),
-vision towers and layer offload (item 5a) raise.
+vision towers and layer offload (item 12) raise.
 """
 
 from __future__ import annotations

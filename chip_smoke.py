@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,b3    # a subset, no result lines
     python3 chip_smoke.py --tree DIR --phases build,timings,executor,serve_int8
         # this script's phases on another checkout's package in DIR (an A/B)
+    python3 chip_smoke.py --phases build,layout_times   # B5 and B6 timed alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1.  print the card (name, power limit) and build csrc/*.cu (B1-B6) with
@@ -23,7 +24,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   3c. kernel B4 (streaming decode matmul) against its plain version at
       m ∈ {1, 5, 8, 9, 16, 17, 32}, groups 32, 64 and 128, three dtypes;
   3d. kernel B5 (wide KV view) and 3e. kernel B6 (head-major KV cache)
-      against their plain versions, bf16 and f32, bs 64/128, B 8/32;
+      against their plain versions, bf16, f32 and f16, bs 64/128, B 8/32
+      ragged; B=1 and B=32 to 4096 tokens; tables 64 slots wide over short
+      sequences (empty splits) with ids outside [0, NB) and seq_len 0
+      (exact zeros);
   3f. the layout tools' sweeps (their main path): B2 vs B5, B2 vs B6;
   4.  a full-width 2-layer Mistral-7B AWQ forward_paged, prefill + 4
       teacher-forced decode steps, on the card (bf16) against the CPU (f32);
@@ -45,15 +49,18 @@ Phases, in order; any failure raises and the script exits non-zero:
   8.  the sweeps behind the launch plans, straight through the libraries:
       B1's two variants over rows (TC_MIN_ROWS) and over K splits at decode
       rows, B2 over its split count, B3's two variants over rows
-      (DEC_MAX_ROWS) and K splits, B4's K splits;
+      (DEC_MAX_ROWS) and K splits, B4's K splits, B5's and B6's split
+      counts at B2's three points;
   9.  timings (device time of one call: CUDA graphs of many calls), B1 over
       rows 1-512 at every projection, B2 at three batch/context points, B3
       at every projection at m ∈ {1, 8, 512} (w4a8, w8a8) and gate+up at
       4096, its quant kernel, B4 at every projection at m ∈ {1, 8, 16, 32},
-      B5 and B6 at one point each; then one ``{"kernels": [...]}`` JSON line
+      B5 and B6 at B2's three points (``layout_times`` runs only these, and
+      is not part of a full run); then one ``{"kernels": [...]}`` JSON line
       with each kernel's launches in its serving phase, max error, time,
       bound, plain time and library-call time (B1 and B3: prefill, with
-      their decode point under "decode").
+      their decode point under "decode"; B5 and B6: B=8, their other two
+      points under "at").
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after. Under ``--tree`` (another checkout, a subset of phases)
 phase 5b reports that tree's kernels per B3 call without holding it to this
@@ -81,6 +88,7 @@ TREE = REPO                         # the checkout whose blazr_tpu_torch runs (-
 SEED = 0
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
+H100_F32_FLOPS = 67e12              # f32 on the CUDA cores
 H100_INT8_OPS = 1979e12             # dense int8 tensor-core peak
 
 # Mistral-7B projections (K, N): fused qkv, o, fused gate+up, down.
@@ -115,11 +123,11 @@ def entry_name(mangled: str) -> str:
             return name                                  # not a template
         if name.endswith(("kernel", "splits", "bf16")) and after == "I":
             args = mangled[start + len(name) + 1:].split("EEv")[0]
-            args = re.sub(r"Li(\d+)E", r"\1,", args)
-            for code, short in (("13__nv_bfloat16", "bf16"), ("6__half", "f16")):
-                args = args.replace(code, short)
-            args = re.sub(r"(^|,)f$", r"\1f32", args)
-            return f"{name}<{args}>"
+            short = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32", "a": "s8"}
+            out: list[str] = []
+            for n, t in re.findall(r"Li(\d+)E|(13__nv_bfloat16|6__half|S1_|f|a)", args):
+                out.append(n or (out[0] if t == "S1_" else short[t]))   # S1_: the first again
+            return f"{name}<{','.join(out)}>"
     return mangled[:60]
 
 
@@ -427,6 +435,56 @@ def b2_splits(dev, gen) -> None:
                        f"{time_ms(fn, iters=100):.4f}")
         log(f"  B2 B={b} ctx={ctx} ms by splits (* the plan's): " + ", ".join(row))
         del s, acc, ml
+
+
+def layout_splits(dev, gen) -> None:
+    """B5 and B6 over their split counts at B2_SHAPES (seq_len ctx - 1, bs
+    64, bf16), straight through the libraries (not counted): the sweep
+    behind their plans' one-wave rule and byte floor."""
+    import math
+
+    import torch
+
+    from blazr_tpu_torch.tools import bench_pa_headmajor as hm
+    from blazr_tpu_torch.tools import bench_pa_wide as wide
+
+    h_q, h_kv, d, bs = 32, 8, 128, 64
+    for b, ctx in B2_SHAPES:
+        s = pa_inputs(dev, gen, b=b, h_q=h_q, h_kv=h_kv, d=d, bs=bs, seq_lens=[ctx - 1] * b,
+                      nb_extra=0)
+        mb = s["bt"].shape[1]
+        k_hm, v_hm = hm.to_head_major(s["kc"]), hm.to_head_major(s["vc"])
+        out = torch.empty_like(s["q"])
+        acc = torch.empty((b, h_q, mb, d), dtype=torch.float32, device=dev)
+        ml = torch.empty((b, h_q, mb, 2), dtype=torch.float32, device=dev)
+        args = (s["bt"].data_ptr(), s["sl"].data_ptr(), out.data_ptr(), acc.data_ptr(),
+                ml.data_ptr(), b, h_q, h_kv, d, bs, s["nb"], mb)
+        for name, plan, units in (("B5", wide.wide_split_plan, b),
+                                  ("B6", hm.headmajor_split_plan, b * h_kv)):
+            chosen = plan(b, h_kv, mb, bs, d, 2)[0]
+            row = []
+            plans = sorted({(-(-mb // -(-mb // want)), -(-mb // want))
+                            for want in (1, 2, 4, 8, 12, 16, 24, 32) if want <= mb})
+            for splits, per in plans:
+
+                def fn(splits=splits, per=per):
+                    stream = torch.cuda.current_stream(dev).cuda_stream
+                    if name == "B5":
+                        err = wide._lib().pa_wide_launch(
+                            s["q"].data_ptr(), s["kc"].data_ptr(), s["vc"].data_ptr(), *args,
+                            splits, per, 1.0 / math.sqrt(d), 0, stream)
+                    else:
+                        err = hm._lib().pa_headmajor_launch(
+                            s["q"].data_ptr(), k_hm.data_ptr(), v_hm.data_ptr(), *args,
+                            k_hm.shape[1], splits, per, 1.0 / math.sqrt(d), 0, stream)
+                    assert err == 0, err
+
+                mark = "*" if splits == chosen else ""
+                row.append(f"{splits}{mark} ({units * splits} blocks): "
+                           f"{time_ms(fn, iters=100):.4f}")
+            log(f"  {name} B={b} seq_len={ctx - 1} ms by splits (* the plan's): "
+                + ", ".join(row))
+        del s, k_hm, v_hm, acc, ml
 
 
 def b3_launcher(lib, acts, qw, s, mn, y, part, m, k, n, bits, variant, rows, splits, per):
@@ -827,39 +885,90 @@ def layout_kernel(layout: str):
     return pa_headmajor, lambda k, v: (to_head_major(k), to_head_major(v))
 
 
+def layout_case(dev, gen, *, b, bs, lens, dtype, mb=None, bad_ids=False):
+    """Inputs for B5/B6 at the tools' geometry (G=8, 4 query heads each,
+    D=128): flat caches, a random table ``mb`` slots wide (default: the
+    longest sequence's), and, with ``bad_ids``, ids outside [0, NB) (-1,
+    PAD_BLOCK, NB + 7) after each sequence's end and one inside a sequence,
+    which reads block 0. ``ref_bt`` is the table with those ids set to 0, as
+    the kernels read it."""
+    import torch
+
+    from blazr_tpu_torch.kvcache.paged import PAD_BLOCK
+
+    need = max(1, max(-(-int(s) // bs) for s in lens))
+    mb = mb or need
+    nb = b * need + 8
+    tables = torch.randint(0, nb, (b, mb), device=dev, generator=gen, dtype=torch.int32)
+    if bad_ids:
+        for i, n in enumerate(lens):
+            used = -(-int(n) // bs)
+            tables[i, used:] = torch.tensor([-1, PAD_BLOCK, nb + 7], dtype=torch.int32,
+                                            device=dev).repeat(mb)[: mb - used]
+        inside = max(range(b), key=lambda i: lens[i])
+        tables[inside, 0] = nb + 2
+    shape = (nb * bs + 1, 8, 128)
+    kc = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    vc = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    q = torch.randn((b, 32, 128), device=dev, generator=gen).to(dtype)
+    ref_bt = torch.where((tables < 0) | (tables >= nb), torch.zeros_like(tables), tables)
+    return dict(q=q, kc=kc, vc=vc, bt=tables, ref_bt=ref_bt, nb=nb, bs=bs,
+                sl=torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
 def check_layout(dev, gen, layout: str) -> dict:
-    """B5 or B6 against its plain version at the tools' geometry (G=8, 4
-    query heads each, D=128): bf16 and f32, bs 64 and 128, B 8 and 32,
-    ragged seq_lens with 1 and partial last blocks. The probabilities stay
-    f32 on both sides: 2e-2 absolute in bf16 (output rounding on outputs of
-    order max|v|), 1e-4 in f32 (sum order)."""
+    """B5 or B6 against its plain version at the tools' geometry: bf16, f32
+    and f16, bs 64 and 128, B 8 and 32 with ragged seq_lens (1, a partial
+    last block, 1024); B=1 and B=32 at ctx 4096 (32 and more splits);
+    tables 64 slots wide over short sequences (empty splits) with ids
+    outside [0, NB) and seq_len 0, whose output must be exact zeros (the TPU
+    kernel's; the plain version gives the uniform mean there). The
+    probabilities stay f32 on both sides: 2e-2 absolute in bf16, 4e-3 in f16
+    (output rounding on outputs of order max|v|), 1e-4 in f32 (sum order)."""
     import torch
 
     from blazr_tpu_torch.tools.bench_pa_wide import pa_wide_reference
 
     fn, prepare = layout_kernel(layout)
-    tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-    worst = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    tols = {bf16: 2e-2, f32: 1e-4, f16: 4e-3}
+    cases = []
+    for dtype in (bf16, f32, f16):
         for bs in (64, 128):
             for b in (8, 32):
-                lens = torch.randint(1, 1025, (b,), device=dev, generator=gen)
-                lens[0], lens[1], lens[2] = 1, 1024, bs + 5
-                s = pa_inputs(dev, gen, b=b, h_q=32, h_kv=8, d=128, bs=bs,
-                              seq_lens=lens.tolist(), dtype=dtype)
-                k, v = prepare(s["kc"], s["vc"])
-                got = fn(s["q"], k, v, s["bt"], s["sl"], block_size=bs,
-                         num_blocks=s["nb"], device=dev)
-                ref = pa_wide_reference(s["q"].float(), s["kc"].float(), s["vc"].float(),
-                                        s["bt"], s["sl"], block_size=bs)
-                torch.cuda.synchronize()
-                assert got.shape == ref.shape and torch.isfinite(got).all()
-                err = (got.float() - ref).abs().max().item()
-                name = f"{layout} {str(dtype)[6:]} bs={bs} B={b}"
-                log(f"  {name:34s} max_abs_err {err:.4g}  tol {tols[dtype]}")
-                assert err <= tols[dtype], f"{name}: {err} > {tols[dtype]}"
-                worst = max(worst, err)
-                del s, k, v, ref, got
+                lens = torch.randint(1, 1025, (b,), device=dev, generator=gen).tolist()
+                lens[:3] = [1, 1024, bs + 5]
+                cases.append((f"{str(dtype)[6:]} bs={bs} B={b}", dtype, bs,
+                              dict(b=b, lens=lens)))
+    short = [0, 5, 300, 0, 64, 129, 1, 200]
+    cases += [
+        ("bf16 bs=64 B=1 ctx 4096", bf16, 64, dict(b=1, lens=[4096])),
+        ("f16 bs=128 B=1 ctx 4095", f16, 128, dict(b=1, lens=[4095])),
+        ("bf16 bs=64 B=32 ctx<=4096", bf16, 64,
+         dict(b=32, lens=[4096, 1, 4000] + list(range(100, 3000, 100)))),
+        ("f32 bs=64 B=8 ctx 4096", f32, 64, dict(b=8, lens=[4096] * 7 + [3000])),
+    ] + [(f"{str(dt)[6:]} bs={bs} B=8 wide table, seq_len 0, bad ids", dt, bs,
+          dict(b=8, lens=short, mb=4096 // bs, bad_ids=True))
+         for dt in (bf16, f32, f16) for bs in (16, 64)]
+    worst = 0.0
+    for name, dtype, bs, kw in cases:
+        s = layout_case(dev, gen, bs=bs, dtype=dtype, **kw)
+        k, v = prepare(s["kc"], s["vc"])
+        got = fn(s["q"], k, v, s["bt"], s["sl"], block_size=bs, num_blocks=s["nb"],
+                 device=dev)
+        ref = pa_wide_reference(s["q"].float(), s["kc"].float(), s["vc"].float(),
+                                s["ref_bt"], s["sl"], block_size=bs)
+        empty = s["sl"] <= 0
+        ref[empty] = 0.0                       # the TPU kernel's 0, exactly
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.dtype == dtype and torch.isfinite(got).all()
+        assert torch.equal(got[empty].float(), ref[empty]), f"{name}: seq_len 0 not 0"
+        err = (got.float() - ref).abs().max().item()
+        label = f"{layout} {name}"
+        log(f"  {label:50s} max_abs_err {err:.4g}  tol {tols[dtype]}")
+        assert err <= tols[dtype], f"{label}: {err} > {tols[dtype]}"
+        worst = max(worst, err)
+        del s, k, v, ref, got
     return {"max_abs_err": worst}
 
 
@@ -877,32 +986,46 @@ def run_tools() -> dict:
 
 
 def time_layout(dev, gen, layout: str) -> dict:
-    """B5 or B6 at B=8, ctx 1024 (seq_len 1023), bs 64, bf16: time, plain
-    time, SDPA over pre-gathered KV (the library call) and the bound."""
+    """B5 or B6 at B2_SHAPES with seq_len ctx - 1 (the tools' 1023 at ctx
+    1024), bs 64, bf16: time, plain time, SDPA over pre-gathered KV (the
+    library call) and the bound. The dot products are f32 on CUDA cores:
+    the operations' bound takes the f32 rate."""
     from blazr_tpu_torch.kvcache.paged import page_slot_index
     from blazr_tpu_torch.tools.bench_pa_wide import pa_wide_reference
 
     fn, prepare = layout_kernel(layout)
-    b, h_q, h_kv, d, bs, ctx = 8, 32, 8, 128, 64, 1023
-    s = pa_inputs(dev, gen, b=b, h_q=h_q, h_kv=h_kv, d=d, bs=bs, seq_lens=[ctx] * b,
-                  nb_extra=0)
-    k, v = prepare(s["kc"], s["vc"])
-    ms = time_ms(lambda: fn(s["q"], k, v, s["bt"], s["sl"], block_size=bs,
-                            num_blocks=s["nb"], device=dev), iters=100)
-    plain_ms = time_eager(lambda: pa_wide_reference(s["q"], s["kc"], s["vc"], s["bt"],
-                                                 s["sl"], block_size=bs), iters=10)
-    idx = page_slot_index(bs, s["bt"])[:, :ctx]
-    kg = s["kc"][idx].permute(0, 2, 1, 3).contiguous()
-    vg = s["vc"][idx].permute(0, 2, 1, 3).contiguous()
-    library_ms = sdpa_ms(s["q"], kg, vg, h_q, h_kv)
-    nbytes = (2 * b * ctx * h_kv * d * 2 + 2 * b * h_q * d * 2
-              + s["bt"].numel() * 4 + b * 4)
-    bound_ms, bound_by = bound(nbytes, 4.0 * b * h_q * ctx * d)
-    log(f"  {layout} B={b} seq_len={ctx} bs={bs}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, SDPA(GQA, gathered KV) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, shape=f"B={b} seq_len={ctx} bs={bs}")
+    h_q, h_kv, d, bs = 32, 8, 128, 64
+    rows = {}
+    for b, ctx in B2_SHAPES:
+        n = ctx - 1
+        s = pa_inputs(dev, gen, b=b, h_q=h_q, h_kv=h_kv, d=d, bs=bs, seq_lens=[n] * b,
+                      nb_extra=0)
+        k, v = prepare(s["kc"], s["vc"])
+        ms = time_ms(lambda: fn(s["q"], k, v, s["bt"], s["sl"], block_size=bs,
+                                num_blocks=s["nb"], device=dev), iters=100)
+        plain_ms = time_eager(lambda: pa_wide_reference(s["q"], s["kc"], s["vc"], s["bt"],
+                                                     s["sl"], block_size=bs), iters=10)
+        idx = page_slot_index(bs, s["bt"])[:, :n]
+        kg = s["kc"][idx].permute(0, 2, 1, 3).contiguous()
+        vg = s["vc"][idx].permute(0, 2, 1, 3).contiguous()
+        library_ms = sdpa_ms(s["q"], kg, vg, h_q, h_kv)
+        del kg, vg
+        nbytes = (2 * b * n * h_kv * d * 2 + 2 * b * h_q * d * 2
+                  + s["bt"].numel() * 4 + b * 4)
+        bound_ms, bound_by = bound(nbytes, 4.0 * b * h_q * n * d, H100_F32_FLOPS)
+        log(f"  {layout} B={b} seq_len={n} bs={bs}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, SDPA(GQA, gathered KV) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, x{ms / bound_ms:.1f})")
+        rows[(b, ctx)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              shape=f"B={b} seq_len={n} bs={bs}")
+        del s, k, v
+    return rows
+
+
+def layout_times(dev, gen) -> dict:
+    """B5 and B6 at B2_SHAPES (the kernel rows of phase 9), alone."""
+    return {layout: time_layout(dev, gen, layout) for layout in ("wide", "headmajor")}
 
 
 # ---------------------------------------------------------------------------
@@ -1871,27 +1994,28 @@ def timings(dev, gen, res: dict, quant: bool = True) -> list:
         dict(name="pa_wide (B5)", route="cuda", source="blazr_tpu_torch/csrc/pa_wide.cu",
              replaces="tools/bench_pa_wide.py:31",
              launches=got("tools", "pa_wide"), max_abs_err=got("b5", "max_abs_err"),
-             ms=t5["ms"], plain_ms=t5["plain_ms"], bound_ms=t5["bound_ms"],
-             bound_by=t5["bound_by"], library_ms=t5["library_ms"], shape=t5["shape"]),
+             **{key: t5[B2_SHAPES[0]][key] for key in keys},
+             at=[{key: t5[sh][key] for key in keys} for sh in B2_SHAPES[1:]]),
         dict(name="pa_headmajor (B6)", route="cuda",
              source="blazr_tpu_torch/csrc/pa_headmajor.cu",
              replaces="tools/bench_pa_headmajor.py:27",
              launches=got("tools", "pa_headmajor"), max_abs_err=got("b6", "max_abs_err"),
-             ms=t6["ms"], plain_ms=t6["plain_ms"], bound_ms=t6["bound_ms"],
-             bound_by=t6["bound_by"], library_ms=t6["library_ms"], shape=t6["shape"]),
+             **{key: t6[B2_SHAPES[0]][key] for key in keys},
+             at=[{key: t6[sh][key] for key in keys} for sh in B2_SHAPES[1:]]),
     ]
 
 
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
           "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "http", "sweep",
-          "timings")
+          "timings", "layout_times")
+FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
+    ap.add_argument("--phases", default=",".join(FULL_RUN),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (default: all; a subset prints no result lines)")
+                    + " (default: all but layout_times; a subset prints no result lines)")
     ap.add_argument("--tree", type=Path, default=REPO,
                     help="run these phases on the blazr_tpu_torch of another checkout "
                     "(a subset of phases; for an A/B against another commit)")
@@ -1903,7 +2027,7 @@ def main() -> int:
     global TREE
     TREE = args.tree.resolve()
     other = TREE != REPO
-    if other and phases == list(PHASES):
+    if other and phases == list(FULL_RUN):
         ap.error("--tree runs a subset of phases")
     try:
         import torch
@@ -1978,17 +2102,19 @@ def main() -> int:
         ("http", "phase 7: AWQ checkpoint on disk -> load_model -> OpenAI HTTP server "
          "(8 concurrent requests) and the CLI serve subprocess",
          lambda: serve_http(dev, card)),
-        ("sweep", "phase 8: the sweeps behind B1's, B2's, B3's and B4's launch plans",
+        ("sweep", "phase 8: the sweeps behind the launch plans of B1-B6",
          lambda: (b1_variants(dev, gen), b2_splits(dev, gen), b3_sweeps(dev, gen),
-                  b4_splits(dev, gen))),
+                  b4_splits(dev, gen), layout_splits(dev, gen))),
         ("timings", "phase 9: kernel timings", lambda: timings(dev, gen, res, quant)),
+        ("layout_times", "phase 9's B5 and B6 rows alone",
+         lambda: layout_times(dev, gen)),
     ]
     for name, title, fn in steps:
         if name in phases:
             log(title)
             res[name] = fn()
     log(f"total {time.perf_counter() - t_start:.1f} s; card: {card}")
-    if phases != list(PHASES):
+    if phases != list(FULL_RUN):
         log("subset of phases: no result lines")
         return 0
     print(json.dumps({"kernels": res["timings"]}), flush=True)

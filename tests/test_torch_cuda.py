@@ -9,7 +9,7 @@ versions sum in f32, so they differ by the bf16 rounding of the outputs
 output covers both. With f32 outputs B3 and B4 differ only in the order of
 their f32 sums: 1e-3. In f16 (2^-11 relative per rounding) 4e-3 of the
 largest output. B5 and B6 keep the probabilities in f32: 2e-2 absolute in
-bf16 and 1e-4 in f32 on outputs of order max|v|."""
+bf16, 4e-3 in f16 and 1e-4 in f32 on outputs of order max|v|."""
 
 import math
 
@@ -297,18 +297,45 @@ def test_f16_paged_attention_matches_plain(cuda):
     assert (got.float() - ref).abs().max().item() <= 4e-3 * max(1.0, ref.abs().max().item())
 
 
+# (lens, table width in slots or None for the longest sequence's, ids
+# outside [0, NB) after each sequence's end and one inside a sequence)
+_LAYOUT_CASES = {
+    "ragged": ([1, 1023, 69, 300, 64], None, False),
+    "b1_ctx4096": ([4096], None, False),          # one sequence over many splits
+    "b32": ([1, 700, 1023, 64] * 8, None, False),
+    "b32_ctx4096": ([4096, 1, 4000, 2049] * 8, None, False),
+    # a table 4096 keys wide over short sequences: most splits hold no key;
+    # seq_len 0 gives exact zeros (the TPU kernel's result)
+    "wide_table_bad_ids": ([0, 5, 300, 0, 64, 129, 1, 200], 4096, True),
+}
+
+
 @pytest.mark.parametrize("layout", ["wide", "headmajor"])
 @pytest.mark.parametrize("dtype,bs", [(torch.bfloat16, 64), (torch.bfloat16, 128),
-                                      (torch.float32, 128), (torch.float16, 64)])
-def test_layout_kernels_match_plain(cuda, layout, dtype, bs):
-    """B5 and B6 at the tools' geometry (G=8, 4 query heads each, D=128),
-    ragged lengths including 1 and a partial last block."""
+                                      (torch.float32, 128), (torch.float16, 64),
+                                      (torch.float16, 16)])
+@pytest.mark.parametrize("case", sorted(_LAYOUT_CASES))
+def test_layout_kernels_match_plain(cuda, layout, dtype, bs, case):
+    """B5 and B6 at the tools' geometry (G=8, 4 query heads each, D=128):
+    ragged lengths including 1 and a partial last block, B=1 and B=32 up to
+    4096 tokens, and a wide table with ids outside [0, NB) (they read block
+    0) and seq_len 0 (exact zeros; the plain version gives the uniform mean
+    there, so those rows are compared with 0)."""
+    from blazr_tpu_torch.kvcache.paged import PAD_BLOCK
+
+    lens, width, bad_ids = _LAYOUT_CASES[case]
     gen = torch.Generator(device=cuda).manual_seed(bs)
-    seq_lens = torch.tensor([1, 1023, bs + 5, 300, 64], dtype=torch.int32, device=cuda)
-    b, mb = 5, -(-1023 // bs)
-    nb = b * mb + 3
-    tables = torch.randperm(nb, device=cuda, generator=gen)[: b * mb].reshape(b, mb)
-    tables = tables.to(torch.int32)
+    b = len(lens)
+    used = [-(-n // bs) for n in lens]
+    mb = width // bs if width else max(used)
+    nb = b * max(used) + 3
+    tables = torch.randint(0, nb, (b, mb), device=cuda, generator=gen, dtype=torch.int32)
+    if bad_ids:
+        bad = torch.tensor([-1, PAD_BLOCK, nb + 7], dtype=torch.int32, device=cuda)
+        for i, u in enumerate(used):
+            tables[i, u:] = bad.repeat(mb)[: mb - u]
+        tables[2, 0] = nb + 2
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
     kf = torch.randn((nb * bs + 1, 8, 128), device=cuda, generator=gen).to(dtype)
     vf = torch.randn((nb * bs + 1, 8, 128), device=cuda, generator=gen).to(dtype)
     q = torch.randn((b, 32, 128), device=cuda, generator=gen).to(dtype)
@@ -317,10 +344,14 @@ def test_layout_kernels_match_plain(cuda, layout, dtype, bs):
     else:
         got = pa_headmajor(q, to_head_major(kf), to_head_major(vf), tables, seq_lens,
                            block_size=bs, num_blocks=nb)
-    ref = pa_wide_reference(q.float(), kf.float(), vf.float(), tables, seq_lens,
+    read = torch.where((tables < 0) | (tables >= nb), torch.zeros_like(tables), tables)
+    ref = pa_wide_reference(q.float(), kf.float(), vf.float(), read, seq_lens,
                             block_size=bs)
+    ref[seq_lens == 0] = 0.0
     torch.cuda.synchronize()
     tol = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 1e-4}[dtype]
+    assert got.dtype == dtype and torch.equal(got[seq_lens == 0].float(),
+                                              ref[seq_lens == 0])
     assert (got.float() - ref).abs().max().item() <= tol
 
 

@@ -34,3 +34,11 @@ def test_editing_a_header_changes_the_library_path(tmp_path, monkeypatch):
 def test_the_repo_kernels_hash_their_shared_header():
     for name in ("qmm", "qmm_int8", "qmm_stream"):
         assert [p.name for p in cuda_build._sources(name)] == [f"{name}.cu", "hopper.cuh"]
+
+
+def test_the_layout_kernels_hash_the_split_header():
+    """B5 and B6 share pa_split.cuh, which includes hopper.cuh: an edit to
+    either rebuilds both."""
+    for name in ("pa_wide", "pa_headmajor"):
+        assert [p.name for p in cuda_build._sources(name)] == [
+            f"{name}.cu", "pa_split.cuh", "hopper.cuh"]

@@ -1,8 +1,9 @@
-"""The launch plans of kernels B1-B4 (pure Python), and B2's split-and-
-combine rule emulated in plain PyTorch on the CPU.
+"""The launch plans of kernels B1-B6 (pure Python), and the split-and-
+combine rule of B2, B5 and B6 emulated in plain PyTorch on the CPU.
 
-B1, B3 and B4 split K across blocks and B2 splits each sequence's walk of
-table slots across blocks; the planners decide how (B3 also its variant). The emulation follows
+B1, B3 and B4 split K across blocks and B2, B5 and B6 split each sequence's
+walk of table slots across blocks; the planners decide how (B3 also its
+variant). The emulation follows
 ``csrc/paged_attention.cu`` step for step in f32: each split runs the online
 softmax over its own slots and ends with (m, l, acc), and the splits of a
 (sequence, head) combine as sum_z e^{m_z-M} acc_z / max(sum_z e^{m_z-M} l_z,
@@ -27,6 +28,10 @@ from blazr_tpu_torch.quant import int8 as b3
 from blazr_tpu_torch.quant.int8 import b3_plan
 from blazr_tpu_torch.quant.kernels import (TC_MIN_ROWS, decode_plan, stream_splits, tc_plan,
                                            tensor_core_path)
+from blazr_tpu_torch.tools.bench_pa_headmajor import (HEADMAJOR_TARGET_BLOCKS,
+                                                      headmajor_split_plan)
+from blazr_tpu_torch.tools.bench_pa_wide import (MIN_SPLIT_BYTES, WIDE_TARGET_BLOCKS,
+                                                 pa_wide_reference, wide_split_plan)
 
 MISTRAL = {"qkv": (4096, 6144), "o": (4096, 4096), "gateup": (4096, 28672),
            "down": (14336, 4096)}
@@ -251,6 +256,88 @@ def test_split_combine_all_empty_gives_zero():
     ref = paged_attention_reference(t["q"], t["kc"], t["vc"], t["bt"], t["sl"],
                                     block_size=8)
     np.testing.assert_allclose(got[1].numpy(), ref[1].numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# B5's and B6's plans (G=8 kv heads of D=128, bf16 unless stated)
+# ---------------------------------------------------------------------------
+
+# layout: (plan, blocks of one split, bytes of K+V a key, target)
+_LAYOUTS = {
+    "wide": (wide_split_plan, lambda b, g: b, lambda g, d, i: 2 * g * d * i,
+             WIDE_TARGET_BLOCKS),
+    "headmajor": (headmajor_split_plan, lambda b, g: b * g, lambda g, d, i: 2 * d * i,
+                  HEADMAJOR_TARGET_BLOCKS),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("bs", [64, 128])
+@pytest.mark.parametrize("mb", [1, 2, 3, 8, 16, 17, 32, 63, 64])
+def test_layout_split_plan_covers_the_walk_within_the_target(layout, b, bs, mb):
+    """The splits cover the table exactly (the last one non-empty), every
+    split reads at least MIN_SPLIT_BYTES of K+V when there are several, and
+    the blocks stay within one wave's target."""
+    plan, units, key_bytes, target = _LAYOUTS[layout]
+    splits, per = plan(b, 8, mb, bs, 128, 2)
+    assert splits * per >= mb and (splits - 1) * per < mb
+    if splits > 1:
+        assert units(b, 8) * splits <= target
+        assert per * bs * key_bytes(8, 128, 2) >= MIN_SPLIT_BYTES
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+@pytest.mark.parametrize("bs,mb,itemsize", [(64, 1, 2), (128, 1, 2), (8, 3, 2), (2, 7, 4)])
+def test_layout_split_plan_keeps_short_walks_whole(layout, bs, mb, itemsize):
+    """One table slot, or a walk shorter than two splits' byte floor, takes
+    one split."""
+    plan, _, key_bytes, _ = _LAYOUTS[layout]
+    assert mb == 1 or mb * bs * key_bytes(8, 128, itemsize) < 2 * MIN_SPLIT_BYTES
+    assert plan(8, 8, mb, bs, 128, itemsize) == (1, mb)
+
+
+def test_wide_plan_byte_floor_and_tool_points():
+    """B5's floor is in bytes: a wide key of 8 kv heads is 4 KB of K+V in
+    bf16, so a split may be one slot of 16 keys; B6's key is 512 bytes, so
+    its splits are 128 keys at least. The points of the tools' sweep and of
+    B2's timing shapes."""
+    assert wide_split_plan(8, 8, 16, 64) == (16, 1)        # 128 blocks, one slot each
+    assert wide_split_plan(8, 8, 64, 64) == (16, 4)        # 128 blocks
+    assert wide_split_plan(32, 8, 16, 64) == (4, 4)        # 128 blocks
+    assert wide_split_plan(1, 8, 64, 16) == (64, 1)        # 16 keys = 64 KB a split
+    assert wide_split_plan(1, 8, 64, 16, 128, 4) == (64, 1)
+    assert wide_split_plan(1, 2, 64, 16) == (16, 4)         # 2 kv heads: 4 slots a split
+    assert headmajor_split_plan(8, 8, 16, 64) == (8, 2)    # 512 blocks, 128 keys each
+    assert headmajor_split_plan(8, 8, 64, 64) == (8, 8)
+    assert headmajor_split_plan(32, 8, 16, 64) == (2, 8)
+    assert headmajor_split_plan(1, 8, 64, 64) == (32, 2)
+    assert headmajor_split_plan(8, 8, 16, 64, 128, 4) == (8, 2)   # f32: 64 keys of 1 KB
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+@pytest.mark.parametrize("case", ["ragged", "wide_table"])
+def test_layout_plans_through_the_combine_equal_the_plain_version(layout, case):
+    """B5's and B6's function is B2's with f32 probabilities and no
+    options, so the f32 emulation of the split-and-combine rule, run with
+    each layout's own plan, equals the plain version; a sequence with
+    seq_len 0 gives exact zeros (the TPU kernels' result; the plain version
+    gives the uniform mean there)."""
+    plan = _LAYOUTS[layout][0]
+    bs, mb = (8, 8) if case == "ragged" else (8, 32)
+    lens = [1, 16, 17, 64, 0, 33] if case == "ragged" else [0, 3, 20, 9, 0, 1]
+    s = _inputs(29, seq_lens=lens, bs=bs, mb=mb, h_q=8, h_kv=2, d=64)
+    t = {k: torch.from_numpy(s[k]) for k in ("q", "kc", "vc", "bt", "sl")}
+    splits, per = plan(len(lens), 2, mb, bs, 64, 4)
+    if case == "wide_table":
+        splits, per = mb, 1                                 # most splits empty
+    got = split_combine(t["q"], t["kc"], t["vc"], t["bt"], t["sl"], block_size=bs,
+                        num_blocks=s["nb"], splits=splits, per=per)
+    ref = pa_wide_reference(t["q"], t["kc"], t["vc"], t["bt"], t["sl"], block_size=bs)
+    empty = t["sl"] == 0
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+    np.testing.assert_allclose(got[~empty].numpy(), ref[~empty].numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
