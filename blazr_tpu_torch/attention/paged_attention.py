@@ -54,17 +54,38 @@ def walk_slots(max_blocks: int, block_size: int, sliding_window: Optional[int]) 
     return max_blocks
 
 
+def min_split_slots(block_size: int) -> int:
+    """The fewest table slots a split takes where the walk has them: the
+    slots of _MIN_SPLIT_KEYS keys."""
+    return max(1, -(-_MIN_SPLIT_KEYS // block_size))
+
+
 @functools.lru_cache(maxsize=None)
 def split_plan(batch: int, num_kv_heads: int, max_blocks: int, block_size: int,
-               sliding_window: Optional[int] = None) -> tuple[int, int]:
-    """(splits, slots per split) of B2's sequence split: as many splits as
-    keep the (sequence, kv head) pairs within _TARGET_BLOCKS blocks, none
-    shorter than _MIN_SPLIT_KEYS keys; short walks take one split."""
+               sliding_window: Optional[int] = None) -> int:
+    """B2's grid of splits a (sequence, kv head): as many as keep the pairs
+    within _TARGET_BLOCKS blocks, and no more than the walk cap holds runs
+    of ``min_split_slots``. The host fixes only this count; each block takes
+    its span from its sequence's length on the device (``split_spans``)."""
     walk = walk_slots(max_blocks, block_size, sliding_window)
-    most = max(1, walk // max(1, -(-_MIN_SPLIT_KEYS // block_size)))
-    splits = max(1, min(most, _TARGET_BLOCKS // (batch * num_kv_heads)))
-    per = -(-walk // splits)
-    return -(-walk // per), per
+    most = max(1, walk // min_split_slots(block_size))
+    return max(1, min(most, _TARGET_BLOCKS // (batch * num_kv_heads)))
+
+
+def split_spans(seq_len: int, splits: int, max_blocks: int, block_size: int,
+                sliding_window: Optional[int] = None) -> list[tuple[int, int]]:
+    """Host model of each split's table slots [t0, t1) (of the walk from the
+    first in-window slot), as ``csrc/paged_attention.cu`` derives them on the
+    device from ``seq_len``: the sequence's walk of
+    ``min(walk cap, ceil(seq_len/BS) - lo)`` slots in ``used`` floor-balanced
+    runs, ``used = max(1, min(splits, walk // min_split_slots))``; the
+    splits past ``used`` are empty."""
+    lo = max(seq_len - sliding_window, 0) // block_size if sliding_window else 0
+    cap = walk_slots(max_blocks, block_size, sliding_window)
+    walk = max(0, min(cap, -(-seq_len // block_size) - lo))
+    used = max(1, min(splits, walk // min_split_slots(block_size)))
+    return [(z * walk // used, (z + 1) * walk // used) if z < used else (walk, walk)
+            for z in range(splits)]
 
 
 def paged_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
@@ -164,7 +185,7 @@ def paged_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if b == 0:
         return out
     mb = block_tables.shape[1]
-    splits, per = split_plan(b, h_kv, mb, block_size, sliding_window)
+    splits = split_plan(b, h_kv, mb, block_size, sliding_window)
     part_acc = part_ml = None
     if splits > 1:
         part_acc = torch.empty((b, h_q, splits, d), dtype=torch.float32, device=dev)
@@ -178,7 +199,8 @@ def paged_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
         ptr(v_scale), block_tables.data_ptr(), seq_lens.data_ptr(), ptr(alibi),
         out.data_ptr(), ptr(part_acc), ptr(part_ml), b, h_q, h_kv, d, block_size,
         num_blocks, mb, int(sliding_window or 0), float(logit_softcap or 0.0),
-        1.0 / math.sqrt(d), splits, per, _DTYPE_CODE[q.dtype], int(quantized),
+        1.0 / math.sqrt(d), splits, min_split_slots(block_size), _DTYPE_CODE[q.dtype],
+        int(quantized),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"paged attention launch failed with CUDA error {err}")

@@ -2,10 +2,11 @@
 
 Counterpart of ``blazr_tpu/config/inference.py``: the same fields and
 defaults, so a config file reads the same in both packages. The port serves
-the paged KV cache, batched prefill and the multi-step decode horizon
-(``engine/batch_engine.py``), the contiguous cache with session reuse
-(``engine/executor.py``) and every ``quant_compute`` mode; the other knobs
-are kept for layout and are rejected where they would change behaviour.
+the paged KV cache, batched prefill and the pipelined multi-step decode
+horizon in CUDA graphs (``engine/batch_engine.py``), the contiguous cache
+with session reuse (``engine/executor.py``) and every ``quant_compute``
+mode; the other knobs are kept for layout and are rejected where they would
+change behaviour.
 """
 
 from __future__ import annotations
@@ -81,8 +82,9 @@ class InferenceConfig:
     # sampled tokens fed back on the device and ONE host fetch per round.
     # 1 disables.
     decode_horizon: int = 8
-    # Dispatched-but-unfetched rounds kept in flight by the JAX engine;
-    # this port fetches every round (depth 1) and keeps the field for layout.
+    # Dispatched-but-unread decode rounds the BatchEngine keeps in flight:
+    # round N+1 is queued from round N's device carries before round N is
+    # read.
     decode_pipe_depth: int = 2
 
     # Speculative decoding (not served by this slice)
@@ -102,7 +104,10 @@ class InferenceConfig:
     moe_rebalance_interval: int = 64
     num_device_layers: Optional[int] = None
 
-    # Decode graphs (CUDA graphs are a later slice)
+    # Decode graphs: on CUDA each fixed-shape decode step of the BatchEngine
+    # and the Executor is a CUDA graph, captured on first use of its shape
+    # (engine/decode_graph.py); False runs the same steps eagerly. The CPU
+    # always runs them eagerly.
     graphs: bool = True
 
     def to_dict(self) -> dict[str, Any]:

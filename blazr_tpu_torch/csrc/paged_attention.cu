@@ -23,12 +23,19 @@
 // 33.7 MB per layer, 0.010 ms at 3.35 TB/s.
 //
 // Design:
-//   * Flash-decoding. The grid is (B, H_kv, splits): the wrapper's plan
-//     (attention/paged_attention.py::split_plan) cuts each sequence's walk of
-//     table slots into `splits` runs of `per` slots: as many as one wave of
-//     two blocks a SM holds (B=8 at 1024 tokens: 4 splits, 256 blocks; a
-//     partial second wave costs more than it saves), never fewer than 128
-//     keys a split. Each
+//   * Flash-decoding. The grid is (B, H_kv, splits): the wrapper fixes only
+//     the split count (attention/paged_attention.py::split_plan), from the
+//     batch, the kv heads and the walk cap (the table width, or the window's
+//     slots): as many splits as one wave of two blocks a SM holds (B=8: 4
+//     splits, 256 blocks; a partial second wave costs more than it saves).
+//     Each block derives its own span on the device from seq_lens[b]: the
+//     sequence walks walk_b = min(mb_eff, ceil(seq_len/BS) - lo) slots, cut
+//     into used_b = max(1, min(splits, walk_b / min_slots)) runs of
+//     floor-balanced length (min_slots: the slots of 128 keys), so a split
+//     takes at least 128 keys where the walk has them, and every split below
+//     used_b holds slots. A table as wide as max_blocks_per_seq (the decode
+//     graphs' tables) therefore splits the same as one trimmed to the
+//     longest sequence (split_spans in the wrapper is the host model). Each
 //     split keeps its own running max m, denominator l and f32 acc; with more
 //     than one split it writes them as partials and a second small kernel
 //     combines the splits of each (sequence, head) in a fixed order:
@@ -50,9 +57,8 @@
 //   * One warp per query head takes a chunk's logits (a lane per key) and its
 //     online-softmax update in registers and warp shuffles; then every thread
 //     accumulates p.v for a pair of head dimensions. Two barriers per chunk.
-// Known limits: the split plan is taken from the table width MB (the host
-// knows no seq_len), so a table much wider than its sequences leaves splits
-// empty; the dot products run on CUDA cores.
+// Known limits: splits past used_b exit empty (short sequences in a wide
+// grid); the dot products run on CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -200,7 +206,7 @@ pa_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
                 const int* __restrict__ sl, const float* __restrict__ alibi,
                 TQ* __restrict__ out, float* __restrict__ part_acc,
                 float* __restrict__ part_ml, int Hq, int Hkv, int D, int BS, int NB,
-                int MB, int window, float softcap, float scale, int CH, int per,
+                int MB, int window, float softcap, float scale, int CH, int min_slots,
                 int nstage) {
   const int b = blockIdx.x, kvh = blockIdx.y, z = blockIdx.z, splits = gridDim.z;
   const int hpg = Hq / Hkv;
@@ -230,10 +236,12 @@ pa_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
     lo = max(seq_len - window, 0) / BS;   // first slot holding an in-window key
     mb_eff = min(MB, window / BS + 2);
   }
-  // This split's slots t in [t0, t1) of the walk tt = lo + t, stopping at the
-  // first slot past seq_len.
-  const int t0 = z * per;
-  const int t1 = min(min(mb_eff, t0 + per), (seq_len + BS - 1) / BS - lo);
+  // This split's slots t in [t0, t1) of the walk tt = lo + t: the sequence's
+  // walk_b slots (up to the first slot past seq_len) in used_b balanced runs.
+  const int walk = max(0, min(mb_eff, (seq_len + BS - 1) / BS - lo));
+  const int used = max(1, min(splits, walk / min_slots));
+  const int t0 = z < used ? (int)((long long)z * walk / used) : walk;
+  const int t1 = z < used ? (int)((long long)(z + 1) * walk / used) : walk;
   const int cps = BS / CH;                      // chunks per slot
   const int nch = t1 > t0 ? (t1 - t0) * cps : 0;
   const size_t row_stride = (size_t)Hkv * D;
@@ -425,7 +433,7 @@ template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* bt, const void* sl, const void* alibi, void* out, void* part_acc,
            void* part_ml, int B, int Hq, int Hkv, int D, int BS, int NB, int MB, int window,
-           float softcap, float scale, int splits, int per, cudaStream_t stream) {
+           float softcap, float scale, int splits, int min_slots, cudaStream_t stream) {
   const int hpg = Hq / Hkv;
   const int CH = chunk_rows<TKV>(BS, D);
   int nstage = 3;
@@ -449,7 +457,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
       static_cast<const int*>(bt), static_cast<const int*>(sl),
       static_cast<const float*>(alibi), static_cast<TQ*>(out),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), Hq, Hkv, D, BS, NB, MB,
-      window, softcap, scale, CH, per, nstage);
+      window, softcap, scale, CH, min_slots, nstage);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   const int threads = D < kThreads ? D : kThreads;
@@ -463,8 +471,9 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
 
 // q_dtype: 0 = bfloat16, 1 = float32, 2 = float16 (q, out, and the cache
 // unless kv_int8). ks/vs (int8 KV scales) and alibi may be null. window <= 0:
-// no window; softcap <= 0: no softcap. splits, per: the split plan (per table
-// slots a split; splits * per covers the walk). part_acc f32 [B, Hq, splits,
+// no window; softcap <= 0: no softcap. splits: the grid's split count;
+// min_slots: the fewest table slots a split takes where the walk has them
+// (each block derives its span from seq_lens). part_acc f32 [B, Hq, splits,
 // D] and part_ml f32 [B, Hq, splits, 2] scratch (unused when splits == 1).
 // Returns a cudaError_t.
 extern "C" int pa_decode_launch(const void* q, const void* k, const void* v,
@@ -472,11 +481,11 @@ extern "C" int pa_decode_launch(const void* q, const void* k, const void* v,
                                 const void* sl, const void* alibi, void* out,
                                 void* part_acc, void* part_ml, int B, int Hq, int Hkv,
                                 int D, int BS, int NB, int MB, int window, float softcap,
-                                float scale, int splits, int per, int q_dtype,
+                                float scale, int splits, int min_slots, int q_dtype,
                                 int kv_int8, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D % 32 != 0 || D > kMaxHeadDim ||
       BS <= 0 || MB <= 0 || NB <= 0 ||
-      splits <= 0 || per <= 0 || (splits > 1 && (part_acc == nullptr || part_ml == nullptr)) ||
+      splits <= 0 || min_slots <= 0 || (splits > 1 && (part_acc == nullptr || part_ml == nullptr)) ||
       (kv_int8 && (ks == nullptr || vs == nullptr)) ||
       reinterpret_cast<uintptr_t>(k) % 16 != 0 || reinterpret_cast<uintptr_t>(v) % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -485,10 +494,11 @@ extern "C" int pa_decode_launch(const void* q, const void* k, const void* v,
     using TQ = decltype(tag);
     if (kv_int8)
       return launch<TQ, int8_t>(q, k, v, ks, vs, bt, sl, alibi, out, part_acc, part_ml, B,
-                                Hq, Hkv, D, BS, NB, MB, window, softcap, scale, splits, per,
-                                st);
+                                Hq, Hkv, D, BS, NB, MB, window, softcap, scale, splits,
+                                min_slots, st);
     return launch<TQ, TQ>(q, k, v, nullptr, nullptr, bt, sl, alibi, out, part_acc, part_ml,
-                          B, Hq, Hkv, D, BS, NB, MB, window, softcap, scale, splits, per, st);
+                          B, Hq, Hkv, D, BS, NB, MB, window, softcap, scale, splits,
+                          min_slots, st);
   };
   if (q_dtype == 0) return by_kv(__nv_bfloat16());
   if (q_dtype == 1) return by_kv(float());

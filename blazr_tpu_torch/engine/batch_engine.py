@@ -5,16 +5,32 @@ asyncio loop admits requests, runs batched (chunked) prefills with the
 first token sampled in the same pass, then a decode round over every
 running sequence, and streams tokens through per-request asyncio queues.
 
-What is ported is the engine's semantics, not its TPU machinery:
+The decode round is the JAX engine's fixed-shape, pipelined round:
+  * a round over ``bmax`` rows, the running count padded to a power of two
+    and capped at ``max_batch`` (``_process_decode_batch_plain``, :1671),
+    runs up to ``decode_horizon`` steps of ``decode_graph.BatchStep`` with
+    the sampled tokens and penalty windows fed back on the device; its
+    table carries block tables ``max_blocks_per_seq`` wide, and pad rows
+    write to the trash slot (``_build_itab``, :1760);
+  * on CUDA each step is a CUDA graph per (bmax, top-K logprobs, sampled
+    rows), captured on first use (``inference.graphs``; off: the same steps
+    run eagerly, and always on the CPU), so a round is one upload, T graph
+    replays and one copy of its outputs into a pinned host ring;
+  * rounds are pipelined (``_horizon_round``, :1796): round N+1 is queued
+    from round N's carries before round N is read, and up to
+    ``decode_pipe_depth`` rounds stay unread (``_emit_round``, :1940;
+    ``_flush_pipe``, :1966). Chained rows keep their row; a row's in-flight
+    tokens (its lag) advance its position and its sampling step, so a
+    stream does not depend on the depth. The JAX engine's ordering argument
+    holds as it is: every round and prefill writes the one cache in place
+    on one stream, so work runs in the order it was queued, a freed block's
+    stray writes land before its next owner's, and stale outputs are
+    dropped at emit by the ``state != RUNNING`` check. Where the scheduler
+    preempts a sequence, the unread rounds are dropped instead (their
+    tokens are recomputed alike: the keys depend on (seed, step) only).
   * prefill rows are grouped by power-of-two token bucket, paced in ramped
     groups (cold bursts: one median-first group), and capped while decode
     rows are running so a decode round runs between prefill groups;
-  * a decode round runs up to ``decode_horizon`` steps with the sampled
-    tokens and penalty windows fed back on the device and ONE host fetch;
-  * the packed upload tables and the pipelined rounds of the JAX engine
-    hid round-trips of a remote-attached chip; PyTorch runs eagerly on a
-    local card, so this engine passes tensors directly and fetches every
-    round.
   * prefill groups run at their real number of prompts P, except while a
     weight carries a row threshold (``w4a8-prefill``): then the group is
     padded to the next power of two, as the JAX engine pads every group
@@ -34,7 +50,7 @@ import dataclasses
 import logging
 import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from typing import Optional
 
 import numpy as np
@@ -47,8 +63,8 @@ from ..kvcache.paged import PAD_BLOCK, pad_block_table
 from ..models.paged_multi import init_engine_cache, make_paged_forward
 from ..models.registry import Model
 from ..quant.qtensor import apply_quant_compute, quant_leaves
-from .sampling import (PENALTY_WINDOW, SamplingParams, make_bias_rows,
-                       make_window, sample_tokens)
+from .decode_graph import TOPK_K, BatchStep, StepGraphs, pack_rows
+from .sampling import SamplingParams, make_bias_rows, make_window, sample_tokens
 from .sequence_scheduler import (SchedulerConfig, Sequence, SequenceScheduler,
                                  SequenceState)
 from .types import FinishReason, GeneratedToken, TokenLogprob
@@ -57,10 +73,6 @@ logger = logging.getLogger(__name__)
 
 # Max same-bucket prefill rows fused into one forward.
 _PREFILL_GROUP = 32
-# Top-K width of the logprobs fetch (the OpenAI top_logprobs cap).
-TOPK_K = 20
-# Pad-row sampling config: greedy.
-_PAD_CFG = GenerationConfig(temperature=0.0)
 
 
 def _next_pow2(n: int, minimum: int = 16) -> int:
@@ -172,6 +184,13 @@ class BatchEngine:
         self._trash = self.cache.trash_slot
         self.horizon_dispatches = 0
         self.horizon_steps = 0
+        # The decode pipeline: dispatched, unread rounds (newest last;
+        # carries chain from the newest), at most _pipe_depth after a call.
+        self._pipe_q: deque = deque()
+        self._pipe_depth = max(1, int(inf.decode_pipe_depth or 1))
+        self._steps: dict[int, BatchStep] = {}          # by bmax
+        self.graphs = StepGraphs(self.device, inf.graphs)
+        self._preemptions = 0
         # Wall time by phase (seconds; "<phase>_n" counts calls).
         self.perf: dict[str, float] = defaultdict(float)
         self._handles: dict[int, RequestHandle] = {}
@@ -238,6 +257,9 @@ class BatchEngine:
                     self.max_batch, self.allocator.num_blocks, self.device)
         while not self._stop:
             if not self.scheduler.has_work:
+                # No running rows: unread rounds are overrun of finished or
+                # aborted sequences; drop them.
+                self._pipe_q.clear()
                 self._notify.clear()
                 await self._notify.wait()
                 continue
@@ -247,6 +269,7 @@ class BatchEngine:
                     continue
             except Exception:
                 logger.exception("batch failed; aborting batch sequences")
+                self._pipe_q.clear()   # unread rounds are aborted with them
                 for seq in list(self.scheduler.running.values()):
                     self.scheduler.abort_sequence(seq.seq_id)
                     self._finish(seq.seq_id, None)
@@ -259,6 +282,12 @@ class BatchEngine:
         t0 = time.perf_counter()
         batch = self.scheduler.schedule()
         self.perf["schedule"] += time.perf_counter() - t0
+        if self.scheduler.preemptions != self._preemptions:
+            # A preempted sequence may be admitted again while a round that
+            # holds it is unread: drop the unread rounds (their sequences
+            # recompute those tokens alike).
+            self._preemptions = self.scheduler.preemptions
+            self._pipe_q.clear()
         if batch.is_empty:
             return False
         pending: list = []
@@ -274,7 +303,7 @@ class BatchEngine:
                    if s.state == SequenceState.RUNNING]
         if decodes:
             t0 = time.perf_counter()
-            await asyncio.to_thread(self._decode_round, decodes)
+            await asyncio.to_thread(self._horizon_round, decodes)
             self.perf["decode"] += time.perf_counter() - t0
             self.perf["decode_n"] += 1
         if pending:
@@ -294,17 +323,6 @@ class BatchEngine:
         ids, vals = make_bias_rows(cfgs)
         return (sp, window, torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(vals).to(self.device))
-
-    def _pack(self, tok: torch.Tensor, logprobs: torch.Tensor,
-              use_topk: bool) -> torch.Tensor:
-        """[B, 2] (token, logprob) — or [B, 2+2K] with the top-K ids and
-        logprobs — in float64 (exact for both), for ONE host fetch."""
-        lp = logprobs.gather(1, tok[:, None])
-        cols = [tok[:, None].to(torch.float64), lp.to(torch.float64)]
-        if use_topk:
-            top_lp, top_ids = torch.topk(logprobs, TOPK_K, dim=-1)
-            cols += [top_ids.to(torch.float64), top_lp.to(torch.float64)]
-        return torch.cat(cols, dim=1)
 
     @torch.no_grad()
     def _dispatch_prefills(self, seqs: list[Sequence], cold: bool = False) -> list:
@@ -398,7 +416,7 @@ class BatchEngine:
             tok, logprobs = sample_tokens(logits[:n_real, 0, :], sp, window,
                                           bias_ids, bias_vals)
             use_topk = any(s.gen_cfg.logprobs for s, _ in finishing)
-            packed = self._pack(tok, logprobs, use_topk)
+            packed = pack_rows(tok, logprobs, use_topk)
         return group, chunks, finishing, packed
 
     def _finish_prefills(self, pending: list) -> None:
@@ -421,89 +439,129 @@ class BatchEngine:
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
+    def _step(self, bmax: int) -> BatchStep:
+        step = self._steps.get(bmax)
+        if step is None:
+            step = self._steps[bmax] = BatchStep(self, bmax, self._horizon,
+                                                 self._pipe_depth + 1)
+        return step
+
     @torch.no_grad()
-    def _decode_round(self, decodes: list[Sequence]) -> None:
-        """Up to ``decode_horizon`` decode steps over ``decodes`` with the
-        sampled tokens and penalty windows fed back on the device, then ONE
-        fetch of the [steps, B, 2(+2K)] outputs. Rows that finish inside the
-        horizon compute overrun steps whose tokens are discarded."""
-        decodes = decodes[:self.max_batch]
-        bs = self.block_size
-        rem_max = max(s.gen_cfg.max_tokens - s.emitted for s in decodes)
-        t_steps = max(1, min(self._horizon, rem_max))
-        # Block tables must cover the whole horizon before the tables are
-        # built: a write into a block the table lacks goes to the trash
-        # slot and loses that token's KV.
-        for trial in (t_steps, 1):
-            t_steps = trial
+    def _horizon_round(self, decodes: list[Sequence]) -> None:
+        """Dispatch one (possibly chained) decode round of up to
+        ``decode_horizon`` steps onto the pipeline, then read and emit the
+        oldest rounds while more than ``decode_pipe_depth`` are unread
+        (``blazr_tpu/engine/batch_engine.py:1671,1796``). Rows that finish
+        inside a round compute overrun steps whose tokens are dropped."""
+        bmax = min(_next_pow2(len(decodes), minimum=1), self.max_batch)
+        decodes = decodes[:bmax]
+        use_topk = any(s.gen_cfg.logprobs for s in decodes)
+        newest = self._pipe_q[-1] if self._pipe_q else None
+        chain = (newest is not None and newest["bmax"] == bmax
+                 and newest["topk"] == use_topk)
+        if newest is not None and not chain:
+            self._flush_pipe()              # the layout changed
+            # The flush's emits can finish sequences of this round.
+            decodes = [s for s in decodes if s.state == SequenceState.RUNNING]
+            if not decodes:
+                return
+        if chain:
+            # Chained sequences keep their row (their carry lives there);
+            # newcomers take free rows as fresh.
+            live_ids = {s.seq_id for s in decodes}
+            rows: list[Optional[Sequence]] = [
+                r if (r is not None and r.seq_id in live_ids
+                      and r.state == SequenceState.RUNNING) else None
+                for r in newest["rows"]]
+            placed = {r.seq_id for r in rows if r is not None}
+            free = [i for i, r in enumerate(rows) if r is None]
+            for s in decodes:
+                if s.seq_id not in placed:
+                    rows[free.pop(0)] = s
+            fresh = np.array([r is None or r.seq_id not in placed for r in rows])
+            # In-flight tokens of the sequence in each row: the queued
+            # rounds that hold the same sequence in that row.
+            lag = [0 if fresh[i] else sum(q["t"] for q in self._pipe_q
+                                          if q["rows"][i] is rows[i])
+                   for i in range(bmax)]
+        else:
+            rows = list(decodes) + [None] * (bmax - len(decodes))
+            fresh = np.ones((bmax,), dtype=bool)
+            lag = [0] * bmax
+        live = [(i, s) for i, s in enumerate(rows) if s is not None]
+        rem_max = max(s.gen_cfg.max_tokens - s.emitted - lag[i] for i, s in live)
+        if rem_max <= 0:
+            # In-flight rounds already cover every row's budget: read the
+            # oldest instead of queueing overrun.
+            if self._pipe_q:
+                self._emit_round(self._pipe_q.popleft())
+            return
+        # Block tables must cover the whole round, lag included, before the
+        # table is built: a write into a block the table lacks goes to the
+        # trash slot and loses that token's KV.
+        for t_steps in (min(self._horizon, rem_max), 1):
             ok = all(self.scheduler._ensure_block_for(
-                seq, min(seq.total_len + t_steps - 1, self.max_seq_len - 1))
-                for seq in decodes)
+                seq, min(seq.total_len + lag[i] + t_steps - 1, self.max_seq_len - 1))
+                for i, seq in live)
             if ok:
                 break
-        b = len(decodes)
-        mb = max(len(s.block_table) for s in decodes)
-        bt = np.stack([pad_block_table(s.block_table, mb) for s in decodes])
-        dev = self.device
-        cfgs = [s.gen_cfg for s in decodes]
-        sp, window, bias_ids, bias_vals = self._sampling(
-            cfgs, [s.emitted for s in decodes],
-            [make_window(self._windows[s.seq_id], s.gen_cfg.repeat_last_n)
-             for s in decodes])
-        bt_d = torch.from_numpy(bt).to(dev)
-        tok = torch.tensor([s.all_tokens[-1] for s in decodes], dtype=torch.int64,
-                           device=dev)
-        pos0 = torch.tensor([s.total_len - 1 for s in decodes], dtype=torch.int64,
-                            device=dev)
-        rln = torch.tensor([min(s.gen_cfg.repeat_last_n, PENALTY_WINDOW)
-                            for s in decodes], dtype=torch.int64, device=dev)
-        rows = torch.arange(b, device=dev)
-        widx = torch.arange(PENALTY_WINDOW, device=dev)[None, :]
-        use_topk = any(c.logprobs for c in cfgs)
-        outs = []
-        for i in range(t_steps):
-            pos = pos0 + i
-            blk = bt_d.gather(1, (pos // bs).clamp(max=mb - 1)[:, None])[:, 0].long()
-            slot = torch.where((blk != PAD_BLOCK) & (pos < mb * bs),
-                               blk * bs + pos % bs,
-                               torch.full_like(pos, self._trash))
-            # Overrun steps of rows that finish inside the horizon are
-            # discarded; clamp their rope positions in range.
-            posc = pos.clamp(max=self.max_seq_len - 1)
-            logits, self.cache = self._fwd(
-                self.model.params, self.model.cfg, tok[:, None], self.cache,
-                posc[:, None], slot[:, None], bt_d, (pos + 1).to(torch.int32))
-            key = sp.key.clone()
-            key[:, 1] = (key[:, 1] + i) & 0xFFFFFFFF
-            newtok, logprobs = sample_tokens(
-                logits[:, -1, :], dataclasses.replace(sp, key=key), window,
-                bias_ids, bias_vals)
-            outs.append(self._pack(newtok, logprobs, use_topk))
-            # Penalty-window update, exact make_window semantics: insert
-            # while under repeat_last_n, then shift left within it.
-            fill = (window >= 0).sum(dim=1)
-            rolled = torch.where(widx < rln[:, None] - 1,
-                                 torch.roll(window, -1, dims=1), window)
-            rolled[rows, (rln - 1).clamp(min=0)] = newtok
-            inserted = window.clone()
-            inserted[rows, fill.clamp(max=PENALTY_WINDOW - 1)] = newtok
-            wnew = torch.where((fill < rln)[:, None], inserted, rolled)
-            window = torch.where((rln > 0)[:, None], wnew, window)
-            tok = newtok
+        if not ok and self._pipe_q:
+            # Allocator pressure while tokens are in flight: land the oldest
+            # round (its finished rows free blocks; lag shrinks).
+            self.perf["pipe_pressure_n"] += 1
+            self._emit_round(self._pipe_q.popleft())
+            return
+        step = self._step(bmax)
+        windows = [None if s is None else
+                   make_window(self._windows[s.seq_id], s.gen_cfg.repeat_last_n)
+                   for s in rows]
+        table = step.build(rows, lag, fresh, windows)
+        any_sampled = any(s.gen_cfg.temperature > 0.0 for _, s in live)
+        t0 = time.perf_counter()
+        step.up.upload(table, step.tab)
+        fn = step.step_fn(use_topk, any_sampled)
+        for _ in range(t_steps):
+            self.graphs.run((bmax, use_topk, any_sampled), fn)
+        slot = step.down[use_topk].download(step.out[use_topk])
+        self.perf["h_dispatch"] += time.perf_counter() - t0
+        self._pipe_q.append({"rows": rows, "t": t_steps, "bmax": bmax,
+                             "topk": use_topk, "ring": step.down[use_topk],
+                             "slot": slot})
         self.horizon_dispatches += 1
         self.horizon_steps += t_steps
-        out = torch.stack(outs).cpu().numpy()          # ONE fetch per round
+        while len(self._pipe_q) > self._pipe_depth:
+            self._emit_round(self._pipe_q.popleft())
+        # If no row of the newest round is running, the unread rounds are
+        # pure overrun: drop them unread (their cache writes are inert).
+        if self._pipe_q and not any(
+                r is not None and r.state == SequenceState.RUNNING
+                for r in self._pipe_q[-1]["rows"]):
+            self._pipe_q.clear()
+
+    def _emit_round(self, p: dict) -> None:
+        """Read a dispatched round ([H, bmax, 2(+2K)], one copy) and emit
+        its tokens; rows that finished inside it drop their overrun."""
+        t0 = time.perf_counter()
+        out = p["ring"].read(p["slot"])
+        t1 = time.perf_counter()
+        self.perf["h_fetch"] += t1 - t0
+        self.perf["h_fetch_n"] += 1
         self._defer_puts = []
         try:
-            for s_i in range(t_steps):
-                for i, seq in enumerate(decodes):
-                    if seq.state != SequenceState.RUNNING:
-                        continue          # finished inside the horizon
+            for s_i in range(p["t"]):
+                for i, seq in enumerate(p["rows"]):
+                    if seq is None or seq.state != SequenceState.RUNNING:
+                        continue
                     self._emit(seq, int(out[s_i, i, 0]), float(out[s_i, i, 1]),
                                top=self._top_row(seq, out[s_i, i]))
         finally:
             buf, self._defer_puts = self._defer_puts, None
             self._flush_puts(buf)
+        self.perf["h_emit"] += time.perf_counter() - t1
+
+    def _flush_pipe(self) -> None:
+        while self._pipe_q:
+            self._emit_round(self._pipe_q.popleft())
 
     # ------------------------------------------------------------------
     # token delivery

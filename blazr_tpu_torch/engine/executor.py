@@ -5,10 +5,17 @@ tokenizer + cache, bucketed prefill, a streaming ``generate`` loop with
 sampling fused on the device (``engine/sampling.py``) and top-20 logprobs,
 and session KV reuse when a prompt extends the previous one.
 
-What is ported is the executor's semantics, not its TPU machinery: PyTorch
-runs eagerly, so there are no jitted step functions or donated buffers; the
-cache is written in place and a reused session cache is taken over instead
-of copied. Prompts are still padded to power-of-two buckets (pads write to
+Each decode token is one fixed-shape step, forward plus sampling at one row
+(``decode_graph.ExecutorStep``, the counterpart of the jitted
+``decode_step`` at :130): token, position, sampling parameters and penalty
+window go up in one table, and the token, its logprob (and the top-20) come
+back in one fetch a token, as in the JAX executor. On CUDA the step is a
+CUDA graph per (top-K logprobs, sampled) and cache, captured on first use
+(``inference.graphs``; off, and on the CPU, the same step runs eagerly).
+A graph holds its cache's buffers, so the caches live with the executor
+and are written in place: a generation takes a free one (a new one while
+every one is in use), and a reused session cache is taken over instead of
+copied. Prompts are still padded to power-of-two buckets (pads write to
 the cache's trash slot), so every matmul sees the row count the JAX
 executor's programs see, and the row-count routing of ``w4a8-prefill``
 agrees. ``inference.quant_compute`` is applied to the model's params in
@@ -23,8 +30,9 @@ and streaming (host-offloaded) models.
 from __future__ import annotations
 
 import logging
+import threading
 import time
-from typing import Any, Iterator, Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -33,7 +41,8 @@ from ..config.app import AppConfig
 from ..config.generation import GenerationConfig
 from ..models.registry import Model
 from ..quant.qtensor import apply_quant_compute
-from .batch_engine import TOPK_K, _next_pow2, _not_served, check_request
+from .batch_engine import _next_pow2, _not_served, check_request
+from .decode_graph import TOPK_K, ExecutorStep, StepGraphs, pack_rows
 from .sampling import SamplingParams, make_bias_rows, make_window, sample_tokens
 from .types import GeneratedToken, TokenLogprob
 
@@ -55,9 +64,13 @@ class Executor:
         self._check_config(inf)
         self.capacity = min(self.app_cfg.effective_max_seq_len() or 4096,
                             model.cfg.max_seq_len or 4096)
-        # Last completed session's (fed tokens, cache), reused when the next
-        # prompt extends it (reference executor_generate.rs:230-249).
-        self._session: Optional[tuple[list[int], Any]] = None
+        # Last completed session's (fed tokens, cache step), reused when the
+        # next prompt extends it (reference executor_generate.rs:230-249).
+        self._session: Optional[tuple[list[int], ExecutorStep]] = None
+        # Caches (each with its decode step) that no generation holds.
+        self._free: list[ExecutorStep] = []
+        self._lock = threading.Lock()
+        self.graphs = StepGraphs(model.device, inf.graphs)
         # In place: a w8a8-widened weight replaces its 4-bit copy one leaf
         # at a time, so the 4-bit copy is freed.
         apply_quant_compute(model.params, inf.quant_compute, inplace=True)
@@ -89,14 +102,16 @@ class Executor:
     # ------------------------------------------------------------------
     # session KV reuse
     # ------------------------------------------------------------------
-    def _session_restore(self, prompt_ids: list[int]):
-        """(cache, start) reusing the previous session's cache when the new
-        prompt extends it; (None, 0) on a miss. The cache is taken over and
-        trimmed to the matched prefix: later slots are overwritten by the
-        suffix prefill or masked by the length."""
-        if not self.app_cfg.inference.prefix_cache or self._session is None:
+    def _session_restore(self, prompt_ids: list[int]) -> tuple[Optional[ExecutorStep], int]:
+        """(cache step, start) reusing the previous session's cache when the
+        new prompt extends it and no generation holds it; (None, 0) on a
+        miss. The cache is taken over and trimmed to the matched prefix:
+        later slots are overwritten by the suffix prefill or masked by the
+        length."""
+        if (not self.app_cfg.inference.prefix_cache or self._session is None
+                or self._session[1] not in self._free):
             return None, 0
-        toks, cache = self._session
+        toks, step = self._session
         limit = min(len(toks), len(prompt_ids) - 1)
         n = 0
         while n < limit and toks[n] == prompt_ids[n]:
@@ -104,12 +119,37 @@ class Executor:
         if n < self._MIN_REUSE_TOKENS:
             return None, 0
         self._session = None
-        cache.length.clamp_(max=n)
-        return cache, n
+        step.cache.length.clamp_(max=n)
+        return step, n
 
-    def _session_save(self, fed_tokens: list[int], cache) -> None:
+    def _session_save(self, fed_tokens: list[int], step: ExecutorStep) -> None:
         if self.app_cfg.inference.prefix_cache:
-            self._session = (list(fed_tokens), cache)
+            self._session = (list(fed_tokens), step)
+
+    def _take(self, prompt_ids: list[int]) -> tuple[ExecutorStep, int]:
+        """A cache (with its decode step) for one generation and the prompt
+        tokens its KV already holds: the session's on a hit, else a free
+        one emptied (the session's last), else a new one."""
+        with self._lock:
+            step, start = self._session_restore(prompt_ids)
+            if step is None:
+                session = self._session[1] if self._session else None
+                others = [s for s in self._free if s is not session]
+                if others:
+                    step = others[0]
+                elif self._free:
+                    step, self._session = self._free[0], None
+                else:
+                    step = ExecutorStep(self.model, self._init_cache(1), self.device)
+                step.cache.length.zero_()
+            if step in self._free:
+                self._free.remove(step)
+            return step, start
+
+    def _give_back(self, fed_tokens: list[int], step: ExecutorStep) -> None:
+        with self._lock:
+            self._session_save(fed_tokens, step)
+            self._free.append(step)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -140,29 +180,30 @@ class Executor:
         return last, cache
 
     @torch.no_grad()
-    def _decode(self, cache, tok: int, pos: int):
-        dev = self.device
-        logits, cache = self.model.forward(
-            torch.tensor([[tok]], dtype=torch.int64, device=dev), cache,
-            torch.tensor([[pos]], dtype=torch.int64, device=dev),
-            torch.tensor([pos + 1], dtype=torch.int32, device=dev))
-        return logits[:, -1, :], cache
+    def _decode(self, step: ExecutorStep, cfg: GenerationConfig, tok: int, pos: int,
+                index: int, history: list[int]) -> tuple[int, float, Optional[list]]:
+        """One decode token: the table up, the step (a graph replay on the
+        card), and ONE host fetch of the token, its logprob and (with
+        ``cfg.logprobs``) the top-20."""
+        use_topk = bool(cfg.logprobs)
+        sampled = cfg.temperature > 0.0
+        step.tab.copy_(torch.from_numpy(step.build(
+            cfg, tok, pos, index, make_window(history, cfg.repeat_last_n))))
+        self.graphs.run((step, use_topk, sampled), step.step_fn(use_topk, sampled))
+        return self._row(step.out[use_topk][0].cpu().numpy(), cfg)
 
     @torch.no_grad()
     def _sample(self, last: torch.Tensor, cfg: GenerationConfig, step: int,
                 history: list[int], bias) -> tuple[int, float, Optional[list]]:
-        """Fused device sampling of [1, V] logits; ONE host fetch of the
-        token, its logprob and (with ``cfg.logprobs``) the top-20."""
+        """Fused device sampling of the prefill's [1, V] logits; ONE host
+        fetch."""
         dev = self.device
         sp = SamplingParams.from_config([cfg], step=step, device=dev)
         window = torch.from_numpy(make_window(history, cfg.repeat_last_n)[None, :]).to(dev)
         tok, logprobs = sample_tokens(last, sp, window, *bias)
-        cols = [tok[:, None].to(torch.float64),
-                logprobs.gather(1, tok[:, None]).to(torch.float64)]
-        if cfg.logprobs:
-            top_lp, top_ids = torch.topk(logprobs, TOPK_K, dim=-1)
-            cols += [top_ids.to(torch.float64), top_lp.to(torch.float64)]
-        row = torch.cat(cols, dim=1)[0].cpu().numpy()
+        return self._row(pack_rows(tok, logprobs, bool(cfg.logprobs))[0].cpu().numpy(), cfg)
+
+    def _row(self, row, cfg: GenerationConfig) -> tuple[int, float, Optional[list]]:
         top = None
         if cfg.logprobs:
             k = min(cfg.top_logprobs, TOPK_K)
@@ -182,33 +223,32 @@ class Executor:
         max_new = min(cfg.max_tokens, self.capacity - len(prompt_ids))
         if max_new <= 0:
             return
-        cache, start = self._session_restore(prompt_ids)
-        if cache is None:
-            cache = self._init_cache(1)
-        last, cache = self.prefill(cache, prompt_ids[start:], start_pos=start)
-        kv_tokens = list(prompt_ids)          # tokens whose KV the cache holds
-        history = list(prompt_ids)
-        ids, vals = make_bias_rows([cfg])
-        bias = (torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(vals).to(self.device))
-        pos = len(prompt_ids)
-        tok, lp, top = self._sample(last, cfg, 0, history, bias)
+        step, start = self._take(prompt_ids)
+        kv_tokens = list(prompt_ids[:start])     # tokens whose KV the cache holds
         try:
-            for step in range(max_new):
+            last, _ = self.prefill(step.cache, prompt_ids[start:], start_pos=start)
+            kv_tokens = list(prompt_ids)
+            history = list(prompt_ids)
+            ids, vals = make_bias_rows([cfg])
+            bias = (torch.from_numpy(ids).to(self.device),
+                    torch.from_numpy(vals).to(self.device))
+            pos = len(prompt_ids)
+            tok, lp, top = self._sample(last, cfg, 0, history, bias)
+            for i in range(max_new):
                 is_eos = self.tokenizer.is_eos(tok)
                 yield GeneratedToken(token_id=tok,
                                      text="" if is_eos else self._token_text(tok),
                                      logprob=lp, top_logprobs=top)
                 history.append(tok)
-                if is_eos or step + 1 >= max_new or pos + 1 >= self.capacity:
+                if is_eos or i + 1 >= max_new or pos + 1 >= self.capacity:
                     return
-                last, cache = self._decode(cache, tok, pos)
-                kv_tokens.append(tok)
+                fed = tok
+                tok, lp, top = self._decode(step, cfg, fed, pos, i + 1, history)
+                kv_tokens.append(fed)
                 pos += 1
-                tok, lp, top = self._sample(last, cfg, step + 1, history, bias)
         finally:
             # Runs on a normal finish and on a client disconnect alike.
-            self._session_save(kv_tokens, cache)
+            self._give_back(kv_tokens, step)
 
     # ------------------------------------------------------------------
     def _token_text(self, tok: int) -> str:

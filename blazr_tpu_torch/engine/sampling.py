@@ -50,22 +50,32 @@ class SamplingParams:
         per-sequence seeded sampling deterministic."""
         device = resolve_device(device)
         steps = step if isinstance(step, (list, tuple)) else [step] * len(cfgs)
-        f = np.array([(c.temperature, c.top_p, c.min_p, c.repeat_penalty,
-                       c.frequency_penalty, c.presence_penalty) for c in cfgs],
-                     dtype=np.float32).reshape(len(cfgs), 6)
-        keys = np.array([((c.seed if c.seed is not None else 0x5EED ^ (i * 7919))
-                          & _M32, steps[i] & _M32) for i, c in enumerate(cfgs)],
-                        dtype=np.int64).reshape(len(cfgs), 2)
+        f, keys, top_k = sampling_arrays(cfgs, steps)
         ft = torch.from_numpy(f).to(device)
         return cls(
             temperature=ft[:, 0], top_p=ft[:, 1], min_p=ft[:, 2],
             repeat_penalty=ft[:, 3], freq_penalty=ft[:, 4],
             presence_penalty=ft[:, 5],
-            top_k=torch.tensor([c.top_k for c in cfgs], dtype=torch.int64,
-                               device=device),
+            top_k=torch.from_numpy(top_k).to(device),
             key=torch.from_numpy(keys).to(device),
             any_sampled=any(c.temperature > 0.0 for c in cfgs),
         )
+
+
+def sampling_arrays(cfgs: list[GenerationConfig], steps: list[int]
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host arrays of the per-row parameters: float32 [B, 6] (temperature,
+    top_p, min_p, repeat, frequency and presence penalties), int64 [B, 2]
+    (seed, step) keys (an unseeded row i takes 0x5EED ^ (i * 7919)) and
+    int64 [B] top_k."""
+    f = np.array([(c.temperature, c.top_p, c.min_p, c.repeat_penalty,
+                   c.frequency_penalty, c.presence_penalty) for c in cfgs],
+                 dtype=np.float32).reshape(len(cfgs), 6)
+    keys = np.array([((c.seed if c.seed is not None else 0x5EED ^ (i * 7919))
+                      & _M32, steps[i] & _M32) for i, c in enumerate(cfgs)],
+                    dtype=np.int64).reshape(len(cfgs), 2)
+    top_k = np.array([c.top_k for c in cfgs], dtype=np.int64)
+    return f, keys, top_k
 
 
 def apply_penalties(logits: torch.Tensor, window_tokens: torch.Tensor,

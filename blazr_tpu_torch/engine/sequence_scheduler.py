@@ -81,6 +81,7 @@ class SequenceScheduler:
         self.waiting: list[Sequence] = []
         self.running: dict[int, Sequence] = {}
         self.sequences: dict[int, Sequence] = {}
+        self.preemptions = 0
 
     # ------------------------------------------------------------------
     def add_request(self, prompt_tokens: list[int],
@@ -170,6 +171,7 @@ class SequenceScheduler:
 
     def _preempt(self, seq: Sequence) -> None:
         """Return a sequence to the waiting queue, dropping its blocks."""
+        self.preemptions += 1
         self._release_blocks(seq)
         seq.prefilled_tokens = 0
         seq.cached_tokens = 0

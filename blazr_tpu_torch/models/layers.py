@@ -9,6 +9,7 @@ PyTorch here (prefill attention).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Optional
 
@@ -94,8 +95,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def device_scalar(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A 0-d constant built once per (value, dtype, device) and shared: a
+    forward that needs it makes no host-to-device copy, which a captured
+    CUDA graph could not hold. Read-only."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
 def alibi_slopes(n_heads: int, device: torch.device) -> torch.Tensor:
-    """Per-head ALiBi slopes (Press et al.; HF falcon / ggml formula)."""
+    """Per-head ALiBi slopes (Press et al.; HF falcon / ggml formula), built
+    once per (heads, device) and shared, as ``device_scalar``. Read-only."""
     p = 2 ** math.floor(math.log2(n_heads))
     base = 2.0 ** (-(2.0 ** -(math.log2(p) - 3)))
     slopes = [base ** (i + 1) for i in range(p)]

@@ -21,8 +21,8 @@ import torch.nn.functional as F
 
 from ..config.model_config import UniversalConfig
 from ..kvcache.contiguous import KVCache, advance, kv_length, write_layer
-from .layers import (alibi_slopes, apply_rope, attend, linear, rms_norm,
-                     rope_cos_sin, rope_frequencies, swiglu_mlp)
+from .layers import (alibi_slopes, apply_rope, attend, device_scalar, linear,
+                     rms_norm, rope_cos_sin, rope_frequencies, swiglu_mlp)
 
 _LATER = "(ROADMAP queue A item 11)"
 
@@ -125,7 +125,7 @@ def forward_embed(params: dict[str, Any], cfg: UniversalConfig,
     """Token embeddings only."""
     x = params["embed"][tokens.to(torch.long)]
     if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
+        x = x * device_scalar(cfg.hidden_size ** 0.5, x.dtype, x.device)
     return x
 
 

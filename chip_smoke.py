@@ -15,7 +15,9 @@ Phases, in order; any failure raises and the script exits non-zero:
       tile edges) and small edge cases, f16 and f32 included;
   3.  kernel B2 (paged decode attention) against its plain version, with
       its sequence splits (one sequence over 32 splits, split edges, empty
-      splits under a window);
+      splits under a window), and at the decode graphs' full-width tables
+      (64 and 512 slots, sequences of 1 to 4095 tokens, with and without a
+      window) against the plain version and the trimmed tables;
   3b. kernel B3 (int8-activation matmul) against its plain version: the four
       projections at m ∈ {1, 5, 8, 16, 17, 32, 33, 64, 65, 256, 512, 4096}
       (its decode and wgmma variants and their tile edges), groups 32, 64
@@ -33,15 +35,22 @@ Phases, in order; any failure raises and the script exits non-zero:
       teacher-forced decode steps, on the card (bf16) against the CPU (f32);
   4b. the same for the contiguous llama.forward under w8a8 (B3 on the card);
   4c. the Δppl gate: w4a8-prefill and w8a8 within 2% of w4a16;
-  5.  the 32-layer Mistral-7B AWQ BatchEngine serving 8 requests (w4a16),
-      then a torch.profiler pass over one prefill group and 16 decode steps
-      (device idle share and the top device operations);
+  5.  the 32-layer Mistral-7B AWQ BatchEngine serving 8 requests (w4a16)
+      in two waves, with decode graphs and without in turns (on, off, off,
+      on); the 8 in one wave both ways, where the streams (greedy and
+      seeded) and the launch counts must be equal; then a torch.profiler
+      pass both ways over one prefill group, and over the 32 decode steps
+      after it in a window that holds decode rounds only (device idle
+      share, device events a step, the top device operations and the
+      longest idle gaps with the host calls inside them);
   5b. the 32-layer Executor under w8a8: a 512-token prompt, 128 greedy
-      tokens, B3 launched 128 times per forward and B1 never; then profiled
-      (idle share, top device operations, at most 3 kernels a B3 call);
+      tokens, in the same turns (the four streams equal), B3 launched 128
+      times per forward and B1 never; then 16 decode tokens profiled both
+      ways (idle share, top device operations, idle gaps, at most 3
+      kernels a B3 call);
   5c. the 8 requests of phase 5 under w4a8-prefill with
       BLAZR_TPU_STREAM_KERNEL=1: B3 (prefill), B4 (decode) and B2 launched;
-      then profiled as phase 5;
+      the same turns, checks and profiles as phase 5;
   7.  the normal entry point: an 8-layer full-width AWQ checkpoint and a
       BPE tokenizer.json written to disk, loaded by load_model (f16) and
       served over HTTP with continuous batching (8 concurrent requests), then
@@ -52,7 +61,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       (DEC_MAX_ROWS) and K splits, B4's K splits, B5's and B6's split
       counts at B2's three points;
   9.  timings (device time of one call: CUDA graphs of many calls), B1 over
-      rows 1-512 at every projection, B2 at three batch/context points, B3
+      rows 1-512 at every projection, B2 at three batch/context points (and
+      at B=8, ctx 1024 on full-width tables: at most 1.2x), B3
       at every projection at m ∈ {1, 8, 512} (w4a8, w8a8) and gate+up at
       4096, its quant kernel, B4 at every projection at m ∈ {1, 8, 16, 32},
       B5 and B6 at B2's three points (``layout_times`` runs only these, and
@@ -61,13 +71,15 @@ Phases, in order; any failure raises and the script exits non-zero:
       bound, plain time and library-call time (B1 and B3: prefill, with
       their decode point under "decode"; B5 and B6: B=8, their other two
       points under "at").
-Each serving phase sets the launch counts to 0 just before it and reads
-them just after. Under ``--tree`` (another checkout, a subset of phases)
-phase 5b reports that tree's kernels per B3 call without holding it to this
-one's limit, and phase 9 leaves out B3's quant kernel where that tree has
-none. The last line is ``{"ok": true, "device": {...}}``. Without
-CUDA, or run outside a checkout that holds ``blazr_tpu_torch/``, it prints no
-result and exits non-zero. The compiler's full report goes to
+Each serving run sets the launch counts to 0 just before it and reads
+them just after; a replayed graph adds the launches it holds, and the
+kernels line counts the first run with graphs (the default path). Under
+``--tree`` (another checkout, a subset of phases) phase 5b reports that
+tree's kernels per B3 call without holding it to this one's limit, and
+phase 9 leaves out B3's quant kernel where that tree has none. The last
+line is ``{"ok": true, "device": {...}}``. Without CUDA, or run outside a
+checkout that holds ``blazr_tpu_torch/``, it prints no result and exits
+non-zero. The compiler's full report goes to
 ``blazr_tpu_torch/csrc/_build/build.log``.
 """
 
@@ -413,14 +425,12 @@ def b2_splits(dev, gen) -> None:
         s = pa_inputs(dev, gen, b=b, h_q=h_q, h_kv=h_kv, d=d, bs=bs, seq_lens=[ctx] * b)
         mb = s["bt"].shape[1]
         walk = pa.walk_slots(mb, bs, window)
-        plan = pa.split_plan(b, h_kv, mb, bs, window)[0]
+        plan = pa.split_plan(b, h_kv, mb, bs, window)
         out = torch.empty_like(s["q"])
         acc = torch.empty((b, h_q, walk, d), dtype=torch.float32, device=dev)
         ml = torch.empty((b, h_q, walk, 2), dtype=torch.float32, device=dev)
         row = []
-        for want in sorted({1, 2, 3, 4, 5, 6, 8, 12, 16} & set(range(1, walk + 1))):
-            per = -(-walk // want)
-            splits = -(-walk // per)
+        for splits in sorted({1, 2, 3, 4, 5, 6, 8, 12, 16} & set(range(1, walk + 1))):
 
             def fn():
                 stream = torch.cuda.current_stream(dev).cuda_stream
@@ -428,7 +438,7 @@ def b2_splits(dev, gen) -> None:
                     s["q"].data_ptr(), s["kc"].data_ptr(), s["vc"].data_ptr(), None, None,
                     s["bt"].data_ptr(), s["sl"].data_ptr(), None, out.data_ptr(),
                     acc.data_ptr(), ml.data_ptr(), b, h_q, h_kv, d, bs, s["nb"], mb,
-                    window, 0.0, 1.0 / math.sqrt(d), splits, per, 0, 0, stream) == 0
+                    window, 0.0, 1.0 / math.sqrt(d), splits, 1, 0, 0, stream) == 0
 
             mark = "*" if splits == plan else ""
             row.append(f"{splits}{mark} ({b * h_kv * splits} blocks): "
@@ -728,13 +738,23 @@ def check_b4(dev, gen) -> dict:
 # ---------------------------------------------------------------------------
 
 def pa_inputs(dev, gen, *, b, h_q, h_kv, d, bs, seq_lens, int8=False, nb_extra=8,
-              dtype=None):
+              dtype=None, width=None):
+    """B2's operands; with ``width`` the tables are that many slots wide (the
+    decode graphs' max_blocks_per_seq), each row's own blocks then PAD."""
     import torch
+
+    from blazr_tpu_torch.kvcache.paged import PAD_BLOCK
 
     mb = max(-(-int(s) // bs) for s in seq_lens)
     nb = b * mb + nb_extra
     perm = torch.randperm(nb, device=dev, generator=gen)[: b * mb]
     tables = perm.reshape(b, mb).to(torch.int32)
+    if width is not None:
+        full = torch.full((b, width), PAD_BLOCK, dtype=torch.int32, device=dev)
+        for i, s in enumerate(seq_lens):
+            n = -(-int(s) // bs)
+            full[i, :n] = tables[i, :n]
+        tables = full
     shape = (nb * bs + 1, h_kv, d)
     ks = vs = None
     if int8:
@@ -780,6 +800,19 @@ def check_b2(dev, gen) -> dict:
                                                              701, 1024]),
          dict(sliding_window=700)),
     ]
+    # The decode graphs' tables, max_blocks_per_seq wide (64 at 4096 tokens
+    # and block 64; 512 at 32768), over sequences of 1 to 4095 tokens: each
+    # block takes its span from seq_len on the device.
+    full = [1, 63, 64, 65, 577, 1024, 2049, 4095]
+    for width in (64, 512):
+        for opt in ({}, dict(sliding_window=4096), dict(sliding_window=1000)):
+            tag = f" W={opt['sliding_window']}" if opt else ""
+            cases.append((f"full width {width} B=8 1..4095{tag}",
+                          dict(d=128, bs=64, lens=full, width=width), opt))
+        cases.append((f"full width {width} B=1 4095", dict(d=128, bs=64, lens=[4095],
+                                                             width=width), {}))
+    cases.append(("full width 64 B=32 ragged<=1024", dict(d=128, bs=64, lens=ragged * 4,
+                                                          width=64), {}))
     worst = 0.0
     for name, geo, opt in cases:
         geo = dict(geo)
@@ -796,6 +829,12 @@ def check_b2(dev, gen) -> dict:
         torch.cuda.synchronize()
         assert got.shape == ref.shape and torch.isfinite(got).all(), name
         err = (got.float() - ref).abs().max().item()
+        if "width" in geo:                 # the same sequences, trimmed tables
+            trim = -(-max(lens) // geo["bs"])
+            same = paged_attention_decode(s["q"], s["kc"], s["vc"],
+                                          s["bt"][:, :trim].contiguous(), s["sl"],
+                                          num_blocks=s["nb"], device=dev, **kw)
+            name += f" (trimmed {trim}: max diff {(same - got).abs().max().item():.3g})"
         # Probabilities drop to bf16 (f16) before the AV product and the
         # output is bf16 (f16): 2^-9 (2^-11) relative each, against outputs
         # of order max|v|.
@@ -827,13 +866,14 @@ B2_SHAPES = ((8, 1024), (8, 4096), (32, 1024))          # (B, context), bf16 KV
 
 def time_b2(dev, gen) -> dict:
     """Mistral decode attention (32/8 heads, D 128, bs 64, window 4096) at
-    B2_SHAPES: kernel, bound, SDPA on pre-gathered KV; the plain version and
-    f16 at B=8, ctx 1024."""
+    B2_SHAPES: kernel, bound, SDPA on pre-gathered KV; the plain version, f16
+    and the decode graphs' full-width tables (64 slots) at B=8, ctx 1024,
+    which must take at most 1.2x the trimmed tables' time."""
     import torch
 
     from blazr_tpu_torch.attention.paged_attention import (
         paged_attention_decode, paged_attention_reference)
-    from blazr_tpu_torch.kvcache.paged import page_slot_index
+    from blazr_tpu_torch.kvcache.paged import PAD_BLOCK, page_slot_index
 
     h_q, h_kv, d, bs, window = 32, 8, 128, 64, 4096
     rows = {}
@@ -862,7 +902,16 @@ def time_b2(dev, gen) -> dict:
             row["f16_ms"] = time_ms(lambda: paged_attention_decode(
                 q16, k16, v16, s["bt"], s["sl"], num_blocks=s["nb"], device=dev, **kw),
                 iters=100)
-            extra = f", plain {row['plain_ms']:.4f} ms, f16 {row['f16_ms']:.4f} ms"
+            wide = torch.full((b, 64), PAD_BLOCK, dtype=torch.int32, device=dev)
+            wide[:, :s["bt"].shape[1]] = s["bt"]
+            row["full_width_ms"] = time_ms(lambda: paged_attention_decode(
+                s["q"], s["kc"], s["vc"], wide, s["sl"], num_blocks=s["nb"], device=dev,
+                **kw), iters=100)
+            extra = (f", plain {row['plain_ms']:.4f} ms, f16 {row['f16_ms']:.4f} ms, "
+                     f"full-width tables (64 slots) {row['full_width_ms']:.4f} ms "
+                     f"(x{row['full_width_ms'] / ms:.2f} the trimmed)")
+            if TREE == REPO:
+                assert row["full_width_ms"] <= 1.2 * ms, (row["full_width_ms"], ms)
         rows[(b, ctx)] = row
         log(f"  B2 B={b} ctx={ctx}: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, "
             f"{nbytes / 1e6:.1f} MB, x{ms / bms:.1f}), SDPA(GQA, gathered KV) "
@@ -1210,21 +1259,53 @@ def mistral_model(dev, layers: int | None = None):
     return Model(cfg, params, torch.bfloat16)
 
 
+# Decode graphs on and off, in turns within one call (ABBA).
+GRAPH_TURNS = (True, False, False, True)
+
+
+def graph_stats(obj) -> dict:
+    """The decode graphs an engine or Executor captured (none in a tree
+    before them)."""
+    g = getattr(obj, "graphs", None)
+    if g is None or not hasattr(g, "captured"):
+        return dict(captured=0, capture_s=0.0, pool_mib=0.0)
+    return dict(captured=g.captured, capture_s=g.capture_s, pool_mib=g.pool_bytes / 2**20)
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def make_engine(model, quant_compute: str, graphs: bool):
+    from blazr_tpu_torch.config import AppConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+
+    app = AppConfig(model=model.cfg)
+    app.inference.quant_compute = quant_compute
+    app.inference.graphs = graphs
+    return BatchEngine(model, StubTokenizer(), app)
+
+
 def full_depth(dev, card: str, quant_compute: str = "w4a16",
                stream: bool = False) -> dict:
-    """The 32-layer BatchEngine serving 8 requests in two waves; returns the
-    kernels' launch counts over the run."""
+    """The 32-layer BatchEngine serving 8 requests in two waves, with decode
+    graphs and without in turns (GRAPH_TURNS); then the 8 in one wave (a
+    schedule that host timing cannot change), where the streams and the
+    launch counts with graphs must equal those without; then profiled both
+    ways. Returns the launch counts of the first run with graphs (the
+    default path) and every turn's numbers."""
     import numpy as np
     import torch
 
-    from blazr_tpu_torch.config import AppConfig, GenerationConfig
-    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.config import GenerationConfig
 
     model = mistral_model(dev)
     cfg = model.cfg
-    app = AppConfig(model=cfg)
-    app.inference.quant_compute = quant_compute
-    engine = BatchEngine(model, StubTokenizer(), app)
     rng = np.random.default_rng(SEED + 5)
     lens = [64, 512, 200, 333, 128, 480, 96, 256]
     reqs = []
@@ -1235,46 +1316,86 @@ def full_depth(dev, card: str, quant_compute: str = "w4a16",
         reqs.append((prompt, gen))
     old = os.environ.get("BLAZR_TPU_STREAM_KERNEL")
     os.environ["BLAZR_TPU_STREAM_KERNEL"] = "1" if stream else "0"
+    turns, launches = [], None
     try:
-        reset_counts()
-        t0 = time.perf_counter()
-        results = asyncio.run(serve(engine, [reqs[:4], reqs[4:]]))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        profile = profile_serving(dev, model, card, quant_compute)
+        for graphs in GRAPH_TURNS:
+            engine = make_engine(model, quant_compute, graphs)
+            reset_counts()
+            t0 = time.perf_counter()
+            results = asyncio.run(serve(engine, [reqs[:4], reqs[4:]]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            assert counts["paged_attention"] > 0, counts
+            if stream:
+                assert counts["qmm_int8"] > 0 and counts["qmm_stream"] > 0, counts
+            else:
+                assert counts["qmm"] > 0, counts
+            if graphs and launches is None:
+                launches = counts
+                for i, r in enumerate(results):
+                    log(f"  request {i}: prompt {r['prompt_len']:4d}, temperature "
+                        f"{r['temperature']}, tokens {len(r['tokens'])}, TTFT "
+                        f"{r['ttft'] * 1e3:.1f} ms, done at {r['wall']:.2f} s")
+                log(f"  launches during serving (graphs on): {counts}")
+            total = 0
+            for i, r in enumerate(results):
+                assert len(r["tokens"]) == 64, f"request {i}: {len(r['tokens'])} tokens"
+                assert all(0 <= t < cfg.vocab_size for t in r["tokens"])
+                total += len(r["tokens"])
+            perf = engine.perf
+            ttft = sorted(r["ttft"] for r in results)
+            stats = graph_stats(engine)
+            turn = dict(graphs=graphs, tok_s=total / wall,
+                        tok_s_after_capture=total / (wall - stats["capture_s"]),
+                        ms_per_step=perf["decode"] / engine.horizon_steps * 1e3,
+                        ms_per_step_after_capture=(perf["decode"] - stats["capture_s"])
+                        / engine.horizon_steps * 1e3,
+                        ttft_ms_median=ttft[len(ttft) // 2] * 1e3,
+                        ttft_ms_wave1=max(r["ttft"] for r in results[:4]) * 1e3,
+                        rounds=engine.horizon_dispatches, steps=engine.horizon_steps,
+                        **stats)
+            turns.append(turn)
+            log(f"  graphs {'on ' if graphs else 'off'}: {total} tokens in {wall:.2f} s, "
+                f"{turn['tok_s']:.1f} tok/s ({turn['tok_s_after_capture']:.1f} without the "
+                f"capture); {turn['ms_per_step']:.2f} ms a decode step "
+                f"({turn['ms_per_step_after_capture']:.2f} without the capture; "
+                f"{turn['steps']} steps in {turn['rounds']} rounds); TTFT median "
+                f"{turn['ttft_ms_median']:.1f} ms, wave 1 {turn['ttft_ms_wave1']:.1f} ms; "
+                f"{turn['captured']} graphs captured in {turn['capture_s']:.2f} s "
+                f"({turn['pool_mib']:.1f} MiB pool); host s: prefill {perf['prefill']:.2f}, "
+                f"dispatch {perf['h_dispatch']:.2f}, fetch {perf['h_fetch']:.2f}, emit "
+                f"{perf['h_emit']:.2f}, first tokens {perf['p_finish']:.2f} ({card}; "
+                f"depth {cfg.num_layers}, quant_compute {quant_compute}, stream kernel "
+                f"{'on' if stream else 'off'})")
+            del engine
+            free_card()
+        same = {}
+        for graphs in (True, False):
+            engine = make_engine(model, quant_compute, graphs)
+            reset_counts()
+            res = asyncio.run(serve(engine, [reqs]))
+            torch.cuda.synchronize()
+            same[graphs] = ([r["tokens"] for r in res], read_counts())
+            del engine
+            free_card()
+        equal = same[True][0] == same[False][0]
+        log(f"  one wave of 8 (6 greedy, 2 sampled): streams with graphs "
+            f"{'equal' if equal else 'DIFFER from'} those without; launches "
+            f"{same[True][1]} with, {same[False][1]} without")
+        assert equal, [i for i, (a, b) in enumerate(zip(*[same[g][0] for g in (True, False)]))
+                       if a != b]
+        assert same[True][1] == same[False][1], same
+        profile = {g: profile_serving(dev, model, card, quant_compute, graphs=g)
+                   for g in (True, False)}
     finally:
         if old is None:
             os.environ.pop("BLAZR_TPU_STREAM_KERNEL")
         else:
             os.environ["BLAZR_TPU_STREAM_KERNEL"] = old
-    total = 0
-    for i, r in enumerate(results):
-        toks = r["tokens"]
-        assert len(toks) == 64, f"request {i}: {len(toks)} tokens"
-        assert all(0 <= t < cfg.vocab_size for t in toks)
-        total += len(toks)
-        log(f"  request {i}: prompt {r['prompt_len']:4d}, temperature "
-            f"{r['temperature']}, tokens {len(toks)}, TTFT {r['ttft'] * 1e3:.1f} ms, "
-            f"done at {r['wall']:.2f} s")
-    log(f"  served {total} tokens for {len(results)} requests in {wall:.2f} s: "
-        f"{total / wall:.1f} tok/s aggregate ({card}); depth {cfg.num_layers} layers; "
-        f"quant_compute {quant_compute}, stream kernel {'on' if stream else 'off'}; "
-        f"horizon rounds {engine.horizon_dispatches}, steps {engine.horizon_steps}")
-    perf = engine.perf
-    log(f"  engine wall: prefill dispatch {perf['prefill']:.2f} s over "
-        f"{int(perf['prefill_n'])} steps, decode {perf['decode']:.2f} s over "
-        f"{engine.horizon_steps} steps ({perf['decode'] / engine.horizon_steps * 1e3:.1f} "
-        f"ms/step), first-token fetch {perf['p_finish']:.2f} s")
-    log(f"  launches during serving: {launches}")
-    assert launches["paged_attention"] > 0, launches
-    if stream:
-        assert launches["qmm_int8"] > 0 and launches["qmm_stream"] > 0, launches
-    else:
-        assert launches["qmm"] > 0, launches
-    launches = dict(launches, profile=profile)
-    del engine, model
-    torch.cuda.empty_cache()
+    launches = dict(launches, profile=profile, turns=turns)
+    del model
+    free_card()
     return launches
 
 
@@ -1535,31 +1656,98 @@ def serve_http(dev, card: str) -> dict:
     return out
 
 
-def device_busy(fn) -> tuple[float, float, int, dict]:
-    """(wall s, summed device time s, device events, {name: [device s,
-    calls]}) of ``fn()`` under torch.profiler (kernels and copies on one
-    stream do not overlap); the device time is 0 where the profiler sees no
-    device activity."""
+def start_profile():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us, count = 0.0, 0
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    return prof, time.perf_counter()
+
+
+def stop_profile(prof, t0: float) -> tuple[float, float, int, dict, list]:
+    """(wall s, device-busy s, device events, {name: [device s, calls]},
+    the longest idle gaps) of the window from ``start_profile``. Busy is
+    the union of the device events' spans; a gap is (ms, the device event
+    before it, the host calls that overlap it, longest first)."""
+    import torch
+
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.stop()
     by_name: dict = {}
+    spans, host = [], []
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us = ev.time_range.elapsed_us()
-            busy_us += us
-            count += 1
             entry = by_name.setdefault(ev.name, [0.0, 0])
-            entry[0] += us / 1e6
+            entry[0] += ev.time_range.elapsed_us() / 1e6
             entry[1] += 1
-    return wall, busy_us / 1e6, count, by_name
+            spans.append((ev.time_range.start, ev.time_range.end, ev.name))
+        else:
+            host.append((ev.time_range.start, ev.time_range.end, ev.name))
+    spans.sort()
+    busy_us, reach, gaps = 0.0, None, []
+    for start, end, name in spans:
+        if reach is None or start >= reach[0]:
+            if reach is not None and start > reach[0]:
+                gaps.append((start - reach[0], reach[0], start, reach[1]))
+            busy_us += end - start
+            reach = (end, name)
+        elif end > reach[0]:
+            busy_us += end - reach[0]
+            reach = (end, name)
+    gaps.sort(reverse=True)
+    top = []
+    for us, lo, hi, name in gaps[:5]:
+        calls: dict = {}
+        for h0, h1, hname in host:
+            inside = min(h1, hi) - max(h0, lo)
+            if inside > 0:
+                calls[hname] = calls.get(hname, 0.0) + inside
+        top.append((us / 1e3, short_name(name), sorted(calls.items(), key=lambda kv: -kv[1])[:4]))
+    return wall, busy_us / 1e6, len(spans), by_name, top
+
+
+def device_busy(fn) -> tuple[float, float, int, dict, list]:
+    """``stop_profile``'s numbers for a window around ``fn()``."""
+    prof, t0 = start_profile()
+    fn()
+    return stop_profile(prof, t0)
+
+
+def gap_line(gaps: list) -> str:
+    return "; ".join(
+        f"{ms:.2f} ms after {after} (host: "
+        + (", ".join(f"{n} {us / 1e3:.2f}" for n, us in calls) or "no recorded call")
+        + ")" for ms, after, calls in gaps)
+
+
+def top_ops(names: dict, k: int = 8) -> list:
+    rows: dict = {}
+    for name, (sec, calls) in names.items():
+        r = rows.setdefault(short_name(name), [0.0, 0])
+        r[0] += sec
+        r[1] += calls
+    return sorted(rows.items(), key=lambda kv: -kv[1][0])[:k]
+
+
+def decode_profile(tag: str, card: str, window: tuple, steps: int) -> dict:
+    """Log and return a decode window's numbers: wall, busy and device events
+    a step, the idle share under the profiler and the longest gaps."""
+    wall, busy, events, names, gaps = window
+    idle = 1 - busy / wall if busy > 0 else None
+    log(f"  profiled {steps} decode steps ({tag}): wall {wall / steps * 1e3:.2f} ms/step, "
+        f"device busy {busy / steps * 1e3:.2f} ms/step, {events / steps:.0f} device "
+        f"events/step; device idle share "
+        + (f"{idle:.2f}" if idle is not None else "not measured (no device events)")
+        + f" ({card}; under the profiler)")
+    log(f"  longest idle gaps ({tag}): {gap_line(gaps)}")
+    log(f"  top device ops, per decode step ({tag}): " + "; ".join(
+        f"{n} {sec / steps * 1e3:.3f} ms/{calls / steps:.0f}" for n, (sec, calls) in top_ops(names)))
+    return dict(step_wall_ms=wall / steps * 1e3, step_busy_ms=busy / steps * 1e3,
+                step_events=events / steps, step_idle_share=idle, steps=steps,
+                gaps=[(ms, after) for ms, after, _ in gaps])
 
 
 def short_name(name: str) -> str:
@@ -1573,71 +1761,74 @@ def short_name(name: str) -> str:
     return name[:60]
 
 
-def profile_serving(dev, model, card: str, quant_compute: str = "w4a16") -> dict:
-    """Phases 5's and 5c's profile: the BatchEngine under torch.profiler, first
-    over one prefill group of 4 prompts (64-512 tokens) that stop after
-    their first token, then over the same group run to 17 tokens (one
-    prefill, 16 decode steps). The decode steps are the difference of the
-    two runs: their wall time, device-busy time, idle share and the device
-    time of each kernel."""
+def profile_serving(dev, model, card: str, quant_compute: str = "w4a16",
+                    graphs: bool = True) -> dict:
+    """Phases 5's and 5c's profile: one BatchEngine (decode graphs on or
+    off) under torch.profiler, first over one prefill group of 4 prompts
+    (64-512 tokens) that stop after their first token, then over the decode
+    steps of the same 4 run to 33 tokens: the window opens once every first
+    token is in and closes when the last token is, so it holds decode rounds
+    only (counted on the device: B2's kernels over the layers). A run to 2
+    tokens before them captures the decode graph."""
     import numpy as np
 
-    from blazr_tpu_torch.config import AppConfig, GenerationConfig
-    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.config import GenerationConfig
 
     cfg = model.cfg
     rng = np.random.default_rng(SEED + 9)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (64, 512, 200, 333)]
+    engine = make_engine(model, quant_compute, graphs)
 
-    def run(tokens: int):
-        app = AppConfig(model=cfg)
-        app.inference.quant_compute = quant_compute
-        engine = BatchEngine(model, StubTokenizer(), app)
-        wave = [(p, GenerationConfig(max_tokens=tokens, temperature=0.0)) for p in prompts]
-        return device_busy(lambda: asyncio.run(serve(engine, [wave])))
+    def wave(tokens: int):
+        return [(p, GenerationConfig(max_tokens=tokens, temperature=0.0)) for p in prompts]
 
-    run(2)                                       # warm the engine's first calls
-    wall_p, busy_p, n_p, names_p = run(1)
-    wall_a, busy_a, n_a, names_a = run(17)
-    steps = 16
-    wall_d, busy_d = wall_a - wall_p, busy_a - busy_p
-    idle = 1 - busy_d / wall_d if busy_d > 0 else None
-    log(f"  profiled prefill group (4 prompts, 1109 tokens): wall {wall_p * 1e3:.1f} ms, "
-        f"device busy {busy_p * 1e3:.1f} ms over {n_p} device events; idle share "
-        + (f"{1 - busy_p / wall_p:.2f}" if busy_p > 0 else "not measured"))
-    log(f"  profiled 16 decode steps (batch 4): wall {wall_d / steps * 1e3:.2f} ms/step, "
-        f"device busy {busy_d / steps * 1e3:.2f} ms/step, "
-        f"{(n_a - n_p) / steps:.0f} device events/step; device idle share "
-        + (f"{idle:.2f}" if idle is not None else "not measured (no device events)")
-        + f" ({card}; under the profiler)")
+    async def decode_window():
+        task = asyncio.create_task(engine.run())
+        handles = [engine.submit(p, g) for p, g in wave(33)]
+        for h in handles:
+            await asyncio.wait_for(h.queue.get(), 600)
+        prof, t0 = start_profile()
 
-    def top(names, minus=None, k=8):
-        rows = {}
-        for name, (sec, calls) in names.items():
-            base = (minus or {}).get(name, [0.0, 0])
-            key = short_name(name)
-            r = rows.setdefault(key, [0.0, 0])
-            r[0] += sec - base[0]
-            r[1] += calls - base[1]
-        return sorted(rows.items(), key=lambda kv: -kv[1][0])[:k]
+        async def drain(h):
+            async for _ in h.tokens():
+                pass
+        await asyncio.wait_for(asyncio.gather(*[drain(h) for h in handles]), 600)
+        out = stop_profile(prof, t0)
+        engine.stop()
+        await task
+        return out
 
-    top_p, top_d = top(names_p), top(names_a, names_p)
-    log("  top device ops, prefill group: " + "; ".join(
-        f"{n} {sec * 1e3:.2f} ms/{calls}" for n, (sec, calls) in top_p))
-    log("  top device ops, per decode step: " + "; ".join(
-        f"{n} {sec / steps * 1e3:.3f} ms/{calls // steps}" for n, (sec, calls) in top_d))
-    return dict(prefill_wall_ms=wall_p * 1e3, prefill_busy_ms=busy_p * 1e3,
-                step_wall_ms=wall_d / steps * 1e3, step_busy_ms=busy_d / steps * 1e3,
-                step_idle_share=idle)
+    async def runs():
+        # One event loop for the three runs: the engine's event is bound to it.
+        await serve(engine, [wave(2)])          # warm the engine's first calls
+        prof, t0 = start_profile()
+        await serve(engine, [wave(1)])
+        return stop_profile(prof, t0), await decode_window()
+
+    (wall_p, busy_p, n_p, names_p, _), window = asyncio.run(runs())
+    tag = f"graphs {'on' if graphs else 'off'}"
+    log(f"  profiled prefill group (4 prompts, 1109 tokens; {tag}): wall "
+        f"{wall_p * 1e3:.1f} ms, device busy {busy_p * 1e3:.1f} ms over {n_p} device "
+        f"events; idle share " + (f"{1 - busy_p / wall_p:.2f}" if busy_p > 0 else "not measured"))
+    log(f"  top device ops, prefill group ({tag}): " + "; ".join(
+        f"{n} {sec * 1e3:.2f} ms/{calls}" for n, (sec, calls) in top_ops(names_p)))
+    b2 = sum(c for name, (_, c) in window[3].items() if "pa_split_kernel" in name)
+    steps = max(1, round(b2 / cfg.num_layers))
+    out = decode_profile(f"batch 4, {tag}", card, window, steps)
+    del engine
+    free_card()
+    return dict(out, prefill_wall_ms=wall_p * 1e3, prefill_busy_ms=busy_p * 1e3)
 
 
 def serve_executor(dev, card: str, hold: bool = True) -> dict:
     """Phase 5b: the 32-layer single-stream Executor under w8a8: a 512-token
-    prompt and 128 greedy tokens through collect_generation. Every
-    projection of every forward launches B3; B1 never launches. Then under
-    the profiler: 16 more tokens, and B3 alone on the model's gate+up weight
-    at 1 and 512 rows, where every device kernel counts: at most 3 a call
-    (``hold=False``, another checkout: reported only)."""
+    prompt and 128 greedy tokens through collect_generation, with decode
+    graphs and without in turns (GRAPH_TURNS): the streams must be equal.
+    Every projection of every forward launches B3 (replays counted); B1
+    never launches. Then under the profiler, both ways: 16 more tokens; and
+    B3 alone on the model's gate+up weight at 1 and 512 rows, where every
+    device kernel counts: at most 3 a call (``hold=False``, another
+    checkout: reported only)."""
     import numpy as np
     import torch
 
@@ -1647,62 +1838,55 @@ def serve_executor(dev, card: str, hold: bool = True) -> dict:
 
     model = mistral_model(dev)
     cfg = model.cfg
-    app = AppConfig(model=cfg)
-    app.inference.quant_compute = "w8a8"
-    t0 = time.perf_counter()
-    ex = Executor(model, StubTokenizer(), app)
-    torch.cuda.synchronize()
-    qkv = model.params["layers"][0]["qkv"]
-    assert qkv.bits == 8 and qkv.act_quant
-    log(f"  widened to int8 in place in {time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
-    ex.warmup()
     prompt = np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size, 512).tolist()
-    reset_counts()
-    t0 = time.perf_counter()
-    res = collect_generation(ex, prompt, GenerationConfig(max_tokens=128, temperature=0.0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    n = len(res.tokens)
-    assert n == 128 and all(0 <= t < cfg.vocab_size for t in res.tokens), n
-    forwards = n                       # one prefill + n - 1 decode steps
     per_forward = 4 * cfg.num_layers
-    log(f"  Executor w8a8, {cfg.num_layers} layers, prompt 512, {n} greedy tokens: "
-        f"TTFT {res.prompt_eval_duration * 1e3:.1f} ms, "
-        f"{res.eval_duration / (n - 1) * 1e3:.2f} ms per decode token, "
-        f"{n / wall:.1f} tok/s end to end, {(n - 1) / res.eval_duration:.1f} tok/s "
-        f"decode ({card})")
-    log(f"  launches: {launches} ({forwards} forwards x {per_forward} projections)")
-    assert launches["qmm_int8"] == forwards * per_forward, launches
-    assert launches["qmm"] == 0 and launches["qmm_stream"] == 0, launches
-    # Where a decode step's time goes: 16 more greedy tokens under the
-    # profiler, kernel time against wall time.
-    b3_before = read_counts()["qmm_int8"]
-    wall_p, busy, kernels, names = device_busy(lambda: collect_generation(
-        ex, prompt[:16], GenerationConfig(max_tokens=17, temperature=0.0)))
-    b3_calls = read_counts()["qmm_int8"] - b3_before
-    log(f"  profiled 16-token prompt + 17 tokens: wall {wall_p * 1e3:.1f} ms, CUDA "
-        f"kernels {busy * 1e3:.1f} ms over {kernels} kernels "
-        f"({kernels / 17:.0f} per token); device idle share "
-        + (f"{1 - busy / wall_p:.2f}" if busy > 0 else "not measured (no device events)")
-        + f" ({card}; under the profiler)")
-    by_key: dict = {}
-    for name, (sec, calls) in names.items():
-        r = by_key.setdefault(short_name(name), [0.0, 0])
-        r[0] += sec
-        r[1] += calls
-    log("  top device ops: " + "; ".join(
-        f"{n} {sec * 1e3:.2f} ms/{calls}"
-        for n, (sec, calls) in sorted(by_key.items(), key=lambda kv: -kv[1][0])[:8]))
-    assert kernels > 0, "the profiler saw no device kernels"
-    # B3's own kernels: the quant, a product and the split reduction (the
-    # only reduce_splits under w8a8, where B1 and B4 never launch).
-    b3_kernels = sum(calls for n, (_, calls) in by_key.items()
-                     if n in ("act_quant_kernel", "qmm_int8_wgmma_kernel",
-                              "qmm_int8_dec_kernel", "qmm_int8_kernel", "reduce_splits"))
-    log(f"  B3: {b3_kernels} of its own device kernels over {b3_calls} qmm_int8 calls "
-        f"({b3_kernels / b3_calls:.2f} a call)")
+    turns, streams, launches, profiled = [], [], None, {}
+    for graphs in GRAPH_TURNS:
+        app = AppConfig(model=cfg)
+        app.inference.quant_compute = "w8a8"
+        app.inference.graphs = graphs
+        t0 = time.perf_counter()
+        ex = Executor(model, StubTokenizer(), app)
+        torch.cuda.synchronize()
+        qkv = model.params["layers"][0]["qkv"]
+        assert qkv.bits == 8 and qkv.act_quant
+        if not turns:
+            log(f"  widened to int8 in place in {time.perf_counter() - t0:.1f} s; "
+                f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
+        ex.warmup()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = collect_generation(ex, prompt, GenerationConfig(max_tokens=128,
+                                                              temperature=0.0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        n = len(res.tokens)
+        assert n == 128 and all(0 <= t < cfg.vocab_size for t in res.tokens), n
+        # One prefill + n - 1 decode steps, every projection through B3.
+        assert counts["qmm_int8"] == n * per_forward, counts
+        assert counts["qmm"] == 0 and counts["qmm_stream"] == 0, counts
+        streams.append(list(res.tokens))
+        turn = dict(graphs=graphs, ttft_ms=res.prompt_eval_duration * 1e3,
+                    ms_per_token=res.eval_duration / (n - 1) * 1e3, tok_s=n / wall,
+                    **graph_stats(ex))
+        turns.append(turn)
+        log(f"  graphs {'on ' if graphs else 'off'}: Executor w8a8, {cfg.num_layers} layers, "
+            f"prompt 512, {n} greedy tokens: TTFT {turn['ttft_ms']:.1f} ms, "
+            f"{turn['ms_per_token']:.2f} ms per decode token, {turn['tok_s']:.1f} tok/s end "
+            f"to end, {(n - 1) / res.eval_duration:.1f} tok/s decode; {turn['captured']} "
+            f"graphs captured in {turn['capture_s']:.2f} s ({turn['pool_mib']:.1f} MiB pool) "
+            f"({card})")
+        if launches is None and graphs:
+            launches = counts
+            log(f"  launches: {counts} ({n} forwards x {per_forward} projections)")
+        if graphs not in profiled:
+            profiled[graphs] = profile_executor(ex, prompt, card, graphs)
+        del ex
+        free_card()
+    assert all(st == streams[0] for st in streams), "graph and eager streams differ"
+    log(f"  the {len(streams)} streams (graphs on, off, off, on) are equal")
+    b3_kernels, b3_calls = profiled[True]["b3_kernels"], profiled[True]["b3_calls"]
     # Every device kernel of a B3 call, the activation quant included, on the
     # model's own gate+up weight: 8 calls profiled alone (CUDA activity only),
     # after a warm-up step of the profiler (a fresh trace drops its first
@@ -1733,12 +1917,39 @@ def serve_executor(dev, card: str, hold: bool = True) -> dict:
     if hold:
         assert b3_kernels <= 3 * b3_calls, (b3_kernels, b3_calls)
         assert all(v <= 3 for v in per_call.values()), per_call
-    del ex, model
-    torch.cuda.empty_cache()
-    return dict(launches, ttft_ms=res.prompt_eval_duration * 1e3,
-                ms_per_token=res.eval_duration / (n - 1) * 1e3, tok_s=n / wall,
-                idle_share=1 - busy / wall_p if busy > 0 else None,
-                b3_kernels_per_call=per_call)
+    del model
+    free_card()
+    first = turns[0]
+    return dict(launches, ttft_ms=first["ttft_ms"], ms_per_token=first["ms_per_token"],
+                tok_s=first["tok_s"], idle_share=profiled[True]["step_idle_share"],
+                b3_kernels_per_call=per_call, turns=turns, profile=profiled)
+
+
+def profile_executor(ex, prompt: list, card: str, graphs: bool) -> dict:
+    """Where a decode token's time goes in phase 5b: a 16-token prompt run
+    to 17 tokens, the profiler over the 16 decode tokens after the first
+    (the window opens once the prefill's token is in); B3's own kernels a
+    qmm_int8 call in that window."""
+    from blazr_tpu_torch.config import GenerationConfig
+
+    tag = f"graphs {'on' if graphs else 'off'}"
+    gen = ex.generate(prompt[:16], GenerationConfig(max_tokens=17, temperature=0.0))
+    next(gen)
+    b3_before = read_counts()["qmm_int8"]
+    prof, t0 = start_profile()
+    steps = sum(1 for _ in gen)
+    window = stop_profile(prof, t0)
+    b3_calls = read_counts()["qmm_int8"] - b3_before
+    assert window[2] > 0, "the profiler saw no device kernels"
+    out = decode_profile(f"Executor, {tag}", card, window, steps)
+    # B3's own kernels: the quant, a product and the split reduction (the
+    # only reduce_splits under w8a8, where B1 and B4 never launch).
+    b3_kernels = sum(calls for n, (_, calls) in top_ops(window[3], k=1000)
+                     if n in ("act_quant_kernel", "qmm_int8_wgmma_kernel",
+                              "qmm_int8_dec_kernel", "qmm_int8_kernel", "reduce_splits"))
+    log(f"  B3 ({tag}): {b3_kernels} of its own device kernels over {b3_calls} qmm_int8 "
+        f"calls ({b3_kernels / b3_calls:.2f} a call)")
+    return dict(out, b3_kernels=b3_kernels, b3_calls=b3_calls)
 
 
 def teacher_forced_w8a8(dev) -> None:
@@ -1972,7 +2183,7 @@ def timings(dev, gen, res: dict, quant: bool = True) -> list:
              source="blazr_tpu_torch/csrc/paged_attention.cu",
              replaces="blazr_tpu/attention/paged_attention.py:34",
              launches=got("serve", "paged_attention"), max_abs_err=got("b2", "max_abs_err"),
-             **{key: b2[key] for key in keys}),
+             full_width_ms=b2.get("full_width_ms"), **{key: b2[key] for key in keys}),
         dict(name="qmm_int8 (B3)", route="cuda", source="blazr_tpu_torch/csrc/qmm_int8.cu",
              replaces="blazr_tpu/quant/pallas/int_matmul.py:276",
              launches=got("executor", "qmm_int8"), max_abs_err=got("b3", "max_abs_err"),

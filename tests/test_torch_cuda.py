@@ -98,10 +98,11 @@ _PA_RAGGED = (1, 37, 200, 150)
 _PA_CASES = [
     (128, 64, None, None, False, False, _PA_RAGGED), (128, 64, 96, None, False, False, _PA_RAGGED),
     (128, 16, None, 30.0, False, True, _PA_RAGGED), (64, 16, 40, None, True, False, _PA_RAGGED),
-    # B2's sequence splits (attention/paged_attention.py::split_plan): block
-    # 16, window 700 gives 5 splits of 9 slots (144 keys): the window starts
-    # inside a split, splits 1-4 of the 100-token row are empty, 288 tokens
-    # end exactly at a split edge and 289 one past it.
+    # B2's sequence splits (attention/paged_attention.py::split_plan and
+    # split_spans): block 16, window 700 gives a grid of 5 splits; the
+    # 1400-token row walks its 45 in-window slots in 5 runs of 9 from a slot
+    # the window starts inside, the 100-token row takes one split (1-4
+    # empty), 288 and 289 tokens two (18 and 19 slots).
     (128, 16, 700, None, False, False, (1400, 100, 288, 289)),
     (128, 64, None, None, False, True, (1, 600, 513, 1024)),   # int8 KV, 8 splits
     (64, 64, None, 30.0, True, False, (1, 600, 513, 1024)),    # softcap + ALiBi
@@ -396,3 +397,208 @@ def test_qmm_int8_launches_at_most_three_kernels(cuda):
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         splits = b3.b3_plan(m, 4096, 4096, 128, 8)[2]
         assert len(kernels) == 4 * (2 + (splits > 1)), [e.name for e in kernels]
+
+
+# ---------------------------------------------------------------------------
+# B2's split plan from the device, and the decode graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("width", [64, 512])
+@pytest.mark.parametrize("window", [None, 1000, 4096])
+def test_paged_attention_full_width_tables(cuda, width, window):
+    """Tables max_blocks_per_seq wide (the decode graphs'), PAD past each
+    sequence, over 1 to 4095 tokens: B2 equals B2 on tables trimmed to the
+    longest sequence and the plain version."""
+    from blazr_tpu_torch.kvcache.paged import PAD_BLOCK
+
+    gen = torch.Generator(device=cuda).manual_seed(width + (window or 0))
+    lens = (1, 63, 64, 65, 577, 1024, 2049, 4095)
+    b, h_q, h_kv, d, bs = len(lens), 8, 2, 128, 64
+    need = [-(-n // bs) for n in lens]
+    nb = sum(need) + 8
+    perm = torch.randperm(nb, device=cuda, generator=gen).to(torch.int32)
+    tables = torch.full((b, width), PAD_BLOCK, dtype=torch.int32, device=cuda)
+    used = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[used:used + n]
+        used += n
+    kc = torch.randn((nb * bs + 1, h_kv, d), device=cuda, generator=gen).to(torch.bfloat16)
+    vc = torch.randn((nb * bs + 1, h_kv, d), device=cuda, generator=gen).to(torch.bfloat16)
+    q = torch.randn((b, h_q, d), device=cuda, generator=gen).to(torch.bfloat16)
+    sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(block_size=bs, sliding_window=window)
+    full = paged_attention_decode(q, kc, vc, tables, sl, num_blocks=nb, **kw)
+    trim = paged_attention_decode(q, kc, vc, tables[:, :max(need)].contiguous(), sl,
+                                  num_blocks=nb, **kw)
+    ref = paged_attention_reference(q.float(), kc, vc, tables, sl, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-2 * max(1.0, ref.abs().max().item())
+    assert (full.float() - ref).abs().max().item() <= tol
+    assert (full.float() - trim.float()).abs().max().item() <= tol
+
+
+def _tiny_model(cuda):
+    from blazr_tpu_torch.config.model_config import AttentionConfig, UniversalConfig
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.utils.synthetic import synth_llama_params
+
+    cfg = UniversalConfig(model_type="mistral", vocab_size=256, hidden_size=256,
+                          num_layers=2, max_seq_len=512, intermediate_size=512,
+                          attention=AttentionConfig(num_heads=4, num_kv_heads=2,
+                                                    head_dim=64, sliding_window=128))
+    params = synth_llama_params(cfg, quant="awq", dtype=torch.bfloat16, seed=0,
+                                device=cuda)
+    return Model(cfg, params, torch.bfloat16)
+
+
+class _Tok:
+    eos_token_id = -1
+
+    def is_eos(self, t):
+        return False
+
+    def decode(self, ids):
+        return "x"
+
+
+def _reset_counts():
+    from blazr_tpu_torch.engine.decode_graph import counted
+
+    for w in counted():
+        w.launches = 0
+    return lambda: [w.launches for w in counted()]
+
+
+def test_batch_engine_graphs_equal_eager(cuda):
+    """One wave of 5 requests (greedy, a seeded sampled row, a penalty row,
+    logprobs) through the BatchEngine at depth 2 and horizon 4: with decode
+    graphs the streams and every kernel's launch count equal the eager
+    run's, and graphs were captured."""
+    import asyncio
+
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+
+    model = _tiny_model(cuda)
+    cfgs = [GenerationConfig(max_tokens=12, temperature=0.0),
+            GenerationConfig(max_tokens=7, temperature=0.8, seed=5, top_p=0.9),
+            GenerationConfig(max_tokens=10, temperature=0.0, repeat_penalty=1.3),
+            GenerationConfig(max_tokens=9, temperature=0.0, logprobs=True, top_logprobs=3),
+            GenerationConfig(max_tokens=4, temperature=0.0)]
+    prompts = [list(range(1, 1 + n)) for n in (5, 40, 130, 9, 64)]
+
+    async def serve(eng):
+        task = asyncio.create_task(eng.run())
+        handles = [eng.submit(p, c) for p, c in zip(prompts, cfgs)]
+
+        async def collect(h):
+            return [(t.token_id, t.logprob) async for t in h.tokens()]
+        out = await asyncio.gather(*[asyncio.wait_for(collect(h), 300) for h in handles])
+        eng.stop()
+        await task
+        return out
+
+    runs = {}
+    for graphs in (True, False):
+        app = AppConfig(model=model.cfg)
+        app.inference.decode_horizon = 4
+        app.inference.graphs = graphs
+        eng = BatchEngine(model, _Tok(), app)
+        read = _reset_counts()
+        out = asyncio.run(serve(eng))
+        torch.cuda.synchronize()
+        runs[graphs] = (out, read(), eng.graphs.captured)
+    assert runs[True][0] == runs[False][0]
+    assert [len(s) for s in runs[True][0]] == [c.max_tokens for c in cfgs]
+    assert runs[True][1] == runs[False][1]
+    assert runs[True][2] > 0 and runs[False][2] == 0
+
+
+def test_executor_graphs_equal_eager(cuda):
+    """The Executor's graphed step gives the eager step's tokens and
+    logprobs (greedy with top-20 logprobs, and a seeded sampled request),
+    with equal launch counts."""
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.engine.executor import Executor
+
+    model = _tiny_model(cuda)
+    reqs = [([3, 1, 4, 1, 5, 9, 2, 6], GenerationConfig(max_tokens=10, temperature=0.0,
+                                                         logprobs=True, top_logprobs=5)),
+            (list(range(7, 40)), GenerationConfig(max_tokens=10, temperature=0.9, seed=3))]
+    runs = {}
+    for graphs in (True, False):
+        app = AppConfig(model=model.cfg)
+        app.inference.graphs = graphs
+        ex = Executor(model, _Tok(), app)
+        read = _reset_counts()
+        out = [[(t.token_id, t.logprob, [x.token_id for x in t.top_logprobs or []])
+                for t in ex.generate(p, c)] for p, c in reqs]
+        torch.cuda.synchronize()
+        runs[graphs] = (out, read(), ex.graphs.captured)
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1] == runs[False][1]
+    assert runs[True][2] == 2 and runs[False][2] == 0
+
+
+def test_replays_count_their_launches(cuda):
+    """A captured step's first call runs eagerly, later calls replay it; the
+    launch count is the kernels' real launches and the output the eager
+    one's."""
+    from blazr_tpu_torch.engine.decode_graph import StepGraphs
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    qw, s, mn = _planes(512, 256, 4, 128, gen, cuda)
+    x = torch.randn((8, 512), device=cuda, generator=gen).to(torch.bfloat16)
+    y = torch.zeros((8, 256), dtype=torch.bfloat16, device=cuda)
+    graphs = StepGraphs(cuda, True)
+
+    def step():
+        y.copy_(qmm(x, qw, s, mn, bits=4, signed=True, group_size=128))
+
+    before = qmm.launches
+    for _ in range(4):
+        graphs.run("k", step)
+    torch.cuda.synchronize()
+    assert qmm.launches - before == 4 and graphs.captured == 1
+    ref = qmm(x, qw, s, mn, bits=4, signed=True, group_size=128)
+    assert torch.equal(y, ref)
+
+
+def test_graph_capture_error_is_raised_not_run_eagerly(cuda):
+    """With graphs on, a step the card cannot capture (here a host read of a
+    device value inside the sampler) raises from generate(); the Executor
+    does not fall back to running it eagerly. In a subprocess: a failed
+    capture may leave the process's CUDA state unusable."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent("""
+        import torch
+        import test_torch_cuda as t
+        from blazr_tpu_torch.config import AppConfig, GenerationConfig
+        from blazr_tpu_torch.engine import decode_graph
+        from blazr_tpu_torch.engine.executor import Executor
+
+        real = decode_graph.sample_tokens
+
+        def syncing(logits, *a, **k):
+            float(logits.sum().item())        # a host read: not capturable
+            return real(logits, *a, **k)
+
+        decode_graph.sample_tokens = syncing
+        model = t._tiny_model(torch.device("cuda"))
+        ex = Executor(model, t._Tok(), AppConfig(model=model.cfg))
+        try:
+            list(ex.generate([1, 2, 3], GenerationConfig(max_tokens=4, temperature=0.0)))
+        except RuntimeError as e:
+            print("RAISED", type(e).__name__)
+        else:
+            print("NO ERROR")
+    """)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.dirname(here), here]))
+    out = subprocess.run([sys.executable, "-c", code], cwd=here, env=env, text=True,
+                         capture_output=True, timeout=600)
+    assert "RAISED" in out.stdout, (out.stdout, out.stderr[-2000:])

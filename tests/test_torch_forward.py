@@ -132,3 +132,87 @@ def test_incremental_matches_full_prefill():
     pieces = [step(c, 0, 6)] + [step(c, t, t + 1) for t in range(6, 10)]
     np.testing.assert_allclose(torch.cat(pieces, 1).numpy(), full.numpy(),
                                rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# constants built once per device (no host-to-device copy inside a forward)
+# ---------------------------------------------------------------------------
+
+def test_hoisted_embedding_scale_matches_jax():
+    """scale_embeddings multiplies by sqrt(hidden) rounded to the dtype, as
+    the JAX forward_embed does, from one cached 0-d tensor per device."""
+    from blazr_tpu.models.llama import forward_embed as jax_embed
+    from blazr_tpu_torch.models.layers import device_scalar
+    from blazr_tpu_torch.models.llama import forward_embed
+
+    jcfg, tcfg = _cfgs(64, None)
+    jp, tp = _params(jcfg, seed=12)
+    jcfg.scale_embeddings = tcfg.scale_embeddings = True
+    toks = np.random.default_rng(2).integers(0, 256, (2, 5))
+    for dtype, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        tp_d = dict(tp, embed=tp["embed"].to(dtype))
+        jp_d = dict(jp, embed=jp["embed"].astype(jdt))
+        got = forward_embed(tp_d, tcfg, torch.from_numpy(toks))
+        ref = np.asarray(jax_embed(jp_d, jcfg, jnp.asarray(toks)).astype(jnp.float32))
+        np.testing.assert_array_equal(got.float().numpy(), ref)
+        before = tp_d["embed"][torch.from_numpy(toks)] * torch.tensor(
+            tcfg.hidden_size ** 0.5, dtype=dtype)
+        assert torch.equal(got, before)
+    s = device_scalar(8.0, torch.float32, torch.device(CPU))
+    assert s is device_scalar(8.0, torch.float32, torch.device(CPU))
+
+
+def test_hoisted_alibi_slopes_give_the_forward_of_fresh_ones():
+    """ALiBi slopes come from one cached tensor per (heads, device); the
+    paged forward over them equals the forward with slopes built per call
+    (the code before the hoist) and the JAX forward."""
+    import math
+
+    from blazr_tpu_torch.models import layers, llama
+
+    jcfg, tcfg = _cfgs(64, None)
+    jcfg.attention.use_alibi = tcfg.attention.use_alibi = True
+    jp, tp = _params(jcfg, seed=13)
+    assert layers.alibi_slopes(2, torch.device(CPU)) is \
+        layers.alibi_slopes(2, torch.device(CPU))
+
+    def fresh_slopes(n_heads, device):
+        p = 2 ** math.floor(math.log2(n_heads))
+        base = 2.0 ** (-(2.0 ** -(math.log2(p) - 3)))
+        slopes = [base ** (i + 1) for i in range(p)]
+        if p < n_heads:
+            extra = 2.0 ** (-(2.0 ** -(math.log2(2 * p) - 3)))
+            slopes += [extra ** (2 * i + 1) for i in range(n_heads - p)]
+        return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+    for n in (2, 3, 6, 32):
+        assert torch.equal(layers.alibi_slopes(n, torch.device(CPU)),
+                           fresh_slopes(n, CPU))
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, 256, (1, 9))
+    pos = np.arange(9)[None]
+    blocks = [4, 1]
+    tables = tpaged.pad_block_table(blocks, 4)[None]
+
+    def run():
+        tc = tpaged.init_paged_cache(2, 8, BS, 1, 64, dtype=torch.float32, device=CPU)
+        jc = jpaged.init_paged_cache(2, 8, BS, 1, 64, dtype=jnp.float32)
+        slots = tpaged.compute_slot_mapping(blocks, 0, 9, BS, tc.trash_slot)[None]
+        outs = []
+        for lo, hi in ((0, 8), (8, 9)):       # a prefill, then a decode step
+            jl, tl, jc, tc = _run_both(jcfg, tcfg, jp, tp, toks[:, lo:hi], pos[:, lo:hi],
+                                       tables, np.array([hi], np.int32),
+                                       slots[:, lo:hi].astype(np.int64), jc, tc)
+            outs.append((jl, tl))
+        return outs
+
+    hoisted = run()
+    real = llama.alibi_slopes
+    llama.alibi_slopes = fresh_slopes
+    try:
+        fresh = run()
+    finally:
+        llama.alibi_slopes = real
+    for (jl, tl), (_, tl_fresh) in zip(hoisted, fresh):
+        assert np.array_equal(tl, tl_fresh)
+        np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)

@@ -23,7 +23,7 @@ from blazr_tpu.attention.paged_attention import \
     paged_attention_reference as jax_reference
 from blazr_tpu.kvcache import paged as jpaged
 from blazr_tpu_torch.attention.paged_attention import (
-    paged_attention_reference, split_plan, walk_slots)
+    paged_attention_reference, split_plan, split_spans, walk_slots)
 from blazr_tpu_torch.quant import int8 as b3
 from blazr_tpu_torch.quant.int8 import b3_plan
 from blazr_tpu_torch.quant.kernels import (TC_MIN_ROWS, decode_plan, stream_splits, tc_plan,
@@ -97,29 +97,75 @@ def test_b1_routes_by_rows_dtype_and_group(dtype, m, k, gs, want):
     (2, 64, 16, 4096), (16, 128, 64, None), (1, 1, 64, None), (5, 33, 16, 700),
 ])
 def test_b2_split_plan_covers_the_walk(b, mb, bs, window):
-    splits, per = split_plan(b, 8, mb, bs, window)
+    """The grid's split count keeps the blocks within one wave and no split
+    shorter than 128 keys at the walk cap; a full-length sequence's spans
+    then tile the walk."""
+    splits = split_plan(b, 8, mb, bs, window)
     walk = walk_slots(mb, bs, window)
-    assert splits * per >= walk and (splits - 1) * per < walk
+    assert splits >= 1
     if splits > 1:
-        assert b * 8 * splits <= 264 and per * bs >= 128
+        assert b * 8 * splits <= 264 and (walk // splits) * bs >= 128
+    spans = split_spans(mb * bs, splits, mb, bs, None)
+    assert spans[0][0] == 0 and spans[-1][1] == mb
+    assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
 
 
 def test_b2_split_plan_mistral_points():
-    assert split_plan(8, 8, 16, 64, 4096) == (4, 4)      # 256 blocks, 256 keys each
-    assert split_plan(32, 8, 16, 64, 4096)[0] == 1       # 256 blocks already
-    assert split_plan(1, 8, 64, 64, None) == (32, 2)     # one sequence of 4096
-    assert split_plan(8, 8, 2, 64, None) == (1, 2)       # short walks: one split
+    assert split_plan(8, 8, 16, 64, 4096) == 4           # 256 blocks, 256 keys each
+    assert split_plan(32, 8, 16, 64, 4096) == 1          # 256 blocks already
+    assert split_plan(1, 8, 64, 64, None) == 32          # one sequence of 4096
+    assert split_plan(8, 8, 2, 64, None) == 1            # short walks: one split
     assert walk_slots(64, 64, 4096) == 64 and walk_slots(64, 16, 100) == 8
+    # The decode graphs' full-width tables (max_blocks_per_seq 64 at 4096
+    # tokens, block 64) split a short sequence as its trimmed table does.
+    assert split_plan(8, 8, 64, 64, 4096) == 4
+    assert split_spans(576, 4, 64, 64, 4096) == split_spans(576, 4, 9, 64, 4096) == \
+        [(0, 2), (2, 4), (4, 6), (6, 9)]
+    assert split_spans(1024, 4, 64, 64, 4096) == [(0, 4), (4, 8), (8, 12), (12, 16)]
+
+
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("mb", [1, 9, 64, 512])
+@pytest.mark.parametrize("window", [None, 100, 700, 4096])
+def test_b2_split_spans_cover_exactly_the_valid_slots(bs, mb, window):
+    """The host model of each block's span: for every seq_len up to the
+    table's keys and every split count, the spans are contiguous, cover
+    exactly the slots that hold a valid key (from the first in-window slot
+    to the last slot below seq_len, within the walk cap), no split is empty
+    while the sequence has keys for it, and each takes 128 keys or more
+    unless the walk is shorter than two such runs."""
+    min_slots = -(-128 // bs)
+    cap = walk_slots(mb, bs, window)
+    for seq_len in sorted({0, 1, 2, bs - 1, bs, bs + 1, 127, 128, 129, 288, 289, 575,
+                           576, 700, 701, 1023, 1024, 4095, mb * bs - 1, mb * bs}):
+        if seq_len > mb * bs:
+            continue
+        lo = max(seq_len - window, 0) // bs if window else 0
+        valid = [t for t in range(cap) if lo + t < -(-seq_len // bs)]
+        for splits in (1, 2, 3, 4, 5, 8, 32):
+            spans = split_spans(seq_len, splits, mb, bs, window)
+            assert len(spans) == splits
+            covered = [t for t0, t1 in spans for t in range(t0, t1)]
+            assert covered == valid, (seq_len, splits)
+            used = [s for s in spans if s[1] > s[0]]
+            assert spans[:len(used)] == used       # the empty splits come last
+            want = max(1, min(splits, len(valid) // min_slots)) if valid else 0
+            assert len(used) == want, (seq_len, splits, spans)
+            if len(used) > 1:
+                assert min(t1 - t0 for t0, t1 in used) >= min_slots
 
 
 # ---------------------------------------------------------------------------
 # B2's split-and-combine rule
 # ---------------------------------------------------------------------------
 
-def split_combine(q, kc, vc, bt, sl, *, block_size, num_blocks, splits, per,
+def split_combine(q, kc, vc, bt, sl, *, block_size, num_blocks, splits, per=None,
                   window=None, k_scale=None, v_scale=None, softcap=None, alibi=None):
     """csrc/paged_attention.cu's function in plain f32 PyTorch: each split
-    walks its table slots with an online softmax, then the splits combine."""
+    walks its table slots with an online softmax, then the splits combine.
+    ``per`` gives split z the slots [z*per, (z+1)*per); without it each
+    split takes its span from the sequence's length (``split_spans``), as
+    the kernel does."""
     b_n, h_q, d = q.shape
     h_kv = kc.shape[1]
     hpg = h_q // h_kv
@@ -134,12 +180,14 @@ def split_combine(q, kc, vc, bt, sl, *, block_size, num_blocks, splits, per,
             lo = max(seq - window, 0) // bs
             walk = min(mb, window // bs + 2)
         stop = -(-seq // bs) - lo
+        spans = (split_spans(seq, splits, mb, bs, window) if per is None else
+                 [(z * per, min(walk, z * per + per, stop)) for z in range(splits)])
         parts = []
-        for z in range(splits):
+        for t0, t1 in spans:
             m = torch.full((h_q,), -1e30)
             l = torch.zeros(h_q)
             acc = torch.zeros((h_q, d))
-            for t in range(z * per, min(walk, z * per + per, stop)):
+            for t in range(t0, t1):
                 tt = lo + t
                 blk = int(bt[b, min(tt, mb - 1)])
                 blk = blk if 0 <= blk < num_blocks else 0
@@ -226,6 +274,23 @@ def test_split_combine_matches_unsplit_and_jax(case):
                             num_blocks=s["nb"], splits=splits, per=per, window=window)
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(got.numpy(), jref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 150])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_split_combine_with_device_spans_matches_unsplit(window, splits):
+    """The spans each block derives from seq_len, over a table far wider than
+    the sequences (the decode graphs' tables): equal to the unsplit plain
+    version, with seq_len 1, short rows, rows over several 128-key runs and
+    a row of no key (0)."""
+    s = _inputs(21 + splits, seq_lens=[0, 1, 9, 200, 300], mb=64)
+    t = {k: torch.from_numpy(s[k]) for k in ("q", "kc", "vc", "bt", "sl")}
+    ref = paged_attention_reference(t["q"], t["kc"], t["vc"], t["bt"], t["sl"],
+                                    block_size=8, sliding_window=window)
+    got = split_combine(t["q"], t["kc"], t["vc"], t["bt"], t["sl"], block_size=8,
+                        num_blocks=s["nb"], splits=splits, window=window)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    np.testing.assert_allclose(got[1:].numpy(), ref[1:].numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("opts", ["int8", "softcap_alibi"])
