@@ -159,9 +159,10 @@ def cmd_run(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    """The JAX ``cmd_serve`` (cli/main.py:487) without the prefix cache:
-    the port's BatchEngine does not serve it (ROADMAP §C), so continuous
-    batching runs with ``prefix_cache`` off instead of the JAX default on."""
+    """The JAX ``cmd_serve`` (cli/main.py:487): under
+    ``--continuous-batching`` the batch engine serves with the prefix cache
+    on and is warmed before the server starts (unless ``--no-warmup``);
+    without it the Executor is warmed instead."""
     from ..config.server import ServerConfig
     from ..engine.model_scheduler import ModelScheduler
     from ..server import run_server
@@ -192,10 +193,13 @@ def cmd_serve(args) -> int:
             return 2
         inf = ex.app_cfg.inference
         inf.max_batch_size = args.max_batch_size
-        inf.prefix_cache = False
+        inf.prefix_cache = True
         inf.kv_cache_dtype = args.kv_cache_dtype
         inf.decode_horizon = args.decode_horizon
         batch_engine = BatchEngine(ex.model, ex.tokenizer, ex.app_cfg)
+        if not args.no_warmup:
+            dt = batch_engine.warmup()
+            print(f"batch engine warmed in {dt:.1f}s", file=sys.stderr)
         print(f"continuous batching enabled (max_batch={args.max_batch_size})",
               file=sys.stderr)
     run_server(scheduler, cfg, batch_engine=batch_engine)

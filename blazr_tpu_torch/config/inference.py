@@ -3,8 +3,9 @@
 Counterpart of ``blazr_tpu/config/inference.py``: the same fields and
 defaults, so a config file reads the same in both packages. The port serves
 the paged KV cache, batched prefill and the pipelined multi-step decode
-horizon in CUDA graphs (``engine/batch_engine.py``), the contiguous cache
-with session reuse (``engine/executor.py``) and every ``quant_compute``
+horizon in CUDA graphs with the prefix cache and its host tier
+(``engine/batch_engine.py``), the contiguous cache with session reuse
+(``engine/executor.py``) and every ``quant_compute``
 mode; the other knobs are kept for layout and are rejected where they would
 change behaviour.
 """
@@ -55,7 +56,11 @@ class InferenceConfig:
     num_blocks: Optional[int] = None
     kv_pool_blocks: Optional[int] = None
 
-    # Prefix caching (not served by this slice)
+    # Prefix caching: full prompt blocks shared across sequences (at most
+    # max_cached_blocks registered); with gpu_prefix_cache, evicted blocks
+    # go to a host-RAM tier of prefix_cache_ram_tier blocks (fewer if they
+    # would take more than kvcache/host_tier.py's MAX_BYTES: its pool is
+    # allocated, and pinned on CUDA, when the engine is built).
     prefix_cache: bool = False
     max_cached_blocks: int = 10000
     gpu_prefix_cache: bool = False

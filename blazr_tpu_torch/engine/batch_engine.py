@@ -36,11 +36,19 @@ The decode round is the JAX engine's fixed-shape, pipelined round:
     padded to the next power of two, as the JAX engine pads every group
     (batch_engine.py:1338), so the row count that picks B3 or B1 is the
     JAX engine's (P x bucket) and the two engines compute alike.
+  * with ``inference.prefix_cache`` the scheduler shares full prompt
+    blocks between sequences through ``kvcache.prefix_cache`` (a hit
+    prefills only the suffix, from ``seq.prefilled_tokens``), and with
+    ``gpu_prefix_cache`` too, evicted blocks go to a host-RAM tier and come
+    back from it (``kvcache.host_tier``: copies in place, on the stream).
+``warmup()`` does before the first request what eager PyTorch would
+otherwise do inside it: build the kernels, initialise the libraries, run
+one prefill per token bucket and capture every decode graph.
 Left out of this slice (ROADMAP queue A): speculation, grammars and JSON
-mode, LoRA, host samplers (mirostat/DRY/typical/dynatemp), the prefix
-cache, tensor/sequence parallel meshes and recurrent-state families. A
-request or config that asks for one raises instead of being served
-differently. int4 KV on the paged path raises instead of being downgraded.
+mode, LoRA, host samplers (mirostat/DRY/typical/dynatemp), tensor/sequence
+parallel meshes and recurrent-state families. A request or config that
+asks for one raises instead of being served differently. int4 KV on the
+paged path raises instead of being downgraded.
 """
 
 from __future__ import annotations
@@ -59,7 +67,9 @@ import torch
 from ..config.app import AppConfig
 from ..config.generation import GenerationConfig
 from ..kvcache.block_allocator import BlockAllocator, blocks_needed
+from ..kvcache.host_tier import attach_host_tier
 from ..kvcache.paged import PAD_BLOCK, pad_block_table
+from ..kvcache.prefix_cache import PrefixCache, PrefixCacheConfig
 from ..models.paged_multi import init_engine_cache, make_paged_forward
 from ..models.registry import Model
 from ..quant.qtensor import apply_quant_compute, quant_leaves
@@ -161,6 +171,10 @@ class BatchEngine:
         num_blocks = inf.num_blocks or inf.kv_pool_blocks or (
             self.max_batch * self.max_blocks_per_seq)
         self.allocator = BlockAllocator(num_blocks, self.block_size)
+        self.prefix_cache = (
+            PrefixCache(self.allocator,
+                        PrefixCacheConfig(max_cached_blocks=inf.max_cached_blocks))
+            if inf.prefix_cache else None)
         self._chunk = inf.prefill_chunk_size or 4096
         self.scheduler = SequenceScheduler(
             self.allocator,
@@ -170,16 +184,26 @@ class BatchEngine:
                                   or self._chunk * _PREFILL_GROUP),
                 block_size=self.block_size,
                 max_seq_len=self.max_seq_len,
-            ))
+            ),
+            prefix_cache=self.prefix_cache)
         model.params = apply_quant_compute(model.params, inf.quant_compute)
         # Row-count routing (w4a8-prefill) needs the JAX engine's padded
         # prefill groups; other modes run the real number of prompts.
         self._pad_groups = any(qt.act_quant_min_m > 0
                                for qt in quant_leaves(model.params))
-        self.cache, _ = init_engine_cache(
+        self.cache, needs_state_rows = init_engine_cache(
             model.cfg, num_blocks, self.block_size, self.max_batch,
             dtype=model.dtype, quantized=inf.kv_cache_dtype == "int8",
             device=self.device)
+        if needs_state_rows and self.prefix_cache is not None:
+            # Recurrent state can never be reconstructed from cached KV
+            # blocks — prefix reuse is attention-only.
+            logger.warning("prefix cache disabled: model has recurrent (SSM) state")
+            self.prefix_cache = None
+            self.scheduler.prefix_cache = None
+        if self.prefix_cache is not None and inf.gpu_prefix_cache:
+            attach_host_tier(self.prefix_cache, self.cache,
+                             max_blocks=inf.prefix_cache_ram_tier)
         self._fwd = make_paged_forward(model.cfg)
         self._trash = self.cache.trash_slot
         self.horizon_dispatches = 0
@@ -191,7 +215,8 @@ class BatchEngine:
         self._steps: dict[int, BatchStep] = {}          # by bmax
         self.graphs = StepGraphs(self.device, inf.graphs)
         self._preemptions = 0
-        # Wall time by phase (seconds; "<phase>_n" counts calls).
+        # Wall time by phase (seconds; "<phase>_n" counts calls) and the
+        # prompt tokens the prefills computed ("prefill_tokens").
         self.perf: dict[str, float] = defaultdict(float)
         self._handles: dict[int, RequestHandle] = {}
         self._windows: dict[int, list[int]] = {}
@@ -208,8 +233,6 @@ class BatchEngine:
                              "paged path (use 'int8' or 'auto')")
         if inf.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(f"unknown kv_cache_dtype {inf.kv_cache_dtype!r}")
-        if inf.prefix_cache:
-            raise _not_served("the prefix cache")
         if inf.speculative is not None and inf.speculative.num_speculative_tokens > 0:
             raise _not_served("speculative decoding")
         if max(inf.tensor_parallel_size, inf.data_parallel_size,
@@ -405,6 +428,7 @@ class BatchEngine:
                                 dtype=torch.int32, device=dev)
         last_idx = torch.tensor([max(c - 1, 0) for c in chunks] + [0] * pad,
                                 device=dev)
+        self.perf["prefill_tokens"] += sum(chunks)
         logits, self.cache = self._fwd(
             self.model.params, self.model.cfg, torch.from_numpy(toks).to(dev),
             self.cache, torch.from_numpy(pos).to(dev),
@@ -562,6 +586,64 @@ class BatchEngine:
     def _flush_pipe(self) -> None:
         while self._pipe_q:
             self._emit_round(self._pipe_q.popleft())
+
+    # ------------------------------------------------------------------
+    # warmup
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def warmup(self) -> float:
+        """Do before serving what the first requests would otherwise pay
+        for (``blazr_tpu/engine/batch_engine.py:850``): build the kernels
+        and initialise the libraries, run one one-row prefill per
+        power-of-two token bucket up to the chunk, and capture the decode
+        step of every decode batch (``bmax``: each power of two below
+        ``max_batch``, and ``max_batch``) under both top-K logprobs
+        variants and both sampled keys. Eager PyTorch
+        compiles nothing per shape, so the JAX engine's grid of prefill
+        group sizes has no counterpart. Every row is a pad row: its writes
+        go to the trash slot, and neither the allocator nor the prefix
+        cache is touched. Returns the seconds it took."""
+        t0 = time.perf_counter()
+        dev = self.device
+        chunk = min(_next_pow2(self._chunk), _next_pow2(self.max_seq_len))
+        t_buckets = []
+        t = 16
+        while t <= chunk:
+            t_buckets.append(t)
+            t *= 2
+        gen = GenerationConfig()
+        win = make_window([], gen.repeat_last_n)
+        for t in t_buckets:
+            mb = blocks_needed(t, self.block_size)
+            logits, self.cache = self._fwd(
+                self.model.params, self.model.cfg,
+                torch.zeros((1, t), dtype=torch.long, device=dev), self.cache,
+                torch.arange(t, device=dev)[None],
+                torch.full((1, t), self._trash, dtype=torch.long, device=dev),
+                torch.full((1, mb), PAD_BLOCK, dtype=torch.int32, device=dev),
+                torch.tensor([t], dtype=torch.int32, device=dev),
+                last_idx=torch.tensor([t - 1], device=dev))
+            sp, window, bias_ids, bias_vals = self._sampling([gen], 0, [win])
+            tok, logprobs = sample_tokens(logits[:, 0, :], sp, window, bias_ids, bias_vals)
+            pack_rows(tok, logprobs, True)
+        bmaxes = sorted({min(1 << i, self.max_batch)
+                         for i in range(self.max_batch.bit_length() + 1)})
+        for bmax in bmaxes:
+            step = self._step(bmax)
+            table = step.build([None] * bmax, [0] * bmax, np.ones((bmax,), dtype=bool),
+                               [None] * bmax)
+            for use_topk in (False, True):
+                for any_sampled in (False, True):
+                    step.up.upload(table, step.tab)
+                    self.graphs.run((bmax, use_topk, any_sampled),
+                                    step.step_fn(use_topk, any_sampled))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        logger.info("batch engine warmed in %.2fs: %d prefill buckets, %d decode "
+                    "graphs (%.1f MiB pool)", dt, len(t_buckets), self.graphs.captured,
+                    self.graphs.pool_bytes / 2**20)
+        return dt
 
     # ------------------------------------------------------------------
     # token delivery

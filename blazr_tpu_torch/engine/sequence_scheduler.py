@@ -1,11 +1,12 @@
 """Continuous-batching sequence scheduler.
 
 Copy of ``blazr_tpu/engine/sequence_scheduler.py`` (boostr
-``inference::scheduler::SequenceScheduler``) without the prefix cache,
-which this slice does not serve (ROADMAP queue A): FIFO admission of waiting
+``inference::scheduler::SequenceScheduler``): FIFO admission of waiting
 sequences into the running set under batch-size / token / KV-block
 budgets; per-step scheduling returns the prefills to run and the decode
-batch; block tables grow as sequences decode past block boundaries.
+batch; block tables grow as sequences decode past block boundaries. With a
+prefix cache, admission takes the cached prompt blocks and starts the
+prefill after them, and every block goes through the cache.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional
 
 from ..config.generation import GenerationConfig
 from ..kvcache.block_allocator import BlockAllocator, blocks_needed
+from ..kvcache.prefix_cache import PrefixCache
 
 
 class SequenceState(enum.Enum):
@@ -74,9 +76,11 @@ class ScheduledBatch:
 
 class SequenceScheduler:
     def __init__(self, allocator: BlockAllocator,
-                 config: Optional[SchedulerConfig] = None):
+                 config: Optional[SchedulerConfig] = None,
+                 prefix_cache: Optional[PrefixCache] = None):
         self.allocator = allocator
         self.config = config or SchedulerConfig()
+        self.prefix_cache = prefix_cache
         self._ids = itertools.count(1)
         self.waiting: list[Sequence] = []
         self.running: dict[int, Sequence] = {}
@@ -156,6 +160,34 @@ class SequenceScheduler:
         if seq.block_table:
             return True
         n = blocks_needed(len(seq.prompt_tokens) + 1, self.config.block_size)
+        if self.prefix_cache is not None:
+            try:
+                cached, blocks = self.prefix_cache.get_or_allocate_blocks(
+                    seq.seq_id, seq.prompt_tokens)
+            except MemoryError:
+                return False
+            seq.cached_tokens = cached
+            # A cache hit covering the whole prompt must still recompute the
+            # final token (its logits are needed) — reference behavior.
+            if cached >= len(seq.prompt_tokens):
+                seq.cached_tokens = len(seq.prompt_tokens) - 1
+            seq.prefilled_tokens = seq.cached_tokens
+            seq.block_table = blocks
+            missing = n - len(blocks)
+            if missing > 0:
+                try:
+                    seq.block_table.extend(
+                        self.prefix_cache.extend(seq.seq_id, missing))
+                except MemoryError:
+                    # Release everything: a WAITING sequence must not
+                    # hoard blocks, or admission livelocks while running
+                    # decodes can't extend either.
+                    self._release_blocks(seq)
+                    seq.block_table = []
+                    seq.cached_tokens = 0
+                    seq.prefilled_tokens = 0
+                    return False
+            return True
         if not self.allocator.can_allocate(n):
             return False
         seq.block_table = self.allocator.allocate(n)
@@ -164,9 +196,15 @@ class SequenceScheduler:
     def _ensure_block_for(self, seq: Sequence, pos: int) -> bool:
         need = blocks_needed(pos + 1, self.config.block_size)
         while len(seq.block_table) < need:
-            if not self.allocator.can_allocate(1):
-                return False
-            seq.block_table.extend(self.allocator.allocate(1))
+            if self.prefix_cache is not None:
+                try:
+                    seq.block_table.extend(self.prefix_cache.extend(seq.seq_id, 1))
+                except MemoryError:
+                    return False
+            else:
+                if not self.allocator.can_allocate(1):
+                    return False
+                seq.block_table.extend(self.allocator.allocate(1))
         return True
 
     def _preempt(self, seq: Sequence) -> None:
@@ -186,6 +224,9 @@ class SequenceScheduler:
         seq = self.sequences[seq_id]
         seq.prefilled_tokens = min(seq.prefilled_tokens + num_tokens,
                                    len(seq.prompt_tokens))
+        if self.prefix_cache is not None:
+            # Blocks now covered by real KV become servable cache hits.
+            self.prefix_cache.mark_computed(seq_id, seq.prefilled_tokens)
 
     def append_token(self, seq_id: int, token: int) -> None:
         seq = self.sequences[seq_id]
@@ -217,7 +258,9 @@ class SequenceScheduler:
             del self.sequences[sid]
 
     def _release_blocks(self, seq: Sequence) -> None:
-        if seq.block_table:
+        if self.prefix_cache is not None:
+            self.prefix_cache.release_blocks(seq.seq_id)
+        elif seq.block_table:
             self.allocator.free(seq.block_table)
         seq.block_table = []
 

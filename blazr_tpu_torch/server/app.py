@@ -7,13 +7,19 @@ connection after each response, so a streamed (SSE, ``text/event-stream``)
 body simply ends when the connection does. The continuous-batching engine's
 ``run()`` is a task on the same event loop.
 
-Ported routes: ``/health``, ``/v1/models``, ``/v1/models/{id}``,
+Ported routes: ``/health``, ``/metrics`` (the Prometheus text format,
+unauthenticated like ``/health``), ``/v1/models``, ``/v1/models/{id}``,
 ``/v1/completions`` and ``/v1/chat/completions`` (streaming and not),
 ``/tokenize``, ``/detokenize`` and ``/apply-template``, with bearer/x-api-key
 auth and the ``max_inflight_tokens`` admission of the JAX server (503 +
 Retry-After), CORS, the per-request timeout (408) and the concurrency cap.
 Every other route of the JAX ``create_app`` answers 501 (ROADMAP queue A
-item 9), ``/metrics`` included. TLS raises at startup.
+item 9). TLS raises at startup.
+
+The request metrics and SLO records follow the JAX handlers, except that a
+streamed request also counts its prompt and generated tokens and its e2e
+latency, and a streamed completion observes TTFT and ITL as a streamed
+chat does (the JAX server records none of these; ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from ..model_meta.think import extract_thinking
 from .api_types import (ApiError, chat_response, completion_logprobs_block,
                         completion_response, gen_config_from_body, logprobs_block,
                         usage_dict, validate_generation_params)
+from .metrics import CONTENT_TYPE, Metrics, refresh
+from .slo import SloTracker
 from .streaming import SSE_DONE, SSE_HEADERS, ChatStream, CompletionStream, sse_event
 
 logger = logging.getLogger(__name__)
@@ -52,7 +60,7 @@ _MAX_HEADER_BYTES = 64 * 1024
 
 # Routes of the JAX create_app (app.py:1020-1060) this server does not serve.
 UNPORTED_ROUTES = [
-    ("GET", "/metrics"), ("GET", "/api/tags"), ("GET", "/api/ps"),
+    ("GET", "/api/tags"), ("GET", "/api/ps"),
     ("POST", "/api/show"), ("DELETE", "/api/delete"), ("POST", "/api/copy"),
     ("POST", "/api/pull"), ("GET", "/api/slots"), ("POST", "/api/slots"),
     ("DELETE", "/api/slots/{slot_id}"), ("POST", "/v1/embeddings"),
@@ -300,14 +308,19 @@ class App:
 
 @dataclass
 class AppState:
-    """Shared server state (the JAX AppState without metrics, SLOs and
-    slots)."""
+    """Shared server state (the JAX AppState without slots)."""
 
     scheduler: ModelScheduler
     server_cfg: ServerConfig
     batch_engine: Any = None          # optional continuous-batching engine
     start_time: float = field(default_factory=time.time)
     inflight_tokens: int = 0
+    metrics: Metrics = field(default_factory=Metrics)
+    slo: SloTracker = None            # type: ignore[assignment]
+
+    def __post_init__(self) -> None:
+        if self.slo is None:
+            self.slo = SloTracker(self.server_cfg.slo, self.metrics)
 
     # -- admission control (the JAX server's, app.py:75-93) ------------------
     def try_admit(self, tokens: int) -> bool:
@@ -317,10 +330,28 @@ class AppState:
         if self.inflight_tokens + tokens > limit:
             return False
         self.inflight_tokens += tokens
+        self._update_budget_gauge()
         return True
 
     def release(self, tokens: int) -> None:
         self.inflight_tokens = max(0, self.inflight_tokens - tokens)
+        self._update_budget_gauge()
+
+    def _update_budget_gauge(self) -> None:
+        limit = self.server_cfg.max_inflight_tokens
+        if limit:
+            self.metrics.token_budget_utilization.set(self.inflight_tokens / limit)
+
+    # -- request metrics (the JAX handlers', app.py:411-460, 501-553) --------
+    def request_done(self, endpoint: str, t0: float) -> None:
+        self.metrics.requests_active.dec()
+        self.metrics.requests_total.labels(endpoint=endpoint, status="200").inc()
+        self.metrics.request_duration.observe(time.time() - t0)
+
+    def tokens_done(self, prompted: int, generated: int, t0: float) -> None:
+        self.metrics.tokens_prompted.inc(prompted)
+        self.metrics.tokens_generated.inc(generated)
+        self.slo.record_e2e(time.time() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +505,12 @@ async def health(request: Request) -> Response:
     return Response.json(body)
 
 
+async def metrics_handler(request: Request) -> Response:
+    state = request.app.state
+    refresh(state.metrics, state.scheduler, state.batch_engine)
+    return Response(state.metrics.render(), content_type=CONTENT_TYPE)
+
+
 async def list_models(request: Request) -> Response:
     names = request.app.state.scheduler.discover_models() or ["default"]
     return Response.json({"object": "list", "data": [
@@ -521,6 +558,8 @@ async def completions(request: Request):
     budget = total_prompt + cfg.max_tokens * len(prompt_ids_list) * n
     if not state.try_admit(budget):
         return _overloaded()
+    state.metrics.requests_active.inc()
+    t0 = time.time()
     try:
         if body.get("stream"):
             return await _stream_completion(request, state, executor,
@@ -551,10 +590,12 @@ async def completions(request: Request):
                                 "logprobs": lp_block})
                 usage_p += res.prompt_tokens
                 usage_c += res.completion_tokens
+        state.tokens_done(usage_p, usage_c, t0)
         return Response.json(completion_response(body.get("model", "default"), choices,
                                                  usage_dict(usage_p, usage_c)))
     finally:
         state.release(budget)
+        state.request_done("completions", t0)
 
 
 async def chat_completions(request: Request):
@@ -570,6 +611,7 @@ async def chat_completions(request: Request):
     budget = len(prompt_ids) + cfg.max_tokens * n
     if not state.try_admit(budget):
         return _overloaded()
+    state.metrics.requests_active.inc()
     t0 = time.time()
     try:
         if body.get("stream"):
@@ -597,17 +639,22 @@ async def chat_completions(request: Request):
                                          if cfg.logprobs and res.gen_tokens else None)})
             usage_p += res.prompt_tokens
             usage_c += res.completion_tokens
+        state.tokens_done(usage_p, usage_c, t0)
         return Response.json(chat_response(
             body.get("model", "default"), choices,
             usage_dict(usage_p, usage_c, eval_duration=time.time() - t0)))
     finally:
         state.release(budget)
+        state.request_done("chat", t0)
 
 
 async def _stream(request: Request, state: AppState, executor, prompt_ids, cfg,
                   on_item: Callable, head: Optional[bytes]) -> StreamResponse:
     """Shared SSE loop: the head chunk, one event per delta (``on_item``),
-    ``[DONE]``; a client gone mid-stream cancels the engine sequence."""
+    ``[DONE]``; a client gone mid-stream cancels the engine sequence. The
+    first content delta's time goes to the TTFT histogram and SLO window,
+    each later one's gap to ITL (the JAX ``_stream_chat``, app.py:664-677);
+    a stream that ends counts its tokens and e2e latency."""
     resp = StreamResponse(request, dict(SSE_HEADERS))
     await resp.prepare()
     seq_ref: dict = {}
@@ -615,13 +662,27 @@ async def _stream(request: Request, state: AppState, executor, prompt_ids, cfg,
         source = _engine_tokens(state, prompt_ids, cfg, seq_ref)
     else:
         source = _thread_tokens(executor, prompt_ids, cfg)
+    t0 = last_t = time.time()
+    first = True
+    generated = 0
     try:
         if head is not None:
             await resp.write(head)
         async for delta, fin, gts in source:
+            now = time.time()
+            if first and delta:
+                state.slo.record_ttft(now - t0)
+                state.metrics.ttft.observe(now - t0)
+                first = False
+            elif delta:
+                state.slo.record_itl(now - last_t)
+                state.metrics.itl.observe(now - last_t)
+            last_t = now
+            generated += len(gts)
             for chunk in on_item(delta, fin, gts):
                 await resp.write(chunk)
             if fin is not None:
+                state.tokens_done(len(prompt_ids), generated, t0)
                 break
         await resp.write(SSE_DONE)
     except (ConnectionError, asyncio.CancelledError):
@@ -705,6 +766,7 @@ def create_app(scheduler: ModelScheduler, server_cfg: Optional[ServerConfig] = N
     app = App(AppState(scheduler=scheduler, server_cfg=server_cfg,
                        batch_engine=batch_engine))
     app.add("GET", "/health", health)
+    app.add("GET", "/metrics", metrics_handler)
     app.add("GET", "/v1/models", list_models)
     app.add("GET", "/v1/models/{model_id}", get_model)
     app.add("POST", "/v1/completions", completions)

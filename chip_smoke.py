@@ -51,10 +51,26 @@ Phases, in order; any failure raises and the script exits non-zero:
   5c. the 8 requests of phase 5 under w4a8-prefill with
       BLAZR_TPU_STREAM_KERNEL=1: B3 (prefill), B4 (decode) and B2 launched;
       the same turns, checks and profiles as phase 5;
+  6.  (``prefix``) the 32-layer BatchEngine as ``cli serve
+      --continuous-batching`` runs it (prefix cache, warmed): 8 requests
+      sharing a 1024-token system prefix with 32-256-token suffixes, 64
+      greedy tokens each, in two waves of 4, the prefix cache on, off, off,
+      on (per wave: TTFT, tok/s, prompt tokens prefilled, hits, misses; the
+      warmup's seconds, graphs and pool); one wave of misses on a warmed
+      engine equal to an unwarmed engine's prefix-off streams exactly; the
+      hits' first-token logits within 5e-2 of the largest prefix-off logit;
+      the host tier on a warmed engine (prefix B evicts prefix A to the
+      tier's pinned pool, A restored in place gives a device-tier hit's
+      stream exactly; a block's save and restore timed); wave 2's prefill
+      group profiled with the cache on and off; B1 and B2 launched;
   7.  the normal entry point: an 8-layer full-width AWQ checkpoint and a
       BPE tokenizer.json written to disk, loaded by load_model (f16) and
-      served over HTTP with continuous batching (8 concurrent requests), then
-      ``python -m blazr_tpu_torch.cli serve`` as a subprocess;
+      served over HTTP with continuous batching and the prefix cache, the
+      engine warmed and not in turns (8 concurrent requests each, the chats
+      sharing a system message, then one more chat that hits its cached
+      blocks; ``GET /metrics`` parses, counts the tokens sent back and
+      reports the engine's prefix-cache hits), then ``python -m
+      blazr_tpu_torch.cli serve`` (warmed) as a subprocess;
   8.  the sweeps behind the launch plans, straight through the libraries:
       B1's two variants over rows (TC_MIN_ROWS) and over K splits at decode
       rows, B2 over its split count, B3's two variants over rows
@@ -1182,7 +1198,10 @@ class StubTokenizer:
         return "".join(chr(32 + i % 90) for i in ids)
 
 
-async def serve(engine, waves) -> list[dict]:
+async def serve(engine, waves, on_wave=None) -> list[dict]:
+    """Serve ``waves`` of (prompt, GenerationConfig); each later wave is
+    submitted once every request of the one before has its first token.
+    ``on_wave(i)`` is called just before wave i is submitted."""
     t0 = time.perf_counter()
     task = asyncio.create_task(engine.run())
     results = []
@@ -1196,7 +1215,9 @@ async def serve(engine, waves) -> list[dict]:
         rec["t_done"] = time.perf_counter()
 
     consumers = []
-    for wave in waves:
+    for w, wave in enumerate(waves):
+        if on_wave is not None:
+            on_wave(w)
         recs = []
         for prompt, gen in wave:
             rec = dict(handle=engine.submit(prompt, gen), t_submit=time.perf_counter(),
@@ -1406,6 +1427,355 @@ def serve_stream(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the prefix cache and its host tier (serve --continuous-batching)
+# ---------------------------------------------------------------------------
+
+PREFIX_TURNS = (True, False, False, True)       # the prefix cache on, off, off, on
+PREFIX_LEN = 1024                               # the shared system prefix: 16 blocks
+PREFIX_SUFFIXES = (32, 64, 96, 128, 160, 192, 224, 256)     # wave 1, then wave 2
+
+
+def prefix_engine(model, prefix: bool, **inf):
+    """A 32-layer BatchEngine as ``serve --continuous-batching`` builds it
+    (w4a16, graphs on, block 64, max batch 8), the prefix cache on or off."""
+    from blazr_tpu_torch.config import AppConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+
+    app = AppConfig(model=model.cfg)
+    app.inference.max_batch_size = 8
+    app.inference.prefix_cache = prefix
+    for key, value in inf.items():
+        setattr(app.inference, key, value)
+    return BatchEngine(model, StubTokenizer(), app)
+
+
+def agreement(a: list, b: list) -> int:
+    """Length of the common prefix of two token streams."""
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def prefill_logits(engine, waves) -> list:
+    """Serve ``waves`` (each request alone, one token) and return the
+    last-position logits of every prefill, in order (f32, on the host)."""
+    import torch
+
+    got = []
+    fwd = engine._fwd
+
+    def capture(*args, **kw):
+        out = fwd(*args, **kw)
+        if kw.get("last_idx") is not None:          # a prefill, never a decode step
+            got.append(out[0][:, 0].float().cpu())
+        return out
+
+    engine._fwd = capture
+    try:
+        async def runs():
+            for wave in waves:
+                await serve(engine, [wave])
+        asyncio.run(runs())
+    finally:
+        engine._fwd = fwd
+    torch.cuda.synchronize()
+    return got
+
+
+def serve_prefix(dev, card: str) -> dict:
+    """Phase 6: the 32-layer Mistral-7B AWQ BatchEngine with the prefix
+    cache, warmed as ``cli serve`` warms it: 8 requests sharing one
+    1024-token system prefix, each with its own 32-256-token suffix, 64
+    greedy tokens each, in two waves of 4, with the prefix cache on and
+    off in turns (PREFIX_TURNS). Per wave: TTFT, tok/s, the prompt tokens
+    the prefills computed, hits and misses. Checks: one wave of misses on
+    a warmed engine gives the streams of an unwarmed prefix-off engine
+    exactly (the same schedule, the same computation); each wave-2 prompt
+    served alone after the prefix is cached gives first-token logits
+    within 5e-2 of the largest prefix-off logit; B1 and B2 launched. Then
+    the host tier on a warmed engine: a pool just large enough for prefix
+    B (2048 tokens) so that B evicts prefix A (1024 tokens) to host RAM, A
+    restored from it with the stream of a device-tier hit (an unwarmed
+    engine) exactly, the tier's pinned pool never reallocated; a block's
+    save into the pool and restore from it timed on the device. Then wave
+    2's prefill group profiled with the cache on and off."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.kvcache.block_allocator import blocks_needed
+    from blazr_tpu_torch.kvcache.host_tier import block_planes, restore_block
+
+    model = mistral_model(dev)
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 13)
+    system = rng.integers(0, cfg.vocab_size, PREFIX_LEN).tolist()
+    prompts = [system + rng.integers(0, cfg.vocab_size, n).tolist() for n in PREFIX_SUFFIXES]
+
+    def reqs(idx, tokens: int = 64):
+        return [(prompts[i], GenerationConfig(max_tokens=tokens, temperature=0.0))
+                for i in idx]
+
+    waves = [reqs(range(4)), reqs(range(4, 8))]
+    out: dict = dict(turns=[])
+    streams: dict = {}
+    for on in PREFIX_TURNS:
+        engine = prefix_engine(model, on)
+        warm_s = engine.warmup()
+        warm = dict(warm_s=warm_s, **graph_stats(engine))
+        marks = []
+
+        def mark(_w=None, engine=engine):
+            st = engine.prefix_cache.stats if engine.prefix_cache is not None else None
+            marks.append((engine.perf["prefill_tokens"], st.hits if st else 0,
+                          st.misses if st else 0))
+
+        reset_counts()
+        t0 = time.perf_counter()
+        results = asyncio.run(serve(engine, waves, on_wave=mark))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        mark()
+        assert counts["qmm"] > 0 and counts["paged_attention"] > 0, counts
+        per_wave = []
+        for w in range(2):
+            recs = results[4 * w:4 * w + 4]
+            for r in recs:
+                assert len(r["tokens"]) == 64 and all(0 <= t < cfg.vocab_size
+                                                      for t in r["tokens"])
+            ttft = sorted(r["ttft"] for r in recs)
+            span = max(r["t_done"] for r in recs) - min(r["t_submit"] for r in recs)
+            per_wave.append(dict(
+                ttft_ms_median=ttft[len(ttft) // 2] * 1e3, ttft_ms_max=ttft[-1] * 1e3,
+                tok_s=sum(len(r["tokens"]) for r in recs) / span,
+                prefill_tokens=int(marks[w + 1][0] - marks[w][0]),
+                hits=marks[w + 1][1] - marks[w][1], misses=marks[w + 1][2] - marks[w][2]))
+        turn = dict(prefix=on, tok_s=sum(len(r["tokens"]) for r in results) / wall,
+                    waves=per_wave, launches=counts, **warm)
+        out["turns"].append(turn)
+        streams.setdefault(on, [r["tokens"] for r in results])
+        log(f"  prefix cache {'on ' if on else 'off'}: warmed in {warm_s:.2f} s "
+            f"({warm['captured']} decode graphs, {warm['pool_mib']:.1f} MiB pool); "
+            f"{turn['tok_s']:.1f} tok/s over both waves; launches {counts} ({card})")
+        for w, pw in enumerate(per_wave):
+            log(f"    wave {w + 1}: TTFT median {pw['ttft_ms_median']:.1f} ms, max "
+                f"{pw['ttft_ms_max']:.1f} ms; {pw['tok_s']:.1f} tok/s; prefill computed "
+                f"{pw['prefill_tokens']} prompt tokens; hits {pw['hits']}, misses "
+                f"{pw['misses']}")
+        del engine, mark                    # mark holds the engine too
+        free_card()
+    on_turn = out["turns"][0]["waves"]
+    assert on_turn[0]["hits"] == 0 and on_turn[1]["hits"] == 4 * PREFIX_LEN // 64, on_turn
+    agree = [agreement(a, b) for a, b in zip(streams[True][4:], streams[False][4:])]
+    log(f"  wave 2, prefix cache on vs off: greedy agreement {agree} of 64 tokens")
+    out["wave2_agreement"] = agree
+
+    # Misses: one wave of 4 (all misses with the cache on, the engine
+    # warmed: its decode graphs captured on pad rows before any request)
+    # equals the prefix-off streams of an engine never warmed exactly.
+    same = {}
+    for on in (True, False):
+        engine = prefix_engine(model, on)
+        if on:
+            engine.warmup()
+        same[on] = [r["tokens"] for r in asyncio.run(serve(engine, [waves[0]]))]
+        if on:
+            assert engine.prefix_cache.stats.hits == 0, engine.prefix_cache.stats
+        del engine
+        free_card()
+    log(f"  one wave of 4 misses: streams with the prefix cache, warmed, "
+        f"{'equal' if same[True] == same[False] else 'DIFFER from'} those without it, "
+        f"not warmed")
+    assert same[True] == same[False]
+
+    # Hits: each wave-2 prompt alone, after request 0 has cached the prefix.
+    alone = [[r] for r in reqs(range(4, 8), tokens=1)]
+    engine = prefix_engine(model, True)
+    hit = prefill_logits(engine, [reqs([0], tokens=1)] + alone)[1:]
+    assert engine.prefix_cache.stats.hits == 4 * PREFIX_LEN // 64, engine.prefix_cache.stats
+    del engine
+    engine = prefix_engine(model, False)
+    cold = prefill_logits(engine, alone)
+    del engine
+    free_card()
+    errs = [float((h - c).abs().max() / c.abs().max()) for h, c in zip(hit, cold)]
+    log(f"  wave-2 prompts alone: first-token logits of the prefix hit vs a cold "
+        f"prefill, max abs diff over the largest logit {[f'{e:.2e}' for e in errs]} "
+        f"(tolerance 5e-2, bf16)")
+    assert max(errs) <= 5e-2, errs
+    out["hit_logit_err"] = max(errs)
+
+    # The host tier: B (2048-token prefix) evicts A (1024) to host RAM and
+    # A comes back from it; then C decodes while D's admission evicts (the
+    # pipe's stall), against the same history on a pool without the tier.
+    a_prompt = system + rng.integers(0, cfg.vocab_size, 32).tolist()
+    b_prompt = rng.integers(0, cfg.vocab_size, 2 * PREFIX_LEN + 64).tolist()
+    c_prompt = rng.integers(0, cfg.vocab_size, 64).tolist()
+    d_prompt = rng.integers(0, cfg.vocab_size, PREFIX_LEN).tolist()
+    gen = GenerationConfig(max_tokens=64, temperature=0.0)
+    nb = blocks_needed(len(b_prompt) + 64, 64)
+
+    async def stall(engine) -> dict:
+        """C decodes; once it has 24 tokens D (a new 1024-token prompt)
+        arrives, and its admission evicts cached blocks. Returns C's gaps
+        between rounds before D and the longest one from D's arrival to
+        D's first token."""
+        task = asyncio.create_task(engine.run())
+        times: list = []
+        hc = engine.submit(c_prompt, GenerationConfig(max_tokens=160, temperature=0.0))
+
+        async def consume():
+            async for _ in hc.tokens():
+                times.append(time.perf_counter())
+        consumer = asyncio.create_task(consume())
+        while len(times) < 24:
+            await asyncio.sleep(0.001)
+        st = engine.prefix_cache.stats
+        ev0 = st.evictions
+        t_d = time.perf_counter()
+        hd = engine.submit(d_prompt, GenerationConfig(max_tokens=1, temperature=0.0))
+        async for _ in hd.tokens():
+            pass
+        t_first = time.perf_counter()
+        await consumer
+        engine.stop()
+        await task
+        gaps = [(b - a, b) for a, b in zip(times, times[1:]) if b - a > 1e-3]
+        before = sorted(g for g, t in gaps if t < t_d)
+        during = [g for g, t in gaps if t_d <= t <= t_first + 0.5]
+        return dict(round_gap_ms=before[len(before) // 2] * 1e3,
+                    max_gap_ms=max(during) * 1e3, d_ttft_ms=(t_first - t_d) * 1e3,
+                    evicted=st.evictions - ev0)
+
+    def history(engine):
+        async def runs():
+            res = [(await serve(engine, [[(p, gen)]]))[0]
+                   for p in (a_prompt, b_prompt, a_prompt)]
+            tier_ = engine.prefix_cache.host_tier
+            s0 = (tier_.stats.saved, tier_.stats.save_s) if tier_ is not None else (0, 0.0)
+            gap = await stall(engine)
+            if tier_ is not None:
+                gap.update(saved=tier_.stats.saved - s0[0],
+                           save_host_ms=(tier_.stats.save_s - s0[1]) * 1e3)
+            return res, gap
+        return asyncio.run(runs())
+
+    # Both engines warmed: no decode graph is captured inside the stall.
+    engine = prefix_engine(model, True, num_blocks=nb)
+    engine.warmup()
+    _, plain_gap = history(engine)
+    del engine
+    free_card()
+    t0 = time.perf_counter()
+    engine = prefix_engine(model, True, gpu_prefix_cache=True, num_blocks=nb)
+    build_s = time.perf_counter() - t0
+    engine.warmup()
+    host_tier = engine.prefix_cache.host_tier
+    ptrs = [engine.cache.k.data_ptr(), engine.cache.v.data_ptr()]
+    pool = [p.data_ptr() for p in host_tier._pool]
+    tiered, tier_gap = history(engine)
+    torch.cuda.synchronize()
+    tier = host_tier.stats
+    assert [engine.cache.k.data_ptr(), engine.cache.v.data_ptr()] == ptrs
+    assert [p.data_ptr() for p in host_tier._pool] == pool
+    assert tier.restored >= PREFIX_LEN // 64, tier
+    log(f"  C decoding while D's admission evicts {tier_gap['evicted']} cached blocks: C's "
+        f"round gap {tier_gap['round_gap_ms']:.1f} ms before D, longest "
+        f"{tier_gap['max_gap_ms']:.1f} ms until D's first token ({tier_gap['d_ttft_ms']:.1f} "
+        f"ms) with the host tier ({tier_gap['saved']} blocks saved, "
+        f"{tier_gap['save_host_ms']:.1f} ms of host time queuing them); without it "
+        f"{plain_gap['round_gap_ms']:.1f} / {plain_gap['max_gap_ms']:.1f} ms, D's TTFT "
+        f"{plain_gap['d_ttft_ms']:.1f} ms, {plain_gap['evicted']} evicted ({card})")
+    # A block's save (device -> a slot of the tier's pinned pool) and
+    # restore, on the device's clock, twice over the same slots.
+    cache = engine.cache
+    blocks = list(range(PREFIX_LEN // 64))
+    keys = [b"timed%d" % b for b in blocks]
+    timed = []
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        for b, key in zip(blocks, keys):
+            host_tier.save(key, *block_planes(cache, b))
+        ev[1].record()
+        t1 = time.perf_counter()
+        for b, key in zip(blocks, keys):
+            restore_block(cache, b, host_tier.take(key))
+        ev[2].record()
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        timed.append((ev[0].elapsed_time(ev[1]) / len(blocks),
+                      ev[1].elapsed_time(ev[2]) / len(blocks),
+                      (t1 - t0) / len(blocks) * 1e3, (t2 - t1) / len(blocks) * 1e3))
+    block_mib = host_tier.pool_bytes / host_tier.max_blocks / 2**20
+    pool_gib = host_tier.pool_bytes / 2**30
+    slots = host_tier.max_blocks
+    (save_first_ms, restore_first_ms, _, _), (save_ms, restore_ms, save_host_ms,
+                                              restore_host_ms) = timed
+    del engine, cache, host_tier
+    engine = prefix_engine(model, True)
+
+    async def twice():
+        return [(await serve(engine, [[(a_prompt, gen)]]))[0] for _ in range(2)]
+    device_tier = asyncio.run(twice())
+    del engine
+    free_card()
+    log(f"  host tier ({nb}-block device pool; {slots} host slots, "
+        f"{pool_gib:.2f} GiB pinned once, engine built in {build_s:.2f} s): A, B, A, C + D: "
+        f"{tier.saved} blocks saved, {tier.restored} restored, {tier.dropped} dropped; host "
+        f"s queuing the copies inside scheduling: save {tier.save_s:.4f}, restore "
+        f"{tier.restore_s:.4f}; a {block_mib:.1f} MiB block: save {save_ms:.3f} ms, restore "
+        f"{restore_ms:.3f} ms on the device ({block_mib / 1024 / save_ms * 1e3:.1f} / "
+        f"{block_mib / 1024 / restore_ms * 1e3:.1f} GiB/s), host {save_host_ms:.3f} / "
+        f"{restore_host_ms:.3f} ms to queue; first use of the slots: save "
+        f"{save_first_ms:.3f} ms, restore {restore_first_ms:.3f} ms on the device ({card})")
+    log(f"  A restored from the host tier vs A as a device-tier hit: streams "
+        f"{'equal' if tiered[2]['tokens'] == device_tier[1]['tokens'] else 'DIFFER'}; "
+        f"A cold vs restored: agreement {agreement(tiered[0]['tokens'], tiered[2]['tokens'])}"
+        f" of 64; TTFT cold {tiered[0]['ttft'] * 1e3:.1f} ms, restored "
+        f"{tiered[2]['ttft'] * 1e3:.1f} ms, device hit {device_tier[1]['ttft'] * 1e3:.1f} ms")
+    assert tiered[2]["tokens"] == device_tier[1]["tokens"]
+    out["host_tier"] = dict(saved=tier.saved, restored=tier.restored, save_ms=save_ms,
+                            restore_ms=restore_ms, save_first_ms=save_first_ms,
+                            restore_first_ms=restore_first_ms, block_mib=block_mib,
+                            slots=slots, pool_gib=pool_gib, build_s=build_s,
+                            save_host_s=tier.save_s, restore_host_s=tier.restore_s,
+                            ttft_ms=[r["ttft"] * 1e3 for r in tiered], stall=tier_gap,
+                            stall_without_tier=plain_gap)
+
+    # Wave 2's prefill group under the profiler, the cache on and off.
+    out["profile"] = {}
+    for on in (True, False):
+        engine = prefix_engine(model, on)
+
+        async def runs():
+            await serve(engine, [reqs(range(4), tokens=1)])
+            prof, t0 = start_profile()
+            res = await serve(engine, [reqs(range(4, 8), tokens=1)])
+            return stop_profile(prof, t0), res
+
+        (wall, busy, events, names, _), res = asyncio.run(runs())
+        idle = 1 - busy / wall if busy > 0 else None
+        out["profile"][on] = dict(wall_ms=wall * 1e3, busy_ms=busy * 1e3, idle_share=idle,
+                                  ttft_ms=max(r["ttft"] for r in res) * 1e3)
+        log(f"  profiled wave-2 prefill group, prefix cache {'on' if on else 'off'}: "
+            f"wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms over {events} "
+            f"device events; idle share "
+            + (f"{idle:.2f}" if idle is not None else "not measured (no device events)")
+            + f"; top ops: " + "; ".join(f"{n} {sec * 1e3:.2f} ms/{calls}"
+                                         for n, (sec, calls) in top_ops(names, 5)))
+        del engine
+        free_card()
+    del model
+    free_card()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the normal entry point (checkpoint on disk, tokenizer, HTTP, CLI)
 # ---------------------------------------------------------------------------
 
@@ -1475,27 +1845,178 @@ def _stream_chat(port: int, body: dict) -> dict:
     return out
 
 
+# Engine warmed and not, in turns within one call (ABBA).
+HTTP_TURNS = (True, False, False, True)
+
+
+def parse_metrics(text: str) -> dict:
+    """(sample name, sorted labels) → value of a Prometheus text-format
+    page; raises on a line that is not a comment, a blank or a sample."""
+    import re
+
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = sample.match(line)
+        if m is None:
+            raise ValueError(f"not a sample line: {line!r}")
+        labels = tuple(sorted(label.findall(m.group(3) or "")))
+        out[(m.group(1), labels)] = float(m.group(4))
+    return out
+
+
+def http_turn(sched, ex, texts: list, system: str, warm: bool, card: str) -> dict:
+    """One engine (prefix cache on), warmed or not, behind the port's HTTP
+    server: 8 concurrent requests over http.client (4 streamed chats that
+    share the system message ``system``, 4 completions, 64 greedy tokens
+    each), then one more streamed chat with that system message, whose
+    prompt hits the blocks the first chats cached, then ``GET /metrics``,
+    which must parse, count what was sent back and report the engine's
+    prefix-cache hits (more than none)."""
+    import threading
+
+    import torch
+
+    from blazr_tpu_torch.config.server import ServerConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.server import create_app, serve
+
+    engine = BatchEngine(ex.model, ex.tokenizer, ex.app_cfg)
+    warm_s = engine.warmup() if warm else 0.0
+    stats = graph_stats(engine)
+    app = create_app(sched, ServerConfig(host="127.0.0.1", port=0), batch_engine=engine)
+    loop = asyncio.new_event_loop()
+    stop = asyncio.Event()
+    ready = threading.Event()
+    bound: dict = {}
+
+    def run_loop():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(serve(app, "127.0.0.1", 0, stop=stop,
+                                      started=lambda p: (bound.update(port=p), ready.set())))
+
+    server = threading.Thread(target=run_loop, daemon=True)
+    server.start()
+    try:
+        assert ready.wait(60), "server did not start"
+        port = bound["port"]
+        st, body = _http(port, "GET", "/health")
+        assert st == 200 and json.loads(body)["status"] == "ok", body
+        results: list = [None] * 8
+
+        def chat(text: str) -> dict:
+            return _stream_chat(port, {
+                "messages": [{"role": "system", "content": system},
+                             {"role": "user", "content": text}],
+                "max_tokens": 64, "temperature": 0, "stream": True})
+
+        def one(i: int) -> None:
+            if i % 2 == 0:                 # streamed chat
+                results[i] = chat(texts[i])
+            else:                          # non-streamed completion
+                t0 = time.perf_counter()
+                st, body = _http(port, "POST", "/v1/completions", {
+                    "prompt": texts[i], "max_tokens": 64, "temperature": 0})
+                assert st == 200, (st, body)
+                results[i] = dict(json.loads(body), wall=time.perf_counter() - t0)
+
+        reset_counts()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        hits0 = engine.prefix_cache.stats.hits
+        results.append(chat(texts[1]))     # the system message's blocks are cached now
+        total, stopped, ttfts = 0, 0, []
+        for i, r in enumerate(results):
+            assert r is not None, f"request {i} did not finish"
+            if i % 2 == 0:
+                n = len(r["deltas"])
+                assert r["role"] == "assistant" and r["done"] and r["finish"], r
+                assert r["usage"]["completion_tokens"] == n, (r["usage"], n)
+                assert r["finish"] == "stop" or n == 64, (r["finish"], n)
+                stopped += r["finish"] == "stop"    # its EOS token is no delta
+                if i < 8:
+                    ttfts.append(r["ttft"])
+                log(f"  request {i}: streamed chat, prompt {r['usage']['prompt_tokens']} "
+                    f"tokens, {n} content deltas, finish {r['finish']}, client TTFT "
+                    f"{r['ttft'] * 1e3:.1f} ms, done at {r['wall']:.2f} s")
+            else:
+                choice, usage = r["choices"][0], r["usage"]
+                n = usage["completion_tokens"]
+                st, body = _http(port, "POST", "/tokenize", {"content": texts[i]})
+                assert usage["prompt_tokens"] == json.loads(body)["count"], usage
+                assert choice["finish_reason"] in ("stop", "length"), choice
+                assert choice["finish_reason"] == "stop" or n == 64, (choice, n)
+                log(f"  request {i}: completion, prompt {usage['prompt_tokens']} tokens, "
+                    f"{n} tokens, finish {choice['finish_reason']}, done at "
+                    f"{r['wall']:.2f} s")
+            total += n
+        assert launches["qmm"] > 0 and launches["paged_attention"] > 0, launches
+        st, body = _http(port, "GET", "/metrics")
+        assert st == 200, st
+        got = parse_metrics(body.decode())
+        gen = got[("blazr_tpu_tokens_generated_total", ())]
+        assert gen == total + stopped, (gen, total, stopped)
+        for ep, n in (("chat", 5), ("completions", 4)):
+            assert got[("blazr_tpu_requests_total", (("endpoint", ep), ("status", "200")))] == n
+        assert got[("blazr_tpu_ttft_seconds_count", ())] == 5, got
+        hits = got[("blazr_tpu_prefix_cache_hits_total", ())]
+        assert hits == engine.prefix_cache.stats.hits > hits0, (hits, hits0)
+        assert got[("blazr_tpu_hbm_used_bytes", ())] > 0
+        turn = dict(warm=warm, warm_s=warm_s, ttft_ms=[t * 1e3 for t in ttfts],
+                    ttft_ms_median=sorted(ttfts)[len(ttfts) // 2] * 1e3,
+                    tok_s=total / wall, wall_s=wall, tokens=total, launches=launches,
+                    metrics_tokens_generated=gen, prefix_hits=hits,
+                    followup_hits=hits - hits0, followup_ttft_ms=results[8]["ttft"] * 1e3,
+                    **stats)
+        log(f"  {'warmed' if warm else 'not warmed'} (warmup {warm_s:.2f} s, "
+            f"{stats['captured']} graphs after it, {stats['pool_mib']:.1f} MiB pool): served "
+            f"{total} tokens for 8 HTTP requests in {wall:.2f} s: {total / wall:.1f} tok/s "
+            f"aggregate; streamed-chat client TTFT median {turn['ttft_ms_median']:.1f} ms, "
+            f"max {max(ttfts) * 1e3:.1f} ms ({card}); depth {HTTP_LAYERS} layers, f16")
+        log(f"  request 8: streamed chat after the 8, prompt "
+            f"{results[8]['usage']['prompt_tokens']} tokens, {hits - hits0:.0f} blocks hit, "
+            f"client TTFT {results[8]['ttft'] * 1e3:.1f} ms")
+        log(f"  launches during the 8 HTTP requests: {launches}; /metrics after the 9: "
+            f"tokens_generated_total {gen:.0f}, prefix_cache_hits_total {hits:.0f}, misses "
+            f"{got[('blazr_tpu_prefix_cache_misses_total', ())]:.0f}, hbm_used_bytes "
+            f"{got[('blazr_tpu_hbm_used_bytes', ())]:.0f}")
+    finally:
+        loop.call_soon_threadsafe(stop.set)
+        server.join(120)
+        loop.close()
+    del engine, app
+    free_card()
+    return turn
+
+
 def serve_http(dev, card: str) -> dict:
     """Phase 7: write a full-width Mistral-7B AWQ-INT4 checkpoint (group
     128, 8 layers) and a 32000-token byte-level BPE tokenizer.json to a
     temporary directory; load it through ModelScheduler -> load_model (f16,
     the AWQ default) and serve it from the port's HTTP server with
-    continuous batching; 8 concurrent requests over http.client (4 streamed
-    chats, 4 completions, prompts of 64-512 tokens, 64 greedy tokens each).
-    Then ``python -m blazr_tpu_torch.cli serve`` as a subprocess answers
-    /health and one chat completion."""
+    continuous batching and the prefix cache, as ``cli serve`` does; the
+    engine warmed and not in turns (HTTP_TURNS), each turn 8 concurrent
+    requests (``http_turn``) and ``/metrics``. Then ``python -m
+    blazr_tpu_torch.cli serve`` (warmed) as a subprocess answers /health,
+    one chat completion and /metrics."""
     import shutil
     import socket
     import tempfile
-    import threading
 
     import numpy as np
     import torch
 
-    from blazr_tpu_torch.config.server import ServerConfig
-    from blazr_tpu_torch.engine.batch_engine import BatchEngine
     from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
-    from blazr_tpu_torch.server import create_app, serve
     from blazr_tpu_torch.utils.synthetic import (mistral_7b_config, write_awq_checkpoint,
                                                  write_bpe_tokenizer_json)
 
@@ -1522,92 +2043,23 @@ def serve_http(dev, card: str) -> dict:
             f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
         inf = ex.app_cfg.inference
         inf.max_batch_size = 8
-        inf.prefix_cache = False
-        engine = BatchEngine(model, ex.tokenizer, ex.app_cfg)
-        app = create_app(sched, ServerConfig(host="127.0.0.1", port=0),
-                         batch_engine=engine)
-        loop = asyncio.new_event_loop()
-        stop = asyncio.Event()
-        ready = threading.Event()
-        bound: dict = {}
-
-        def run_loop():
-            asyncio.set_event_loop(loop)
-            loop.run_until_complete(serve(app, "127.0.0.1", 0, stop=stop,
-                                          started=lambda p: (bound.update(port=p),
-                                                             ready.set())))
-
-        server = threading.Thread(target=run_loop, daemon=True)
-        server.start()
-        assert ready.wait(60), "server did not start"
-        port = bound["port"]
-        st, body = _http(port, "GET", "/health")
-        assert st == 200 and json.loads(body)["status"] == "ok", body
-
+        inf.prefix_cache = True                  # as cli serve --continuous-batching
         rng = np.random.default_rng(SEED + 11)
         lens = [64, 512, 200, 333, 128, 480, 96, 256]
         texts = [_prompt_text(ex.tokenizer, n, rng) for n in lens]
-        results: list = [None] * 8
-
-        def one(i: int) -> None:
-            if i % 2 == 0:                 # streamed chat
-                results[i] = _stream_chat(port, {
-                    "messages": [{"role": "user", "content": texts[i]}],
-                    "max_tokens": 64, "temperature": 0, "stream": True})
-            else:                          # non-streamed completion
-                t0 = time.perf_counter()
-                st, body = _http(port, "POST", "/v1/completions", {
-                    "prompt": texts[i], "max_tokens": 64, "temperature": 0})
-                assert st == 200, (st, body)
-                results[i] = dict(json.loads(body), wall=time.perf_counter() - t0)
-
-        reset_counts()
-        t0 = time.perf_counter()
-        clients = [threading.Thread(target=one, args=(i,)) for i in range(8)]
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join(900)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        total = 0
-        ttfts = []
-        for i, r in enumerate(results):
-            assert r is not None, f"request {i} did not finish"
-            if i % 2 == 0:
-                n = len(r["deltas"])
-                assert r["role"] == "assistant" and r["done"] and r["finish"], r
-                assert r["usage"]["completion_tokens"] == n, (r["usage"], n)
-                assert r["finish"] == "stop" or n == 64, (r["finish"], n)
-                ttfts.append(r["ttft"])
-                log(f"  request {i}: streamed chat, prompt {r['usage']['prompt_tokens']} "
-                    f"tokens, {n} content deltas, finish {r['finish']}, client TTFT "
-                    f"{r['ttft'] * 1e3:.1f} ms, done at {r['wall']:.2f} s")
-            else:
-                choice, usage = r["choices"][0], r["usage"]
-                n = usage["completion_tokens"]
-                st, body = _http(port, "POST", "/tokenize", {"content": texts[i]})
-                assert usage["prompt_tokens"] == json.loads(body)["count"], usage
-                assert choice["finish_reason"] in ("stop", "length"), choice
-                assert choice["finish_reason"] == "stop" or n == 64, (choice, n)
-                log(f"  request {i}: completion, prompt {usage['prompt_tokens']} tokens, "
-                    f"{n} tokens, finish {choice['finish_reason']}, done at "
-                    f"{r['wall']:.2f} s")
-            total += n
-        out.update(ttft_ms=[t * 1e3 for t in ttfts], tok_s=total / wall, wall_s=wall,
-                   tokens=total, **launches)
-        log(f"  served {total} tokens for 8 HTTP requests in {wall:.2f} s: "
-            f"{total / wall:.1f} tok/s aggregate; streamed-chat client TTFT "
-            f"median {sorted(ttfts)[len(ttfts) // 2] * 1e3:.1f} ms, max "
-            f"{max(ttfts) * 1e3:.1f} ms ({card}); depth {HTTP_LAYERS} layers, f16")
-        log(f"  launches during the HTTP run: {launches}")
-        assert launches["qmm"] > 0 and launches["paged_attention"] > 0, launches
-        st, _ = _http(port, "GET", "/metrics")
-        assert st == 501, st
-        loop.call_soon_threadsafe(stop.set)
-        server.join(120)
-        del engine, app, sched, ex, model
+        system = _prompt_text(ex.tokenizer, 200, rng)   # the chats' shared system message
+        out["turns"] = []
+        for warm in HTTP_TURNS:
+            turn = http_turn(sched, ex, texts, system, warm, card)
+            out["turns"].append(turn)
+            if warm and "qmm" not in out:
+                out.update(turn["launches"])
+        ttft = {w: [t["ttft_ms_median"] for t in out["turns"] if t["warm"] == w]
+                for w in (True, False)}
+        log(f"  streamed-chat client TTFT median, warmed {ttft[True]} ms, not warmed "
+            f"{ttft[False]} ms ({card})")
+        out.update(ttft_ms=out["turns"][0]["ttft_ms"], tok_s=out["turns"][0]["tok_s"])
+        del sched, ex, model
         torch.cuda.empty_cache()
 
         # The CLI entry point in its own process.
@@ -1615,17 +2067,18 @@ def serve_http(dev, card: str) -> dict:
             s.bind(("127.0.0.1", 0))
             cli_port = s.getsockname()[1]
         env = dict(os.environ, PYTHONPATH=str(TREE))
+        err = open(ckpt / "cli_stderr.txt", "w+")
         proc = subprocess.Popen(
             [sys.executable, "-m", "blazr_tpu_torch.cli", "serve", "--model", str(ckpt),
-             "--continuous-batching", "--host", "127.0.0.1", "--port", str(cli_port),
-             "--no-warmup"], cwd=TREE, env=env, stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE, text=True)
+             "--continuous-batching", "--host", "127.0.0.1", "--port", str(cli_port)],
+            cwd=TREE, env=env, stdout=subprocess.DEVNULL, stderr=err, text=True)
         try:
             t0 = time.perf_counter()
             while True:
                 if proc.poll() is not None:
+                    err.seek(0)
                     raise RuntimeError(f"cli serve exited {proc.returncode}: "
-                                       f"{proc.stderr.read()[-4000:]}")
+                                       f"{err.read()[-4000:]}")
                 try:
                     st, body = _http(cli_port, "GET", "/health", timeout=5)
                     if st == 200:
@@ -1641,8 +2094,18 @@ def serve_http(dev, card: str) -> dict:
             assert st == 200, (st, body)
             reply = json.loads(body)
             assert reply["choices"][0]["finish_reason"] in ("stop", "length"), reply
-            log(f"  cli serve (pid {proc.pid}) answered /health after {up:.1f} s and a "
-                f"chat completion of {reply['usage']['completion_tokens']} tokens")
+            st, body = _http(cli_port, "GET", "/metrics")
+            assert st == 200, st
+            cli_metrics = parse_metrics(body.decode())
+            assert cli_metrics[("blazr_tpu_tokens_generated_total", ())] == \
+                reply["usage"]["completion_tokens"], cli_metrics
+            err.seek(0)
+            warmed = [line for line in err.read().splitlines()
+                      if line.startswith("batch engine warmed in")]
+            assert warmed, "cli serve did not warm its batch engine"
+            log(f"  cli serve (pid {proc.pid}): '{warmed[0]}'; answered /health after "
+                f"{up:.1f} s, a chat completion of {reply['usage']['completion_tokens']} "
+                f"tokens and /metrics")
             out["cli_up_s"] = up
         finally:
             os.kill(proc.pid, 15)
@@ -1651,6 +2114,7 @@ def serve_http(dev, card: str) -> dict:
             except subprocess.TimeoutExpired:
                 os.kill(proc.pid, 9)
                 proc.wait(60)
+            err.close()
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     return out
@@ -2217,8 +2681,8 @@ def timings(dev, gen, res: dict, quant: bool = True) -> list:
 
 
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
-          "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "http", "sweep",
-          "timings", "layout_times")
+          "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "prefix", "http",
+          "sweep", "timings", "layout_times")
 FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
@@ -2310,8 +2774,11 @@ def main() -> int:
          "prompt, 128 greedy tokens", lambda: serve_executor(dev, card, hold=not other)),
         ("serve_int8", "phase 5c: 32-layer BatchEngine under w4a8-prefill with "
          "BLAZR_TPU_STREAM_KERNEL=1", lambda: serve_stream(dev, card)),
+        ("prefix", "phase 6: 32-layer BatchEngine with the prefix cache and its host "
+         "tier, warmed: 8 requests sharing a 1024-token prefix in two waves",
+         lambda: serve_prefix(dev, card)),
         ("http", "phase 7: AWQ checkpoint on disk -> load_model -> OpenAI HTTP server "
-         "(8 concurrent requests) and the CLI serve subprocess",
+         "(8 concurrent requests, warmed and not, /metrics) and the CLI serve subprocess",
          lambda: serve_http(dev, card)),
         ("sweep", "phase 8: the sweeps behind the launch plans of B1-B6",
          lambda: (b1_variants(dev, gen), b2_splits(dev, gen), b3_sweeps(dev, gen),

@@ -23,6 +23,7 @@ from blazr_tpu.engine.sampling import apply_top_k_top_p as jax_topkp
 from blazr_tpu.utils.synthetic import synth_llama_params as jax_synth
 from blazr_tpu.utils.synthetic import synth_model, tiny_llama_config as jax_tiny
 from blazr_tpu_torch.config import AppConfig, GenerationConfig
+from blazr_tpu_torch.config.inference import SpeculativeDecodingConfig
 from blazr_tpu_torch.convert import params_from_jax
 from blazr_tpu_torch.engine import sampling as ts
 from blazr_tpu_torch.engine.batch_engine import BatchEngine
@@ -143,9 +144,16 @@ def test_engine_refuses_what_it_does_not_serve(models):
     with pytest.raises(ValueError, match="int4"):
         BatchEngine(tmodel, _Tok(), a)
     a = AppConfig(model=tmodel.cfg)
-    a.inference.prefix_cache = True
+    a.inference.speculative = SpeculativeDecodingConfig(num_speculative_tokens=2)
     with pytest.raises(NotImplementedError, match="queue A"):
         BatchEngine(tmodel, _Tok(), a)
+    # The prefix cache (and its host tier) is served now.
+    a = AppConfig(model=tmodel.cfg)
+    a.inference.prefix_cache = True
+    a.inference.gpu_prefix_cache = True
+    eng = BatchEngine(tmodel, _Tok(), a)
+    assert eng.scheduler.prefix_cache is eng.prefix_cache is not None
+    assert eng.prefix_cache.host_tier is not None
     eng = BatchEngine(tmodel, _Tok(), AppConfig(model=tmodel.cfg))
     with pytest.raises(NotImplementedError, match="queue A"):
         eng.submit([1, 2], GenerationConfig(json_mode=True))
@@ -255,8 +263,9 @@ def test_port_imports_without_jax_or_blazr_tpu():
                          capture_output=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 58
+    assert len(names) >= 62
     assert {f"blazr_tpu_torch.{m}" for m in (
+        "kvcache.prefix_cache", "kvcache.host_tier", "server.metrics", "server.slo",
         "quant.int8", "kvcache.contiguous", "models.llama", "engine.executor",
         "engine.generate_text", "model_meta.think", "utils.ppl",
         "tools.bench_pa_wide", "tools.bench_pa_headmajor", "formats.safetensors",

@@ -185,6 +185,11 @@ def test_auth_budget_and_unported_routes(model_dir):
             st, _, data = srv.request(method, path.replace("{slot_id}", "1")
                                       .replace("{name}", "a"), {}, auth)
             assert st == 501 and "item 9" in json.loads(data)["error"]["message"]
+        # /metrics is served, without a key (as /health), in the text format.
+        assert ("GET", "/metrics") not in UNPORTED_ROUTES
+        st, headers, data = srv.request("GET", "/metrics")
+        assert st == 200 and headers["Content-Type"].startswith("text/plain")
+        assert b'blazr_tpu_requests_total{endpoint="completions",status="200"} 2.0' in data
         assert srv.request("GET", "/nope", None, auth)[0] == 404
 
 
