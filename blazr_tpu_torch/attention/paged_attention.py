@@ -95,10 +95,12 @@ def paged_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
                               v_scale: Optional[torch.Tensor] = None,
                               sliding_window: Optional[int] = None,
                               logit_softcap: Optional[float] = None,
-                              alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              alibi: Optional[torch.Tensor] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
     """Plain version of B2: dense gather of every table slot, float32
     softmax (``blazr_tpu/attention/paged_attention.py:344`` plus the int8
-    KV scales, applied as ``models/layers.attend`` applies them)."""
+    KV scales, applied as ``models/layers.attend`` applies them). ``scale``
+    multiplies q·k (default ``1/sqrt(D)``)."""
     b, h_q, d = q.shape
     h_kv = k_cache.shape[1]
     mb = block_tables.shape[1]
@@ -106,7 +108,7 @@ def paged_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     n_rep = h_q // h_kv
     k = k_cache[idx].to(torch.float32).repeat_interleave(n_rep, dim=2)
     v = v_cache[idx].to(torch.float32).repeat_interleave(n_rep, dim=2)
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     logits = torch.einsum("bhd,bshd->bhs", q.to(torch.float32) * scale, k)
     if k_scale is not None:
         ks = k_scale[idx].repeat_interleave(n_rep, dim=2)         # [B, S, H_q]
@@ -140,9 +142,12 @@ def paged_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
                            sliding_window: Optional[int] = None,
                            logit_softcap: Optional[float] = None,
                            alibi: Optional[torch.Tensor] = None,
+                           scale: Optional[float] = None,
                            device: DeviceLike = None) -> torch.Tensor:
     """Decode attention over block-table pages on ``device`` (default
-    ``cuda``); every tensor must lie there."""
+    ``cuda``); every tensor must lie there. ``scale`` multiplies q·k before
+    the softcap (default ``1/sqrt(D)``; Gemma2 gives
+    ``query_pre_attn_scalar ** -0.5``)."""
     dev = resolve_device(device)
     check_on(dev, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
              v_scale, alibi)
@@ -162,7 +167,7 @@ def paged_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
         return paged_attention_reference(
             q, k_cache, v_cache, block_tables, seq_lens, block_size=block_size,
             k_scale=k_scale, v_scale=v_scale, sliding_window=sliding_window,
-            logit_softcap=logit_softcap, alibi=alibi)
+            logit_softcap=logit_softcap, alibi=alibi, scale=scale)
 
     quantized = k_scale is not None
     if q.dtype not in _DTYPE_CODE:
@@ -199,7 +204,8 @@ def paged_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
         ptr(v_scale), block_tables.data_ptr(), seq_lens.data_ptr(), ptr(alibi),
         out.data_ptr(), ptr(part_acc), ptr(part_ml), b, h_q, h_kv, d, block_size,
         num_blocks, mb, int(sliding_window or 0), float(logit_softcap or 0.0),
-        1.0 / math.sqrt(d), splits, min_split_slots(block_size), _DTYPE_CODE[q.dtype],
+        1.0 / math.sqrt(d) if scale is None else float(scale), splits,
+        min_split_slots(block_size), _DTYPE_CODE[q.dtype],
         int(quantized),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:

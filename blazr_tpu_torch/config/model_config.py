@@ -68,6 +68,12 @@ class AttentionConfig:
     d_nope: Optional[int] = None             # qk_nope_head_dim (MLA)
     v_head_dim: Optional[int] = None         # MLA value head dim
     sliding_window: Optional[int] = None
+    # Which layers the window applies to (None: every layer). Gemma2 slides
+    # on its even layers only, as HF ``Gemma2Attention`` does.
+    window_layers: Optional[list[bool]] = None
+    # Scores scale by query_pre_attn_scalar ** -0.5 where it is set (HF
+    # Gemma2), else by head_dim ** -0.5.
+    query_pre_attn_scalar: Optional[float] = None
     use_alibi: bool = False
     # qkv bias (Qwen2-style)
     qkv_bias: bool = False
@@ -81,6 +87,18 @@ class AttentionConfig:
         if self.head_dim is not None:
             return self.head_dim
         return hidden_size // self.num_heads
+
+    def layer_window(self, layer: int) -> Optional[int]:
+        """The sliding window of decoder layer ``layer`` (None: global)."""
+        if not self.sliding_window:
+            return None
+        if self.window_layers is not None and not self.window_layers[layer]:
+            return None
+        return self.sliding_window
+
+    def score_scale(self, head_dim: int) -> float:
+        """The factor on q·k before the softcap and the softmax."""
+        return (self.query_pre_attn_scalar or head_dim) ** -0.5
 
     @property
     def is_mla(self) -> bool:
@@ -317,6 +335,19 @@ def vision_config_from_hf(vc: Optional[dict]) -> Optional[VisionConfig]:
     )
 
 
+def _window_layers(model_type: str, cfg: dict[str, Any],
+                   num_layers: int) -> Optional[list[bool]]:
+    """Gemma2's per-layer window: ``layer_types`` where the config lists
+    them, else the even layers (HF ``Gemma2Attention``: ``sliding_window if
+    not layer_idx % 2``). Every other family slides on every layer."""
+    if model_type != "gemma2":
+        return None
+    types = cfg.get("layer_types")
+    if isinstance(types, list) and types:
+        return [t == "sliding_attention" for t in types]
+    return [i % 2 == 0 for i in range(num_layers)]
+
+
 def universal_from_hf_config(cfg: dict[str, Any]) -> UniversalConfig:
     """Convert a HuggingFace ``config.json`` dict to :class:`UniversalConfig`.
 
@@ -380,6 +411,8 @@ def universal_from_hf_config(cfg: dict[str, Any]) -> UniversalConfig:
             d_nope=cfg.get("qk_nope_head_dim"),
             v_head_dim=cfg.get("v_head_dim"),
             sliding_window=cfg.get("sliding_window"),
+            window_layers=_window_layers(model_type, cfg, num_layers),
+            query_pre_attn_scalar=cfg.get("query_pre_attn_scalar"),
             use_alibi=bool(cfg.get("alibi", False)),
             rope_interleave=bool(cfg.get("rope_interleave", True)),
             qkv_bias=bool(

@@ -8,9 +8,10 @@
 // sliding window (keys at or below seq_len-1-W are masked and the walk starts
 // at the first in-window block: slot lo = max(seq_len-W, 0)/BS, at most
 // mb_eff = min(MB, W/BS+2) table slots, the table index clamped to MB-1),
-// softcap tanh(l/c)*c after the 1/sqrt(D) scale, ALiBi slope*(pos-(seq_len-1)),
+// softcap tanh(l/c)*c after the score scale (the caller's: 1/sqrt(D), or
+// Gemma2's query_pre_attn_scalar^-0.5), ALiBi slope*(pos-(seq_len-1)),
 // int8 KV with per-slot-per-head scales. The logits take, in this order, the
-// 1/sqrt(D) scale, the k-scale, softcap, ALiBi and the mask (-1e30); the
+// score scale, the k-scale, softcap, ALiBi and the mask (-1e30); the
 // v-scale multiplies the probabilities before they are rounded to q's dtype.
 // Compute in q's dtype with f32 sums: logits and the AV product take f32 sums
 // of exact products; online softmax in f32; out = acc / max(l, 1e-30), so a

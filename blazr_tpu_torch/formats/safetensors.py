@@ -275,7 +275,7 @@ def write_safetensors(path: str | Path, tensors: dict,
             "shape": list(arr.shape),
             "data_offsets": [offset, offset + nbytes],
         }
-        payload.append(arr.tobytes())
+        payload.append(arr)
         offset += nbytes
     header_bytes = json.dumps(header).encode("utf-8")
     # Pad header to 8-byte alignment like the canonical writer.
@@ -284,5 +284,5 @@ def write_safetensors(path: str | Path, tensors: dict,
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(header_bytes)))
         f.write(header_bytes)
-        for chunk in payload:
-            f.write(chunk)
+        for arr in payload:
+            f.write(memoryview(arr.reshape(-1).view(np.uint8)))

@@ -86,7 +86,10 @@ def load_model(path: str | Path, dtype: Optional[str] = None,
 
 
 def _reconcile_config_with_weights(model_cfg: UniversalConfig, vm: VarMap) -> None:
-    for name in ("model.embed_tokens.weight", "embed_tokens.weight"):
+    """Vocab and hidden size from the embedding's shape (Falcon names it
+    ``transformer.word_embeddings``)."""
+    for name in ("model.embed_tokens.weight", "embed_tokens.weight",
+                 "transformer.word_embeddings.weight"):
         if name in vm:
             v, h = vm.logical_shape(name)
             if model_cfg.vocab_size != v:

@@ -41,6 +41,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
     return (xf * (weight.to(torch.float32) + offset)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+               eps: float) -> torch.Tensor:
+    """Full (mean-centred) LayerNorm in f32: the starcoder2/falcon family."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * weight.to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(x.dtype)
+
+
 def rope_frequencies(cfg: AttentionConfig, head_dim: int,
                      device: torch.device) -> torch.Tensor:
     """Per-dimension inverse frequencies with scaling applied
@@ -168,15 +180,19 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, t, h, d).to(q.dtype)
 
 
-def swiglu_mlp(x: torch.Tensor, gate_w: Any, up_w: Any, down_w: Any,
-               act: str = "silu") -> torch.Tensor:
-    """SwiGLU feed-forward (Llama/Mistral family)."""
-    g = linear(x, gate_w)
-    u = linear(x, up_w)
-    if act == "silu":
-        g = F.silu(g)
-    elif act == "gelu":
-        g = F.gelu(g, approximate="tanh")
-    else:
-        raise ValueError(f"unknown activation {act}")
-    return linear(g * u, down_w)
+def activation(h: torch.Tensor, act: str) -> torch.Tensor:
+    """An MLP activation by name: the plain MLP's ``hidden_act``, or the
+    gate's ``gelu`` (tanh approximation, Gemma) or ``silu``."""
+    if act in ("gelu", "gelu_tanh", "gelu_pytorch_tanh"):
+        return F.gelu(h, approximate="tanh")
+    if act == "gelu_exact":
+        return F.gelu(h)
+    if act == "relu":
+        return F.relu(h)
+    return F.silu(h)
+
+
+def plain_mlp(x: torch.Tensor, fc: Any, fc_b: Optional[torch.Tensor], down: Any,
+              down_b: Optional[torch.Tensor], act: str = "gelu_tanh") -> torch.Tensor:
+    """Non-gated two-layer MLP (starcoder2 c_fc → act → c_proj; falcon)."""
+    return linear(activation(linear(x, fc, fc_b), act), down, down_b)

@@ -1,15 +1,23 @@
-"""Llama-family forward over the contiguous KV cache.
+"""Dense decoder forward over the contiguous KV cache.
 
-Counterpart of ``blazr_tpu/models/llama.py`` (``forward`` :115,
+Counterpart of ``blazr_tpu/models/llama.py`` (``forward`` :115-217,
 ``attention_block``, ``forward_embed`` / ``forward_layers_range`` /
-``forward_head`` :219-316) for the llama and mistral kinds: fused or split
-qkv and gate+up projections (every quantized one through ``quant_matmul``:
-kernel B1, B3 or B4), GQA, the sliding window, rope scaling and
-``layers.attend`` over the cache. K/V are written into the cache in place.
+``forward_head`` :219-316) for the dense families of the JAX package's
+switches: llama, mistral, qwen2 (qkv biases), qwen3 (QK norm), phi3 (fused
+qkv and gate+up), gemma (the +1 norm offset, scaled embeddings, GeGLU),
+gemma2 (also sandwich norms, attention and final softcaps, a window on the
+even layers), starcoder2 (LayerNorm with biases, a plain GELU MLP) and
+falcon (parallel residual blocks, ALiBi in the rw layout). Every quantized
+projection goes through ``quant_matmul`` (kernel B1, B3 or B4); K/V are
+written into the cache in place.
 
-The MoE, plain-MLP (``fc``), parallel-residual, Gemma-norm and LayerNorm
-branches of the JAX forward serve other families and raise
-``NotImplementedError`` (ROADMAP queue A item 11); so does ring attention.
+Where the JAX package is wrong this forward follows transformers, the
+reference its goldens use (ROADMAP §C): Gemma2 slides its window on the
+layers its config names (``AttentionConfig.layer_window``) and scales the
+scores by ``query_pre_attn_scalar ** -0.5``; a fused gate+up takes the
+family's activation; ``forward_layers_range`` and ``forward_head`` keep
+the Gemma norm offset and sandwich norms of ``forward``. MoE, MLA, SSM and
+hybrid models raise (ROADMAP queue A item 11).
 """
 
 from __future__ import annotations
@@ -17,38 +25,41 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..config.model_config import UniversalConfig
 from ..kvcache.contiguous import KVCache, advance, kv_length, write_layer
-from .layers import (alibi_slopes, apply_rope, attend, device_scalar, linear,
-                     rms_norm, rope_cos_sin, rope_frequencies, swiglu_mlp)
+from .layers import (activation, alibi_slopes, apply_rope, attend, device_scalar,
+                     layer_norm, linear, plain_mlp, rms_norm, rope_cos_sin,
+                     rope_frequencies)
 
-_LATER = "(ROADMAP queue A item 11)"
+# The families this forward serves: the JAX package's dense switches.
+SERVED_FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "phi3", "gemma", "gemma2",
+                   "starcoder2", "falcon")
+UNSERVED = ("MoE, MLA, Mamba2/3 and hybrid models are ROADMAP queue A item 11, "
+            "vision towers item 12")
 
 
 def check_config(cfg: UniversalConfig) -> None:
-    """Raise for what this forward does not serve."""
-    if cfg.model_type not in ("llama", "mistral") or cfg.attention is None \
-            or cfg.attention.is_mla:
+    """Raise for what the dense forwards do not serve."""
+    if (cfg.model_type not in SERVED_FAMILIES or cfg.attention is None
+            or cfg.attention.is_mla or cfg.moe is not None or cfg.ssm is not None
+            or cfg.hybrid_layers):
         raise NotImplementedError(
-            f"the contiguous forward serves the llama/mistral kinds, not "
-            f"{cfg.model_type!r} {_LATER}")
-    if cfg.parallel_residual:
-        raise NotImplementedError(f"parallel-residual blocks {_LATER}")
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(f"{cfg.norm_type} blocks {_LATER}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE layers {_LATER}")
+            f"the port serves the dense families ({', '.join(SERVED_FAMILIES)}), "
+            f"not {cfg.model_type!r}: {UNSERVED}")
 
 
-def _check_layer(p: dict[str, Any]) -> None:
-    if p.get("moe") is not None:
-        raise NotImplementedError(f"MoE layers {_LATER}")
-    if p.get("fc") is not None:
-        raise NotImplementedError(f"plain (fc) MLPs {_LATER}")
-    if p.get("post_attn_norm") is not None or p.get("post_ffw_norm") is not None:
-        raise NotImplementedError(f"Gemma sandwich norms {_LATER}")
+def norm_offset(cfg: UniversalConfig) -> float:
+    """Gemma's RMSNorm scales by (1 + w)."""
+    return 1.0 if cfg.model_type in ("gemma", "gemma2") else 0.0
+
+
+def norm(cfg: UniversalConfig, h: torch.Tensor, w: torch.Tensor,
+         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The family's block norm: LayerNorm (starcoder2, falcon) or RMSNorm."""
+    if cfg.norm_type == "layernorm":
+        return layer_norm(h, w, bias, cfg.rms_norm_eps)
+    return rms_norm(h, w, cfg.rms_norm_eps, norm_offset(cfg))
 
 
 def project_qkv(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor,
@@ -84,16 +95,23 @@ def project_qkv(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor,
 def attention_block(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor,
                     cache: KVCache, layer: int, positions: torch.Tensor,
                     kv_len: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                    alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    alibi: Optional[torch.Tensor] = None,
+                    model_layer: Optional[int] = None) -> torch.Tensor:
     """One attention block: projections, rope, in-place cache write, masked
     attention over the cache, output projection. x [B, T, H]; kv_len [B] is
-    the valid length after this block's write."""
+    the valid length after this block's write; ``layer`` is the cache slot,
+    ``model_layer`` (default ``layer``) the decoder layer whose window
+    applies."""
+    att = cfg.attention
     b, t, _ = x.shape
     q, k, v = project_qkv(p, cfg, x, cos, sin, alibi)
     write_layer(cache, layer, k, v, positions)
     out = attend(q, cache.k[layer], cache.v[layer], q_positions=positions,
-                 kv_len=kv_len, sliding_window=cfg.attention.sliding_window,
+                 kv_len=kv_len,
+                 sliding_window=att.layer_window(layer if model_layer is None
+                                                 else model_layer),
                  logit_softcap=cfg.attn_logit_softcapping,
+                 scale=att.score_scale(q.shape[-1]),
                  k_scale=cache.k_scale[layer] if cache.quantized else None,
                  v_scale=cache.v_scale[layer] if cache.quantized else None,
                  alibi=alibi)
@@ -101,13 +119,42 @@ def attention_block(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor,
     return linear(out, p["o"], p.get("o_bias"))
 
 
-def mlp(p: dict[str, Any], h: torch.Tensor) -> torch.Tensor:
-    """Fused gate+up (or split SwiGLU) feed-forward."""
+def mlp(p: dict[str, Any], cfg: UniversalConfig, h: torch.Tensor) -> torch.Tensor:
+    """The family's feed-forward: plain (fc, starcoder2/falcon), fused
+    gate+up, or split gated; the gate takes GELU for Gemma, else SiLU."""
+    if p.get("fc") is not None:
+        return plain_mlp(h, p["fc"], p.get("fc_bias"), p["down"], p.get("down_bias"),
+                         act=cfg.hidden_act)
+    act = "gelu" if norm_offset(cfg) else "silu"
     if p.get("gateup") is not None:
         gu = linear(h, p["gateup"])
         inter = gu.shape[-1] // 2
-        return linear(F.silu(gu[..., :inter]) * gu[..., inter:], p["down"])
-    return swiglu_mlp(h, p["gate"], p["up"], p["down"])
+        return linear(activation(gu[..., :inter], act) * gu[..., inter:], p["down"])
+    return linear(activation(linear(h, p["gate"]), act) * linear(h, p["up"]), p["down"])
+
+
+def decoder_layer(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor,
+                  attn) -> torch.Tensor:
+    """One decoder layer around ``attn(h) → attention output``: the
+    sequential block (with Gemma2's sandwich norms where the layer has them)
+    or Falcon's parallel block, where attention and the MLP read the same
+    normed input (the new architecture's own ``ln_mlp`` in ``post_norm``)."""
+    h = norm(cfg, x, p["input_norm"], p.get("input_norm_bias"))
+    attn_out = attn(h)
+    if cfg.parallel_residual:
+        if p.get("post_norm") is not None:
+            h = norm(cfg, x, p["post_norm"], p.get("post_norm_bias"))
+        return x + attn_out + mlp(p, cfg, h)
+    if p.get("post_attn_norm") is not None:
+        attn_out = rms_norm(attn_out, p["post_attn_norm"], cfg.rms_norm_eps,
+                            norm_offset(cfg))
+    x = x + attn_out
+    h = norm(cfg, x, p["post_norm"], p.get("post_norm_bias"))
+    mlp_out = mlp(p, cfg, h)
+    if p.get("post_ffw_norm") is not None:
+        mlp_out = rms_norm(mlp_out, p["post_ffw_norm"], cfg.rms_norm_eps,
+                           norm_offset(cfg))
+    return x + mlp_out
 
 
 def rope_and_alibi(cfg: UniversalConfig, positions: torch.Tensor):
@@ -144,23 +191,30 @@ def forward_layers_range(params: dict[str, Any], cfg: UniversalConfig,
     x = hidden
     for li in range(start, end):
         p = params["layers"][li]
-        _check_layer(p)
-        h = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
-        x = x + attention_block(p, cfg, h, cache, li - start + cache_layer_offset,
-                                positions, kv_len, cos, sin, alibi)
-        h = rms_norm(x, p["post_norm"], cfg.rms_norm_eps)
-        x = x + mlp(p, h)
+        slot = li - start + cache_layer_offset
+        x = decoder_layer(p, cfg, x, lambda h: attention_block(
+            p, cfg, h, cache, slot, positions, kv_len, cos, sin, alibi,
+            model_layer=li))
     advance(cache, positions, seq_lens)
     return x, cache
 
 
 def forward_head(params: dict[str, Any], cfg: UniversalConfig,
                  hidden: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head → float32 logits."""
-    x = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
+    """Final norm + LM head → float32 logits, Gemma2's final softcap last."""
+    x = norm(cfg, hidden, params["final_norm"], params.get("final_norm_bias"))
     lm_head = params.get("lm_head")
     if lm_head is None:                         # tied embeddings
-        logits = x.to(torch.float32) @ params["embed"].t().to(x.dtype).to(torch.float32)
+        # Products in x's dtype summed in f32, as the JAX dot's
+        # preferred_element_type. On the card a 16-bit x takes cuBLAS's
+        # f32-output GEMM: an f32 copy of the [V, H] table would cost 3.7 GB
+        # of graph pool and 5 ms a step at Gemma2-9B's 256k vocab.
+        w = params["embed"].t().to(x.dtype)
+        if x.is_cuda and x.dtype != torch.float32:
+            logits = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+            logits = logits.reshape(*x.shape[:-1], -1)
+        else:
+            logits = x.to(torch.float32) @ w.to(torch.float32)
     else:
         logits = linear(x, lm_head)
     logits = logits.to(torch.float32)

@@ -1,11 +1,14 @@
-"""Llama-family forward over the paged KV cache.
+"""Dense decoder forward over the paged KV cache.
 
-Counterpart of ``blazr_tpu/models/llama_paged.py`` for the llama/mistral
-family (no MoE, falcon or ring attention in this slice). K/V are written to
-their slots in place; decode (``t == 1``) attends through kernel B2
-(``attention.paged_attention``), prefill gathers each sequence's pages and
-runs ``layers.attend``. The JAX package gates its kernel on
-``head_dim % 128``, a TPU tiling rule; B2 takes head_dim 64 too.
+Counterpart of ``blazr_tpu/models/llama_paged.py`` (``forward_paged``
+:154-250) for the dense families of ``models/llama.py``, with the same
+switches and the same corrections to the reference (no MoE or ring
+attention). K/V are written to their slots in place; decode (``t == 1``)
+attends through kernel B2 (``attention.paged_attention``) with the layer's
+window and score scale, prefill gathers each sequence's pages and runs
+``layers.attend``. The JAX package gates its kernel on ``head_dim % 128``,
+a TPU tiling rule; B2 takes any head_dim that is a multiple of 32 up to 256
+(Falcon's 64, Phi-3's 96).
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ from ..config.model_config import UniversalConfig
 from ..kvcache.paged import (PagedKVCache, gather_page_scales, gather_pages,
                              write_paged_layer)
 from ..utils.device import DeviceLike, check_on, resolve_device
-from .layers import attend, linear, rms_norm
-from .llama import forward_embed, forward_head, mlp, project_qkv, rope_and_alibi
+from .layers import attend, linear
+from .llama import (check_config, decoder_layer, forward_embed, forward_head,
+                    project_qkv, rope_and_alibi)
 
 
 def _paged_attention_block(
@@ -41,6 +45,8 @@ def _paged_attention_block(
     b, t, _ = x.shape
     q, k, v = project_qkv(p, cfg, x, cos, sin, alibi)
     write_paged_layer(cache, layer, k, v, slot_mapping)
+    window = att.layer_window(layer)
+    scale = att.score_scale(q.shape[-1])
 
     if t == 1:
         out = paged_attention_decode(
@@ -48,17 +54,16 @@ def _paged_attention_block(
             seq_lens, block_size=cache.block_size, num_blocks=cache.num_blocks,
             k_scale=cache.k_scale[layer] if cache.quantized else None,
             v_scale=cache.v_scale[layer] if cache.quantized else None,
-            sliding_window=att.sliding_window or None,
-            logit_softcap=cfg.attn_logit_softcapping or None,
-            alibi=alibi, device=x.device)
+            sliding_window=window, logit_softcap=cfg.attn_logit_softcapping or None,
+            scale=scale, alibi=alibi, device=x.device)
     else:
         k_all, v_all = gather_pages(cache, layer, block_tables)
         ks_all = vs_all = None
         if cache.quantized:
             ks_all, vs_all = gather_page_scales(cache, layer, block_tables)
         out = attend(q, k_all, v_all, q_positions=positions, kv_len=seq_lens,
-                     sliding_window=att.sliding_window,
-                     logit_softcap=cfg.attn_logit_softcapping,
+                     sliding_window=window, logit_softcap=cfg.attn_logit_softcapping,
+                     scale=scale,
                      k_scale=ks_all, v_scale=vs_all, alibi=alibi)
     out = out.reshape(b, t, q.shape[2] * q.shape[3]).to(x.dtype)
     return linear(out, p["o"], p.get("o_bias"))
@@ -83,20 +88,14 @@ def forward_paged(
     dev = resolve_device(device)
     check_on(dev, params["embed"], cache.k, tokens, positions, slot_mapping,
              block_tables, seq_lens)
-    if cfg.model_type not in ("llama", "mistral") or cfg.attention is None:
-        raise NotImplementedError(
-            f"forward_paged serves the llama/mistral family, not "
-            f"{cfg.model_type!r} (ROADMAP queue A)")
+    check_config(cfg)
     x = forward_embed(params, cfg, tokens)
     cos, sin, alibi = rope_and_alibi(cfg, positions)
 
     for i, p in enumerate(params["layers"]):
-        h = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
-        x = x + _paged_attention_block(p, cfg, h, cache, i, positions,
-                                       slot_mapping, block_tables, seq_lens,
-                                       cos, sin, alibi)
-        h = rms_norm(x, p["post_norm"], cfg.rms_norm_eps)
-        x = x + mlp(p, h)
+        x = decoder_layer(p, cfg, x, lambda h: _paged_attention_block(
+            p, cfg, h, cache, i, positions, slot_mapping, block_tables, seq_lens,
+            cos, sin, alibi))
 
     if last_idx is not None:
         # Prefill needs the last position's logits only: slice before the

@@ -1,13 +1,14 @@
 """Model registry: UniversalConfig + VarMap → Model handle.
 
 Counterpart of ``blazr_tpu/models/registry.py``: ``ParamBuilder`` (:45),
-``build_llama_layer_params`` (:66), ``build_llama_params`` (:245),
+``build_llama_layer_params`` (:66), ``_split_falcon_qkv`` (:136),
+``build_falcon_params`` (:152), ``build_llama_params`` (:245),
 ``build_model`` (:342) and the ``Model`` handle (:266): the config, the
 params on the device in the model's dtype, and the contiguous-cache forward
 (``llama.forward`` unless another is given), with the introspection and
 cache helpers the ``Executor``, the ``BatchEngine`` and ``utils.ppl`` use.
-``build_model`` serves the llama and mistral families; the others raise
-(ROADMAP queue A item 11).
+``build_model`` serves the dense families of ``SERVED_FAMILIES``; MoE, MLA,
+Mamba2 and hybrid models raise (ROADMAP queue A item 11).
 """
 
 from __future__ import annotations
@@ -21,12 +22,10 @@ from ..config.model_config import UniversalConfig
 from ..kvcache.contiguous import KVCache, init_kv_cache
 from ..quant.qtensor import QuantTensor
 from ..utils.device import DeviceLike, resolve_device
+from .llama import SERVED_FAMILIES, check_config  # noqa: F401 (re-exported)
 
 if TYPE_CHECKING:  # avoids the loader <-> models import cycle
     from ..loader.varmap import VarMap
-
-# Families whose checkpoints build_model serves (the llama layout).
-SERVED_FAMILIES = ("llama", "mistral")
 
 
 def _place(w, dtype: torch.dtype, device: torch.device, transpose: bool = False):
@@ -63,7 +62,9 @@ class ParamBuilder:
 
 def build_llama_layer_params(pb: ParamBuilder, i: int, cfg: UniversalConfig) -> dict:
     """One decoder layer of the llama layout (HF names): separate or fused
-    q/k/v, gated MLP, optional biases and q/k norms."""
+    q/k/v (Phi-3's ``qkv_proj``), a gated, fused gate+up or plain
+    (Starcoder2's ``c_fc``/``c_proj``) MLP, biases, q/k norms, LayerNorm
+    biases and Gemma2's sandwich norms."""
     p = f"model.layers.{i}."
     out: dict[str, Any] = {
         "input_norm": pb.get(p + "input_layernorm.weight"),
@@ -79,7 +80,13 @@ def build_llama_layer_params(pb: ParamBuilder, i: int, cfg: UniversalConfig) -> 
         out["k"] = pb.get(p + "self_attn.k_proj.weight", transpose=True)
         out["v"] = pb.get(p + "self_attn.v_proj.weight", transpose=True)
     gu = pb.get(p + "mlp.gate_up_proj.weight", transpose=True, required=False)
-    if gu is not None:
+    fc = pb.get(p + "mlp.c_fc.weight", transpose=True, required=False)
+    if fc is not None:                      # starcoder2 plain MLP
+        out["fc"] = fc
+        out["fc_bias"] = pb.get(p + "mlp.c_fc.bias", required=False)
+        out["down"] = pb.get(p + "mlp.c_proj.weight", transpose=True)
+        out["down_bias"] = pb.get(p + "mlp.c_proj.bias", required=False)
+    elif gu is not None:
         out["gateup"] = gu
         out["down"] = pb.get(p + "mlp.down_proj.weight", transpose=True)
     else:
@@ -90,11 +97,121 @@ def build_llama_layer_params(pb: ParamBuilder, i: int, cfg: UniversalConfig) -> 
         b = pb.get(p + f"self_attn.{side}_proj.bias", required=False)
         if b is not None:
             out[f"{side}_bias"] = b
+    for key, name in (("input_norm_bias", "input_layernorm.bias"),
+                      ("post_norm_bias", "post_attention_layernorm.bias")):
+        b = pb.get(p + name, required=False)
+        if b is not None:
+            out[key] = b
     qn = pb.get(p + "self_attn.q_norm.weight", required=False)
     if qn is not None:
         out["q_norm"] = qn
         out["k_norm"] = pb.get(p + "self_attn.k_norm.weight")
+    pre_ffw = pb.get(p + "pre_feedforward_layernorm.weight", required=False)
+    if pre_ffw is not None:
+        # Gemma2 names its post-attention sandwich norm
+        # post_attention_layernorm; pre_feedforward takes the post_norm slot.
+        out["post_attn_norm"] = out["post_norm"]
+        out["post_norm"] = pre_ffw
+        out["post_ffw_norm"] = pb.get(p + "post_feedforward_layernorm.weight",
+                                      required=False)
     return out
+
+
+def _split_falcon_qkv(fused: torch.Tensor, n_heads: int, n_kv: int,
+                      head_dim: int) -> tuple[torch.Tensor, ...]:
+    """De-interleave HF falcon's fused query_key_value into contiguous
+    q/k/v (HF ``FalconAttention._split_heads``): grouped [n_kv, q_per + 2,
+    hd] is per-head interleaved [n, 3, hd] when n_kv == n_heads and
+    contiguous q|k|v when n_kv == 1 (multi_query)."""
+    q_per = n_heads // n_kv
+    rest = fused.shape[1:]                   # (hidden,) for W, () for bias
+    g = fused.reshape(n_kv, q_per + 2, head_dim, *rest)
+    q = g[:, :q_per].reshape(n_heads * head_dim, *rest)
+    k = g[:, -2].reshape(n_kv * head_dim, *rest)
+    v = g[:, -1].reshape(n_kv * head_dim, *rest)
+    return q, k, v
+
+
+def build_falcon_params(cfg: UniversalConfig, vm: "VarMap", dtype: torch.dtype,
+                        device: torch.device) -> dict:
+    """Falcon: the fused MQA/GQA query_key_value de-interleaved at load,
+    LayerNorm, a plain GELU MLP, parallel residual blocks. Takes HF names
+    (``transformer.h.{i}.``) and the llama-style names GGUF conversion gives
+    (``model.layers.{i}.``). A quantized fused query_key_value cannot be
+    de-interleaved and is refused, as the JAX loader refuses it."""
+    att = cfg.attention
+    head_dim = att.resolved_head_dim(cfg.hidden_size)
+    n_heads, n_kv = att.num_heads, att.kv_heads()
+    pb = ParamBuilder(vm, dtype, device)
+
+    def first(*names, required=True):
+        for n in names:
+            if n in vm:
+                return n
+        if required:
+            raise KeyError(f"Missing tensor (tried {names})")
+        return None
+
+    def place(t, transpose=False):
+        return _place(t, dtype, device, transpose)
+
+    layers = []
+    for i in range(cfg.num_layers):
+        hf = f"transformer.h.{i}."
+        gg = f"model.layers.{i}."
+        # Old architecture: one input_layernorm (post_attention_layernorm
+        # when sequential); new architecture: ln_attn and ln_mlp.
+        out: dict[str, Any] = {
+            "input_norm": pb.get(hf + "ln_attn.weight", hf + "input_layernorm.weight",
+                                 gg + "input_layernorm.weight"),
+            "input_norm_bias": pb.get(hf + "ln_attn.bias", hf + "input_layernorm.bias",
+                                      gg + "input_layernorm.bias", required=False),
+        }
+        pn = first(hf + "ln_mlp.weight", hf + "post_attention_layernorm.weight",
+                   gg + "pre_feedforward_layernorm.weight",
+                   gg + "post_attention_layernorm.weight", required=False)
+        if pn is not None:
+            out["post_norm"] = pb.get(pn)
+            out["post_norm_bias"] = pb.get(pn[: -len(".weight")] + ".bias",
+                                           required=False)
+        qkv_name = first(hf + "self_attention.query_key_value.weight",
+                         gg + "self_attn.query_key_value.weight")
+        fused = vm.take(qkv_name)
+        if isinstance(fused, QuantTensor):
+            raise ValueError(
+                "quantized falcon checkpoints must store q/k/v unfused "
+                "(a fused query_key_value QuantTensor cannot be de-interleaved)")
+        q, k, v = _split_falcon_qkv(fused, n_heads, n_kv, head_dim)
+        out["q"], out["k"], out["v"] = (place(q, True), place(k, True), place(v, True))
+        bias_name = qkv_name[: -len(".weight")] + ".bias"
+        if bias_name in vm:
+            qb, kb, vb = _split_falcon_qkv(vm.take(bias_name), n_heads, n_kv, head_dim)
+            out["q_bias"], out["k_bias"], out["v_bias"] = place(qb), place(kb), place(vb)
+        out["o"] = pb.get(hf + "self_attention.dense.weight",
+                          gg + "self_attn.o_proj.weight", transpose=True)
+        out["o_bias"] = pb.get(hf + "self_attention.dense.bias",
+                               gg + "self_attn.o_proj.bias", required=False)
+        out["fc"] = pb.get(hf + "mlp.dense_h_to_4h.weight", gg + "mlp.up_proj.weight",
+                           transpose=True)
+        out["fc_bias"] = pb.get(hf + "mlp.dense_h_to_4h.bias", gg + "mlp.up_proj.bias",
+                                required=False)
+        out["down"] = pb.get(hf + "mlp.dense_4h_to_h.weight",
+                             gg + "mlp.down_proj.weight", transpose=True)
+        out["down_bias"] = pb.get(hf + "mlp.dense_4h_to_h.bias",
+                                  gg + "mlp.down_proj.bias", required=False)
+        layers.append(out)
+    params: dict[str, Any] = {
+        "embed": pb.get("transformer.word_embeddings.weight", "model.embed_tokens.weight"),
+        "final_norm": pb.get("transformer.ln_f.weight", "model.norm.weight"),
+        "layers": layers,
+    }
+    fnb = pb.get("transformer.ln_f.bias", "model.norm.bias", required=False)
+    if fnb is not None:
+        params["final_norm_bias"] = fnb
+    params["lm_head"] = pb.get("lm_head.weight", transpose=True, required=False)
+    if params["lm_head"] is None and not cfg.tie_word_embeddings:
+        cfg.tie_word_embeddings = True
+    return params
 
 
 def build_llama_params(cfg: UniversalConfig, vm: "VarMap", dtype: torch.dtype,
@@ -105,6 +222,9 @@ def build_llama_params(cfg: UniversalConfig, vm: "VarMap", dtype: torch.dtype,
         "final_norm": pb.get("model.norm.weight"),
         "layers": [build_llama_layer_params(pb, i, cfg) for i in range(cfg.num_layers)],
     }
+    fnb = pb.get("model.norm.bias", required=False)
+    if fnb is not None:
+        params["final_norm_bias"] = fnb
     params["lm_head"] = pb.get("lm_head.weight", transpose=True, required=False)
     if params["lm_head"] is None and not cfg.tie_word_embeddings:
         cfg.tie_word_embeddings = True
@@ -165,10 +285,7 @@ class Model:
         """Contiguous KV cache on the params' device (int8 or int4 values
         with scales when ``kv_quant``). Recurrent-state and MLA caches come
         with their families (ROADMAP queue A item 11)."""
-        if self.needs_ssm_state or self.cfg.attention is None or self.cfg.attention.is_mla:
-            raise NotImplementedError(
-                f"{self.cfg.model_type!r} caches are not ported yet "
-                "(ROADMAP queue A item 11)")
+        check_config(self.cfg)
         return init_kv_cache(self.num_layers, batch, capacity, self.num_kv_heads,
                              self.head_dim, dtype=self.dtype, quantized=kv_quant,
                              kv_dtype=kv_dtype, device=self.device)
@@ -184,9 +301,7 @@ def build_model(cfg: UniversalConfig, vm: "VarMap", dtype: torch.dtype = torch.b
     """Resolve the architecture, build the params on ``device`` (default
     ``cuda``) and return the Model handle."""
     dev = resolve_device(device)
-    if (cfg.model_type not in SERVED_FAMILIES or cfg.ssm is not None or cfg.moe is not None
-            or cfg.hybrid_layers or cfg.attention is None or cfg.attention.is_mla):
-        raise NotImplementedError(
-            f"model family {cfg.model_type!r} is not served by blazr_tpu_torch yet "
-            f"(it serves {', '.join(SERVED_FAMILIES)}; ROADMAP queue A item 11)")
+    check_config(cfg)
+    if cfg.model_type == "falcon":
+        return Model(cfg, build_falcon_params(cfg, vm, dtype, dev), dtype)
     return Model(cfg, build_llama_params(cfg, vm, dtype, dev), dtype)

@@ -1,13 +1,19 @@
-"""Synthetic llama-family params (no checkpoint exists in this environment).
+"""Synthetic params, checkpoints and tokenizers (no checkpoint is downloaded).
 
 Counterpart of ``blazr_tpu/utils/synthetic.py``: the same configs and the
 same weight distributions, built on the device from a seeded
 ``torch.Generator``. The draws differ from ``jax.random``'s; tests that
 compare the two packages convert the JAX params with ``convert.py``.
+
+Beyond the JAX module: one config per dense family at the published width
+of a public checkpoint (``FAMILY_CONFIGS``), the family extras in
+``synth_llama_params``, and ``write_hf_checkpoint``, which writes a
+family's HF tensor layout (AWQ-INT4 or plain) with its ``config.json``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config.model_config import AttentionConfig, RopeScaling, UniversalConfig
@@ -36,6 +42,97 @@ def llama_3_2_1b_config() -> UniversalConfig:
         ),
         tie_word_embeddings=True,
     )
+
+
+def qwen2_7b_config() -> UniversalConfig:
+    """Qwen/Qwen2.5-7B-Instruct config.json: qkv biases, 7:1 GQA (its
+    sliding_window 131072 is off by use_sliding_window; the loader reads it,
+    as the JAX one does, and it never binds below 131072 tokens)."""
+    return UniversalConfig(
+        model_type="qwen2", vocab_size=152064, hidden_size=3584, num_layers=28,
+        max_seq_len=32768, intermediate_size=18944, rms_norm_eps=1e-6,
+        attention=AttentionConfig(num_heads=28, num_kv_heads=4, head_dim=128,
+                                  rope_theta=1000000.0, sliding_window=131072,
+                                  qkv_bias=True))
+
+
+def qwen3_8b_config() -> UniversalConfig:
+    """Qwen/Qwen3-8B config.json: per-head QK norm."""
+    return UniversalConfig(
+        model_type="qwen3", vocab_size=151936, hidden_size=4096, num_layers=36,
+        max_seq_len=40960, intermediate_size=12288, rms_norm_eps=1e-6,
+        attention=AttentionConfig(num_heads=32, num_kv_heads=8, head_dim=128,
+                                  rope_theta=1000000.0))
+
+
+def phi3_mini_config() -> UniversalConfig:
+    """microsoft/Phi-3-mini-4k-instruct config.json: fused qkv and gate+up,
+    head_dim 96, no GQA, sliding_window 2047."""
+    return UniversalConfig(
+        model_type="phi3", vocab_size=32064, hidden_size=3072, num_layers=32,
+        max_seq_len=4096, intermediate_size=8192, rms_norm_eps=1e-5,
+        attention=AttentionConfig(num_heads=32, num_kv_heads=32, head_dim=96,
+                                  rope_theta=10000.0, sliding_window=2047))
+
+
+def gemma_7b_config() -> UniversalConfig:
+    """google/gemma-7b config.json: GeGLU, (1 + w) norms, scaled and tied
+    embeddings, head_dim 256."""
+    return UniversalConfig(
+        model_type="gemma", vocab_size=256000, hidden_size=3072, num_layers=28,
+        max_seq_len=8192, intermediate_size=24576, rms_norm_eps=1e-6,
+        attention=AttentionConfig(num_heads=16, num_kv_heads=16, head_dim=256,
+                                  rope_theta=10000.0),
+        tie_word_embeddings=True, scale_embeddings=True)
+
+
+def gemma2_9b_config() -> UniversalConfig:
+    """google/gemma-2-9b config.json: sandwich norms, attention and final
+    softcaps 50 / 30, a 4096-token window on the even layers,
+    query_pre_attn_scalar 256."""
+    return UniversalConfig(
+        model_type="gemma2", vocab_size=256000, hidden_size=3584, num_layers=42,
+        max_seq_len=8192, intermediate_size=14336, rms_norm_eps=1e-6,
+        attention=AttentionConfig(num_heads=16, num_kv_heads=8, head_dim=256,
+                                  rope_theta=10000.0, sliding_window=4096,
+                                  window_layers=[i % 2 == 0 for i in range(42)],
+                                  query_pre_attn_scalar=256),
+        tie_word_embeddings=True, scale_embeddings=True,
+        final_logit_softcapping=30.0, attn_logit_softcapping=50.0)
+
+
+def starcoder2_7b_config() -> UniversalConfig:
+    """bigcode/starcoder2-7b config.json: LayerNorm with biases, a plain
+    GELU MLP, biases everywhere, a 4096-token window, tied embeddings (its
+    config sets no tie_word_embeddings; HF's default ties)."""
+    return UniversalConfig(
+        model_type="starcoder2", vocab_size=49152, hidden_size=4608, num_layers=32,
+        max_seq_len=16384, intermediate_size=18432, rms_norm_eps=1e-5,
+        attention=AttentionConfig(num_heads=36, num_kv_heads=4, head_dim=128,
+                                  rope_theta=1000000.0, sliding_window=4096,
+                                  qkv_bias=True),
+        tie_word_embeddings=True, norm_type="layernorm", mlp_type="plain",
+        hidden_act="gelu_tanh")
+
+
+def falcon_7b_config() -> UniversalConfig:
+    """tiiuae/falcon-7b config.json: fused multi-query qkv (71 heads on one
+    kv head of 64), parallel attention and MLP on one LayerNorm, no biases,
+    rope; hidden 4544, not a multiple of 128."""
+    return UniversalConfig(
+        model_type="falcon", vocab_size=65024, hidden_size=4544, num_layers=32,
+        max_seq_len=2048, intermediate_size=18176, rms_norm_eps=1e-5,
+        attention=AttentionConfig(num_heads=71, num_kv_heads=1, head_dim=64,
+                                  rope_theta=10000.0),
+        tie_word_embeddings=True, norm_type="layernorm", mlp_type="plain",
+        hidden_act="gelu_exact", parallel_residual=True)
+
+
+# The dense families at the published width of one public checkpoint each.
+FAMILY_CONFIGS = {"qwen2": qwen2_7b_config, "qwen3": qwen3_8b_config,
+                  "phi3": phi3_mini_config, "gemma": gemma_7b_config,
+                  "gemma2": gemma2_9b_config, "starcoder2": starcoder2_7b_config,
+                  "falcon": falcon_7b_config}
 
 
 def tiny_llama_config(vocab: int = 256) -> UniversalConfig:
@@ -69,9 +166,12 @@ def synth_llama_params(cfg: UniversalConfig, quant: str = "awq",
                        dtype: torch.dtype = torch.bfloat16, group_size: int = 128,
                        seed: int = 0, fuse: bool = True,
                        device: DeviceLike = None) -> dict:
-    """Random llama-family params matching ``cfg`` ('awq' or 'dense') on
-    ``device`` (default ``cuda``). ``fuse=True`` emits fused qkv / gateup
-    projections (the serving layout)."""
+    """Random params of a dense family matching ``cfg`` ('awq' or 'dense')
+    on ``device`` (default ``cuda``). ``fuse=True`` emits fused qkv / gateup
+    projections (the serving layout). Norm weights are ones (zeros where the
+    family scales by 1 + w); the family's extras follow ``cfg``: qkv biases
+    (``qkv_bias``), QK norms (qwen3), Gemma2's sandwich norms, the plain
+    MLP and LayerNorm biases (starcoder2, falcon)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -87,41 +187,79 @@ def synth_llama_params(cfg: UniversalConfig, quant: str = "awq",
             return _rand_awq_qt(gen, k_dim, n_dim, group_size, dev)
         return _rand_dense(gen, k_dim, n_dim, dtype, dev)
 
+    def norm_w(n):
+        fill = 0.0 if cfg.model_type in ("gemma", "gemma2") else 1.0
+        return torch.full((n,), fill, dtype=dtype, device=dev)
+
+    def bias(n):
+        return (torch.randn((n,), device=dev, generator=gen) * 0.02).to(dtype)
+
+    layer_norm = cfg.norm_type == "layernorm"
     layers = []
     for _ in range(cfg.num_layers):
-        layer = {
-            "input_norm": torch.ones((h,), dtype=dtype, device=dev),
-            "post_norm": torch.ones((h,), dtype=dtype, device=dev),
-            "o": lin(q_out, h),
-            "down": lin(inter, h),
-        }
+        layer = {"input_norm": norm_w(h), "post_norm": norm_w(h), "o": lin(q_out, h),
+                 "down": lin(inter, h)}
         if fuse:
             layer["qkv"] = lin(h, q_out + 2 * kv_out)
+        else:
+            layer.update({"q": lin(h, q_out), "k": lin(h, kv_out), "v": lin(h, kv_out)})
+        if att.qkv_bias:
+            if fuse:
+                layer["qkv_bias"] = bias(q_out + 2 * kv_out)
+            else:
+                layer.update({"q_bias": bias(q_out), "k_bias": bias(kv_out),
+                              "v_bias": bias(kv_out)})
+        if cfg.mlp_type == "plain":
+            layer["fc"] = lin(h, inter)
+            if att.qkv_bias:                    # starcoder2: biases everywhere
+                layer.update({"fc_bias": bias(inter), "down_bias": bias(h),
+                              "o_bias": bias(h)})
+        elif fuse:
             layer["gateup"] = lin(h, 2 * inter)
         else:
-            layer.update({"q": lin(h, q_out), "k": lin(h, kv_out),
-                          "v": lin(h, kv_out), "gate": lin(h, inter),
-                          "up": lin(h, inter)})
+            layer.update({"gate": lin(h, inter), "up": lin(h, inter)})
+        if layer_norm:
+            layer.update({"input_norm_bias": bias(h), "post_norm_bias": bias(h)})
+        if cfg.model_type == "qwen3":
+            layer.update({"q_norm": norm_w(hd), "k_norm": norm_w(hd)})
+        if cfg.model_type == "gemma2":
+            layer.update({"post_attn_norm": norm_w(h), "post_ffw_norm": norm_w(h)})
         layers.append(layer)
-    return {
+    params = {
         "embed": _rand_dense(gen, cfg.vocab_size, h, dtype, dev),
-        "final_norm": torch.ones((h,), dtype=dtype, device=dev),
+        "final_norm": norm_w(h),
         "layers": layers,
         "lm_head": None if cfg.tie_word_embeddings
         else _rand_dense(gen, h, cfg.vocab_size, dtype, dev),
     }
+    if layer_norm:
+        params["final_norm_bias"] = bias(h)
+    return params
 
 
 # ---------------------------------------------------------------------------
 # Checkpoints and tokenizers on disk (the normal entry point's inputs)
 # ---------------------------------------------------------------------------
 
+_HF_ARCH = {"llama": "LlamaForCausalLM", "mistral": "MistralForCausalLM",
+            "qwen2": "Qwen2ForCausalLM", "qwen3": "Qwen3ForCausalLM",
+            "phi3": "Phi3ForCausalLM", "gemma": "GemmaForCausalLM",
+            "gemma2": "Gemma2ForCausalLM", "starcoder2": "Starcoder2ForCausalLM",
+            "falcon": "FalconForCausalLM"}
+
+
+def _falcon_new_arch(cfg: UniversalConfig) -> bool:
+    """Falcon's new decoder architecture (grouped kv heads, ln_attn and
+    ln_mlp); the old one is multi-query or one kv head per head."""
+    n_kv = cfg.attention.kv_heads()
+    return 1 < n_kv < cfg.attention.num_heads
+
+
 def hf_config(cfg: UniversalConfig) -> dict:
-    """The HF ``config.json`` fields of a llama-family ``cfg``."""
+    """The HF ``config.json`` fields of a dense-family ``cfg``."""
     att = cfg.attention
     out = {
-        "architectures": ["MistralForCausalLM" if cfg.model_type == "mistral"
-                          else "LlamaForCausalLM"],
+        "architectures": [_HF_ARCH[cfg.model_type]],
         "model_type": cfg.model_type, "hidden_size": cfg.hidden_size,
         "intermediate_size": cfg.resolved_intermediate_size(),
         "num_hidden_layers": cfg.num_layers, "num_attention_heads": att.num_heads,
@@ -133,73 +271,195 @@ def hf_config(cfg: UniversalConfig) -> dict:
     }
     if att.sliding_window is not None:
         out["sliding_window"] = att.sliding_window
+    if cfg.model_type in ("gemma", "gemma2"):
+        out["hidden_activation"] = "gelu_pytorch_tanh"
+    if cfg.model_type == "gemma2":
+        out.update(attn_logit_softcapping=cfg.attn_logit_softcapping,
+                   final_logit_softcapping=cfg.final_logit_softcapping,
+                   query_pre_attn_scalar=att.query_pre_attn_scalar
+                   or att.resolved_head_dim(cfg.hidden_size))
+        if att.window_layers is not None:
+            out["layer_types"] = ["sliding_attention" if w else "full_attention"
+                                  for w in att.window_layers]
+    if cfg.model_type == "starcoder2":
+        out.update(norm_epsilon=cfg.rms_norm_eps, use_bias=True,
+                   hidden_act="gelu_pytorch_tanh")
+    if cfg.model_type == "falcon":
+        new_arch = _falcon_new_arch(cfg)
+        out.update(layer_norm_epsilon=cfg.rms_norm_eps, alibi=att.use_alibi,
+                   bias=att.qkv_bias, parallel_attn=cfg.parallel_residual,
+                   new_decoder_architecture=new_arch,
+                   multi_query=att.kv_heads() == 1)
+        if new_arch:
+            out["num_kv_heads"] = att.kv_heads()
     return out
 
 
-def write_awq_checkpoint(path, cfg: UniversalConfig, group_size: int = 128,
-                         seed: int = 0) -> None:
-    """Write a random AWQ-INT4 checkpoint of ``cfg`` to the directory
-    ``path``: AutoAWQ's own packed ``qweight``/``qzeros`` (uint32, eight
-    interleaved nibbles along N) and f16 ``scales`` for every projection,
-    f16 embeddings, norms and head, and a ``config.json`` with its
-    ``quantization_config``. The weight distribution is that of
-    ``synth_llama_params`` (scales in [0.001, 0.011], zeros in [0, 16))."""
+def _half_bits(rng, n: int, exp: int) -> np.ndarray:
+    """``n`` random f16 values of magnitude in [2^exp, 2^(exp+2)) with a
+    random sign, from raw generator bytes (a full-width embedding is 10^9
+    values; a normal draw would take minutes)."""
+    raw = np.frombuffer(rng.bytes(2 * n), np.uint16)
+    # sign and mantissa random; exponent exp or exp + 1 by one random bit
+    bits = (raw & np.uint16(0x83FF)) + (raw & np.uint16(0x0400)) + np.uint16((exp + 15) << 10)
+    return bits.view(np.float16)
+
+
+def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
+                        group_size: int = 128, seed: int = 0,
+                        dtype: str = "float16", weight_exp: int = -7) -> None:
+    """Write a random checkpoint of the dense family ``cfg.model_type`` in
+    that family's HF tensor layout to the directory ``path``, with its
+    ``config.json``:
+
+    * llama, mistral, qwen2 (q/k/v biases), qwen3 (q/k norms), gemma,
+      gemma2 (sandwich norms): split q/k/v/o and gate/up/down;
+    * phi3: fused ``qkv_proj`` and ``gate_up_proj``;
+    * starcoder2: ``c_fc``/``c_proj``, biases on every projection and norm;
+    * falcon: ``transformer.h.{i}`` names, the fused ``query_key_value`` in
+      HF's grouped layout (multi-query, per-head or the new architecture's
+      groups), ``dense_h_to_4h``/``dense_4h_to_h``, biases with
+      ``qkv_bias``, ``ln_attn``/``ln_mlp`` in the new architecture.
+
+    ``quant="awq"``: every projection as AutoAWQ's packed ``qweight`` /
+    ``qzeros`` (uint32, eight interleaved nibbles along N) and f16
+    ``scales`` in [0.001, 0.011], the rest f16 (the loaders refuse a
+    quantized falcon ``query_key_value``). ``quant="plain"``: every tensor
+    in ``dtype`` ("float16", "bfloat16" or "float32"). Dense weights have a
+    magnitude in [2^weight_exp, 2^(weight_exp+2)) and a random sign; norm
+    weights are 1 + 0.1 N(0,1) (0.1 N(0,1) where the family scales by
+    1 + w), biases 0.02 N(0,1)."""
     import json
     from pathlib import Path
 
-    import numpy as np
-
     from ..formats.safetensors import write_safetensors
 
+    if quant not in ("awq", "plain"):
+        raise ValueError(f"quant must be 'awq' or 'plain', not {quant!r}")
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     att = cfg.attention
+    fam = cfg.model_type
     h = cfg.hidden_size
     hd = att.resolved_head_dim(h)
+    n_q, n_kv = att.num_heads * hd, att.kv_heads() * hd
     inter = cfg.resolved_intermediate_size()
+    falcon = fam == "falcon"
+    float_dt = "float16" if quant == "awq" else dtype
 
-    def words(shape):
-        return rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+    def cast(a: np.ndarray):
+        if float_dt == "bfloat16":
+            return torch.from_numpy(a).to(torch.bfloat16)
+        return a.astype(np.float16 if float_dt == "float16" else np.float32)
 
     def dense(*shape):
-        return (rng.standard_normal(shape, dtype=np.float32) * 0.02).astype(np.float16)
+        return cast(_half_bits(rng, int(np.prod(shape)), weight_exp).reshape(shape))
 
-    tensors = {"model.embed_tokens.weight": dense(cfg.vocab_size, h),
-               "model.norm.weight": np.ones(h, np.float16)}
+    def normal(n, std, mean=0.0):
+        return cast(mean + std * rng.standard_normal(n, dtype=np.float32))
+
+    def words(*shape):
+        return np.frombuffer(rng.bytes(4 * int(np.prod(shape))), np.uint32).reshape(shape)
+
+    tensors: dict = {}
+
+    def linear(name, k, n, bias=False):
+        """HF [out, in] weight (or AWQ's [in, out/8] planes) of ``name``."""
+        if quant == "awq":
+            tensors[name + ".qweight"] = words(k, n // 8)
+            tensors[name + ".qzeros"] = words(k // group_size, n // 8)
+            tensors[name + ".scales"] = (rng.random((k // group_size, n), np.float32)
+                                         * 0.01 + 0.001).astype(np.float16)
+        else:
+            tensors[name + ".weight"] = dense(n, k)
+        if bias:
+            tensors[name + ".bias"] = normal(n, 0.02)
+
+    offset = fam in ("gemma", "gemma2")
+
+    def norm(name, with_bias=False):
+        tensors[name + ".weight"] = normal(h, 0.1, 0.0 if offset else 1.0)
+        if with_bias:
+            tensors[name + ".bias"] = normal(h, 0.02)
+
+    ln = cfg.norm_type == "layernorm"
+    if falcon:
+        tensors["transformer.word_embeddings.weight"] = dense(cfg.vocab_size, h)
+        norm("transformer.ln_f", True)
+    else:
+        tensors["model.embed_tokens.weight"] = dense(cfg.vocab_size, h)
+        norm("model.norm", ln)
     if not cfg.tie_word_embeddings:
         tensors["lm_head.weight"] = dense(cfg.vocab_size, h)
-    projections = {"self_attn.q_proj": (h, att.num_heads * hd),
-                   "self_attn.k_proj": (h, att.kv_heads() * hd),
-                   "self_attn.v_proj": (h, att.kv_heads() * hd),
-                   "self_attn.o_proj": (att.num_heads * hd, h),
-                   "mlp.gate_proj": (h, inter), "mlp.up_proj": (h, inter),
-                   "mlp.down_proj": (inter, h)}
     for i in range(cfg.num_layers):
+        if falcon:
+            p = f"transformer.h.{i}."
+            bias = att.qkv_bias
+            if _falcon_new_arch(cfg):
+                norm(p + "ln_attn", True)
+                norm(p + "ln_mlp", True)
+            else:
+                norm(p + "input_layernorm", True)
+                if not cfg.parallel_residual:
+                    norm(p + "post_attention_layernorm", True)
+            linear(p + "self_attention.query_key_value", h, n_q + 2 * n_kv, bias)
+            linear(p + "self_attention.dense", n_q, h, bias)
+            linear(p + "mlp.dense_h_to_4h", h, inter, bias)
+            linear(p + "mlp.dense_4h_to_h", inter, h, bias)
+            continue
         p = f"model.layers.{i}."
-        tensors[p + "input_layernorm.weight"] = np.ones(h, np.float16)
-        tensors[p + "post_attention_layernorm.weight"] = np.ones(h, np.float16)
-        for name, (k, n) in projections.items():
-            tensors[f"{p}{name}.qweight"] = words((k, n // 8))
-            tensors[f"{p}{name}.qzeros"] = words((k // group_size, n // 8))
-            tensors[f"{p}{name}.scales"] = (rng.random((k // group_size, n), np.float32)
-                                            * 0.01 + 0.001).astype(np.float16)
+        norm(p + "input_layernorm", ln)
+        norm(p + "post_attention_layernorm", ln)
+        bias = fam == "starcoder2"
+        if fam == "phi3":
+            linear(p + "self_attn.qkv_proj", h, n_q + 2 * n_kv)
+        else:
+            qkv_bias = bias or att.qkv_bias
+            linear(p + "self_attn.q_proj", h, n_q, qkv_bias)
+            linear(p + "self_attn.k_proj", h, n_kv, qkv_bias)
+            linear(p + "self_attn.v_proj", h, n_kv, qkv_bias)
+        linear(p + "self_attn.o_proj", n_q, h, bias)
+        if fam == "qwen3":
+            tensors[p + "self_attn.q_norm.weight"] = normal(hd, 0.1, 1.0)
+            tensors[p + "self_attn.k_norm.weight"] = normal(hd, 0.1, 1.0)
+        if fam == "gemma2":
+            norm(p + "pre_feedforward_layernorm")
+            norm(p + "post_feedforward_layernorm")
+        if cfg.mlp_type == "plain":
+            linear(p + "mlp.c_fc", h, inter, bias)
+            linear(p + "mlp.c_proj", inter, h, bias)
+        elif fam == "phi3":
+            linear(p + "mlp.gate_up_proj", h, 2 * inter)
+            linear(p + "mlp.down_proj", inter, h)
+        else:
+            linear(p + "mlp.gate_proj", h, inter)
+            linear(p + "mlp.up_proj", h, inter)
+            linear(p + "mlp.down_proj", inter, h)
     write_safetensors(path / "model.safetensors", tensors)
     config = hf_config(cfg)
-    config["torch_dtype"] = "float16"
-    config["quantization_config"] = {"quant_method": "awq", "bits": 4,
-                                     "group_size": group_size, "zero_point": True,
-                                     "version": "gemm"}
+    config["torch_dtype"] = float_dt
+    if quant == "awq":
+        config["quantization_config"] = {"quant_method": "awq", "bits": 4,
+                                         "group_size": group_size, "zero_point": True,
+                                         "version": "gemm"}
     (path / "config.json").write_text(json.dumps(config, indent=1))
 
 
+# Qwen2's pre-tokenizer split (its tokenizer.json's Split regex).
+QWEN_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}|"
+              r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+
+
 def write_bpe_tokenizer_json(path, vocab_size: int, seed: int = 0,
-                             eos_token: str = "</s>") -> list[bytes]:
+                             eos_token: str = "</s>", style: str = "gpt2") -> list[bytes]:
     """Write a byte-level BPE ``tokenizer.json`` (+ ``tokenizer_config.json``)
     whose vocab covers ids 0 .. vocab_size-1: the 256 byte tokens, merged
     tokens of lower-case letters and spaces up to vocab_size - 1, and the
     special EOS token last. Each merge joins two earlier tokens, so a token's
-    id is its merge rank. Returns the merged tokens' bytes."""
+    id is its merge rank. ``style="qwen"`` writes Qwen2's pre-tokenizer (its
+    Split regex, then ByteLevel without its own regex) in place of GPT-2's
+    ByteLevel. Returns the merged tokens' bytes."""
     import json
     from pathlib import Path
 
@@ -233,11 +493,16 @@ def write_bpe_tokenizer_json(path, vocab_size: int, seed: int = 0,
     vocab = {enc[b]: b for b in range(256)}
     for i, tok in enumerate(merged):
         vocab[unicode(tok)] = 256 + i
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                  "use_regex": True}
     data = {
         "version": "1.0",
         "model": {"type": "BPE", "vocab": vocab, "merges": merges},
-        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
-                          "trim_offsets": True, "use_regex": True},
+        "pre_tokenizer": byte_level if style == "gpt2" else {
+            "type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": QWEN_SPLIT},
+                 "behavior": "Isolated", "invert": False},
+                dict(byte_level, use_regex=False)]},
         "decoder": {"type": "ByteLevel", "add_prefix_space": False,
                     "trim_offsets": True, "use_regex": True},
         "added_tokens": [{"id": vocab_size - 1, "content": eos_token, "special": True}],
@@ -245,3 +510,52 @@ def write_bpe_tokenizer_json(path, vocab_size: int, seed: int = 0,
     (path / "tokenizer.json").write_text(json.dumps(data))
     (path / "tokenizer_config.json").write_text(json.dumps({"eos_token": eos_token}))
     return merged
+
+
+def write_metaspace_tokenizer_json(path, vocab_size: int, seed: int = 0) -> list[bytes]:
+    """Write a Gemma-style ``tokenizer.json`` (+ ``tokenizer_config.json``):
+    a BPE model with ``byte_fallback``, spaces normalized to U+2581 ("▁"),
+    no pre-tokenizer, ``<pad>``/``<eos>``/``<bos>``/``<unk>`` at ids 0-3,
+    the 256 ``<0xXX>`` byte tokens at 4-259, then "▁" and the lower-case
+    letters, then merged tokens of those up to ``vocab_size``. Each merge
+    joins two earlier tokens, so a token's id is its merge rank. Returns the
+    merged tokens' bytes (spaces as b" ")."""
+    import json
+    from pathlib import Path
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    specials = ["<pad>", "<eos>", "<bos>", "<unk>"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    vocab.update({f"<0x{b:02X}>": 4 + b for b in range(256)})
+    pieces = ["▁"] + list("abcdefghijklmnopqrstuvwxyz")
+    for piece in pieces:
+        vocab[piece] = len(vocab)
+    seen = set(pieces)
+    merges: list[str] = []
+    while len(vocab) < vocab_size:
+        for ia, ib in rng.integers(0, len(pieces), (4096, 2)):
+            a, b = pieces[ia], pieces[ib]
+            if len(vocab) == vocab_size or len(a) + len(b) > 12 or a + b in seen:
+                continue
+            seen.add(a + b)
+            pieces.append(a + b)
+            vocab[a + b] = len(vocab)
+            merges.append(f"{a} {b}")
+    data = {
+        "version": "1.0",
+        "normalizer": {"type": "Replace", "pattern": {"String": " "}, "content": "▁"},
+        "pre_tokenizer": None,
+        "model": {"type": "BPE", "vocab": vocab, "merges": merges, "byte_fallback": True,
+                  "unk_token": "<unk>", "fuse_unk": True},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"}]},
+        "added_tokens": [{"id": i, "content": t, "special": True}
+                         for i, t in enumerate(specials)],
+    }
+    (path / "tokenizer.json").write_text(json.dumps(data, ensure_ascii=False))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"bos_token": "<bos>", "eos_token": "<eos>"}))
+    return [p.replace("▁", " ").encode() for p in pieces[27:]]

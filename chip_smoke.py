@@ -12,12 +12,16 @@ Phases, in order; any failure raises and the script exits non-zero:
       nvcc, one process per source, all started together;
   2.  kernel B1 (fused dequant-matmul) against its plain version at the
       Mistral-7B projection shapes (gate+up at the rows around its variants'
-      tile edges) and small edge cases, f16 and f32 included;
+      tile edges), the dense families' new shapes (K 3072-18432, N 4608-49152;
+      FAMILY_B1_SHAPES) and small edge cases, f16 and f32 included;
   3.  kernel B2 (paged decode attention) against its plain version, with
       its sequence splits (one sequence over 32 splits, split edges, empty
       splits under a window), and at the decode graphs' full-width tables
       (64 and 512 slots, sequences of 1 to 4095 tokens, with and without a
-      window) against the plain version and the trimmed tables;
+      window) against the plain version and the trimmed tables; then at the
+      dense families' geometries (head_dim 96 and 256, 1-71 query heads a kv
+      head, Gemma2's softcap 50, score scale and window on its even layers
+      only, f32 and int8 KV) past 4096 tokens;
   3b. kernel B3 (int8-activation matmul) against its plain version: the four
       projections at m ∈ {1, 5, 8, 16, 17, 32, 33, 64, 65, 256, 512, 4096}
       (its decode and wgmma variants and their tile edges), groups 32, 64
@@ -76,17 +80,32 @@ Phases, in order; any failure raises and the script exits non-zero:
       rows, B2 over its split count, B3's two variants over rows
       (DEC_MAX_ROWS) and K splits, B4's K splits, B5's and B6's split
       counts at B2's three points;
+  10. (``families``) each dense family (qwen2, qwen3, phi3, gemma, gemma2,
+      starcoder2, falcon) at its published width, 2 layers, written to disk
+      in its HF layout (AWQ-INT4; Falcon plain bf16) and loaded by
+      load_model onto the card: a 64-token prefill and 4 decode steps of
+      forward_paged (B1, B2) against the CPU f32 forward at 5e-2 of the
+      largest logit, Gemma2 again past a window cut to 64 in a config copy;
+      then Qwen3-8B (36 layers, tables 4096 tokens wide) and Gemma2-9B (42
+      layers, 8192) AWQ-INT4 served as ``cli serve --continuous-batching``
+      serves (prefix cache on, engine warmed): 8 requests of phase 5 in one
+      wave, with decode graphs and without (streams equal), tok/s, ms a
+      decode step, TTFT, then 32 decode steps profiled (idle share);
   9.  timings (device time of one call: CUDA graphs of many calls), B1 over
       rows 1-512 at every projection, B2 at three batch/context points (and
       at B=8, ctx 1024 on full-width tables: at most 1.2x), B3
       at every projection at m ∈ {1, 8, 512} (w4a8, w8a8) and gate+up at
       4096, its quant kernel, B4 at every projection at m ∈ {1, 8, 16, 32},
       B5 and B6 at B2's three points (``layout_times`` runs only these, and
-      is not part of a full run); then one ``{"kernels": [...]}`` JSON line
+      is not part of a full run), B1 at the families' shapes (m 8 and 512)
+      and B2 at their geometries (B=8, ctx 1024); then one
+      ``{"kernels": [...]}`` JSON line
       with each kernel's launches in its serving phase, max error, time,
       bound, plain time and library-call time (B1 and B3: prefill, with
       their decode point under "decode"; B5 and B6: B=8, their other two
-      points under "at").
+      points under "at"), and a row each for B1 and B2 at the families'
+      shapes, with phase 10's launches (Qwen3-8B with graphs).
+Phase 10 runs between phases 7 and 8.
 Each serving run sets the launch counts to 0 just before it and reads
 them just after; a replayed graph adds the launches it holds, and the
 kernels line counts the first run with graphs (the default path). Under
@@ -122,6 +141,11 @@ H100_INT8_OPS = 1979e12             # dense int8 tensor-core peak
 # Mistral-7B projections (K, N): fused qkv, o, fused gate+up, down.
 B1_SHAPES = {"qkv": (4096, 6144), "o": (4096, 4096), "gateup": (4096, 28672),
              "down": (14336, 4096)}
+# The dense families' new B1 shapes (K, N) at their published widths.
+FAMILY_B1_SHAPES = {"phi3 qkv": (3072, 9216), "phi3 gate+up": (3072, 16384),
+                    "qwen3 gate+up": (4096, 24576), "gemma2 gate+up": (3584, 28672),
+                    "qwen2 gate+up": (3584, 37888), "gemma gate+up": (3072, 49152),
+                    "starcoder2 c_fc": (4608, 18432), "starcoder2 c_proj": (18432, 4608)}
 
 
 def log(msg: str) -> None:
@@ -252,6 +276,7 @@ def check_b1(dev, gen) -> dict:
         log(f"  B1 {name:34s} max_abs_err {err:.4g}  tol {tol:.4g}")
         assert err <= tol, f"B1 {name}: {err} > {tol}"
         worst = max(worst, err)
+        return err
 
     for pname, (k, n) in B1_SHAPES.items():
         qw, s, mn = rand_planes(k, n, 4, 128, gen, dev)
@@ -259,6 +284,13 @@ def check_b1(dev, gen) -> dict:
         for m in rows:
             x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
             one(f"{pname} K={k} N={n} m={m}", x, qw, s, mn, 4, True, 128)
+    family_worst = 0.0
+    for pname, (k, n) in FAMILY_B1_SHAPES.items():
+        qw, s, mn = rand_planes(k, n, 4, 128, gen, dev)
+        for m in (1, 8, 64, 512):
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            family_worst = max(family_worst, one(f"{pname} K={k} N={n} m={m}", x, qw, s,
+                                                 mn, 4, True, 128))
     small = [  # name, m, k, n, bits, signed, gs, x dtype (m >= 16: tensor cores)
         ("2-bit unsigned gs16", 7, 512, 256, 2, False, 16, torch.bfloat16),
         ("2-bit unsigned gs16 m=100", 100, 512, 256, 2, False, 16, torch.bfloat16),
@@ -307,7 +339,7 @@ def check_b1(dev, gen) -> dict:
     tol = rel_tol * ref.abs().max().item()
     log(f"  B1 {'GPTQ desc-act perm':34s} max_abs_err {err:.4g}  tol {tol:.4g}")
     assert err <= tol
-    return {"max_abs_err": max(worst, err)}
+    return {"max_abs_err": max(worst, err), "families_max_abs_err": family_worst}
 
 
 B1_ROWS = (1, 8, 16, 32, 64, 128, 512)
@@ -351,6 +383,41 @@ def time_b1(dev, gen) -> dict:
                 f"(x{ms / library_ms:.2f})"
                 + ("" if row["plain_ms"] is None else
                    f", plain {row['plain_ms']:.4f} ms, f16 x {row['f16_ms']:.4f} ms"))
+        del w
+    return rows
+
+
+def time_b1_families(dev, gen) -> dict:
+    """B1 at the dense families' new shapes (FAMILY_B1_SHAPES), m = 8 and
+    512: kernel, bound, plain version and torch.matmul on the
+    bf16-dequantized weight."""
+    import torch
+
+    from blazr_tpu_torch.quant.kernels import qmm, qmm_reference
+    from blazr_tpu_torch.quant.qtensor import dequantize_planes
+
+    gs = 128
+    rows = {}
+    for pname, (k, n) in FAMILY_B1_SHAPES.items():
+        qw, s, mn = rand_planes(k, n, 4, gs, gen, dev)
+        w = dequantize_planes(qw, s, mn, 4, True, gs, torch.bfloat16)
+        for m in (8, 512):
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            ms = time_ms(lambda: qmm(x, qw, s, mn, bits=4, signed=True, group_size=gs,
+                                     device=dev), iters=20)
+            nbytes = qw.numel() * 4 + s.numel() * 8 + x.numel() * 2 + m * n * 2
+            bms, by = bound(nbytes, 2.0 * m * k * n)
+            row = dict(ms=ms, bound_ms=bms, bound_by=by,
+                       library_ms=time_ms(lambda: torch.matmul(x, w), iters=20),
+                       plain_ms=time_eager(lambda: qmm_reference(
+                           x, qw, s, mn, bits=4, signed=True, group_size=gs), iters=3,
+                           warmup=1),
+                       shape=f"{pname} m={m} K={k} N={n}")
+            rows[(pname, m)] = row
+            log(f"  B1 {pname} m={m} K={k} N={n}: kernel {ms:.4f} ms, bound {bms:.4f} ms "
+                f"({by}, x{ms / bms:.1f}), torch.matmul(bf16 dequantized) "
+                f"{row['library_ms']:.4f} ms (x{ms / row['library_ms']:.2f}), plain "
+                f"{row['plain_ms']:.4f} ms")
         del w
     return rows
 
@@ -829,14 +896,42 @@ def check_b2(dev, gen) -> dict:
                                                              width=width), {}))
     cases.append(("full width 64 B=32 ragged<=1024", dict(d=128, bs=64, lens=ragged * 4,
                                                           width=64), {}))
-    worst = 0.0
-    for name, geo, opt in cases:
+    # The dense families (phase 10): head_dim 96 and 256, query heads per kv
+    # head 1, 2, 7, 9 and 71, Gemma2's softcap 50 and score scale on its
+    # sliding (even) and global (odd) layers, past the 4096-token window.
+    fam = [1, 63, 700, 1025, 4097, 5000, 300, 64]
+    g2 = dict(logit_softcap=50.0, scale=256 ** -0.5)
+    family_cases = [
+        ("phi3 d=96 32/32 W=2047", dict(d=96, h_q=32, h_kv=32), dict(sliding_window=2047)),
+        ("phi3 d=96 f16", dict(d=96, h_q=32, h_kv=32, dtype=torch.float16), {}),
+        ("gemma d=256 16/16", dict(d=256, h_q=16, h_kv=16), {}),
+        ("gemma2 d=256 16/8 even layer W=4096", dict(d=256, h_q=16, h_kv=8),
+         dict(g2, sliding_window=4096)),
+        ("gemma2 d=256 16/8 odd layer", dict(d=256, h_q=16, h_kv=8), g2),
+        ("gemma2 full width 128 even layer", dict(d=256, h_q=16, h_kv=8, width=128),
+         dict(g2, sliding_window=4096)),
+        ("gemma2 full width 128 odd layer", dict(d=256, h_q=16, h_kv=8, width=128), g2),
+        ("gemma2 d=256 int8 KV", dict(d=256, h_q=16, h_kv=8, int8=True), g2),
+        ("gemma2 d=256 f32", dict(d=256, h_q=16, h_kv=8, dtype=torch.float32), g2),
+        ("falcon d=64 71/1", dict(d=64, h_q=71, h_kv=1), {}),
+        ("falcon d=64 71/1 f32", dict(d=64, h_q=71, h_kv=1, dtype=torch.float32), {}),
+        ("qwen2 d=128 28/4", dict(d=128, h_q=28, h_kv=4), dict(sliding_window=131072)),
+        ("starcoder2 d=128 36/4 W=4096", dict(d=128, h_q=36, h_kv=4),
+         dict(sliding_window=4096)),
+        ("score scale 144^-0.5 d=128 32/16", dict(d=128, h_q=32, h_kv=16),
+         dict(logit_softcap=50.0, scale=144 ** -0.5)),
+    ]
+    cases += [(name, dict(geo, bs=64, lens=fam), opt) for name, geo, opt in family_cases]
+    worst = family_worst = 0.0
+    first_family = len(cases) - len(family_cases)
+    for i, (name, geo, opt) in enumerate(cases):
         geo = dict(geo)
         lens = geo.pop("lens", ragged)
-        s = pa_inputs(dev, gen, b=len(lens), h_q=32, h_kv=8, seq_lens=lens, **geo)
+        h_q, h_kv = geo.pop("h_q", 32), geo.pop("h_kv", 8)
+        s = pa_inputs(dev, gen, b=len(lens), h_q=h_q, h_kv=h_kv, seq_lens=lens, **geo)
         opt = dict(opt)
         if opt.pop("alibi", False):
-            opt["alibi"] = alibi_slopes(32, dev) * geo["d"] ** -0.5
+            opt["alibi"] = alibi_slopes(h_q, dev) * geo["d"] ** -0.5
         kw = dict(block_size=s["bs"], k_scale=s["ks"], v_scale=s["vs"], **opt)
         got = paged_attention_decode(s["q"], s["kc"], s["vc"], s["bt"], s["sl"],
                                      num_blocks=s["nb"], device=dev, **kw)
@@ -857,8 +952,11 @@ def check_b2(dev, gen) -> dict:
         tol = 1e-2 * max(1.0, ref.abs().max().item())
         log(f"  B2 {name:34s} max_abs_err {err:.4g}  tol {tol:.4g}")
         assert err <= tol, f"B2 {name}: {err} > {tol}"
-        worst = max(worst, err)
-    return {"max_abs_err": worst}
+        if i >= first_family:
+            family_worst = max(family_worst, err)
+        else:
+            worst = max(worst, err)
+    return {"max_abs_err": worst, "families_max_abs_err": family_worst}
 
 
 def sdpa_ms(q, k, v, h_q, h_kv) -> float:
@@ -932,6 +1030,52 @@ def time_b2(dev, gen) -> dict:
         log(f"  B2 B={b} ctx={ctx}: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, "
             f"{nbytes / 1e6:.1f} MB, x{ms / bms:.1f}), SDPA(GQA, gathered KV) "
             f"{library_ms:.4f} ms{extra}")
+        del s
+    return rows
+
+
+# The dense families' B2 points at B=8, ctx 1024, bf16 KV: (name, H_q, H_kv,
+# D, window, softcap, score scale).
+FAMILY_B2_POINTS = (("gemma d=256 16/16", 16, 16, 256, None, None, None),
+                    ("phi3 d=96 32/32", 32, 32, 96, 2047, None, None),
+                    ("falcon d=64 71/1", 71, 1, 64, None, None, None),
+                    ("gemma2 d=256 16/8 softcap 50", 16, 8, 256, 4096, 50.0, 256 ** -0.5))
+
+
+def time_b2_families(dev, gen) -> dict:
+    """B2 at FAMILY_B2_POINTS: kernel, bound, plain version and SDPA on
+    pre-gathered KV (none under a softcap: SDPA computes another function)."""
+    from blazr_tpu_torch.attention.paged_attention import (
+        paged_attention_decode, paged_attention_reference)
+    from blazr_tpu_torch.kvcache.paged import page_slot_index
+
+    b, ctx, bs = 8, 1024, 64
+    rows = {}
+    for name, h_q, h_kv, d, window, softcap, scale in FAMILY_B2_POINTS:
+        s = pa_inputs(dev, gen, b=b, h_q=h_q, h_kv=h_kv, d=d, bs=bs, seq_lens=[ctx] * b)
+        kw = dict(block_size=bs, sliding_window=window, logit_softcap=softcap, scale=scale)
+        ms = time_ms(lambda: paged_attention_decode(
+            s["q"], s["kc"], s["vc"], s["bt"], s["sl"], num_blocks=s["nb"], device=dev,
+            **kw), iters=100)
+        library_ms = None
+        if softcap is None:
+            idx = page_slot_index(bs, s["bt"])
+            k = s["kc"][idx].permute(0, 2, 1, 3).contiguous()
+            v = s["vc"][idx].permute(0, 2, 1, 3).contiguous()
+            library_ms = sdpa_ms(s["q"], k, v, h_q, h_kv)
+            del k, v
+        keys = min(ctx, window or ctx)
+        nbytes = (2 * b * keys * h_kv * d * 2 + 2 * b * h_q * d * 2
+                  + s["bt"].numel() * 4 + b * 4)
+        bms, by = bound(nbytes, 4.0 * b * h_q * keys * d)
+        row = dict(ms=ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
+                   plain_ms=time_eager(lambda: paged_attention_reference(
+                       s["q"], s["kc"], s["vc"], s["bt"], s["sl"], **kw), iters=10),
+                   shape=f"{name} B={b} ctx={ctx}")
+        rows[name] = row
+        log(f"  B2 {name} B={b} ctx={ctx}: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+            f"x{ms / bms:.1f}), plain {row['plain_ms']:.4f} ms, SDPA(GQA, gathered KV) "
+            + (f"{library_ms:.4f} ms" if library_ms is not None else "none (softcap)"))
         del s
     return rows
 
@@ -1115,36 +1259,41 @@ def to_cpu_f32(tree):
     return tree
 
 
-def teacher_forced(dev) -> None:
+def card_vs_cpu(dev, cfg, params, cpu_params, lens, tag: str, steps: int = 4,
+                bs: int = 64, rel_tol: float = 5e-2) -> float:
+    """Teacher-forced forward_paged of ``cfg`` on the card (``params``, bf16)
+    and on the CPU (``cpu_params``, f32): one padded prefill of the
+    sequences ``lens``, then ``steps`` decode steps through B2 (its plain
+    version on the CPU). Card in bf16 against the CPU in f32: activations
+    are rounded to bf16 between every op on the card, so the logits agree
+    to a few 1e-2 of their largest magnitude (``rel_tol``), not to f32
+    precision. Returns the worst relative error."""
     import numpy as np
     import torch
 
     from blazr_tpu_torch.kvcache.paged import (compute_slot_mapping,
                                                init_paged_cache, pad_block_table)
     from blazr_tpu_torch.models.llama_paged import forward_paged
-    from blazr_tpu_torch.utils.synthetic import mistral_7b_config, synth_llama_params
 
-    cfg = mistral_7b_config()
-    cfg.num_layers = 2
-    params = synth_llama_params(cfg, quant="awq", dtype=torch.bfloat16, seed=SEED,
-                                device=dev)
-    cpu_params = to_cpu_f32(params)
+    att = cfg.attention
+    hd = att.resolved_head_dim(cfg.hidden_size)
     rng = np.random.default_rng(SEED)
-    lens, bs, steps = [64, 100, 37, 128], 64, 4
-    blocks = [[0, 1, 2], [3, 4, 5], [6, 7, 8], [9, 10, 11]]
-    tables = np.stack([pad_block_table(b, 4) for b in blocks])
+    nblk = [-(-(n + steps) // bs) for n in lens]
+    blocks = [list(range(sum(nblk[:i]), sum(nblk[:i + 1]))) for i in range(len(lens))]
+    tables = np.stack([pad_block_table(b, max(nblk)) for b in blocks])
     seqs = [rng.integers(0, cfg.vocab_size, n + steps) for n in lens]
 
     def cache(d, dtype):
-        return init_paged_cache(2, 12, bs, 8, 128, dtype=dtype, device=d)
+        return init_paged_cache(cfg.num_layers, sum(nblk), bs, att.kv_heads(), hd,
+                                dtype=dtype, device=d)
 
     caches = {"gpu": cache(dev, torch.bfloat16),
               "cpu": cache(torch.device("cpu"), torch.float32)}
     trash = caches["cpu"].trash_slot
-    t = 128
-    tok = np.zeros((4, t), np.int64)
-    pos = np.zeros((4, t), np.int64)
-    slots = np.full((4, t), trash, np.int64)
+    b, t = len(lens), max(lens)
+    tok = np.zeros((b, t), np.int64)
+    pos = np.zeros((b, t), np.int64)
+    slots = np.full((b, t), trash, np.int64)
     for i, n in enumerate(lens):
         tok[i, :n] = seqs[i][:n]
         pos[i, :n] = np.arange(n)
@@ -1155,30 +1304,45 @@ def teacher_forced(dev) -> None:
         p = np.array([[n + j] for n in lens], np.int64)
         inputs.append((np.array([[seqs[i][n + j]] for i, n in enumerate(lens)]), p,
                        np.stack([compute_slot_mapping(blocks[i], int(p[i, 0]), 1, bs,
-                                                      trash) for i in range(4)]).astype(np.int64),
+                                                      trash) for i in range(b)]).astype(np.int64),
                        (p[:, 0] + 1).astype(np.int32), None))
-    # Card in bf16 against the CPU in f32: activations are rounded to bf16
-    # between every op on the card, so the logits agree to a few 1e-2 of
-    # their largest magnitude, not to f32 precision.
-    rel_tol = 5e-2
+    worst = 0.0
     for step, (tk, ps, sl, lens_, last) in enumerate(inputs):
         out = {}
         for name, d, pr in (("gpu", dev, params), ("cpu", torch.device("cpu"), cpu_params)):
             def tt(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(d)
-            logits, _ = forward_paged(pr, cfg, tt(tk), caches[name], tt(ps), tt(sl),
-                                      tt(tables), tt(lens_),
-                                      last_idx=None if last is None else tt(last),
-                                      device=d)
+            with torch.no_grad():
+                logits, _ = forward_paged(pr, cfg, tt(tk), caches[name], tt(ps), tt(sl),
+                                          tt(tables), tt(lens_),
+                                          last_idx=None if last is None else tt(last),
+                                          device=d)
             out[name] = logits.float().cpu()
         g, c = out["gpu"], out["cpu"]
         assert g.shape == c.shape and torch.isfinite(g).all()
         rel = ((g - c).abs().max() / c.abs().max()).item()
         agree = (g.argmax(-1) == c.argmax(-1)).float().mean().item()
-        log(f"  forward step {step} ({'prefill' if step == 0 else 'decode'}): "
+        log(f"  {tag} step {step} ({'prefill' if step == 0 else 'decode'}): "
             f"max|gpu-cpu|/max|cpu| {rel:.4g} (tol {rel_tol}), argmax agreement {agree:.2f}")
-        assert rel <= rel_tol, f"teacher-forced step {step}: {rel} > {rel_tol}"
-    del params, caches
+        assert rel <= rel_tol, f"{tag} teacher-forced step {step}: {rel} > {rel_tol}"
+        worst = max(worst, rel)
+    del caches
+    return worst
+
+
+def teacher_forced(dev) -> None:
+    """Phase 4: the 2-layer full-width Mistral-7B AWQ forward_paged, card
+    against CPU, over sequences of 64, 100, 37 and 128 tokens."""
+    import torch
+
+    from blazr_tpu_torch.utils.synthetic import mistral_7b_config, synth_llama_params
+
+    cfg = mistral_7b_config()
+    cfg.num_layers = 2
+    params = synth_llama_params(cfg, quant="awq", dtype=torch.bfloat16, seed=SEED,
+                                device=dev)
+    card_vs_cpu(dev, cfg, params, to_cpu_f32(params), [64, 100, 37, 128], "forward")
+    del params
     torch.cuda.empty_cache()
 
 
@@ -2017,7 +2181,7 @@ def serve_http(dev, card: str) -> dict:
     import torch
 
     from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
-    from blazr_tpu_torch.utils.synthetic import (mistral_7b_config, write_awq_checkpoint,
+    from blazr_tpu_torch.utils.synthetic import (mistral_7b_config, write_hf_checkpoint,
                                                  write_bpe_tokenizer_json)
 
     cfg = mistral_7b_config()
@@ -2026,7 +2190,7 @@ def serve_http(dev, card: str) -> dict:
     out: dict = {}
     try:
         t0 = time.perf_counter()
-        write_awq_checkpoint(ckpt, cfg, group_size=128, seed=SEED)
+        write_hf_checkpoint(ckpt, cfg, quant="awq", group_size=128, seed=SEED)
         write_bpe_tokenizer_json(ckpt, cfg.vocab_size, seed=SEED)
         size = sum(f.stat().st_size for f in ckpt.iterdir())
         log(f"  wrote {HTTP_LAYERS}-layer Mistral-7B AWQ-INT4 checkpoint ({size / 1e9:.2f} GB) "
@@ -2226,14 +2390,15 @@ def short_name(name: str) -> str:
 
 
 def profile_serving(dev, model, card: str, quant_compute: str = "w4a16",
-                    graphs: bool = True) -> dict:
+                    graphs: bool = True, engine=None) -> dict:
     """Phases 5's and 5c's profile: one BatchEngine (decode graphs on or
-    off) under torch.profiler, first over one prefill group of 4 prompts
-    (64-512 tokens) that stop after their first token, then over the decode
-    steps of the same 4 run to 33 tokens: the window opens once every first
-    token is in and closes when the last token is, so it holds decode rounds
-    only (counted on the device: B2's kernels over the layers). A run to 2
-    tokens before them captures the decode graph."""
+    off; ``engine`` if given) under torch.profiler, first over one prefill
+    group of 4 prompts (64-512 tokens) that stop after their first token,
+    then over the decode steps of the same 4 run to 33 tokens: the window
+    opens once every first token is in and closes when the last token is,
+    so it holds decode rounds only (counted on the device: B2's kernels
+    over the layers). A run to 2 tokens before them captures the decode
+    graph."""
     import numpy as np
 
     from blazr_tpu_torch.config import GenerationConfig
@@ -2241,7 +2406,7 @@ def profile_serving(dev, model, card: str, quant_compute: str = "w4a16",
     cfg = model.cfg
     rng = np.random.default_rng(SEED + 9)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (64, 512, 200, 333)]
-    engine = make_engine(model, quant_compute, graphs)
+    engine = engine or make_engine(model, quant_compute, graphs)
 
     def wave(tokens: int):
         return [(p, GenerationConfig(max_tokens=tokens, temperature=0.0)) for p in prompts]
@@ -2495,6 +2660,160 @@ def ppl_gate(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10 (families): the dense families
+# ---------------------------------------------------------------------------
+
+# The serving models: (family, depth, the engine's max_seq_len). Qwen3-8B at
+# full depth with Mistral's 4096-token tables (64 slots); Gemma2-9B at its
+# published 8192 (128 slots), so its window (66 slots) and its global layers
+# walk different spans and take different B2 split plans.
+FAMILY_SERVING = (("qwen3", 36, 4096), ("gemma2", 42, 8192))
+FAMILY_REQUEST_LENS = (64, 512, 200, 333, 128, 480, 96, 256)
+
+
+def family_forwards(dev) -> dict:
+    """Phase 10, part 1: each dense family at its published width, 2 layers,
+    written to disk in its HF layout (AWQ-INT4, group 128; Falcon plain
+    bf16), loaded by load_model onto the card (bf16), a 64-token prefill
+    and 4 decode steps against the port's CPU f32 forward on the same
+    params; then Gemma2 past its window in a config copy whose window is cut
+    to 64 (layer 0 slides, layer 1 does not). B1 and B2 launches counted
+    per family."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from blazr_tpu_torch.loader import load_model
+    from blazr_tpu_torch.utils.synthetic import FAMILY_CONFIGS, write_hf_checkpoint
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="families-") as root:
+        for family, make in FAMILY_CONFIGS.items():
+            cfg = make()
+            cfg.num_layers = 2
+            d = Path(root) / family
+            t0 = time.perf_counter()
+            write_hf_checkpoint(d, cfg, quant="plain" if family == "falcon" else "awq",
+                                seed=SEED, dtype="bfloat16")
+            t1 = time.perf_counter()
+            model, _ = load_model(d, dtype="bf16", device=dev)
+            t2 = time.perf_counter()
+            shutil.rmtree(d)
+            cpu = to_cpu_f32(model.params)
+            reset_counts()
+            err = card_vs_cpu(dev, model.cfg, model.params, cpu, [64, 37], family)
+            counts = read_counts()
+            assert counts["paged_attention"] == 2 * 4, counts
+            assert counts["qmm"] > 0 or family == "falcon", counts
+            row = dict(max_rel_err=err, qmm=counts["qmm"],
+                       paged_attention=counts["paged_attention"])
+            if family == "gemma2":
+                att = dataclasses.replace(model.cfg.attention, sliding_window=64)
+                cut = dataclasses.replace(model.cfg, attention=att)
+                assert [att.layer_window(i) for i in range(2)] == [64, None]
+                row["window_64_max_rel_err"] = card_vs_cpu(
+                    dev, cut, model.params, cpu, [200, 130],
+                    "gemma2 (config copy, window cut to 64: layer 0 slides, layer 1 not)")
+            log(f"  {family}: {cfg.hidden_size}d, vocab {cfg.vocab_size}, 2 layers; "
+                f"written in {t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s; max rel err "
+                f"{err:.4g}; launches B1 {counts['qmm']}, B2 {counts['paged_attention']}")
+            out[family] = row
+            del model, cpu
+            free_card()
+    return out
+
+
+def family_engine(model, graphs: bool, max_seq_len: int):
+    """A BatchEngine as ``serve --continuous-batching`` builds it (prefix
+    cache on, w4a16, block 64, max batch 8, horizon 8, pipe depth 2),
+    warmed; (engine, warmup s)."""
+    engine = prefix_engine(model, True, graphs=graphs, max_seq_len=max_seq_len)
+    return engine, engine.warmup()
+
+
+def family_serving(dev, card: str, family: str, layers: int, max_seq_len: int) -> dict:
+    """Phase 10, parts 2 and 3: a family's published-width model, AWQ-INT4 on
+    the card, serving 8 requests (prompts of 64-512 tokens, 64 new tokens
+    each: 6 greedy, 2 sampled) in one wave through a warmed engine with
+    decode graphs and without: tok/s, ms a decode step, TTFT; the streams
+    equal both ways; B1 and B2 launched with graphs (the launch counts of
+    that run, set to 0 just before it). Then 32 decode steps profiled."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.utils.synthetic import FAMILY_CONFIGS, synth_llama_params
+
+    cfg = FAMILY_CONFIGS[family]()
+    cfg.num_layers = layers
+    t0 = time.perf_counter()
+    model = Model(cfg, synth_llama_params(cfg, quant="awq", dtype=torch.bfloat16,
+                                          seed=SEED, device=dev), torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"  synthesized {layers}-layer {family} ({cfg.hidden_size}d, vocab "
+        f"{cfg.vocab_size}) AWQ-INT4 on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 5)
+    reqs = []
+    for i, n in enumerate(FAMILY_REQUEST_LENS):
+        gen = (GenerationConfig(max_tokens=64, temperature=0.7, top_p=0.9, seed=100 + i)
+               if i in (2, 6) else GenerationConfig(max_tokens=64, temperature=0.0))
+        reqs.append((rng.integers(0, cfg.vocab_size, n).tolist(), gen))
+    turns, streams, launches = {}, {}, None
+    for graphs in (True, False):
+        engine, warm_s = family_engine(model, graphs, max_seq_len)
+        reset_counts()
+        t0 = time.perf_counter()
+        results = asyncio.run(serve(engine, [reqs]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        assert counts["qmm"] > 0 and counts["paged_attention"] > 0, counts
+        assert all(len(r["tokens"]) == 64 and all(0 <= t < cfg.vocab_size
+                                                  for t in r["tokens"]) for r in results)
+        streams[graphs] = [r["tokens"] for r in results]
+        if graphs:
+            launches = counts
+        ttft = sorted(r["ttft"] for r in results)
+        stats = graph_stats(engine)
+        turn = dict(tok_s=8 * 64 / wall,
+                    ms_per_step=engine.perf["decode"] / engine.horizon_steps * 1e3,
+                    ttft_ms_median=ttft[len(ttft) // 2] * 1e3, ttft_ms_max=ttft[-1] * 1e3,
+                    warmup_s=warm_s, steps=engine.horizon_steps, **stats)
+        turns[graphs] = turn
+        log(f"  {family} graphs {'on ' if graphs else 'off'}: 512 tokens in {wall:.2f} s, "
+            f"{turn['tok_s']:.1f} tok/s; {turn['ms_per_step']:.2f} ms a decode step "
+            f"({turn['steps']} steps); TTFT median {turn['ttft_ms_median']:.1f} ms, max "
+            f"{turn['ttft_ms_max']:.1f} ms; warmed in {warm_s:.2f} s ({turn['captured']} "
+            f"graphs, {turn['pool_mib']:.1f} MiB pool); launches {counts} ({card}; depth "
+            f"{layers}, max_seq_len {max_seq_len})")
+        del engine
+        free_card()
+    equal = streams[True] == streams[False]
+    log(f"  {family}: the 8 streams (6 greedy, 2 sampled) with graphs "
+        f"{'equal' if equal else 'DIFFER from'} those without")
+    assert equal, [i for i, (a, b) in enumerate(zip(streams[True], streams[False]))
+                   if a != b]
+    engine, _ = family_engine(model, True, max_seq_len)
+    profile = profile_serving(dev, model, card, engine=engine)
+    del engine, model
+    free_card()
+    return dict(launches, turns=turns, profile=profile)
+
+
+def families(dev, card: str) -> dict:
+    """Phase 10: the dense families (family_forwards), then Qwen3-8B and
+    Gemma2-9B served (family_serving). The kernels line takes its family
+    rows' launches from Qwen3-8B's run with graphs."""
+    out = {"forwards": family_forwards(dev)}
+    for family, layers, ctx in FAMILY_SERVING:
+        out[family] = family_serving(dev, card, family, layers, ctx)
+    out.update(qmm=out["qwen3"]["qmm"], paged_attention=out["qwen3"]["paged_attention"])
+    return out
+
+
 B3_TIMED_ROWS = (1, 8, 512)
 
 
@@ -2614,12 +2933,13 @@ def time_b4(dev, gen) -> dict:
     return rows
 
 
-def timings(dev, gen, res: dict, quant: bool = True) -> list:
+def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> list:
     """Phase 9: every kernel's time, bound, plain and library time, and the
     launches of the serving phase that ran it; returns the kernels line.
     Uses only the kernels' public wrappers, so ``--tree`` times another
     checkout's kernels; ``quant=False`` (a checkout from before B3's
-    activation quant was one kernel) leaves that kernel out."""
+    activation quant was one kernel) leaves that kernel out, and
+    ``families=False`` (another checkout) the dense families' rows."""
     t1 = time_b1(dev, gen)
     t2 = time_b2(dev, gen)
     t3 = time_b3(dev, gen)
@@ -2627,6 +2947,8 @@ def timings(dev, gen, res: dict, quant: bool = True) -> list:
     t4 = time_b4(dev, gen)
     t5 = time_layout(dev, gen, "wide")
     t6 = time_layout(dev, gen, "headmajor")
+    f1 = time_b1_families(dev, gen) if families else None
+    f2 = time_b2_families(dev, gen) if families else None
 
     def got(phase, key):
         return res.get(phase, {}).get(key)
@@ -2677,12 +2999,28 @@ def timings(dev, gen, res: dict, quant: bool = True) -> list:
              launches=got("tools", "pa_headmajor"), max_abs_err=got("b6", "max_abs_err"),
              **{key: t6[B2_SHAPES[0]][key] for key in keys},
              at=[{key: t6[sh][key] for key in keys} for sh in B2_SHAPES[1:]]),
-    ]
+    ] + ([
+        dict(name="qmm_w4a16 (B1), dense families", route="cuda",
+             source="blazr_tpu_torch/csrc/qmm.cu",
+             replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
+             launches=got("families", "qmm"), max_abs_err=got("b1", "families_max_abs_err"),
+             **{key: f1[("qwen3 gate+up", 512)][key] for key in keys},
+             decode={key: f1[("qwen3 gate+up", 8)][key] for key in keys},
+             at=[{key: row[key] for key in keys} for sh, row in f1.items()
+                 if sh[0] != "qwen3 gate+up"]),
+        dict(name="paged_attention_decode (B2), dense families", route="cuda",
+             source="blazr_tpu_torch/csrc/paged_attention.cu",
+             replaces="blazr_tpu/attention/paged_attention.py:34",
+             launches=got("families", "paged_attention"),
+             max_abs_err=got("b2", "families_max_abs_err"),
+             **{key: f2[FAMILY_B2_POINTS[0][0]][key] for key in keys},
+             at=[{key: f2[p[0]][key] for key in keys} for p in FAMILY_B2_POINTS[1:]]),
+    ] if families else [])
 
 
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
           "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "prefix", "http",
-          "sweep", "timings", "layout_times")
+          "families", "sweep", "timings", "layout_times")
 FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
@@ -2780,17 +3118,23 @@ def main() -> int:
         ("http", "phase 7: AWQ checkpoint on disk -> load_model -> OpenAI HTTP server "
          "(8 concurrent requests, warmed and not, /metrics) and the CLI serve subprocess",
          lambda: serve_http(dev, card)),
+        ("families", "phase 10: the dense families (2-layer full-width forwards, card "
+         "vs CPU), then Qwen3-8B and Gemma2-9B served through the warmed engine",
+         lambda: families(dev, card)),
         ("sweep", "phase 8: the sweeps behind the launch plans of B1-B6",
          lambda: (b1_variants(dev, gen), b2_splits(dev, gen), b3_sweeps(dev, gen),
                   b4_splits(dev, gen), layout_splits(dev, gen))),
-        ("timings", "phase 9: kernel timings", lambda: timings(dev, gen, res, quant)),
+        ("timings", "phase 9: kernel timings",
+         lambda: timings(dev, gen, res, quant, families=not other)),
         ("layout_times", "phase 9's B5 and B6 rows alone",
          lambda: layout_times(dev, gen)),
     ]
     for name, title, fn in steps:
         if name in phases:
             log(title)
+            t0 = time.perf_counter()
             res[name] = fn()
+            log(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
     log(f"total {time.perf_counter() - t_start:.1f} s; card: {card}")
     if phases != list(FULL_RUN):
         log("subset of phases: no result lines")

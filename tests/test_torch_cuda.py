@@ -602,3 +602,145 @@ def test_graph_capture_error_is_raised_not_run_eagerly(cuda):
     out = subprocess.run([sys.executable, "-c", code], cwd=here, env=env, text=True,
                          capture_output=True, timeout=600)
     assert "RAISED" in out.stdout, (out.stdout, out.stderr[-2000:])
+
+
+# ---------------------------------------------------------------------------
+# The dense families' shapes (chip_smoke.py phase 10)
+# ---------------------------------------------------------------------------
+
+_FAMILY_PA_CASES = [  # d, H_q, H_kv, window, softcap, score scale
+    (96, 32, 32, 2047, None, None),                  # phi3: one query head a kv head
+    (96, 32, 32, None, None, None),
+    (256, 16, 16, None, None, None),                 # gemma
+    (256, 16, 8, 4096, 50.0, 256 ** -0.5),           # gemma2, a sliding (even) layer
+    (256, 16, 8, None, 50.0, 256 ** -0.5),           # ... and a global (odd) one
+    (64, 71, 1, None, None, None),                   # falcon: 71 on one kv head
+    (128, 28, 4, None, None, None),                  # qwen2: 7 a kv head
+    (128, 32, 16, None, 50.0, 144 ** -0.5),          # a query_pre_attn_scalar scale
+]
+
+
+@pytest.mark.parametrize("d,h_q,h_kv,window,softcap,scale", _FAMILY_PA_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_family_shapes(cuda, d, h_q, h_kv, window, softcap, scale, dtype):
+    """B2 at head_dim 96 and 256, 1, 2, 7 and 71 query heads a kv head,
+    softcap 50, the score scale, and a window past which the odd layer of
+    the same cache still attends, against its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(d + h_q)
+    lens = (1, 63, 700, 4097, 5000, 64)
+    b, bs = len(lens), 64
+    mb = -(-max(lens) // bs)
+    nb = b * mb + 4
+    tables = torch.randperm(nb, device=cuda, generator=gen)[: b * mb].reshape(b, mb)
+    kc = torch.randn((nb * bs + 1, h_kv, d), device=cuda, generator=gen).to(dtype)
+    vc = torch.randn((nb * bs + 1, h_kv, d), device=cuda, generator=gen).to(dtype)
+    q = torch.randn((b, h_q, d), device=cuda, generator=gen).to(dtype)
+    sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(block_size=bs, sliding_window=window, logit_softcap=softcap, scale=scale)
+    got = paged_attention_decode(q, kc, vc, tables.to(torch.int32), sl, num_blocks=nb, **kw)
+    ref = paged_attention_reference(q.float(), kc, vc, tables.to(torch.int32), sl, **kw)
+    torch.cuda.synchronize()
+    tol = (1e-2 if dtype == torch.bfloat16 else 1e-4) * max(1.0, ref.abs().max().item())
+    assert (got.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("k", [3072, 3584, 4608])
+@pytest.mark.parametrize("n", [9216, 18432, 37888])
+@pytest.mark.parametrize("m", [1, 8, 64, 300])
+def test_qmm_family_shapes(cuda, m, k, n):
+    """B1 at the dense families' K and N (both variants: m below and from
+    TC_MIN_ROWS), groups of 128, bf16 x."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    qw, s, mn = _planes(k, n, 4, 128, gen, cuda)
+    x = torch.randn((m, k), device=cuda, generator=gen).to(torch.bfloat16)
+    got = qmm(x, qw, s, mn, bits=4, signed=True, group_size=128)
+    ref = qmm_reference(x.float(), qw, s, mn, bits=4, signed=True, group_size=128).float()
+    torch.cuda.synchronize()
+    assert (got.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("family", ["qwen2", "qwen3", "phi3", "gemma", "gemma2",
+                                    "starcoder2", "falcon"])
+def test_family_forward_on_card_matches_cpu(cuda, tmp_path, family):
+    """Each family at its published width, 2 layers, from its HF-layout
+    checkpoint (AWQ; Falcon plain bf16) through load_model: a 64-token
+    prefill and 2 decode steps of forward_paged on the card (bf16, B1 and
+    B2) within 5e-2 of the largest logit of the CPU f32 forward."""
+    import dataclasses
+
+    from blazr_tpu_torch.kvcache.paged import (compute_slot_mapping, init_paged_cache,
+                                               pad_block_table)
+    from blazr_tpu_torch.loader import load_model
+    from blazr_tpu_torch.models.llama_paged import forward_paged
+    from blazr_tpu_torch.quant.qtensor import QuantTensor
+    from blazr_tpu_torch.utils.synthetic import FAMILY_CONFIGS, write_hf_checkpoint
+
+    cfg = FAMILY_CONFIGS[family]()
+    cfg.num_layers = 2
+    write_hf_checkpoint(tmp_path, cfg, quant="plain" if family == "falcon" else "awq",
+                        dtype="bfloat16")
+    model, _ = load_model(tmp_path, dtype="bf16", device=cuda)
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cpu(v) for v in tree]
+        if isinstance(tree, QuantTensor):
+            return dataclasses.replace(tree, qweight=tree.qweight.cpu(),
+                                       scales=tree.scales.cpu(), mins=tree.mins.cpu())
+        return tree.float().cpu() if isinstance(tree, torch.Tensor) else tree
+
+    cpu_params = cpu(model.params)
+    att = model.cfg.attention
+    bs, n = 64, 64
+    toks = torch.randint(0, cfg.vocab_size, (1, n + 2),
+                         generator=torch.Generator().manual_seed(0))
+    table = torch.tensor(pad_block_table([0, 1], 2)[None], dtype=torch.int32)
+    results = {}
+    for name, d, params, dt in (("card", cuda, model.params, torch.bfloat16),
+                                ("cpu", torch.device("cpu"), cpu_params, torch.float32)):
+        cache = init_paged_cache(2, 2, bs, att.kv_heads(), att.resolved_head_dim(
+            cfg.hidden_size), dtype=dt, device=d)
+        out = []
+        for lo, hi in ((0, n), (n, n + 1), (n + 1, n + 2)):
+            slots = torch.tensor(compute_slot_mapping([0, 1], lo, hi - lo, bs,
+                                                      cache.trash_slot))[None]
+            logits, cache = forward_paged(
+                params, model.cfg, toks[:, lo:hi].to(d), cache,
+                torch.arange(lo, hi)[None].to(d), slots.to(d), table.to(d),
+                torch.tensor([hi], dtype=torch.int32, device=d),
+                last_idx=torch.tensor([hi - lo - 1], device=d), device=d)
+            out.append(logits.float().cpu())
+        results[name] = out
+    for g, c in zip(results["card"], results["cpu"]):
+        assert torch.isfinite(g).all()
+        assert (g - c).abs().max().item() <= 5e-2 * c.abs().max().item()
+
+
+def test_tied_head_takes_no_f32_table(cuda):
+    """The tied-embedding head on the card: bf16 products summed in f32, as
+    the CPU's f32 product of the same bf16 values, without an f32 copy of
+    the [V, H] table (Gemma's 256k vocab: 3.7 GB)."""
+    from blazr_tpu_torch.config.model_config import UniversalConfig
+    from blazr_tpu_torch.models.llama import forward_head
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    v, h = 64000, 1024
+    params = {"embed": (torch.randn((v, h), device=cuda, generator=gen) * 0.02).bfloat16(),
+              "final_norm": torch.ones(h, device=cuda, dtype=torch.bfloat16),
+              "lm_head": None}
+    cfg = UniversalConfig(model_type="gemma", vocab_size=v, hidden_size=h,
+                          tie_word_embeddings=True, final_logit_softcapping=30.0)
+    x = torch.randn((4, 1, h), device=cuda, generator=gen).bfloat16()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = forward_head(params, cfg, x)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < v * h * 2
+    # The same bf16 values on the CPU: its plain f32 product of them.
+    cpu = {k: None if t is None else t.cpu() for k, t in params.items()}
+    ref = forward_head(cpu, cfg, x.cpu())
+    assert got.dtype == torch.float32 and got.shape == (4, 1, v)
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
