@@ -136,6 +136,8 @@ class MoeConfig:
     experts_per_tok: int = 2
     shared_expert: Optional[int] = None          # number of shared experts (DeepSeek)
     intermediate_size: Optional[int] = None      # per-expert FFN dim
+    # Qwen2-MoE's one gated shared expert (shared_expert_intermediate_size)
+    shared_expert_intermediate_size: Optional[int] = None
     load_balance_alpha: float = 0.01
     z_loss_alpha: float = 1e-3
     # DeepSeek extensions
@@ -311,6 +313,8 @@ _HF_ARCH_TO_MODEL_TYPE = {
     "GemmaForCausalLM": "gemma",
     "Gemma2ForCausalLM": "gemma2",
     "MixtralForCausalLM": "mixtral",
+    "Qwen2MoeForCausalLM": "qwen2_moe",
+    "Qwen3MoeForCausalLM": "qwen3_moe",
     "DeepseekV2ForCausalLM": "deepseek",
     "DeepseekV3ForCausalLM": "deepseek",
     "Mamba2ForCausalLM": "mamba2",
@@ -416,7 +420,7 @@ def universal_from_hf_config(cfg: dict[str, Any]) -> UniversalConfig:
             use_alibi=bool(cfg.get("alibi", False)),
             rope_interleave=bool(cfg.get("rope_interleave", True)),
             qkv_bias=bool(
-                cfg.get("attention_bias", model_type == "qwen2")
+                cfg.get("attention_bias", model_type in ("qwen2", "qwen2_moe"))
             ),
         )
 
@@ -452,12 +456,14 @@ def universal_from_hf_config(cfg: dict[str, Any]) -> UniversalConfig:
             experts_per_tok=cfg.get("num_experts_per_tok", 2),
             shared_expert=cfg.get("n_shared_experts"),
             intermediate_size=cfg.get("moe_intermediate_size"),
+            shared_expert_intermediate_size=cfg.get("shared_expert_intermediate_size"),
             num_dense_layers=cfg.get("first_k_dense_replace", 0),
             routed_scaling_factor=cfg.get("routed_scaling_factor", 1.0),
-            # Mixtral/Qwen-MoE always renormalize the top-k weights.
-            norm_topk_prob=bool(cfg.get(
-                "norm_topk_prob",
-                model_type in ("mixtral", "qwen2_moe", "qwen3_moe"))),
+            # transformers' Mixtral always renormalizes the top-k weights;
+            # Qwen2-MoE and Qwen3-MoE only under norm_topk_prob, False when
+            # absent (the JAX package takes True for them, ROADMAP §C).
+            norm_topk_prob=(model_type == "mixtral"
+                            or bool(cfg.get("norm_topk_prob", False))),
             # DeepSeek-V3 routes with sigmoid + correction bias by default.
             scoring_func=cfg.get("scoring_func")
             or ("sigmoid" if is_deepseek_v3 else "softmax"),

@@ -49,10 +49,7 @@ def params_from_jax(tree: Any, *, device: DeviceLike = None,
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device=dev, dtype=dtype) for v in tree)
-    if _is_quant(tree):
-        if np.asarray(tree.qweight).ndim != 2:
-            raise NotImplementedError("stacked expert QuantTensors are not "
-                                      "served by this slice")
+    if _is_quant(tree):                       # 2-D, or a stacked [E] expert weight
         return QuantTensor(
             qweight=words_to_torch(np.asarray(tree.qweight), dev),
             scales=_tensor(tree.scales, dev, torch.float32),

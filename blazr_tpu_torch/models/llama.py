@@ -1,4 +1,4 @@
-"""Dense decoder forward over the contiguous KV cache.
+"""Decoder forward over the contiguous KV cache.
 
 Counterpart of ``blazr_tpu/models/llama.py`` (``forward`` :115-217,
 ``attention_block``, ``forward_embed`` / ``forward_layers_range`` /
@@ -7,16 +7,19 @@ switches: llama, mistral, qwen2 (qkv biases), qwen3 (QK norm), phi3 (fused
 qkv and gate+up), gemma (the +1 norm offset, scaled embeddings, GeGLU),
 gemma2 (also sandwich norms, attention and final softcaps, a window on the
 even layers), starcoder2 (LayerNorm with biases, a plain GELU MLP) and
-falcon (parallel residual blocks, ALiBi in the rw layout). Every quantized
-projection goes through ``quant_matmul`` (kernel B1, B3 or B4); K/V are
-written into the cache in place.
+falcon (parallel residual blocks, ALiBi in the rw layout), and the MoE
+families on the same forward (mixtral, qwen2_moe, qwen3_moe: ``models/moe.py``
+in place of the MLP where a layer's weights have experts, JAX
+``llama.py:158-161, 265-268``). Every quantized projection goes through
+``quant_matmul`` (kernel B1, B3 or B4); K/V are written into the cache in
+place.
 
 Where the JAX package is wrong this forward follows transformers, the
 reference its goldens use (ROADMAP §C): Gemma2 slides its window on the
 layers its config names (``AttentionConfig.layer_window``) and scales the
 scores by ``query_pre_attn_scalar ** -0.5``; a fused gate+up takes the
 family's activation; ``forward_layers_range`` and ``forward_head`` keep
-the Gemma norm offset and sandwich norms of ``forward``. MoE, MLA, SSM and
+the Gemma norm offset and sandwich norms of ``forward``. MLA, SSM and
 hybrid models raise (ROADMAP queue A item 11).
 """
 
@@ -31,21 +34,22 @@ from ..kvcache.contiguous import KVCache, advance, kv_length, write_layer
 from .layers import (activation, alibi_slopes, apply_rope, attend, device_scalar,
                      layer_norm, linear, plain_mlp, rms_norm, rope_cos_sin,
                      rope_frequencies)
+from .moe import moe_forward
 
-# The families this forward serves: the JAX package's dense switches.
+# The families these forwards serve: the JAX package's dense switches and
+# the MoE families that ride the llama forward.
 SERVED_FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "phi3", "gemma", "gemma2",
-                   "starcoder2", "falcon")
-UNSERVED = ("MoE, MLA, Mamba2/3 and hybrid models are ROADMAP queue A item 11, "
+                   "starcoder2", "falcon", "mixtral", "qwen2_moe", "qwen3_moe")
+UNSERVED = ("MLA (DeepSeek), Mamba2/3 and hybrid models are ROADMAP queue A item 11, "
             "vision towers item 12")
 
 
 def check_config(cfg: UniversalConfig) -> None:
-    """Raise for what the dense forwards do not serve."""
+    """Raise for what the llama forwards do not serve."""
     if (cfg.model_type not in SERVED_FAMILIES or cfg.attention is None
-            or cfg.attention.is_mla or cfg.moe is not None or cfg.ssm is not None
-            or cfg.hybrid_layers):
+            or cfg.attention.is_mla or cfg.ssm is not None or cfg.hybrid_layers):
         raise NotImplementedError(
-            f"the port serves the dense families ({', '.join(SERVED_FAMILIES)}), "
+            f"the port serves the llama-forward families ({', '.join(SERVED_FAMILIES)}), "
             f"not {cfg.model_type!r}: {UNSERVED}")
 
 
@@ -120,8 +124,11 @@ def attention_block(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor,
 
 
 def mlp(p: dict[str, Any], cfg: UniversalConfig, h: torch.Tensor) -> torch.Tensor:
-    """The family's feed-forward: plain (fc, starcoder2/falcon), fused
-    gate+up, or split gated; the gate takes GELU for Gemma, else SiLU."""
+    """The layer's feed-forward: MoE (``moe.moe_forward``), plain (fc,
+    starcoder2/falcon), fused gate+up, or split gated; the gate takes GELU
+    for Gemma, else SiLU."""
+    if p.get("moe") is not None:
+        return moe_forward(h, p["moe"], cfg.moe)
     if p.get("fc") is not None:
         return plain_mlp(h, p["fc"], p.get("fc_bias"), p["down"], p.get("down_bias"),
                          act=cfg.hidden_act)

@@ -1,14 +1,14 @@
-"""Dense decoder forward over the paged KV cache.
+"""Decoder forward over the paged KV cache.
 
 Counterpart of ``blazr_tpu/models/llama_paged.py`` (``forward_paged``
-:154-250) for the dense families of ``models/llama.py``, with the same
-switches and the same corrections to the reference (no MoE or ring
-attention). K/V are written to their slots in place; decode (``t == 1``)
-attends through kernel B2 (``attention.paged_attention``) with the layer's
-window and score scale, prefill gathers each sequence's pages and runs
-``layers.attend``. The JAX package gates its kernel on ``head_dim % 128``,
-a TPU tiling rule; B2 takes any head_dim that is a multiple of 32 up to 256
-(Falcon's 64, Phi-3's 96).
+:154-250) for the families of ``models/llama.py``, with the same
+switches, the MoE FFN (JAX :193-196) and the same corrections to the
+reference (no ring attention). K/V are written to their slots in place;
+decode (``t == 1``) attends through kernel B2 (``attention.paged_attention``)
+with the layer's window and score scale, prefill gathers each sequence's
+pages and runs ``layers.attend``. The JAX package gates its kernel on
+``head_dim % 128``, a TPU tiling rule; B2 takes any head_dim that is a
+multiple of 32 up to 256 (Falcon's 64, Phi-3's 96).
 """
 
 from __future__ import annotations

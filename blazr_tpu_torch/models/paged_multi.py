@@ -1,9 +1,9 @@
 """Engine-facing dispatch of the paged forward and cache.
 
 Counterpart of ``blazr_tpu/models/paged_multi.py`` (``make_paged_forward``
-:410, ``init_engine_cache`` :429) for the dense families of
-``models/llama.py``; MoE, MLA, Mamba2 and hybrid families raise (ROADMAP
-queue A item 11).
+:410, ``init_engine_cache`` :429) for the families of ``models/llama.py``
+(dense and MoE); MLA, Mamba2 and hybrid families raise (ROADMAP queue A
+item 11).
 """
 
 from __future__ import annotations

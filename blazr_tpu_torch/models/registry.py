@@ -7,8 +7,9 @@ Counterpart of ``blazr_tpu/models/registry.py``: ``ParamBuilder`` (:45),
 params on the device in the model's dtype, and the contiguous-cache forward
 (``llama.forward`` unless another is given), with the introspection and
 cache helpers the ``Executor``, the ``BatchEngine`` and ``utils.ppl`` use.
-``build_model`` serves the dense families of ``SERVED_FAMILIES``; MoE, MLA,
-Mamba2 and hybrid models raise (ROADMAP queue A item 11).
+``build_model`` serves the families of ``SERVED_FAMILIES`` (the dense ones
+and the MoE ones of the llama forward); MLA, Mamba2 and hybrid models raise
+(ROADMAP queue A item 11).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..kvcache.contiguous import KVCache, init_kv_cache
 from ..quant.qtensor import QuantTensor
 from ..utils.device import DeviceLike, resolve_device
 from .llama import SERVED_FAMILIES, check_config  # noqa: F401 (re-exported)
+from .moe import build_moe_params, is_moe_layer
 
 if TYPE_CHECKING:  # avoids the loader <-> models import cycle
     from ..loader.varmap import VarMap
@@ -63,8 +65,9 @@ class ParamBuilder:
 def build_llama_layer_params(pb: ParamBuilder, i: int, cfg: UniversalConfig) -> dict:
     """One decoder layer of the llama layout (HF names): separate or fused
     q/k/v (Phi-3's ``qkv_proj``), a gated, fused gate+up or plain
-    (Starcoder2's ``c_fc``/``c_proj``) MLP, biases, q/k norms, LayerNorm
-    biases and Gemma2's sandwich norms."""
+    (Starcoder2's ``c_fc``/``c_proj``) MLP, or an MoE FFN where the layer's
+    weights have one (``moe.is_moe_layer``, JAX registry :83-92), biases,
+    q/k norms, LayerNorm biases and Gemma2's sandwich norms."""
     p = f"model.layers.{i}."
     out: dict[str, Any] = {
         "input_norm": pb.get(p + "input_layernorm.weight"),
@@ -79,15 +82,15 @@ def build_llama_layer_params(pb: ParamBuilder, i: int, cfg: UniversalConfig) -> 
         out["q"] = pb.get(p + "self_attn.q_proj.weight", transpose=True)
         out["k"] = pb.get(p + "self_attn.k_proj.weight", transpose=True)
         out["v"] = pb.get(p + "self_attn.v_proj.weight", transpose=True)
-    gu = pb.get(p + "mlp.gate_up_proj.weight", transpose=True, required=False)
-    fc = pb.get(p + "mlp.c_fc.weight", transpose=True, required=False)
-    if fc is not None:                      # starcoder2 plain MLP
-        out["fc"] = fc
+    if is_moe_layer(pb.vm, p, cfg):
+        out["moe"] = build_moe_params(pb, p, cfg)
+    elif p + "mlp.c_fc.weight" in pb.vm:    # starcoder2 plain MLP
+        out["fc"] = pb.get(p + "mlp.c_fc.weight", transpose=True)
         out["fc_bias"] = pb.get(p + "mlp.c_fc.bias", required=False)
         out["down"] = pb.get(p + "mlp.c_proj.weight", transpose=True)
         out["down_bias"] = pb.get(p + "mlp.c_proj.bias", required=False)
-    elif gu is not None:
-        out["gateup"] = gu
+    elif p + "mlp.gate_up_proj.weight" in pb.vm:
+        out["gateup"] = pb.get(p + "mlp.gate_up_proj.weight", transpose=True)
         out["down"] = pb.get(p + "mlp.down_proj.weight", transpose=True)
     else:
         out["gate"] = pb.get(p + "mlp.gate_proj.weight", transpose=True)

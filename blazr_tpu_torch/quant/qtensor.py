@@ -229,6 +229,49 @@ def dequantize_np(qt: QuantTensor) -> np.ndarray:
     return q * s - m
 
 
+# ---------------------------------------------------------------------------
+# Stacked expert weights (MoE): a QuantTensor with a leading [E] axis
+# ---------------------------------------------------------------------------
+
+def stack_quant(qts: list[QuantTensor]) -> QuantTensor:
+    """Stack per-expert QuantTensors into one whose planes carry a leading
+    expert axis: qweight [E, K*bits/32, N], scales and mins [E, K/gs, N].
+    The logical per-expert shape stays (in_features, out_features);
+    :func:`expert_slice` takes an expert back out."""
+    first = qts[0]
+    for q in qts[1:]:
+        if (q.in_features, q.out_features, q.bits, q.group_size, q.signed) != (
+                first.in_features, first.out_features, first.bits, first.group_size,
+                first.signed):
+            raise ValueError("expert weights of one projection differ in shape or format")
+    if any(q.perm is not None for q in qts):
+        raise ValueError("desc-act (perm) expert weights cannot be stacked")
+    return dataclasses.replace(
+        first, qweight=torch.stack([q.qweight for q in qts]),
+        scales=torch.stack([q.scales for q in qts]),
+        mins=torch.stack([q.mins for q in qts]), perm=None)
+
+
+def is_stacked(qt) -> bool:
+    return isinstance(qt, QuantTensor) and qt.qweight.dim() == 3
+
+
+def expert_slice(w, e: int):
+    """Expert ``e`` of a stacked expert weight, dense [E, K, N] or a stacked
+    QuantTensor: views, no copy."""
+    if isinstance(w, QuantTensor):
+        return dataclasses.replace(w, qweight=w.qweight[e], scales=w.scales[e],
+                                   mins=w.mins[e], perm=None)
+    return w[e]
+
+
+def dequantize_stack_np(qt: QuantTensor) -> np.ndarray:
+    """Host-side dequant of a stacked expert QuantTensor → f32 [E, K, N]
+    (test helper)."""
+    return np.stack([dequantize_np(expert_slice(qt, e))
+                     for e in range(qt.qweight.shape[0])])
+
+
 def widen_to_int8(qt: QuantTensor) -> QuantTensor:
     """4-bit → 8-bit storage for W8A8: the same integers, scales and mins,
     repacked 4 int8 values per K-packed word (twice the weight bytes), and
@@ -267,8 +310,10 @@ def mark_act_quant(qt: QuantTensor, min_m: int = 0) -> QuantTensor:
 
 
 def _tag(leaf: QuantTensor, mode: str) -> QuantTensor:
-    if not leaf.signed or leaf.bits not in (4, 8) or leaf.qweight.dim() != 2:
-        return leaf                     # unsigned / 2-bit leaves pass through
+    # Unsigned and 2-bit leaves pass through, and so do stacked experts, as
+    # in the JAX package (qtensor.py:505-511): they stay on B1.
+    if not leaf.signed or leaf.bits not in (4, 8) or is_stacked(leaf):
+        return leaf
     if mode == "w8a8":
         return widen_to_int8(leaf)
     if mode == "w4a8-prefill":
@@ -295,7 +340,7 @@ def apply_quant_compute(params, mode: Optional[str], *, inplace: bool = False):
     ``w4a8`` tags signed 4/8-bit QuantTensors for kernel B3; ``w8a8`` also
     widens 4-bit storage to int8; ``w4a8-prefill`` tags them with
     ``min_m=256`` so only prefill-shaped matmuls take B3. Unsigned and
-    2-bit leaves pass through untouched. ``auto`` is ``w4a16`` on every
+    2-bit leaves and stacked expert weights pass through untouched. ``auto`` is ``w4a16`` on every
     device (the JAX package resolves it to ``w4a8-prefill`` on a TPU only,
     from TPU timings; ROADMAP §C), so it, ``w4a16`` and None return the
     tree as it is.

@@ -5,8 +5,9 @@ same weight distributions, built on the device from a seeded
 ``torch.Generator``. The draws differ from ``jax.random``'s; tests that
 compare the two packages convert the JAX params with ``convert.py``.
 
-Beyond the JAX module: one config per dense family at the published width
-of a public checkpoint (``FAMILY_CONFIGS``), the family extras in
+Beyond the JAX module: one config per dense family and per MoE family at
+the published width of a public checkpoint (``FAMILY_CONFIGS``,
+``MOE_CONFIGS``), the family extras and the MoE layers in
 ``synth_llama_params``, and ``write_hf_checkpoint``, which writes a
 family's HF tensor layout (AWQ-INT4 or plain) with its ``config.json``.
 """
@@ -16,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config.model_config import AttentionConfig, RopeScaling, UniversalConfig
-from ..quant.qtensor import QuantTensor
+from ..config.model_config import AttentionConfig, MoeConfig, RopeScaling, UniversalConfig
+from ..quant.qtensor import QuantTensor, stack_quant
 from .device import DeviceLike, resolve_device
 
 
@@ -135,6 +136,49 @@ FAMILY_CONFIGS = {"qwen2": qwen2_7b_config, "qwen3": qwen3_8b_config,
                   "falcon": falcon_7b_config}
 
 
+def mixtral_8x7b_config() -> UniversalConfig:
+    """mistralai/Mixtral-8x7B-v0.1 config.json: Mistral-7B's attention (no
+    window), 8 experts of 14336, top-2, the top-2 weights renormalized."""
+    return UniversalConfig(
+        model_type="mixtral", vocab_size=32000, hidden_size=4096, num_layers=32,
+        max_seq_len=32768, intermediate_size=14336, rms_norm_eps=1e-5,
+        attention=AttentionConfig(num_heads=32, num_kv_heads=8, head_dim=128,
+                                  rope_theta=1000000.0),
+        moe=MoeConfig(num_experts=8, experts_per_tok=2, intermediate_size=14336,
+                      norm_topk_prob=True))
+
+
+def qwen3_30b_a3b_config() -> UniversalConfig:
+    """Qwen/Qwen3-30B-A3B config.json: Qwen3's QK norm, head_dim 128 over a
+    2048 hidden, 128 experts of 768, top-8 with norm_topk_prob, every layer
+    sparse (decoder_sparse_step 1, no mlp_only_layers)."""
+    return UniversalConfig(
+        model_type="qwen3_moe", vocab_size=151936, hidden_size=2048, num_layers=48,
+        max_seq_len=40960, intermediate_size=6144, rms_norm_eps=1e-6,
+        attention=AttentionConfig(num_heads=32, num_kv_heads=4, head_dim=128,
+                                  rope_theta=1000000.0),
+        moe=MoeConfig(num_experts=128, experts_per_tok=8, intermediate_size=768,
+                      norm_topk_prob=True))
+
+
+def qwen1_5_moe_a2_7b_config() -> UniversalConfig:
+    """Qwen/Qwen1.5-MoE-A2.7B config.json: qkv biases, 60 experts of 1408,
+    top-4 without renormalizing, one shared expert of 5632 behind a sigmoid
+    gate (its use_sliding_window is off)."""
+    return UniversalConfig(
+        model_type="qwen2_moe", vocab_size=151936, hidden_size=2048, num_layers=24,
+        max_seq_len=8192, intermediate_size=5632, rms_norm_eps=1e-6,
+        attention=AttentionConfig(num_heads=16, num_kv_heads=16, head_dim=128,
+                                  rope_theta=1000000.0, qkv_bias=True),
+        moe=MoeConfig(num_experts=60, experts_per_tok=4, intermediate_size=1408,
+                      shared_expert_intermediate_size=5632, norm_topk_prob=False))
+
+
+# The MoE families at the published width of one public checkpoint each.
+MOE_CONFIGS = {"mixtral": mixtral_8x7b_config, "qwen3_moe": qwen3_30b_a3b_config,
+               "qwen2_moe": qwen1_5_moe_a2_7b_config}
+
+
 def tiny_llama_config(vocab: int = 256) -> UniversalConfig:
     return UniversalConfig(
         model_type="llama", vocab_size=vocab, hidden_size=64, num_layers=2,
@@ -171,7 +215,9 @@ def synth_llama_params(cfg: UniversalConfig, quant: str = "awq",
     projections (the serving layout). Norm weights are ones (zeros where the
     family scales by 1 + w); the family's extras follow ``cfg``: qkv biases
     (``qkv_bias``), QK norms (qwen3), Gemma2's sandwich norms, the plain
-    MLP and LayerNorm biases (starcoder2, falcon)."""
+    MLP and LayerNorm biases (starcoder2, falcon), and where ``cfg.moe`` is
+    set an MoE FFN on every layer in place of the MLP (router, stacked
+    experts, Qwen2-MoE's gated shared expert)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -194,11 +240,29 @@ def synth_llama_params(cfg: UniversalConfig, quant: str = "awq",
     def bias(n):
         return (torch.randn((n,), device=dev, generator=gen) * 0.02).to(dtype)
 
+    def moe_ffn():
+        moe = cfg.moe
+        mi = moe.intermediate_size
+
+        def stack(k_dim, n_dim):
+            ws = [lin(k_dim, n_dim) for _ in range(moe.num_experts)]
+            return stack_quant(ws) if quant == "awq" else torch.stack(ws)
+
+        p = {"router": _rand_dense(gen, h, moe.num_experts, dtype, dev),
+             "correction_bias": None, "experts_gate": stack(h, mi),
+             "experts_up": stack(h, mi), "experts_down": stack(mi, h)}
+        if moe.shared_expert_intermediate_size:
+            si = moe.shared_expert_intermediate_size
+            p.update(shared_gate=lin(h, si), shared_up=lin(h, si), shared_down=lin(si, h),
+                     shared_expert_gate=_rand_dense(gen, h, 1, dtype, dev))
+        return p
+
     layer_norm = cfg.norm_type == "layernorm"
     layers = []
     for _ in range(cfg.num_layers):
-        layer = {"input_norm": norm_w(h), "post_norm": norm_w(h), "o": lin(q_out, h),
-                 "down": lin(inter, h)}
+        layer = {"input_norm": norm_w(h), "post_norm": norm_w(h), "o": lin(q_out, h)}
+        if cfg.moe is None:
+            layer["down"] = lin(inter, h)
         if fuse:
             layer["qkv"] = lin(h, q_out + 2 * kv_out)
         else:
@@ -209,7 +273,9 @@ def synth_llama_params(cfg: UniversalConfig, quant: str = "awq",
             else:
                 layer.update({"q_bias": bias(q_out), "k_bias": bias(kv_out),
                               "v_bias": bias(kv_out)})
-        if cfg.mlp_type == "plain":
+        if cfg.moe is not None:
+            layer["moe"] = moe_ffn()
+        elif cfg.mlp_type == "plain":
             layer["fc"] = lin(h, inter)
             if att.qkv_bias:                    # starcoder2: biases everywhere
                 layer.update({"fc_bias": bias(inter), "down_bias": bias(h),
@@ -220,7 +286,7 @@ def synth_llama_params(cfg: UniversalConfig, quant: str = "awq",
             layer.update({"gate": lin(h, inter), "up": lin(h, inter)})
         if layer_norm:
             layer.update({"input_norm_bias": bias(h), "post_norm_bias": bias(h)})
-        if cfg.model_type == "qwen3":
+        if cfg.model_type in ("qwen3", "qwen3_moe"):
             layer.update({"q_norm": norm_w(hd), "k_norm": norm_w(hd)})
         if cfg.model_type == "gemma2":
             layer.update({"post_attn_norm": norm_w(h), "post_ffw_norm": norm_w(h)})
@@ -245,7 +311,8 @@ _HF_ARCH = {"llama": "LlamaForCausalLM", "mistral": "MistralForCausalLM",
             "qwen2": "Qwen2ForCausalLM", "qwen3": "Qwen3ForCausalLM",
             "phi3": "Phi3ForCausalLM", "gemma": "GemmaForCausalLM",
             "gemma2": "Gemma2ForCausalLM", "starcoder2": "Starcoder2ForCausalLM",
-            "falcon": "FalconForCausalLM"}
+            "falcon": "FalconForCausalLM", "mixtral": "MixtralForCausalLM",
+            "qwen2_moe": "Qwen2MoeForCausalLM", "qwen3_moe": "Qwen3MoeForCausalLM"}
 
 
 def _falcon_new_arch(cfg: UniversalConfig) -> bool:
@@ -256,7 +323,7 @@ def _falcon_new_arch(cfg: UniversalConfig) -> bool:
 
 
 def hf_config(cfg: UniversalConfig) -> dict:
-    """The HF ``config.json`` fields of a dense-family ``cfg``."""
+    """The HF ``config.json`` fields of a family's ``cfg``."""
     att = cfg.attention
     out = {
         "architectures": [_HF_ARCH[cfg.model_type]],
@@ -284,6 +351,18 @@ def hf_config(cfg: UniversalConfig) -> dict:
     if cfg.model_type == "starcoder2":
         out.update(norm_epsilon=cfg.rms_norm_eps, use_bias=True,
                    hidden_act="gelu_pytorch_tanh")
+    moe = cfg.moe
+    if moe is not None and cfg.model_type == "mixtral":      # one FFN width
+        out.update(num_local_experts=moe.num_experts,
+                   num_experts_per_tok=moe.experts_per_tok,
+                   intermediate_size=moe.intermediate_size)
+    elif moe is not None:
+        out.update(num_experts=moe.num_experts, num_experts_per_tok=moe.experts_per_tok,
+                   moe_intermediate_size=moe.intermediate_size,
+                   norm_topk_prob=moe.norm_topk_prob, decoder_sparse_step=1,
+                   mlp_only_layers=[])
+        if moe.shared_expert_intermediate_size:
+            out["shared_expert_intermediate_size"] = moe.shared_expert_intermediate_size
     if cfg.model_type == "falcon":
         new_arch = _falcon_new_arch(cfg)
         out.update(layer_norm_epsilon=cfg.rms_norm_eps, alibi=att.use_alibi,
@@ -308,8 +387,8 @@ def _half_bits(rng, n: int, exp: int) -> np.ndarray:
 def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
                         group_size: int = 128, seed: int = 0,
                         dtype: str = "float16", weight_exp: int = -7) -> None:
-    """Write a random checkpoint of the dense family ``cfg.model_type`` in
-    that family's HF tensor layout to the directory ``path``, with its
+    """Write a random checkpoint of the family ``cfg.model_type`` in that
+    family's HF tensor layout to the directory ``path``, with its
     ``config.json``:
 
     * llama, mistral, qwen2 (q/k/v biases), qwen3 (q/k norms), gemma,
@@ -319,7 +398,10 @@ def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
     * falcon: ``transformer.h.{i}`` names, the fused ``query_key_value`` in
       HF's grouped layout (multi-query, per-head or the new architecture's
       groups), ``dense_h_to_4h``/``dense_4h_to_h``, biases with
-      ``qkv_bias``, ``ln_attn``/``ln_mlp`` in the new architecture.
+      ``qkv_bias``, ``ln_attn``/``ln_mlp`` in the new architecture;
+    * mixtral, qwen2_moe (qkv biases, the gated shared expert), qwen3_moe
+      (q/k norms): per-expert projections under the family's names with an
+      unquantized router (``moe_layer`` below).
 
     ``quant="awq"``: every projection as AutoAWQ's packed ``qweight`` /
     ``qzeros`` (uint32, eight interleaved nibbles along N) and f16
@@ -383,6 +465,29 @@ def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
         if with_bias:
             tensors[name + ".bias"] = normal(h, 0.02)
 
+    def moe_layer(p):
+        """Mixtral's block_sparse_moe.experts.N.w1/w3/w2, or Qwen-MoE's
+        mlp.experts.N.gate/up/down_proj with Qwen2-MoE's gated shared
+        expert; the router (and the shared expert's gate) unquantized, as
+        AutoAWQ leaves them."""
+        moe = cfg.moe
+        mi = moe.intermediate_size
+        mixtral = fam == "mixtral"
+        base = p + ("block_sparse_moe." if mixtral else "mlp.")
+        tensors[base + "gate.weight"] = dense(moe.num_experts, h)
+        parts = ("w1", "w3", "w2") if mixtral else ("gate_proj", "up_proj", "down_proj")
+        for e in range(moe.num_experts):
+            ex = base + f"experts.{e}."
+            linear(ex + parts[0], h, mi)
+            linear(ex + parts[1], h, mi)
+            linear(ex + parts[2], mi, h)
+        if moe.shared_expert_intermediate_size:
+            si = moe.shared_expert_intermediate_size
+            linear(p + "mlp.shared_expert.gate_proj", h, si)
+            linear(p + "mlp.shared_expert.up_proj", h, si)
+            linear(p + "mlp.shared_expert.down_proj", si, h)
+            tensors[p + "mlp.shared_expert_gate.weight"] = dense(1, h)
+
     ln = cfg.norm_type == "layernorm"
     if falcon:
         tensors["transformer.word_embeddings.weight"] = dense(cfg.vocab_size, h)
@@ -420,13 +525,15 @@ def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
             linear(p + "self_attn.k_proj", h, n_kv, qkv_bias)
             linear(p + "self_attn.v_proj", h, n_kv, qkv_bias)
         linear(p + "self_attn.o_proj", n_q, h, bias)
-        if fam == "qwen3":
+        if fam in ("qwen3", "qwen3_moe"):
             tensors[p + "self_attn.q_norm.weight"] = normal(hd, 0.1, 1.0)
             tensors[p + "self_attn.k_norm.weight"] = normal(hd, 0.1, 1.0)
         if fam == "gemma2":
             norm(p + "pre_feedforward_layernorm")
             norm(p + "post_feedforward_layernorm")
-        if cfg.mlp_type == "plain":
+        if cfg.moe is not None:
+            moe_layer(p)
+        elif cfg.mlp_type == "plain":
             linear(p + "mlp.c_fc", h, inter, bias)
             linear(p + "mlp.c_proj", inter, h, bias)
         elif fam == "phi3":

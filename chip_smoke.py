@@ -91,6 +91,20 @@ Phases, in order; any failure raises and the script exits non-zero:
       serves (prefix cache on, engine warmed): 8 requests of phase 5 in one
       wave, with decode graphs and without (streams equal), tok/s, ms a
       decode step, TTFT, then 32 decode steps profiled (idle share);
+  11. (``moe``) the MoE families: B1 against its plain version and timed at
+      every expert shape of Mixtral-8x7B, Qwen3-30B-A3B and
+      Qwen1.5-MoE-A2.7B (K 768-14336, N 768-14336) at 1, 2, 4, 8, 16 and
+      512 rows; each family at its published width, 2 layers, written to
+      disk as an AWQ-INT4 checkpoint and loaded by load_model onto the card:
+      the paged forward (64 and 37 tokens, 4 decode steps) and the
+      contiguous one (64 tokens, 4 decode steps) against the CPU f32
+      forward, the CPU taking the card's routing and, layer by layer, the
+      card's input: each layer's output and the logits at 5e-2 of their
+      largest magnitude; the paged forward again free-running (its drift
+      reported), and the share of routing decisions that agree; then
+      Mixtral-8x7B (32 layers) and Qwen3-30B-A3B (48 layers; 8 in a full
+      run, MOE_SERVING) AWQ-INT4 served as in phase 10 (streams equal with
+      graphs and without), with B1's launches and device ms a decode step;
   9.  timings (device time of one call: CUDA graphs of many calls), B1 over
       rows 1-512 at every projection, B2 at three batch/context points (and
       at B=8, ctx 1024 on full-width tables: at most 1.2x), B3
@@ -103,9 +117,11 @@ Phases, in order; any failure raises and the script exits non-zero:
       with each kernel's launches in its serving phase, max error, time,
       bound, plain time and library-call time (B1 and B3: prefill, with
       their decode point under "decode"; B5 and B6: B=8, their other two
-      points under "at"), and a row each for B1 and B2 at the families'
-      shapes, with phase 10's launches (Qwen3-8B with graphs).
-Phase 10 runs between phases 7 and 8.
+      points under "at"), a row each for B1 and B2 at the families'
+      shapes, with phase 10's launches (Qwen3-8B with graphs), and a row
+      for B1 at the MoE expert shapes with phase 11's times and launches
+      (Mixtral-8x7B with graphs).
+Phases 10 and 11 run between phases 7 and 8.
 Each serving run sets the launch counts to 0 just before it and reads
 them just after; a replayed graph adds the launches it holds, and the
 kernels line counts the first run with graphs (the default path). Under
@@ -1244,12 +1260,19 @@ def layout_times(dev, gen) -> dict:
 def to_cpu_f32(tree):
     import torch
 
-    from blazr_tpu_torch.quant.qtensor import QuantTensor
+    from blazr_tpu_torch.quant.qtensor import (QuantTensor, dequantize, expert_slice,
+                                               is_stacked)
 
     if isinstance(tree, dict):
         return {k: to_cpu_f32(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_cpu_f32(v) for v in tree]
+    if is_stacked(tree):
+        # A stacked expert weight becomes a dense f32 stack, dequantized on
+        # the card expert by expert: the CPU's plain B1 would dequantize a
+        # Mixtral expert (235 MB in f32) at every call.
+        return torch.stack([dequantize(expert_slice(tree, e)).cpu()
+                            for e in range(tree.qweight.shape[0])])
     if isinstance(tree, QuantTensor):
         return dataclasses.replace(
             tree, qweight=tree.qweight.cpu(), scales=tree.scales.cpu(),
@@ -1260,14 +1283,15 @@ def to_cpu_f32(tree):
 
 
 def card_vs_cpu(dev, cfg, params, cpu_params, lens, tag: str, steps: int = 4,
-                bs: int = 64, rel_tol: float = 5e-2) -> float:
+                bs: int = 64, rel_tol: float | None = 5e-2) -> float:
     """Teacher-forced forward_paged of ``cfg`` on the card (``params``, bf16)
     and on the CPU (``cpu_params``, f32): one padded prefill of the
     sequences ``lens``, then ``steps`` decode steps through B2 (its plain
     version on the CPU). Card in bf16 against the CPU in f32: activations
     are rounded to bf16 between every op on the card, so the logits agree
     to a few 1e-2 of their largest magnitude (``rel_tol``), not to f32
-    precision. Returns the worst relative error."""
+    precision; ``rel_tol=None`` reports the error without holding it.
+    Returns the worst relative error."""
     import numpy as np
     import torch
 
@@ -1323,8 +1347,11 @@ def card_vs_cpu(dev, cfg, params, cpu_params, lens, tag: str, steps: int = 4,
         rel = ((g - c).abs().max() / c.abs().max()).item()
         agree = (g.argmax(-1) == c.argmax(-1)).float().mean().item()
         log(f"  {tag} step {step} ({'prefill' if step == 0 else 'decode'}): "
-            f"max|gpu-cpu|/max|cpu| {rel:.4g} (tol {rel_tol}), argmax agreement {agree:.2f}")
-        assert rel <= rel_tol, f"{tag} teacher-forced step {step}: {rel} > {rel_tol}"
+            f"max|gpu-cpu|/max|cpu| {rel:.4g} "
+            + (f"(tol {rel_tol})" if rel_tol else "(reported, not held)")
+            + f", argmax agreement {agree:.2f}")
+        assert not rel_tol or rel <= rel_tol, \
+            f"{tag} teacher-forced step {step}: {rel} > {rel_tol}"
         worst = max(worst, rel)
     del caches
     return worst
@@ -2444,6 +2471,12 @@ def profile_serving(dev, model, card: str, quant_compute: str = "w4a16",
     b2 = sum(c for name, (_, c) in window[3].items() if "pa_split_kernel" in name)
     steps = max(1, round(b2 / cfg.num_layers))
     out = decode_profile(f"batch 4, {tag}", card, window, steps)
+    b1 = [(sec, c) for name, (sec, c) in window[3].items()
+          if "qmm_wgmma_kernel" in name or "qmm_splitk_kernel" in name]
+    out.update(b1_per_step=sum(c for _, c in b1) / steps,
+               b1_ms_per_step=sum(sec for sec, _ in b1) / steps * 1e3)
+    log(f"  B1 a decode step (batch 4, {tag}): {out['b1_per_step']:.0f} launches, "
+        f"{out['b1_ms_per_step']:.3f} ms of {out['step_busy_ms']:.3f} ms busy")
     del engine
     free_card()
     return dict(out, prefill_wall_ms=wall_p * 1e3, prefill_busy_ms=busy_p * 1e3)
@@ -2745,9 +2778,10 @@ def family_serving(dev, card: str, family: str, layers: int, max_seq_len: int) -
 
     from blazr_tpu_torch.config import GenerationConfig
     from blazr_tpu_torch.models.registry import Model
-    from blazr_tpu_torch.utils.synthetic import FAMILY_CONFIGS, synth_llama_params
+    from blazr_tpu_torch.utils.synthetic import (FAMILY_CONFIGS, MOE_CONFIGS,
+                                                 synth_llama_params)
 
-    cfg = FAMILY_CONFIGS[family]()
+    cfg = {**FAMILY_CONFIGS, **MOE_CONFIGS}[family]()
     cfg.num_layers = layers
     t0 = time.perf_counter()
     model = Model(cfg, synth_llama_params(cfg, quant="awq", dtype=torch.bfloat16,
@@ -2811,6 +2845,300 @@ def families(dev, card: str) -> dict:
     for family, layers, ctx in FAMILY_SERVING:
         out[family] = family_serving(dev, card, family, layers, ctx)
     out.update(qmm=out["qwen3"]["qmm"], paged_attention=out["qwen3"]["paged_attention"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11 (moe): the MoE families
+# ---------------------------------------------------------------------------
+
+# B1 at the expert projections (K, N) of the three MoE families at their
+# published widths (utils/synthetic.py::MOE_CONFIGS).
+MOE_B1_SHAPES = {"mixtral gate/up": (4096, 14336), "mixtral down": (14336, 4096),
+                 "qwen3-moe gate/up": (2048, 768), "qwen3-moe down": (768, 2048),
+                 "qwen1.5-moe gate/up": (2048, 1408), "qwen1.5-moe down": (1408, 2048)}
+# The rows an expert takes: a decode batch of 1-16 (every expert over every
+# row) and a prefill group's routed rows.
+MOE_B1_ROWS = (1, 2, 4, 8, 16, 512)
+# The served models: (family, published depth, the engine's max_seq_len,
+# the depth a full run serves). A full run holds Qwen3-30B-A3B to 8 of its
+# 48 identical layers: served whole on an H100, its warmup with graphs
+# (72.5 s) and its graphs-off wave (121 s) alone leave the other phases too
+# little of the 1200 s limit; ``--phases build,moe`` serves it whole.
+MOE_SERVING = (("mixtral", 32, 4096, 32), ("qwen3_moe", 48, 4096, 8))
+
+
+def moe_b1(dev, gen) -> dict:
+    """Phase 11 (a): B1 against its plain version at every MoE expert shape
+    and row count (MOE_B1_SHAPES x MOE_B1_ROWS, tolerance as phase 2's), then
+    timed: kernel, bound, plain version and torch.matmul on the
+    bf16-dequantized weight."""
+    import torch
+
+    from blazr_tpu_torch.quant.kernels import qmm, qmm_reference
+    from blazr_tpu_torch.quant.qtensor import dequantize_planes
+
+    gs, rel_tol = 128, 8e-3
+    rows, worst = {}, 0.0
+    for pname, (k, n) in MOE_B1_SHAPES.items():
+        qw, s, mn = rand_planes(k, n, 4, gs, gen, dev)
+        w = dequantize_planes(qw, s, mn, 4, True, gs, torch.bfloat16)
+        for m in MOE_B1_ROWS:
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            got = qmm(x, qw, s, mn, bits=4, signed=True, group_size=gs, device=dev)
+            ref = qmm_reference(x.float(), qw, s, mn, bits=4, signed=True, group_size=gs)
+            torch.cuda.synchronize()
+            assert got.shape == ref.shape and torch.isfinite(got).all(), pname
+            err = (got.float() - ref).abs().max().item()
+            tol = rel_tol * ref.abs().max().item()
+            assert err <= tol, f"B1 {pname} m={m}: {err} > {tol}"
+            worst = max(worst, err)
+            ms = time_ms(lambda: qmm(x, qw, s, mn, bits=4, signed=True, group_size=gs,
+                                     device=dev), iters=20)
+            nbytes = qw.numel() * 4 + s.numel() * 8 + x.numel() * 2 + m * n * 2
+            bms, by = bound(nbytes, 2.0 * m * k * n)
+            row = dict(ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err,
+                       library_ms=time_ms(lambda: torch.matmul(x, w), iters=20),
+                       plain_ms=time_eager(lambda: qmm_reference(
+                           x, qw, s, mn, bits=4, signed=True, group_size=gs), iters=3,
+                           warmup=1),
+                       shape=f"{pname} m={m} K={k} N={n}")
+            rows[(pname, m)] = row
+            log(f"  B1 {pname} m={m} K={k} N={n}: max_abs_err {err:.4g} (tol {tol:.4g}); "
+                f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, x{ms / bms:.1f}), "
+                f"torch.matmul(bf16 dequantized) {row['library_ms']:.4f} ms "
+                f"(x{ms / row['library_ms']:.2f}), plain {row['plain_ms']:.4f} ms")
+        del w
+    return dict(rows=rows, max_abs_err=worst)
+
+
+class RouteTape:
+    """Holds the CPU reference to the card's routing. While it is active,
+    each call of ``models.moe.route`` on the card records its top-k experts,
+    and the CPU's next call (the same layer of the same step:
+    ``card_vs_cpu`` runs the card first) takes them, weighted by its own f32
+    scores, and counts how many of its own choices they match. One token
+    whose k-th and (k+1)-th scores lie within bf16 noise of each other
+    changes expert on the card, and its logits then differ with no kernel at
+    fault; the share of decisions that agree is reported on its own."""
+
+    def __enter__(self):
+        from collections import deque
+
+        from blazr_tpu_torch.models import moe
+
+        self.module, self.real = moe, moe.route
+        self.queue, self.agree, self.total = deque(), 0, 0
+        moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.route = self.real
+        assert exc[0] is not None or not self.queue, "a card routing was not replayed"
+
+    def __call__(self, x, router_w, moe, correction_bias=None):
+        import torch
+
+        idx, w = self.real(x, router_w, moe, correction_bias)
+        if x.dtype != torch.float32:                   # the card's bf16 forward
+            self.queue.append(idx.cpu())
+            return idx, w
+        # The three served MoE families route by softmax top-k alone.
+        assert moe.scoring_func == "softmax" and moe.n_group == 1
+        assert correction_bias is None
+        card = self.queue.popleft()
+        self.agree += int((card[:, :, None] == idx[:, None, :]).any(-1).sum())
+        self.total += card.numel()
+        scores = torch.softmax(x.to(torch.float32) @ router_w.to(torch.float32), dim=-1)
+        cw = scores.gather(-1, card)
+        if moe.norm_topk_prob:
+            cw = cw / (cw.sum(dim=-1, keepdim=True) + 1e-20)
+        return card, cw * moe.routed_scaling_factor
+
+    @property
+    def share(self) -> float:
+        return self.agree / max(1, self.total)
+
+
+class LayerTape:
+    """Teacher-forces the CPU reference layer by layer. While it is active,
+    each decoder layer and the head of the card's forward (bf16) record
+    their input and output; the CPU's forward (f32) runs each layer and the
+    head on the card's input instead of its own, and each layer's output is
+    held to the card's at ``rel_tol`` of its largest magnitude. Free-running
+    forwards of these random checkpoints drift up to about 5e-2 of the
+    largest logit from f32 in 2 layers through bf16 rounding alone (PERF.md
+    §6), which leaves a 5e-2 gate on the logits no margin; a layer computed
+    from the same input holds every kernel of it to f32 with that margin."""
+
+    def __init__(self, rel_tol: float = 5e-2):
+        self.rel_tol = rel_tol
+        self.worst = 0.0
+
+    def __enter__(self):
+        from collections import deque
+
+        from blazr_tpu_torch.models import llama, llama_paged
+
+        self.modules = (llama, llama_paged)
+        self.real_layer, self.real_head = llama.decoder_layer, llama.forward_head
+        self.queue = deque()
+        for m in self.modules:
+            m.decoder_layer, m.forward_head = self.layer, self.head
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.decoder_layer, m.forward_head = self.real_layer, self.real_head
+        assert exc[0] is not None or not self.queue, "a card layer was not replayed"
+
+    def _forced(self, x):
+        """(the card's input to use, the card's output) on the CPU side."""
+        x_card, out_card = self.queue.popleft()
+        assert x_card.shape == x.shape
+        return x_card, out_card
+
+    def layer(self, p, cfg, x, attn):
+        import torch
+
+        if x.dtype != torch.float32:                   # the card's bf16 forward
+            out = self.real_layer(p, cfg, x, attn)
+            self.queue.append((x.float().cpu(), out.float().cpu()))
+            return out
+        x_card, out_card = self._forced(x)
+        out = self.real_layer(p, cfg, x_card, attn)
+        rel = ((out_card - out).abs().max() / out.abs().max()).item()
+        self.worst = max(self.worst, rel)
+        assert rel <= self.rel_tol, f"a decoder layer's output: {rel} > {self.rel_tol}"
+        return out
+
+    def head(self, params, cfg, hidden):
+        import torch
+
+        if hidden.dtype != torch.float32:
+            self.queue.append((hidden.float().cpu(), None))
+            return self.real_head(params, cfg, hidden)
+        return self.real_head(params, cfg, self._forced(hidden)[0])
+
+
+def card_vs_cpu_contiguous(dev, cfg, params, cpu_params, n: int, tag: str,
+                           steps: int = 4, rel_tol: float | None = 5e-2) -> float:
+    """``card_vs_cpu`` for the contiguous ``llama.forward`` (the Executor's
+    cache): one n-token prefill, then ``steps`` teacher-forced decode steps;
+    the worst relative error."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.kvcache.contiguous import init_kv_cache
+    from blazr_tpu_torch.models.llama import forward
+
+    att = cfg.attention
+    hd = att.resolved_head_dim(cfg.hidden_size)
+    seq = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (1, n + steps))
+    sides = (("gpu", dev, torch.bfloat16, params),
+             ("cpu", torch.device("cpu"), torch.float32, cpu_params))
+    caches = {name: init_kv_cache(cfg.num_layers, 1, n + steps, att.kv_heads(), hd,
+                                  dtype=dt, device=d) for name, d, dt, _ in sides}
+    worst = 0.0
+    for step, (lo, hi) in enumerate([(0, n)] + [(n + j, n + j + 1) for j in range(steps)]):
+        out = {}
+        for name, d, _, pr in sides:
+            tok = torch.from_numpy(seq[:, lo:hi]).to(d)
+            pos = torch.arange(lo, hi, device=d)[None]
+            with torch.no_grad():
+                logits, _ = forward(pr, cfg, tok, caches[name], pos)
+            out[name] = logits[:, -1].float().cpu()
+        g, c = out["gpu"], out["cpu"]
+        assert g.shape == c.shape and torch.isfinite(g).all()
+        rel = ((g - c).abs().max() / c.abs().max()).item()
+        log(f"  {tag} step {step} ({'prefill' if step == 0 else 'decode'}): "
+            f"max|gpu-cpu|/max|cpu| {rel:.4g} "
+            + (f"(tol {rel_tol})" if rel_tol else "(reported, not held)")
+            + f", argmax {'agrees' if int(g.argmax()) == int(c.argmax()) else 'differs'}")
+        assert not rel_tol or rel <= rel_tol, f"{tag} step {step}: {rel} > {rel_tol}"
+        worst = max(worst, rel)
+    return worst
+
+
+def moe_forwards(dev) -> dict:
+    """Phase 11 (b): each MoE family at its published width, 2 layers,
+    written to disk as an AWQ-INT4 checkpoint (group 128) in its HF layout
+    and loaded by load_model onto the card (bf16): the paged forward (a
+    prefill of 64 and 37 tokens, 4 decode steps) and the contiguous one (a
+    64-token prefill, 4 decode steps) against the port's CPU f32 forward on
+    the same weights, the CPU taking the card's routing (RouteTape): each
+    layer and the head on the card's input (LayerTape), held at 5e-2 of the
+    largest logit and of each layer's largest output, then the paged one
+    free-running (reported); B1 and B2 launches counted on the paged run."""
+    import shutil
+    import tempfile
+
+    from blazr_tpu_torch.loader import load_model
+    from blazr_tpu_torch.utils.synthetic import MOE_CONFIGS, write_hf_checkpoint
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="moe-") as root:
+        for family, make in MOE_CONFIGS.items():
+            cfg = make()
+            cfg.num_layers = 2
+            d = Path(root) / family
+            t0 = time.perf_counter()
+            write_hf_checkpoint(d, cfg, quant="awq", seed=SEED, dtype="bfloat16")
+            t1 = time.perf_counter()
+            model, _ = load_model(d, dtype="bf16", device=dev)
+            t2 = time.perf_counter()
+            shutil.rmtree(d)
+            cpu = to_cpu_f32(model.params)
+            t3 = time.perf_counter()
+            row = {}
+            t4 = time.perf_counter()
+            with RouteTape() as tape:
+                with LayerTape() as layers:
+                    reset_counts()
+                    row["paged"] = card_vs_cpu(dev, model.cfg, model.params, cpu,
+                                               [64, 37], f"{family} paged, by layer")
+                    counts = read_counts()
+                    row["contiguous"] = card_vs_cpu_contiguous(
+                        dev, model.cfg, model.params, cpu, 64, f"{family} contiguous, by layer")
+                row["paged_free"] = card_vs_cpu(dev, model.cfg, model.params, cpu, [64, 37],
+                                                f"{family} paged, free-running", rel_tol=None)
+            t5 = time.perf_counter()
+            assert counts["paged_attention"] == 2 * 4 and counts["qmm"] > 0, counts
+            # A sanity floor: a broken router agrees on about k/E of its picks.
+            assert tape.share >= 0.9, f"{family}: routing agreement {tape.share}"
+            moe = model.cfg.moe
+            log(f"  {family}: {cfg.hidden_size}d, {moe.num_experts} experts of "
+                f"{moe.intermediate_size}, top-{moe.experts_per_tok}, 2 layers; written in "
+                f"{t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s, CPU weights in "
+                f"{t3 - t2:.1f} s, compared in {t5 - t4:.1f} s; max rel err of the logits "
+                f"by layer: paged "
+                f"{row['paged']:.4g}, contiguous {row['contiguous']:.4g}, of a layer's "
+                f"output {layers.worst:.4g} (tol 5e-2); paged free-running "
+                f"{row['paged_free']:.4g}; routing "
+                f"agreement {tape.share:.4f} of {tape.total} decisions; launches B1 "
+                f"{counts['qmm']}, B2 {counts['paged_attention']} (paged)")
+            out[family] = dict({f"{k}_max_rel_err": v for k, v in row.items()},
+                               layer_max_rel_err=layers.worst,
+                               routing_agreement=tape.share, decisions=tape.total,
+                               qmm=counts["qmm"], paged_attention=counts["paged_attention"])
+            del model, cpu
+            free_card()
+    return out
+
+
+def moe_phase(dev, gen, card: str, full_run: bool) -> dict:
+    """Phase 11: B1 at the expert shapes (moe_b1), the 2-layer forwards
+    (moe_forwards), then Mixtral-8x7B and Qwen3-30B-A3B served through the
+    warmed engine (family_serving), at the depth MOE_SERVING gives a full
+    run when ``full_run``. The kernels line takes its MoE row's launches
+    from Mixtral's run with graphs."""
+    out = {"b1": moe_b1(dev, gen), "forwards": moe_forwards(dev)}
+    for family, layers, ctx, full_run_layers in MOE_SERVING:
+        t0 = time.perf_counter()
+        out[family] = family_serving(dev, card, family,
+                                     full_run_layers if full_run else layers, ctx)
+        log(f"  {family} served in {time.perf_counter() - t0:.1f} s")
+    out.update(qmm=out["mixtral"]["qmm"], paged_attention=out["mixtral"]["paged_attention"])
     return out
 
 
@@ -2939,7 +3267,8 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
     Uses only the kernels' public wrappers, so ``--tree`` times another
     checkout's kernels; ``quant=False`` (a checkout from before B3's
     activation quant was one kernel) leaves that kernel out, and
-    ``families=False`` (another checkout) the dense families' rows."""
+    ``families=False`` (another checkout) the dense families' rows. Where
+    phase 11 ran, B1's MoE row takes the expert shapes' times it measured."""
     t1 = time_b1(dev, gen)
     t2 = time_b2(dev, gen)
     t3 = time_b3(dev, gen)
@@ -2949,6 +3278,7 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
     t6 = time_layout(dev, gen, "headmajor")
     f1 = time_b1_families(dev, gen) if families else None
     f2 = time_b2_families(dev, gen) if families else None
+    moe_b1 = res["moe"]["b1"]["rows"] if "moe" in res else None   # timed in phase 11
 
     def got(phase, key):
         return res.get(phase, {}).get(key)
@@ -3015,12 +3345,21 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
              max_abs_err=got("b2", "families_max_abs_err"),
              **{key: f2[FAMILY_B2_POINTS[0][0]][key] for key in keys},
              at=[{key: f2[p[0]][key] for key in keys} for p in FAMILY_B2_POINTS[1:]]),
-    ] if families else [])
+    ] if families else []) + ([
+        dict(name="qmm_w4a16 (B1), MoE experts", route="cuda",
+             source="blazr_tpu_torch/csrc/qmm.cu",
+             replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
+             launches=got("moe", "qmm"), max_abs_err=res["moe"]["b1"]["max_abs_err"],
+             **{key: moe_b1[("mixtral gate/up", 512)][key] for key in keys},
+             decode={key: moe_b1[("mixtral gate/up", 8)][key] for key in keys},
+             at=[{key: row[key] for key in keys} for sh, row in moe_b1.items()
+                 if sh[0] != "mixtral gate/up" or sh[1] not in (8, 512)]),
+    ] if moe_b1 else [])
 
 
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
           "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "prefix", "http",
-          "families", "sweep", "timings", "layout_times")
+          "families", "moe", "sweep", "timings", "layout_times")
 FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
@@ -3121,6 +3460,9 @@ def main() -> int:
         ("families", "phase 10: the dense families (2-layer full-width forwards, card "
          "vs CPU), then Qwen3-8B and Gemma2-9B served through the warmed engine",
          lambda: families(dev, card)),
+        ("moe", "phase 11: the MoE families (B1 at the expert shapes, 2-layer full-width "
+         "forwards card vs CPU), then Mixtral-8x7B and Qwen3-30B-A3B served through the "
+         "warmed engine", lambda: moe_phase(dev, gen, card, phases == list(FULL_RUN))),
         ("sweep", "phase 8: the sweeps behind the launch plans of B1-B6",
          lambda: (b1_variants(dev, gen), b2_splits(dev, gen), b3_sweeps(dev, gen),
                   b4_splits(dev, gen), layout_splits(dev, gen))),

@@ -263,10 +263,10 @@ def test_port_imports_without_jax_or_blazr_tpu():
                          capture_output=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 62
+    assert len(names) >= 63
     assert {f"blazr_tpu_torch.{m}" for m in (
         "kvcache.prefix_cache", "kvcache.host_tier", "server.metrics", "server.slo",
-        "quant.int8", "kvcache.contiguous", "models.llama", "engine.executor",
+        "quant.int8", "kvcache.contiguous", "models.llama", "models.moe", "engine.executor",
         "engine.generate_text", "model_meta.think", "utils.ppl",
         "tools.bench_pa_wide", "tools.bench_pa_headmajor", "formats.safetensors",
         "formats.detect", "loader.varmap", "loader.api", "tokenizer.bpe",

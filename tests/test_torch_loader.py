@@ -224,9 +224,11 @@ def test_safetensors_roundtrip_bf16_without_ml_dtypes(tmp_path):
 
 
 def test_unserved_families_and_gguf_raise(tmp_path, ckpts):
-    """The dense families load (tests/test_torch_families.py); a Mixtral-style
-    MoE and a Mamba2 checkpoint still raise, naming queue A item 11."""
-    for name, extra in (("mixtral", {"model_type": "mixtral", "num_local_experts": 4}),
+    """The dense and MoE families load (tests/test_torch_families.py,
+    tests/test_torch_moe.py); a DeepSeek MLA and a Mamba2 checkpoint still
+    raise, naming queue A item 11."""
+    for name, extra in (("deepseek", {"model_type": "deepseek_v3", "kv_lora_rank": 16,
+                                      "n_routed_experts": 4}),
                         ("mamba2", {"model_type": "mamba2"})):
         d = tmp_path / name
         write_tiny_llama_checkpoint(d, np.random.default_rng(5), cfg=extra)
