@@ -1,18 +1,24 @@
 """Command-line interface.
 
-Counterpart of ``blazr_tpu/cli/main.py`` for the two commands of the port's
-entry path: ``run`` (one prompt, or a REPL, through the Executor) and
+Counterpart of ``blazr_tpu/cli/main.py`` for the commands of the port's
+entry path: ``run`` (one prompt, or a REPL, through the Executor),
 ``serve`` (the OpenAI-compatible HTTP server, optionally over the
-continuous-batching engine). Both run on ``cuda`` unless ``--device cpu``.
-The JAX CLI's other commands exit 2 and name their ROADMAP item.
+continuous-batching engine), ``bench`` (the prompt-length sweep of
+``engine/bench.py``) and ``convert`` (safetensors ↔ GGUF). They run on
+``cuda`` unless ``--device cpu``. The JAX CLI's other commands exit 2 and
+name their ROADMAP item.
 
-    python -m blazr_tpu_torch.cli serve --model DIR --continuous-batching
+    python -m blazr_tpu_torch.cli serve --model FILE.gguf --continuous-batching
     python -m blazr_tpu_torch.cli run DIR --prompt "..." --device cpu
+    python -m blazr_tpu_torch.cli bench FILE.gguf --prompt-lens 32,128,512
+    python -m blazr_tpu_torch.cli convert DIR out.gguf --quant Q4_K
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import logging
 import os
 import sys
@@ -22,10 +28,9 @@ from pathlib import Path
 # Commands of the JAX CLI this one does not run, with the ROADMAP queue A
 # item that ports them.
 NOT_PORTED = {
-    "generate": "item 9", "chat": "item 9", "bench": "item 6", "info": "item 9",
-    "list": "item 9", "ps": "item 9", "tokenize": "item 9", "swarm": "item 13",
-    "disagg": "item 13", "completions": "item 9", "pull": "item 9",
-    "convert": "item 10",
+    "generate": "item 9", "chat": "item 9", "info": "item 9", "list": "item 9",
+    "ps": "item 9", "tokenize": "item 9", "swarm": "item 13", "disagg": "item 13",
+    "completions": "item 9", "pull": "item 9",
 }
 
 
@@ -73,6 +78,22 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--decode-horizon", type=int, default=8,
                        help="decode steps per engine round")
 
+    bench = sub.add_parser("bench", help="benchmark a model")
+    bench.add_argument("model", nargs="?", help="model dir / file (synthetic if omitted)")
+    bench.add_argument("--prompt-lens", default="32,128,512")
+    bench.add_argument("--decode-tokens", type=int, default=128)
+    bench.add_argument("--runs", type=int, default=3)
+    bench.add_argument("--json", dest="json_out", help="write JSON results to file")
+    bench.add_argument("--dtype", choices=["f32", "f16", "bf16"])
+    bench.add_argument("--profile", metavar="DIR",
+                       help="write a torch.profiler trace (Chrome trace JSON) to DIR")
+
+    conv = sub.add_parser("convert", help="convert checkpoint formats")
+    conv.add_argument("src")
+    conv.add_argument("dst")
+    conv.add_argument("--quant", default=None,
+                      help="ggml quant type for GGUF output (Q8_0, Q4_K, ...)")
+
     for name, item in NOT_PORTED.items():
         sub.add_parser(name, help=f"not ported yet (ROADMAP queue A {item})",
                        add_help=False).add_argument("rest", nargs=argparse.REMAINDER)
@@ -89,7 +110,8 @@ def main(argv=None) -> int:
               f"package yet (ROADMAP queue A {NOT_PORTED[args.command]}); "
               "run it with python -m blazr_tpu.cli", file=sys.stderr)
         return 2
-    return {"run": cmd_run, "serve": cmd_serve}[args.command](args)
+    return {"run": cmd_run, "serve": cmd_serve, "bench": cmd_bench,
+            "convert": cmd_convert}[args.command](args)
 
 
 def _load_executor(model_path: str, dtype, device: str, kv_cache_dtype=None,
@@ -203,4 +225,42 @@ def cmd_serve(args) -> int:
         print(f"continuous batching enabled (max_batch={args.max_batch_size})",
               file=sys.stderr)
     run_server(scheduler, cfg, batch_engine=batch_engine)
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """The JAX ``cmd_bench`` (cli/main.py:576); ``--profile`` writes a
+    ``torch.profiler`` trace where JAX writes a ``jax.profiler`` one."""
+    from ..engine.bench import run_benchmark
+
+    prof: contextlib.AbstractContextManager = contextlib.nullcontext()
+    if args.profile:
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.device(args.device).type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+    with prof:
+        results = run_benchmark(
+            model_path=args.model,
+            prompt_lens=[int(x) for x in args.prompt_lens.split(",")],
+            decode_tokens=args.decode_tokens, runs=args.runs, dtype=args.dtype,
+            device=args.device)
+    if args.profile:
+        out = Path(args.profile)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / "trace.json"))
+        print(f"profiler trace written to {out / 'trace.json'}", file=sys.stderr)
+    print(json.dumps(results, indent=2))
+    if args.json_out:
+        Path(args.json_out).write_text(json.dumps(results, indent=2))
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from ..loader.convert import convert_checkpoint
+
+    convert_checkpoint(args.src, args.dst, quant=args.quant)
+    print(f"converted {args.src} -> {args.dst}")
     return 0

@@ -75,6 +75,12 @@ class AppConfig:
                    generation=generation)
 
     @classmethod
+    def from_universal_with_dtype(cls, model: UniversalConfig, dtype: str) -> "AppConfig":
+        cfg = cls(model=model)
+        cfg.inference.dtype = dtype
+        return cfg
+
+    @classmethod
     def from_file(cls, path: str | Path) -> "AppConfig":
         path = Path(path)
         text = path.read_text()

@@ -44,11 +44,12 @@ The decode round is the JAX engine's fixed-shape, pipelined round:
 ``warmup()`` does before the first request what eager PyTorch would
 otherwise do inside it: build the kernels, initialise the libraries, run
 one prefill per token bucket and capture every decode graph.
-Left out of this slice (ROADMAP queue A): speculation, grammars and JSON
-mode, LoRA, host samplers (mirostat/DRY/typical/dynatemp), tensor/sequence
-parallel meshes and recurrent-state families. A request or config that
-asks for one raises instead of being served differently. int4 KV on the
-paged path raises instead of being downgraded.
+Left out of this slice, each naming its ROADMAP queue A item: speculation
+(5a.5), grammars and JSON mode (5a.4), LoRA (5a.6), host samplers
+(mirostat/DRY/typical/dynatemp; 5a.3), tensor/sequence parallel meshes
+(13), weight offload (12) and recurrent-state families (11). A request or
+config that asks for one raises instead of being served differently. int4
+KV on the paged path raises instead of being downgraded.
 """
 
 from __future__ import annotations
@@ -134,20 +135,20 @@ class RequestHandle:
                 return
 
 
-def _not_served(what: str) -> NotImplementedError:
+def _not_served(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not served by blazr_tpu_torch yet (ROADMAP queue A)")
+        f"{what} is not served by blazr_tpu_torch yet (ROADMAP queue A item {item})")
 
 
 def check_request(gen_cfg: GenerationConfig) -> None:
     """Raise for a request that asks for what the port does not serve yet."""
     if gen_cfg.grammar or gen_cfg.json_mode or gen_cfg.json_schema:
-        raise _not_served("constrained decoding (grammar / JSON mode)")
+        raise _not_served("constrained decoding (grammar / JSON mode)", "5a.4")
     if gen_cfg.lora_adapter:
-        raise _not_served("LoRA")
+        raise _not_served("LoRA", "5a.6")
     if (gen_cfg.mirostat == 2 or gen_cfg.dry_multiplier > 0.0
             or gen_cfg.typical_p < 1.0 or gen_cfg.dynatemp_range > 0.0):
-        raise _not_served("host-side sampling (mirostat/DRY/typical/dynatemp)")
+        raise _not_served("host-side sampling (mirostat/DRY/typical/dynatemp)", "5a.3")
 
 
 class BatchEngine:
@@ -234,12 +235,12 @@ class BatchEngine:
         if inf.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(f"unknown kv_cache_dtype {inf.kv_cache_dtype!r}")
         if inf.speculative is not None and inf.speculative.num_speculative_tokens > 0:
-            raise _not_served("speculative decoding")
+            raise _not_served("speculative decoding", "5a.5")
         if max(inf.tensor_parallel_size, inf.data_parallel_size,
                inf.expert_parallel_size, inf.sequence_parallel_size) > 1:
-            raise _not_served("multi-device serving")
+            raise _not_served("multi-device serving", "13")
         if inf.moe_offload or inf.num_device_layers is not None:
-            raise _not_served("weight offload")
+            raise _not_served("weight offload", "12")
 
     # ------------------------------------------------------------------
     # submission API
@@ -319,7 +320,7 @@ class BatchEngine:
         if batch.prefill_sequences:
             t0 = time.perf_counter()
             pending = await asyncio.to_thread(self._dispatch_prefills,
-                                              batch.prefill_sequences, cold)
+                                              batch.prefill_sequences, cold=cold)
             self.perf["prefill"] += time.perf_counter() - t0
             self.perf["prefill_n"] += 1
         decodes = [s for s in batch.decode_sequences
@@ -348,7 +349,7 @@ class BatchEngine:
                 torch.from_numpy(vals).to(self.device))
 
     @torch.no_grad()
-    def _dispatch_prefills(self, seqs: list[Sequence], cold: bool = False) -> list:
+    def _dispatch_prefills(self, seqs: list[Sequence], *, cold: bool) -> list:
         """Queue this step's prefill chunks, batching same-bucket chunks into
         one [P, T] forward with first-token sampling in the same pass.
         Returns the un-fetched outputs so the fetch overlaps the decode

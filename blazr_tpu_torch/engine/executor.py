@@ -21,10 +21,11 @@ executor's programs see, and the row-count routing of ``w4a8-prefill``
 agrees. ``inference.quant_compute`` is applied to the model's params in
 place when the executor is built.
 
-Not served yet; each raises ``NotImplementedError`` naming ROADMAP queue A,
-as ``BatchEngine`` does: grammars and JSON mode, host samplers (mirostat/
-DRY/typical/dynatemp), LoRA, TP/EP/SP meshes and ring prefill, MoE offload
-and streaming (host-offloaded) models.
+Not served yet; each raises ``NotImplementedError`` naming its ROADMAP
+queue A item, as ``BatchEngine`` does: grammars and JSON mode (5a.4), host
+samplers (mirostat/DRY/typical/dynatemp; 5a.3), LoRA (5a.6), TP/EP/SP
+meshes and ring prefill (13), MoE offload and streaming (host-offloaded)
+models (12).
 """
 
 from __future__ import annotations
@@ -81,11 +82,11 @@ class Executor:
             raise ValueError(f"unknown kv_cache_dtype {inf.kv_cache_dtype!r}")
         if max(inf.tensor_parallel_size, inf.data_parallel_size,
                inf.expert_parallel_size, inf.sequence_parallel_size) > 1:
-            raise _not_served("multi-device serving and ring prefill")
+            raise _not_served("multi-device serving and ring prefill", "13")
         if inf.moe_offload:
-            raise _not_served("MoE expert offload")
+            raise _not_served("MoE expert offload", "12")
         if inf.num_device_layers is not None:
-            raise _not_served("streaming (host-offloaded) models")
+            raise _not_served("streaming (host-offloaded) models", "12")
 
     @property
     def device(self) -> torch.device:

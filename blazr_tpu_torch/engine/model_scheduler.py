@@ -79,10 +79,13 @@ class ModelScheduler:
     # ------------------------------------------------------------------
     def discover_models(self) -> list[str]:
         """List loadable models in the model dir (reference model-dir
-        discovery): subdirectories with checkpoints, plus *.gguf files."""
+        discovery): subdirectories with checkpoints, plus *.gguf files. A
+        model dir that is a GGUF file is its one model."""
         out = []
         if not self.model_dir.exists():
             return out
+        if self._is_gguf_file(self.model_dir):
+            return [self.model_dir.name]
         if self._is_model_dir(self.model_dir):
             out.append(self.model_dir.name)
         for p in sorted(self.model_dir.iterdir()):
@@ -93,11 +96,17 @@ class ModelScheduler:
         return out
 
     @staticmethod
+    def _is_gguf_file(p: Path) -> bool:
+        return p.is_file() and p.suffix == ".gguf"
+
+    @staticmethod
     def _is_model_dir(p: Path) -> bool:
         return any(p.glob("*.safetensors")) or any(p.glob("*.gguf")) \
             or (p / "model.safetensors.index.json").exists()
 
     def _resolve_path(self, name: str) -> Path:
+        if self._is_gguf_file(self.model_dir):      # serve --model FILE.gguf
+            return self.model_dir
         if name in ("", "default") and self._is_model_dir(self.model_dir):
             return self.model_dir
         cand = self.model_dir / name

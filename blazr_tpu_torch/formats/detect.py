@@ -2,8 +2,7 @@
 
 Counterpart of ``blazr_tpu/formats/detect.py``: probe a file or directory
 for SafeTensors (single, sharded, AWQ, GPTQ) or GGUF checkpoints;
-SafeTensors is preferred when both exist. GGUF is detected here; loading
-it raises (ROADMAP queue A item 10).
+SafeTensors is preferred when both exist.
 """
 
 from __future__ import annotations

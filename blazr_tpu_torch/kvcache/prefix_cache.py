@@ -140,7 +140,12 @@ class PrefixCache:
             for b in blocks:
                 self.allocator.free([b])
             raise
-        self._seq_blocks[seq_id] = blocks
+        # A copy: the caller keeps ``blocks`` as its block table and extends
+        # it with what ``extend`` returns, which ``extend`` also records
+        # here. One shared list would hold each decode block twice and free
+        # it twice (the JAX package's prefix_cache.py:132 shares it; ROADMAP
+        # §C), so two later sequences would be handed the same block.
+        self._seq_blocks[seq_id] = list(blocks)
         if self.on_lookup is not None:
             cached_tokens = self.on_lookup(seq_id, tokens, cached_tokens, blocks)
         return cached_tokens, blocks

@@ -4,11 +4,12 @@ Counterpart of ``blazr_tpu/loader/varmap.py``: loaders normalize every
 checkpoint format into a flat dict of HF-convention names mapping to either
 a dense CPU tensor or a canonical :class:`~blazr_tpu_torch.quant.qtensor.QuantTensor`
 (built on the CPU); the model builder then ``take``s what it needs and
-places it on the device. GGUF checkpoints raise (ROADMAP queue A item 10).
+places it on the device.
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Optional, Union
 
@@ -16,8 +17,14 @@ import numpy as np
 import torch
 
 from ..formats.detect import read_quant_group_size
+from ..formats.ggml_quants import dequantize_ggml
+from ..formats.gguf import Gguf, GgmlType
+from ..formats.iq_quants import IQ_GRID_TYPES, IQ_GRIDS_META_KEY, check_grid_stamp
+from ..formats.names import gguf_to_hf_name, qk_heads_of, qk_rows
 from ..formats.safetensors import SafeTensorsReader
-from ..quant.qtensor import QuantTensor, from_awq, from_gptq
+from ..quant.qtensor import (CANONICAL_GGML_TYPES, QuantTensor, from_awq, from_ggml,
+                             from_gptq, stack_quant)
+from .gguf_config import gguf_qk_heads
 
 Weight = Union[torch.Tensor, QuantTensor]
 _CPU = torch.device("cpu")
@@ -121,7 +128,54 @@ def varmap_from_gptq(path: str | Path, group_size: Optional[int] = None,
     return vm
 
 
-def varmap_from_gguf(path: str | Path, keep_quantized: bool = True) -> VarMap:
-    raise NotImplementedError(
-        f"GGUF checkpoints ({path}) are not loaded by blazr_tpu_torch yet "
-        "(ROADMAP queue A item 10)")
+# ---------------------------------------------------------------------------
+# GGUF loader
+# ---------------------------------------------------------------------------
+
+# Tensors that must be dense (gathered / broadcast) even when quantized in
+# the file: embeddings and norms.
+_DENSE_PATTERNS = re.compile(
+    r"(embed_tokens|token_embd|norm|layernorm|ln_|_bias|\.bias|A_log|\.D\b)", re.IGNORECASE
+)
+
+
+def _stacked_from_ggml(raw, gt: GgmlType, shape: tuple[int, ...]) -> QuantTensor:
+    """A pre-stacked [E, N, K] expert tensor → a stacked QuantTensor, one
+    ``from_ggml`` per expert slice (the JAX loader dequantizes it to dense
+    f32: ROADMAP §C)."""
+    e, n, k = shape
+    per = len(raw) // e
+    return stack_quant([from_ggml(raw[i * per:(i + 1) * per], gt, (n, k), device=_CPU)
+                        for i in range(e)])
+
+
+def varmap_from_gguf(path: str | Path) -> VarMap:
+    """Load a GGUF checkpoint with GGUF→HF name mapping (the JAX package's
+    varmap.py:151-184). 2-D weights in a canonical ggml type stay quantized
+    (QuantTensor), and so do pre-stacked 3-D expert tensors (one stacked
+    QuantTensor); embeddings, norms and the other types dequantize to dense
+    float32. ``attn_q``/``attn_k`` rows of a llama-architecture file are
+    un-permuted first (``formats.names.qk_permuted``)."""
+    vm = VarMap()
+    with Gguf.open(path) as g:
+        if any(g.tensor_info(n).ggml_type in IQ_GRID_TYPES for n in g.tensor_names()):
+            check_grid_stamp(g.metadata().get(IQ_GRIDS_META_KEY), f"GGUF file {path}")
+        heads = gguf_qk_heads(g.metadata())
+        for name in g.tensor_names():
+            info = g.tensor_info(name)
+            hf_name = gguf_to_hf_name(name)
+            gt = info.ggml_type
+            raw = g.tensor_bytes(name)
+            n_head = qk_heads_of(name, heads)
+            if n_head:
+                raw = qk_rows(raw, info.shape, n_head, to_gguf=False)
+            quantized = (gt in CANONICAL_GGML_TYPES
+                         and _DENSE_PATTERNS.search(hf_name) is None)
+            if quantized and len(info.shape) == 2:
+                vm.insert(hf_name, from_ggml(raw, gt, info.shape, device=_CPU))
+            elif quantized and len(info.shape) == 3:
+                vm.insert(hf_name, _stacked_from_ggml(raw, gt, info.shape))
+            else:
+                vm.insert(hf_name, torch.from_numpy(
+                    np.ascontiguousarray(dequantize_ggml(raw, gt, info.shape))))
+    return vm

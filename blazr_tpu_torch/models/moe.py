@@ -184,9 +184,9 @@ def is_moe_layer(vm, pfx: str, cfg: UniversalConfig) -> bool:
 
 def build_moe_params(pb, pfx: str, cfg: UniversalConfig) -> dict:
     """Router, per-expert weights stacked to [E, ...] (Mixtral's
-    ``block_sparse_moe.experts.N.w1/w3/w2`` or ``mlp.experts.N.gate/up/
-    down_proj``), DeepSeek's ``shared_experts`` or Qwen2-MoE's gated
-    ``shared_expert``."""
+    ``block_sparse_moe.experts.N.w1/w3/w2``, ``mlp.experts.N.gate/up/
+    down_proj`` or GGUF's pre-stacked ``mlp.experts.gate/up/down_proj``),
+    DeepSeek's ``shared_experts`` or Qwen2-MoE's gated ``shared_expert``."""
     p: dict[str, Any] = {
         "router": pb.get(pfx + "mlp.gate.weight", pfx + "block_sparse_moe.gate.weight",
                          transpose=True),
@@ -194,18 +194,22 @@ def build_moe_params(pb, pfx: str, cfg: UniversalConfig) -> dict:
                                   required=False, dtype=torch.float32),
     }
     if pfx + "mlp.experts.gate_proj.weight" in pb.vm:
-        raise NotImplementedError("pre-stacked expert tensors (GGUF) are not loaded by "
-                                  "blazr_tpu_torch yet (ROADMAP queue A item 10)")
-    stacks: dict[str, list] = {"experts_gate": [], "experts_up": [], "experts_down": []}
-    for ei in range(cfg.moe.num_experts):
-        hf, mx = pfx + f"mlp.experts.{ei}.", pfx + f"block_sparse_moe.experts.{ei}."
-        for key, part, w in (("experts_gate", "gate_proj", "w1"),
-                             ("experts_up", "up_proj", "w3"),
-                             ("experts_down", "down_proj", "w2")):
-            stacks[key].append(pb.get(hf + part + ".weight", mx + w + ".weight",
-                                      transpose=True))
-    for key, ws in stacks.items():
-        p[key] = stack_quant(ws) if isinstance(ws[0], QuantTensor) else torch.stack(ws)
+        # GGUF's pre-stacked ffn_{gate,up,down}_exps: a stacked QuantTensor
+        # (loader/varmap.py), or dense [E, out, in] placed as [E, in, out].
+        for key, part in (("experts_gate", "gate_proj"), ("experts_up", "up_proj"),
+                          ("experts_down", "down_proj")):
+            p[key] = pb.get(pfx + f"mlp.experts.{part}.weight", transpose=True)
+    else:
+        stacks: dict[str, list] = {"experts_gate": [], "experts_up": [], "experts_down": []}
+        for ei in range(cfg.moe.num_experts):
+            hf, mx = pfx + f"mlp.experts.{ei}.", pfx + f"block_sparse_moe.experts.{ei}."
+            for key, part, w in (("experts_gate", "gate_proj", "w1"),
+                                 ("experts_up", "up_proj", "w3"),
+                                 ("experts_down", "down_proj", "w2")):
+                stacks[key].append(pb.get(hf + part + ".weight", mx + w + ".weight",
+                                          transpose=True))
+        for key, ws in stacks.items():
+            p[key] = stack_quant(ws) if isinstance(ws[0], QuantTensor) else torch.stack(ws)
     for base in (pfx + "mlp.shared_experts.", pfx + "mlp.shared_expert."):
         sg = pb.get(base + "gate_proj.weight", transpose=True, required=False)
         if sg is not None:

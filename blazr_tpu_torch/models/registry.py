@@ -31,15 +31,16 @@ if TYPE_CHECKING:  # avoids the loader <-> models import cycle
 
 
 def _place(w, dtype: torch.dtype, device: torch.device, transpose: bool = False):
-    """VarMap weight → device tensor. Dense [out, in] transposes to
-    [in, out]; QuantTensors are already canonical [in, out] and only move."""
+    """VarMap weight → device tensor. Dense [out, in] (or a stacked [E, out,
+    in]) transposes to [in, out]; QuantTensors are already canonical [in,
+    out] and only move."""
     if w is None:
         return None
     if isinstance(w, QuantTensor):
         return dataclasses.replace(
             w, qweight=w.qweight.to(device), scales=w.scales.to(device),
             mins=w.mins.to(device), perm=None if w.perm is None else w.perm.to(device))
-    t = w.t() if transpose and w.dim() == 2 else w
+    t = w.transpose(-2, -1) if transpose and w.dim() >= 2 else w
     return t.to(device=device, dtype=dtype).contiguous()
 
 

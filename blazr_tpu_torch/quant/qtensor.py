@@ -17,6 +17,9 @@ two packages hold bit-identical weights:
 
 Format mapping (exact — same integers, same affine):
   AWQ INT4  → bits=4, m = s·z;  GPTQ INT4 → bits=4, m = s·(z+1).
+  GGUF Q8_0 / Q8_K                    → bits=8 (signed), m = 0
+  GGUF Q4_0/Q4_1/Q4_K/Q5_K/Q2_K/Q3_K  → bits∈{2,4,8}, per-sub-block affine
+  GGUF Q6_K / IQ4_NL / IQ4_XS / TQ2_0 → bits=8/8/8/2
 Unsigned 4-bit payloads are sign-biased at load (``_finish``).
 """
 
@@ -28,6 +31,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..formats.ggml_quants import (KVALUES_IQ4NL, QK_K, _blocks, _f16, _k4_scale_min,
+                                   _q3k_unpack_scales)
+from ..formats.gguf import GgmlType
 from ..utils.device import DeviceLike, resolve_device
 
 # AWQ nibble order: column 8w+j uses shift AWQ_SHIFTS[j]
@@ -184,6 +190,193 @@ def from_gptq(qweight_u32: np.ndarray, scales: np.ndarray,
             q = q[perm]
     return _finish(q, s, s * z, bits=4, group_size=group_size, signed=False,
                    fmt="gptq", perm=perm, device=device)
+
+
+# ---------------------------------------------------------------------------
+# GGUF / ggml block formats (the JAX package's qtensor.py:218-398)
+# ---------------------------------------------------------------------------
+
+def _ggml_to_int_grouped(raw, gt: GgmlType, n_rows: int, k: int):
+    """Extract (q_int [rows, K], scales [rows, K/gs], mins, gs, bits, signed)
+    from raw ggml blocks (blocks run along K within each row)."""
+    if gt == GgmlType.Q8_0:
+        b = _blocks(raw, 34)
+        d = _f16(b[:, :2].copy())
+        q = b[:, 2:].view(np.int8)
+        return (q.reshape(n_rows, k), d.reshape(n_rows, k // 32),
+                np.zeros((n_rows, k // 32), np.float32), 32, 8, True)
+    if gt == GgmlType.Q4_0:
+        b = _blocks(raw, 18)
+        d = _f16(b[:, :2].copy())
+        qs = b[:, 2:]
+        q = np.concatenate([qs & 0x0F, qs >> 4], axis=1)
+        return (q.reshape(n_rows, k), d.reshape(n_rows, k // 32),
+                (8.0 * d).reshape(n_rows, k // 32), 32, 4, False)
+    if gt == GgmlType.Q4_1:
+        b = _blocks(raw, 20)
+        d = _f16(b[:, :2].copy())
+        m = _f16(b[:, 2:4].copy())
+        qs = b[:, 4:]
+        q = np.concatenate([qs & 0x0F, qs >> 4], axis=1)
+        return (q.reshape(n_rows, k), d.reshape(n_rows, k // 32),
+                (-m).reshape(n_rows, k // 32), 32, 4, False)
+    if gt == GgmlType.Q4_K:
+        b = _blocks(raw, 144)
+        nb = b.shape[0]
+        d = _f16(b[:, :2].copy())[:, 0]
+        dmin = _f16(b[:, 2:4].copy())[:, 0]
+        sc, mn = _k4_scale_min(b[:, 4:16])                # [nb, 8]
+        qs = b[:, 16:]
+        q = np.empty((nb, QK_K), dtype=np.uint8)
+        for j in range(4):
+            qrow = qs[:, j * 32 : j * 32 + 32]
+            q[:, j * 64 : j * 64 + 32] = qrow & 0x0F
+            q[:, j * 64 + 32 : j * 64 + 64] = qrow >> 4
+        scales = (d[:, None] * sc).astype(np.float32)      # per 32-elem group
+        mins = (dmin[:, None] * mn).astype(np.float32)
+        return (q.reshape(n_rows, k), scales.reshape(n_rows, k // 32),
+                mins.reshape(n_rows, k // 32), 32, 4, False)
+    if gt == GgmlType.Q5_K:
+        b = _blocks(raw, 176)
+        nb = b.shape[0]
+        d = _f16(b[:, :2].copy())[:, 0]
+        dmin = _f16(b[:, 2:4].copy())[:, 0]
+        sc, mn = _k4_scale_min(b[:, 4:16])
+        qh = b[:, 16:48]
+        ql = b[:, 48:]
+        q = np.empty((nb, QK_K), dtype=np.uint8)
+        for j in range(4):
+            qrow = ql[:, j * 32 : j * 32 + 32]
+            u1 = 1 << (2 * j)
+            u2 = 2 << (2 * j)
+            q[:, j * 64 : j * 64 + 32] = (qrow & 0x0F) + np.where((qh & u1) != 0, 16, 0).astype(np.uint8)
+            q[:, j * 64 + 32 : j * 64 + 64] = (qrow >> 4) + np.where((qh & u2) != 0, 16, 0).astype(np.uint8)
+        scales = (d[:, None] * sc).astype(np.float32)
+        mins = (dmin[:, None] * mn).astype(np.float32)
+        return (q.reshape(n_rows, k), scales.reshape(n_rows, k // 32),
+                mins.reshape(n_rows, k // 32), 32, 8, True)
+    if gt == GgmlType.Q6_K:
+        b = _blocks(raw, 210)
+        nb = b.shape[0]
+        ql = b[:, :128]
+        qh = b[:, 128:192]
+        sc6 = b[:, 192:208].view(np.int8).astype(np.float32)
+        d = _f16(b[:, 208:210].copy())[:, 0]
+        q = np.empty((nb, QK_K), dtype=np.int8)
+        for chunk in range(2):
+            qlc = ql[:, chunk * 64 : chunk * 64 + 64]
+            qhc = qh[:, chunk * 32 : chunk * 32 + 32]
+            base = chunk * 128
+            q[:, base : base + 32] = (((qlc[:, :32] & 0x0F) | (((qhc >> 0) & 3) << 4)).astype(np.int32) - 32).astype(np.int8)
+            q[:, base + 32 : base + 64] = (((qlc[:, 32:] & 0x0F) | (((qhc >> 2) & 3) << 4)).astype(np.int32) - 32).astype(np.int8)
+            q[:, base + 64 : base + 96] = (((qlc[:, :32] >> 4) | (((qhc >> 4) & 3) << 4)).astype(np.int32) - 32).astype(np.int8)
+            q[:, base + 96 : base + 128] = (((qlc[:, 32:] >> 4) | (((qhc >> 6) & 3) << 4)).astype(np.int32) - 32).astype(np.int8)
+        scales = (d[:, None] * sc6).astype(np.float32)     # per 16-elem group
+        return (q.reshape(n_rows, k), scales.reshape(n_rows, k // 16),
+                np.zeros((n_rows, k // 16), np.float32), 16, 8, True)
+    if gt == GgmlType.Q2_K:
+        b = _blocks(raw, 84)
+        nb = b.shape[0]
+        sc_field = b[:, :16]
+        qs = b[:, 16:80]
+        d = _f16(b[:, 80:82].copy())[:, 0]
+        dmin = _f16(b[:, 82:84].copy())[:, 0]
+        q = np.empty((nb, QK_K), dtype=np.uint8)
+        for chunk in range(2):
+            qchunk = qs[:, chunk * 32 : chunk * 32 + 32]
+            for j in range(4):
+                q[:, chunk * 128 + j * 32 : chunk * 128 + j * 32 + 32] = (qchunk >> (2 * j)) & 3
+        scales = (d[:, None] * (sc_field & 0x0F).astype(np.float32))   # per 16
+        mins = (dmin[:, None] * (sc_field >> 4).astype(np.float32))
+        return (q.reshape(n_rows, k), scales.reshape(n_rows, k // 16),
+                mins.reshape(n_rows, k // 16), 16, 2, False)
+    if gt == GgmlType.Q3_K:
+        b = _blocks(raw, 110)
+        nb = b.shape[0]
+        hmask = b[:, :32]
+        qs = b[:, 32:96]
+        sc16 = _q3k_unpack_scales(np.ascontiguousarray(b[:, 96:108])).astype(np.float32)
+        d = _f16(b[:, 108:110].copy())[:, 0]
+        q = np.empty((nb, QK_K), dtype=np.uint8)   # values 0..7 (bias 4)
+        for chunk in range(2):
+            qchunk = qs[:, chunk * 32 : chunk * 32 + 32]
+            for j in range(4):
+                mbit = 1 << (chunk * 4 + j)
+                lo = (qchunk >> (2 * j)) & 3
+                hi = np.where((hmask & mbit) != 0, 4, 0).astype(np.uint8)
+                q[:, chunk * 128 + j * 32 : chunk * 128 + j * 32 + 32] = lo + hi
+        scales = (d[:, None] * (sc16 - 32.0))             # per 16
+        mins = 4.0 * scales                                # shift bias: w = s*q' - 4s
+        return (q.reshape(n_rows, k), scales.reshape(n_rows, k // 16).astype(np.float32),
+                mins.reshape(n_rows, k // 16).astype(np.float32), 16, 4, False)
+    if gt == GgmlType.IQ4_NL:
+        b = _blocks(raw, 18)
+        d = _f16(b[:, :2].copy())
+        qs = b[:, 2:]
+        idx = np.concatenate([qs & 0x0F, qs >> 4], axis=1)
+        q = KVALUES_IQ4NL.astype(np.int8)[idx]
+        return (q.reshape(n_rows, k), d.reshape(n_rows, k // 32),
+                np.zeros((n_rows, k // 32), np.float32), 32, 8, True)
+    if gt == GgmlType.IQ4_XS:
+        b = _blocks(raw, 136)
+        nb = b.shape[0]
+        d = _f16(b[:, :2].copy())[:, 0]
+        scales_h = b[:, 2:4].copy().view(np.uint16)[:, 0].astype(np.uint32)
+        scales_l = b[:, 4:8]
+        qs = b[:, 8:]
+        q = np.empty((nb, QK_K), dtype=np.int8)
+        scales = np.empty((nb, 8), dtype=np.float32)
+        for ib in range(8):
+            ls = ((scales_l[:, ib // 2] >> (4 * (ib % 2))) & 0x0F).astype(np.uint32) | (
+                ((scales_h >> (2 * ib)) & 3) << 4)
+            scales[:, ib] = d * (ls.astype(np.float32) - 32.0)
+            qrow = qs[:, ib * 16 : ib * 16 + 16]
+            q[:, ib * 32 : ib * 32 + 16] = KVALUES_IQ4NL.astype(np.int8)[qrow & 0x0F]
+            q[:, ib * 32 + 16 : ib * 32 + 32] = KVALUES_IQ4NL.astype(np.int8)[qrow >> 4]
+        return (q.reshape(n_rows, k), scales.reshape(n_rows, k // 32),
+                np.zeros((n_rows, k // 32), np.float32), 32, 8, True)
+    if gt == GgmlType.TQ2_0:
+        b = _blocks(raw, 66)
+        nb = b.shape[0]
+        qs = b[:, :64]
+        d = _f16(b[:, 64:66].copy())[:, 0]
+        q = np.empty((nb, QK_K), dtype=np.uint8)
+        for j in range(0, 64, 32):
+            for l in range(4):
+                q[:, j * 4 + l * 32 : j * 4 + l * 32 + 32] = (qs[:, j : j + 32] >> (2 * l)) & 3
+        scales = np.repeat(d[:, None], QK_K // 256, axis=1).astype(np.float32)
+        return (q.reshape(n_rows, k), scales.reshape(n_rows, k // 256),
+                scales.reshape(n_rows, k // 256).copy(), 256, 2, False)
+    if gt == GgmlType.Q8_K:
+        b = _blocks(raw, 292)
+        d = b[:, :4].copy().view(np.float32)
+        q = b[:, 4:260].view(np.int8)
+        return (q.reshape(n_rows, k), d.reshape(n_rows, k // 256),
+                np.zeros((n_rows, k // 256), np.float32), 256, 8, True)
+    raise NotImplementedError(f"no canonical mapping for {gt.name}")
+
+
+CANONICAL_GGML_TYPES = {
+    GgmlType.Q8_0, GgmlType.Q4_0, GgmlType.Q4_1, GgmlType.Q4_K, GgmlType.Q5_K,
+    GgmlType.Q6_K, GgmlType.Q2_K, GgmlType.Q3_K, GgmlType.IQ4_NL,
+    GgmlType.IQ4_XS, GgmlType.TQ2_0, GgmlType.Q8_K,
+}
+
+
+def from_ggml(raw: bytes | memoryview, gt: GgmlType, shape: tuple[int, int], *,
+              device: DeviceLike = None) -> QuantTensor:
+    """GGUF tensor blocks → canonical. ``shape`` is the GGUF logical
+    [N, K] (out, in); blocks run along K within each output row. The words
+    and planes are bit-exact with the JAX package's ``from_ggml``."""
+    n, k = shape
+    q_nk, s_nk, m_nk, gs, bits, signed = _ggml_to_int_grouped(raw, gt, n, k)
+    # Transpose to the [K, N] convention.
+    return _finish(
+        np.ascontiguousarray(q_nk.T), np.ascontiguousarray(s_nk.T),
+        np.ascontiguousarray(m_nk.T),
+        bits=bits, group_size=gs, signed=signed, fmt=f"ggml_{gt.name.lower()}",
+        device=device,
+    )
 
 
 # ---------------------------------------------------------------------------

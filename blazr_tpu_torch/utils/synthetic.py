@@ -8,8 +8,11 @@ compare the two packages convert the JAX params with ``convert.py``.
 Beyond the JAX module: one config per dense family and per MoE family at
 the published width of a public checkpoint (``FAMILY_CONFIGS``,
 ``MOE_CONFIGS``), the family extras and the MoE layers in
-``synth_llama_params``, and ``write_hf_checkpoint``, which writes a
-family's HF tensor layout (AWQ-INT4 or plain) with its ``config.json``.
+``synth_llama_params``, ``write_hf_checkpoint``, which writes a family's
+HF tensor layout (AWQ-INT4 or plain) with its ``config.json``, and
+``write_gguf_checkpoint``, which writes a llama-layout GGUF file in
+llama.cpp's Q4_K_M mix (or one ggml type) with an embedded SentencePiece
+tokenizer.
 """
 
 from __future__ import annotations
@@ -29,6 +32,17 @@ def mistral_7b_config() -> UniversalConfig:
         max_seq_len=4096, intermediate_size=14336, rms_norm_eps=1e-5,
         attention=AttentionConfig(num_heads=32, num_kv_heads=8, head_dim=128,
                                   rope_theta=10000.0, sliding_window=4096),
+    )
+
+
+def mistral_7b_instruct_v02_config() -> UniversalConfig:
+    """mistralai/Mistral-7B-Instruct-v0.2 config.json: Mistral-7B's widths,
+    rope_theta 1e6, no sliding window, a 32768-token context."""
+    return UniversalConfig(
+        model_type="mistral", vocab_size=32000, hidden_size=4096, num_layers=32,
+        max_seq_len=32768, intermediate_size=14336, rms_norm_eps=1e-5,
+        attention=AttentionConfig(num_heads=32, num_kv_heads=8, head_dim=128,
+                                  rope_theta=1000000.0),
     )
 
 
@@ -666,3 +680,171 @@ def write_metaspace_tokenizer_json(path, vocab_size: int, seed: int = 0) -> list
     (path / "tokenizer_config.json").write_text(json.dumps(
         {"bos_token": "<bos>", "eos_token": "<eos>"}))
     return [p.replace("▁", " ").encode() for p in pieces[27:]]
+
+
+# ---------------------------------------------------------------------------
+# GGUF checkpoints (llama.cpp's layout, the port's own encoders and writer)
+# ---------------------------------------------------------------------------
+
+# ggml file types (llama.cpp's LLAMA_FTYPE_*): general.file_type.
+_FILE_TYPES = {"F32": 0, "F16": 1, "Q4_0": 2, "Q4_1": 3, "Q8_0": 7, "Q2_K": 10,
+               "Q3_K": 11, "Q4_K": 14, "Q5_K": 16, "Q6_K": 18, "Q4_K_M": 15}
+
+
+def use_more_bits(i: int, n: int) -> bool:
+    """llama.cpp's ``use_more_bits``: the layers whose attn_v and ffn_down a
+    Q4_K_M file keeps in Q6_K (integer division throughout)."""
+    return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
+
+
+def q4_k_m_types(num_layers: int) -> dict[str, str]:
+    """The ggml type of each tensor kind of a llama-layout Q4_K_M file:
+    Q4_K everywhere, the output head Q6_K, and attn_v and ffn_down in Q6_K
+    on the layers ``use_more_bits`` picks ("blk.{i}.attn_v" keys)."""
+    types = {"token_embd": "Q4_K", "output": "Q6_K"}
+    for i in range(num_layers):
+        more = use_more_bits(i, num_layers)
+        for kind in ("attn_q", "attn_k", "attn_output", "ffn_gate", "ffn_up",
+                     "ffn_gate_exps", "ffn_up_exps"):
+            types[f"blk.{i}.{kind}"] = "Q4_K"
+        for kind in ("attn_v", "ffn_down", "ffn_down_exps"):
+            types[f"blk.{i}.{kind}"] = "Q6_K" if more else "Q4_K"
+    return types
+
+
+def spm_vocab(vocab_size: int, seed: int = 0) -> tuple[list[str], list[float], list[int]]:
+    """A SentencePiece (GGUF ``llama``) vocab of ``vocab_size`` tokens:
+    <unk>, <s>, </s>, the 256 byte-fallback tokens <0xXX>, the single
+    characters of printable ASCII and ``▁``, then pieces that each join two
+    earlier pieces (so every piece is reachable by merges), scored in
+    decreasing order. Returns (tokens, scores, token types)."""
+    rng = np.random.default_rng(seed)
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    types = [2, 3, 3] + [6] * 256
+    chars = ["▁"] + [chr(c) for c in range(0x21, 0x7F)]
+    pieces = list(chars)
+    seen = set(pieces)
+    letters = [c for c in chars if c.isalpha() or c == "▁"]
+    while len(tokens) + len(pieces) < vocab_size:
+        # join a word start (or a letter) with a letter run; short pieces first
+        pool = pieces[-2000:] if len(pieces) > 2000 and rng.random() < 0.5 else pieces
+        a = pool[int(rng.integers(len(pool)))]
+        b = letters[int(rng.integers(len(letters)))] if rng.random() < 0.6 else \
+            pool[int(rng.integers(len(pool)))]
+        piece = a + b
+        if len(piece) > 12 or piece in seen or "▁" in piece[1:]:
+            continue
+        seen.add(piece)
+        pieces.append(piece)
+    tokens += pieces[:vocab_size - len(tokens)]
+    types += [1] * (vocab_size - len(types))
+    scores = [0.0] * 259 + [-float(i) for i in range(vocab_size - 259)]
+    return tokens, scores, types
+
+
+def write_gguf_checkpoint(path, cfg: UniversalConfig, quant: str = "Q4_K_M",
+                          seed: int = 0, llama_cpp_qk: bool = True) -> dict[str, str]:
+    """Write a random llama-layout GGUF file of ``cfg`` (dense, or MoE with
+    llama.cpp's pre-stacked ``ffn_{gate,up,down}_exps``) to ``path`` with
+    an embedded SentencePiece tokenizer of ``cfg.vocab_size`` tokens, the
+    way llama.cpp writes a Llama, Mistral or Mixtral file: architecture
+    ``llama``, and attn_q/attn_k rows in its permuted order (HF order with
+    ``llama_cpp_qk=False``). ``quant="Q4_K_M"`` is llama.cpp's mix
+    (``q4_k_m_types``; token_embd Q4_K, output Q6_K); another ggml type name
+    applies to every linear weight and the embedding. Norms are F32. Weights
+    have a magnitude in [2^-7, 2^-5) and a random sign, norm weights are
+    1 + 0.1 N(0,1), the router N(0,1) × 2^-7.
+    Returns each tensor's ggml type name. The weights are drawn in order
+    from ``seed`` and encoded by a pool of threads (numpy's encoders release
+    the interpreter lock), so the bytes do not depend on the pool."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..formats.ggml_quants import quantize_ggml
+    from ..formats.gguf import GgmlType, write_gguf
+    from ..formats.names import qk_row_order
+
+    if cfg.model_type not in ("llama", "mistral", "mixtral"):
+        raise ValueError(f"llama-layout GGUF only (got {cfg.model_type!r})")
+    rng = np.random.default_rng(seed)
+    att = cfg.attention
+    h, n_layers = cfg.hidden_size, cfg.num_layers
+    hd = att.resolved_head_dim(h)
+    n_q, n_kv = att.num_heads * hd, att.kv_heads() * hd
+    inter = cfg.resolved_intermediate_size()
+    mix = q4_k_m_types(n_layers) if quant.upper() == "Q4_K_M" else None
+    tensors: dict = {}
+    kinds: dict[str, str] = {}
+    pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+
+    def weight(name: str, kind: str, *shape, n_head: int = 0):
+        w = _half_bits(rng, int(np.prod(shape)), -7).reshape(shape)
+        if n_head and llama_cpp_qk:
+            w = w[qk_row_order(shape[0], n_head, to_gguf=True)]
+        gt = mix[kind] if mix is not None else quant.upper()
+        tensors[name] = (pool.submit(quantize_ggml, w.astype(np.float32), GgmlType[gt]),
+                         GgmlType[gt], shape)
+        kinds[name] = gt
+
+    def norm(name: str):
+        tensors[name] = ((1.0 + 0.1 * rng.standard_normal(h, dtype=np.float32)),
+                         GgmlType.F32, (h,))
+        kinds[name] = "F32"
+
+    weight("token_embd.weight", "token_embd", cfg.vocab_size, h)
+    norm("output_norm.weight")
+    if not cfg.tie_word_embeddings:
+        weight("output.weight", "output", cfg.vocab_size, h)
+    for i in range(n_layers):
+        b = f"blk.{i}."
+        norm(b + "attn_norm.weight")
+        weight(b + "attn_q.weight", b + "attn_q", n_q, h, n_head=att.num_heads)
+        weight(b + "attn_k.weight", b + "attn_k", n_kv, h, n_head=att.kv_heads())
+        weight(b + "attn_v.weight", b + "attn_v", n_kv, h)
+        weight(b + "attn_output.weight", b + "attn_output", h, n_q)
+        norm(b + "ffn_norm.weight")
+        if cfg.moe is not None:
+            e, mi = cfg.moe.num_experts, cfg.moe.intermediate_size
+            router = rng.standard_normal((e, h), dtype=np.float32) * 2.0 ** -7
+            tensors[b + "ffn_gate_inp.weight"] = (router, GgmlType.F32, (e, h))
+            kinds[b + "ffn_gate_inp.weight"] = "F32"
+            weight(b + "ffn_gate_exps.weight", b + "ffn_gate_exps", e, mi, h)
+            weight(b + "ffn_up_exps.weight", b + "ffn_up_exps", e, mi, h)
+            weight(b + "ffn_down_exps.weight", b + "ffn_down_exps", e, h, mi)
+        else:
+            weight(b + "ffn_gate.weight", b + "ffn_gate", inter, h)
+            weight(b + "ffn_up.weight", b + "ffn_up", inter, h)
+            weight(b + "ffn_down.weight", b + "ffn_down", h, inter)
+
+    tokens, scores, types = spm_vocab(cfg.vocab_size, seed)
+    a = "llama"
+    meta = {
+        "general.architecture": a,
+        "general.name": f"synthetic {cfg.model_type} {quant}",
+        "general.file_type": _FILE_TYPES.get(quant.upper(), 0),
+        f"{a}.context_length": cfg.max_seq_len,
+        f"{a}.embedding_length": h,
+        f"{a}.block_count": n_layers,
+        f"{a}.feed_forward_length": inter,
+        f"{a}.attention.head_count": att.num_heads,
+        f"{a}.attention.head_count_kv": att.kv_heads(),
+        f"{a}.rope.freq_base": float(att.rope_theta),
+        f"{a}.rope.dimension_count": hd,
+        f"{a}.attention.layer_norm_rms_epsilon": float(cfg.rms_norm_eps),
+        "tokenizer.ggml.model": "llama",
+        "tokenizer.ggml.tokens": tokens,
+        "tokenizer.ggml.scores": scores,
+        "tokenizer.ggml.token_type": types,
+        "tokenizer.ggml.bos_token_id": 1,
+        "tokenizer.ggml.eos_token_id": 2,
+        "tokenizer.ggml.unknown_token_id": 0,
+        "tokenizer.ggml.add_bos_token": True,
+    }
+    if cfg.moe is not None:
+        meta[f"{a}.expert_count"] = cfg.moe.num_experts
+        meta[f"{a}.expert_used_count"] = cfg.moe.experts_per_tok
+    with pool:
+        tensors = {name: (data.result() if hasattr(data, "result") else data, gt, shape)
+                   for name, (data, gt, shape) in tensors.items()}
+    write_gguf(path, meta, tensors)
+    return kinds

@@ -86,9 +86,9 @@ Phases, in order; any failure raises and the script exits non-zero:
       load_model onto the card: a 64-token prefill and 4 decode steps of
       forward_paged (B1, B2) against the CPU f32 forward at 5e-2 of the
       largest logit, Gemma2 again past a window cut to 64 in a config copy;
-      then Qwen3-8B (36 layers, tables 4096 tokens wide) and Gemma2-9B (42
-      layers, 8192) AWQ-INT4 served as ``cli serve --continuous-batching``
-      serves (prefix cache on, engine warmed): 8 requests of phase 5 in one
+      then Qwen3-8B (36 layers, tables 4096 tokens wide; 18 in a full run)
+      and Gemma2-9B (42 layers, 8192; 21 in a full run) AWQ-INT4 served as
+      ``cli serve --continuous-batching`` serves (prefix cache on, engine warmed): 8 requests of phase 5 in one
       wave, with decode graphs and without (streams equal), tok/s, ms a
       decode step, TTFT, then 32 decode steps profiled (idle share);
   11. (``moe``) the MoE families: B1 against its plain version and timed at
@@ -102,8 +102,9 @@ Phases, in order; any failure raises and the script exits non-zero:
       card's input: each layer's output and the logits at 5e-2 of their
       largest magnitude; the paged forward again free-running (its drift
       reported), and the share of routing decisions that agree; then
-      Mixtral-8x7B (32 layers) and Qwen3-30B-A3B (48 layers; 8 in a full
-      run, MOE_SERVING) AWQ-INT4 served as in phase 10 (streams equal with
+      Mixtral-8x7B (32 layers; 16 in a full run) and Qwen3-30B-A3B (48
+      layers; 4 in a full run, MOE_SERVING) AWQ-INT4 served as in phase 10
+      (streams equal with
       graphs and without), with B1's launches and device ms a decode step;
   9.  timings (device time of one call: CUDA graphs of many calls), B1 over
       rows 1-512 at every projection, B2 at three batch/context points (and
@@ -121,7 +122,28 @@ Phases, in order; any failure raises and the script exits non-zero:
       shapes, with phase 10's launches (Qwen3-8B with graphs), and a row
       for B1 at the MoE expert shapes with phase 11's times and launches
       (Mixtral-8x7B with graphs).
-Phases 10 and 11 run between phases 7 and 8.
+  12. (``gguf``) Mistral-7B-Instruct-v0.2 written as llama.cpp writes a
+      Q4_K_M file (architecture llama, permuted Q/K rows, Q4_K with Q6_K for
+      the head and for attn_v and ffn_down where ``use_more_bits`` picks,
+      F32 norms, Q4_K token_embd, an embedded 32000-token SentencePiece
+      tokenizer) at its published width, GGUF_LAYERS layers, alone in a
+      directory, and loaded as ``cli serve`` loads it (config and tokenizer
+      from the file); the paged and contiguous forwards against the CPU f32
+      forward (layer by layer at 5e-2), the paged one free-running in bf16
+      (reported) and with the card in f32 (held at F32_FREE_TOL); B1 on the
+      file's own Q4_K and Q6_K weights and its Q6_K head at 1, 8 and 512
+      rows against its plain version, timed with its bound, and B3 (w4a8)
+      and B4 on its Q4_K gate weight; ``cli bench`` on the file as a
+      subprocess (TTFT, decode tok/s, ITL percentiles at prompts of 32, 128
+      and 512 tokens); ``cli serve --model FILE.gguf --continuous-batching``
+      as a subprocess (graphs on) and the same server in this process with
+      graphs off: 8 streamed chats one after another, whose greedy streams
+      must be equal both ways, then 8 others at once (tok/s, client TTFT),
+      whose prompts also go at once, in a fixed order, to a warmed
+      BatchEngine with graphs and without: the 8 greedy streams equal.
+      Phase 11's forwards also run free-running with the card in f32, held
+      at F32_FREE_TOL.
+Phases 10, 11 and 12 run between phases 7 and 8.
 Each serving run sets the launch counts to 0 just before it and reads
 them just after; a replayed graph adds the launches it holds, and the
 kernels line counts the first run with graphs (the default path). Under
@@ -138,6 +160,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import json
 import os
@@ -1257,22 +1280,28 @@ def layout_times(dev, gen) -> dict:
 # phase 4: teacher-forced 2-layer full-width forward, card vs CPU
 # ---------------------------------------------------------------------------
 
-def to_cpu_f32(tree):
+def to_cpu_f32(tree, dense: bool = False):
+    """The CPU f32 reference's params: dense tensors in f32, stacked expert
+    weights dequantized, and with ``dense`` every QuantTensor dequantized
+    (on the card) to a dense f32 [K, N] weight, so the CPU's plain B1 does
+    not dequantize a full-width weight at every call."""
     import torch
 
     from blazr_tpu_torch.quant.qtensor import (QuantTensor, dequantize, expert_slice,
                                                is_stacked)
 
     if isinstance(tree, dict):
-        return {k: to_cpu_f32(v) for k, v in tree.items()}
+        return {k: to_cpu_f32(v, dense) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [to_cpu_f32(v) for v in tree]
+        return [to_cpu_f32(v, dense) for v in tree]
     if is_stacked(tree):
         # A stacked expert weight becomes a dense f32 stack, dequantized on
         # the card expert by expert: the CPU's plain B1 would dequantize a
         # Mixtral expert (235 MB in f32) at every call.
         return torch.stack([dequantize(expert_slice(tree, e)).cpu()
                             for e in range(tree.qweight.shape[0])])
+    if isinstance(tree, QuantTensor) and dense:
+        return dequantize(tree).cpu()
     if isinstance(tree, QuantTensor):
         return dataclasses.replace(
             tree, qweight=tree.qweight.cpu(), scales=tree.scales.cpu(),
@@ -1282,8 +1311,23 @@ def to_cpu_f32(tree):
     return tree
 
 
+def card_f32(tree):
+    """The card's params with every dense tensor in f32 (QuantTensors as
+    they are): B1's split-K variant and B2 take f32, so the card runs the
+    forward in f32."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: card_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [card_f32(v) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.float()
+    return tree
+
+
 def card_vs_cpu(dev, cfg, params, cpu_params, lens, tag: str, steps: int = 4,
-                bs: int = 64, rel_tol: float | None = 5e-2) -> float:
+                bs: int = 64, rel_tol: float | None = 5e-2, card_dtype=None) -> float:
     """Teacher-forced forward_paged of ``cfg`` on the card (``params``, bf16)
     and on the CPU (``cpu_params``, f32): one padded prefill of the
     sequences ``lens``, then ``steps`` decode steps through B2 (its plain
@@ -1291,7 +1335,8 @@ def card_vs_cpu(dev, cfg, params, cpu_params, lens, tag: str, steps: int = 4,
     are rounded to bf16 between every op on the card, so the logits agree
     to a few 1e-2 of their largest magnitude (``rel_tol``), not to f32
     precision; ``rel_tol=None`` reports the error without holding it.
-    Returns the worst relative error."""
+    ``card_dtype`` (default bf16) is the card's cache type: f32 params and
+    an f32 cache run the card in f32. Returns the worst relative error."""
     import numpy as np
     import torch
 
@@ -1311,7 +1356,7 @@ def card_vs_cpu(dev, cfg, params, cpu_params, lens, tag: str, steps: int = 4,
         return init_paged_cache(cfg.num_layers, sum(nblk), bs, att.kv_heads(), hd,
                                 dtype=dtype, device=d)
 
-    caches = {"gpu": cache(dev, torch.bfloat16),
+    caches = {"gpu": cache(dev, card_dtype or torch.bfloat16),
               "cpu": cache(torch.device("cpu"), torch.float32)}
     trash = caches["cpu"].trash_slot
     b, t = len(lens), max(lens)
@@ -2059,25 +2104,16 @@ def parse_metrics(text: str) -> dict:
     return out
 
 
-def http_turn(sched, ex, texts: list, system: str, warm: bool, card: str) -> dict:
-    """One engine (prefix cache on), warmed or not, behind the port's HTTP
-    server: 8 concurrent requests over http.client (4 streamed chats that
-    share the system message ``system``, 4 completions, 64 greedy tokens
-    each), then one more streamed chat with that system message, whose
-    prompt hits the blocks the first chats cached, then ``GET /metrics``,
-    which must parse, count what was sent back and report the engine's
-    prefix-cache hits (more than none)."""
+@contextlib.contextmanager
+def http_server(sched, engine):
+    """The port's HTTP server (``create_app`` + ``serve``) over ``engine`` on
+    a free local port, in a thread with its own event loop; yields the port
+    and stops the server on exit."""
     import threading
 
-    import torch
-
     from blazr_tpu_torch.config.server import ServerConfig
-    from blazr_tpu_torch.engine.batch_engine import BatchEngine
     from blazr_tpu_torch.server import create_app, serve
 
-    engine = BatchEngine(ex.model, ex.tokenizer, ex.app_cfg)
-    warm_s = engine.warmup() if warm else 0.0
-    stats = graph_stats(engine)
     app = create_app(sched, ServerConfig(host="127.0.0.1", port=0), batch_engine=engine)
     loop = asyncio.new_event_loop()
     stop = asyncio.Event()
@@ -2093,7 +2129,31 @@ def http_turn(sched, ex, texts: list, system: str, warm: bool, card: str) -> dic
     server.start()
     try:
         assert ready.wait(60), "server did not start"
-        port = bound["port"]
+        yield bound["port"]
+    finally:
+        loop.call_soon_threadsafe(stop.set)
+        server.join(120)
+        loop.close()
+
+
+def http_turn(sched, ex, texts: list, system: str, warm: bool, card: str) -> dict:
+    """One engine (prefix cache on), warmed or not, behind the port's HTTP
+    server: 8 concurrent requests over http.client (4 streamed chats that
+    share the system message ``system``, 4 completions, 64 greedy tokens
+    each), then one more streamed chat with that system message, whose
+    prompt hits the blocks the first chats cached, then ``GET /metrics``,
+    which must parse, count what was sent back and report the engine's
+    prefix-cache hits (more than none)."""
+    import threading
+
+    import torch
+
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+
+    engine = BatchEngine(ex.model, ex.tokenizer, ex.app_cfg)
+    warm_s = engine.warmup() if warm else 0.0
+    stats = graph_stats(engine)
+    with http_server(sched, engine) as port:
         st, body = _http(port, "GET", "/health")
         assert st == 200 and json.loads(body)["status"] == "ok", body
         results: list = [None] * 8
@@ -2181,13 +2241,57 @@ def http_turn(sched, ex, texts: list, system: str, warm: bool, card: str) -> dic
             f"tokens_generated_total {gen:.0f}, prefix_cache_hits_total {hits:.0f}, misses "
             f"{got[('blazr_tpu_prefix_cache_misses_total', ())]:.0f}, hbm_used_bytes "
             f"{got[('blazr_tpu_hbm_used_bytes', ())]:.0f}")
-    finally:
-        loop.call_soon_threadsafe(stop.set)
-        server.join(120)
-        loop.close()
-    del engine, app
+    del engine
     free_card()
     return turn
+
+
+@contextlib.contextmanager
+def cli_serve(model: Path, stderr_path: Path, *extra: str):
+    """``python -m blazr_tpu_torch.cli serve --model MODEL
+    --continuous-batching`` (warmed) in its own process on a free local
+    port; yields (port, seconds until /health answered, the stderr line that
+    reports the warmup) and ends the process on exit."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(TREE))
+    err = open(stderr_path, "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "blazr_tpu_torch.cli", "serve", "--model", str(model),
+         "--continuous-batching", "--host", "127.0.0.1", "--port", str(port), *extra],
+        cwd=TREE, env=env, stdout=subprocess.DEVNULL, stderr=err, text=True)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                err.seek(0)
+                raise RuntimeError(f"cli serve exited {proc.returncode}: "
+                                   f"{err.read()[-4000:]}")
+            try:
+                st, _ = _http(port, "GET", "/health", timeout=5)
+                if st == 200:
+                    break
+            except OSError:
+                pass
+            assert time.perf_counter() - t0 < 300, "cli serve did not come up"
+            time.sleep(1.0)
+        up = time.perf_counter() - t0
+        err.seek(0)
+        warmed = [line for line in err.read().splitlines()
+                  if line.startswith("batch engine warmed in")]
+        assert warmed, "cli serve did not warm its batch engine"
+        yield port, up, warmed[0]
+    finally:
+        os.kill(proc.pid, 15)
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            os.kill(proc.pid, 9)
+            proc.wait(60)
+        err.close()
 
 
 def serve_http(dev, card: str) -> dict:
@@ -2201,7 +2305,6 @@ def serve_http(dev, card: str) -> dict:
     blazr_tpu_torch.cli serve`` (warmed) as a subprocess answers /health,
     one chat completion and /metrics."""
     import shutil
-    import socket
     import tempfile
 
     import numpy as np
@@ -2254,31 +2357,7 @@ def serve_http(dev, card: str) -> dict:
         torch.cuda.empty_cache()
 
         # The CLI entry point in its own process.
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            cli_port = s.getsockname()[1]
-        env = dict(os.environ, PYTHONPATH=str(TREE))
-        err = open(ckpt / "cli_stderr.txt", "w+")
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "blazr_tpu_torch.cli", "serve", "--model", str(ckpt),
-             "--continuous-batching", "--host", "127.0.0.1", "--port", str(cli_port)],
-            cwd=TREE, env=env, stdout=subprocess.DEVNULL, stderr=err, text=True)
-        try:
-            t0 = time.perf_counter()
-            while True:
-                if proc.poll() is not None:
-                    err.seek(0)
-                    raise RuntimeError(f"cli serve exited {proc.returncode}: "
-                                       f"{err.read()[-4000:]}")
-                try:
-                    st, body = _http(cli_port, "GET", "/health", timeout=5)
-                    if st == 200:
-                        break
-                except OSError:
-                    pass
-                assert time.perf_counter() - t0 < 300, "cli serve did not come up"
-                time.sleep(1.0)
-            up = time.perf_counter() - t0
+        with cli_serve(ckpt, ckpt / "cli_stderr.txt") as (cli_port, up, warmed):
             st, body = _http(cli_port, "POST", "/v1/chat/completions", {
                 "messages": [{"role": "user", "content": texts[0]}], "max_tokens": 16,
                 "temperature": 0})
@@ -2290,22 +2369,9 @@ def serve_http(dev, card: str) -> dict:
             cli_metrics = parse_metrics(body.decode())
             assert cli_metrics[("blazr_tpu_tokens_generated_total", ())] == \
                 reply["usage"]["completion_tokens"], cli_metrics
-            err.seek(0)
-            warmed = [line for line in err.read().splitlines()
-                      if line.startswith("batch engine warmed in")]
-            assert warmed, "cli serve did not warm its batch engine"
-            log(f"  cli serve (pid {proc.pid}): '{warmed[0]}'; answered /health after "
-                f"{up:.1f} s, a chat completion of {reply['usage']['completion_tokens']} "
-                f"tokens and /metrics")
+            log(f"  cli serve: '{warmed}'; answered /health after {up:.1f} s, a chat "
+                f"completion of {reply['usage']['completion_tokens']} tokens and /metrics")
             out["cli_up_s"] = up
-        finally:
-            os.kill(proc.pid, 15)
-            try:
-                proc.wait(60)
-            except subprocess.TimeoutExpired:
-                os.kill(proc.pid, 9)
-                proc.wait(60)
-            err.close()
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     return out
@@ -2701,7 +2767,12 @@ def ppl_gate(dev) -> dict:
 # full depth with Mistral's 4096-token tables (64 slots); Gemma2-9B at its
 # published 8192 (128 slots), so its window (66 slots) and its global layers
 # walk different spans and take different B2 split plans.
-FAMILY_SERVING = (("qwen3", 36, 4096), ("gemma2", 42, 8192))
+# (family, published depth, the engine's max_seq_len, the depth a full run
+# serves): a full run serves half of each, to leave phase 12 room in the
+# 1200 s limit (on an H100, the full run took 1157.7 s with phases 10 and
+# 11 at their depths before phase 12, and 862.6-937.7 s with these cuts);
+# ``--phases build,families`` serves them whole.
+FAMILY_SERVING = (("qwen3", 36, 4096, 18), ("gemma2", 42, 8192, 21))
 FAMILY_REQUEST_LENS = (64, 512, 200, 333, 128, 480, 96, 256)
 
 
@@ -2837,13 +2908,15 @@ def family_serving(dev, card: str, family: str, layers: int, max_seq_len: int) -
     return dict(launches, turns=turns, profile=profile)
 
 
-def families(dev, card: str) -> dict:
+def families(dev, card: str, full_run: bool) -> dict:
     """Phase 10: the dense families (family_forwards), then Qwen3-8B and
-    Gemma2-9B served (family_serving). The kernels line takes its family
-    rows' launches from Qwen3-8B's run with graphs."""
+    Gemma2-9B served (family_serving) at the depth FAMILY_SERVING gives a
+    full run when ``full_run``. The kernels line takes its family rows'
+    launches from Qwen3-8B's run with graphs."""
     out = {"forwards": family_forwards(dev)}
-    for family, layers, ctx in FAMILY_SERVING:
-        out[family] = family_serving(dev, card, family, layers, ctx)
+    for family, layers, ctx, full_run_layers in FAMILY_SERVING:
+        out[family] = family_serving(dev, card, family,
+                                     full_run_layers if full_run else layers, ctx)
     out.update(qmm=out["qwen3"]["qmm"], paged_attention=out["qwen3"]["paged_attention"])
     return out
 
@@ -2861,11 +2934,16 @@ MOE_B1_SHAPES = {"mixtral gate/up": (4096, 14336), "mixtral down": (14336, 4096)
 # row) and a prefill group's routed rows.
 MOE_B1_ROWS = (1, 2, 4, 8, 16, 512)
 # The served models: (family, published depth, the engine's max_seq_len,
-# the depth a full run serves). A full run holds Qwen3-30B-A3B to 8 of its
-# 48 identical layers: served whole on an H100, its warmup with graphs
-# (72.5 s) and its graphs-off wave (121 s) alone leave the other phases too
-# little of the 1200 s limit; ``--phases build,moe`` serves it whole.
-MOE_SERVING = (("mixtral", 32, 4096, 32), ("qwen3_moe", 48, 4096, 8))
+# the depth a full run serves). A full run holds Qwen3-30B-A3B to 4 of its
+# 48 identical layers and Mixtral to 16 of 32: served whole on an H100,
+# Qwen3-30B-A3B's warmup with graphs (72.5 s) and its graphs-off wave
+# (121 s) alone leave the other phases too little of the 1200 s limit;
+# ``--phases build,moe`` serves both whole.
+MOE_SERVING = (("mixtral", 32, 4096, 16), ("qwen3_moe", 48, 4096, 4))
+# A free-running forward with the card in f32 against the CPU f32: the same
+# weights and arithmetic, f32 sums in another order (B1's split-K over K,
+# B2's splits, cuBLAS's f32 GEMMs in attention): 1e-3 of the largest logit.
+F32_FREE_TOL = 1e-3
 
 
 def moe_b1(dev, gen) -> dict:
@@ -3069,9 +3147,13 @@ def moe_forwards(dev) -> dict:
     the same weights, the CPU taking the card's routing (RouteTape): each
     layer and the head on the card's input (LayerTape), held at 5e-2 of the
     largest logit and of each layer's largest output, then the paged one
-    free-running (reported); B1 and B2 launches counted on the paged run."""
+    free-running (reported), and free-running with the card in f32 (each
+    side routing itself), held at F32_FREE_TOL; B1 and B2 launches counted
+    on the paged run."""
     import shutil
     import tempfile
+
+    import torch
 
     from blazr_tpu_torch.loader import load_model
     from blazr_tpu_torch.utils.synthetic import MOE_CONFIGS, write_hf_checkpoint
@@ -3102,6 +3184,12 @@ def moe_forwards(dev) -> dict:
                         dev, model.cfg, model.params, cpu, 64, f"{family} contiguous, by layer")
                 row["paged_free"] = card_vs_cpu(dev, model.cfg, model.params, cpu, [64, 37],
                                                 f"{family} paged, free-running", rel_tol=None)
+            # The card in f32, free-running (each side routes itself): no
+            # bf16 rounding, so only the order of f32 sums differs.
+            row["paged_f32"] = card_vs_cpu(
+                dev, model.cfg, card_f32(model.params), cpu, [64, 37],
+                f"{family} paged, free-running, card in f32", rel_tol=F32_FREE_TOL,
+                card_dtype=torch.float32)
             t5 = time.perf_counter()
             assert counts["paged_attention"] == 2 * 4 and counts["qmm"] > 0, counts
             # A sanity floor: a broken router agrees on about k/E of its picks.
@@ -3114,7 +3202,8 @@ def moe_forwards(dev) -> dict:
                 f"by layer: paged "
                 f"{row['paged']:.4g}, contiguous {row['contiguous']:.4g}, of a layer's "
                 f"output {layers.worst:.4g} (tol 5e-2); paged free-running "
-                f"{row['paged_free']:.4g}; routing "
+                f"{row['paged_free']:.4g}, card in f32 {row['paged_f32']:.4g} (tol "
+                f"{F32_FREE_TOL}); routing "
                 f"agreement {tape.share:.4f} of {tape.total} decisions; launches B1 "
                 f"{counts['qmm']}, B2 {counts['paged_attention']} (paged)")
             out[family] = dict({f"{k}_max_rel_err": v for k, v in row.items()},
@@ -3139,6 +3228,355 @@ def moe_phase(dev, gen, card: str, full_run: bool) -> dict:
                                      full_run_layers if full_run else layers, ctx)
         log(f"  {family} served in {time.perf_counter() - t0:.1f} s")
     out.update(qmm=out["mixtral"]["qmm"], paged_attention=out["mixtral"]["paged_attention"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12 (gguf): a llama.cpp-style GGUF file through the normal entry points
+# ---------------------------------------------------------------------------
+
+# Depth of the Mistral-7B-Instruct-v0.2 Q4_K_M file (of 32 layers): about
+# 1.1 B parameters, a 0.6 GB file; the widths are the published ones.
+GGUF_LAYERS = 4
+GGUF_REQUEST_LENS = (64, 512, 200, 333, 128, 480, 96, 256)
+# The rows B1 is timed at on the file's own weights: a decode step, a
+# decode batch, a prefill group.
+GGUF_B1_ROWS = (1, 8, 512)
+
+
+def gguf_load(dev, path: Path) -> tuple:
+    """The file through ModelScheduler (load_model, then the GGUF-embedded
+    tokenizer), as ``cli serve --model FILE.gguf`` loads it; (scheduler,
+    executor, seconds)."""
+    import torch
+
+    from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
+
+    t0 = time.perf_counter()
+    sched = ModelScheduler(path, device=dev)
+    ex = sched.get_executor("default")
+    torch.cuda.synchronize()
+    return sched, ex, time.perf_counter() - t0
+
+
+def gguf_forwards(dev, model) -> dict:
+    """The file's model on the card (bf16) against the CPU f32 forward of
+    the same weights (dequantized on the card): the paged forward (64 and 37
+    tokens, 4 decode steps) and the contiguous one (64 tokens, 4 decode
+    steps) held layer by layer on the card's input at 5e-2 (LayerTape: the
+    random weights' bf16 drift leaves a free-running 5e-2 gate no margin,
+    PERF.md §6), the paged one free-running in bf16 (reported) and with the
+    card in f32 (held at F32_FREE_TOL). B1 and B2 launches of the paged run."""
+    import torch
+
+    t0 = time.perf_counter()
+    cpu = to_cpu_f32(model.params, dense=True)
+    log(f"  CPU f32 weights (dequantized on the card) in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    with LayerTape() as layers:
+        reset_counts()
+        out["paged"] = card_vs_cpu(dev, model.cfg, model.params, cpu, [64, 37],
+                                   "gguf paged, by layer")
+        counts = read_counts()
+        out["contiguous"] = card_vs_cpu_contiguous(dev, model.cfg, model.params, cpu, 64,
+                                                   "gguf contiguous, by layer")
+    assert counts["paged_attention"] == GGUF_LAYERS * 4 and counts["qmm"] > 0, counts
+    out["paged_free"] = card_vs_cpu(dev, model.cfg, model.params, cpu, [64, 37],
+                                    "gguf paged, free-running", rel_tol=None)
+    out["paged_f32"] = card_vs_cpu(dev, model.cfg, card_f32(model.params), cpu, [64, 37],
+                                   "gguf paged, free-running, card in f32",
+                                   rel_tol=F32_FREE_TOL, card_dtype=torch.float32)
+    out["layer"] = layers.worst
+    log(f"  max rel err of the logits by layer: paged {out['paged']:.4g}, contiguous "
+        f"{out['contiguous']:.4g}, of a layer's output {layers.worst:.4g} (tol 5e-2); "
+        f"free-running bf16 {out['paged_free']:.4g} (reported), card in f32 "
+        f"{out['paged_f32']:.4g} (tol {F32_FREE_TOL}); launches {counts}")
+    del cpu
+    free_card()
+    return dict({f"{k}_max_rel_err": v for k, v in out.items()}, **counts)
+
+
+def gguf_b1(dev, gen, model) -> dict:
+    """B1 on the file's own weights (Q4_K: 4-bit, groups of 32; Q6_K: 8-bit,
+    groups of 16) at every projection kind and the Q6_K head, at
+    GGUF_B1_ROWS: against its plain version (phase 11's tolerance), then
+    timed with its bound (the packed words and both f32 planes read once,
+    x read and y written once), the plain version and torch.matmul on the
+    bf16-dequantized weight; B3 (w4a8) at 8 and 512 rows and B4 at 8 and 32
+    (its largest) on the Q4_K gate weight."""
+    import torch
+
+    from blazr_tpu_torch.quant.int8 import qmm_int8, qmm_int8_reference
+    from blazr_tpu_torch.quant.kernels import (STREAM_MAX_ROWS, qmm, qmm_reference,
+                                               qmm_stream, qmm_stream_reference)
+    from blazr_tpu_torch.quant.qtensor import dequantize
+
+    layers = model.params["layers"]
+    weights = {f"{kind} L{i} ({layers[i][kind].fmt[5:].upper()})": layers[i][kind]
+               for i, kind in ((0, "q"), (0, "k"), (0, "gate"), (0, "down"), (3, "v"),
+                               (3, "down"))}
+    weights[f"head ({model.params['lm_head'].fmt[5:].upper()})"] = model.params["lm_head"]
+    rel_tol, rows, worst = 8e-3, {}, 0.0
+    for name, qt in weights.items():
+        k, n, bits, gs = qt.in_features, qt.out_features, qt.bits, qt.group_size
+        qw, s, mn = qt.qweight, qt.scales, qt.mins
+        zero_mins = not bool(mn.any())
+        w = dequantize(qt, torch.bfloat16)
+        for m in GGUF_B1_ROWS:
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            kw = dict(bits=bits, signed=qt.signed, group_size=gs)
+            got = qmm(x, qw, s, mn, device=dev, **kw)
+            ref = qmm_reference(x.float(), qw, s, mn, **kw)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), name
+            err = (got.float() - ref).abs().max().item()
+            tol = rel_tol * ref.abs().max().item()
+            assert err <= tol, f"B1 {name} m={m}: {err} > {tol}"
+            worst = max(worst, err)
+            ms = time_ms(lambda: qmm(x, qw, s, mn, device=dev, **kw), iters=20)
+            nbytes = qw.numel() * 4 + s.numel() * 8 + x.numel() * 2 + m * n * 2
+            bms, by = bound(nbytes, 2.0 * m * k * n)
+            # A signed format's mins plane is all zero: the bound without it.
+            bms_nz = bound(nbytes - mn.numel() * 4, 2.0 * m * k * n)[0] if zero_mins else None
+            row = dict(ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err,
+                       bound_ms_without_zero_mins=bms_nz,
+                       library_ms=time_ms(lambda: torch.matmul(x, w), iters=20),
+                       plain_ms=time_eager(lambda: qmm_reference(x, qw, s, mn, **kw),
+                                           iters=3, warmup=1),
+                       planes_mb=s.numel() * 8 / 1e6, words_mb=qw.numel() * 4 / 1e6,
+                       shape=f"{name} m={m} K={k} N={n} bits={bits} gs={gs}")
+            rows[(name, m)] = row
+            log(f"  B1 {name} m={m} K={k} N={n} (words {row['words_mb']:.1f} MB, planes "
+                f"{row['planes_mb']:.1f} MB): max_abs_err {err:.4g} (tol {tol:.4g}); kernel "
+                f"{ms:.4f} ms, bound {bms:.4f} ms ({by}, x{ms / bms:.1f}"
+                f"{'' if bms_nz is None else f'; {bms_nz:.4f} ms without the zero mins plane'}"
+                f"), torch.matmul(bf16 "
+                f"dequantized) {row['library_ms']:.4f} ms (x{ms / row['library_ms']:.2f}), "
+                f"plain {row['plain_ms']:.4f} ms")
+        del w
+    gate = layers[0]["gate"]
+    k, n, gs = gate.in_features, gate.out_features, gate.group_size
+    assert (gate.bits, gate.signed, gs) == (4, True, 32), gate
+    qw, s, mn = gate.qweight, gate.scales, gate.mins
+    w = dequantize(gate, torch.bfloat16)
+    others = {}
+    for kernel, m in (("B3 w4a8", 8), ("B3 w4a8", 512), ("B4", 8), ("B4", STREAM_MAX_ROWS)):
+        x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+        if kernel == "B4":
+            def fn():
+                return qmm_stream(x, qw, s, mn, bits=4, group_size=gs, device=dev)
+            ref = qmm_stream_reference(x, qw, s, mn, bits=4, group_size=gs)
+            rate = H100_BF16_FLOPS
+        else:
+            def fn():
+                return qmm_int8(x, qw, s, mn, bits=4, group_size=gs, device=dev)
+            ref = qmm_int8_reference(x, qw, s, mn, bits=4, group_size=gs)
+            rate = H100_INT8_OPS
+        got = fn()
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = rel_tol * ref.float().abs().max().item()
+        assert err <= tol, f"{kernel} Q4_K m={m}: {err} > {tol}"
+        ms = time_ms(fn, iters=20)
+        nbytes = qw.numel() * 4 + s.numel() * 8 + m * k * 2 + m * n * 2
+        bms, by = bound(nbytes, 2.0 * m * k * n, rate)
+        plain = (qmm_stream_reference if kernel == "B4" else qmm_int8_reference)
+        row = dict(ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err,
+                   library_ms=time_ms(lambda: torch.matmul(x, w), iters=20),
+                   plain_ms=time_eager(lambda: plain(x, qw, s, mn, bits=4, group_size=gs),
+                                       iters=2, warmup=1),
+                   shape=f"gate L0 (Q4_K) {kernel} m={m} K={k} N={n} gs={gs}")
+        others[(kernel, m)] = row
+        log(f"  {kernel} gate L0 (Q4_K) m={m}: max_abs_err {err:.4g} (tol {tol:.4g}); "
+            f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, x{ms / bms:.1f}), "
+            f"torch.matmul(bf16 dequantized) {row['library_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms")
+    del w
+    return dict(rows=rows, others=others, max_abs_err=worst)
+
+
+def gguf_bench(path: Path, card: str) -> dict:
+    """``python -m blazr_tpu_torch.cli bench FILE --prompt-lens 32,128,512``
+    in its own process on the card (its default device): the JAX bench's
+    dict, each prompt length's TTFT, decode tok/s and ITL percentiles."""
+    env = dict(os.environ, PYTHONPATH=str(TREE))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "blazr_tpu_torch.cli", "bench", str(path),
+         "--prompt-lens", "32,128,512"],
+        cwd=TREE, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout)
+    assert res["platform"] == "cuda" and sorted(res["profiles"]) == ["128", "32", "512"], res
+    for plen, m in sorted(res["profiles"].items(), key=lambda kv: int(kv[0])):
+        assert m["decode_tok_s"] > 0 and m["ttft_ms"] > 0, m
+        log(f"  cli bench prompt {plen}: TTFT {m['ttft_ms']:.2f} ms, prefill "
+            f"{m['prefill_tok_s']:.1f} tok/s, decode {m['decode_tok_s']:.1f} tok/s, ITL "
+            f"p50/p95/p99 {m['itl_p50_ms']:.3f}/{m['itl_p95_ms']:.3f}/"
+            f"{m['itl_p99_ms']:.3f} ms, e2e {m['e2e_ms']:.1f} ms ({m['runs']} runs of "
+            f"{res['decode_tokens']} tokens; {card})")
+    log(f"  cli bench: {wall:.1f} s in all, the file's load included")
+    return dict(res, wall_s=wall)
+
+
+def gguf_chats(port: int, texts: list, concurrent: bool) -> tuple[list, float]:
+    """8 streamed greedy chats of 64 tokens, at once or one after another:
+    (the replies, wall seconds)."""
+    import threading
+
+    out: list = [None] * len(texts)
+
+    def one(i: int) -> None:
+        out[i] = _stream_chat(port, {"messages": [{"role": "user", "content": texts[i]}],
+                                     "max_tokens": 64, "temperature": 0, "stream": True})
+
+    t0 = time.perf_counter()
+    if concurrent:
+        clients = [threading.Thread(target=one, args=(i,)) for i in range(len(texts))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(600)
+    else:
+        for i in range(len(texts)):
+            one(i)
+    wall = time.perf_counter() - t0
+    for r in out:
+        assert r is not None and r["done"] and r["finish"], r
+        assert r["usage"]["completion_tokens"] == len(r["deltas"]), r["usage"]
+    return out, wall
+
+
+def gguf_turn(tag: str, port: int, seq_texts: list, wave_texts: list, card: str) -> dict:
+    """On a fresh server: the 8 ``seq_texts`` chats one after another (each
+    alone, so its stream depends on no other request), then the 8
+    ``wave_texts`` chats at once (other prompts: no prefix-cache hits)."""
+    seq, _ = gguf_chats(port, seq_texts, concurrent=False)
+    replies, wall = gguf_chats(port, wave_texts, concurrent=True)
+    tokens = sum(len(r["deltas"]) for r in replies)
+    ttft = sorted(r["ttft"] for r in replies if r["ttft"] is not None)
+    turn = dict(tok_s=tokens / wall, tokens=tokens, wall_s=wall,
+                ttft_ms_median=ttft[len(ttft) // 2] * 1e3, ttft_ms_max=ttft[-1] * 1e3,
+                ttft_ms=[r["ttft"] * 1e3 for r in replies],
+                sequential=["".join(r["deltas"]) for r in seq],
+                sequential_ttft_ms=[r["ttft"] * 1e3 for r in seq])
+    log(f"  {tag}: 8 concurrent streamed chats, {tokens} tokens in {wall:.2f} s, "
+        f"{turn['tok_s']:.1f} tok/s; client TTFT median {turn['ttft_ms_median']:.1f} ms, "
+        f"max {turn['ttft_ms_max']:.1f} ms; one at a time TTFT median "
+        f"{sorted(turn['sequential_ttft_ms'])[4]:.1f} ms ({card}; {GGUF_LAYERS} layers, "
+        f"bf16)")
+    return turn
+
+
+def gguf_serve(dev, path: Path, sched, ex, card: str) -> dict:
+    """``cli serve --model FILE.gguf --continuous-batching`` (warmed, decode
+    graphs on) in its own process, and the same server in this process over
+    the model already loaded, warmed with decode graphs off (``gguf_turn``:
+    8 streamed chats one at a time, whose greedy streams must be equal both
+    ways, then 8 others at once; prompts the file's tokenizer encodes to
+    GGUF_REQUEST_LENS tokens, 64 greedy tokens each). Over HTTP a concurrent
+    wave's batches depend on arrival order, so its prompts are also
+    submitted in a fixed order to a warmed BatchEngine in this process, once
+    with decode graphs and once without, whose 8 greedy streams must be
+    equal. B1 and B2 launches of the in-process server's two passes."""
+    import numpy as np
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+
+    rng = np.random.default_rng(SEED + 12)
+    seq_texts, wave_texts = ([_prompt_text(ex.tokenizer, n, rng) for n in GGUF_REQUEST_LENS]
+                             for _ in range(2))
+    out = {}
+    with cli_serve(path, path.parent / "cli_stderr.txt") as (port, up, warmed):
+        log(f"  cli serve {path.name}: '{warmed}'; /health after {up:.1f} s (the file's "
+            f"load included)")
+        out["on"] = gguf_turn("cli serve, graphs on", port, seq_texts, wave_texts, card)
+        out["cli_up_s"] = up
+    inf = ex.app_cfg.inference
+    inf.max_batch_size, inf.prefix_cache, inf.decode_horizon = 8, True, 8
+    greedy = GenerationConfig(max_tokens=64, temperature=0.0)
+    wave = [(ex.tokenizer.encode(t), greedy) for t in wave_texts]
+    streams = {}
+    for graphs in (True, False):
+        inf.graphs = graphs
+        engine = BatchEngine(ex.model, ex.tokenizer, ex.app_cfg)
+        engine.warmup()
+        results = asyncio.run(serve(engine, [wave]))
+        streams[graphs] = [r["tokens"] for r in results]
+        assert all(0 < len(t) <= 64 for t in streams[graphs]), [len(t) for t in streams[graphs]]
+        del engine
+        free_card()
+    equal = streams[True] == streams[False]
+    log(f"  the 8 greedy streams of the concurrent wave, submitted at once in a fixed order "
+        f"to the engine: with graphs {'equal' if equal else 'DIFFER from'} those without")
+    assert equal, [i for i, (a, b) in enumerate(zip(streams[True], streams[False])) if a != b]
+    engine = BatchEngine(ex.model, ex.tokenizer, ex.app_cfg)
+    warm_s = engine.warmup()
+    with http_server(sched, engine) as port:
+        reset_counts()
+        out["off"] = gguf_turn(f"in-process server, graphs off (warmed in {warm_s:.1f} s)",
+                               port, seq_texts, wave_texts, card)
+        counts = read_counts()
+    assert counts["qmm"] > 0 and counts["paged_attention"] > 0, counts
+    equal = out["on"]["sequential"] == out["off"]["sequential"]
+    log(f"  the 8 greedy streams one at a time with graphs "
+        f"{'equal' if equal else 'DIFFER from'} those without; launches of the in-process "
+        f"server's two passes {counts}")
+    assert equal, [i for i, (a, b) in enumerate(zip(out["on"]["sequential"],
+                                                    out["off"]["sequential"])) if a != b]
+    del engine
+    free_card()
+    return dict(out, wave_streams_equal=True, **counts)
+
+
+def gguf_phase(dev, gen, card: str) -> dict:
+    """Phase 12: write Mistral-7B-Instruct-v0.2 as a llama.cpp Q4_K_M GGUF
+    file at its published width, GGUF_LAYERS layers, with an embedded
+    32000-token SentencePiece tokenizer (``write_gguf_checkpoint``), alone
+    in a directory; load it as ``cli serve`` does; hold its forwards to the
+    CPU (gguf_forwards); B1, B3 and B4 at its layouts (gguf_b1); ``cli
+    bench`` on it (gguf_bench); ``cli serve`` on it (gguf_serve)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from blazr_tpu_torch.utils.synthetic import (mistral_7b_instruct_v02_config,
+                                                 write_gguf_checkpoint)
+
+    cfg = mistral_7b_instruct_v02_config()
+    cfg.num_layers = GGUF_LAYERS
+    root = Path(tempfile.mkdtemp(prefix="blazr_gguf_"))
+    path = root / "mistral-7b-instruct-v0.2.Q4_K_M.gguf"
+    out: dict = {}
+    try:
+        t0 = time.perf_counter()
+        kinds = write_gguf_checkpoint(path, cfg, "Q4_K_M", seed=SEED)
+        out["write_s"] = time.perf_counter() - t0
+        out["file_gb"] = path.stat().st_size / 1e9
+        mix = {t: sum(1 for v in kinds.values() if v == t) for t in sorted(set(kinds.values()))}
+        log(f"  wrote {path.name} ({GGUF_LAYERS} of 32 layers, {out['file_gb']:.3f} GB; "
+            f"tensors by type {mix}) in {out['write_s']:.1f} s")
+        sched, ex, out["load_s"] = gguf_load(dev, path)
+        model = ex.model
+        assert model.dtype == torch.bfloat16 and model.cfg.model_type == "llama"
+        assert model.cfg.attention.rope_theta == 1e6 and model.cfg.max_seq_len == 32768
+        assert ex.tokenizer.vocab_size == 32000
+        log(f"  loaded (load_model + the embedded tokenizer) in {out['load_s']:.1f} s: "
+            f"{model.cfg.hidden_size}d, {model.num_layers} layers, vocab "
+            f"{model.vocab_size}, rope theta {model.cfg.attention.rope_theta:g}; "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
+        out["forwards"] = gguf_forwards(dev, model)
+        out["b1"] = gguf_b1(dev, gen, model)
+        out["bench"] = gguf_bench(path, card)
+        out["serve"] = gguf_serve(dev, path, sched, ex, card)
+        out.update(qmm=out["serve"]["qmm"], paged_attention=out["serve"]["paged_attention"])
+        del sched, ex, model
+        free_card()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -3279,6 +3717,7 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
     f1 = time_b1_families(dev, gen) if families else None
     f2 = time_b2_families(dev, gen) if families else None
     moe_b1 = res["moe"]["b1"]["rows"] if "moe" in res else None   # timed in phase 11
+    gguf = res["gguf"]["b1"] if "gguf" in res else None          # timed in phase 12
 
     def got(phase, key):
         return res.get(phase, {}).get(key)
@@ -3289,7 +3728,7 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
     b1p, b1d = t1[("gateup", 512)], t1[("gateup", 8)]
     b2 = t2[B2_SHAPES[0]]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    return [
+    line = [
         dict(name="qmm_w4a16 (B1)", route="cuda", source="blazr_tpu_torch/csrc/qmm.cu",
              replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
              launches=got("serve", "qmm"), max_abs_err=got("b1", "max_abs_err"),
@@ -3354,12 +3793,28 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
              decode={key: moe_b1[("mixtral gate/up", 8)][key] for key in keys},
              at=[{key: row[key] for key in keys} for sh, row in moe_b1.items()
                  if sh[0] != "mixtral gate/up" or sh[1] not in (8, 512)]),
-    ] if moe_b1 else [])
+    ] if moe_b1 else []) + ([
+        dict(name="qmm_w4a16 (B1), GGUF Q4_K/Q6_K layouts", route="cuda",
+             source="blazr_tpu_torch/csrc/qmm.cu",
+             replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
+             launches=got("gguf", "qmm"), max_abs_err=gguf["max_abs_err"],
+             **{key: gguf["rows"][("gate L0 (Q4_K)", 512)][key] for key in keys},
+             decode={key: gguf["rows"][("gate L0 (Q4_K)", 8)][key] for key in keys},
+             at=[{key: row[key] for key in keys} for sh, row in gguf["rows"].items()
+                 if sh[0] != "gate L0 (Q4_K)" or sh[1] == 1]),
+    ] if gguf else [])
+    if gguf:           # B3 and B4 on the file's Q4_K gate weight, beside their rows
+        for row in line:
+            kernel = row["name"].split("(")[-1].rstrip(")")
+            if kernel in ("B3", "B4") and "," not in row["name"]:
+                row["gguf"] = [{key: r[key] for key in keys}
+                               for (k, _), r in gguf["others"].items() if k.startswith(kernel)]
+    return line
 
 
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
           "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "prefix", "http",
-          "families", "moe", "sweep", "timings", "layout_times")
+          "families", "moe", "gguf", "sweep", "timings", "layout_times")
 FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
@@ -3459,10 +3914,13 @@ def main() -> int:
          lambda: serve_http(dev, card)),
         ("families", "phase 10: the dense families (2-layer full-width forwards, card "
          "vs CPU), then Qwen3-8B and Gemma2-9B served through the warmed engine",
-         lambda: families(dev, card)),
+         lambda: families(dev, card, phases == list(FULL_RUN))),
         ("moe", "phase 11: the MoE families (B1 at the expert shapes, 2-layer full-width "
          "forwards card vs CPU), then Mixtral-8x7B and Qwen3-30B-A3B served through the "
          "warmed engine", lambda: moe_phase(dev, gen, card, phases == list(FULL_RUN))),
+        ("gguf", "phase 12: Mistral-7B-Instruct-v0.2 as a Q4_K_M GGUF file (write, load, "
+         "forwards card vs CPU, B1/B3/B4 at its layouts, cli bench, cli serve)",
+         lambda: gguf_phase(dev, gen, card)),
         ("sweep", "phase 8: the sweeps behind the launch plans of B1-B6",
          lambda: (b1_variants(dev, gen), b2_splits(dev, gen), b3_sweeps(dev, gen),
                   b4_splits(dev, gen), layout_splits(dev, gen))),

@@ -2,7 +2,8 @@
 the ROADMAP queue A item that ports it. These tests hold each pointer to
 ROADMAP.md: the item's entry in queue A must name the command. The loader's
 docstring points vision towers and layer offload at their item the same
-way."""
+way, and so does each runtime message of what the engines and the loader
+do not serve yet: its item must be an entry of queue A."""
 
 import re
 from pathlib import Path
@@ -10,6 +11,9 @@ from pathlib import Path
 import pytest
 
 from blazr_tpu_torch.cli.main import NOT_PORTED
+from blazr_tpu_torch.config import AppConfig, GenerationConfig
+from blazr_tpu_torch.config.inference import SpeculativeDecodingConfig
+from blazr_tpu_torch.engine import batch_engine, executor
 from blazr_tpu_torch.loader import api
 
 ROADMAP = Path(__file__).resolve().parent.parent / "ROADMAP.md"
@@ -42,3 +46,64 @@ def test_loader_points_vision_and_offload_at_item_12():
     entry = _queue_a_entries()["12"]
     assert "vision towers and layer offload (item 12)" in " ".join(api.__doc__.split())
     assert "loader/vision.py" in entry and "loader/offloading.py" in entry
+
+
+def _item_of(message: str) -> str:
+    m = re.search(r"ROADMAP queue A item ([0-9a-z.]+)\)", message)
+    assert m, message
+    return m.group(1)
+
+
+def _in_queue_a(item: str) -> bool:
+    """An entry's own number, or one an entry names in parentheses (item 8
+    lists 5a.3-5a.6 so)."""
+    entries = _queue_a_entries()
+    return item in entries or any(f"({item})" in body for body in entries.values())
+
+
+_REQUESTS = {"grammar": dict(grammar="root ::= x"), "lora": dict(lora_adapter="a"),
+             "mirostat": dict(mirostat=2)}
+_ITEMS = {"grammar": "5a.4", "lora": "5a.6", "mirostat": "5a.3"}
+
+
+@pytest.mark.parametrize("what", sorted(_REQUESTS))
+def test_request_refusals_name_their_queue_item(what):
+    with pytest.raises(NotImplementedError) as e:
+        batch_engine.check_request(GenerationConfig(**_REQUESTS[what]))
+    assert _item_of(str(e.value)) == _ITEMS[what] and _in_queue_a(_ITEMS[what])
+
+
+@pytest.mark.parametrize("what,item", [("speculative", "5a.5"), ("tp", "13"),
+                                       ("offload", "12")])
+def test_engine_config_refusals_name_their_queue_item(what, item):
+    inf = AppConfig().inference
+    if what == "speculative":
+        inf.speculative = SpeculativeDecodingConfig(num_speculative_tokens=2)
+    elif what == "tp":
+        inf.tensor_parallel_size = 2
+    else:
+        inf.num_device_layers = 1
+    with pytest.raises(NotImplementedError) as e:
+        batch_engine.BatchEngine._check_config(inf)
+    assert _item_of(str(e.value)) == item and _in_queue_a(item)
+
+
+@pytest.mark.parametrize("what,item", [("tp", "13"), ("moe_offload", "12"),
+                                       ("stream", "12")])
+def test_executor_refusals_name_their_queue_item(what, item):
+    inf = AppConfig().inference
+    if what == "tp":
+        inf.expert_parallel_size = 2
+    elif what == "moe_offload":
+        inf.moe_offload = True
+    else:
+        inf.num_device_layers = 2
+    with pytest.raises(NotImplementedError) as e:
+        executor.Executor._check_config(inf)
+    assert _item_of(str(e.value)) == item and _in_queue_a(item)
+
+
+def test_loader_refusals_name_item_12():
+    with pytest.raises(NotImplementedError) as e:
+        api.load_model(".", device_layers=1, device="cpu")
+    assert _item_of(str(e.value)) == "12"

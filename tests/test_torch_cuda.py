@@ -744,3 +744,126 @@ def test_tied_head_takes_no_f32_table(cuda):
     ref = forward_head(cpu, cfg, x.cpu())
     assert got.dtype == torch.float32 and got.shape == (4, 1, v)
     assert (got.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# B1 at the GGUF layouts of Mistral-7B-Instruct-v0.2 Q4_K_M, full width:
+# Q4_K (signed 4-bit after the sign bias, groups of 32) gate/up, Q6_K
+# (signed 8-bit, groups of 16) ffn_down at K 14336 (896 groups a column)
+# and the Q6_K output head (N 32000). Weights from the ggml encoder and
+# from_ggml, so the planes are real ggml planes.
+# ---------------------------------------------------------------------------
+
+_GGUF_B1 = {("Q4_K", 4096, 14336), ("Q6_K", 14336, 4096), ("Q6_K", 4096, 32000)}
+
+
+@pytest.fixture(scope="module")
+def gguf_weights():
+    cache = {}
+
+    def get(gt, k, n):
+        if (gt, k, n) not in cache:
+            import numpy as np
+
+            from blazr_tpu_torch.formats.ggml_quants import quantize_ggml
+            from blazr_tpu_torch.formats.gguf import GgmlType
+
+            w = np.random.default_rng(k + n).standard_normal((n, k), dtype=np.float32)
+            raw = quantize_ggml(w * 0.02, GgmlType[gt])
+            cache[(gt, k, n)] = qtensor.from_ggml(raw, GgmlType[gt], (n, k), device="cuda")
+        return cache[(gt, k, n)]
+    return get
+
+
+@pytest.mark.parametrize("gt,k,n", sorted(_GGUF_B1))
+@pytest.mark.parametrize("m", [1, 8, 512])
+def test_qmm_gguf_full_width_layouts(cuda, gguf_weights, gt, k, n, m):
+    qt = gguf_weights(gt, k, n)
+    assert (qt.bits, qt.group_size, qt.signed) == ((4, 32, True) if gt == "Q4_K"
+                                                   else (8, 16, True))
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn((m, k), device=cuda, generator=gen).to(torch.bfloat16)
+    got = qmm(x, qt.qweight, qt.scales, qt.mins, bits=qt.bits, signed=qt.signed,
+              group_size=qt.group_size)
+    ref = qmm_reference(x.float(), qt.qweight, qt.scales, qt.mins, bits=qt.bits,
+                        signed=qt.signed, group_size=qt.group_size)
+    torch.cuda.synchronize()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= _rel_tol(torch.bfloat16) * ref.abs().max().item(), err
+
+
+# ---------------------------------------------------------------------------
+# The MoE FFN on the card (ROADMAP §C check 4): a small stacked AWQ-INT4
+# expert tensor (groups of 32), f32 activations, against the CPU f32 plain
+# path on the same params: the decode form (every expert over every row)
+# inside a captured CUDA graph, and the routed prefill form eagerly. B1's
+# split-K variant runs f32 x, so the two differ only in the order of f32
+# sums: 1e-4 of the largest output.
+# ---------------------------------------------------------------------------
+
+def _moe_case(dev):
+    from blazr_tpu_torch.config.model_config import MoeConfig
+    from blazr_tpu_torch.utils.synthetic import _rand_awq_qt
+
+    h, inter, e = 256, 128, 4
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    p = {"router": torch.randn((h, e), generator=gen) * 0.1, "correction_bias": None,
+         "experts_gate": qtensor.stack_quant([_rand_awq_qt(gen, h, inter, 32, torch.device("cpu"))
+                                              for _ in range(e)]),
+         "experts_up": qtensor.stack_quant([_rand_awq_qt(gen, h, inter, 32, torch.device("cpu"))
+                                            for _ in range(e)]),
+         "experts_down": qtensor.stack_quant([_rand_awq_qt(gen, inter, h, 32,
+                                                           torch.device("cpu"))
+                                              for _ in range(e)])}
+    moe = MoeConfig(num_experts=e, experts_per_tok=2, norm_topk_prob=True)
+
+    def to(dev_):
+        import dataclasses
+
+        return {k: (None if v is None else v.to(dev_) if isinstance(v, torch.Tensor)
+                    else dataclasses.replace(v, qweight=v.qweight.to(dev_),
+                                             scales=v.scales.to(dev_), mins=v.mins.to(dev_)))
+                for k, v in p.items()}
+    return to(dev), to("cpu"), moe, h
+
+
+def _rel_err(got, ref):
+    return (got.float().cpu() - ref).abs().max().item() / ref.abs().max().item()
+
+
+def test_moe_ffn_decode_form_in_a_cuda_graph(cuda):
+    from blazr_tpu_torch.models.moe import moe_ffn
+    from blazr_tpu_torch.quant import kernels
+
+    p_dev, p_cpu, moe, h = _moe_case(cuda)
+    x = torch.randn((8, 1, h), generator=torch.Generator().manual_seed(2))
+    ref = moe_ffn(x, p_cpu, moe)
+    static_x = x.to(cuda)
+    moe_ffn(static_x, p_dev, moe)                 # build the kernels outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = moe_ffn(static_x, p_dev, moe)
+    before = kernels.qmm.launches
+    for _ in range(2):
+        static_x.copy_(x.to(cuda))
+        graph.replay()
+    torch.cuda.synchronize()
+    assert _rel_err(static_out, ref) < 1e-4
+    x2 = torch.randn((8, 1, h), generator=torch.Generator().manual_seed(3))
+    static_x.copy_(x2.to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _rel_err(static_out, moe_ffn(x2, p_cpu, moe)) < 1e-4
+    assert kernels.qmm.launches == before          # replays run no Python
+
+
+def test_moe_ffn_routed_prefill_form(cuda):
+    from blazr_tpu_torch.models.moe import moe_ffn
+
+    p_dev, p_cpu, moe, h = _moe_case(cuda)
+    x = torch.randn((2, 24, h), generator=torch.Generator().manual_seed(4))
+    got = moe_ffn(x.to(cuda), p_dev, moe)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape
+    assert _rel_err(got, moe_ffn(x, p_cpu, moe)) < 1e-4

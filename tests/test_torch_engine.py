@@ -263,7 +263,7 @@ def test_port_imports_without_jax_or_blazr_tpu():
                          capture_output=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 63
+    assert len(names) >= 73
     assert {f"blazr_tpu_torch.{m}" for m in (
         "kvcache.prefix_cache", "kvcache.host_tier", "server.metrics", "server.slo",
         "quant.int8", "kvcache.contiguous", "models.llama", "models.moe", "engine.executor",
@@ -271,7 +271,10 @@ def test_port_imports_without_jax_or_blazr_tpu():
         "tools.bench_pa_wide", "tools.bench_pa_headmajor", "formats.safetensors",
         "formats.detect", "loader.varmap", "loader.api", "tokenizer.bpe",
         "tokenizer.hf_tokenizer", "model_meta.chat_template", "engine.model_scheduler",
-        "server.app", "server.api_types", "server.streaming", "cli.main")} <= names
+        "server.app", "server.api_types", "server.streaming", "cli.main",
+        "formats.gguf", "formats.ggml_quants", "formats.iq_quants", "formats.names",
+        "formats.detect_arch", "loader.gguf_config", "loader.convert",
+        "tokenizer.gguf_tokenizer", "tokenizer.pretrained", "engine.bench")} <= names
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -225,8 +225,13 @@ def test_safetensors_roundtrip_bf16_without_ml_dtypes(tmp_path):
 
 def test_unserved_families_and_gguf_raise(tmp_path, ckpts):
     """The dense and MoE families load (tests/test_torch_families.py,
-    tests/test_torch_moe.py); a DeepSeek MLA and a Mamba2 checkpoint still
-    raise, naming queue A item 11."""
+    tests/test_torch_moe.py), and so do GGUF files (tests/test_torch_gguf.py);
+    a DeepSeek MLA and a Mamba2 checkpoint still raise, naming queue A item
+    11, whether from safetensors or from GGUF metadata. A file that is not
+    GGUF raises as the JAX reader does."""
+    from blazr_tpu_torch.formats import GgmlType, write_gguf
+    from blazr_tpu_torch.utils.synthetic import write_gguf_checkpoint
+
     for name, extra in (("deepseek", {"model_type": "deepseek_v3", "kv_lora_rank": 16,
                                       "n_routed_experts": 4}),
                         ("mamba2", {"model_type": "mamba2"})):
@@ -235,7 +240,22 @@ def test_unserved_families_and_gguf_raise(tmp_path, ckpts):
         with pytest.raises(NotImplementedError, match="item 11"):
             load_model(d, device=CPU)
     g = tmp_path / "model.gguf"
-    g.write_bytes(b"GGUF")
+    write_gguf_checkpoint(g, UniversalConfig(
+        model_type="llama", vocab_size=256, hidden_size=256, num_layers=1,
+        intermediate_size=256, attention=AttentionConfig(num_heads=4, num_kv_heads=2,
+                                                         head_dim=64)), "Q8_0")
     assert detect_model_source(g).quant == QuantMethod.GGUF
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_model(g, device=CPU)
+    model, cfg = load_model(g, device=CPU)
+    assert cfg.model.num_layers == 1 and model.params["layers"][0]["q"].fmt == "ggml_q8_0"
+    mla = tmp_path / "mla.gguf"
+    write_gguf(mla, {"general.architecture": "deepseek2",
+                     "deepseek2.embedding_length": 64, "deepseek2.block_count": 1,
+                     "deepseek2.attention.kv_lora_rank": 16},
+               {"token_embd.weight": (np.zeros((256, 64), np.float32), GgmlType.F32,
+                                      (256, 64))})
+    with pytest.raises(NotImplementedError, match="item 11"):
+        load_model(mla, device=CPU)
+    bad = tmp_path / "bad.gguf"
+    bad.write_bytes(b"NOTGGUF-at-all..........")
+    with pytest.raises(ValueError, match="not a GGUF file"):
+        load_model(bad, device=CPU)

@@ -588,14 +588,31 @@ def test_offload_and_expert_parallelism_raise(what, item):
 
 
 def test_pre_stacked_expert_names_raise(tmp_path):
-    """GGUF-style pre-stacked expert tensors come with item 10."""
+    """GGUF-style pre-stacked expert tensors ([E, out, in] under
+    ``mlp.experts.{gate,up,down}_proj``) load: layer 0's experts restacked
+    so give the per-expert checkpoint's params and logits exactly. (They
+    raised until GGUF was ported; tests/test_torch_gguf.py covers the
+    quantized stacks of a GGUF file.)"""
     cfg = _tiny("qwen3_moe")
-    write_hf_checkpoint(tmp_path, cfg, quant="plain", dtype="float32")
-    f = tmp_path / "model.safetensors"
+    write_hf_checkpoint(tmp_path / "a", cfg, quant="plain", dtype="float32")
+    write_hf_checkpoint(tmp_path / "b", cfg, quant="plain", dtype="float32")
+    f = tmp_path / "b" / "model.safetensors"
     with SafeTensorsReader(f) as r:
         tensors = {n: np.array(r.load_numpy(n)) for n in r.tensor_names()}
-    tensors["model.layers.0.mlp.experts.gate_proj.weight"] = np.zeros((E, I_MOE, H),
-                                                                        np.float32)
+    p = "model.layers.0.mlp.experts."
+    for part in ("gate_proj", "up_proj", "down_proj"):
+        tensors[p + part + ".weight"] = np.stack(
+            [tensors.pop(f"{p}{e}.{part}.weight") for e in range(E)])
     write_safetensors(f, tensors)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_model(tmp_path, dtype="f32", device=CPU)
+    a, _ = load_model(tmp_path / "a", dtype="f32", device=CPU)
+    b, _ = load_model(tmp_path / "b", dtype="f32", device=CPU)
+    for key in ("experts_gate", "experts_up", "experts_down"):
+        assert torch.equal(a.params["layers"][0]["moe"][key],
+                           b.params["layers"][0]["moe"][key])
+    tokens = torch.tensor([[3, 1, 4, 1, 5, 9]])
+    outs = []
+    for m in (a, b):
+        cache = m.init_cache(1, 16)
+        logits, _ = m.forward(tokens, cache, torch.arange(6)[None])
+        outs.append(logits)
+    assert torch.equal(outs[0], outs[1])

@@ -38,8 +38,25 @@ from blazr_tpu_torch.kvcache.prefix_cache import PrefixCache, PrefixCacheConfig
 from blazr_tpu_torch.models.registry import Model
 from blazr_tpu_torch.utils.synthetic import tiny_llama_config
 
+
+
+class _JPrefixUnaliased(JPrefix):
+    """The JAX PrefixCache with its one known fault taken out: its
+    ``get_or_allocate_blocks`` records the caller's own block list
+    (``blazr_tpu/kvcache/prefix_cache.py:132``), which ``extend`` and the
+    scheduler both append each decode block to, so the block is held and
+    freed twice and two later sequences share it (ROADMAP §C). The port
+    records a copy; everything else is compared with the JAX class as it
+    is (``test_decode_blocks_are_freed_once`` pins the fault itself)."""
+
+    def get_or_allocate_blocks(self, seq_id, tokens):
+        cached, blocks = super().get_or_allocate_blocks(seq_id, tokens)
+        self._seq_blocks[seq_id] = list(blocks)
+        return cached, blocks
+
+
 PORT = (BlockAllocator, PrefixCache, PrefixCacheConfig)
-JAX = (JAlloc, JPrefix, JPrefixCfg)
+JAX = (JAlloc, _JPrefixUnaliased, JPrefixCfg)
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +211,44 @@ def test_seeded_call_sequences_match_jax(seed):
           max_cached=int(rng.integers(3, 20)))
 
 
+@pytest.mark.parametrize("cls,shared", [(PrefixCache, False), (JPrefix, True)],
+                         ids=["port", "jax"])
+def test_decode_blocks_are_freed_once(cls, shared):
+    """The scheduler's admission of an 8-token prompt (blocks of 4) and one
+    decode block: the port frees each block once; the JAX cache frees the
+    decode block twice, so the free list holds it twice and it is handed
+    out twice (the fault ``_JPrefixUnaliased`` takes out of the JAX side of
+    the other tests)."""
+    alloc = (BlockAllocator if cls is PrefixCache else JAlloc)(16, 4)
+    pc = cls(alloc)
+    _, table = pc.get_or_allocate_blocks(1, list(range(8)))
+    table.extend(pc.extend(1, 1))                      # as the scheduler does
+    pc.mark_computed(1, 8)
+    pc.release_blocks(1)
+    free = alloc._free
+    assert (len(set(free)) < len(free)) == shared
+    a = pc.get_or_allocate_blocks(2, list(range(50, 58)))[1]
+    b = pc.get_or_allocate_blocks(3, list(range(60, 68)))[1]
+    assert (len(set(a + b)) < len(a + b)) == shared     # a block handed out twice
+
+
+def test_sequential_requests_equal_the_cache_off(models):
+    """Requests one after another, each with a decode block, through the
+    port's engine with the prefix cache on: the same streams as with it off
+    (each request alone), since no two sequences share a block."""
+    _, tmodel = models
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(3, 250, n).tolist() for n in (8, 40, 19, 27)]
+
+    def run(prefix):
+        app = _app(AppConfig, tmodel.cfg, prefix_cache=prefix)
+        eng = BatchEngine(tmodel, _Tok(), app)
+        return asyncio.run(_waves(eng, [[p] for p in prompts],
+                                  lambda: GenerationConfig(max_tokens=12,
+                                                           temperature=0.0)))
+    assert run(True) == run(False)
+
+
 # ---------------------------------------------------------------------------
 # the scheduler's prefix hooks
 # ---------------------------------------------------------------------------
@@ -243,7 +298,8 @@ def test_scheduler_prefix_hooks_match_jax():
                ("abort", 2), ("add", pre + [12]), ("schedule",), ("finish", 3)]
     got = _sched_trace(SequenceScheduler, SchedulerConfig, BlockAllocator, PrefixCache,
                        script, num_blocks=10)
-    ref = _sched_trace(JSched, JSchedCfg, JAlloc, JPrefix, script, num_blocks=10)
+    ref = _sched_trace(JSched, JSchedCfg, JAlloc, _JPrefixUnaliased, script,
+                       num_blocks=10)
     assert got == ref
     # sequence 3 (block-aligned, 8 tokens) was a whole-prompt hit: 7 cached
     assert any(row[0] == 3 and row[3] == 7 for state in got if isinstance(state, list)
@@ -304,9 +360,16 @@ def _app(cls, cfg, **inf):
 
 
 def _both(models, waves, max_tokens, **inf):
-    """(port streams, port engine), (JAX streams, JAX engine)."""
+    """(port streams, port engine), (JAX streams, JAX engine); the JAX
+    engine's prefix cache is ``_JPrefixUnaliased``."""
+    import blazr_tpu.engine.batch_engine as jbe
+
     jmodel, tmodel = models
-    jeng = JEngine(jmodel, _Tok(), _app(JApp, jmodel.cfg, **inf))
+    real, jbe.PrefixCache = jbe.PrefixCache, _JPrefixUnaliased
+    try:
+        jeng = JEngine(jmodel, _Tok(), _app(JApp, jmodel.cfg, **inf))
+    finally:
+        jbe.PrefixCache = real
     ref = asyncio.run(_waves(jeng, waves, lambda: JGen(max_tokens=max_tokens,
                                                        temperature=0.0)))
     teng = BatchEngine(tmodel, _Tok(), _app(AppConfig, tmodel.cfg, **inf))

@@ -142,11 +142,18 @@ def test_bpe_tokenizer_with_each_pattern_matches_jax():
 
 
 def test_load_tokenizer_resolution(tmp_path):
-    with pytest.raises(FileNotFoundError, match="item 8"):
+    """Nothing to load raises; a sibling GGUF's embedded tokenizer serves
+    (its resolution against the JAX package: tests/test_torch_gguf.py);
+    tokenizer.json comes before it."""
+    from blazr_tpu_torch.config.model_config import AttentionConfig, UniversalConfig
+    from blazr_tpu_torch.utils.synthetic import write_gguf_checkpoint
+
+    with pytest.raises(FileNotFoundError, match="tokenizer.json"):
         load_tokenizer(tmp_path)
-    (tmp_path / "m.gguf").write_bytes(b"GGUF")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        load_tokenizer(tmp_path)
+    write_gguf_checkpoint(tmp_path / "m.gguf", UniversalConfig(
+        vocab_size=300, hidden_size=256, num_layers=1, intermediate_size=256,
+        attention=AttentionConfig(num_heads=2, num_kv_heads=2, head_dim=128)), "Q8_0")
+    assert load_tokenizer(tmp_path).vocab_size == 300
     write_byte_tokenizer_json(tmp_path)
     assert load_tokenizer(tmp_path).decode([104, 105]) == "hi"
     bt = ByteTokenizer()
