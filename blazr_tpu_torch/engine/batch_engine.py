@@ -47,9 +47,19 @@ one prefill per token bucket and capture every decode graph.
 Left out of this slice, each naming its ROADMAP queue A item: speculation
 (5a.5), grammars and JSON mode (5a.4), LoRA (5a.6), host samplers
 (mirostat/DRY/typical/dynatemp; 5a.3), tensor/sequence parallel meshes
-(13), weight offload (12) and recurrent-state families (11). A request or
-config that asks for one raises instead of being served differently. int4
-KV on the paged path raises instead of being downgraded.
+(13) and weight offload (12). A request or config that asks for one
+raises instead of being served differently. int4 KV on the paged path
+raises instead of being downgraded.
+
+Every family of ``models/paged_multi.py`` is served: MLA models on latent
+pages, Mamba2 and hybrid models on the state pool's rows
+(``blazr_tpu/engine/batch_engine.py:1182-1221, 1402-1420``). A sequence
+takes a row at its first prefill (``_row_for``), zeroed when a prefill
+starts at token 0 (an admission, or a restart after preemption), and gives
+it back when it ends; rows of sequences that are not running are reclaimed
+when none is free. Their prefills run per sequence in exact power-of-two
+pieces, so no pad token enters a scan; pad decode rows read and write the
+pool's trash row. The prefix cache is off for them.
 """
 
 from __future__ import annotations
@@ -69,9 +79,10 @@ from ..config.app import AppConfig
 from ..config.generation import GenerationConfig
 from ..kvcache.block_allocator import BlockAllocator, blocks_needed
 from ..kvcache.host_tier import attach_host_tier
-from ..kvcache.paged import PAD_BLOCK, pad_block_table
+from ..kvcache.paged import PAD_BLOCK, compute_slot_mapping, pad_block_table
 from ..kvcache.prefix_cache import PrefixCache, PrefixCacheConfig
-from ..models.paged_multi import init_engine_cache, make_paged_forward
+from ..models.paged_multi import trash_slot, zero_state_rows
+from ..models.registry import init_engine_cache, make_paged_forward
 from ..models.registry import Model
 from ..quant.qtensor import apply_quant_compute, quant_leaves
 from .decode_graph import TOPK_K, BatchStep, StepGraphs, pack_rows
@@ -196,17 +207,23 @@ class BatchEngine:
             model.cfg, num_blocks, self.block_size, self.max_batch,
             dtype=model.dtype, quantized=inf.kv_cache_dtype == "int8",
             device=self.device)
-        if needs_state_rows and self.prefix_cache is not None:
-            # Recurrent state can never be reconstructed from cached KV
-            # blocks — prefix reuse is attention-only.
-            logger.warning("prefix cache disabled: model has recurrent (SSM) state")
-            self.prefix_cache = None
-            self.scheduler.prefix_cache = None
+        self._needs_state_rows = needs_state_rows
+        if needs_state_rows:
+            if self.prefix_cache is not None:
+                # Recurrent state can never be reconstructed from cached KV
+                # blocks — prefix reuse is attention-only.
+                logger.warning("prefix cache disabled: model has recurrent (SSM) state")
+                self.prefix_cache = None
+                self.scheduler.prefix_cache = None
+            # The state pool's rows: each running sequence owns one, given
+            # out at its first prefill; row max_batch is the pad rows' trash.
+            self._free_rows = list(range(self.max_batch))
+            self._seq_rows: dict[int, int] = {}
         if self.prefix_cache is not None and inf.gpu_prefix_cache:
             attach_host_tier(self.prefix_cache, self.cache,
                              max_blocks=inf.prefix_cache_ram_tier)
         self._fwd = make_paged_forward(model.cfg)
-        self._trash = self.cache.trash_slot
+        self._trash = trash_slot(self.cache)
         self.horizon_dispatches = 0
         self.horizon_steps = 0
         # The decode pipeline: dispatched, unread rounds (newest last;
@@ -371,6 +388,8 @@ class BatchEngine:
                 kept = fin_all[:max(1, cap)] + cont_all[:_PREFILL_GROUP]
                 self.perf["p_deferred_n"] += len(seqs) - len(kept)
                 seqs = kept
+        if self._needs_state_rows:
+            return [self._prefill_rows(seq) for seq in seqs]
         groups: dict[int, list[Sequence]] = {}
         for seq in seqs:
             remaining = len(seq.prompt_tokens) - seq.prefilled_tokens
@@ -443,6 +462,59 @@ class BatchEngine:
             use_topk = any(s.gen_cfg.logprobs for s, _ in finishing)
             packed = pack_rows(tok, logprobs, use_topk)
         return group, chunks, finishing, packed
+
+    def _row_for(self, seq_id: int) -> int:
+        """The state row of ``seq_id``, given out at its first call; when no
+        row is free, the rows of sequences that are not running come back."""
+        row = self._seq_rows.get(seq_id)
+        if row is None:
+            if not self._free_rows:
+                running = set(self.scheduler.running)
+                for sid, r in list(self._seq_rows.items()):
+                    if sid not in running:
+                        self._seq_rows.pop(sid)
+                        self._free_rows.append(r)
+            row = self._free_rows.pop()
+            self._seq_rows[seq_id] = row
+        return row
+
+    def _prefill_rows(self, seq: Sequence):
+        """Queue one sequence's prefill chunk on its state row (the JAX
+        engine's ``_process_prefill_ssm``): the chunk runs in exact
+        power-of-two pieces, so no pad token enters a scan, and the row is
+        zeroed first when the chunk starts at token 0. Returns the pending
+        entry of ``_prefill_group``."""
+        start = seq.prefilled_tokens
+        chunk = min(self._chunk, len(seq.prompt_tokens) - start)
+        row = self._row_for(seq.seq_id)
+        if start == 0:
+            zero_state_rows(self.cache, row)
+        dev = self.device
+        bs = self.block_size
+        rows = torch.tensor([row], device=dev)
+        pos = start
+        while pos < start + chunk:
+            sub = 1 << (start + chunk - pos).bit_length() - 1
+            mb = blocks_needed(pos + sub, bs)
+            slots = compute_slot_mapping(seq.block_table, pos, sub, bs, self._trash)
+            logits, self.cache = self._fwd(
+                self.model.params, self.model.cfg,
+                torch.tensor([seq.prompt_tokens[pos:pos + sub]], device=dev), self.cache,
+                torch.arange(pos, pos + sub, device=dev)[None],
+                torch.from_numpy(slots.astype(np.int64))[None].to(dev),
+                torch.from_numpy(pad_block_table(seq.block_table[:mb], mb))[None].to(dev),
+                torch.tensor([pos + sub], dtype=torch.int32, device=dev), rows,
+                last_idx=torch.tensor([sub - 1], device=dev))
+            pos += sub
+        self.perf["prefill_tokens"] += chunk
+        finishing, packed = [], None
+        if start + chunk >= len(seq.prompt_tokens):
+            finishing = [(seq, 0)]
+            win = make_window(self._windows[seq.seq_id], seq.gen_cfg.repeat_last_n)
+            sp, window, bias_ids, bias_vals = self._sampling([seq.gen_cfg], 0, [win])
+            tok, logprobs = sample_tokens(logits[:, 0, :], sp, window, bias_ids, bias_vals)
+            packed = pack_rows(tok, logprobs, bool(seq.gen_cfg.logprobs))
+        return [seq], [chunk], finishing, packed
 
     def _finish_prefills(self, pending: list) -> None:
         """Fetch queued prefill outputs and emit first tokens."""
@@ -602,8 +674,9 @@ class BatchEngine:
         variants and both sampled keys. Eager PyTorch
         compiles nothing per shape, so the JAX engine's grid of prefill
         group sizes has no counterpart. Every row is a pad row: its writes
-        go to the trash slot, and neither the allocator nor the prefix
-        cache is touched. Returns the seconds it took."""
+        go to the trash slot (and the state pool's trash row), and neither
+        the allocator nor the prefix cache is touched. Returns the seconds
+        it took."""
         t0 = time.perf_counter()
         dev = self.device
         chunk = min(_next_pow2(self._chunk), _next_pow2(self.max_seq_len))
@@ -623,6 +696,7 @@ class BatchEngine:
                 torch.full((1, t), self._trash, dtype=torch.long, device=dev),
                 torch.full((1, mb), PAD_BLOCK, dtype=torch.int32, device=dev),
                 torch.tensor([t], dtype=torch.int32, device=dev),
+                torch.tensor([self.max_batch], device=dev),     # the trash state row
                 last_idx=torch.tensor([t - 1], device=dev))
             sp, window, bias_ids, bias_vals = self._sampling([gen], 0, [win])
             tok, logprobs = sample_tokens(logits[:, 0, :], sp, window, bias_ids, bias_vals)
@@ -712,6 +786,10 @@ class BatchEngine:
     def _cleanup_seq(self, seq_id: int) -> None:
         self._handles.pop(seq_id, None)
         self._windows.pop(seq_id, None)
+        if self._needs_state_rows:
+            row = self._seq_rows.pop(seq_id, None)
+            if row is not None:
+                self._free_rows.append(row)
 
     def _token_text(self, tok: int) -> str:
         try:

@@ -267,7 +267,7 @@ def out_width(use_topk: bool) -> int:
 # BatchEngine: one step of the horizon over [bmax] rows of the paged cache
 # ---------------------------------------------------------------------------
 
-BATCH_HEAD = ("tok", "pos", "fresh", "live", "rln", "i")
+BATCH_HEAD = ("tok", "pos", "fresh", "live", "rln", "i", "row")
 
 
 class BatchStep:
@@ -282,9 +282,12 @@ class BatchStep:
     host work between them. Fresh rows (``fresh``: newly prefilled, or after
     a flush) take their token and penalty window from the table at i = 0;
     the others resume from the carries ``tok`` and ``win``, this step's own
-    outputs from the previous round. Pad rows (``live`` 0) write to the
-    trash slot and attend over no key. ``out[i]`` gets each row's packed
-    (token, logprob[, top-K]) at step i."""
+    outputs from the previous round. Column ``row`` is the sequence's row
+    of the engine's state pool (Mamba2 and hybrid models; a static operand
+    of the step, as the JAX step's ``state_rows``). Pad rows (``live`` 0)
+    write to the trash slot and the pool's trash row (``max_batch``) and
+    attend over no key. ``out[i]`` gets each row's packed (token,
+    logprob[, top-K]) at step i."""
 
     def __init__(self, engine, bmax: int, horizon: int, slots: int):
         self.engine = engine
@@ -307,6 +310,7 @@ class BatchStep:
         lay = self.lay
         tab = np.zeros((self.bmax, lay.width), dtype=np.int32)
         tab[:, lay.bt:] = PAD_BLOCK
+        tab[:, lay["row"]] = self.engine.max_batch
         cfgs, steps, wins = [], [], []
         pad_win = np.full((PENALTY_WINDOW,), -1, dtype=np.int64)
         for i, seq in enumerate(rows):
@@ -319,6 +323,8 @@ class BatchStep:
             tab[i, lay["pos"]] = seq.total_len - 1 + lag[i]
             tab[i, lay["live"]] = 1
             tab[i, lay["rln"]] = min(seq.gen_cfg.repeat_last_n, PENALTY_WINDOW)
+            if self.engine._needs_state_rows:
+                tab[i, lay["row"]] = self.engine._row_for(seq.seq_id)
             blocks = seq.block_table[:lay.mb]
             tab[i, lay.bt:lay.bt + len(blocks)] = blocks
             cfgs.append(seq.gen_cfg)
@@ -353,7 +359,8 @@ class BatchStep:
             posc = pos.clamp(max=max_pos)
             seq_lens = torch.where(live, pos + 1, torch.zeros_like(pos)).to(torch.int32)
             logits, _ = eng._fwd(eng.model.params, eng.model.cfg, tok[:, None], eng.cache,
-                                 posc[:, None], slot[:, None], bt, seq_lens)
+                                 posc[:, None], slot[:, None], bt, seq_lens,
+                                 t[:, lay["row"]].long())
             newtok, logprobs = sample_tokens(logits[:, -1, :], sp, window, bias_ids,
                                              bias_vals)
             out.index_copy_(0, i, pack_rows(newtok, logprobs, use_topk)[None])

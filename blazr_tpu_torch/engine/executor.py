@@ -15,7 +15,9 @@ CUDA graph per (top-K logprobs, sampled) and cache, captured on first use
 A graph holds its cache's buffers, so the caches live with the executor
 and are written in place: a generation takes a free one (a new one while
 every one is in use), and a reused session cache is taken over instead of
-copied. Prompts are still padded to power-of-two buckets (pads write to
+copied (never for Mamba2 and hybrid models, whose state holds every token
+fed; their prompts run in exact power-of-two pieces, JAX :308-332).
+Other prompts are still padded to power-of-two buckets (pads write to
 the cache's trash slot), so every matmul sees the row count the JAX
 executor's programs see, and the row-count routing of ``w4a8-prefill``
 agrees. ``inference.quant_compute`` is applied to the model's params in
@@ -93,12 +95,15 @@ class Executor:
         return self.model.device
 
     def _init_cache(self, batch: int):
-        """Model cache honouring ``inference.kv_cache_dtype`` (int8 or int4
-        KV with per-token scales, else the model dtype)."""
+        """The family's cache honouring ``inference.kv_cache_dtype`` (int8
+        or int4 KV with per-token scales, int8 MLA latents, else the model
+        dtype); the recurrent families' caches take no quantized mode, as
+        in the JAX executor (:282-287)."""
         kv_dtype = self.app_cfg.inference.kv_cache_dtype
-        return self.model.init_cache(batch, self.capacity,
-                                     kv_quant=kv_dtype in ("int8", "int4"),
-                                     kv_dtype=kv_dtype)
+        return self.model.init_cache(
+            batch, self.capacity,
+            kv_quant=kv_dtype in ("int8", "int4") and not self.model.needs_ssm_state,
+            kv_dtype=kv_dtype)
 
     # ------------------------------------------------------------------
     # session KV reuse
@@ -124,7 +129,9 @@ class Executor:
         return step, n
 
     def _session_save(self, fed_tokens: list[int], step: ExecutorStep) -> None:
-        if self.app_cfg.inference.prefix_cache:
+        # Positional caches only (KV, MLA latents): a recurrent state holds
+        # every token fed and cannot be trimmed back to a prefix.
+        if self.app_cfg.inference.prefix_cache and not self.model.needs_ssm_state:
             self._session = (list(fed_tokens), step)
 
     def _take(self, prompt_ids: list[int]) -> tuple[ExecutorStep, int]:
@@ -142,7 +149,11 @@ class Executor:
                     step, self._session = self._free[0], None
                 else:
                     step = ExecutorStep(self.model, self._init_cache(1), self.device)
-                step.cache.length.zero_()
+                reset = getattr(step.cache, "reset_", None)   # a recurrent state
+                if reset is not None:
+                    reset()
+                else:
+                    step.cache.length.zero_()
             if step in self._free:
                 self._free.remove(step)
             return step, start
@@ -157,7 +168,9 @@ class Executor:
     def prefill(self, cache, prompt_ids: list[int], start_pos: int = 0):
         """Bucketed prefill. Returns (last logits [1, V] on the device,
         cache). Chunks of ``prefill_chunk_size`` are padded to a power of
-        two; pad positions write to the cache's trash slot."""
+        two; pad positions write to the cache's trash slot. Models with a
+        recurrent state run exact power-of-two pieces instead (JAX :308-332):
+        a pad token would enter the scan."""
         n = len(prompt_ids)
         assert n > 0, "empty prompt"
         bucket = min(_next_pow2(n), self.capacity)
@@ -165,6 +178,18 @@ class Executor:
         dev = self.device
         pos = start_pos
         last = None
+        if self.model.needs_ssm_state:
+            idx = 0
+            while idx < n:
+                sub = 1 << min(chunk, n - idx).bit_length() - 1
+                logits, cache = self.model.forward(
+                    torch.tensor([prompt_ids[idx:idx + sub]], device=dev), cache,
+                    torch.arange(pos, pos + sub, device=dev)[None],
+                    torch.tensor([pos + sub], dtype=torch.int32, device=dev))
+                last = logits[:, sub - 1, :]
+                pos += sub
+                idx += sub
+            return last, cache
         for idx in range(0, n, chunk):
             piece = prompt_ids[idx:idx + chunk]
             padded = min(_next_pow2(len(piece)), chunk)

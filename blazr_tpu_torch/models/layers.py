@@ -107,6 +107,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor,
+                           sin: torch.Tensor) -> torch.Tensor:
+    """Rotate adjacent (even, odd) pairs: DeepSeek's decoupled rope dims."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    cos = cos[..., None, :].to(x.dtype)
+    sin = sin[..., None, :].to(x.dtype)
+    return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).reshape(x.shape)
+
+
 @functools.lru_cache(maxsize=None)
 def device_scalar(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A 0-d constant built once per (value, dtype, device) and shared: a

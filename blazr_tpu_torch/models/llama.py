@@ -19,8 +19,9 @@ reference its goldens use (ROADMAP §C): Gemma2 slides its window on the
 layers its config names (``AttentionConfig.layer_window``) and scales the
 scores by ``query_pre_attn_scalar ** -0.5``; a fused gate+up takes the
 family's activation; ``forward_layers_range`` and ``forward_head`` keep
-the Gemma norm offset and sandwich norms of ``forward``. MLA, SSM and
-hybrid models raise (ROADMAP queue A item 11).
+the Gemma norm offset and sandwich norms of ``forward``. ``check_config``
+says which families the port serves; the MLA, Mamba2 and hybrid forwards
+live in ``models/mla.py``, ``models/mamba2.py`` and ``models/hybrid.py``.
 """
 
 from __future__ import annotations
@@ -36,21 +37,36 @@ from .layers import (activation, alibi_slopes, apply_rope, attend, device_scalar
                      rope_frequencies)
 from .moe import moe_forward
 
-# The families these forwards serve: the JAX package's dense switches and
-# the MoE families that ride the llama forward.
+# The families the port serves: the JAX package's dense switches and the
+# MoE families on the llama forwards, DeepSeek's MLA (``models/mla.py``),
+# Mamba2 (``models/mamba2.py``) and the Mamba2/attention hybrids
+# (``models/hybrid.py``; any model type whose layer types mix the two).
 SERVED_FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "phi3", "gemma", "gemma2",
-                   "starcoder2", "falcon", "mixtral", "qwen2_moe", "qwen3_moe")
-UNSERVED = ("MLA (DeepSeek), Mamba2/3 and hybrid models are ROADMAP queue A item 11, "
-            "vision towers item 12")
+                   "starcoder2", "falcon", "mixtral", "qwen2_moe", "qwen3_moe",
+                   "deepseek", "mamba2", "bamba")
+
+
+def _unserved(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not served by blazr_tpu_torch yet "
+                               f"(ROADMAP queue A item {item})")
 
 
 def check_config(cfg: UniversalConfig) -> None:
-    """Raise for what the llama forwards do not serve."""
-    if (cfg.model_type not in SERVED_FAMILIES or cfg.attention is None
-            or cfg.attention.is_mla or cfg.ssm is not None or cfg.hybrid_layers):
+    """Raise for what the port does not serve: Mamba3 mixers (ROADMAP queue
+    A item 11), vision towers (item 12), and model types outside
+    ``SERVED_FAMILIES`` that are neither MLA nor a Mamba2 hybrid."""
+    if cfg.ssm is not None and cfg.ssm.variant == "mamba3":
+        raise _unserved("the Mamba3 mixer", "11")
+    if cfg.vision is not None:
+        raise _unserved("a vision tower", "12")
+    types = set(cfg.layer_types())
+    recurrent = cfg.ssm is not None and "mamba2" in types
+    attention = cfg.attention is not None and (
+        cfg.attention.is_mla or cfg.model_type in SERVED_FAMILIES)
+    if not (recurrent or (attention and "mamba2" not in types)):
         raise NotImplementedError(
-            f"the port serves the llama-forward families ({', '.join(SERVED_FAMILIES)}), "
-            f"not {cfg.model_type!r}: {UNSERVED}")
+            f"the port serves the families {', '.join(SERVED_FAMILIES)}, MLA models "
+            f"and Mamba2 hybrids, not {cfg.model_type!r}")
 
 
 def norm_offset(cfg: UniversalConfig) -> float:
@@ -204,6 +220,15 @@ def forward_layers_range(params: dict[str, Any], cfg: UniversalConfig,
             model_layer=li))
     advance(cache, positions, seq_lens)
     return x, cache
+
+
+def last_positions(x: torch.Tensor, last_idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """x [B, T, H] at each row's ``last_idx`` [B] → [B, 1, H]; x where None.
+    A prefill needs the last position's logits only: slicing before the head
+    keeps the [B, T, V] logits from materializing."""
+    if last_idx is None:
+        return x
+    return torch.gather(x, 1, last_idx.to(torch.long)[:, None, None].expand(-1, 1, x.shape[-1]))
 
 
 def forward_head(params: dict[str, Any], cfg: UniversalConfig,

@@ -24,7 +24,7 @@ from ..kvcache.paged import (PagedKVCache, gather_page_scales, gather_pages,
 from ..utils.device import DeviceLike, check_on, resolve_device
 from .layers import attend, linear
 from .llama import (check_config, decoder_layer, forward_embed, forward_head,
-                    project_qkv, rope_and_alibi)
+                    last_positions, project_qkv, rope_and_alibi)
 
 
 def _paged_attention_block(
@@ -97,9 +97,4 @@ def forward_paged(
             p, cfg, h, cache, i, positions, slot_mapping, block_tables, seq_lens,
             cos, sin, alibi))
 
-    if last_idx is not None:
-        # Prefill needs the last position's logits only: slice before the
-        # head so the [B, T, V] logits never materialize.
-        idx = last_idx.to(torch.long)[:, None, None].expand(-1, 1, x.shape[-1])
-        x = torch.gather(x, 1, idx)
-    return forward_head(params, cfg, x), cache
+    return forward_head(params, cfg, last_positions(x, last_idx)), cache

@@ -4,12 +4,17 @@ Counterpart of ``blazr_tpu/models/registry.py``: ``ParamBuilder`` (:45),
 ``build_llama_layer_params`` (:66), ``_split_falcon_qkv`` (:136),
 ``build_falcon_params`` (:152), ``build_llama_params`` (:245),
 ``build_model`` (:342) and the ``Model`` handle (:266): the config, the
-params on the device in the model's dtype, and the contiguous-cache forward
-(``llama.forward`` unless another is given), with the introspection and
-cache helpers the ``Executor``, the ``BatchEngine`` and ``utils.ppl`` use.
-``build_model`` serves the families of ``SERVED_FAMILIES`` (the dense ones
-and the MoE ones of the llama forward); MLA, Mamba2 and hybrid models raise
-(ROADMAP queue A item 11).
+params on the device in the model's dtype, and the contiguous-cache forward,
+with the introspection and cache helpers the ``Executor``, the
+``BatchEngine`` and ``utils.ppl`` use.
+
+Every family kind (``resolve_paged_kind``, JAX ``paged_multi.py:54``) has
+one row of ``FAMILY_KINDS``: its builder (JAX ``build_model`` :342-358),
+its contiguous forward and cache (``Model.init_cache``, :315-334), and its
+paged step and engine cache (``make_paged_forward``, ``init_engine_cache``:
+JAX ``paged_multi.py:410-447``). Mamba2 models (every layer a Mamba2 mixer)
+take ``mamba2``, Mamba2/attention hybrids ``hybrid``, MLA models ``mla``,
+the rest (``SERVED_FAMILIES``) the llama builders.
 """
 
 from __future__ import annotations
@@ -19,11 +24,15 @@ from typing import TYPE_CHECKING, Any, Callable, Optional
 
 import torch
 
-from ..config.model_config import UniversalConfig
-from ..kvcache.contiguous import KVCache, init_kv_cache
+from ..config.model_config import LAYER_MAMBA2, UniversalConfig
+from ..kvcache.contiguous import init_kv_cache
+from ..kvcache.paged import init_paged_cache
+from ..kvcache.ssm_state import init_ssm_state
 from ..quant.qtensor import QuantTensor
 from ..utils.device import DeviceLike, resolve_device
+from . import hybrid, llama, mamba2, mla, paged_multi
 from .llama import SERVED_FAMILIES, check_config  # noqa: F401 (re-exported)
+from .llama_paged import forward_paged
 from .moe import build_moe_params, is_moe_layer
 
 if TYPE_CHECKING:  # avoids the loader <-> models import cycle
@@ -235,20 +244,118 @@ def build_llama_params(cfg: UniversalConfig, vm: "VarMap", dtype: torch.dtype,
     return params
 
 
+def resolve_paged_kind(cfg: UniversalConfig) -> str:
+    """'llama' | 'mla' | 'mamba2' | 'hybrid': the family's row of
+    ``FAMILY_KINDS``."""
+    types = set(cfg.layer_types())
+    if types == {LAYER_MAMBA2}:
+        return "mamba2"
+    if LAYER_MAMBA2 in types:
+        return "hybrid"
+    if cfg.attention is not None and cfg.attention.is_mla:
+        return "mla"
+    return "llama"
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyKind:
+    """What one family kind runs.
+
+    build(cfg, vm, dtype, device) -> params
+    forward(params, cfg, tokens, cache, positions, seq_lens) -> (logits, cache)
+    init_cache(cfg, batch, capacity, dtype, kv_quant, kv_dtype, device)
+    paged_forward(params, cfg, tokens, cache, positions, slots, block_tables,
+                  seq_lens, state_rows=None, last_idx=None) -> (logits, cache)
+    init_engine_cache(cfg, num_blocks, block_size, max_batch, dtype,
+                      quantized, device)
+    state_rows: the engine cache holds a pool of state rows.
+    """
+
+    build: Callable[..., dict]
+    forward: Callable[..., tuple[torch.Tensor, Any]]
+    init_cache: Callable[..., Any]
+    paged_forward: Callable[..., tuple[torch.Tensor, Any]]
+    init_engine_cache: Callable[..., Any]
+    state_rows: bool = False
+
+
+def _build_llama(cfg, vm, dtype, device) -> dict:
+    build = build_falcon_params if cfg.model_type == "falcon" else build_llama_params
+    return build(cfg, vm, dtype, device)
+
+
+def _llama_paged(params, cfg, tokens, cache, positions, slots, block_tables, seq_lens,
+                 state_rows=None, last_idx=None):
+    return forward_paged(params, cfg, tokens, cache, positions, slots, block_tables,
+                         seq_lens, last_idx=last_idx, device=tokens.device)
+
+
+def _head_dim(cfg: UniversalConfig) -> int:
+    return cfg.attention.resolved_head_dim(cfg.hidden_size)
+
+
+FAMILY_KINDS = {
+    "llama": FamilyKind(
+        _build_llama, llama.forward,
+        lambda cfg, b, cap, dtype, kv_quant, kv_dtype, dev: init_kv_cache(
+            cfg.num_layers, b, cap, cfg.attention.kv_heads(), _head_dim(cfg), dtype=dtype,
+            quantized=kv_quant, kv_dtype=kv_dtype, device=dev),
+        _llama_paged,
+        lambda cfg, nb, bs, max_batch, dtype, quantized, dev: init_paged_cache(
+            cfg.num_layers, nb, bs, cfg.attention.kv_heads(), _head_dim(cfg), dtype=dtype,
+            quantized=quantized, device=dev)),
+    "mla": FamilyKind(
+        mla.build_mla_params, mla.forward,
+        lambda cfg, b, cap, dtype, kv_quant, kv_dtype, dev: mla.init_mla_cache(
+            cfg, b, cap, dtype=dtype, quantized=kv_quant, device=dev),
+        paged_multi.mla_forward_paged,
+        lambda cfg, nb, bs, max_batch, dtype, quantized, dev: paged_multi.init_paged_mla_cache(
+            cfg, nb, bs, dtype=dtype, quantized=quantized, device=dev)),
+    "mamba2": FamilyKind(
+        mamba2.build_mamba2_params, mamba2.forward,
+        lambda cfg, b, cap, dtype, kv_quant, kv_dtype, dev: init_ssm_state(cfg, b, device=dev),
+        paged_multi.mamba2_forward_slots,
+        lambda cfg, nb, bs, max_batch, dtype, quantized, dev: paged_multi.init_ssm_slots(
+            cfg, max_batch, device=dev),
+        state_rows=True),
+    "hybrid": FamilyKind(
+        hybrid.build_hybrid_params, hybrid.forward,
+        lambda cfg, b, cap, dtype, kv_quant, kv_dtype, dev: hybrid.init_hybrid_state(
+            cfg, b, cap, dtype=dtype, device=dev),
+        paged_multi.hybrid_forward_paged, paged_multi.init_hybrid_paged_state,
+        state_rows=True),
+}
+
+
+def make_paged_forward(cfg: UniversalConfig):
+    """The engine's step for the model's family (``FamilyKind.paged_forward``)."""
+    check_config(cfg)
+    return FAMILY_KINDS[resolve_paged_kind(cfg)].paged_forward
+
+
+def init_engine_cache(cfg: UniversalConfig, num_blocks: int, block_size: int,
+                      max_batch: int, dtype: torch.dtype = torch.bfloat16,
+                      quantized: bool = False, device: DeviceLike = None) -> tuple[Any, bool]:
+    """(cache, needs_state_rows) for the model's family."""
+    check_config(cfg)
+    kind = FAMILY_KINDS[resolve_paged_kind(cfg)]
+    return kind.init_engine_cache(cfg, num_blocks, block_size, max_batch, dtype, quantized,
+                                  device), kind.state_rows
+
+
 @dataclasses.dataclass
 class Model:
     cfg: UniversalConfig
     params: dict[str, Any]
     dtype: torch.dtype
     # forward_fn(params, cfg, tokens, cache, positions, seq_lens) →
-    # (logits [B, T, V] float32, cache); None = llama.forward.
+    # (logits [B, T, V] float32, cache); None = the family's
+    # (``FamilyKind.forward``).
     forward_fn: Optional[Callable[..., tuple[torch.Tensor, Any]]] = None
 
     def __post_init__(self) -> None:
         if self.forward_fn is None:
-            from .llama import forward
-
-            self.forward_fn = forward
+            self.forward_fn = FAMILY_KINDS[resolve_paged_kind(self.cfg)].forward
 
     @property
     def device(self) -> torch.device:
@@ -285,14 +392,14 @@ class Model:
         return self.cfg.needs_kv_cache
 
     def init_cache(self, batch: int, capacity: int, kv_quant: bool = False,
-                   kv_dtype: str = "int8") -> KVCache:
-        """Contiguous KV cache on the params' device (int8 or int4 values
-        with scales when ``kv_quant``). Recurrent-state and MLA caches come
-        with their families (ROADMAP queue A item 11)."""
+                   kv_dtype: str = "int8") -> Any:
+        """The family's contiguous cache on the params' device: the SSM
+        state (Mamba2), KV and SSM state (hybrid), the latent cache (MLA;
+        int8 latents when ``kv_quant``), else the KV cache (int8 or int4
+        values with scales when ``kv_quant``)."""
         check_config(self.cfg)
-        return init_kv_cache(self.num_layers, batch, capacity, self.num_kv_heads,
-                             self.head_dim, dtype=self.dtype, quantized=kv_quant,
-                             kv_dtype=kv_dtype, device=self.device)
+        return FAMILY_KINDS[resolve_paged_kind(self.cfg)].init_cache(
+            self.cfg, batch, capacity, self.dtype, kv_quant, kv_dtype, self.device)
 
     def forward(self, tokens: torch.Tensor, cache: Any, positions: torch.Tensor,
                 seq_lens: Optional[torch.Tensor] = None):
@@ -306,6 +413,4 @@ def build_model(cfg: UniversalConfig, vm: "VarMap", dtype: torch.dtype = torch.b
     ``cuda``) and return the Model handle."""
     dev = resolve_device(device)
     check_config(cfg)
-    if cfg.model_type == "falcon":
-        return Model(cfg, build_falcon_params(cfg, vm, dtype, dev), dtype)
-    return Model(cfg, build_llama_params(cfg, vm, dtype, dev), dtype)
+    return Model(cfg, FAMILY_KINDS[resolve_paged_kind(cfg)].build(cfg, vm, dtype, dev), dtype)

@@ -20,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config.model_config import AttentionConfig, MoeConfig, RopeScaling, UniversalConfig
+from ..config.model_config import (AttentionConfig, MoeConfig, RopeScaling, SsmConfig,
+                                   UniversalConfig)
 from ..quant.qtensor import QuantTensor, stack_quant
 from .device import DeviceLike, resolve_device
 
@@ -193,6 +194,87 @@ MOE_CONFIGS = {"mixtral": mixtral_8x7b_config, "qwen3_moe": qwen3_30b_a3b_config
                "qwen2_moe": qwen1_5_moe_a2_7b_config}
 
 
+def deepseek_v2_lite_config() -> UniversalConfig:
+    """deepseek-ai/DeepSeek-V2-Lite config.json: MLA (kv_lora_rank 512, no
+    q_lora_rank, 128 nope + 64 rope dims, v 128) under YaRN (factor 40),
+    64 routed experts of 1408, top-6 by softmax without renormalizing, 2
+    shared experts, layer 0 dense (10944)."""
+    return UniversalConfig(
+        model_type="deepseek", vocab_size=102400, hidden_size=2048, num_layers=27,
+        max_seq_len=163840, intermediate_size=10944, rms_norm_eps=1e-6,
+        attention=AttentionConfig(
+            num_heads=16, num_kv_heads=16, rope_theta=10000.0,
+            rope_scaling=RopeScaling(rope_type="yarn", factor=40.0,
+                                     original_max_position_embeddings=4096,
+                                     beta_fast=32.0, beta_slow=1.0, mscale=0.707,
+                                     mscale_all_dim=0.707),
+            kv_latent_dim=512, d_rope=64, d_nope=128, v_head_dim=128),
+        moe=MoeConfig(num_experts=64, experts_per_tok=6, shared_expert=2,
+                      intermediate_size=1408, num_dense_layers=1,
+                      routed_scaling_factor=1.0, norm_topk_prob=False))
+
+
+def mamba_codestral_7b_config() -> UniversalConfig:
+    """mistralai/Mamba-Codestral-7B-v0.1 config.json (Mamba2ForCausalLM):
+    64 layers of 128 heads x 64, state 128, 8 groups, expand 2, conv 4."""
+    return UniversalConfig(
+        model_type="mamba2", vocab_size=32768, hidden_size=4096, num_layers=64,
+        max_seq_len=4096, rms_norm_eps=1e-5, attention=None,
+        ssm=SsmConfig(num_heads=128, head_dim=64, state_size=128, chunk_size=256,
+                      n_groups=8, conv_kernel=4, expand=2))
+
+
+def bamba_9b_config() -> UniversalConfig:
+    """ibm-ai-platform/Bamba-9B's widths in the hybrid layout the JAX package
+    reads (``layer_types``, ``mixer.*``, ``mlp.*``): 32 layers, attention
+    (32 query heads, 8 kv heads of 128) at layers 9, 18 and 27, Mamba2
+    (128 heads x 64, state 128, 1 group) elsewhere, an MLP of 14336 on
+    every layer."""
+    types = ["attention" if i in (9, 18, 27) else "mamba2" for i in range(32)]
+    return UniversalConfig(
+        model_type="bamba", vocab_size=128256, hidden_size=4096, num_layers=32,
+        max_seq_len=4096, intermediate_size=14336, rms_norm_eps=1e-5,
+        attention=AttentionConfig(num_heads=32, num_kv_heads=8, rope_theta=10000.0),
+        ssm=SsmConfig(num_heads=128, head_dim=64, state_size=128, n_groups=1,
+                      conv_kernel=4, expand=2),
+        hybrid_layers=types)
+
+
+# The MLA, Mamba2 and hybrid families at the published width of one public
+# checkpoint each.
+RECURRENT_CONFIGS = {"deepseek": deepseek_v2_lite_config,
+                     "mamba2": mamba_codestral_7b_config, "bamba": bamba_9b_config}
+
+
+def tiny_recurrent_config(family: str) -> UniversalConfig:
+    """``RECURRENT_CONFIGS[family]`` cut to hidden 64 for the CPU tests:
+    DeepSeek with 4 heads (latent 32, 16 nope + 16 rope dims, v 16), layer
+    0 dense and layer 1 with 4 experts of 32 (top-2) and one shared expert,
+    no rope scaling; Mamba2 with 2 layers of 8 heads x 16, state 16, 2
+    groups; the hybrid with 3 layers (Mamba2, attention of 4 heads of 16 on
+    2 kv heads, Mamba2) and the same mixer."""
+    import dataclasses
+
+    cfg = RECURRENT_CONFIGS[family]()
+    cfg = dataclasses.replace(cfg, vocab_size=256, hidden_size=64,
+                              num_layers=3 if family == "bamba" else 2, max_seq_len=512,
+                              intermediate_size=96)
+    if family == "deepseek":
+        cfg.attention = dataclasses.replace(
+            cfg.attention, num_heads=4, num_kv_heads=4, kv_latent_dim=32, d_rope=16,
+            d_nope=16, v_head_dim=16, rope_scaling=None)
+        cfg.moe = dataclasses.replace(cfg.moe, num_experts=4, experts_per_tok=2,
+                                      intermediate_size=32, shared_expert=1)
+        return cfg
+    cfg.ssm = dataclasses.replace(cfg.ssm, num_heads=8, head_dim=16, state_size=16,
+                                  n_groups=2)
+    if family == "bamba":
+        cfg.attention = dataclasses.replace(cfg.attention, num_heads=4, num_kv_heads=2,
+                                            head_dim=16)
+        cfg.hybrid_layers = ["mamba2", "attention", "mamba2"]
+    return cfg
+
+
 def tiny_llama_config(vocab: int = 256) -> UniversalConfig:
     return UniversalConfig(
         model_type="llama", vocab_size=vocab, hidden_size=64, num_layers=2,
@@ -317,6 +399,96 @@ def synth_llama_params(cfg: UniversalConfig, quant: str = "awq",
     return params
 
 
+def synth_recurrent_params(cfg: UniversalConfig, quant: str = "awq",
+                           dtype: torch.dtype = torch.bfloat16, group_size: int = 128,
+                           seed: int = 0, device: DeviceLike = None) -> dict:
+    """Random params of a DeepSeek (MLA), Mamba2 or hybrid ``cfg`` in the
+    layout their builders give (``models/mla.py``, ``mamba2.py``,
+    ``hybrid.py``), on ``device`` (default ``cuda``): projections AWQ-INT4
+    ('awq') or dense, the absorbed ``kv_b`` halves in f32, a Mamba2 mixer's
+    A_log, D and dt_bias as ``write_hf_checkpoint`` draws them, norm
+    weights ones."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h = cfg.hidden_size
+    inter = cfg.resolved_intermediate_size()
+    f32 = torch.float32
+
+    def lin(k_dim, n_dim):
+        if quant == "awq":
+            return _rand_awq_qt(gen, k_dim, n_dim, group_size, dev)
+        return _rand_dense(gen, k_dim, n_dim, dtype, dev)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=dev)
+
+    def uniform(n, lo, hi):
+        return torch.rand((n,), device=dev, generator=gen) * (hi - lo) + lo
+
+    def mixer():
+        ssm = cfg.ssm
+        di, nh = ssm.inner_size, ssm.num_heads
+        conv_dim = di + 2 * ssm.n_groups * ssm.state_size
+        dt = torch.exp(uniform(nh, np.log(1e-3), np.log(1e-1)))
+        return {"input_norm": ones(h), "in_proj": lin(h, conv_dim + di + nh),
+                "conv_w": (torch.rand((conv_dim, ssm.conv_kernel), device=dev,
+                                      generator=gen) - 0.5).to(dtype),
+                "conv_b": (torch.randn((conv_dim,), device=dev, generator=gen)
+                           * 0.02).to(dtype),
+                "A_log": torch.log(uniform(nh, 1.0, 16.0)), "D": torch.ones(nh, device=dev),
+                "dt_bias": dt + torch.log(-torch.expm1(-dt)), "norm": ones(di),
+                "out_proj": lin(di, h)}
+
+    def mlp(width):
+        return {"post_norm": ones(h), "gate": lin(h, width), "up": lin(h, width),
+                "down": lin(width, h)}
+
+    layers = []
+    for i, t in enumerate(cfg.layer_types()):
+        if cfg.model_type == "deepseek":
+            att, moe = cfg.attention, cfg.moe
+            dn, dr, v, r, nh = (att.d_nope, att.d_rope, att.v_head_dim, att.kv_latent_dim,
+                                att.num_heads)
+            p = {"input_norm": ones(h), "post_norm": ones(h), "kv_a": lin(h, r + dr),
+                 "kv_a_norm": ones(r), "o": lin(nh * v, h), "q": lin(h, nh * (dn + dr)),
+                 "kv_b_k": torch.randn((r, nh, dn), device=dev, generator=gen,
+                                       dtype=f32) * 0.02,
+                 "kv_b_v": torch.randn((r, nh, v), device=dev, generator=gen,
+                                       dtype=f32) * 0.02}
+            if i < moe.num_dense_layers:
+                p.update(mlp(inter))
+            else:
+                mi = moe.intermediate_size
+                p["moe"] = {
+                    "router": _rand_dense(gen, h, moe.num_experts, dtype, dev),
+                    "correction_bias": None,
+                    **{key: stack_quant([lin(k, n) for _ in range(moe.num_experts)])
+                       if quant == "awq" else
+                       torch.stack([lin(k, n) for _ in range(moe.num_experts)])
+                       for key, k, n in (("experts_gate", h, mi), ("experts_up", h, mi),
+                                         ("experts_down", mi, h))}}
+                if moe.shared_expert:
+                    si = mi * moe.shared_expert
+                    p["moe"].update(shared_gate=lin(h, si), shared_up=lin(h, si),
+                                    shared_down=lin(si, h))
+        elif t == "mamba2":
+            p = mixer()
+            if cfg.model_type != "mamba2":
+                p.update(mlp(inter))
+        else:
+            att = cfg.attention
+            hd = att.resolved_head_dim(h)
+            p = {"input_norm": ones(h), "q": lin(h, att.num_heads * hd),
+                 "k": lin(h, att.kv_heads() * hd), "v": lin(h, att.kv_heads() * hd),
+                 "o": lin(att.num_heads * hd, h), **mlp(inter)}
+        layers.append(p)
+    return {"embed": _rand_dense(gen, cfg.vocab_size, h, dtype, dev), "final_norm": ones(h),
+            "layers": layers,
+            "lm_head": None if cfg.tie_word_embeddings
+            else _rand_dense(gen, h, cfg.vocab_size, dtype, dev)}
+
+
 # ---------------------------------------------------------------------------
 # Checkpoints and tokenizers on disk (the normal entry point's inputs)
 # ---------------------------------------------------------------------------
@@ -336,8 +508,71 @@ def _falcon_new_arch(cfg: UniversalConfig) -> bool:
     return 1 < n_kv < cfg.attention.num_heads
 
 
+def _recurrent_hf_config(cfg: UniversalConfig) -> dict:
+    """config.json of a DeepSeek (DeepseekV2's keys), Mamba2 (Mamba2's) or
+    hybrid (the JAX package's hybrid layout) ``cfg``."""
+    fam = cfg.model_type
+    out = {"model_type": fam, "hidden_size": cfg.hidden_size,
+           "num_hidden_layers": cfg.num_layers, "vocab_size": cfg.vocab_size,
+           "tie_word_embeddings": cfg.tie_word_embeddings}
+    if fam == "mamba2":
+        ssm = cfg.ssm
+        out.update(architectures=["Mamba2ForCausalLM"], num_heads=ssm.num_heads,
+                   head_dim=ssm.head_dim, state_size=ssm.state_size,
+                   n_groups=ssm.n_groups, expand=ssm.expand, conv_kernel=ssm.conv_kernel,
+                   chunk_size=ssm.chunk_size, layer_norm_epsilon=cfg.rms_norm_eps,
+                   rms_norm=True, use_conv_bias=True, use_bias=False,
+                   residual_in_fp32=True)
+        return out
+    att = cfg.attention
+    out.update(num_attention_heads=att.num_heads, num_key_value_heads=att.kv_heads(),
+               intermediate_size=cfg.resolved_intermediate_size(),
+               max_position_embeddings=cfg.max_seq_len, rms_norm_eps=cfg.rms_norm_eps,
+               rope_theta=att.rope_theta)
+    if fam == "deepseek":
+        moe = cfg.moe
+        sc = att.rope_scaling
+        out.update(
+            architectures=["DeepseekV2ForCausalLM"], model_type="deepseek_v2",
+            kv_lora_rank=att.kv_latent_dim, q_lora_rank=att.q_latent_dim,
+            qk_nope_head_dim=att.d_nope, qk_rope_head_dim=att.d_rope,
+            v_head_dim=att.v_head_dim, n_routed_experts=moe.num_experts,
+            num_experts_per_tok=moe.experts_per_tok, n_shared_experts=moe.shared_expert,
+            moe_intermediate_size=moe.intermediate_size,
+            first_k_dense_replace=moe.num_dense_layers, moe_layer_freq=1,
+            norm_topk_prob=moe.norm_topk_prob,
+            routed_scaling_factor=moe.routed_scaling_factor,
+            scoring_func=moe.scoring_func, topk_method="greedy", n_group=moe.n_group,
+            topk_group=moe.topk_group,
+            rope_scaling=None if sc is None else {
+                "type": sc.rope_type, "factor": sc.factor,
+                "original_max_position_embeddings": sc.original_max_position_embeddings,
+                "beta_fast": sc.beta_fast, "beta_slow": sc.beta_slow,
+                "mscale": sc.mscale, "mscale_all_dim": sc.mscale_all_dim})
+        return out
+    ssm = cfg.ssm
+    out.update(architectures=["HybridForCausalLM"],
+               layer_types=["mamba" if t == "mamba2" else "attention"
+                            for t in cfg.layer_types()],
+               num_heads=ssm.num_heads, state_size=ssm.state_size,
+               n_groups=ssm.n_groups, expand=ssm.expand, conv_kernel=ssm.conv_kernel)
+    # One "head_dim" key serves both mixers in this layout: give it where they
+    # share it, else leave it out (attention then takes hidden / heads and
+    # the mixer its default of 64).
+    hd = att.resolved_head_dim(cfg.hidden_size)
+    if ssm.head_dim == hd:
+        out["head_dim"] = hd
+    elif not (att.head_dim in (None, cfg.hidden_size // att.num_heads)
+              and ssm.head_dim == 64):
+        raise ValueError("this hybrid layout cannot give attention and the mixer "
+                         "different head widths")
+    return out
+
+
 def hf_config(cfg: UniversalConfig) -> dict:
     """The HF ``config.json`` fields of a family's ``cfg``."""
+    if cfg.model_type in RECURRENT_CONFIGS:
+        return _recurrent_hf_config(cfg)
     att = cfg.attention
     out = {
         "architectures": [_HF_ARCH[cfg.model_type]],
@@ -400,7 +635,8 @@ def _half_bits(rng, n: int, exp: int) -> np.ndarray:
 
 def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
                         group_size: int = 128, seed: int = 0,
-                        dtype: str = "float16", weight_exp: int = -7) -> None:
+                        dtype: str = "float16", weight_exp: int = -7,
+                        keep_plain: tuple[str, ...] = ()) -> None:
     """Write a random checkpoint of the family ``cfg.model_type`` in that
     family's HF tensor layout to the directory ``path``, with its
     ``config.json``:
@@ -415,13 +651,21 @@ def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
       ``qkv_bias``, ``ln_attn``/``ln_mlp`` in the new architecture;
     * mixtral, qwen2_moe (qkv biases, the gated shared expert), qwen3_moe
       (q/k norms): per-expert projections under the family's names with an
-      unquantized router (``moe_layer`` below).
+      unquantized router (``moe_layer`` below);
+    * deepseek: DeepseekV2's MLA names (``mla_attention``), a dense MLP on
+      the first ``first_k_dense_replace`` layers, experts and shared experts
+      on the rest (``deepseek_ffn``);
+    * mamba2: HF Mamba2's ``backbone.*`` names (``mamba_mixer``);
+    * bamba: the hybrid layout the JAX package reads: ``mixer.*`` or
+      ``self_attn.*`` by ``layer_types``, and an ``mlp.*`` on every layer.
 
     ``quant="awq"``: every projection as AutoAWQ's packed ``qweight`` /
     ``qzeros`` (uint32, eight interleaved nibbles along N) and f16
     ``scales`` in [0.001, 0.011], the rest f16 (the loaders refuse a
     quantized falcon ``query_key_value``). ``quant="plain"``: every tensor
-    in ``dtype`` ("float16", "bfloat16" or "float32"). Dense weights have a
+    in ``dtype`` ("float16", "bfloat16" or "float32"); under AWQ the
+    projections whose names end with one of ``keep_plain`` stay plain too.
+    Dense weights have a
     magnitude in [2^weight_exp, 2^(weight_exp+2)) and a random sign; norm
     weights are 1 + 0.1 N(0,1) (0.1 N(0,1) where the family scales by
     1 + w), biases 0.02 N(0,1)."""
@@ -438,8 +682,8 @@ def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
     att = cfg.attention
     fam = cfg.model_type
     h = cfg.hidden_size
-    hd = att.resolved_head_dim(h)
-    n_q, n_kv = att.num_heads * hd, att.kv_heads() * hd
+    hd = att.resolved_head_dim(h) if att is not None else 0
+    n_q, n_kv = (att.num_heads * hd, att.kv_heads() * hd) if att is not None else (0, 0)
     inter = cfg.resolved_intermediate_size()
     falcon = fam == "falcon"
     float_dt = "float16" if quant == "awq" else dtype
@@ -462,7 +706,7 @@ def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
 
     def linear(name, k, n, bias=False):
         """HF [out, in] weight (or AWQ's [in, out/8] planes) of ``name``."""
-        if quant == "awq":
+        if quant == "awq" and not name.endswith(keep_plain):
             tensors[name + ".qweight"] = words(k, n // 8)
             tensors[name + ".qzeros"] = words(k // group_size, n // 8)
             tensors[name + ".scales"] = (rng.random((k // group_size, n), np.float32)
@@ -502,8 +746,68 @@ def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
             linear(p + "mlp.shared_expert.down_proj", si, h)
             tensors[p + "mlp.shared_expert_gate.weight"] = dense(1, h)
 
+    def mamba_mixer(p):
+        """HF Mamba2's ``mixer.*``: in_proj and out_proj (quantized under
+        AWQ), the depthwise conv [C, 1, k] with its bias, and f32 A_log, D
+        and dt_bias drawn as HF initializes them (A in [1, 16], dt in
+        [0.001, 0.1])."""
+        ssm = cfg.ssm
+        di, nh = ssm.inner_size, ssm.num_heads
+        conv_dim = di + 2 * ssm.n_groups * ssm.state_size
+        linear(p + "mixer.in_proj", h, conv_dim + di + nh)
+        tensors[p + "mixer.conv1d.weight"] = cast(
+            (rng.random((conv_dim, 1, ssm.conv_kernel), np.float32) - 0.5))
+        tensors[p + "mixer.conv1d.bias"] = normal(conv_dim, 0.02)
+        tensors[p + "mixer.A_log"] = np.log(rng.uniform(1, 16, nh)).astype(np.float32)
+        tensors[p + "mixer.D"] = np.ones(nh, np.float32)
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), nh))
+        tensors[p + "mixer.dt_bias"] = (dt + np.log(-np.expm1(-dt))).astype(np.float32)
+        tensors[p + "mixer.norm.weight"] = normal(di, 0.1, 1.0)
+        linear(p + "mixer.out_proj", di, h)
+
+    def mla_attention(p):
+        """DeepSeek's ``self_attn.*``: q (or q_a/q_b with its norm),
+        kv_a_proj_with_mqa, the kv_a norm, kv_b_proj (quantized under AWQ
+        unless ``keep_plain`` names it) and o_proj."""
+        dn, dr, v, r = att.d_nope, att.d_rope, att.v_head_dim, att.kv_latent_dim
+        nh = att.num_heads
+        if att.q_latent_dim:
+            linear(p + "self_attn.q_a_proj", h, att.q_latent_dim)
+            tensors[p + "self_attn.q_a_layernorm.weight"] = normal(att.q_latent_dim, 0.1, 1.0)
+            linear(p + "self_attn.q_b_proj", att.q_latent_dim, nh * (dn + dr))
+        else:
+            linear(p + "self_attn.q_proj", h, nh * (dn + dr))
+        linear(p + "self_attn.kv_a_proj_with_mqa", h, r + dr)
+        tensors[p + "self_attn.kv_a_layernorm.weight"] = normal(r, 0.1, 1.0)
+        linear(p + "self_attn.kv_b_proj", r, nh * (dn + v))
+        linear(p + "self_attn.o_proj", nh * v, h)
+
+    def deepseek_ffn(p, i):
+        """Layer i's dense MLP (the first ``first_k_dense_replace``) or its
+        experts with an unquantized router and the shared experts."""
+        moe = cfg.moe
+        if i < moe.num_dense_layers:
+            linear(p + "mlp.gate_proj", h, inter)
+            linear(p + "mlp.up_proj", h, inter)
+            linear(p + "mlp.down_proj", inter, h)
+            return
+        mi = moe.intermediate_size
+        tensors[p + "mlp.gate.weight"] = dense(moe.num_experts, h)
+        for e in range(moe.num_experts):
+            linear(p + f"mlp.experts.{e}.gate_proj", h, mi)
+            linear(p + f"mlp.experts.{e}.up_proj", h, mi)
+            linear(p + f"mlp.experts.{e}.down_proj", mi, h)
+        if moe.shared_expert:
+            si = mi * moe.shared_expert
+            linear(p + "mlp.shared_experts.gate_proj", h, si)
+            linear(p + "mlp.shared_experts.up_proj", h, si)
+            linear(p + "mlp.shared_experts.down_proj", si, h)
+
     ln = cfg.norm_type == "layernorm"
-    if falcon:
+    if fam == "mamba2":
+        tensors["backbone.embeddings.weight"] = dense(cfg.vocab_size, h)
+        norm("backbone.norm_f")
+    elif falcon:
         tensors["transformer.word_embeddings.weight"] = dense(cfg.vocab_size, h)
         norm("transformer.ln_f", True)
     else:
@@ -511,7 +815,31 @@ def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
         norm("model.norm", ln)
     if not cfg.tie_word_embeddings:
         tensors["lm_head.weight"] = dense(cfg.vocab_size, h)
+    types = cfg.layer_types()
     for i in range(cfg.num_layers):
+        if fam == "mamba2":
+            norm(f"backbone.layers.{i}.norm")
+            mamba_mixer(f"backbone.layers.{i}.")
+            continue
+        if fam in ("deepseek", "bamba"):
+            p = f"model.layers.{i}."
+            norm(p + "input_layernorm")
+            norm(p + "post_attention_layernorm")
+            if fam == "deepseek":
+                mla_attention(p)
+                deepseek_ffn(p, i)
+                continue
+            if types[i] == "mamba2":
+                mamba_mixer(p)
+            else:
+                linear(p + "self_attn.q_proj", h, n_q)
+                linear(p + "self_attn.k_proj", h, n_kv)
+                linear(p + "self_attn.v_proj", h, n_kv)
+                linear(p + "self_attn.o_proj", n_q, h)
+            linear(p + "mlp.gate_proj", h, inter)
+            linear(p + "mlp.up_proj", h, inter)
+            linear(p + "mlp.down_proj", inter, h)
+            continue
         if falcon:
             p = f"transformer.h.{i}."
             bias = att.qkv_bias
@@ -848,3 +1176,83 @@ def write_gguf_checkpoint(path, cfg: UniversalConfig, quant: str = "Q4_K_M",
                    for name, (data, gt, shape) in tensors.items()}
     write_gguf(path, meta, tensors)
     return kinds
+
+
+def write_gguf_recurrent(path, cfg: UniversalConfig, quant: str = "Q8_0", seed: int = 0,
+                         keep_f32: tuple[str, ...] = ("attn_kv_b",)) -> None:
+    """Write a random GGUF file of a DeepSeek (architecture ``deepseek2``) or
+    Mamba2 (``mamba2``) ``cfg``: the weights of ``write_hf_checkpoint``'s
+    plain f32 checkpoint of the same seed under their GGUF names, the
+    experts pre-stacked as llama.cpp's ``ffn_{gate,up,down}_exps``, every
+    2-D projection whose rows are a whole number of ``quant`` blocks in
+    that ggml type except those whose names end with one of ``keep_f32``
+    (the JAX loader reads ``attn_kv_b`` dense only), the rest F32; and the
+    metadata keys ``loader/gguf_config.py`` reads. No tokenizer."""
+    import tempfile
+
+    from ..formats.ggml_quants import quantize_ggml
+    from ..formats.gguf import GGML_BLOCK_INFO, GgmlType, write_gguf
+    from ..formats.names import hf_to_gguf_name
+    from ..formats.safetensors import SafeTensorsReader
+
+    fam = cfg.model_type
+    if fam not in ("deepseek", "mamba2"):
+        raise ValueError(f"deepseek or mamba2 only (got {fam!r})")
+    qt = GgmlType[quant.upper()]
+    per_block = GGML_BLOCK_INFO[qt][1]
+    with tempfile.TemporaryDirectory() as tmp:
+        write_hf_checkpoint(tmp, cfg, quant="plain", dtype="float32", seed=seed)
+        with SafeTensorsReader(f"{tmp}/model.safetensors") as r:
+            raw = {n: np.array(r.load_numpy(n), dtype=np.float32) for n in r.tensor_names()}
+    if fam == "mamba2":                 # the loader reads model.layers.* too
+        raw = {n.replace("backbone.layers.", "model.layers.")
+               .replace("backbone.embeddings.", "model.embed_tokens.")
+               .replace("backbone.norm_f.", "model.norm."): v for n, v in raw.items()}
+    if cfg.moe is not None:
+        for i in range(cfg.num_layers):
+            base = f"model.layers.{i}.mlp.experts."
+            for part, key in (("gate_proj", "ffn_gate_exps"), ("up_proj", "ffn_up_exps"),
+                              ("down_proj", "ffn_down_exps")):
+                names = [f"{base}{e}.{part}.weight" for e in range(cfg.moe.num_experts)]
+                if names[0] in raw:
+                    raw[f"blk.{i}.{key}.weight"] = np.stack([raw.pop(n) for n in names])
+    tensors = {}
+    for name, w in raw.items():
+        gname = hf_to_gguf_name(name)
+        leaf = gname.rsplit(".", 1)[0]
+        quantize = (w.ndim in (2, 3) and w.shape[-1] % per_block == 0
+                    and not any(k in gname for k in ("token_embd", "norm", "ffn_gate_inp",
+                                                     "conv1d"))
+                    and not leaf.endswith(keep_f32))
+        tensors[gname] = ((quantize_ggml(w.reshape(-1, w.shape[-1]), qt), qt, w.shape)
+                          if quantize else (w, GgmlType.F32, w.shape))
+    a = "deepseek2" if fam == "deepseek" else "mamba2"
+    meta = {"general.architecture": a, "general.name": f"synthetic {fam} {quant}",
+            "general.vocab_size": cfg.vocab_size, f"{a}.context_length": cfg.max_seq_len,
+            f"{a}.embedding_length": cfg.hidden_size, f"{a}.block_count": cfg.num_layers,
+            f"{a}.attention.layer_norm_rms_epsilon": float(cfg.rms_norm_eps)}
+    if fam == "mamba2":
+        ssm = cfg.ssm
+        meta.update({f"{a}.ssm.inner_size": ssm.inner_size,
+                     f"{a}.ssm.state_size": ssm.state_size,
+                     f"{a}.ssm.group_count": ssm.n_groups, f"{a}.ssm.head_dim": ssm.head_dim,
+                     f"{a}.ssm.conv_kernel": ssm.conv_kernel})
+    else:
+        att, moe = cfg.attention, cfg.moe
+        meta.update({
+            f"{a}.feed_forward_length": cfg.resolved_intermediate_size(),
+            f"{a}.attention.head_count": att.num_heads,
+            f"{a}.attention.head_count_kv": att.kv_heads(),
+            f"{a}.attention.key_length": att.d_nope + att.d_rope,
+            f"{a}.attention.value_length": att.v_head_dim,
+            f"{a}.attention.kv_lora_rank": att.kv_latent_dim,
+            f"{a}.rope.dimension_count": att.d_rope,
+            f"{a}.rope.freq_base": float(att.rope_theta),
+            f"{a}.expert_count": moe.num_experts,
+            f"{a}.expert_used_count": moe.experts_per_tok,
+            f"{a}.expert_shared_count": moe.shared_expert or 0,
+            f"{a}.expert_feed_forward_length": moe.intermediate_size,
+            f"{a}.leading_dense_block_count": moe.num_dense_layers})
+        if att.q_latent_dim:
+            meta[f"{a}.attention.q_lora_rank"] = att.q_latent_dim
+    write_gguf(path, meta, tensors)

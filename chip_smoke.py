@@ -39,7 +39,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       teacher-forced decode steps, on the card (bf16) against the CPU (f32);
   4b. the same for the contiguous llama.forward under w8a8 (B3 on the card);
   4c. the Δppl gate: w4a8-prefill and w8a8 within 2% of w4a16;
-  5.  the 32-layer Mistral-7B AWQ BatchEngine serving 8 requests (w4a16)
+  5.  the 32-layer Mistral-7B AWQ BatchEngine (16 layers in a full run,
+      SERVE_LAYERS; so phases 5b, 5c and 6) serving 8 requests (w4a16)
       in two waves, with decode graphs and without in turns (on, off, off,
       on); the 8 in one wave both ways, where the streams (greedy and
       seeded) and the launch counts must be equal; then a torch.profiler
@@ -86,8 +87,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       load_model onto the card: a 64-token prefill and 4 decode steps of
       forward_paged (B1, B2) against the CPU f32 forward at 5e-2 of the
       largest logit, Gemma2 again past a window cut to 64 in a config copy;
-      then Qwen3-8B (36 layers, tables 4096 tokens wide; 18 in a full run)
-      and Gemma2-9B (42 layers, 8192; 21 in a full run) AWQ-INT4 served as
+      then Qwen3-8B (36 layers, tables 4096 tokens wide; 6 in a full run)
+      and Gemma2-9B (42 layers, 8192; 6 in a full run) AWQ-INT4 served as
       ``cli serve --continuous-batching`` serves (prefix cache on, engine warmed): 8 requests of phase 5 in one
       wave, with decode graphs and without (streams equal), tok/s, ms a
       decode step, TTFT, then 32 decode steps profiled (idle share);
@@ -102,8 +103,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       card's input: each layer's output and the logits at 5e-2 of their
       largest magnitude; the paged forward again free-running (its drift
       reported), and the share of routing decisions that agree; then
-      Mixtral-8x7B (32 layers; 16 in a full run) and Qwen3-30B-A3B (48
-      layers; 4 in a full run, MOE_SERVING) AWQ-INT4 served as in phase 10
+      Mixtral-8x7B (32 layers; 4 in a full run) and Qwen3-30B-A3B (48
+      layers; 2 in a full run, MOE_SERVING) AWQ-INT4 served as in phase 10
       (streams equal with
       graphs and without), with B1's launches and device ms a decode step;
   9.  timings (device time of one call: CUDA graphs of many calls), B1 over
@@ -119,9 +120,12 @@ Phases, in order; any failure raises and the script exits non-zero:
       bound, plain time and library-call time (B1 and B3: prefill, with
       their decode point under "decode"; B5 and B6: B=8, their other two
       points under "at"), a row each for B1 and B2 at the families'
-      shapes, with phase 10's launches (Qwen3-8B with graphs), and a row
+      shapes, with phase 10's launches (Qwen3-8B with graphs), a row
       for B1 at the MoE expert shapes with phase 11's times and launches
-      (Mixtral-8x7B with graphs).
+      (Mixtral-8x7B with graphs), and rows for B1 at the MLA and Mamba2
+      shapes (phase 2's times; the launches of DeepSeek-V2-Lite's,
+      Codestral's and the hybrid's served runs with graphs) and for B2 on
+      the hybrid's attention layers (phase 14's launches).
   12. (``gguf``) Mistral-7B-Instruct-v0.2 written as llama.cpp writes a
       Q4_K_M file (architecture llama, permuted Q/K rows, Q4_K with Q6_K for
       the head and for attn_v and ffn_down where ``use_more_bits`` picks,
@@ -143,7 +147,32 @@ Phases, in order; any failure raises and the script exits non-zero:
       BatchEngine with graphs and without: the 8 greedy streams equal.
       Phase 11's forwards also run free-running with the card in f32, held
       at F32_FREE_TOL.
-Phases 10, 11 and 12 run between phases 7 and 8.
+  13. (``mla``) DeepSeek-V2-Lite (MLA + MoE, RECURRENT_CONFIGS): its
+      2-layer AWQ-INT4 checkpoint (groups of 64; layer 0 dense, layer 1
+      with 64 experts) and a BPE tokenizer.json written once and loaded by
+      load_model onto the card; the engine's step (latent pages: prefills
+      of 64 and 37 tokens, 4 decode steps) and the contiguous forward (64
+      tokens, 4 decode steps) against the CPU f32 forward, layer by layer
+      on the card's routing at 5e-2, again with int8 latents, and
+      free-running with the card in f32 (F32_FREE_TOL); then the model
+      served through a warmed engine (RECURRENT_SERVING: 27 layers, 2 in a
+      full run), 8 requests in one wave with graphs and without (streams
+      equal; B1 launches a decode step counted inside the decode rounds),
+      profiled, and the latent gather's and absorbed
+      einsums' share of a decode step; ``cli serve --continuous-batching``
+      (streamed chats answered) and ``cli run`` (the Executor's decode
+      graph over the latent cache) on the 2-layer checkpoint. Phase 2 holds B1 at its shapes
+      (N 576, K 10944) and Codestral's first (RECURRENT_B1_SHAPES).
+  14. (``ssm``) Mamba-Codestral-7B and the hybrid at Bamba-9B's widths:
+      each 2-layer checkpoint (the hybrid's: one Mamba2 layer, one
+      attention layer) held as in phase 13 with prefills of 160 tokens (the
+      chunked scan) and 64; Codestral (64 layers, 4 in a full run) and the
+      hybrid (32, 4 in a full run) served as in phase 13 (B2 on the
+      hybrid's attention layers), with the conv's and scan's share of a
+      decode step; the wave of 8 greedy requests equal to the 8 served one
+      after another (Codestral with the card in f32); ``cli run`` on both
+      2-layer checkpoints.
+Phases 10-14 run between phases 7 and 8.
 Each serving run sets the launch counts to 0 just before it and reads
 them just after; a replayed graph adds the launches it holds, and the
 kernels line counts the first run with graphs (the default path). Under
@@ -1327,76 +1356,86 @@ def card_f32(tree):
 
 
 def card_vs_cpu(dev, cfg, params, cpu_params, lens, tag: str, steps: int = 4,
-                bs: int = 64, rel_tol: float | None = 5e-2, card_dtype=None) -> float:
-    """Teacher-forced forward_paged of ``cfg`` on the card (``params``, bf16)
-    and on the CPU (``cpu_params``, f32): one padded prefill of the
-    sequences ``lens``, then ``steps`` decode steps through B2 (its plain
-    version on the CPU). Card in bf16 against the CPU in f32: activations
-    are rounded to bf16 between every op on the card, so the logits agree
-    to a few 1e-2 of their largest magnitude (``rel_tol``), not to f32
-    precision; ``rel_tol=None`` reports the error without holding it.
-    ``card_dtype`` (default bf16) is the card's cache type: f32 params and
-    an f32 cache run the card in f32. Returns the worst relative error."""
+                bs: int = 64, rel_tol: float | None = 5e-2, card_dtype=None,
+                quantized: bool = False) -> float:
+    """Teacher-forced engine steps of any family (``make_paged_forward`` and
+    ``init_engine_cache``) on the card (``params``, bf16) and on the CPU
+    (``cpu_params``, f32): the sequences ``lens`` prefilled in one padded
+    batch (paged KV, MLA's latent pages), or each alone on its state row in
+    exact shape (Mamba2, hybrid: no pad token may enter a scan), then
+    ``steps`` decode steps of all of them (B2, where the family has paged
+    attention; its plain version on the CPU). Card in bf16 against the CPU
+    in f32: activations are rounded to bf16 between every op on the card,
+    so the logits agree to a few 1e-2 of their largest magnitude
+    (``rel_tol``), not to f32 precision; ``rel_tol=None`` reports the error
+    without holding it. ``card_dtype`` (default bf16) is the card's cache
+    type: f32 params and an f32 cache run the card in f32. ``quantized``:
+    int8 KV (latents) on both sides. Returns the worst relative error."""
     import numpy as np
     import torch
 
-    from blazr_tpu_torch.kvcache.paged import (compute_slot_mapping,
-                                               init_paged_cache, pad_block_table)
-    from blazr_tpu_torch.models.llama_paged import forward_paged
+    from blazr_tpu_torch.kvcache.paged import compute_slot_mapping, pad_block_table
+    from blazr_tpu_torch.models.paged_multi import trash_slot
+    from blazr_tpu_torch.models.registry import (init_engine_cache, make_paged_forward,
+                                                 resolve_paged_kind)
 
-    att = cfg.attention
-    hd = att.resolved_head_dim(cfg.hidden_size)
+    fwd = make_paged_forward(cfg)
+    rows_only = resolve_paged_kind(cfg) in ("mamba2", "hybrid")
     rng = np.random.default_rng(SEED)
+    b = len(lens)
     nblk = [-(-(n + steps) // bs) for n in lens]
-    blocks = [list(range(sum(nblk[:i]), sum(nblk[:i + 1]))) for i in range(len(lens))]
-    tables = np.stack([pad_block_table(b, max(nblk)) for b in blocks])
+    blocks = [list(range(sum(nblk[:i]), sum(nblk[:i + 1]))) for i in range(b)]
+    tables = np.stack([pad_block_table(bl, max(nblk)) for bl in blocks])
     seqs = [rng.integers(0, cfg.vocab_size, n + steps) for n in lens]
+    caches = {"gpu": init_engine_cache(cfg, sum(nblk), bs, b,
+                                       dtype=card_dtype or torch.bfloat16,
+                                       quantized=quantized, device=dev)[0],
+              "cpu": init_engine_cache(cfg, sum(nblk), bs, b, dtype=torch.float32,
+                                       quantized=quantized, device=torch.device("cpu"))[0]}
+    trash = trash_slot(caches["cpu"])
 
-    def cache(d, dtype):
-        return init_paged_cache(cfg.num_layers, sum(nblk), bs, att.kv_heads(), hd,
-                                dtype=dtype, device=d)
+    def slots(i, start, n):
+        return compute_slot_mapping(blocks[i], start, n, bs, trash).astype(np.int64)
 
-    caches = {"gpu": cache(dev, card_dtype or torch.bfloat16),
-              "cpu": cache(torch.device("cpu"), torch.float32)}
-    trash = caches["cpu"].trash_slot
-    b, t = len(lens), max(lens)
-    tok = np.zeros((b, t), np.int64)
-    pos = np.zeros((b, t), np.int64)
-    slots = np.full((b, t), trash, np.int64)
-    for i, n in enumerate(lens):
-        tok[i, :n] = seqs[i][:n]
-        pos[i, :n] = np.arange(n)
-        slots[i, :n] = compute_slot_mapping(blocks[i], 0, n, bs, trash)
-    inputs = [(tok, pos, slots, np.array(lens, np.int32),
-               np.array([n - 1 for n in lens], np.int64))]
+    inputs = []                     # (tokens, positions, slots, tables, lens, rows, last)
+    if rows_only:
+        for i, n in enumerate(lens):
+            inputs.append((seqs[i][None, :n], np.arange(n)[None], slots(i, 0, n)[None],
+                           tables[i:i + 1], np.array([n], np.int32), np.array([i]),
+                           np.array([n - 1])))
+    else:
+        t = max(lens)
+        tok = np.zeros((b, t), np.int64)
+        pos = np.zeros((b, t), np.int64)
+        sl = np.full((b, t), trash, np.int64)
+        for i, n in enumerate(lens):
+            tok[i, :n], pos[i, :n], sl[i, :n] = seqs[i][:n], np.arange(n), slots(i, 0, n)
+        inputs.append((tok, pos, sl, tables, np.array(lens, np.int32), np.arange(b),
+                       np.array([n - 1 for n in lens])))
     for j in range(steps):
         p = np.array([[n + j] for n in lens], np.int64)
         inputs.append((np.array([[seqs[i][n + j]] for i, n in enumerate(lens)]), p,
-                       np.stack([compute_slot_mapping(blocks[i], int(p[i, 0]), 1, bs,
-                                                      trash) for i in range(b)]).astype(np.int64),
-                       (p[:, 0] + 1).astype(np.int32), None))
+                       np.stack([slots(i, int(p[i, 0]), 1) for i in range(b)]), tables,
+                       (p[:, 0] + 1).astype(np.int32), np.arange(b), None))
     worst = 0.0
-    for step, (tk, ps, sl, lens_, last) in enumerate(inputs):
+    for step, (tk, ps, sl, tb, ln, rw, last) in enumerate(inputs):
         out = {}
         for name, d, pr in (("gpu", dev, params), ("cpu", torch.device("cpu"), cpu_params)):
             def tt(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(d)
             with torch.no_grad():
-                logits, _ = forward_paged(pr, cfg, tt(tk), caches[name], tt(ps), tt(sl),
-                                          tt(tables), tt(lens_),
-                                          last_idx=None if last is None else tt(last),
-                                          device=d)
+                logits, _ = fwd(pr, cfg, tt(tk), caches[name], tt(ps), tt(sl), tt(tb), tt(ln),
+                                tt(rw), last_idx=None if last is None else tt(last))
             out[name] = logits.float().cpu()
         g, c = out["gpu"], out["cpu"]
         assert g.shape == c.shape and torch.isfinite(g).all()
         rel = ((g - c).abs().max() / c.abs().max()).item()
         agree = (g.argmax(-1) == c.argmax(-1)).float().mean().item()
-        log(f"  {tag} step {step} ({'prefill' if step == 0 else 'decode'}): "
+        log(f"  {tag} step {step} ({'prefill' if last is not None else 'decode'}): "
             f"max|gpu-cpu|/max|cpu| {rel:.4g} "
             + (f"(tol {rel_tol})" if rel_tol else "(reported, not held)")
             + f", argmax agreement {agree:.2f}")
-        assert not rel_tol or rel <= rel_tol, \
-            f"{tag} teacher-forced step {step}: {rel} > {rel_tol}"
+        assert not rel_tol or rel <= rel_tol, f"{tag} step {step}: {rel} > {rel_tol}"
         worst = max(worst, rel)
     del caches
     return worst
@@ -1498,6 +1537,12 @@ def read_counts() -> dict:
     return {k: fn.launches for k, fn in counted().items()}
 
 
+# The depth of phases 5-6's Mistral-7B: 32 layers, FULL_RUN_SERVE_LAYERS in
+# a full run (``main`` sets it); ``--phases build,serve,...`` serves 32.
+SERVE_LAYERS = 32
+FULL_RUN_SERVE_LAYERS = 16
+
+
 def mistral_model(dev, layers: int | None = None):
     import torch
 
@@ -1505,8 +1550,7 @@ def mistral_model(dev, layers: int | None = None):
     from blazr_tpu_torch.utils.synthetic import mistral_7b_config, synth_llama_params
 
     cfg = mistral_7b_config()
-    if layers is not None:
-        cfg.num_layers = layers
+    cfg.num_layers = layers if layers is not None else SERVE_LAYERS
     t0 = time.perf_counter()
     params = synth_llama_params(cfg, quant="awq", dtype=torch.bfloat16, seed=SEED,
                                 device=dev)
@@ -2510,15 +2554,17 @@ def profile_serving(dev, model, card: str, quant_compute: str = "w4a16",
         for h in handles:
             await asyncio.wait_for(h.queue.get(), 600)
         prof, t0 = start_profile()
+        h0 = engine.horizon_steps
 
         async def drain(h):
             async for _ in h.tokens():
                 pass
         await asyncio.wait_for(asyncio.gather(*[drain(h) for h in handles]), 600)
         out = stop_profile(prof, t0)
+        dispatched = engine.horizon_steps - h0
         engine.stop()
         await task
-        return out
+        return out, dispatched
 
     async def runs():
         # One event loop for the three runs: the engine's event is bound to it.
@@ -2527,15 +2573,18 @@ def profile_serving(dev, model, card: str, quant_compute: str = "w4a16",
         await serve(engine, [wave(1)])
         return stop_profile(prof, t0), await decode_window()
 
-    (wall_p, busy_p, n_p, names_p, _), window = asyncio.run(runs())
+    (wall_p, busy_p, n_p, names_p, _), (window, dispatched) = asyncio.run(runs())
     tag = f"graphs {'on' if graphs else 'off'}"
     log(f"  profiled prefill group (4 prompts, 1109 tokens; {tag}): wall "
         f"{wall_p * 1e3:.1f} ms, device busy {busy_p * 1e3:.1f} ms over {n_p} device "
         f"events; idle share " + (f"{1 - busy_p / wall_p:.2f}" if busy_p > 0 else "not measured"))
     log(f"  top device ops, prefill group ({tag}): " + "; ".join(
         f"{n} {sec * 1e3:.2f} ms/{calls}" for n, (sec, calls) in top_ops(names_p)))
+    # Decode steps: B2's kernels over the attention layers, or where no
+    # layer runs B2 (MLA, Mamba2) the steps the engine dispatched.
     b2 = sum(c for name, (_, c) in window[3].items() if "pa_split_kernel" in name)
-    steps = max(1, round(b2 / cfg.num_layers))
+    attn_layers = sum(t == "attention" for t in cfg.layer_types())
+    steps = max(1, round(b2 / attn_layers) if b2 else dispatched)
     out = decode_profile(f"batch 4, {tag}", card, window, steps)
     b1 = [(sec, c) for name, (sec, c) in window[3].items()
           if "qmm_wgmma_kernel" in name or "qmm_splitk_kernel" in name]
@@ -2772,7 +2821,7 @@ def ppl_gate(dev) -> dict:
 # 1200 s limit (on an H100, the full run took 1157.7 s with phases 10 and
 # 11 at their depths before phase 12, and 862.6-937.7 s with these cuts);
 # ``--phases build,families`` serves them whole.
-FAMILY_SERVING = (("qwen3", 36, 4096, 18), ("gemma2", 42, 8192, 21))
+FAMILY_SERVING = (("qwen3", 36, 4096, 6), ("gemma2", 42, 8192, 6))
 FAMILY_REQUEST_LENS = (64, 512, 200, 333, 128, 480, 96, 256)
 
 
@@ -2805,7 +2854,9 @@ def family_forwards(dev) -> dict:
             model, _ = load_model(d, dtype="bf16", device=dev)
             t2 = time.perf_counter()
             shutil.rmtree(d)
-            cpu = to_cpu_f32(model.params)
+            # Dequantized once on the card: the CPU's f32 forward then runs
+            # plain GEMMs, not B1's plain version (the same function) a call.
+            cpu = to_cpu_f32(model.params, dense=True)
             reset_counts()
             err = card_vs_cpu(dev, model.cfg, model.params, cpu, [64, 37], family)
             counts = read_counts()
@@ -2837,17 +2888,28 @@ def family_engine(model, graphs: bool, max_seq_len: int):
     return engine, engine.warmup()
 
 
-def family_serving(dev, card: str, family: str, layers: int, max_seq_len: int) -> dict:
-    """Phase 10, parts 2 and 3: a family's published-width model, AWQ-INT4 on
-    the card, serving 8 requests (prompts of 64-512 tokens, 64 new tokens
-    each: 6 greedy, 2 sampled) in one wave through a warmed engine with
-    decode graphs and without: tok/s, ms a decode step, TTFT; the streams
-    equal both ways; B1 and B2 launched with graphs (the launch counts of
-    that run, set to 0 just before it). Then 32 decode steps profiled."""
+def family_requests(cfg, greedy_only: bool = False) -> list:
+    """Phase 5's 8 requests: prompts of FAMILY_REQUEST_LENS tokens, 64 new
+    tokens each; requests 2 and 6 sampled unless ``greedy_only``."""
     import numpy as np
-    import torch
 
     from blazr_tpu_torch.config import GenerationConfig
+
+    rng = np.random.default_rng(SEED + 5)
+    out = []
+    for i, n in enumerate(FAMILY_REQUEST_LENS):
+        gen = (GenerationConfig(max_tokens=64, temperature=0.7, top_p=0.9, seed=100 + i)
+               if i in (2, 6) and not greedy_only
+               else GenerationConfig(max_tokens=64, temperature=0.0))
+        out.append((rng.integers(0, cfg.vocab_size, n).tolist(), gen))
+    return out
+
+
+def llama_family_model(dev, family: str, layers: int):
+    """A dense or MoE family's published-width model at ``layers`` layers,
+    AWQ-INT4 synthesized on the card."""
+    import torch
+
     from blazr_tpu_torch.models.registry import Model
     from blazr_tpu_torch.utils.synthetic import (FAMILY_CONFIGS, MOE_CONFIGS,
                                                  synth_llama_params)
@@ -2860,40 +2922,68 @@ def family_serving(dev, card: str, family: str, layers: int, max_seq_len: int) -
     torch.cuda.synchronize()
     log(f"  synthesized {layers}-layer {family} ({cfg.hidden_size}d, vocab "
         f"{cfg.vocab_size}) AWQ-INT4 on the card in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(SEED + 5)
-    reqs = []
-    for i, n in enumerate(FAMILY_REQUEST_LENS):
-        gen = (GenerationConfig(max_tokens=64, temperature=0.7, top_p=0.9, seed=100 + i)
-               if i in (2, 6) else GenerationConfig(max_tokens=64, temperature=0.0))
-        reqs.append((rng.integers(0, cfg.vocab_size, n).tolist(), gen))
+    return model
+
+
+def family_serving(dev, card: str, family: str, model, max_seq_len: int) -> dict:
+    """Phases 10, 11, 13 and 14, serving: a family's published-width model
+    on the card serving the 8 requests of phase 5 (family_requests) in one
+    wave through a warmed engine (family_engine), with decode graphs and
+    without: tok/s, ms a decode step, TTFT; the streams equal both ways; B1
+    launched, and B2 where the family has paged attention, with graphs (the
+    launch counts of that run, set to 0 just before it). Launches a decode
+    step: those made inside the engine's decode rounds (prefills run in
+    calls of their own) over the steps those rounds dispatched. Then 32
+    decode steps profiled."""
+    import torch
+
+    from blazr_tpu_torch.models.registry import resolve_paged_kind
+
+    cfg = model.cfg
+    reqs = family_requests(cfg)
+    has_b2 = resolve_paged_kind(cfg) in ("llama", "hybrid")
     turns, streams, launches = {}, {}, None
     for graphs in (True, False):
         engine, warm_s = family_engine(model, graphs, max_seq_len)
+        decode = dict.fromkeys(("steps", "qmm", "paged_attention"), 0)
+
+        def counted_round(decodes, inner=engine._horizon_round, engine=engine):
+            c0, s0 = read_counts(), engine.horizon_steps
+            inner(decodes)
+            c1 = read_counts()
+            decode["steps"] += engine.horizon_steps - s0
+            for key in ("qmm", "paged_attention"):
+                decode[key] += c1[key] - c0[key]
+        engine._horizon_round = counted_round
         reset_counts()
         t0 = time.perf_counter()
         results = asyncio.run(serve(engine, [reqs]))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
-        assert counts["qmm"] > 0 and counts["paged_attention"] > 0, counts
-        assert all(len(r["tokens"]) == 64 and all(0 <= t < cfg.vocab_size
-                                                  for t in r["tokens"]) for r in results)
+        assert counts["qmm"] > 0 and (counts["paged_attention"] > 0 or not has_b2), counts
+        assert all(len(r["tokens"]) == g.max_tokens and all(0 <= t < cfg.vocab_size
+                                                            for t in r["tokens"])
+                   for r, (_, g) in zip(results, reqs))
         streams[graphs] = [r["tokens"] for r in results]
         if graphs:
             launches = counts
         ttft = sorted(r["ttft"] for r in results)
-        stats = graph_stats(engine)
-        turn = dict(tok_s=8 * 64 / wall,
-                    ms_per_step=engine.perf["decode"] / engine.horizon_steps * 1e3,
+        steps = engine.horizon_steps
+        assert decode["steps"] == steps, (decode, steps)
+        tokens = sum(len(t) for t in streams[graphs])
+        turn = dict(tok_s=tokens / wall, ms_per_step=engine.perf["decode"] / steps * 1e3,
                     ttft_ms_median=ttft[len(ttft) // 2] * 1e3, ttft_ms_max=ttft[-1] * 1e3,
-                    warmup_s=warm_s, steps=engine.horizon_steps, **stats)
+                    warmup_s=warm_s, steps=steps, b1_per_step=decode["qmm"] / steps,
+                    b2_per_step=decode["paged_attention"] / steps, **graph_stats(engine))
         turns[graphs] = turn
-        log(f"  {family} graphs {'on ' if graphs else 'off'}: 512 tokens in {wall:.2f} s, "
+        log(f"  {family} graphs {'on ' if graphs else 'off'}: {tokens} tokens in {wall:.2f} s, "
             f"{turn['tok_s']:.1f} tok/s; {turn['ms_per_step']:.2f} ms a decode step "
-            f"({turn['steps']} steps); TTFT median {turn['ttft_ms_median']:.1f} ms, max "
+            f"({steps} steps, each launching B1 {turn['b1_per_step']:.1f} and B2 "
+            f"{turn['b2_per_step']:.1f} times); TTFT median {turn['ttft_ms_median']:.1f} ms, max "
             f"{turn['ttft_ms_max']:.1f} ms; warmed in {warm_s:.2f} s ({turn['captured']} "
             f"graphs, {turn['pool_mib']:.1f} MiB pool); launches {counts} ({card}; depth "
-            f"{layers}, max_seq_len {max_seq_len})")
+            f"{cfg.num_layers}, max_seq_len {max_seq_len})")
         del engine
         free_card()
     equal = streams[True] == streams[False]
@@ -2903,7 +2993,7 @@ def family_serving(dev, card: str, family: str, layers: int, max_seq_len: int) -
                    if a != b]
     engine, _ = family_engine(model, True, max_seq_len)
     profile = profile_serving(dev, model, card, engine=engine)
-    del engine, model
+    del engine
     free_card()
     return dict(launches, turns=turns, profile=profile)
 
@@ -2915,8 +3005,10 @@ def families(dev, card: str, full_run: bool) -> dict:
     launches from Qwen3-8B's run with graphs."""
     out = {"forwards": family_forwards(dev)}
     for family, layers, ctx, full_run_layers in FAMILY_SERVING:
-        out[family] = family_serving(dev, card, family,
-                                     full_run_layers if full_run else layers, ctx)
+        model = llama_family_model(dev, family, full_run_layers if full_run else layers)
+        out[family] = family_serving(dev, card, family, model, ctx)
+        del model
+        free_card()
     out.update(qmm=out["qwen3"]["qmm"], paged_attention=out["qwen3"]["paged_attention"])
     return out
 
@@ -2939,7 +3031,7 @@ MOE_B1_ROWS = (1, 2, 4, 8, 16, 512)
 # Qwen3-30B-A3B's warmup with graphs (72.5 s) and its graphs-off wave
 # (121 s) alone leave the other phases too little of the 1200 s limit;
 # ``--phases build,moe`` serves both whole.
-MOE_SERVING = (("mixtral", 32, 4096, 16), ("qwen3_moe", 48, 4096, 4))
+MOE_SERVING = (("mixtral", 32, 4096, 4), ("qwen3_moe", 48, 4096, 2))
 # A free-running forward with the card in f32 against the CPU f32: the same
 # weights and arithmetic, f32 sums in another order (B1's split-K over K,
 # B2's splits, cuBLAS's f32 GEMMs in attention): 1e-3 of the largest logit.
@@ -3049,9 +3141,10 @@ class LayerTape:
     §6), which leaves a 5e-2 gate on the logits no margin; a layer computed
     from the same input holds every kernel of it to f32 with that margin."""
 
-    def __init__(self, rel_tol: float = 5e-2):
+    def __init__(self, rel_tol: float = 5e-2, sites: tuple = ()):
         self.rel_tol = rel_tol
         self.worst = 0.0
+        self.sites = sites          # (module, name) of other families' layers
 
     def __enter__(self):
         from collections import deque
@@ -3063,11 +3156,17 @@ class LayerTape:
         self.queue = deque()
         for m in self.modules:
             m.decoder_layer, m.forward_head = self.layer, self.head
+        self.saved = [(m, name, getattr(m, name)) for m, name in self.sites]
+        for m, name, real in self.saved:
+            setattr(m, name, lambda p, cfg, x, mixer, real=real: self.layer(
+                p, cfg, x, mixer, real))
         return self
 
     def __exit__(self, *exc):
         for m in self.modules:
             m.decoder_layer, m.forward_head = self.real_layer, self.real_head
+        for m, name, real in self.saved:
+            setattr(m, name, real)
         assert exc[0] is not None or not self.queue, "a card layer was not replayed"
 
     def _forced(self, x):
@@ -3076,15 +3175,16 @@ class LayerTape:
         assert x_card.shape == x.shape
         return x_card, out_card
 
-    def layer(self, p, cfg, x, attn):
+    def layer(self, p, cfg, x, attn, real=None):
         import torch
 
+        real = real or self.real_layer
         if x.dtype != torch.float32:                   # the card's bf16 forward
-            out = self.real_layer(p, cfg, x, attn)
+            out = real(p, cfg, x, attn)
             self.queue.append((x.float().cpu(), out.float().cpu()))
             return out
         x_card, out_card = self._forced(x)
-        out = self.real_layer(p, cfg, x_card, attn)
+        out = real(p, cfg, x_card, attn)
         rel = ((out_card - out).abs().max() / out.abs().max()).item()
         self.worst = max(self.worst, rel)
         assert rel <= self.rel_tol, f"a decoder layer's output: {rel} > {self.rel_tol}"
@@ -3100,40 +3200,36 @@ class LayerTape:
 
 
 def card_vs_cpu_contiguous(dev, cfg, params, cpu_params, n: int, tag: str,
-                           steps: int = 4, rel_tol: float | None = 5e-2) -> float:
-    """``card_vs_cpu`` for the contiguous ``llama.forward`` (the Executor's
-    cache): one n-token prefill, then ``steps`` teacher-forced decode steps;
-    the worst relative error."""
+                           steps: int = 4, rel_tol: float = 5e-2) -> float:
+    """``card_vs_cpu`` for the family's contiguous forward and cache (the
+    Executor's: ``Model.forward``, ``Model.init_cache``): one n-token
+    prefill, then ``steps`` teacher-forced decode steps; the worst relative
+    error."""
     import numpy as np
     import torch
 
-    from blazr_tpu_torch.kvcache.contiguous import init_kv_cache
-    from blazr_tpu_torch.models.llama import forward
+    from blazr_tpu_torch.models.registry import Model
 
-    att = cfg.attention
-    hd = att.resolved_head_dim(cfg.hidden_size)
     seq = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (1, n + steps))
-    sides = (("gpu", dev, torch.bfloat16, params),
-             ("cpu", torch.device("cpu"), torch.float32, cpu_params))
-    caches = {name: init_kv_cache(cfg.num_layers, 1, n + steps, att.kv_heads(), hd,
-                                  dtype=dt, device=d) for name, d, dt, _ in sides}
+    sides = {"gpu": Model(cfg, params, torch.bfloat16),
+             "cpu": Model(cfg, cpu_params, torch.float32)}
+    caches = {k: m.init_cache(1, n + steps) for k, m in sides.items()}
     worst = 0.0
     for step, (lo, hi) in enumerate([(0, n)] + [(n + j, n + j + 1) for j in range(steps)]):
         out = {}
-        for name, d, _, pr in sides:
-            tok = torch.from_numpy(seq[:, lo:hi]).to(d)
-            pos = torch.arange(lo, hi, device=d)[None]
+        for name, m in sides.items():
+            d = m.device
             with torch.no_grad():
-                logits, _ = forward(pr, cfg, tok, caches[name], pos)
+                logits, _ = m.forward(torch.from_numpy(seq[:, lo:hi]).to(d), caches[name],
+                                      torch.arange(lo, hi, device=d)[None])
             out[name] = logits[:, -1].float().cpu()
         g, c = out["gpu"], out["cpu"]
         assert g.shape == c.shape and torch.isfinite(g).all()
         rel = ((g - c).abs().max() / c.abs().max()).item()
         log(f"  {tag} step {step} ({'prefill' if step == 0 else 'decode'}): "
-            f"max|gpu-cpu|/max|cpu| {rel:.4g} "
-            + (f"(tol {rel_tol})" if rel_tol else "(reported, not held)")
-            + f", argmax {'agrees' if int(g.argmax()) == int(c.argmax()) else 'differs'}")
-        assert not rel_tol or rel <= rel_tol, f"{tag} step {step}: {rel} > {rel_tol}"
+            f"max|gpu-cpu|/max|cpu| {rel:.4g} (tol {rel_tol}), argmax "
+            f"{'agrees' if int(g.argmax()) == int(c.argmax()) else 'differs'}")
+        assert rel <= rel_tol, f"{tag} step {step}: {rel} > {rel_tol}"
         worst = max(worst, rel)
     return worst
 
@@ -3170,7 +3266,7 @@ def moe_forwards(dev) -> dict:
             model, _ = load_model(d, dtype="bf16", device=dev)
             t2 = time.perf_counter()
             shutil.rmtree(d)
-            cpu = to_cpu_f32(model.params)
+            cpu = to_cpu_f32(model.params, dense=True)        # as in phase 10
             t3 = time.perf_counter()
             row = {}
             t4 = time.perf_counter()
@@ -3224,8 +3320,10 @@ def moe_phase(dev, gen, card: str, full_run: bool) -> dict:
     out = {"b1": moe_b1(dev, gen), "forwards": moe_forwards(dev)}
     for family, layers, ctx, full_run_layers in MOE_SERVING:
         t0 = time.perf_counter()
-        out[family] = family_serving(dev, card, family,
-                                     full_run_layers if full_run else layers, ctx)
+        model = llama_family_model(dev, family, full_run_layers if full_run else layers)
+        out[family] = family_serving(dev, card, family, model, ctx)
+        del model
+        free_card()
         log(f"  {family} served in {time.perf_counter() - t0:.1f} s")
     out.update(qmm=out["mixtral"]["qmm"], paged_attention=out["mixtral"]["paged_attention"])
     return out
@@ -3580,6 +3678,406 @@ def gguf_phase(dev, gen, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 13 (mla) and 14 (ssm): the MLA, Mamba2 and hybrid families
+# ---------------------------------------------------------------------------
+
+# B1 at the new families' projections (K, N, group) at their published
+# widths (utils/synthetic.py::RECURRENT_CONFIGS): DeepSeek-V2-Lite in groups
+# of 64 (its dense down has K 10944, no multiple of 128; kv_a has N 576),
+# Mamba-Codestral-7B in groups of 128.
+RECURRENT_B1_SHAPES = {"deepseek kv_a": (2048, 576, 64), "deepseek q": (2048, 3072, 64),
+                       "deepseek expert gate/up": (2048, 1408, 64),
+                       "deepseek expert down": (1408, 2048, 64),
+                       "deepseek dense down": (10944, 2048, 64),
+                       "codestral in_proj": (4096, 18560, 128),
+                       "codestral out_proj": (8192, 4096, 128)}
+RECURRENT_B1_ROWS = (1, 8, 512)
+# The served models: family -> (published depth, the engine's max_seq_len,
+# the depth a full run serves). ``--phases build,mla`` and ``build,ssm``
+# serve them whole.
+RECURRENT_SERVING = {"deepseek": (27, 4096, 2), "mamba2": (64, 4096, 4),
+                     "bamba": (32, 4096, 4)}
+# The families' 2-layer checkpoints: DeepSeek-V2-Lite's layer 0 dense and
+# layer 1 with 64 experts; the hybrid's layers one Mamba2 mixer and one
+# attention layer.
+RECURRENT_GROUP = {"deepseek": 64, "mamba2": 128, "bamba": 128}
+
+
+def recurrent_b1(dev, gen) -> dict:
+    """Phase 2's B1 rows at the new families' shapes (RECURRENT_B1_SHAPES x
+    RECURRENT_B1_ROWS), against the plain version at phase 2's tolerance,
+    then timed as phase 11 times the expert shapes: kernel, bound, plain
+    version and torch.matmul on the bf16-dequantized weight."""
+    import torch
+
+    from blazr_tpu_torch.quant.kernels import qmm, qmm_reference
+    from blazr_tpu_torch.quant.qtensor import dequantize_planes
+
+    rel_tol = 8e-3
+    rows, worst = {}, 0.0
+    for pname, (k, n, gs) in RECURRENT_B1_SHAPES.items():
+        qw, s, mn = rand_planes(k, n, 4, gs, gen, dev)
+        w = dequantize_planes(qw, s, mn, 4, True, gs, torch.bfloat16)
+        for m in RECURRENT_B1_ROWS:
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            got = qmm(x, qw, s, mn, bits=4, signed=True, group_size=gs, device=dev)
+            ref = qmm_reference(x.float(), qw, s, mn, bits=4, signed=True, group_size=gs)
+            torch.cuda.synchronize()
+            assert got.shape == ref.shape and torch.isfinite(got).all(), pname
+            err = (got.float() - ref).abs().max().item()
+            tol = rel_tol * ref.abs().max().item()
+            assert err <= tol, f"B1 {pname} m={m}: {err} > {tol}"
+            worst = max(worst, err)
+            ms = time_ms(lambda: qmm(x, qw, s, mn, bits=4, signed=True, group_size=gs,
+                                     device=dev), iters=20)
+            nbytes = qw.numel() * 4 + s.numel() * 8 + x.numel() * 2 + m * n * 2
+            bms, by = bound(nbytes, 2.0 * m * k * n)
+            row = dict(ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err,
+                       library_ms=time_ms(lambda: torch.matmul(x, w), iters=20),
+                       plain_ms=time_eager(lambda: qmm_reference(
+                           x, qw, s, mn, bits=4, signed=True, group_size=gs), iters=3,
+                           warmup=1),
+                       shape=f"{pname} m={m} K={k} N={n} group {gs}")
+            rows[(pname, m)] = row
+            log(f"  B1 {pname} m={m} K={k} N={n} gs={gs}: max_abs_err {err:.4g} (tol "
+                f"{tol:.4g}); kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, x{ms / bms:.1f}), "
+                f"torch.matmul(bf16 dequantized) {row['library_ms']:.4f} ms "
+                f"(x{ms / row['library_ms']:.2f}), plain {row['plain_ms']:.4f} ms")
+        del w
+    return dict(rows=rows, max_abs_err=worst)
+
+
+def recurrent_config(family: str, layers: int):
+    """The family's published config at ``layers`` layers."""
+    from blazr_tpu_torch.utils.synthetic import RECURRENT_CONFIGS
+
+    cfg = RECURRENT_CONFIGS[family]()
+    if cfg.hybrid_layers is not None:
+        # A cut hybrid keeps the attention layers below its depth, and makes
+        # its last layer attention where none is.
+        types = cfg.hybrid_layers[:layers]
+        if "attention" not in types:
+            types[-1] = "attention"
+        cfg.hybrid_layers = types
+    cfg.num_layers = layers
+    return cfg
+
+
+def recurrent_checkpoint(family: str, root: Path) -> tuple[Path, float]:
+    """The family's 2-layer checkpoint at its published width, AWQ-INT4
+    (RECURRENT_GROUP) in its HF layout, with a BPE tokenizer.json of its
+    vocab, written once into ``root`` for every check that reads it."""
+    from blazr_tpu_torch.utils.synthetic import write_bpe_tokenizer_json, write_hf_checkpoint
+
+    d = root / family
+    t0 = time.perf_counter()
+    cfg = recurrent_config(family, 2)
+    write_hf_checkpoint(d, cfg, quant="awq", group_size=RECURRENT_GROUP[family], seed=SEED,
+                        dtype="bfloat16")
+    write_bpe_tokenizer_json(d, cfg.vocab_size, seed=SEED)
+    return d, time.perf_counter() - t0
+
+
+def recurrent_forwards(dev, family: str, d: Path, lens: tuple, n: int) -> dict:
+    """A family's 2-layer checkpoint loaded by load_model onto the card
+    (bf16): the engine's step (``card_vs_cpu``: the prefills ``lens``,
+    4 decode steps) and the contiguous forward (an n-token prefill, 4 decode
+    steps) against the port's CPU f32 forward on the same weights, each
+    layer and the head on the card's input (LayerTape) and, for DeepSeek,
+    the card's routing (RouteTape), held at 5e-2 of the largest magnitude;
+    the step again with int8 latents (DeepSeek, by layer), and free-running
+    with the card in f32, held at F32_FREE_TOL. Launches counted on the
+    step's first run."""
+    import torch
+
+    from blazr_tpu_torch.loader import load_model
+    from blazr_tpu_torch.models import mamba2, mla
+
+    t0 = time.perf_counter()
+    model, _ = load_model(d, dtype="bf16", device=dev)
+    t1 = time.perf_counter()
+    cfg = model.cfg
+    cpu = to_cpu_f32(model.params, dense=True)
+    row: dict = {"load_s": t1 - t0, "cpu_weights_s": time.perf_counter() - t1}
+    # The layer functions a LayerTape patches for this family.
+    sites = ((mla if family == "deepseek" else mamba2, "decoder_layer"),)
+    route = RouteTape() if family == "deepseek" else contextlib.nullcontext()
+    with route as tape:
+        with LayerTape(sites=sites) as layers:
+            reset_counts()
+            row["step"] = card_vs_cpu(dev, cfg, model.params, cpu, lens,
+                                             f"{family} engine step, by layer")
+            counts = read_counts()
+            row["contiguous"] = card_vs_cpu_contiguous(
+                dev, cfg, model.params, cpu, n, f"{family} contiguous, by layer")
+            if family == "deepseek":
+                row["int8_latents"] = card_vs_cpu(
+                    dev, cfg, model.params, cpu, lens, f"{family} engine step, int8 latents, "
+                    "by layer", quantized=True)
+    row["step_f32"] = card_vs_cpu(
+        dev, cfg, card_f32(model.params), cpu, lens,
+        f"{family} engine step, free-running, card in f32", rel_tol=F32_FREE_TOL,
+        card_dtype=torch.float32)
+    assert counts["qmm"] > 0, counts
+    if family == "bamba":
+        assert counts["paged_attention"] == 4, counts        # one attention layer, 4 steps
+    if family == "deepseek":
+        assert tape.share >= 0.9, f"routing agreement {tape.share}"
+        row.update(routing_agreement=tape.share, decisions=tape.total)
+    row.update(layer_max_rel_err=layers.worst, qmm=counts["qmm"],
+               paged_attention=counts["paged_attention"])
+    log(f"  {family} 2 layers ({cfg.hidden_size}d, vocab {cfg.vocab_size}): loaded in "
+        f"{row['load_s']:.1f} s; max rel err by layer: step {row['step']:.4g}, contiguous "
+        f"{row['contiguous']:.4g}, a layer's output {layers.worst:.4g} (tol 5e-2)"
+        + (f", int8 latents {row['int8_latents']:.4g}" if "int8_latents" in row else "")
+        + f"; free-running with the card in f32 {row['step_f32']:.4g} (tol "
+        f"{F32_FREE_TOL}); launches B1 {counts['qmm']}, B2 {counts['paged_attention']}")
+    del model, cpu
+    free_card()
+    return row
+
+
+def recurrent_model(dev, family: str, layers: int, dtype=None):
+    """The family's published-width model at ``layers`` layers, AWQ-INT4
+    (RECURRENT_GROUP) synthesized on the card."""
+    import torch
+
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.utils.synthetic import synth_recurrent_params
+
+    cfg = recurrent_config(family, layers)
+    t0 = time.perf_counter()
+    params = synth_recurrent_params(cfg, quant="awq", dtype=torch.bfloat16,
+                                    group_size=RECURRENT_GROUP[family], seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"  synthesized {layers}-layer {family} ({cfg.hidden_size}d, vocab "
+        f"{cfg.vocab_size}) AWQ-INT4 on the card in {time.perf_counter() - t0:.1f} s")
+    return Model(cfg, params if dtype is None else card_f32(params), dtype or torch.bfloat16)
+
+
+def step_shares(dev, model, ms_per_step: float) -> dict:
+    """The share of a batch-8 decode step that the family's plain-PyTorch
+    mixer parts take, each timed alone as a CUDA graph at the served shapes
+    and multiplied by its layers: for MLA the latent gather over tables 4096
+    tokens wide (``_gather_latent_pages``) and the absorbed einsums with the
+    softmax (``mla.absorbed_attention``); for Mamba2 layers the conv, the
+    scan's step form and the gated norm, and the gather and scatter of the
+    state rows."""
+    import torch
+
+    from blazr_tpu_torch.kvcache.ssm_state import init_ssm_state
+    from blazr_tpu_torch.models import mamba2, mla
+    from blazr_tpu_torch.models.paged_multi import (_gather_latent_pages,
+                                                    init_paged_mla_cache)
+
+    cfg = model.cfg
+    b, width = 8, 4096
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    out: dict = {}
+    if cfg.attention is not None and cfg.attention.is_mla:
+        att = cfg.attention
+        one = dataclasses.replace(cfg, num_layers=1)
+        cache = init_paged_mla_cache(one, b * width // 64, 64, device=dev)
+        bt = torch.arange(b * width // 64, dtype=torch.int32, device=dev).reshape(b, -1)
+        p = model.params["layers"][-1]
+        q_nope = torch.randn((b, 1, att.num_heads, att.d_nope), device=dev, generator=g)
+        q_rope = torch.randn((b, 1, att.num_heads, att.d_rope), device=dev, generator=g)
+        c_all, kr_all, _, _ = _gather_latent_pages(cache, 0, bt)
+        mask = torch.ones((b, 1, width), dtype=torch.bool, device=dev)
+        parts = {"latent gather": lambda: _gather_latent_pages(cache, 0, bt),
+                 "absorbed einsums": lambda: mla.absorbed_attention(
+                     p, cfg, q_nope, q_rope, c_all, kr_all, None, None, mask, torch.bfloat16)}
+        layers = cfg.num_layers
+    else:
+        ssm = cfg.ssm
+        one = dataclasses.replace(cfg, num_layers=1)
+        pool = init_ssm_state(one, b + 1, device=dev)
+        rows = torch.arange(b, device=dev)
+        conv_dim = ssm.inner_size + 2 * ssm.n_groups * ssm.state_size
+        p = next(lp for lp in model.params["layers"] if "in_proj" in lp)
+        xbc = torch.randn((b, 1, conv_dim), device=dev, generator=g).to(torch.bfloat16)
+        dt = torch.randn((b, 1, ssm.num_heads), device=dev, generator=g)
+        y = torch.randn((b, 1, ssm.inner_size), device=dev, generator=g)
+        gs = ssm.n_groups * ssm.state_size
+        c0, s0 = pool.conv[0][:b], pool.ssm[0][:b]
+        parts = {"state rows gather+scatter": lambda: (
+                     pool.conv[0].index_copy_(0, rows, pool.conv[0].index_select(0, rows)),
+                     pool.ssm[0].index_copy_(0, rows, pool.ssm[0].index_select(0, rows))),
+                 "conv": lambda: mamba2._conv(xbc, c0, p["conv_w"], p["conv_b"]),
+                 "scan (step form)": lambda: mamba2._ssm_scan(
+                     cfg, y, y[..., :gs], y[..., :gs], dt, s0, p),
+                 "gated norm": lambda: mamba2.gated_rms_norm(y, y, p["norm"], 1e-5)}
+        layers = sum(t == "mamba2" for t in cfg.layer_types())
+    for name, fn in parts.items():
+        ms = time_ms(fn, iters=10) * layers
+        out[name] = dict(ms=ms, share=ms / ms_per_step)
+        log(f"  {name}: {ms:.3f} ms a batch-8 decode step over {layers} layers, "
+            f"{ms / ms_per_step:.3f} of its {ms_per_step:.2f} ms")
+    return out
+
+
+def recurrent_serving(dev, card: str, family: str, layers: int, max_seq_len: int) -> dict:
+    """Phases 13 and 14, serving: family_serving on the family's model
+    (recurrent_model, ``layers`` layers), then the share of a decode step
+    its plain-PyTorch mixer parts take (step_shares)."""
+    model = recurrent_model(dev, family, layers)
+    out = family_serving(dev, card, family, model, max_seq_len)
+    out["shares"] = step_shares(dev, model, out["turns"][True]["ms_per_step"])
+    del model
+    free_card()
+    return out
+
+
+def isolation(dev, card: str, layers: int, max_seq_len: int) -> dict:
+    """Phase 14: the state rows isolate sequences. Codestral with the card in
+    f32 (B1's split-K variant at every row count, so the arithmetic of a row
+    does not depend on its batch) serves the 8 greedy requests of phase 5
+    in one wave and then one after another, each alone, through one warmed
+    engine with graphs: the 8 streams equal."""
+    import torch
+
+    model = recurrent_model(dev, "mamba2", layers, dtype=torch.float32)
+    reqs = family_requests(model.cfg, greedy_only=True)
+    engine, _ = family_engine(model, True, max_seq_len)
+
+    async def runs():           # one event loop: the engine's event is bound to it
+        t0 = time.perf_counter()
+        wave = [r["tokens"] for r in await serve(engine, [reqs])]
+        t1 = time.perf_counter()
+        alone = [(await serve(engine, [[r]]))[0]["tokens"] for r in reqs]
+        return wave, alone, t0, t1, time.perf_counter()
+
+    wave, alone, t0, t1, t2 = asyncio.run(runs())
+    equal = wave == alone
+    log(f"  mamba2 (card in f32, {layers} layers): the wave of 8 ({t1 - t0:.1f} s) "
+        f"{'equals' if equal else 'DIFFERS from'} the 8 served one after another "
+        f"({t2 - t1:.1f} s); rows free after: {sorted(engine._free_rows)}")
+    assert equal, [i for i, (a, b) in enumerate(zip(wave, alone)) if a != b]
+    assert sorted(engine._free_rows) == list(range(8)), engine._free_rows
+    del engine, model
+    free_card()
+    return dict(equal=True, wave_s=t1 - t0, alone_s=t2 - t1)
+
+
+def cli_chats(d: Path, n: int = 4) -> dict:
+    """``python -m blazr_tpu_torch.cli serve --model DIR
+    --continuous-batching`` (warmed) as a subprocess: ``n`` streamed chats
+    of 16 tokens at once, each answered."""
+    import threading
+
+    import numpy as np
+
+    from blazr_tpu_torch.tokenizer import load_tokenizer
+
+    tok = load_tokenizer(d)
+    rng = np.random.default_rng(SEED + 13)
+    texts = [_prompt_text(tok, 40, rng) for _ in range(n)]
+    replies: list = [None] * n
+    with cli_serve(d, d / "cli_stderr.txt") as (port, up, warmed):
+        def one(i):
+            replies[i] = _stream_chat(port, {"messages": [{"role": "user", "content": texts[i]}],
+                                             "max_tokens": 16, "temperature": 0,
+                                             "stream": True})
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(600)
+        wall = time.perf_counter() - t0
+    for r in replies:
+        assert r is not None and r["done"] and r["finish"] and r["deltas"], r
+    log(f"  cli serve {d.name}: '{warmed}'; /health after {up:.1f} s; {n} streamed chats "
+        f"at once answered in {wall:.2f} s ({sum(len(r['deltas']) for r in replies)} "
+        f"tokens)")
+    return dict(up_s=up, wall_s=wall)
+
+
+def cli_run(d: Path) -> dict:
+    """``python -m blazr_tpu_torch.cli run DIR --prompt ...`` as a subprocess
+    (the Executor, on the card by default): 16 greedy tokens streamed to
+    stdout and the summary line on stderr."""
+    env = dict(os.environ, PYTHONPATH=str(TREE))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "blazr_tpu_torch.cli", "run", str(d), "--prompt",
+         "the state of a recurrent model", "--max-tokens", "16", "--temperature", "0"],
+        cwd=TREE, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    summary = [line for line in proc.stderr.splitlines() if line.startswith("[")
+               and " tokens, " in line]
+    assert proc.stdout.strip() and summary, (proc.stdout[-2000:], proc.stderr[-2000:])
+    log(f"  cli run {d.name}: {summary[-1]} ({wall:.1f} s, the load included)")
+    return dict(wall_s=wall, summary=summary[-1])
+
+
+def mla_phase(dev, card: str, full_run: bool) -> dict:
+    """Phase 13: DeepSeek-V2-Lite. Its 2-layer checkpoint written once
+    (recurrent_checkpoint) and held to the CPU (recurrent_forwards: prefills
+    of 64 and 37 tokens, a 64-token contiguous prefill; int8 latents), the
+    model served (recurrent_serving, RECURRENT_SERVING's depth), ``cli serve``
+    (cli_chats) and ``cli run`` (cli_run: the Executor's decode graph over
+    the latent cache) on the checkpoint."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="blazr_mla_"))
+    try:
+        d, write_s = recurrent_checkpoint("deepseek", root)
+        log(f"  wrote the 2-layer DeepSeek-V2-Lite checkpoint (AWQ-INT4, groups of 64) "
+            f"and its tokenizer in {write_s:.1f} s")
+        out = {"write_s": write_s, "forwards": recurrent_forwards(dev, "deepseek", d,
+                                                                  (64, 37), 64)}
+        depth, ctx, cut = RECURRENT_SERVING["deepseek"]
+        out["serve"] = recurrent_serving(dev, card, "deepseek", cut if full_run else depth, ctx)
+        out["cli"] = cli_chats(d)
+        out["cli_run"] = cli_run(d)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out.update(qmm=out["serve"]["qmm"], paged_attention=out["serve"]["paged_attention"])
+    return out
+
+
+def ssm_phase(dev, card: str, full_run: bool) -> dict:
+    """Phase 14: Mamba-Codestral-7B and the hybrid at Bamba-9B's widths.
+    Each 2-layer checkpoint written once and held to the CPU (prefills of
+    160 tokens, the chunked scan, and 64; a 160-token contiguous prefill);
+    Codestral served (recurrent_serving) and its rows' isolation held
+    (isolation); the hybrid served; ``cli run`` (the Executor's decode
+    graph over the state, and the hybrid's over state and KV) on both
+    checkpoints. The kernels line takes B1's launches of both served
+    models and B2's of the hybrid."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="blazr_ssm_"))
+    out: dict = {}
+    try:
+        for family in ("mamba2", "bamba"):
+            d, write_s = recurrent_checkpoint(family, root)
+            log(f"  wrote the 2-layer {family} checkpoint (AWQ-INT4, groups of 128) and "
+                f"its tokenizer in {write_s:.1f} s")
+            out[family] = {"write_s": write_s,
+                           "forwards": recurrent_forwards(dev, family, d, (160, 64), 160)}
+        for family in ("mamba2", "bamba"):
+            depth, ctx, cut = RECURRENT_SERVING[family]
+            out[family]["serve"] = recurrent_serving(dev, card, family,
+                                                     cut if full_run else depth, ctx)
+        depth, ctx, cut = RECURRENT_SERVING["mamba2"]
+        out["isolation"] = isolation(dev, card, cut if full_run else depth, ctx)
+        for family in ("mamba2", "bamba"):
+            out[family]["cli_run"] = cli_run(root / family)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out.update(qmm=sum(out[f]["serve"]["qmm"] for f in ("mamba2", "bamba")),
+               qmm_by_model={f: out[f]["serve"]["qmm"] for f in ("mamba2", "bamba")},
+               paged_attention=out["bamba"]["serve"]["paged_attention"])
+    return out
+
+
 B3_TIMED_ROWS = (1, 8, 512)
 
 
@@ -3717,6 +4215,7 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
     f1 = time_b1_families(dev, gen) if families else None
     f2 = time_b2_families(dev, gen) if families else None
     moe_b1 = res["moe"]["b1"]["rows"] if "moe" in res else None   # timed in phase 11
+    rec_b1 = res.get("b1", {}).get("recurrent")                   # timed in phase 2
     gguf = res["gguf"]["b1"] if "gguf" in res else None          # timed in phase 12
 
     def got(phase, key):
@@ -3803,6 +4302,29 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
              at=[{key: row[key] for key in keys} for sh, row in gguf["rows"].items()
                  if sh[0] != "gate L0 (Q4_K)" or sh[1] == 1]),
     ] if gguf else [])
+    if rec_b1 and ("mla" in res or "ssm" in res):
+        # Launches of each served model's run with graphs: DeepSeek-V2-Lite
+        # (phase 13), Codestral and the hybrid (phase 14).
+        by_model = dict({"deepseek": got("mla", "qmm")} if "mla" in res else {},
+                        **got("ssm", "qmm_by_model") or {})
+        rows = rec_b1["rows"]
+        line.append(dict(
+            name="qmm_w4a16 (B1), MLA, Mamba2 and hybrid projections", route="cuda",
+            source="blazr_tpu_torch/csrc/qmm.cu",
+            replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
+            launches=sum(by_model.values()), launches_by_model=by_model,
+            max_abs_err=rec_b1["max_abs_err"],
+            **{key: rows[("deepseek expert gate/up", 512)][key] for key in keys},
+            decode={key: rows[("deepseek expert gate/up", 8)][key] for key in keys},
+            at=[{key: row[key] for key in keys} for sh, row in rows.items()
+                if sh[0] != "deepseek expert gate/up" or sh[1] == 1]))
+    if "ssm" in res:   # the hybrid's attention layers: Mistral's B2 geometry (32/8 x 128)
+        line.append(dict(
+            name="paged_attention_decode (B2), hybrid attention layers", route="cuda",
+            source="blazr_tpu_torch/csrc/paged_attention.cu",
+            replaces="blazr_tpu/attention/paged_attention.py:34",
+            launches=got("ssm", "paged_attention"), max_abs_err=got("b2", "max_abs_err"),
+            **{key: b2[key] for key in keys}))
     if gguf:           # B3 and B4 on the file's Q4_K gate weight, beside their rows
         for row in line:
             kernel = row["name"].split("(")[-1].rstrip(")")
@@ -3814,7 +4336,7 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
 
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
           "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "prefix", "http",
-          "families", "moe", "gguf", "sweep", "timings", "layout_times")
+          "families", "moe", "gguf", "mla", "ssm", "sweep", "timings", "layout_times")
 FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
@@ -3831,8 +4353,10 @@ def main() -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    global TREE
+    global TREE, SERVE_LAYERS
     TREE = args.tree.resolve()
+    if phases == list(FULL_RUN):
+        SERVE_LAYERS = FULL_RUN_SERVE_LAYERS
     other = TREE != REPO
     if other and phases == list(FULL_RUN):
         ap.error("--tree runs a subset of phases")
@@ -3885,7 +4409,8 @@ def main() -> int:
     gen.manual_seed(SEED)
     res: dict = {}
     steps = [
-        ("b1", "phase 2: B1 fused dequant-matmul vs plain", lambda: check_b1(dev, gen)),
+        ("b1", "phase 2: B1 fused dequant-matmul vs plain",
+         lambda: dict(check_b1(dev, gen), recurrent=recurrent_b1(dev, gen))),
         ("b2", "phase 3: B2 paged decode attention vs plain", lambda: check_b2(dev, gen)),
         ("b3", "phase 3b: B3 int8-activation matmul vs plain", lambda: check_b3(dev, gen)),
         ("b4", "phase 3c: B4 streaming decode matmul vs plain", lambda: check_b4(dev, gen)),
@@ -3900,13 +4425,17 @@ def main() -> int:
          "card (bf16, B3) vs CPU (f32, plain)", lambda: teacher_forced_w8a8(dev)),
         ("ppl", "phase 4c: delta-ppl gate of the int8 modes against w4a16",
          lambda: ppl_gate(dev)),
-        ("serve", "phase 5: 32-layer Mistral-7B AWQ BatchEngine (w4a16), 8 requests "
+        ("serve", f"phase 5: {SERVE_LAYERS}-layer Mistral-7B AWQ BatchEngine (w4a16), "
+         "8 requests "
          "in two waves", lambda: full_depth(dev, card)),
-        ("executor", "phase 5b: 32-layer Mistral-7B AWQ Executor under w8a8, 512-token "
+        ("executor", f"phase 5b: {SERVE_LAYERS}-layer Mistral-7B AWQ Executor under w8a8, "
+         "512-token "
          "prompt, 128 greedy tokens", lambda: serve_executor(dev, card, hold=not other)),
-        ("serve_int8", "phase 5c: 32-layer BatchEngine under w4a8-prefill with "
+        ("serve_int8", f"phase 5c: {SERVE_LAYERS}-layer BatchEngine under w4a8-prefill "
+         "with "
          "BLAZR_TPU_STREAM_KERNEL=1", lambda: serve_stream(dev, card)),
-        ("prefix", "phase 6: 32-layer BatchEngine with the prefix cache and its host "
+        ("prefix", f"phase 6: {SERVE_LAYERS}-layer BatchEngine with the prefix cache and "
+         "its host "
          "tier, warmed: 8 requests sharing a 1024-token prefix in two waves",
          lambda: serve_prefix(dev, card)),
         ("http", "phase 7: AWQ checkpoint on disk -> load_model -> OpenAI HTTP server "
@@ -3921,6 +4450,12 @@ def main() -> int:
         ("gguf", "phase 12: Mistral-7B-Instruct-v0.2 as a Q4_K_M GGUF file (write, load, "
          "forwards card vs CPU, B1/B3/B4 at its layouts, cli bench, cli serve)",
          lambda: gguf_phase(dev, gen, card)),
+        ("mla", "phase 13: DeepSeek-V2-Lite (MLA + MoE): the 2-layer checkpoint card vs "
+         "CPU, served through the warmed engine, cli serve",
+         lambda: mla_phase(dev, card, phases == list(FULL_RUN))),
+        ("ssm", "phase 14: Mamba-Codestral-7B and the hybrid at Bamba-9B's widths: 2-layer "
+         "checkpoints card vs CPU, served, rows isolated, cli run",
+         lambda: ssm_phase(dev, card, phases == list(FULL_RUN))),
         ("sweep", "phase 8: the sweeps behind the launch plans of B1-B6",
          lambda: (b1_variants(dev, gen), b2_splits(dev, gen), b3_sweeps(dev, gen),
                   b4_splits(dev, gen), layout_splits(dev, gen))),

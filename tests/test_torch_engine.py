@@ -263,7 +263,7 @@ def test_port_imports_without_jax_or_blazr_tpu():
                          capture_output=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 73
+    assert len(names) >= 77
     assert {f"blazr_tpu_torch.{m}" for m in (
         "kvcache.prefix_cache", "kvcache.host_tier", "server.metrics", "server.slo",
         "quant.int8", "kvcache.contiguous", "models.llama", "models.moe", "engine.executor",
@@ -274,7 +274,9 @@ def test_port_imports_without_jax_or_blazr_tpu():
         "server.app", "server.api_types", "server.streaming", "cli.main",
         "formats.gguf", "formats.ggml_quants", "formats.iq_quants", "formats.names",
         "formats.detect_arch", "loader.gguf_config", "loader.convert",
-        "tokenizer.gguf_tokenizer", "tokenizer.pretrained", "engine.bench")} <= names
+        "tokenizer.gguf_tokenizer", "tokenizer.pretrained", "engine.bench",
+        "models.mla", "models.mamba2", "models.hybrid", "models.paged_multi",
+        "kvcache.ssm_state")} <= names
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -225,16 +225,17 @@ def test_safetensors_roundtrip_bf16_without_ml_dtypes(tmp_path):
 
 def test_unserved_families_and_gguf_raise(tmp_path, ckpts):
     """The dense and MoE families load (tests/test_torch_families.py,
-    tests/test_torch_moe.py), and so do GGUF files (tests/test_torch_gguf.py);
-    a DeepSeek MLA and a Mamba2 checkpoint still raise, naming queue A item
+    tests/test_torch_moe.py), so do GGUF files (tests/test_torch_gguf.py)
+    and DeepSeek MLA, Mamba2 and hybrid checkpoints (tests/test_torch_mla.py
+    and the others); a Mamba3 checkpoint still raises, naming queue A item
     11, whether from safetensors or from GGUF metadata. A file that is not
     GGUF raises as the JAX reader does."""
     from blazr_tpu_torch.formats import GgmlType, write_gguf
     from blazr_tpu_torch.utils.synthetic import write_gguf_checkpoint
 
-    for name, extra in (("deepseek", {"model_type": "deepseek_v3", "kv_lora_rank": 16,
-                                      "n_routed_experts": 4}),
-                        ("mamba2", {"model_type": "mamba2"})):
+    for name, extra in (("mamba3", {"model_type": "mamba3"}),
+                        ("hybrid-mamba3", {"layer_types": ["mamba", "attention"],
+                                           "state_size": 16, "mamba3_enabled": True})):
         d = tmp_path / name
         write_tiny_llama_checkpoint(d, np.random.default_rng(5), cfg=extra)
         with pytest.raises(NotImplementedError, match="item 11"):
@@ -247,14 +248,13 @@ def test_unserved_families_and_gguf_raise(tmp_path, ckpts):
     assert detect_model_source(g).quant == QuantMethod.GGUF
     model, cfg = load_model(g, device=CPU)
     assert cfg.model.num_layers == 1 and model.params["layers"][0]["q"].fmt == "ggml_q8_0"
-    mla = tmp_path / "mla.gguf"
-    write_gguf(mla, {"general.architecture": "deepseek2",
-                     "deepseek2.embedding_length": 64, "deepseek2.block_count": 1,
-                     "deepseek2.attention.kv_lora_rank": 16},
+    mamba3 = tmp_path / "mamba3.gguf"
+    write_gguf(mamba3, {"general.architecture": "mamba3",
+                        "mamba3.embedding_length": 64, "mamba3.block_count": 1},
                {"token_embd.weight": (np.zeros((256, 64), np.float32), GgmlType.F32,
                                       (256, 64))})
     with pytest.raises(NotImplementedError, match="item 11"):
-        load_model(mla, device=CPU)
+        load_model(mamba3, device=CPU)
     bad = tmp_path / "bad.gguf"
     bad.write_bytes(b"NOTGGUF-at-all..........")
     with pytest.raises(ValueError, match="not a GGUF file"):

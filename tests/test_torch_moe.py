@@ -561,6 +561,10 @@ def test_norm_topk_prob_default_follows_transformers(model_type, arch, port, jax
 
 @pytest.mark.parametrize("kind", ["mla", "mamba2", "hybrid"])
 def test_unserved_families_raise_item_11(kind):
+    """MLA, Mamba2 and hybrid models are served now (tests/test_torch_mla.py,
+    test_torch_mamba2.py, test_torch_hybrid.py); what stays of item 11 is the
+    Mamba3 mixer, which raises naming it for each kind of recurrent config,
+    and a vision tower raises naming item 12."""
     cfg = _tiny("mixtral")
     if kind == "mla":
         cfg = dataclasses.replace(cfg, model_type="deepseek", attention=dataclasses.replace(
@@ -571,8 +575,17 @@ def test_unserved_families_raise_item_11(kind):
     else:
         cfg = dataclasses.replace(cfg, hybrid_layers=["attention", "mamba2"],
                                   ssm=SsmConfig())
+    tllama.check_config(cfg)
+    if kind == "mla":
+        cfg = dataclasses.replace(cfg, hybrid_layers=["mamba2", "attention"],
+                                  ssm=SsmConfig())
+    mamba3 = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, variant="mamba3"))
     with pytest.raises(NotImplementedError, match="item 11"):
-        tllama.check_config(cfg)
+        tllama.check_config(mamba3)
+    from blazr_tpu_torch.config.model_config import VisionConfig
+
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tllama.check_config(dataclasses.replace(cfg, vision=VisionConfig()))
 
 
 @pytest.mark.parametrize("what,item", [("offload", 12), ("ep", 13)])
