@@ -1,15 +1,23 @@
 """Command-line interface.
 
-Counterpart of ``blazr_tpu/cli/main.py`` for the commands of the port's
-entry path: ``run`` (one prompt, or a REPL, through the Executor),
+Counterpart of ``blazr_tpu/cli/main.py``: ``run`` and ``generate`` (one
+prompt, or a REPL, through the Executor), ``chat`` (a multi-turn REPL over
+the chat template, the Executor's session cache reused across turns),
 ``serve`` (the OpenAI-compatible HTTP server, optionally over the
-continuous-batching engine), ``bench`` (the prompt-length sweep of
-``engine/bench.py``) and ``convert`` (safetensors ↔ GGUF). They run on
-``cuda`` unless ``--device cpu``. The JAX CLI's other commands exit 2 and
-name their ROADMAP item.
+continuous-batching engine; ``--tls-cert``/``--tls-key`` serve HTTPS),
+``bench`` (the prompt-length sweep of ``engine/bench.py``), ``convert``
+(safetensors ↔ GGUF), ``info`` (a checkpoint's metadata as JSON), ``list``
+(the models of a directory), ``ps`` (a running server's loaded models),
+``tokenize``, ``completions`` (a bash or zsh completion script) and
+``pull`` (a Hub download; needs ``huggingface_hub`` and a network). The
+commands that load a model run on ``cuda`` unless ``--device cpu``.
+``swarm`` and ``disagg`` exit 2 and name their ROADMAP item.
 
     python -m blazr_tpu_torch.cli serve --model FILE.gguf --continuous-batching
+    python -m blazr_tpu_torch.cli serve --model DIR --tls-cert cert.pem --tls-key key.pem
     python -m blazr_tpu_torch.cli run DIR --prompt "..." --device cpu
+    python -m blazr_tpu_torch.cli generate DIR "..." -t 0
+    python -m blazr_tpu_torch.cli info DIR
     python -m blazr_tpu_torch.cli bench FILE.gguf --prompt-lens 32,128,512
     python -m blazr_tpu_torch.cli convert DIR out.gguf --quant Q4_K
 """
@@ -27,11 +35,7 @@ from pathlib import Path
 
 # Commands of the JAX CLI this one does not run, with the ROADMAP queue A
 # item that ports them.
-NOT_PORTED = {
-    "generate": "item 9", "chat": "item 9", "info": "item 9", "list": "item 9",
-    "ps": "item 9", "tokenize": "item 9", "swarm": "item 13", "disagg": "item 13",
-    "completions": "item 9", "pull": "item 9",
-}
+NOT_PORTED = {"swarm": "item 13", "disagg": "item 13"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,6 +66,20 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--seed", type=int)
     run.add_argument("--no-warmup", action="store_true")
 
+    gen = sub.add_parser("generate", help="alias of run --prompt", parents=[loadopts])
+    gen.add_argument("model")
+    gen.add_argument("prompt")
+    gen.add_argument("--max-tokens", "-n", type=int, default=256)
+    gen.add_argument("--temperature", "-t", type=float, default=0.7)
+
+    chat = sub.add_parser("chat", help="multi-turn chat REPL")
+    chat.add_argument("model")
+    chat.add_argument("--system", help="system prompt")
+    chat.add_argument("--template", help="chat template override")
+    chat.add_argument("--max-tokens", "-n", type=int, default=512)
+    chat.add_argument("--temperature", "-t", type=float, default=0.7)
+    chat.add_argument("--dtype", choices=["f32", "f16", "bf16"])
+
     serve = sub.add_parser("serve", help="start the OpenAI-compatible server",
                            parents=[loadopts])
     serve.add_argument("--model", default=os.environ.get("BLAZR_TPU_MODEL_DIR", "."))
@@ -77,6 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--max-batch-size", type=int, default=8)
     serve.add_argument("--decode-horizon", type=int, default=8,
                        help="decode steps per engine round")
+    serve.add_argument("--tls-cert", metavar="PEM", help="serve HTTPS with this certificate "
+                       "chain (with --tls-key)")
+    serve.add_argument("--tls-key", metavar="PEM", help="the certificate's private key")
 
     bench = sub.add_parser("bench", help="benchmark a model")
     bench.add_argument("model", nargs="?", help="model dir / file (synthetic if omitted)")
@@ -87,6 +108,28 @@ def build_parser() -> argparse.ArgumentParser:
     bench.add_argument("--dtype", choices=["f32", "f16", "bf16"])
     bench.add_argument("--profile", metavar="DIR",
                        help="write a torch.profiler trace (Chrome trace JSON) to DIR")
+
+    info = sub.add_parser("info", help="show checkpoint metadata")
+    info.add_argument("model")
+
+    lst = sub.add_parser("list", help="list local models")
+    lst.add_argument("--dir", default=os.environ.get("BLAZR_TPU_MODEL_DIR", "."))
+
+    ps = sub.add_parser("ps", help="query a running server for loaded models")
+    ps.add_argument("--host", default="localhost")
+    ps.add_argument("--port", type=int, default=8080)
+
+    tok = sub.add_parser("tokenize", help="tokenize text with a model's tokenizer")
+    tok.add_argument("model")
+    tok.add_argument("text")
+
+    comp = sub.add_parser("completions", help="emit a shell completion script")
+    comp.add_argument("shell", choices=["bash", "zsh"], nargs="?", default="bash")
+
+    pull = sub.add_parser("pull", help="download a model from HF Hub")
+    pull.add_argument("repo_id")
+    pull.add_argument("--dest", default=None)
+    pull.add_argument("--revision", default="main")
 
     conv = sub.add_parser("convert", help="convert checkpoint formats")
     conv.add_argument("src")
@@ -110,12 +153,14 @@ def main(argv=None) -> int:
               f"package yet (ROADMAP queue A {NOT_PORTED[args.command]}); "
               "run it with python -m blazr_tpu.cli", file=sys.stderr)
         return 2
-    return {"run": cmd_run, "serve": cmd_serve, "bench": cmd_bench,
-            "convert": cmd_convert}[args.command](args)
+    return {"run": cmd_run, "generate": cmd_generate, "chat": cmd_chat,
+            "serve": cmd_serve, "bench": cmd_bench, "info": cmd_info, "list": cmd_list,
+            "ps": cmd_ps, "tokenize": cmd_tokenize, "convert": cmd_convert,
+            "pull": cmd_pull, "completions": cmd_completions}[args.command](args)
 
 
 def _load_executor(model_path: str, dtype, device: str, kv_cache_dtype=None,
-                   quant_compute=None):
+                   quant_compute=None, prefix_cache: bool = False):
     from ..engine.executor import Executor
     from ..loader import load_model
     from ..tokenizer import load_tokenizer
@@ -126,6 +171,8 @@ def _load_executor(model_path: str, dtype, device: str, kv_cache_dtype=None,
         app_cfg.inference.kv_cache_dtype = kv_cache_dtype
     if quant_compute:
         app_cfg.inference.quant_compute = quant_compute
+    if prefix_cache:
+        app_cfg.inference.prefix_cache = True
     p = Path(model_path)
     tok = load_tokenizer(p.parent if p.is_file() else p)
     ex = Executor(model, tok, app_cfg)
@@ -180,6 +227,48 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_generate(args) -> int:
+    from ..config.generation import GenerationConfig
+
+    ex = _load_executor(args.model, args.dtype, args.device,
+                        kv_cache_dtype=args.kv_cache_dtype, quant_compute=args.quant_compute)
+    cfg = GenerationConfig(max_tokens=args.max_tokens, temperature=args.temperature)
+    _print_stream(ex, ex.tokenizer.encode(args.prompt), cfg)
+    return 0
+
+
+def cmd_chat(args) -> int:
+    """The JAX ``cmd_chat`` (cli/main.py:452): each turn's prompt is the
+    whole conversation, so the Executor's session cache (prefix cache on)
+    prefills only what the turn adds."""
+    from ..config.generation import GenerationConfig
+    from ..engine.generate_text import collect_generation
+    from ..model_meta.chat_template import ChatMessage, ChatTemplate, TemplateFormat
+
+    ex = _load_executor(args.model, args.dtype, args.device, prefix_cache=True)
+    template = (ChatTemplate(TemplateFormat.from_name(args.template)) if args.template
+                else ChatTemplate.detect(model_type=ex.model.cfg.model_type))
+    msgs: list[ChatMessage] = []
+    if args.system:
+        msgs.append(ChatMessage("system", args.system))
+    cfg = GenerationConfig(max_tokens=args.max_tokens, temperature=args.temperature)
+    print("chat mode — /exit to quit", file=sys.stderr)
+    while True:
+        try:
+            line = input("user> ").strip()
+        except (EOFError, KeyboardInterrupt):
+            break
+        if line in ("/exit", "/quit"):
+            break
+        if not line:
+            continue
+        msgs.append(ChatMessage("user", line))
+        res = collect_generation(ex, ex.tokenizer.encode(template.apply(msgs)), cfg)
+        print(f"assistant> {res.text}")
+        msgs.append(ChatMessage("assistant", res.text))
+    return 0
+
+
 def cmd_serve(args) -> int:
     """The JAX ``cmd_serve`` (cli/main.py:487): under
     ``--continuous-batching`` the batch engine serves with the prefix cache
@@ -202,7 +291,8 @@ def cmd_serve(args) -> int:
         except FileNotFoundError:
             print("no default model found; loading on demand", file=sys.stderr)
     cfg = ServerConfig(host=args.host, port=args.port, api_keys=api_keys,
-                       max_inflight_tokens=args.max_inflight_tokens)
+                       max_inflight_tokens=args.max_inflight_tokens,
+                       tls_cert=args.tls_cert, tls_key=args.tls_key)
     batch_engine = None
     if args.continuous_batching:
         from ..engine.batch_engine import BatchEngine
@@ -255,6 +345,107 @@ def cmd_bench(args) -> int:
     print(json.dumps(results, indent=2))
     if args.json_out:
         Path(args.json_out).write_text(json.dumps(results, indent=2))
+    return 0
+
+
+def cmd_info(args) -> int:
+    """The JAX ``cmd_info`` (cli/main.py:603): format, quant and path, and
+    the GGUF metadata's or the config chain's model keys, as JSON."""
+    from ..formats import Gguf, ModelFormat, detect_model_source
+    from ..loader import load_varmap, resolve_config
+
+    src = detect_model_source(args.model)
+    out = {"format": src.format.value, "quant": src.quant.value, "path": str(src.path)}
+    if src.format == ModelFormat.GGUF:
+        with Gguf.open(src.path) as g:
+            md = g.metadata()
+            arch = md.architecture()
+            out.update({
+                "architecture": arch, "hidden_size": md.embedding_length(),
+                "num_layers": md.block_count(), "context_length": md.context_length(),
+                "dominant_quant": g.dominant_quant_type(),
+                "num_tensors": len(g.tensor_names()),
+                "is_mla": md.get_u32(f"{arch}.attention.kv_lora_rank") is not None,
+                "is_moe": md.get_u32(f"{arch}.expert_count") is not None})
+    else:
+        m = resolve_config(src, None if src.config_path else load_varmap(src)).model
+        out.update({
+            "architecture": m.model_type, "hidden_size": m.hidden_size,
+            "num_layers": m.num_layers, "vocab_size": m.vocab_size,
+            "is_mla": bool(m.attention and m.attention.is_mla),
+            "is_moe": m.moe is not None, "is_ssm": m.ssm is not None})
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def cmd_list(args) -> int:
+    from ..engine.model_scheduler import ModelScheduler
+
+    for name in ModelScheduler(args.dir, device=args.device).discover_models():
+        print(name)
+    return 0
+
+
+def cmd_ps(args) -> int:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{args.host}:{args.port}/api/ps", timeout=10) as r:
+        print(r.read().decode())
+    return 0
+
+
+def cmd_tokenize(args) -> int:
+    from ..tokenizer import load_tokenizer
+
+    p = Path(args.model)
+    tok = load_tokenizer(p.parent if p.is_file() else p,
+                         gguf_path=p if p.suffix == ".gguf" else None)
+    ids = tok.encode(args.text)
+    print(json.dumps({"tokens": ids, "count": len(ids)}))
+    return 0
+
+
+_COMPLETION_BASH = """_blazr_tpu_torch() {
+  local cur=${COMP_WORDS[COMP_CWORD]}
+  local cmds="run generate chat serve bench info list ps tokenize convert \
+swarm disagg pull completions"
+  if [ $COMP_CWORD -eq 1 ]; then
+    COMPREPLY=( $(compgen -W "$cmds" -- "$cur") )
+  else
+    COMPREPLY=( $(compgen -f -- "$cur") )
+  fi
+}
+complete -F _blazr_tpu_torch blazr-tpu-torch
+complete -F _blazr_tpu_torch "python -m blazr_tpu_torch.cli"
+"""
+
+
+def cmd_completions(args) -> int:
+    """A shell completion script: the JAX one, for this package's names.
+    zsh reads the bash script through its bash-compatibility layer."""
+    if args.shell == "zsh":
+        print("autoload -U +X bashcompinit && bashcompinit")
+    print(_COMPLETION_BASH)
+    return 0
+
+
+def cmd_pull(args) -> int:
+    """Download config, tokenizer and weights from the HF Hub (needs
+    ``huggingface_hub`` and a network): exit 2 without the package, 1 on a
+    failed download, as the JAX ``cmd_pull``."""
+    dest = Path(args.dest or args.repo_id.split("/")[-1])
+    try:
+        from huggingface_hub import snapshot_download
+    except ImportError:
+        print("huggingface_hub is not installed; cannot pull", file=sys.stderr)
+        return 2
+    try:
+        snapshot_download(args.repo_id, revision=args.revision, local_dir=dest,
+                          allow_patterns=["*.safetensors", "*.json", "*.gguf", "*.model"])
+    except Exception as e:
+        print(f"pull failed (network unavailable?): {e}", file=sys.stderr)
+        return 1
+    print(f"pulled {args.repo_id} -> {dest}")
     return 0
 
 

@@ -3,6 +3,7 @@ from .generation import GenerationConfig
 from .inference import InferenceConfig, SpeculativeDecodingConfig
 from .model_config import AttentionConfig, RopeScaling, UniversalConfig
 from .server import LatencySlo, ServerConfig
+from .user import UserConfig, user_config_path
 
 __all__ = [
     "AppConfig",
@@ -14,5 +15,7 @@ __all__ = [
     "ServerConfig",
     "SpeculativeDecodingConfig",
     "UniversalConfig",
+    "UserConfig",
     "parse_dtype",
+    "user_config_path",
 ]

@@ -283,6 +283,17 @@ class Executor:
         except Exception:
             return ""
 
+    def get_embeddings(self, prompt_ids: list[int]) -> np.ndarray:
+        """[T, H] f32 token embeddings of ``prompt_ids``: the model's
+        embedding rows, scaled as the forward scales them (JAX :652-660;
+        pooling is the server's). A gather on the device, no kernel."""
+        from ..models.llama import forward_embed
+
+        ids = torch.tensor([prompt_ids], dtype=torch.long, device=self.device)
+        with torch.inference_mode():
+            emb = forward_embed(self.model.params, self.model.cfg, ids)[0]
+            return emb.float().cpu().numpy()
+
     def warmup(self) -> float:
         """Run a 3-token prompt for 2 tokens: builds the kernels the
         served path launches before the first request."""

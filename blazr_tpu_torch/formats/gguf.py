@@ -306,6 +306,16 @@ class Gguf:
         info = self._tensors[name]
         return dequantize_ggml(self.tensor_bytes(name), info.ggml_type, info.shape)
 
+    def dominant_quant_type(self) -> str:
+        """The most common ggml type among the tensors (``cli info``)."""
+        counts: dict[str, int] = {}
+        for name in self.tensor_names():
+            t = self.tensor_info(name).ggml_type.name
+            counts[t] = counts.get(t, 0) + 1
+        if not counts:
+            return "Unknown"
+        return max(counts.items(), key=lambda kv: kv[1])[0]
+
     def close(self) -> None:
         try:
             self._mm.close()

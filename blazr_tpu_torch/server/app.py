@@ -7,19 +7,29 @@ connection after each response, so a streamed (SSE, ``text/event-stream``)
 body simply ends when the connection does. The continuous-batching engine's
 ``run()`` is a task on the same event loop.
 
-Ported routes: ``/health``, ``/metrics`` (the Prometheus text format,
-unauthenticated like ``/health``), ``/v1/models``, ``/v1/models/{id}``,
-``/v1/completions`` and ``/v1/chat/completions`` (streaming and not),
-``/tokenize``, ``/detokenize`` and ``/apply-template``, with bearer/x-api-key
-auth and the ``max_inflight_tokens`` admission of the JAX server (503 +
-Retry-After), CORS, the per-request timeout (408) and the concurrency cap.
-Every other route of the JAX ``create_app`` answers 501 (ROADMAP queue A
-item 9). TLS raises at startup.
+Routes: every one of the JAX ``create_app`` (app.py:1020-1060) but the
+three ``/v1/lora`` routes, which answer 501 naming ROADMAP queue A item
+5a.6. ``/health``, ``/metrics`` (the Prometheus text format,
+unauthenticated like ``/health``), ``/v1/models[/{id}]``,
+``/v1/completions`` and ``/v1/chat/completions`` (streaming and not; a chat
+with ``tools`` gets the tools system prompt and its reply's tool calls,
+``server/tools.py``), ``/tokenize``, ``/detokenize``, ``/apply-template``,
+``/v1/messages`` (the Anthropic API, ``server/anthropic.py``, with its
+``event:`` stream) and ``/v1/messages/count_tokens``, ``/v1/responses``,
+``/v1/infill``, ``/v1/embeddings``, ``/rerank`` and ``/v1/rerank``, the
+audio stubs (the JAX 501 bodies), and the Ollama-style management and slot
+routes (``server/management.py``; ``/api/pull`` streams NDJSON lines). Bearer/
+x-api-key auth, the ``max_inflight_tokens`` admission of the JAX server
+(503 + Retry-After), CORS, the per-request timeout (408) and the
+concurrency cap. ``ServerConfig.tls_cert`` and ``tls_key`` serve HTTPS
+(both or neither). The user config file is polled and reloaded as the JAX
+server does (``server/config_watch.py``).
 
 The request metrics and SLO records follow the JAX handlers, except that a
 streamed request also counts its prompt and generated tokens and its e2e
-latency, and a streamed completion observes TTFT and ITL as a streamed
-chat does (the JAX server records none of these; ROADMAP §C).
+latency, and streamed completions and Anthropic messages observe TTFT and
+ITL as a streamed chat does (the JAX server records none of these; ROADMAP
+§C).
 """
 
 from __future__ import annotations
@@ -47,29 +57,22 @@ from .api_types import (ApiError, chat_response, completion_logprobs_block,
                         usage_dict, validate_generation_params)
 from .metrics import CONTENT_TYPE, Metrics, refresh
 from .slo import SloTracker
+from .slots import SlotManager
 from .streaming import SSE_DONE, SSE_HEADERS, ChatStream, CompletionStream, sse_event
+from .tools import extract_tool_calls, tools_system_prompt
 
 logger = logging.getLogger(__name__)
 
 _REASONS = {200: "OK", 201: "Created", 204: "No Content", 400: "Bad Request",
             401: "Unauthorized", 404: "Not Found", 405: "Method Not Allowed",
-            408: "Request Timeout", 413: "Payload Too Large",
+            408: "Request Timeout", 409: "Conflict", 413: "Payload Too Large",
             500: "Internal Server Error", 501: "Not Implemented",
             503: "Service Unavailable"}
 _MAX_HEADER_BYTES = 64 * 1024
 
-# Routes of the JAX create_app (app.py:1020-1060) this server does not serve.
-UNPORTED_ROUTES = [
-    ("GET", "/api/tags"), ("GET", "/api/ps"),
-    ("POST", "/api/show"), ("DELETE", "/api/delete"), ("POST", "/api/copy"),
-    ("POST", "/api/pull"), ("GET", "/api/slots"), ("POST", "/api/slots"),
-    ("DELETE", "/api/slots/{slot_id}"), ("POST", "/v1/embeddings"),
-    ("POST", "/v1/messages"), ("POST", "/v1/messages/count_tokens"),
-    ("POST", "/v1/responses"), ("POST", "/rerank"), ("POST", "/v1/rerank"),
-    ("POST", "/v1/infill"), ("POST", "/v1/audio/speech"),
-    ("POST", "/v1/audio/transcriptions"), ("POST", "/v1/lora"), ("GET", "/v1/lora"),
-    ("DELETE", "/v1/lora/{name}"),
-]
+# Routes of the JAX create_app (app.py:1020-1060) this server does not serve:
+# the LoRA adapter registry comes with engine/lora.py.
+UNPORTED_ROUTES = [("POST", "/v1/lora"), ("GET", "/v1/lora"), ("DELETE", "/v1/lora/{name}")]
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +311,7 @@ class App:
 
 @dataclass
 class AppState:
-    """Shared server state (the JAX AppState without slots)."""
+    """Shared server state (the JAX AppState)."""
 
     scheduler: ModelScheduler
     server_cfg: ServerConfig
@@ -316,11 +319,17 @@ class AppState:
     start_time: float = field(default_factory=time.time)
     inflight_tokens: int = 0
     metrics: Metrics = field(default_factory=Metrics)
+    slots: SlotManager = field(default_factory=SlotManager)
     slo: SloTracker = None            # type: ignore[assignment]
+    user_config: Any = None           # the hot-reloaded UserConfig
 
     def __post_init__(self) -> None:
         if self.slo is None:
             self.slo = SloTracker(self.server_cfg.slo, self.metrics)
+        if self.user_config is None:
+            from ..config.user import UserConfig
+
+            self.user_config = UserConfig.load()
 
     # -- admission control (the JAX server's, app.py:75-93) ------------------
     def try_admit(self, tokens: int) -> bool:
@@ -372,14 +381,19 @@ def _content_text(content) -> str:
 
 
 def _build_prompt(body: dict, model_cfg) -> str:
-    """Apply the chat template."""
-    if body.get("tools"):
-        raise ApiError(501, "tool calling is not served by blazr_tpu_torch yet "
-                       "(ROADMAP queue A item 9)", "not_implemented_error")
+    """Apply the chat template, with the tools system prompt when the
+    request has ``tools``."""
     messages = [ChatMessage(m.get("role", "user"), _content_text(m.get("content")))
                 for m in body.get("messages", [])]
     if not messages:
         raise ApiError(400, "messages must not be empty")
+    tools = body.get("tools")
+    if tools:
+        sys_prompt = tools_system_prompt(tools)
+        if messages[0].role == "system":
+            messages[0].content += "\n\n" + sys_prompt
+        else:
+            messages.insert(0, ChatMessage("system", sys_prompt))
     override = body.get("template")
     if override:
         template = ChatTemplate(TemplateFormat.from_name(override))
@@ -388,6 +402,18 @@ def _build_prompt(body: dict, model_cfg) -> str:
     if body.get("raw"):
         return "\n".join(m.content for m in messages)
     return template.apply(messages)
+
+
+def generation_defaults(state: AppState, executor) -> GenerationConfig:
+    """The model's generation defaults with the user config's temperature
+    and max_tokens over them: a hot reload of the file moves the defaults
+    of the next request (the JAX server reloads the file and applies
+    nothing; ROADMAP §C)."""
+    over = {k: getattr(state.user_config, k, None) for k in ("temperature", "max_tokens")}
+    over = {k: v for k, v in over.items() if v is not None}
+    if not over:
+        return executor.app_cfg.generation
+    return GenerationConfig.from_dict({**executor.app_cfg.generation.to_dict(), **over})
 
 
 def _get_executor(state: AppState, body: dict):
@@ -532,7 +558,7 @@ async def completions(request: Request):
     body = request.json()
     validate_generation_params(body)
     executor = await asyncio.to_thread(_get_executor, state, body)
-    cfg = gen_config_from_body(body, executor.app_cfg.generation)
+    cfg = gen_config_from_body(body, generation_defaults(state, executor))
     check_request(cfg)
     ctx_prefix = _context_prefix(executor, body)
     prompt = body.get("prompt", "")
@@ -591,6 +617,8 @@ async def completions(request: Request):
                 usage_p += res.prompt_tokens
                 usage_c += res.completion_tokens
         state.tokens_done(usage_p, usage_c, t0)
+        if body.get("id_slot"):        # llama.cpp-style slot affinity
+            state.slots.touch(str(body["id_slot"]), usage_p, usage_c)
         return Response.json(completion_response(body.get("model", "default"), choices,
                                                  usage_dict(usage_p, usage_c)))
     finally:
@@ -603,7 +631,7 @@ async def chat_completions(request: Request):
     body = request.json()
     validate_generation_params(body)
     executor = await asyncio.to_thread(_get_executor, state, body)
-    cfg = gen_config_from_body(body, executor.app_cfg.generation)
+    cfg = gen_config_from_body(body, generation_defaults(state, executor))
     check_request(cfg)
     prompt = _context_prefix(executor, body) + _build_prompt(body, executor.model.cfg)
     prompt_ids = executor.tokenizer.encode(prompt)
@@ -630,16 +658,23 @@ async def chat_completions(request: Request):
             else:
                 res = await asyncio.to_thread(collect_generation, executor, prompt_ids,
                                               c, want_think)
-            msg: dict[str, Any] = {"role": "assistant", "content": res.text}
+            tool_calls = extract_tool_calls(res.text) if body.get("tools") else None
+            msg: dict[str, Any] = {"role": "assistant",
+                                   "content": None if tool_calls else res.text}
             if res.thinking and want_think:
                 msg["reasoning_content"] = res.thinking
-            choices.append({"index": i, "message": msg,
-                            "finish_reason": res.finish_reason.to_openai(),
+            finish = res.finish_reason.to_openai()
+            if tool_calls:
+                msg["tool_calls"] = tool_calls
+                finish = "tool_calls"
+            choices.append({"index": i, "message": msg, "finish_reason": finish,
                             "logprobs": (logprobs_block(res.gen_tokens)
                                          if cfg.logprobs and res.gen_tokens else None)})
             usage_p += res.prompt_tokens
             usage_c += res.completion_tokens
         state.tokens_done(usage_p, usage_c, t0)
+        if body.get("id_slot"):
+            state.slots.touch(str(body["id_slot"]), usage_p, usage_c)
         return Response.json(chat_response(
             body.get("model", "default"), choices,
             usage_dict(usage_p, usage_c, eval_duration=time.time() - t0)))
@@ -649,12 +684,15 @@ async def chat_completions(request: Request):
 
 
 async def _stream(request: Request, state: AppState, executor, prompt_ids, cfg,
-                  on_item: Callable, head: Optional[bytes]) -> StreamResponse:
-    """Shared SSE loop: the head chunk, one event per delta (``on_item``),
-    ``[DONE]``; a client gone mid-stream cancels the engine sequence. The
-    first content delta's time goes to the TTFT histogram and SLO window,
-    each later one's gap to ITL (the JAX ``_stream_chat``, app.py:664-677);
-    a stream that ends counts its tokens and e2e latency."""
+                  on_item: Callable, head: Optional[bytes], tail: bytes = SSE_DONE,
+                  on_error: Optional[Callable[[str], bytes]] = None) -> StreamResponse:
+    """Shared SSE loop: the head events, the events of each delta
+    (``on_item``), the tail (``[DONE]``); an error after the head is one
+    more event (``on_error``, else an OpenAI error chunk); a client gone
+    mid-stream cancels the engine sequence. The first content delta's time
+    goes to the TTFT histogram and SLO window, each later one's gap to ITL
+    (the JAX ``_stream_chat``, app.py:664-677); a stream that ends counts
+    its tokens and e2e latency."""
     resp = StreamResponse(request, dict(SSE_HEADERS))
     await resp.prepare()
     seq_ref: dict = {}
@@ -684,14 +722,16 @@ async def _stream(request: Request, state: AppState, executor, prompt_ids, cfg,
             if fin is not None:
                 state.tokens_done(len(prompt_ids), generated, t0)
                 break
-        await resp.write(SSE_DONE)
+        if tail:
+            await resp.write(tail)
     except (ConnectionError, asyncio.CancelledError):
         logger.info("client disconnected mid-stream")
         if seq_ref.get("id") is not None:
             state.batch_engine.cancel(seq_ref["id"])
     except Exception as e:                      # after the head: an SSE error event
         logger.exception("stream failed")
-        await resp.write(sse_event({"error": {"message": str(e), "type": "server_error"}}))
+        await resp.write(on_error(str(e)) if on_error else sse_event(
+            {"error": {"message": str(e), "type": "server_error"}}))
     finally:
         await source.aclose()
     return resp
@@ -749,7 +789,7 @@ async def apply_template(request: Request) -> Response:
 
 async def not_ported(request: Request):
     raise ApiError(501, f"{request.method} {request.path} is not served by "
-                   "blazr_tpu_torch yet (ROADMAP queue A item 9)", "not_implemented_error")
+                   "blazr_tpu_torch yet (ROADMAP queue A item 5a.6)", "not_implemented_error")
 
 
 # ---------------------------------------------------------------------------
@@ -759,21 +799,40 @@ async def not_ported(request: Request):
 def create_app(scheduler: ModelScheduler, server_cfg: Optional[ServerConfig] = None,
                batch_engine=None) -> App:
     """The routes and state of the server; ``serve`` runs it."""
+    from . import management as mg
+    from .anthropic import count_tokens_handler, messages_handler
+    from .audio import speech_handler, transcriptions_handler
+    from .embeddings import embeddings_handler
+    from .infill import infill_handler
+    from .rerank import rerank_handler
+    from .responses import responses_handler
+
     server_cfg = server_cfg or ServerConfig()
-    if server_cfg.tls_cert or server_cfg.tls_key:
-        raise NotImplementedError("TLS is not served by blazr_tpu_torch yet "
-                                  "(ROADMAP queue A item 9)")
-    app = App(AppState(scheduler=scheduler, server_cfg=server_cfg,
-                       batch_engine=batch_engine))
-    app.add("GET", "/health", health)
-    app.add("GET", "/metrics", metrics_handler)
-    app.add("GET", "/v1/models", list_models)
-    app.add("GET", "/v1/models/{model_id}", get_model)
-    app.add("POST", "/v1/completions", completions)
-    app.add("POST", "/v1/chat/completions", chat_completions)
-    app.add("POST", "/tokenize", tokenize)
-    app.add("POST", "/detokenize", detokenize)
-    app.add("POST", "/apply-template", apply_template)
+    if bool(server_cfg.tls_cert) != bool(server_cfg.tls_key):
+        raise ValueError("TLS needs both tls_cert and tls_key")
+    state = AppState(scheduler=scheduler, server_cfg=server_cfg, batch_engine=batch_engine)
+    app = App(state)
+    for method, path, handler in (
+            ("GET", "/health", health), ("GET", "/metrics", metrics_handler),
+            ("GET", "/v1/models", list_models), ("GET", "/v1/models/{model_id}", get_model),
+            ("POST", "/v1/completions", completions),
+            ("POST", "/v1/chat/completions", chat_completions),
+            ("POST", "/tokenize", tokenize), ("POST", "/detokenize", detokenize),
+            ("POST", "/apply-template", apply_template),
+            ("GET", "/api/tags", mg.api_tags), ("GET", "/api/ps", mg.api_ps),
+            ("POST", "/api/show", mg.api_show), ("DELETE", "/api/delete", mg.api_delete),
+            ("POST", "/api/copy", mg.api_copy), ("POST", "/api/pull", mg.api_pull),
+            ("GET", "/api/slots", mg.slots_list), ("POST", "/api/slots", mg.slots_create),
+            ("DELETE", "/api/slots/{slot_id}", mg.slots_delete),
+            ("POST", "/v1/embeddings", embeddings_handler),
+            ("POST", "/v1/messages", messages_handler),
+            ("POST", "/v1/messages/count_tokens", count_tokens_handler),
+            ("POST", "/v1/responses", responses_handler),
+            ("POST", "/rerank", rerank_handler), ("POST", "/v1/rerank", rerank_handler),
+            ("POST", "/v1/infill", infill_handler),
+            ("POST", "/v1/audio/speech", speech_handler),
+            ("POST", "/v1/audio/transcriptions", transcriptions_handler)):
+        app.add(method, path, handler)
     for method, path in UNPORTED_ROUTES:
         app.add(method, path, not_ported)
 
@@ -803,7 +862,35 @@ def create_app(scheduler: ModelScheduler, server_cfg: Optional[ServerConfig] = N
 
     app.on_startup.append(start_reaper)
     app.on_cleanup.append(stop_reaper)
+
+    async def start_config_watch():
+        from ..config.user import UserConfig, user_config_path
+        from .config_watch import watch_config
+
+        def on_change(data: dict) -> None:
+            state.user_config = UserConfig.from_dict(data)
+
+        tasks["config_watch"] = asyncio.create_task(watch_config(
+            user_config_path(), on_change, poll_interval=server_cfg.config_poll_interval))
+
+    async def stop_config_watch():
+        tasks["config_watch"].cancel()
+
+    app.on_startup.append(start_config_watch)
+    app.on_cleanup.append(stop_config_watch)
     return app
+
+
+def ssl_context(cfg: ServerConfig):
+    """The server-side TLS context of ``cfg.tls_cert``/``tls_key``, or None
+    without them (the JAX ``run_server``, app.py:1124-1129)."""
+    if not (cfg.tls_cert and cfg.tls_key):
+        return None
+    import ssl
+
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.load_cert_chain(cfg.tls_cert, cfg.tls_key)
+    return ctx
 
 
 async def serve(app: App, host: str, port: int,
@@ -812,13 +899,14 @@ async def serve(app: App, host: str, port: int,
     """Run ``app`` on ``host:port`` until ``stop`` is set (forever without
     one); ``started(port)`` is called once the socket listens (port 0 picks
     a free port)."""
+    ctx = ssl_context(app.cfg)
     for fn in app.on_startup:
         await fn()
     server = await asyncio.start_server(app.handle_connection, host, port,
-                                        limit=_MAX_HEADER_BYTES)
+                                        limit=_MAX_HEADER_BYTES, ssl=ctx)
     try:
         bound = server.sockets[0].getsockname()[1]
-        logger.info("serving on %s:%d", host, bound)
+        logger.info("serving on %s://%s:%d", "https" if ctx else "http", host, bound)
         if started is not None:
             started(bound)
         if stop is None:

@@ -53,6 +53,15 @@ class SentencePieceBpeTokenizer:
     def vocab_size(self) -> int:
         return len(self.tokens)
 
+    def special_token_id(self, token: str) -> Optional[int]:
+        """The id of a control or user-defined token (the infill route's
+        FIM tokens), else None."""
+        i = self.index.get(token)
+        if i is not None and self.token_types[i] in (TOKEN_TYPE_CONTROL,
+                                                     TOKEN_TYPE_USER_DEFINED):
+            return i
+        return None
+
     # -- encode ------------------------------------------------------------
     def encode(self, text: str, add_bos: Optional[bool] = None) -> list[int]:
         ids: list[int] = []

@@ -68,14 +68,31 @@ Phases, in order; any failure raises and the script exits non-zero:
       tier's pinned pool, A restored in place gives a device-tier hit's
       stream exactly; a block's save and restore timed); wave 2's prefill
       group profiled with the cache on and off; B1 and B2 launched;
-  7.  the normal entry point: an 8-layer full-width AWQ checkpoint and a
-      BPE tokenizer.json written to disk, loaded by load_model (f16) and
-      served over HTTP with continuous batching and the prefix cache, the
-      engine warmed and not in turns (8 concurrent requests each, the chats
-      sharing a system message, then one more chat that hits its cached
-      blocks; ``GET /metrics`` parses, counts the tokens sent back and
-      reports the engine's prefix-cache hits), then ``python -m
-      blazr_tpu_torch.cli serve`` (warmed) as a subprocess;
+  7.  the normal entry point: an 8-layer full-width AWQ checkpoint (4 in a
+      full run, HTTP_LAYERS) and a BPE tokenizer.json written to disk,
+      loaded by load_model (f16) and served over HTTP with continuous
+      batching and the prefix cache, the engine warmed and not in turns (8
+      concurrent requests each, the chats sharing a system message, then
+      one more chat that hits its cached blocks; ``GET /metrics`` parses,
+      counts the tokens sent back and reports the engine's prefix-cache
+      hits), then ``python -m blazr_tpu_torch.cli serve`` (warmed) as a
+      subprocess (in phase 7b when it runs too, which takes over phase 7's
+      loaded model);
+  7b. (``routes``) phase 7's checkpoint (written once a run) served as in
+      phase 7 (warmed, prefix cache): the chat, streamed chat, Anthropic
+      ``/v1/messages`` (plain and streamed: the event order, the deltas
+      equal to the plain reply), ``/v1/responses``, ``/v1/infill`` and
+      ``/v1/completions`` routes, each ROUTE_REPS times alone, whose greedy
+      replies must be one reply (TTFT and e2e at the client); a 512-token
+      ``/v1/embeddings`` within 1e-3 of the host's f32 pooled vector,
+      ``/rerank`` in the host's order, a chat with tools, the audio stubs
+      and LoRA routes (501), slots, ``/api/tags|ps|show|copy|pull`` (pull
+      with ``huggingface_hub`` hidden: no download is tried), ``/metrics``
+      counting the Anthropic requests, B1 and B2 launched; the model over
+      HTTPS (a self-signed certificate, where there is an openssl binary),
+      ``/api/delete``; ``cli serve`` (warmed) answering ``/v1/messages``
+      and ``/api/ps``, ``cli ps`` printing the same JSON, ``cli generate``
+      and ``cli info`` on the checkpoint;
   8.  the sweeps behind the launch plans, straight through the libraries:
       B1's two variants over rows (TC_MIN_ROWS) and over K splits at decode
       rows, B2 over its split count, B3's two variants over rows
@@ -172,7 +189,7 @@ Phases, in order; any failure raises and the script exits non-zero:
       decode step; the wave of 8 greedy requests equal to the 8 served one
       after another (Codestral with the card in f32); ``cli run`` on both
       2-layer checkpoints.
-Phases 10-14 run between phases 7 and 8.
+Phases 7b and 10-14 run between phases 7 and 8.
 Each serving run sets the launch counts to 0 just before it and reads
 them just after; a replayed graph adds the launches it holds, and the
 kernels line counts the first run with graphs (the default path). Under
@@ -2059,7 +2076,11 @@ def serve_prefix(dev, card: str) -> dict:
 # phase 7: the normal entry point (checkpoint on disk, tokenizer, HTTP, CLI)
 # ---------------------------------------------------------------------------
 
+# The depth of phases 7 and 7b's checkpoint: 8 of Mistral-7B's 32 layers,
+# FULL_RUN_HTTP_LAYERS in a full run (``main`` sets it), where its three
+# loads (phase 7, 7b's ``cli serve`` and ``cli generate``) weigh on the limit.
 HTTP_LAYERS = 8
+FULL_RUN_HTTP_LAYERS = 4
 
 
 def _prompt_text(tok, n_tokens: int, rng) -> str:
@@ -2075,10 +2096,19 @@ def _prompt_text(tok, n_tokens: int, rng) -> str:
             return tok.decode(ids[:n_tokens])
 
 
-def _http(port: int, method: str, path: str, body=None, timeout: float = 600):
+def _http(port: int, method: str, path: str, body=None, timeout: float = 600,
+          tls: bool = False):
+    """(status, body) of one request to the local server on ``port``; over
+    https (the certificate not checked) with ``tls``."""
     import http.client
 
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    if tls:
+        import ssl
+
+        conn = http.client.HTTPSConnection("127.0.0.1", port, timeout=timeout,
+                                           context=ssl._create_unverified_context())
+    else:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
         conn.request(method, path, None if body is None else json.dumps(body),
                      {"Content-Type": "application/json"})
@@ -2149,16 +2179,17 @@ def parse_metrics(text: str) -> dict:
 
 
 @contextlib.contextmanager
-def http_server(sched, engine):
+def http_server(sched, engine, tls: tuple = (None, None)):
     """The port's HTTP server (``create_app`` + ``serve``) over ``engine`` on
     a free local port, in a thread with its own event loop; yields the port
-    and stops the server on exit."""
+    and stops the server on exit. ``tls``: (certificate, key) for HTTPS."""
     import threading
 
     from blazr_tpu_torch.config.server import ServerConfig
     from blazr_tpu_torch.server import create_app, serve
 
-    app = create_app(sched, ServerConfig(host="127.0.0.1", port=0), batch_engine=engine)
+    app = create_app(sched, ServerConfig(host="127.0.0.1", port=0, tls_cert=tls[0],
+                                         tls_key=tls[1]), batch_engine=engine)
     loop = asyncio.new_event_loop()
     stop = asyncio.Event()
     ready = threading.Event()
@@ -2338,86 +2369,481 @@ def cli_serve(model: Path, stderr_path: Path, *extra: str):
         err.close()
 
 
-def serve_http(dev, card: str) -> dict:
-    """Phase 7: write a full-width Mistral-7B AWQ-INT4 checkpoint (group
-    128, 8 layers) and a 32000-token byte-level BPE tokenizer.json to a
-    temporary directory; load it through ModelScheduler -> load_model (f16,
-    the AWQ default) and serve it from the port's HTTP server with
-    continuous batching and the prefix cache, as ``cli serve`` does; the
-    engine warmed and not in turns (HTTP_TURNS), each turn 8 concurrent
-    requests (``http_turn``) and ``/metrics``. Then ``python -m
-    blazr_tpu_torch.cli serve`` (warmed) as a subprocess answers /health,
-    one chat completion and /metrics."""
+_HTTP_CKPT: dict = {}
+
+
+def http_checkpoint() -> Path:
+    """Phase 7's checkpoint: a full-width Mistral-7B AWQ-INT4 checkpoint
+    (group 128, HTTP_LAYERS layers) and a 32000-token byte-level BPE
+    tokenizer.json in a temporary directory, written once a run (phases 7
+    and ``routes`` share it) and removed when the script ends."""
+    import atexit
     import shutil
     import tempfile
 
-    import numpy as np
-    import torch
-
-    from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
     from blazr_tpu_torch.utils.synthetic import (mistral_7b_config, write_hf_checkpoint,
                                                  write_bpe_tokenizer_json)
 
-    cfg = mistral_7b_config()
-    cfg.num_layers = HTTP_LAYERS
-    ckpt = Path(tempfile.mkdtemp(prefix="blazr_awq_"))
-    out: dict = {}
-    try:
+    if "dir" not in _HTTP_CKPT:
+        cfg = mistral_7b_config()
+        cfg.num_layers = HTTP_LAYERS
+        ckpt = Path(tempfile.mkdtemp(prefix="blazr_awq_"))
+        atexit.register(shutil.rmtree, ckpt, True)
         t0 = time.perf_counter()
         write_hf_checkpoint(ckpt, cfg, quant="awq", group_size=128, seed=SEED)
         write_bpe_tokenizer_json(ckpt, cfg.vocab_size, seed=SEED)
         size = sum(f.stat().st_size for f in ckpt.iterdir())
         log(f"  wrote {HTTP_LAYERS}-layer Mistral-7B AWQ-INT4 checkpoint ({size / 1e9:.2f} GB) "
             f"and tokenizer.json in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        sched = ModelScheduler(ckpt, device=dev)
-        ex = sched.get_executor("default")
-        torch.cuda.synchronize()
-        out["load_s"] = time.perf_counter() - t0
-        model = ex.model
-        assert model.dtype == torch.float16 and model.num_layers == HTTP_LAYERS
-        assert model.params["layers"][0]["q"].fmt == "awq"
-        log(f"  load_model + tokenizer: {out['load_s']:.1f} s; dtype {model.dtype}; "
-            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
-        inf = ex.app_cfg.inference
-        inf.max_batch_size = 8
-        inf.prefix_cache = True                  # as cli serve --continuous-batching
-        rng = np.random.default_rng(SEED + 11)
-        lens = [64, 512, 200, 333, 128, 480, 96, 256]
-        texts = [_prompt_text(ex.tokenizer, n, rng) for n in lens]
-        system = _prompt_text(ex.tokenizer, 200, rng)   # the chats' shared system message
-        out["turns"] = []
-        for warm in HTTP_TURNS:
-            turn = http_turn(sched, ex, texts, system, warm, card)
-            out["turns"].append(turn)
-            if warm and "qmm" not in out:
-                out.update(turn["launches"])
-        ttft = {w: [t["ttft_ms_median"] for t in out["turns"] if t["warm"] == w]
-                for w in (True, False)}
-        log(f"  streamed-chat client TTFT median, warmed {ttft[True]} ms, not warmed "
-            f"{ttft[False]} ms ({card})")
-        out.update(ttft_ms=out["turns"][0]["ttft_ms"], tok_s=out["turns"][0]["tok_s"])
-        del sched, ex, model
-        torch.cuda.empty_cache()
+        _HTTP_CKPT["dir"] = ckpt
+    return _HTTP_CKPT["dir"]
 
-        # The CLI entry point in its own process.
-        with cli_serve(ckpt, ckpt / "cli_stderr.txt") as (cli_port, up, warmed):
-            st, body = _http(cli_port, "POST", "/v1/chat/completions", {
-                "messages": [{"role": "user", "content": texts[0]}], "max_tokens": 16,
-                "temperature": 0})
-            assert st == 200, (st, body)
-            reply = json.loads(body)
-            assert reply["choices"][0]["finish_reason"] in ("stop", "length"), reply
-            st, body = _http(cli_port, "GET", "/metrics")
-            assert st == 200, st
-            cli_metrics = parse_metrics(body.decode())
-            assert cli_metrics[("blazr_tpu_tokens_generated_total", ())] == \
-                reply["usage"]["completion_tokens"], cli_metrics
-            log(f"  cli serve: '{warmed}'; answered /health after {up:.1f} s, a chat "
-                f"completion of {reply['usage']['completion_tokens']} tokens and /metrics")
-            out["cli_up_s"] = up
+
+def serve_http(dev, card: str, hand_over: bool = False) -> dict:
+    """Phase 7: write a full-width Mistral-7B AWQ-INT4 checkpoint (group
+    128, HTTP_LAYERS layers) and a 32000-token byte-level BPE tokenizer.json to a
+    temporary directory; load it through ModelScheduler -> load_model (f16,
+    the AWQ default) and serve it from the port's HTTP server with
+    continuous batching and the prefix cache, as ``cli serve`` does; the
+    engine warmed and not in turns (HTTP_TURNS), each turn 8 concurrent
+    requests (``http_turn``) and ``/metrics``. Then ``python -m
+    blazr_tpu_torch.cli serve`` (warmed) as a subprocess answers /health,
+    one chat completion and /metrics (``cli_chat_and_metrics``). With
+    ``hand_over`` (phase 7b runs next) the loaded scheduler goes to phase
+    7b under ``"sched"``, and phase 7b's ``cli serve`` makes those checks."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
+
+    ckpt = http_checkpoint()
+    out: dict = {}
+    t0 = time.perf_counter()
+    sched = ModelScheduler(ckpt, device=dev)
+    ex = sched.get_executor("default")
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    model = ex.model
+    assert model.dtype == torch.float16 and model.num_layers == HTTP_LAYERS
+    assert model.params["layers"][0]["q"].fmt == "awq"
+    log(f"  load_model + tokenizer: {out['load_s']:.1f} s; dtype {model.dtype}; "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
+    inf = ex.app_cfg.inference
+    inf.max_batch_size = 8
+    inf.prefix_cache = True                  # as cli serve --continuous-batching
+    rng = np.random.default_rng(SEED + 11)
+    lens = [64, 512, 200, 333, 128, 480, 96, 256]
+    texts = [_prompt_text(ex.tokenizer, n, rng) for n in lens]
+    system = _prompt_text(ex.tokenizer, 200, rng)   # the chats' shared system message
+    out["turns"] = []
+    for warm in HTTP_TURNS:
+        turn = http_turn(sched, ex, texts, system, warm, card)
+        out["turns"].append(turn)
+        if warm and "qmm" not in out:
+            out.update(turn["launches"])
+    ttft = {w: [t["ttft_ms_median"] for t in out["turns"] if t["warm"] == w]
+            for w in (True, False)}
+    log(f"  streamed-chat client TTFT median, warmed {ttft[True]} ms, not warmed "
+        f"{ttft[False]} ms ({card})")
+    out.update(ttft_ms=out["turns"][0]["ttft_ms"], tok_s=out["turns"][0]["tok_s"])
+    if hand_over:
+        out["sched"] = sched
+        return out
+    del sched, ex, model
+    torch.cuda.empty_cache()
+
+    # The CLI entry point in its own process.
+    with cli_serve(ckpt, ckpt / "cli_stderr.txt") as (cli_port, up, warmed):
+        n = cli_chat_and_metrics(cli_port, texts[0], 0)
+        log(f"  cli serve: '{warmed}'; answered /health after {up:.1f} s, a chat "
+            f"completion of {n} tokens and /metrics")
+        out["cli_up_s"] = up
+    return out
+
+
+def cli_chat_and_metrics(port: int, text: str, generated: int) -> int:
+    """A greedy 16-token chat completion from ``cli serve`` on ``port``,
+    then its /metrics, which must count the tokens it sent back on top of
+    the ``generated`` ones before it; returns the chat's token count."""
+    st, body = _http(port, "POST", "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": text}], "max_tokens": 16,
+        "temperature": 0})
+    assert st == 200, (st, body)
+    reply = json.loads(body)
+    assert reply["choices"][0]["finish_reason"] in ("stop", "length"), reply
+    n = reply["usage"]["completion_tokens"]
+    st, body = _http(port, "GET", "/metrics")
+    assert st == 200, st
+    got = parse_metrics(body.decode())
+    assert got[("blazr_tpu_tokens_generated_total", ())] == generated + n, got
+    return n
+
+
+# ---------------------------------------------------------------------------
+# phase 7b (routes): every other route of the HTTP server, and the CLI
+# ---------------------------------------------------------------------------
+
+ROUTE_REPS = 3                      # each generating route timed this many times
+ROUTE_TOKENS = 32                   # greedy tokens a generating request
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _stream_events(port: int, path: str, body: dict) -> dict:
+    """A streamed ``/v1/messages`` request: its (event, data) pairs, the
+    client's time to the first text delta and to the end."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200, (resp.status, resp.read())
+    assert resp.getheader("Content-Type") == "text/event-stream"
+    events, name, ttft = [], None, None
+    for raw in resp:
+        line = raw.decode().rstrip("\n")
+        if line.startswith("event: "):
+            name = line[len("event: "):]
+        elif line.startswith("data: "):
+            data = json.loads(line[len("data: "):])
+            assert data["type"] == name, (name, data)
+            if name == "content_block_delta" and ttft is None:
+                ttft = time.perf_counter() - t0
+            events.append((name, data))
+    conn.close()
+    return dict(events=events, ttft=ttft, wall=time.perf_counter() - t0)
+
+
+def _self_signed(d: Path):
+    """(certificate, key) made by the openssl binary in ``d``, or None
+    without one."""
+    import shutil
+
+    if shutil.which("openssl") is None:
+        return None
+    cert, key = d / "cert.pem", d / "key.pem"
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes", "-days", "1",
+                    "-subj", "/CN=127.0.0.1", "-keyout", str(key), "-out", str(cert)],
+                   check=True, capture_output=True, timeout=120)
+    return str(cert), str(key)
+
+
+def _cpu_pooled(ckpt: Path, ids: list) -> "np.ndarray":
+    """The mean-pooled, L2-normalized f32 vector of ``ids``' embedding rows,
+    read from the checkpoint file on the host (numpy, f16 rows to f32)."""
+    import numpy as np
+
+    from blazr_tpu_torch.formats.safetensors import SafeTensorsReader
+
+    with SafeTensorsReader(ckpt / "model.safetensors") as r:
+        table = r.load_numpy("model.embed_tokens.weight")
+    v = np.asarray(table[ids], dtype=np.float32).mean(axis=0)
+    return v / np.linalg.norm(v)
+
+
+def route_requests(port: int, ckpt: Path, ex, rng, card: str) -> dict:
+    """The routes over the in-process server of ``ex``'s model: the
+    generating ones timed (ROUTE_REPS each, served alone), then embeddings
+    (and its parts: the gather and copy, the JSON body), rerank, tools,
+    audio, LoRA, slots and management; returns the latencies and replies."""
+    import numpy as np
+
+    from blazr_tpu_torch.server.encoding import encode_embedding
+    from blazr_tpu_torch.server.pooling import pool
+
+    tok, cfg = ex.tokenizer, ex.model.cfg
+
+    user = _prompt_text(tok, 40, rng)           # one block holds it: no prefix hit
+    chat_body = {"messages": [{"role": "user", "content": user}],
+                 "max_tokens": ROUTE_TOKENS, "temperature": 0}
+    msg_body = dict(chat_body)
+    out: dict = {"lat": {}}
+
+    def post(path, body, **kw):
+        st, data = _http(port, "POST", path, body, **kw)
+        assert st == 200, (path, st, data[:2000])
+        return json.loads(data)
+
+    # Each generating route ROUTE_REPS times, alone, in turns.
+    lat = {k: [] for k in ("chat", "chat_stream", "messages", "messages_stream",
+                           "responses", "infill", "completions")}
+    ttft = {"chat_stream": [], "messages_stream": []}
+    for _ in range(ROUTE_REPS):
+        chat, dt = _timed(lambda: post("/v1/chat/completions", chat_body))
+        lat["chat"].append(dt)
+        sc = _stream_chat(port, dict(chat_body, stream=True))
+        lat["chat_stream"].append(sc["wall"])
+        ttft["chat_stream"].append(sc["ttft"])
+        msg, dt = _timed(lambda: post("/v1/messages", msg_body))
+        lat["messages"].append(dt)
+        ms = _stream_events(port, "/v1/messages", dict(msg_body, stream=True))
+        lat["messages_stream"].append(ms["wall"])
+        ttft["messages_stream"].append(ms["ttft"])
+        resp, dt = _timed(lambda: post("/v1/responses", {
+            "input": user, "max_output_tokens": ROUTE_TOKENS, "temperature": 0}))
+        lat["responses"].append(dt)
+        infill, dt = _timed(lambda: post("/v1/infill", {
+            "input_prefix": user, "input_suffix": "", "max_tokens": ROUTE_TOKENS,
+            "temperature": 0}))
+        lat["infill"].append(dt)
+        comp, dt = _timed(lambda: post("/v1/completions", {
+            "prompt": user, "max_tokens": ROUTE_TOKENS, "temperature": 0}))
+        lat["completions"].append(dt)
+        # Greedy and alone: one reply whichever API asks.
+        text = chat["choices"][0]["message"]["content"]
+        assert msg["content"][0]["text"] == text, (msg, text)
+        assert resp["output_text"] == text, (resp["output_text"], text)
+        assert msg["usage"]["input_tokens"] == chat["usage"]["prompt_tokens"] == \
+            resp["usage"]["input_tokens"]
+        assert msg["usage"]["output_tokens"] == chat["usage"]["completion_tokens"]
+        assert "".join(sc["deltas"]) == text
+        names = [n for n, _ in ms["events"]]
+        assert [n for n in names if n != "content_block_delta"] == [
+            "message_start", "content_block_start", "content_block_stop", "message_delta",
+            "message_stop"], names
+        assert names[2:-3] == ["content_block_delta"] * (len(names) - 5), names
+        assert "".join(d["delta"]["text"] for n, d in ms["events"]
+                       if n == "content_block_delta") == msg["content"][0]["text"]
+        assert ms["events"][-2][1]["usage"]["output_tokens"] == msg["usage"]["output_tokens"]
+        # No FIM tokens in this tokenizer: the infill is the prefix's continuation.
+        assert infill["content"] == comp["choices"][0]["text"], (infill, comp)
+    out["text"] = text
+    out["prompt_tokens"] = chat["usage"]["prompt_tokens"]
+    out["completion_tokens"] = chat["usage"]["completion_tokens"]
+    med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in lat.items()}
+    med_ttft = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in ttft.items()}
+    out["lat"], out["ttft"] = med, med_ttft
+    for k in lat:
+        log(f"  {k}: e2e median {med[k]:.1f} ms over {ROUTE_REPS}"
+            + (f", TTFT median {med_ttft[k]:.1f} ms" if k in med_ttft else "")
+            + f" (prompt {out['prompt_tokens']} tokens, {out['completion_tokens']} "
+            f"generated; {card})")
+
+    # Embeddings of a 512-token input: the card's gather against the host's.
+    ids = tok.encode(_prompt_text(tok, 512, rng))[:512]
+    assert len(ids) == 512
+    emb_lat = []
+    for _ in range(ROUTE_REPS):
+        emb, dt = _timed(lambda: post("/v1/embeddings", {"input": ids}))
+        emb_lat.append(dt)
+    b64, b64_dt = _timed(lambda: post("/v1/embeddings", {"input": ids,
+                                                          "encoding_format": "base64"}))
+    rows, gather_dt = _timed(lambda: ex.get_embeddings(ids))
+    _, json_dt = _timed(lambda: json.dumps({"data": [{"embedding": encode_embedding(
+        pool(rows, "mean", True), "float")}]}))
+    dt = sorted(emb_lat)[len(emb_lat) // 2]
+    vec = np.asarray(emb["data"][0]["embedding"], np.float32)
+    ref = _cpu_pooled(ckpt, ids)
+    err = float(np.abs(vec - ref).max())
+    assert vec.shape == (cfg.hidden_size,) and err <= 1e-3, err
+    assert emb["usage"]["prompt_tokens"] == 512
+    import base64
+
+    assert np.array_equal(np.frombuffer(base64.b64decode(b64["data"][0]["embedding"]),
+                                        np.float32), vec)
+    out["lat"]["embeddings_512"] = dt * 1e3
+    out["lat"]["embeddings_512_base64"] = b64_dt * 1e3
+    out["embedding_max_abs_err"] = err
+    log(f"  embeddings: 512 tokens, e2e median {dt * 1e3:.1f} ms over {ROUTE_REPS} "
+        f"({', '.join(f'{t * 1e3:.1f}' for t in emb_lat)}), base64 {b64_dt * 1e3:.1f} ms; "
+        f"in process: gather and copy to the host {gather_dt * 1e3:.2f} ms, pooling and "
+        f"the float JSON {json_dt * 1e3:.2f} ms; max |card - host f32| {err:.2e} "
+        f"(tol 1e-3; {card})")
+    # Rerank: the card's order equals the host's.
+    docs = [_prompt_text(tok, n, rng) for n in (24, 48, 96, 12)]
+    query = _prompt_text(tok, 16, rng)
+    rr_lat = []
+    for _ in range(ROUTE_REPS):
+        rr, dt = _timed(lambda: post("/rerank", {"query": query, "documents": docs}))
+        rr_lat.append(dt)
+    dt = sorted(rr_lat)[len(rr_lat) // 2]
+    q = _cpu_pooled(ckpt, tok.encode(query))
+    scores = [float(np.dot(q, _cpu_pooled(ckpt, tok.encode(d)))) for d in docs]
+    host_order = sorted(range(len(docs)), key=lambda i: -scores[i])
+    assert [r["index"] for r in rr["results"]] == host_order, (rr, scores)
+    np.testing.assert_allclose([r["relevance_score"] for r in rr["results"]],
+                               [scores[i] for i in host_order], atol=1e-3)
+    out["lat"]["rerank_4"] = dt * 1e3
+    log(f"  rerank: 4 documents, e2e median {dt * 1e3:.1f} ms over {ROUTE_REPS} "
+        f"({', '.join(f'{t * 1e3:.1f}' for t in rr_lat)}), order {host_order} as on the "
+        f"host ({card})")
+    # A chat with tools is served.
+    tools = [{"type": "function", "function": {"name": "get_weather", "parameters": {
+        "type": "object", "properties": {"city": {"type": "string"}}}}}]
+    tc = post("/v1/chat/completions", dict(chat_body, tools=tools))
+    assert tc["choices"][0]["finish_reason"] in ("stop", "length", "tool_calls"), tc
+    # The audio stubs and the LoRA routes answer 501.
+    for path in ("/v1/audio/speech", "/v1/audio/transcriptions", "/v1/lora"):
+        st, data = _http(port, "POST", path, {})
+        assert st == 501 and json.loads(data)["error"]["type"] == "not_implemented_error"
+    # Slots.
+    st, data = _http(port, "POST", "/api/slots", {"model": "default"})
+    assert st == 201, data
+    sid = json.loads(data)["id"]
+    post("/v1/completions", {"prompt": user, "max_tokens": 4, "temperature": 0,
+                             "id_slot": sid})
+    st, data = _http(port, "GET", "/api/slots")
+    slot, = json.loads(data)["slots"]
+    assert slot["id"] == sid and slot["generated_tokens"] > 0, slot
+    assert _http(port, "DELETE", f"/api/slots/{sid}")[0] == 200
+    assert _http(port, "DELETE", f"/api/slots/{sid}")[0] == 404
+    # Management.
+    st, data = _http(port, "GET", "/api/tags")
+    tag, = json.loads(data)["models"]
+    size = sum(f.stat().st_size for f in ckpt.iterdir() if f.is_file())
+    assert tag["name"] == ckpt.name and tag["size"] == size, (tag, size)
+    st, data = _http(port, "GET", "/api/ps")
+    assert [m["name"] for m in json.loads(data)["models"]] == ["default"], data
+    info = post("/api/show", {"name": "default"})["model_info"]
+    assert (info["hidden_size"], info["num_layers"], info["num_heads"],
+            info["num_kv_heads"], info["vocab_size"]) == (
+        cfg.hidden_size, cfg.num_layers, cfg.attention.num_heads,
+        cfg.attention.num_kv_heads, cfg.vocab_size), info
+    assert _http(port, "POST", "/api/copy", {"source": ckpt.name,
+                                             "destination": ckpt.name})[0] == 409
+    assert _http(port, "POST", "/api/copy", {"source": "nope", "destination": "x"})[0] == 404
+    # /api/pull: the machine may hold huggingface_hub, and there is no
+    # network; hiding the package gives the JAX error line and no download.
+    saved = sys.modules.get("huggingface_hub")
+    sys.modules["huggingface_hub"] = None
+    try:
+        st, data = _http(port, "POST", "/api/pull", {"name": "org/model"})
     finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+        if saved is None:
+            del sys.modules["huggingface_hub"]
+        else:
+            sys.modules["huggingface_hub"] = saved
+    lines = [json.loads(line) for line in data.decode().splitlines()]
+    assert st == 200 and lines == [{"status": "pulling manifest for org/model"},
+                                   {"error": "huggingface_hub is not installed"}], lines
+    return out
+
+
+def routes_phase(dev, card: str, sched=None) -> dict:
+    """Phase 7b (``routes``): phase 7's checkpoint (written if phase 7 did
+    not run) served through ModelScheduler (phase 7's ``sched`` where it
+    handed it over) and a warmed BatchEngine with the prefix cache, as
+    ``cli serve --continuous-batching`` serves it:
+    ``route_requests`` over the port's server, ``/metrics`` counting the
+    Anthropic requests; the model over HTTPS (a self-signed certificate from
+    the openssl binary, through the Executor), ``/api/delete``; then
+    ``cli serve`` (warmed) answering ``/v1/messages`` and ``/api/ps`` with
+    ``cli ps`` printing the same JSON, and phase 7's chat and /metrics
+    checks; ``cli generate`` and ``cli info``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
+
+    t_phase = time.perf_counter()
+    ckpt = http_checkpoint()
+    out: dict = {}
+    t0 = time.perf_counter()
+    handed = sched is not None
+    sched = sched or ModelScheduler(ckpt, device=dev)
+    ex = sched.get_executor("default")
+    inf = ex.app_cfg.inference
+    inf.max_batch_size = 8
+    inf.prefix_cache = True
+    engine = BatchEngine(ex.model, ex.tokenizer, ex.app_cfg)
+    warm_s = engine.warmup()
+    log(f"  {'phase 7' if handed else 'loaded'}'s model warmed in "
+        f"{time.perf_counter() - t0:.1f} s (warmup {warm_s:.1f} s)")
+    rng = np.random.default_rng(SEED + 17)
+    with http_server(sched, engine) as port:
+        reset_counts()
+        out.update(route_requests(port, ckpt, ex, rng, card))
+        torch.cuda.synchronize()
+        launches = read_counts()
+        assert launches["qmm"] > 0 and launches["paged_attention"] > 0, launches
+        out["launches"] = launches
+        log(f"  launches over the routes: {launches}")
+        # /metrics counts what /v1/messages served, its stream too.
+        before = parse_metrics(_http(port, "GET", "/metrics")[1].decode())
+        body = {"messages": [{"role": "user", "content": "count these"}], "max_tokens": 8,
+                "temperature": 0}
+        plain = json.loads(_http(port, "POST", "/v1/messages", body)[1])
+        streamed = _stream_events(port, "/v1/messages", dict(body, stream=True))
+        after = parse_metrics(_http(port, "GET", "/metrics")[1].decode())
+
+        def grew(name):
+            return after[(name, ())] - before.get((name, ()), 0.0)
+        n_out = plain["usage"]["output_tokens"]
+        assert streamed["events"][-2][1]["usage"]["output_tokens"] == n_out
+        assert grew("blazr_tpu_tokens_generated_total") == 2 * n_out
+        assert grew("blazr_tpu_tokens_prompted_total") == 2 * plain["usage"]["input_tokens"]
+        assert grew("blazr_tpu_ttft_seconds_count") == 1
+        log(f"  /metrics: two /v1/messages (one streamed) added {2 * n_out} generated "
+            f"and {2 * plain['usage']['input_tokens']} prompted tokens and one TTFT")
+    certs = Path(tempfile.mkdtemp(prefix="blazr_tls_"))
+    tls = _self_signed(certs)
+    if tls is None:
+        log("  no openssl binary: HTTPS not exercised")
+    else:
+        # A BatchEngine runs on one event loop: this server, on its own
+        # loop, answers through the Executor.
+        with http_server(sched, None, tls=tls) as port:
+            st, data = _http(port, "GET", "/health", tls=True)
+            assert st == 200 and json.loads(data)["status"] == "ok", data
+            (st, data), dt = _timed(lambda: _http(port, "POST", "/v1/messages", {
+                "messages": [{"role": "user", "content": "over tls"}], "max_tokens": 8,
+                "temperature": 0}, tls=True))
+            assert st == 200 and json.loads(data)["content"][0]["text"] is not None, data
+            log(f"  HTTPS (self-signed): /health and /v1/messages answered, {dt * 1e3:.1f} ms")
+        out["tls"] = True
+    with http_server(sched, None) as port:
+        st, data = _http(port, "DELETE", "/api/delete", {"name": "default"})
+        assert st == 200 and json.loads(data) == {"unloaded": True}, data
+        assert json.loads(_http(port, "GET", "/api/ps")[1]) == {"models": []}
+    cfg = ex.model.cfg
+    del sched, ex, engine
+    free_card()
+
+    env = dict(os.environ, PYTHONPATH=str(TREE))
+
+    def cli(*argv):
+        proc = subprocess.run([sys.executable, "-m", "blazr_tpu_torch.cli", *argv],
+                              cwd=TREE, env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, (argv, proc.stderr[-4000:])
+        return proc.stdout
+
+    with cli_serve(ckpt, certs / "cli_stderr.txt") as (port, up, warmed):
+        (st, data), dt = _timed(lambda: _http(port, "POST", "/v1/messages", {
+            "messages": [{"role": "user", "content": out["text"][:200] or "hi"}],
+            "max_tokens": 16, "temperature": 0}))
+        assert st == 200 and json.loads(data)["type"] == "message", data
+        cli_chat_and_metrics(port, out["text"][:200] or "hi",
+                             json.loads(data)["usage"]["output_tokens"])
+        st, data = _http(port, "GET", "/api/ps")
+        assert st == 200
+        ps, ps_s = _timed(lambda: cli("ps", "--host", "127.0.0.1", "--port", str(port)))
+        assert json.loads(ps) == json.loads(data), (ps, data)
+        log(f"  cli serve: '{warmed}'; /health after {up:.1f} s; /v1/messages "
+            f"{dt * 1e3:.1f} ms; cli ps printed its /api/ps in {ps_s:.1f} s")
+        out.update(cli_up_s=up, cli_ps_s=ps_s)
+    gen, gen_s = _timed(lambda: cli("generate", str(ckpt), "the state of the art", "-n", "16",
+                                    "-t", "0"))
+    assert gen.strip(), gen
+    info, info_s = _timed(lambda: cli("info", str(ckpt)))
+    info = json.loads(info)
+    assert (info["format"], info["quant"], info["architecture"], info["hidden_size"],
+            info["num_layers"]) == ("safetensors", "awq", "mistral", cfg.hidden_size,
+                                    cfg.num_layers), info
+    log(f"  cli generate: {gen_s:.1f} s (load included); cli info: {info_s:.1f} s")
+    out.update(cli_generate_s=gen_s, cli_info_s=info_s)
+    import shutil
+
+    shutil.rmtree(certs, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  routes phase: {out['phase_s']:.1f} s ({card})")
     return out
 
 
@@ -4336,7 +4762,7 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
 
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
           "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "prefix", "http",
-          "families", "moe", "gguf", "mla", "ssm", "sweep", "timings", "layout_times")
+          "routes", "families", "moe", "gguf", "mla", "ssm", "sweep", "timings", "layout_times")
 FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
@@ -4353,10 +4779,11 @@ def main() -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    global TREE, SERVE_LAYERS
+    global TREE, SERVE_LAYERS, HTTP_LAYERS
     TREE = args.tree.resolve()
     if phases == list(FULL_RUN):
         SERVE_LAYERS = FULL_RUN_SERVE_LAYERS
+        HTTP_LAYERS = FULL_RUN_HTTP_LAYERS
     other = TREE != REPO
     if other and phases == list(FULL_RUN):
         ap.error("--tree runs a subset of phases")
@@ -4440,7 +4867,11 @@ def main() -> int:
          lambda: serve_prefix(dev, card)),
         ("http", "phase 7: AWQ checkpoint on disk -> load_model -> OpenAI HTTP server "
          "(8 concurrent requests, warmed and not, /metrics) and the CLI serve subprocess",
-         lambda: serve_http(dev, card)),
+         lambda: serve_http(dev, card, hand_over="routes" in phases)),
+        ("routes", "phase 7b: the other routes of the HTTP server (Anthropic messages, "
+         "responses, infill, embeddings, rerank, tools, slots, management, TLS) and the "
+         "CLI (serve, ps, generate, info) on phase 7's checkpoint",
+         lambda: routes_phase(dev, card, res.get("http", {}).pop("sched", None))),
         ("families", "phase 10: the dense families (2-layer full-width forwards, card "
          "vs CPU), then Qwen3-8B and Gemma2-9B served through the warmed engine",
          lambda: families(dev, card, phases == list(FULL_RUN))),

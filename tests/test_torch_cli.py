@@ -107,3 +107,18 @@ def test_loader_refusals_name_item_12():
     with pytest.raises(NotImplementedError) as e:
         api.load_model(".", device_layers=1, device="cpu")
     assert _item_of(str(e.value)) == "12"
+
+
+def test_unported_routes_name_their_queue_item():
+    """The server's 501 for the LoRA routes names the item that ports them."""
+    import asyncio
+    import types
+
+    from blazr_tpu_torch.server.api_types import ApiError
+    from blazr_tpu_torch.server.app import UNPORTED_ROUTES, not_ported
+
+    for method, path in UNPORTED_ROUTES:
+        with pytest.raises(ApiError) as e:
+            asyncio.run(not_ported(types.SimpleNamespace(method=method, path=path)))
+        assert e.value.status == 501
+        assert _item_of(e.value.message) == "5a.6" and _in_queue_a("5a.6")

@@ -266,3 +266,50 @@ def test_server_metrics_count_what_was_served(model_dir):
     assert got[("blazr_tpu_prefix_cache_hits_total", ())] == pc.hits
     assert got[("blazr_tpu_prefix_cache_misses_total", ())] == pc.misses
     assert got[("blazr_tpu_hbm_used_bytes", ())] == 0          # no card here
+
+
+MESSAGES = {"messages": [{"role": "user", "content": "hello there"}], "max_tokens": 6,
+            "temperature": 0}
+
+
+def test_streamed_messages_are_counted(model_dir, tmp_path, monkeypatch):
+    """``/v1/messages``: the JAX server counts a non-streamed reply's tokens
+    and e2e latency only; the port counts a streamed reply too, with its
+    TTFT, as it does a streamed chat (a pinned deviation, ROADMAP §C)."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from blazr_tpu.engine.model_scheduler import ModelScheduler as JScheduler
+    from blazr_tpu.server import create_app as jax_create_app
+
+    monkeypatch.setenv("BLAZR_TPU_HOME", str(tmp_path))
+    with _Server(model_dir) as srv:
+        plain = json.loads(srv.request("POST", "/v1/messages", MESSAGES)[2])
+        st, _, data = srv.request("POST", "/v1/messages", dict(MESSAGES, stream=True))
+        assert st == 200
+        delta = [json.loads(line[6:]) for line in data.decode().splitlines()
+                 if line.startswith("data: ") and '"message_delta"' in line][0]
+        got = samples(srv.request("GET", "/metrics")[2].decode())
+        e2e = len(srv.app.state.slo.e2e)
+
+    async def jax_main():
+        app = jax_create_app(JScheduler(model_dir, dtype="f32"), JServerConfig())
+        async with TestClient(TestServer(app)) as c:
+            await (await c.post("/v1/messages", json=MESSAGES)).read()
+            await (await c.post("/v1/messages", json=dict(MESSAGES, stream=True))).read()
+            text = await (await c.get("/metrics")).text()
+            return text, len(app[STATE_KEY].slo.e2e)
+
+    jtext, je2e = asyncio.run(jax_main())
+    jgot = samples(jtext)
+    n_in, n_out = plain["usage"]["input_tokens"], plain["usage"]["output_tokens"]
+    assert delta["usage"]["output_tokens"] == n_out
+    assert got[("blazr_tpu_tokens_prompted_total", ())] == 2 * n_in
+    assert got[("blazr_tpu_tokens_generated_total", ())] == 2 * n_out
+    assert got[("blazr_tpu_ttft_seconds_count", ())] == 1 and e2e == 2
+    assert jgot[("blazr_tpu_tokens_prompted_total", ())] == n_in
+    assert jgot[("blazr_tpu_tokens_generated_total", ())] == n_out
+    assert jgot[("blazr_tpu_ttft_seconds_count", ())] == 0 and je2e == 1
+    # Neither counts the messages route in requests_total.
+    for g in (got, jgot):
+        assert not any(k[0] == "blazr_tpu_requests_total" for k in g)
+        assert g[("blazr_tpu_requests_active", ())] == 0
