@@ -64,6 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--top-p", type=float, default=0.9)
     run.add_argument("--top-k", type=int, default=40)
     run.add_argument("--seed", type=int)
+    run.add_argument("--grammar", help="GBNF grammar file or inline")
+    run.add_argument("--json", action="store_true", dest="json_mode")
+    run.add_argument("--mirostat", type=int, choices=[0, 2], default=0,
+                     help="mirostat v2 on the host (a flag the JAX CLI lacks)")
     run.add_argument("--no-warmup", action="store_true")
 
     gen = sub.add_parser("generate", help="alias of run --prompt", parents=[loadopts])
@@ -210,7 +214,11 @@ def cmd_run(args) -> int:
     if not args.no_warmup:
         ex.warmup()
     cfg = GenerationConfig(max_tokens=args.max_tokens, temperature=args.temperature,
-                           top_p=args.top_p, top_k=args.top_k, seed=args.seed)
+                           top_p=args.top_p, top_k=args.top_k, seed=args.seed,
+                           json_mode=args.json_mode, mirostat=args.mirostat)
+    if args.grammar:
+        g = Path(args.grammar)
+        cfg.grammar = g.read_text() if g.exists() else args.grammar
     if args.prompt:
         _print_stream(ex, ex.tokenizer.encode(args.prompt), cfg)
         return 0

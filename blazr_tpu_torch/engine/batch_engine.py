@@ -44,12 +44,30 @@ The decode round is the JAX engine's fixed-shape, pipelined round:
 ``warmup()`` does before the first request what eager PyTorch would
 otherwise do inside it: build the kernels, initialise the libraries, run
 one prefill per token bucket and capture every decode graph.
+
+Constrained decoding and the host samplers (JAX :989-1060, :1473-1506,
+:1690-1760, :1971-2056):
+  * ``submit`` compiles the request's grammar (a GBNF ``grammar``, a JSON
+    schema, JSON mode; ``grammar.make_grammar_state`` picks the DFA or the
+    exact-PDA tier) before the scheduler is touched, so a grammar that does
+    not parse fails the caller alone; mirostat, DRY, typical-p and dynamic
+    temperature rows get their host state (a seeded numpy generator).
+  * The first token is drawn in the prefill group under the grammar's mask,
+    or by the host samplers from the raw logits (``_host_pick``).
+  * Decode: rows whose grammar is a DFA of at most 512 states, all of one
+    DFA, step it on the device inside the pipelined horizon round
+    (``BatchStep``'s ``gram`` variant, the tables in one buffer pair per
+    height, ``_grammar_tables``). Rows that need the host every step (an
+    exact-PDA grammar, a host sampler) run a T=1 side step on their own
+    ``BatchStep`` that does not flush the pipeline, so the other rows keep
+    the horizon. A batch that is all such rows, mixed DFAs, a DFA too large
+    for tables, and every grammar under ``decode_horizon`` 1 take a T=1
+    step with the host's masks after a flush (``_single_step_batch``).
 Left out of this slice, each naming its ROADMAP queue A item: speculation
-(5a.5), grammars and JSON mode (5a.4), LoRA (5a.6), host samplers
-(mirostat/DRY/typical/dynatemp; 5a.3), tensor/sequence parallel meshes
-(13) and weight offload (12). A request or config that asks for one
-raises instead of being served differently. int4 KV on the paged path
-raises instead of being downgraded.
+(5a.5), LoRA (5a.6), tensor/sequence parallel meshes (13) and weight
+offload (12). A request or config that asks for one raises instead of
+being served differently. int4 KV on the paged path raises instead of
+being downgraded.
 
 Every family of ``models/paged_multi.py`` is served: MLA models on latent
 pages, Mamba2 and hybrid models on the state pool's rows
@@ -86,6 +104,9 @@ from ..models.registry import init_engine_cache, make_paged_forward
 from ..models.registry import Model
 from ..quant.qtensor import apply_quant_compute, quant_leaves
 from .decode_graph import TOPK_K, BatchStep, StepGraphs, pack_rows
+from .grammar import GrammarState, make_grammar_state, padded_mask
+from .grammar_json import request_grammar_source
+from .samplers import MirostatState, dry_breaker_ids, host_sample, needs_host_sampling
 from .sampling import SamplingParams, make_bias_rows, make_window, sample_tokens
 from .sequence_scheduler import (SchedulerConfig, Sequence, SequenceScheduler,
                                  SequenceState)
@@ -153,13 +174,8 @@ def _not_served(what: str, item: str) -> NotImplementedError:
 
 def check_request(gen_cfg: GenerationConfig) -> None:
     """Raise for a request that asks for what the port does not serve yet."""
-    if gen_cfg.grammar or gen_cfg.json_mode or gen_cfg.json_schema:
-        raise _not_served("constrained decoding (grammar / JSON mode)", "5a.4")
     if gen_cfg.lora_adapter:
         raise _not_served("LoRA", "5a.6")
-    if (gen_cfg.mirostat == 2 or gen_cfg.dry_multiplier > 0.0
-            or gen_cfg.typical_p < 1.0 or gen_cfg.dynatemp_range > 0.0):
-        raise _not_served("host-side sampling (mirostat/DRY/typical/dynatemp)", "5a.3")
 
 
 class BatchEngine:
@@ -231,6 +247,7 @@ class BatchEngine:
         self._pipe_q: deque = deque()
         self._pipe_depth = max(1, int(inf.decode_pipe_depth or 1))
         self._steps: dict[int, BatchStep] = {}          # by bmax
+        self._side_steps: dict[int, BatchStep] = {}     # the side step's, by bmax
         self.graphs = StepGraphs(self.device, inf.graphs)
         self._preemptions = 0
         # Wall time by phase (seconds; "<phase>_n" counts calls) and the
@@ -238,6 +255,15 @@ class BatchEngine:
         self.perf: dict[str, float] = defaultdict(float)
         self._handles: dict[int, RequestHandle] = {}
         self._windows: dict[int, list[int]] = {}
+        # Constrained rows: each sequence's grammar state, and the host
+        # samplers' state of the rows that need them.
+        self._grammars: dict = {}
+        self._host_states: dict[int, dict] = {}
+        self._vocab_bytes: Optional[list[bytes]] = None
+        # Device grammar tables: a DFA's padded planes on the host, by
+        # id(dfa), and one device buffer pair per height [mask, next, dfa].
+        self._gram_host: dict[int, tuple] = {}
+        self._gram_dev: dict[int, list] = {}
         self._notify = asyncio.Event()
         self._stop = False
         self._loop = None
@@ -267,13 +293,51 @@ class BatchEngine:
         gen_cfg = gen_cfg or GenerationConfig()
         gen_cfg.validate()
         check_request(gen_cfg)
+        # What can reject the request (the grammar's compile) runs before
+        # the scheduler is touched: a failure after add_request would leave
+        # an orphaned sequence queued.
+        g = self._grammar_for(gen_cfg)
         seq_id = self.scheduler.add_request(prompt_tokens, gen_cfg)
         handle = RequestHandle(seq_id=seq_id, queue=asyncio.Queue(),
                                prompt_tokens=len(prompt_tokens))
         self._handles[seq_id] = handle
+        if g is not None:
+            self._grammars[seq_id] = g
         self._windows[seq_id] = list(prompt_tokens)
+        if needs_host_sampling(gen_cfg):
+            self._host_states[seq_id] = {
+                "mirostat": (MirostatState.from_config(gen_cfg)
+                             if gen_cfg.mirostat == 2 else None),
+                "rng": np.random.default_rng(
+                    gen_cfg.seed if gen_cfg.seed is not None else 0),
+                "breakers": (dry_breaker_ids(self.tokenizer, gen_cfg)
+                             if gen_cfg.dry_multiplier > 0 else None),
+            }
         self._notify.set()
         return handle
+
+    def vocab_bytes(self) -> list[bytes]:
+        if self._vocab_bytes is None:
+            self._vocab_bytes = self.tokenizer.vocab_bytes()
+        return self._vocab_bytes
+
+    def _grammar_for(self, cfg: GenerationConfig):
+        src = request_grammar_source(cfg)
+        if src is None:
+            return None
+        return make_grammar_state(src, self.vocab_bytes(),
+                                  eos_token_id=self.tokenizer.eos_token_id)
+
+    def _host_pick(self, seq: Sequence, logits_row: np.ndarray) -> int:
+        """The host samplers' token from a row's raw logits, under its
+        grammar's mask (ids past the tokenizer's vocabulary never legal)."""
+        st = self._host_states[seq.seq_id]
+        logits_row = np.asarray(logits_row, dtype=np.float32)
+        g = self._grammars.get(seq.seq_id)
+        if g is not None:
+            logits_row = np.where(padded_mask(g, len(logits_row)), logits_row, -np.inf)
+        return host_sample(logits_row, seq.gen_cfg, self._windows[seq.seq_id],
+                           st["mirostat"], st["breakers"], st["rng"])
 
     def cancel(self, seq_id: int) -> None:
         """Abort a sequence (a stop sequence matched, or its client left):
@@ -344,7 +408,7 @@ class BatchEngine:
                    if s.state == SequenceState.RUNNING]
         if decodes:
             t0 = time.perf_counter()
-            await asyncio.to_thread(self._horizon_round, decodes)
+            await asyncio.to_thread(self._process_decode_batch, decodes)
             self.perf["decode"] += time.perf_counter() - t0
             self.perf["decode_n"] += 1
         if pending:
@@ -454,14 +518,27 @@ class BatchEngine:
             self.cache, torch.from_numpy(pos).to(dev),
             torch.from_numpy(slots).to(dev), torch.from_numpy(bt).to(dev),
             seq_lens, last_idx=last_idx)
-        packed = None
-        if finishing:
-            sp, window, bias_ids, bias_vals = self._sampling(cfgs, 0, wins)
-            tok, logprobs = sample_tokens(logits[:n_real, 0, :], sp, window,
-                                          bias_ids, bias_vals)
-            use_topk = any(s.gen_cfg.logprobs for s, _ in finishing)
-            packed = pack_rows(tok, logprobs, use_topk)
-        return group, chunks, finishing, packed
+        packed, last = self._first_tokens(logits[:n_real, 0, :], finishing, cfgs, wins)
+        return group, chunks, finishing, packed, last
+
+    def _first_tokens(self, last: torch.Tensor, finishing: list, cfgs: list, wins: list):
+        """The first tokens of a prefill group's finishing rows: sampled on
+        the device under each grammar row's mask (the others' rows all
+        True); the raw logits come back too where a finishing row's token
+        is the host samplers' (JAX :1317-1323, :1368-1375)."""
+        if not finishing:
+            return None, None
+        ids = [-1] * last.shape[0]
+        for seq, i in finishing:
+            ids[i] = seq.seq_id
+        mask = None
+        if any(sid in self._grammars for sid in ids):
+            mask = torch.from_numpy(self._grammar_mask(ids)).to(self.device)
+        sp, window, bias_ids, bias_vals = self._sampling(cfgs, 0, wins)
+        tok, logprobs = sample_tokens(last, sp, window, bias_ids, bias_vals, mask)
+        use_topk = any(s.gen_cfg.logprobs for s, _ in finishing)
+        host = any(s.seq_id in self._host_states for s, _ in finishing)
+        return pack_rows(tok, logprobs, use_topk), (last if host else None)
 
     def _row_for(self, seq_id: int) -> int:
         """The state row of ``seq_id``, given out at its first call; when no
@@ -507,28 +584,28 @@ class BatchEngine:
                 last_idx=torch.tensor([sub - 1], device=dev))
             pos += sub
         self.perf["prefill_tokens"] += chunk
-        finishing, packed = [], None
-        if start + chunk >= len(seq.prompt_tokens):
-            finishing = [(seq, 0)]
-            win = make_window(self._windows[seq.seq_id], seq.gen_cfg.repeat_last_n)
-            sp, window, bias_ids, bias_vals = self._sampling([seq.gen_cfg], 0, [win])
-            tok, logprobs = sample_tokens(logits[:, 0, :], sp, window, bias_ids, bias_vals)
-            packed = pack_rows(tok, logprobs, bool(seq.gen_cfg.logprobs))
-        return [seq], [chunk], finishing, packed
+        finishing = [(seq, 0)] if start + chunk >= len(seq.prompt_tokens) else []
+        win = make_window(self._windows[seq.seq_id], seq.gen_cfg.repeat_last_n)
+        packed, last = self._first_tokens(logits[:, 0, :], finishing, [seq.gen_cfg], [win])
+        return [seq], [chunk], finishing, packed, last
 
     def _finish_prefills(self, pending: list) -> None:
         """Fetch queued prefill outputs and emit first tokens."""
-        for group, chunks, finishing, packed in pending:
+        for group, chunks, finishing, packed, last in pending:
             for i, seq in enumerate(group):
                 self.scheduler.prefill_complete(seq.seq_id, chunks[i])
             if not finishing:
                 continue
             out = packed.cpu().numpy()                  # ONE fetch per group
+            last_np = None if last is None else last.float().cpu().numpy()
             self._defer_puts = []
             try:
                 for seq, i in finishing:
-                    self._emit(seq, int(out[i, 0]), float(out[i, 1]),
-                               top=self._top_row(seq, out[i]))
+                    if seq.seq_id in self._host_states:
+                        tok, lp = self._host_pick(seq, last_np[i]), float("nan")
+                    else:
+                        tok, lp = int(out[i, 0]), float(out[i, 1])
+                    self._emit(seq, tok, lp, top=self._top_row(seq, out[i]))
             finally:
                 buf, self._defer_puts = self._defer_puts, None
                 self._flush_puts(buf)
@@ -536,26 +613,115 @@ class BatchEngine:
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
-    def _step(self, bmax: int) -> BatchStep:
-        step = self._steps.get(bmax)
+    def _step(self, bmax: int, side: bool = False) -> BatchStep:
+        """The decode step at ``bmax`` rows; the side step has its own, so
+        its carries and rings never touch the pipeline's."""
+        steps = self._side_steps if side else self._steps
+        step = steps.get(bmax)
         if step is None:
-            step = self._steps[bmax] = BatchStep(self, bmax, self._horizon,
-                                                 self._pipe_depth + 1)
+            step = steps[bmax] = BatchStep(self, bmax, self._horizon, self._pipe_depth + 1)
         return step
 
+    def _side_row(self, seq: Sequence) -> bool:
+        """A row that needs the host every step: a host sampler's, or an
+        exact-PDA grammar's (its mask is rebuilt on the host)."""
+        if seq.seq_id in self._host_states:
+            return True
+        g = self._grammars.get(seq.seq_id)
+        return g is not None and not isinstance(g, GrammarState)
+
     @torch.no_grad()
-    def _horizon_round(self, decodes: list[Sequence]) -> None:
+    def _process_decode_batch(self, decodes: list[Sequence]) -> None:
+        """One decode round (JAX :1484-1506, :1690-1706). Side rows step
+        once on their own, without flushing the pipeline, while the other
+        rows keep the horizon; a batch that needs the host's masks or
+        logits for every row takes a flushed T=1 step."""
+        if self._horizon > 1:
+            side = [s for s in decodes if self._side_row(s)]
+            if side and len(side) < len(decodes):
+                rest = [s for s in decodes if not self._side_row(s)]
+                self._single_step_batch(side, flush=False, side=True)
+                decodes = rest
+        bmax = min(_next_pow2(len(decodes), minimum=1), self.max_batch)
+        decodes = decodes[:bmax]
+        host = any(s.seq_id in self._host_states for s in decodes)
+        grammar = any(s.seq_id in self._grammars for s in decodes)
+        tables = None
+        if grammar and not host and self._horizon > 1:
+            tables = self._grammar_tables(decodes)
+        if host or (grammar and tables is None):
+            self._single_step_batch(decodes, flush=True)
+        else:
+            self._horizon_round(decodes, tables)
+
+    def _single_step_batch(self, decodes: list[Sequence], flush: bool,
+                           side: bool = False) -> None:
+        """One T=1 decode step over ``decodes`` with the host's grammar
+        masks uploaded and, for host-sampler rows, the raw logits read back
+        (JAX ``_single_step_batch``, :1708). ``flush`` first lands the
+        pipeline's unread rounds, whose tokens these rows' tables need; the
+        side step's rows never enter the pipeline."""
+        if flush:
+            self._flush_pipe()
+            decodes = [s for s in decodes if s.state == SequenceState.RUNNING]
+            if not decodes:
+                return
+        n = len(decodes)
+        bmax = min(_next_pow2(n, minimum=1), self.max_batch)
+        step = self._step(bmax, side)
+        rows = list(decodes) + [None] * (bmax - n)
+        windows = [None if s is None else
+                   make_window(self._windows[s.seq_id], s.gen_cfg.repeat_last_n)
+                   for s in rows]
+        table = step.build(rows, [0] * bmax, np.ones((bmax,), dtype=bool), windows)
+        use_topk = any(s.gen_cfg.logprobs for s in decodes)
+        host_rows = [i for i, s in enumerate(decodes) if s.seq_id in self._host_states]
+        any_sampled = any(s.gen_cfg.temperature > 0.0 for i, s in enumerate(decodes)
+                          if i not in host_rows)
+        masked = any(s.seq_id in self._grammars for s in decodes)
+        raw = bool(host_rows)
+        t0 = time.perf_counter()
+        if masked:
+            mask_buf, mask_ring = step.mask
+            mask_ring.upload(self._grammar_mask([s.seq_id for s in decodes], bmax), mask_buf)
+        step.up.upload(table, step.tab)
+        self.graphs.run((bmax, side, use_topk, any_sampled, None, masked, raw),
+                        step.step_fn(use_topk, any_sampled, mask=masked, raw=raw))
+        slot = step.down[use_topk].download(step.out[use_topk])
+        if raw:
+            logits_buf, logits_ring = step.logits
+            logits_slot = logits_ring.download(logits_buf)
+        out = step.down[use_topk].read(slot)[0]
+        last = logits_ring.read(logits_slot) if raw else None
+        self.perf["single_step"] += time.perf_counter() - t0
+        self.perf["single_step_n"] += 1
+        self._defer_puts = []
+        try:
+            for i, seq in enumerate(decodes):
+                if i in host_rows:
+                    tok, lp = self._host_pick(seq, last[i]), float("nan")
+                else:
+                    tok, lp = int(out[i, 0]), float(out[i, 1])
+                self._emit(seq, tok, lp, top=self._top_row(seq, out[i]))
+        finally:
+            buf, self._defer_puts = self._defer_puts, None
+            self._flush_puts(buf)
+
+    def _horizon_round(self, decodes: list[Sequence], tables=None) -> None:
         """Dispatch one (possibly chained) decode round of up to
         ``decode_horizon`` steps onto the pipeline, then read and emit the
         oldest rounds while more than ``decode_pipe_depth`` are unread
         (``blazr_tpu/engine/batch_engine.py:1671,1796``). Rows that finish
-        inside a round compute overrun steps whose tokens are dropped."""
+        inside a round compute overrun steps whose tokens are dropped.
+        ``tables`` ((height, (mask, next))) steps the rows' DFA on the
+        device; a round chains only onto one over the same tables."""
         bmax = min(_next_pow2(len(decodes), minimum=1), self.max_batch)
         decodes = decodes[:bmax]
         use_topk = any(s.gen_cfg.logprobs for s in decodes)
+        gkey = None if tables is None else (tables[0], id(self._gram_dev[tables[0]][2]))
         newest = self._pipe_q[-1] if self._pipe_q else None
         chain = (newest is not None and newest["bmax"] == bmax
-                 and newest["topk"] == use_topk)
+                 and newest["topk"] == use_topk and newest["gkey"] == gkey)
         if newest is not None and not chain:
             self._flush_pipe()              # the layout changed
             # The flush's emits can finish sequences of this round.
@@ -612,17 +778,22 @@ class BatchEngine:
         windows = [None if s is None else
                    make_window(self._windows[s.seq_id], s.gen_cfg.repeat_last_n)
                    for s in rows]
-        table = step.build(rows, lag, fresh, windows)
+        gstates = None
+        if tables is not None:
+            gstates = [None if s is None or s.seq_id not in self._grammars
+                       else self._grammars[s.seq_id].state for s in rows]
+        table = step.build(rows, lag, fresh, windows, gstates)
         any_sampled = any(s.gen_cfg.temperature > 0.0 for _, s in live)
         t0 = time.perf_counter()
         step.up.upload(table, step.tab)
-        fn = step.step_fn(use_topk, any_sampled)
+        height = None if tables is None else tables[0]
+        fn = step.step_fn(use_topk, any_sampled, gram=None if tables is None else tables[1])
         for _ in range(t_steps):
-            self.graphs.run((bmax, use_topk, any_sampled), fn)
+            self.graphs.run((bmax, False, use_topk, any_sampled, height, False, False), fn)
         slot = step.down[use_topk].download(step.out[use_topk])
         self.perf["h_dispatch"] += time.perf_counter() - t0
         self._pipe_q.append({"rows": rows, "t": t_steps, "bmax": bmax,
-                             "topk": use_topk, "ring": step.down[use_topk],
+                             "topk": use_topk, "gkey": gkey, "ring": step.down[use_topk],
                              "slot": slot})
         self.horizon_dispatches += 1
         self.horizon_steps += t_steps
@@ -659,6 +830,71 @@ class BatchEngine:
     def _flush_pipe(self) -> None:
         while self._pipe_q:
             self._emit_round(self._pipe_q.popleft())
+
+    # ------------------------------------------------------------------
+    # grammar masks and tables
+    # ------------------------------------------------------------------
+    def _grammar_tables(self, decodes: list[Sequence]):
+        """(height, (mask, next state)) of the one DFA the rows' grammars
+        share, loaded into the device buffers of its height, or None where
+        device stepping cannot apply: a PDA-tier grammar, mixed DFAs, a DFA
+        over 512 states (JAX :1971-2011). A DFA's tables, padded to the
+        height (a power of two of at least 16 states) and to the model's
+        vocabulary (ids past the tokenizer's are never legal), are built
+        once and kept on the host; the card holds one buffer pair per
+        height, rewritten when another DFA comes into use (stream-ordered
+        after the rounds that read the old one, ROADMAP §C)."""
+        dfa = None
+        for s in decodes:
+            g = self._grammars.get(s.seq_id)
+            if g is None:
+                continue
+            if not isinstance(g, GrammarState):
+                return None                     # the exact-PDA tier: host only
+            if dfa is not None and g.dfa is not dfa:
+                return None                     # mixed grammars in the batch
+            dfa = g.dfa
+        if dfa is None:
+            return None
+        host = self._gram_host.get(id(dfa))
+        if host is None or host[0] is not dfa:
+            tables = dfa.token_tables(self.vocab_bytes(),
+                                      eos_token_id=self.tokenizer.eos_token_id)
+            if tables is None:
+                return None                     # too many states
+            masks, nxt = tables
+            v = self.model.vocab_size
+            height = _next_pow2(masks.shape[0])
+            gm = np.zeros((height, v), dtype=bool)
+            gn = np.full((height, v), -1, dtype=np.int32)
+            tv = min(masks.shape[1], v)
+            gm[:masks.shape[0], :tv] = masks[:, :tv]
+            gn[:masks.shape[0], :tv] = nxt[:, :tv]
+            host = self._gram_host[id(dfa)] = (dfa, torch.from_numpy(gm),
+                                               torch.from_numpy(gn))
+        _, gm, gn = host
+        height = gm.shape[0]
+        buf = self._gram_dev.get(height)
+        if buf is None:
+            buf = self._gram_dev[height] = [torch.empty_like(gm, device=self.device),
+                                            torch.empty_like(gn, device=self.device), None]
+        if buf[2] is not dfa:
+            buf[0].copy_(gm)
+            buf[1].copy_(gn)
+            buf[2] = dfa
+            self.perf["grammar_uploads_n"] += 1
+        return height, (buf[0], buf[1])
+
+    def _grammar_mask(self, seq_ids: list[int], bmax: Optional[int] = None) -> np.ndarray:
+        """[bmax, V] host masks: a grammar row's legal tokens, every other
+        row all True."""
+        v = self.model.vocab_size
+        mask = np.ones((bmax or len(seq_ids), v), dtype=bool)
+        for i, sid in enumerate(seq_ids):
+            g = self._grammars.get(sid)
+            if g is not None:
+                mask[i] = padded_mask(g, v)
+        return mask
 
     # ------------------------------------------------------------------
     # warmup
@@ -710,7 +946,7 @@ class BatchEngine:
             for use_topk in (False, True):
                 for any_sampled in (False, True):
                     step.up.upload(table, step.tab)
-                    self.graphs.run((bmax, use_topk, any_sampled),
+                    self.graphs.run((bmax, False, use_topk, any_sampled, None, False, False),
                                     step.step_fn(use_topk, any_sampled))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -735,11 +971,15 @@ class BatchEngine:
         """Record a sampled token, stream it, and finish on EOS/length."""
         self.scheduler.append_token(seq.seq_id, token)
         self._windows[seq.seq_id].append(token)
+        g = self._grammars.get(seq.seq_id)
+        if g is not None:
+            g.accept_token(token)
         is_eos = self.tokenizer.is_eos(token)
         hit_len = (seq.emitted >= seq.gen_cfg.max_tokens
                    or seq.total_len >= self.max_seq_len - 1)
         text = "" if is_eos else self._token_text(token)
-        gt = GeneratedToken(token_id=token, text=text, logprob=logprob,
+        gt = GeneratedToken(token_id=token, text=text,
+                            logprob=None if logprob != logprob else logprob,  # NaN: host pick
                             top_logprobs=top)
         fin = (FinishReason.EOS if is_eos
                else FinishReason.LENGTH if hit_len else None)
@@ -786,6 +1026,8 @@ class BatchEngine:
     def _cleanup_seq(self, seq_id: int) -> None:
         self._handles.pop(seq_id, None)
         self._windows.pop(seq_id, None)
+        self._grammars.pop(seq_id, None)
+        self._host_states.pop(seq_id, None)
         if self._needs_state_rows:
             row = self._seq_rows.pop(seq_id, None)
             if row is not None:

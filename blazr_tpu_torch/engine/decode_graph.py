@@ -267,7 +267,7 @@ def out_width(use_topk: bool) -> int:
 # BatchEngine: one step of the horizon over [bmax] rows of the paged cache
 # ---------------------------------------------------------------------------
 
-BATCH_HEAD = ("tok", "pos", "fresh", "live", "rln", "i", "row")
+BATCH_HEAD = ("tok", "pos", "fresh", "live", "rln", "i", "row", "gst", "hasg")
 
 
 class BatchStep:
@@ -287,7 +287,22 @@ class BatchStep:
     of the step, as the JAX step's ``state_rows``). Pad rows (``live`` 0)
     write to the trash slot and the pool's trash row (``max_batch``) and
     attend over no key. ``out[i]`` gets each row's packed (token,
-    logprob[, top-K]) at step i."""
+    logprob[, top-K]) at step i.
+
+    Constrained rows (``step_fn``'s variants):
+      * ``gram``: a DFA grammar steps on the device, as ``horizon_step``
+        does (JAX :560-634). ``gram`` is the engine's table buffers
+        (mask ``[S, V]`` bool, next state ``[S, V]`` int32) of one height;
+        a row with ``hasg`` samples under ``mask[state]`` and moves to
+        ``next[state, token]`` (a dead transition keeps the state). The
+        state starts at column ``gst`` on a fresh row and is carried in
+        ``gs`` between steps and rounds, as the token and window are.
+      * ``mask``: the host's ``[bmax, V]`` mask of this step (PDA-tier
+        grammars, mixed DFAs, a DFA too large for tables, every grammar
+        under ``decode_horizon`` 1), uploaded into ``mask`` before a T=1
+        step.
+      * ``raw``: the step also copies its raw ``[bmax, V]`` logits into
+        ``logits``, for rows whose token the host samplers pick."""
 
     def __init__(self, engine, bmax: int, horizon: int, slots: int):
         self.engine = engine
@@ -297,16 +312,38 @@ class BatchStep:
         self.tab = torch.zeros((bmax, self.lay.width), dtype=torch.int32, device=dev)
         self.tok = torch.zeros((bmax,), dtype=torch.int64, device=dev)
         self.win = torch.full((bmax, PENALTY_WINDOW), -1, dtype=torch.int64, device=dev)
+        self.gs = torch.zeros((bmax,), dtype=torch.int64, device=dev)
         self.out = {w: torch.zeros((horizon, bmax, out_width(w)), dtype=torch.float64,
                                    device=dev) for w in (False, True)}
         # One slot a round in flight: ``slots`` is the pipe depth + 1.
         self.up = HostRing(dev, slots, (bmax, self.lay.width), torch.int32)
         self.down = {w: HostRing(dev, slots, (horizon, bmax, out_width(w)), torch.float64)
                      for w in (False, True)}
+        # The host-mask and raw-logits buffers, made at their first use.
+        self._mask: Optional[tuple[torch.Tensor, HostRing]] = None
+        self._raw: Optional[tuple[torch.Tensor, HostRing]] = None
+
+    def _vocab_buf(self, dtype: torch.dtype) -> tuple[torch.Tensor, HostRing]:
+        dev = self.engine.device
+        shape = (self.bmax, self.engine.model.vocab_size)
+        return torch.zeros(shape, dtype=dtype, device=dev), HostRing(dev, 2, shape, dtype)
+
+    @property
+    def mask(self) -> tuple[torch.Tensor, HostRing]:
+        if self._mask is None:
+            self._mask = self._vocab_buf(torch.bool)
+        return self._mask
+
+    @property
+    def logits(self) -> tuple[torch.Tensor, HostRing]:
+        if self._raw is None:
+            self._raw = self._vocab_buf(torch.float32)
+        return self._raw
 
     def build(self, rows: list, lag: list[int], fresh: np.ndarray,
-              windows: list[np.ndarray]) -> np.ndarray:
-        """The round's table over ``rows`` (None: a pad row)."""
+              windows: list[np.ndarray], gstates: Optional[list] = None) -> np.ndarray:
+        """The round's table over ``rows`` (None: a pad row); ``gstates[i]``
+        is row i's DFA state on the host (None: no device grammar)."""
         lay = self.lay
         tab = np.zeros((self.bmax, lay.width), dtype=np.int32)
         tab[:, lay.bt:] = PAD_BLOCK
@@ -327,6 +364,9 @@ class BatchStep:
                 tab[i, lay["row"]] = self.engine._row_for(seq.seq_id)
             blocks = seq.block_table[:lay.mb]
             tab[i, lay.bt:lay.bt + len(blocks)] = blocks
+            if gstates is not None and gstates[i] is not None:
+                tab[i, lay["gst"]] = gstates[i]
+                tab[i, lay["hasg"]] = 1
             cfgs.append(seq.gen_cfg)
             steps.append(seq.emitted + lag[i])
             wins.append(windows[i])
@@ -334,12 +374,16 @@ class BatchStep:
         fill_sampling(tab, lay, cfgs, steps, wins)
         return tab
 
-    def step_fn(self, use_topk: bool, any_sampled: bool) -> Callable[[], None]:
+    def step_fn(self, use_topk: bool, any_sampled: bool,
+                gram: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+                mask: bool = False, raw: bool = False) -> Callable[[], None]:
         eng = self.engine
         lay = self.lay
         bs, mb, trash = eng.block_size, lay.mb, eng._trash
         max_pos = eng.max_seq_len - 1
         out = self.out[use_topk]
+        host_mask = self.mask[0] if mask else None
+        raw_out = self.logits[0] if raw else None
 
         def step() -> None:
             t = self.tab
@@ -361,9 +405,21 @@ class BatchStep:
             logits, _ = eng._fwd(eng.model.params, eng.model.cfg, tok[:, None], eng.cache,
                                  posc[:, None], slot[:, None], bt, seq_lens,
                                  t[:, lay["row"]].long())
-            newtok, logprobs = sample_tokens(logits[:, -1, :], sp, window, bias_ids,
-                                             bias_vals)
+            last = logits[:, -1, :]
+            if raw_out is not None:
+                raw_out.copy_(last)
+            gmask = host_mask
+            if gram is not None:
+                hasg = t[:, lay["hasg"]] != 0
+                gs = torch.where(fresh, t[:, lay["gst"]].long(), self.gs)
+                srow = gs.clamp(0, gram[0].shape[0] - 1)
+                gmask = gram[0][srow] | ~hasg[:, None]
+            newtok, logprobs = sample_tokens(last, sp, window, bias_ids, bias_vals, gmask)
             out.index_copy_(0, i, pack_rows(newtok, logprobs, use_topk)[None])
+            if gram is not None:
+                # A dead transition (a stuck grammar) keeps the old state.
+                ns = gram[1][srow, newtok].long()
+                self.gs.copy_(torch.where(hasg & (ns >= 0), ns, gs))
             # Penalty-window update, exact make_window semantics: insert
             # while under repeat_last_n, then shift left within it.
             rln = t[:, lay["rln"]].long()
@@ -395,7 +451,11 @@ class ExecutorStep:
     cache: the counterpart of the jitted ``decode_step`` of
     ``blazr_tpu/engine/executor.py:130`` (forward, then the fused sampler;
     the top-K logprobs under ``use_topk``). Token, position, the sampling
-    parameters and the penalty window come from one uploaded table."""
+    parameters and the penalty window come from one uploaded table. Under
+    ``mode`` "mask" the sampler takes the grammar's ``[1, V]`` mask from
+    ``mask`` (written before the step); under "raw" the step is the
+    forward alone (JAX ``forward_step``) and writes its logits to
+    ``logits`` for the host samplers."""
 
     def __init__(self, model, cache, device: torch.device):
         self.model = model
@@ -404,6 +464,8 @@ class ExecutorStep:
         self.tab = torch.zeros((1, self.lay.width), dtype=torch.int32, device=device)
         self.out = {w: torch.zeros((1, out_width(w)), dtype=torch.float64, device=device)
                     for w in (False, True)}
+        self.mask = torch.ones((1, model.vocab_size), dtype=torch.bool, device=device)
+        self.logits = torch.zeros((1, model.vocab_size), dtype=torch.float32, device=device)
 
     def build(self, cfg: GenerationConfig, tok: int, pos: int, step: int,
               window: np.ndarray) -> np.ndarray:
@@ -414,9 +476,11 @@ class ExecutorStep:
         fill_sampling(tab, lay, [cfg], [step], [window])
         return tab
 
-    def step_fn(self, use_topk: bool, any_sampled: bool) -> Callable[[], None]:
+    def step_fn(self, use_topk: bool, any_sampled: bool,
+                mode: str = "free") -> Callable[[], None]:
         lay = self.lay
         out = self.out[use_topk]
+        gmask = self.mask if mode == "mask" else None
 
         def step() -> None:
             t = self.tab
@@ -424,9 +488,12 @@ class ExecutorStep:
             pos = t[:, lay["pos"]:lay["pos"] + 1].long()
             logits, _ = self.model.forward(tok, self.cache, pos,
                                            (pos[:, 0] + 1).to(torch.int32))
+            if mode == "raw":
+                self.logits.copy_(logits[:, -1, :])
+                return
             sp, window, bias_ids, bias_vals = unpack_sampling(t, lay, any_sampled)
             newtok, logprobs = sample_tokens(logits[:, -1, :], sp, window, bias_ids,
-                                             bias_vals)
+                                             bias_vals, gmask)
             out.copy_(pack_rows(newtok, logprobs, use_topk))
 
         return step

@@ -23,11 +23,18 @@ executor's programs see, and the row-count routing of ``w4a8-prefill``
 agrees. ``inference.quant_compute`` is applied to the model's params in
 place when the executor is built.
 
+Constrained decoding and the host samplers (JAX :262-279, :442-560,
+:614-623): a request's grammar (``grammar``, a JSON schema, JSON mode) is
+compiled when its generation starts; each token is sampled under the
+grammar's ``[1, V]`` mask (the step's "mask" variant, the mask uploaded
+each token) and accepted by the grammar, which ends the stream on a token
+it rejects or on EOS once complete. Mirostat, DRY, typical-p and dynamic
+temperature pick on the host from the raw logits (the step's "raw"
+variant, a forward alone), with a seeded numpy generator.
+
 Not served yet; each raises ``NotImplementedError`` naming its ROADMAP
-queue A item, as ``BatchEngine`` does: grammars and JSON mode (5a.4), host
-samplers (mirostat/DRY/typical/dynatemp; 5a.3), LoRA (5a.6), TP/EP/SP
-meshes and ring prefill (13), MoE offload and streaming (host-offloaded)
-models (12).
+queue A item, as ``BatchEngine`` does: LoRA (5a.6), TP/EP/SP meshes and
+ring prefill (13), MoE offload and streaming (host-offloaded) models (12).
 """
 
 from __future__ import annotations
@@ -46,6 +53,9 @@ from ..models.registry import Model
 from ..quant.qtensor import apply_quant_compute
 from .batch_engine import _next_pow2, _not_served, check_request
 from .decode_graph import TOPK_K, ExecutorStep, StepGraphs, pack_rows
+from .grammar import make_grammar_state, padded_mask
+from .grammar_json import request_grammar_source
+from .samplers import MirostatState, dry_breaker_ids, host_sample, needs_host_sampling
 from .sampling import SamplingParams, make_bias_rows, make_window, sample_tokens
 from .types import GeneratedToken, TokenLogprob
 
@@ -73,6 +83,7 @@ class Executor:
         # Caches (each with its decode step) that no generation holds.
         self._free: list[ExecutorStep] = []
         self._lock = threading.Lock()
+        self._vocab_bytes: Optional[list[bytes]] = None
         self.graphs = StepGraphs(model.device, inf.graphs)
         # In place: a w8a8-widened weight replaces its 4-bit copy one leaf
         # at a time, so the 4-bit copy is freed.
@@ -207,27 +218,80 @@ class Executor:
 
     @torch.no_grad()
     def _decode(self, step: ExecutorStep, cfg: GenerationConfig, tok: int, pos: int,
-                index: int, history: list[int]) -> tuple[int, float, Optional[list]]:
+                index: int, history: list[int], pick) -> tuple[int, float, Optional[list]]:
         """One decode token: the table up, the step (a graph replay on the
         card), and ONE host fetch of the token, its logprob and (with
-        ``cfg.logprobs``) the top-20."""
+        ``cfg.logprobs``) the top-20. ``pick`` is the request's constraint
+        (``_constraint``): the grammar's mask goes up before the step, or
+        the host samplers pick from the raw logits it wrote."""
         use_topk = bool(cfg.logprobs)
         sampled = cfg.temperature > 0.0
+        grammar, host = pick
+        mode = "raw" if host is not None else "mask" if grammar is not None else "free"
         step.tab.copy_(torch.from_numpy(step.build(
             cfg, tok, pos, index, make_window(history, cfg.repeat_last_n))))
-        self.graphs.run((step, use_topk, sampled), step.step_fn(use_topk, sampled))
+        if mode == "mask":
+            step.mask.copy_(torch.from_numpy(padded_mask(grammar, self.model.vocab_size))[None])
+        self.graphs.run((step, use_topk, sampled, mode),
+                        step.step_fn(use_topk, sampled, mode))
+        if mode == "raw":
+            return self._host_row(step.logits, grammar, host, history)
         return self._row(step.out[use_topk][0].cpu().numpy(), cfg)
 
     @torch.no_grad()
     def _sample(self, last: torch.Tensor, cfg: GenerationConfig, step: int,
-                history: list[int], bias) -> tuple[int, float, Optional[list]]:
-        """Fused device sampling of the prefill's [1, V] logits; ONE host
+                history: list[int], bias, pick) -> tuple[int, float, Optional[list]]:
+        """The first token from the prefill's [1, V] logits: fused device
+        sampling under the grammar's mask, or the host samplers; ONE host
         fetch."""
+        grammar, host = pick
+        if host is not None:
+            return self._host_row(last, grammar, host, history)
         dev = self.device
         sp = SamplingParams.from_config([cfg], step=step, device=dev)
         window = torch.from_numpy(make_window(history, cfg.repeat_last_n)[None, :]).to(dev)
-        tok, logprobs = sample_tokens(last, sp, window, *bias)
+        mask = (None if grammar is None else
+                torch.from_numpy(padded_mask(grammar, self.model.vocab_size))[None].to(dev))
+        tok, logprobs = sample_tokens(last, sp, window, *bias, mask)
         return self._row(pack_rows(tok, logprobs, bool(cfg.logprobs))[0].cpu().numpy(), cfg)
+
+    # ------------------------------------------------------------------
+    # grammars and host samplers
+    # ------------------------------------------------------------------
+    def vocab_bytes(self) -> list[bytes]:
+        if self._vocab_bytes is None:
+            self._vocab_bytes = self.tokenizer.vocab_bytes()
+        return self._vocab_bytes
+
+    def _grammar_for(self, cfg: GenerationConfig):
+        src = request_grammar_source(cfg)
+        if src is None:
+            return None
+        return make_grammar_state(src, self.vocab_bytes(),
+                                  eos_token_id=self.tokenizer.eos_token_id)
+
+    def _constraint(self, cfg: GenerationConfig) -> tuple:
+        """(grammar state or None, host-sampler state or None) of one
+        generation."""
+        grammar = self._grammar_for(cfg)
+        host = None
+        if needs_host_sampling(cfg):
+            host = dict(cfg=cfg,
+                        mirostat=MirostatState.from_config(cfg) if cfg.mirostat == 2 else None,
+                        rng=np.random.default_rng(cfg.seed if cfg.seed is not None else 0),
+                        breakers=(dry_breaker_ids(self.tokenizer, cfg)
+                                  if cfg.dry_multiplier > 0 else None))
+        return grammar, host
+
+    def _host_row(self, logits: torch.Tensor, grammar, host: dict,
+                  history: list[int]) -> tuple[int, float, None]:
+        """The host samplers' token from [1, V] raw logits; no logprob."""
+        row = logits[0].float().cpu().numpy()
+        if grammar is not None:
+            row = np.where(padded_mask(grammar, len(row)), row, -np.inf)
+        tok = host_sample(row, host["cfg"], history, host["mirostat"], host["breakers"],
+                          host["rng"])
+        return tok, float("nan"), None
 
     def _row(self, row, cfg: GenerationConfig) -> tuple[int, float, Optional[list]]:
         top = None
@@ -249,6 +313,7 @@ class Executor:
         max_new = min(cfg.max_tokens, self.capacity - len(prompt_ids))
         if max_new <= 0:
             return
+        pick = self._constraint(cfg)
         step, start = self._take(prompt_ids)
         kv_tokens = list(prompt_ids[:start])     # tokens whose KV the cache holds
         try:
@@ -259,17 +324,21 @@ class Executor:
             bias = (torch.from_numpy(ids).to(self.device),
                     torch.from_numpy(vals).to(self.device))
             pos = len(prompt_ids)
-            tok, lp, top = self._sample(last, cfg, 0, history, bias)
+            tok, lp, top = self._sample(last, cfg, 0, history, bias, pick)
             for i in range(max_new):
                 is_eos = self.tokenizer.is_eos(tok)
+                # A token the grammar rejects (the mask makes that rare) ends
+                # the stream (JAX ``_postprocess_token``, :614-623).
+                finished = pick[0] is not None and not pick[0].accept_token(tok)
                 yield GeneratedToken(token_id=tok,
                                      text="" if is_eos else self._token_text(tok),
-                                     logprob=lp, top_logprobs=top)
+                                     logprob=None if lp != lp else lp,  # NaN: host pick
+                                     top_logprobs=top)
                 history.append(tok)
-                if is_eos or i + 1 >= max_new or pos + 1 >= self.capacity:
+                if finished or is_eos or i + 1 >= max_new or pos + 1 >= self.capacity:
                     return
                 fed = tok
-                tok, lp, top = self._decode(step, cfg, fed, pos, i + 1, history)
+                tok, lp, top = self._decode(step, cfg, fed, pos, i + 1, history, pick)
                 kv_tokens.append(fed)
                 pos += 1
         finally:

@@ -1,13 +1,14 @@
 """Fused sampling on the device.
 
 Counterpart of ``blazr_tpu/engine/sampling.py``: penalties → logit bias →
-temperature → top-k/top-p → min-p → seeded draw, with greedy rows taking
-the argmax of the penalized logits. The JAX package draws its Gumbel noise
-with threefry from a per-row (seed, step) key; this port draws it from a
-counter-based hash of (seed, step, token id). The hash gives the same bits
-on the CPU and on the card, but not JAX's bits: seeded rows are
-deterministic per (seed, step) and follow the same distribution; greedy
-rows are exact.
+grammar mask → temperature → top-k/top-p → min-p → seeded draw, with
+greedy rows taking the argmax of the penalized logits. The JAX package
+draws its Gumbel noise with threefry from a per-row (seed, step) key; this
+port draws it from a counter-based hash of (seed, step, token id). The
+hash gives the same bits on the CPU and on the card, but not JAX's bits:
+seeded rows are deterministic per (seed, step) and follow the same
+distribution; greedy rows are exact. The host samplers (mirostat, DRY,
+typical-p, dynamic temperature) are numpy, in ``samplers.py``.
 """
 
 from __future__ import annotations
@@ -158,9 +159,12 @@ def sample_tokens(logits: torch.Tensor, params: SamplingParams,
                   window_tokens: Optional[torch.Tensor] = None,
                   logit_bias_ids: Optional[torch.Tensor] = None,
                   logit_bias_vals: Optional[torch.Tensor] = None,
+                  grammar_mask: Optional[torch.Tensor] = None,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused chain. Returns (tokens [B] i64, logprobs [B, V]); the
-    logprobs are of the penalized, biased distribution."""
+    logprobs are of the penalized, biased, masked distribution.
+    ``grammar_mask`` ([B, V] bool, True = allowed) applies after the
+    penalties and the bias and before the temperature (JAX :216-239)."""
     logits = logits.to(torch.float32)
     if window_tokens is not None:
         logits = apply_penalties(logits, window_tokens, params.repeat_penalty,
@@ -172,6 +176,8 @@ def sample_tokens(logits: torch.Tensor, params: SamplingParams,
         logits = logits.scatter_add(
             1, safe, torch.where(valid, logit_bias_vals,
                                  torch.zeros_like(logit_bias_vals)))
+    if grammar_mask is not None:
+        logits = torch.where(grammar_mask, logits, torch.full_like(logits, -torch.inf))
     logprobs = torch.log_softmax(logits, dim=-1)
     greedy = torch.argmax(logits, dim=-1)
     if not params.any_sampled:

@@ -62,6 +62,12 @@ def gen_config_from_body(body: dict, defaults: GenerationConfig
         ("mirostat", "mirostat"), ("mirostat_tau", "mirostat_tau"),
         ("mirostat_eta", "mirostat_eta"), ("grammar", "grammar"),
         ("lora_adapter", "lora_adapter"),
+        # llama.cpp's names for DRY and dynamic temperature; the JAX server
+        # drops them (ROADMAP §C).
+        ("dry_multiplier", "dry_multiplier"), ("dry_base", "dry_base"),
+        ("dry_allowed_length", "dry_allowed_length"),
+        ("dry_sequence_breakers", "dry_sequence_breakers"),
+        ("dynatemp_range", "dynatemp_range"), ("dynatemp_exponent", "dynatemp_exponent"),
     ]:
         if m(k_openai) is not None:
             setattr(cfg, k_cfg, body[k_openai])

@@ -48,6 +48,8 @@ from ..config.generation import GenerationConfig
 from ..config.server import ServerConfig
 from ..engine.batch_engine import check_request
 from ..engine.generate_text import StopScanner, collect_generation, stream_generation
+from ..engine.grammar_json import request_grammar_source
+from ..engine.grammar_parser import GrammarParseError
 from ..engine.model_scheduler import ModelScheduler
 from ..engine.types import FinishReason, GenerationResult
 from ..model_meta.chat_template import ChatMessage, ChatTemplate, TemplateFormat
@@ -250,6 +252,8 @@ class App:
             resp = await self._guarded(request)
         except ApiError as e:
             resp = Response.json(e.body(), e.status)
+        except GrammarParseError as e:          # a request's grammar (ROADMAP §C)
+            resp = error_response(400, f"invalid grammar: {e}", "invalid_request_error")
         except NotImplementedError as e:        # what the port does not serve yet
             resp = error_response(501, str(e), "not_implemented_error")
         except Exception:
@@ -553,6 +557,15 @@ async def get_model(request: Request) -> Response:
                           "owned_by": "blazr_tpu"})
 
 
+async def compile_grammar(executor, cfg: GenerationConfig) -> None:
+    """Compile a request's grammar off the event loop, before any reply
+    byte: a grammar that does not parse answers 400, streamed or not, and
+    the engine's own compile finds the automaton cached (JSON mode's DFA
+    takes seconds of host time the first time)."""
+    if request_grammar_source(cfg) is not None:
+        await asyncio.to_thread(executor._grammar_for, cfg)
+
+
 async def completions(request: Request):
     state = request.app.state
     body = request.json()
@@ -560,6 +573,7 @@ async def completions(request: Request):
     executor = await asyncio.to_thread(_get_executor, state, body)
     cfg = gen_config_from_body(body, generation_defaults(state, executor))
     check_request(cfg)
+    await compile_grammar(executor, cfg)
     ctx_prefix = _context_prefix(executor, body)
     prompt = body.get("prompt", "")
     prompts = prompt if isinstance(prompt, list) else [prompt]
@@ -633,6 +647,7 @@ async def chat_completions(request: Request):
     executor = await asyncio.to_thread(_get_executor, state, body)
     cfg = gen_config_from_body(body, generation_defaults(state, executor))
     check_request(cfg)
+    await compile_grammar(executor, cfg)
     prompt = _context_prefix(executor, body) + _build_prompt(body, executor.model.cfg)
     prompt_ids = executor.tokenizer.encode(prompt)
     n = max(1, int(body.get("n", 1)))

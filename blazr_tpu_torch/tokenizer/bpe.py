@@ -186,6 +186,14 @@ class BpeTokenizer:
     def special_token_id(self, token: str) -> Optional[int]:
         return self.special_tokens.get(token)
 
+    def token_bytes(self, token_id: int) -> bytes:
+        return self._decoder.get(token_id, b"")
+
+    def vocab_bytes(self) -> list[bytes]:
+        """[V] list of token byte strings (grammar masking input): a
+        byte-level token's raw bytes, not its display string."""
+        return [self._decoder.get(i, b"") for i in range(self._n_vocab)]
+
     # -- encode ------------------------------------------------------------
     def _bpe_merge(self, piece: bytes) -> list[int]:
         if len(piece) == 1:

@@ -23,3 +23,8 @@ class ByteTokenizer:
     @property
     def vocab_size(self) -> int:
         return 256
+
+    def vocab_bytes(self) -> list[bytes]:
+        out = [bytes([i]) for i in range(256)]
+        out[0] = b""
+        return out

@@ -134,6 +134,9 @@ class SentencePieceBpeTokenizer:
             return b""
         return t.replace("▁", " ").encode("utf-8")
 
+    def vocab_bytes(self) -> list[bytes]:
+        return [self.token_bytes(i) for i in range(len(self.tokens))]
+
     def decode(self, ids) -> str:
         out = b"".join(self.token_bytes(i) for i in ids)
         text = out.decode("utf-8", errors="replace")

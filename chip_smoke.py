@@ -93,6 +93,24 @@ Phases, in order; any failure raises and the script exits non-zero:
       ``/api/delete``; ``cli serve`` (warmed) answering ``/v1/messages``
       and ``/api/ps``, ``cli ps`` printing the same JSON, ``cli generate``
       and ``cli info`` on the checkpoint;
+  7c. (``constrained``) grammars, JSON mode, JSON schemas and the host
+      samplers: ``native/pda.cpp`` built with g++ from the checkout; phase
+      7's checkpoint (32 layers when the phase runs alone, CONSTRAINED_LAYERS;
+      phase 7b's loaded model in a full run) served as in phase 7b: a
+      JSON-mode and a JSON-schema request alone, each twice (client TTFT
+      with the grammar's compile, then cached); 8 chats at once (2 free, 2
+      under ``root ::= "yes" | "no"``, 2 with an enum-valued object's
+      ``json_schema``, 1 ``json_object``, 1 seeded mirostat 2 + DRY +
+      typical-p), every constrained reply inside its grammar, complete
+      where it stopped (the schema's JSON parsed, its enum's value), B1 and
+      B2 launched; ms a decode step of 8-row waves of free rows, with 2 rows
+      stepping their DFA on the device, and with a PDA row and a
+      host-sampler row in the T=1 side step; with the card in f32, the wave
+      equal with graphs and without, a one-DFA wave equal under horizon 8
+      (device tables) and 1 (host masks), the free rows equal served alone;
+      the host's DFA compile, ``token_tables`` and mask seconds at the
+      32000-token vocabulary; the Executor (a grammar, mirostat) and ``cli
+      run --grammar --mirostat 2``;
   8.  the sweeps behind the launch plans, straight through the libraries:
       B1's two variants over rows (TC_MIN_ROWS) and over K splits at decode
       rows, B2 over its split count, B3's two variants over rows
@@ -112,8 +130,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   11. (``moe``) the MoE families: B1 against its plain version and timed at
       every expert shape of Mixtral-8x7B, Qwen3-30B-A3B and
       Qwen1.5-MoE-A2.7B (K 768-14336, N 768-14336) at 1, 2, 4, 8, 16 and
-      512 rows; each family at its published width, 2 layers, written to
-      disk as an AWQ-INT4 checkpoint and loaded by load_model onto the card:
+      512 rows; each family at its published width, 2 layers (1 in a full
+      run, FULL_RUN_MOE_FORWARD_LAYERS), written to disk as an AWQ-INT4
+      checkpoint and loaded by load_model onto the card:
       the paged forward (64 and 37 tokens, 4 decode steps) and the
       contiguous one (64 tokens, 4 decode steps) against the CPU f32
       forward, the CPU taking the card's routing and, layer by layer, the
@@ -189,7 +208,7 @@ Phases, in order; any failure raises and the script exits non-zero:
       decode step; the wave of 8 greedy requests equal to the 8 served one
       after another (Codestral with the card in f32); ``cli run`` on both
       2-layer checkpoints.
-Phases 7b and 10-14 run between phases 7 and 8.
+Phases 7b, 7c and 10-14 run between phases 7 and 8.
 Each serving run sets the launch counts to 0 just before it and reads
 them just after; a replayed graph adds the launches it holds, and the
 kernels line counts the first run with graphs (the default path). Under
@@ -2372,11 +2391,12 @@ def cli_serve(model: Path, stderr_path: Path, *extra: str):
 _HTTP_CKPT: dict = {}
 
 
-def http_checkpoint() -> Path:
+def http_checkpoint(layers: int | None = None) -> Path:
     """Phase 7's checkpoint: a full-width Mistral-7B AWQ-INT4 checkpoint
-    (group 128, HTTP_LAYERS layers) and a 32000-token byte-level BPE
-    tokenizer.json in a temporary directory, written once a run (phases 7
-    and ``routes`` share it) and removed when the script ends."""
+    (group 128, HTTP_LAYERS layers unless ``layers``) and a 32000-token
+    byte-level BPE tokenizer.json in a temporary directory, written once a
+    run for each depth (phases 7, ``routes`` and ``constrained`` share it)
+    and removed when the script ends."""
     import atexit
     import shutil
     import tempfile
@@ -2384,19 +2404,20 @@ def http_checkpoint() -> Path:
     from blazr_tpu_torch.utils.synthetic import (mistral_7b_config, write_hf_checkpoint,
                                                  write_bpe_tokenizer_json)
 
-    if "dir" not in _HTTP_CKPT:
+    layers = layers or HTTP_LAYERS
+    if layers not in _HTTP_CKPT:
         cfg = mistral_7b_config()
-        cfg.num_layers = HTTP_LAYERS
+        cfg.num_layers = layers
         ckpt = Path(tempfile.mkdtemp(prefix="blazr_awq_"))
         atexit.register(shutil.rmtree, ckpt, True)
         t0 = time.perf_counter()
         write_hf_checkpoint(ckpt, cfg, quant="awq", group_size=128, seed=SEED)
         write_bpe_tokenizer_json(ckpt, cfg.vocab_size, seed=SEED)
         size = sum(f.stat().st_size for f in ckpt.iterdir())
-        log(f"  wrote {HTTP_LAYERS}-layer Mistral-7B AWQ-INT4 checkpoint ({size / 1e9:.2f} GB) "
+        log(f"  wrote {layers}-layer Mistral-7B AWQ-INT4 checkpoint ({size / 1e9:.2f} GB) "
             f"and tokenizer.json in {time.perf_counter() - t0:.1f} s")
-        _HTTP_CKPT["dir"] = ckpt
-    return _HTTP_CKPT["dir"]
+        _HTTP_CKPT[layers] = ckpt
+    return _HTTP_CKPT[layers]
 
 
 def serve_http(dev, card: str, hand_over: bool = False) -> dict:
@@ -2724,7 +2745,7 @@ def route_requests(port: int, ckpt: Path, ex, rng, card: str) -> dict:
     return out
 
 
-def routes_phase(dev, card: str, sched=None) -> dict:
+def routes_phase(dev, card: str, sched=None, hand_over: bool = False) -> dict:
     """Phase 7b (``routes``): phase 7's checkpoint (written if phase 7 did
     not run) served through ModelScheduler (phase 7's ``sched`` where it
     handed it over) and a warmed BatchEngine with the prefix cache, as
@@ -2734,7 +2755,8 @@ def routes_phase(dev, card: str, sched=None) -> dict:
     the openssl binary, through the Executor), ``/api/delete``; then
     ``cli serve`` (warmed) answering ``/v1/messages`` and ``/api/ps`` with
     ``cli ps`` printing the same JSON, and phase 7's chat and /metrics
-    checks; ``cli generate`` and ``cli info``."""
+    checks; ``cli generate`` and ``cli info``. With ``hand_over`` (phase 7c
+    runs next) the loaded scheduler goes to phase 7c under ``"sched"``."""
     import tempfile
 
     import numpy as np
@@ -2799,11 +2821,18 @@ def routes_phase(dev, card: str, sched=None) -> dict:
             assert st == 200 and json.loads(data)["content"][0]["text"] is not None, data
             log(f"  HTTPS (self-signed): /health and /v1/messages answered, {dt * 1e3:.1f} ms")
         out["tls"] = True
+    entry = sched._models.get("default")
     with http_server(sched, None) as port:
         st, data = _http(port, "DELETE", "/api/delete", {"name": "default"})
         assert st == 200 and json.loads(data) == {"unloaded": True}, data
         assert json.loads(_http(port, "GET", "/api/ps")[1]) == {"models": []}
     cfg = ex.model.cfg
+    if hand_over:
+        # Phase 7c serves the model this phase unloaded: put its entry back
+        # (the Executor holds nothing that unloading released) instead of
+        # loading the checkpoint again.
+        sched._models["default"] = entry
+        out["sched"] = sched
     del sched, ex, engine
     free_card()
 
@@ -2844,6 +2873,424 @@ def routes_phase(dev, card: str, sched=None) -> dict:
     shutil.rmtree(certs, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  routes phase: {out['phase_s']:.1f} s ({card})")
+    return out
+
+
+# Phase 7c (``constrained``): grammars, JSON mode, JSON schemas and the host
+# samplers, served at Mistral-7B's full width.
+CONSTRAINED_LAYERS = 32        # --phases build,constrained; a full run takes 7b's model
+YES_NO = 'root ::= "yes" | "no"'
+ENUM_SCHEMA = {"type": "object", "properties": {"answer": {"enum": ["yes", "no", "maybe"]}},
+               "required": ["answer"]}
+# The JSON rows' penalties: the JSON grammars allow whitespace without
+# bound, and a random-weight model may keep picking it; the penalties make
+# it move on, as a client of such a model would ask.
+JSON_PENALTIES = dict(frequency_penalty=1.0, presence_penalty=1.0)
+HOST_SAMPLER = dict(temperature=0.8, seed=11, mirostat=2, dry_multiplier=0.8, typical_p=0.9)
+CLI_GRAMMAR = 'root ::= "answer: " ("yes" | "no") "."'
+
+
+def constrained_bodies(texts: list) -> list:
+    """The phase's wave of 8 chats, (kind, request body): 2 free greedy, 2
+    under YES_NO, 2 under ENUM_SCHEMA's json_schema, 1 in JSON mode, 1
+    seeded mirostat 2 + DRY + typical-p."""
+    schema = {"type": "json_schema", "json_schema": {"name": "answer", "schema": ENUM_SCHEMA}}
+
+    def chat(i, **kw):
+        return dict({"messages": [{"role": "user", "content": texts[i]}], "max_tokens": 48,
+                     "temperature": 0}, **kw)
+    return [("free", chat(0)), ("free", chat(1)),
+            ("yes_no", chat(2, grammar=YES_NO, max_tokens=8)),
+            ("yes_no", chat(3, grammar=YES_NO, max_tokens=8)),
+            ("schema", chat(4, max_tokens=96, response_format=schema, **JSON_PENALTIES)),
+            ("schema", chat(5, max_tokens=96, response_format=schema, **JSON_PENALTIES)),
+            ("json", chat(6, max_tokens=64, response_format={"type": "json_object"},
+                          **JSON_PENALTIES)),
+            ("host", chat(7, **HOST_SAMPLER))]
+
+
+def grammar_source(kind: str):
+    from blazr_tpu_torch.engine.grammar_json import JSON_GRAMMAR, json_schema_to_gbnf
+
+    return {"yes_no": YES_NO, "schema": json_schema_to_gbnf(ENUM_SCHEMA),
+            "json": JSON_GRAMMAR}.get(kind)
+
+
+def accepted(src: str, tokens: list, vocab: list, eos: int) -> bool:
+    """Whether ``tokens`` (ids; the last may be EOS) are a prefix the grammar
+    accepts, complete where the last token is EOS (the tier ``cli serve``
+    takes: the DFA, or the PDA for JSON mode)."""
+    from blazr_tpu_torch.engine.grammar import make_grammar_state
+
+    st = make_grammar_state(src, vocab, eos_token_id=eos)
+    body = tokens[:-1] if tokens and tokens[-1] == eos else tokens
+    if not all(st.accept_token(t) for t in body):
+        return False
+    return st.is_complete if len(body) < len(tokens) else True
+
+
+@contextlib.contextmanager
+def grammar_timers():
+    """Host seconds of each DFA compile, ``token_tables`` build and host mask
+    (DFA and PDA) while the block runs, by name."""
+    from blazr_tpu_torch.engine import grammar, grammar_pda
+
+    got: dict = {"dfa_compile": [], "token_tables": [], "pda_mask": [], "dfa_mask": []}
+    saved = [(grammar, "_compile_uncached"), (grammar.GrammarDfa, "token_tables"),
+             (grammar_pda.PdaGrammarState, "mask"), (grammar.GrammarState, "mask")]
+    originals = [getattr(owner, name) for owner, name in saved]
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                got[key].append(time.perf_counter() - t0)
+        return call
+    for (owner, name), fn, key in zip(saved, originals, got):
+        setattr(owner, name, timed(fn, key))
+    try:
+        yield got
+    finally:
+        for (owner, name), fn in zip(saved, originals):
+            setattr(owner, name, fn)
+
+
+def median_ms(xs: list) -> float:
+    return sorted(xs)[len(xs) // 2] * 1e3 if xs else float("nan")
+
+
+def constrained_http(port: int, bodies: list, tok, card: str) -> dict:
+    """The wave of 8 over HTTP at once; each reply checked against its
+    grammar (texts: the JSON grammars allow any byte inside a string, so a
+    replaced invalid UTF-8 byte keeps the text inside them)."""
+    import threading
+
+    import torch
+
+    vocab = [bytes([i]) for i in range(256)]
+    replies: list = [None] * len(bodies)
+
+    def one(i):
+        t0 = time.perf_counter()
+        st, data = _http(port, "POST", "/v1/chat/completions", bodies[i][1])
+        assert st == 200, (st, data)
+        replies[i] = dict(json.loads(data), wall=time.perf_counter() - t0)
+    reset_counts()
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    assert launches["qmm"] > 0 and launches["paged_attention"] > 0, launches
+    out = dict(wall_s=wall, launches=launches, replies=[])
+    for (kind, body), r in zip(bodies, replies):
+        assert r is not None, f"{kind} request did not finish"
+        text = r["choices"][0]["message"]["content"] or ""
+        finish = r["choices"][0]["finish_reason"]
+        n = r["usage"]["completion_tokens"]
+        src = grammar_source(kind)
+        if src is not None:
+            data = text.encode()
+            assert accepted(src, list(data) + ([256] if finish == "stop" else []),
+                            vocab + [b""], 256), (kind, finish, text)
+        if kind == "yes_no":
+            assert finish == "stop" and text in ("yes", "no"), (finish, text)
+        if kind == "schema":
+            assert finish == "stop", (kind, finish, text)
+            assert json.loads(text)["answer"] in ENUM_SCHEMA["properties"]["answer"]["enum"]
+        if kind == "json" and finish == "stop":
+            json.loads(text)
+        assert n > 0 and finish in ("stop", "length"), r
+        out["replies"].append(dict(kind=kind, finish=finish, tokens=n, text=text[:80]))
+        log(f"  {kind:7s} {finish:6s} {n:3d} tokens, done at {r['wall']:.2f} s: {text[:72]!r}")
+    log(f"  the wave of 8 over HTTP: {wall:.2f} s; launches {launches} ({card})")
+    return out
+
+
+def constrained_engine(model, tok, horizon: int = 8, graphs: bool = True):
+    """A BatchEngine as ``serve --continuous-batching`` builds it over the
+    checkpoint's tokenizer (max batch 8, horizon ``horizon``), 1024 tokens
+    of context."""
+    from blazr_tpu_torch.config import AppConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+
+    app = AppConfig(model=model.cfg)
+    app.inference.max_batch_size = 8
+    app.inference.prefix_cache = True
+    app.inference.max_seq_len = 1024
+    app.inference.decode_horizon = horizon
+    app.inference.graphs = graphs
+    return BatchEngine(model, tok, app)
+
+
+def wave_requests(tok, bodies: list, kinds=None) -> list:
+    """(prompt ids, GenerationConfig) of the wave's bodies (all of
+    ``kinds`` when given), the chat texts encoded as they are."""
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.server.api_types import gen_config_from_body
+
+    out = []
+    for kind, body in bodies:
+        if kinds is None or kind in kinds:
+            out.append((tok.encode(body["messages"][0]["content"]),
+                        gen_config_from_body(body, GenerationConfig())))
+    return out
+
+
+async def wave_timing(engine, reqs: list, label: str, card: str, free_rows: int) -> dict:
+    """One wave through ``engine``: ms a decode step (the decode rounds'
+    wall over the steps the horizon rounds advanced), the free rows'
+    tokens/s, the side or host-mask steps' ms, B1 and B2 launches a step."""
+    import torch
+
+    p0 = dict(engine.perf)
+    s0 = engine.horizon_steps
+    reset_counts()
+    t0 = time.perf_counter()
+    res = await serve(engine, [reqs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    steps = engine.horizon_steps - s0
+    perf = {k: engine.perf[k] - p0.get(k, 0.0) for k in engine.perf}
+    single = perf.get("single_step_n", 0)
+    free = res[:free_rows]
+    # The free rows' decode: their tokens after the first over the span from
+    # the first first token to the last finish (prefill left out).
+    span = max(r["t_done"] for r in free) - min(r["t_submit"] + r["ttft"] for r in free)
+    out = dict(ms_per_step=perf["decode"] / max(steps, 1) * 1e3, steps=steps,
+               free_tok_s=sum(len(r["tokens"]) - 1 for r in free) / span, wall_s=wall,
+               single_steps=single,
+               single_ms=perf.get("single_step", 0.0) / max(single, 1) * 1e3,
+               b1=launches["qmm"], b2=launches["paged_attention"],
+               uploads=perf.get("grammar_uploads_n", 0))
+    log(f"  {label}: {out['ms_per_step']:.2f} ms a decode step over {steps} horizon steps, "
+        f"free rows' decode {out['free_tok_s']:.1f} tok/s; {single:.0f} T=1 steps of "
+        f"{out['single_ms']:.2f} ms; B1 {launches['qmm']}, B2 {launches['paged_attention']}; "
+        f"table uploads {out['uploads']:.0f} ({card})")
+    return dict(out, streams=[r["tokens"] for r in res])
+
+
+def constrained_checks(dev, model, tok, bodies: list, card: str) -> dict:
+    """The equalities, with the card in f32 (B1's split-K variant at every
+    row count, so a row's arithmetic does not depend on its batch): the
+    wave of 8 with graphs and without; the 4 DFA rows and 4 free rows of a
+    one-DFA wave under horizon 8 (device tables) and 1 (host masks); the
+    wave's free rows served alone; every constrained row's tokens accepted
+    by its grammar."""
+    import torch
+
+    from blazr_tpu_torch.models.registry import Model
+
+    f32 = Model(model.cfg, card_f32(model.params), torch.float32)
+    wave = wave_requests(tok, bodies)
+    kinds = [k for k, _ in bodies]
+    dfa_wave = (wave_requests(tok, bodies, ("free",)) * 2)[:4] + \
+        wave_requests(tok, bodies, ("schema",)) * 2
+    vocab, eos = tok.vocab_bytes(), tok.eos_token_id
+    out = {}
+
+    def run(engine, waves_):
+        async def go():
+            return [[r["tokens"] for r in await serve(engine, [w])] for w in waves_]
+        return asyncio.run(go())
+    on = constrained_engine(f32, tok)
+    (wave_on, dfa_on, alone) = run(on, [wave, dfa_wave, wave[:2]])
+    assert on.perf["grammar_uploads_n"] >= 1, dict(on.perf)
+    del on
+    free_card()
+    off = constrained_engine(f32, tok, graphs=False)
+    (wave_off,) = run(off, [wave])
+    del off
+    free_card()
+    h1 = constrained_engine(f32, tok, horizon=1)
+    (dfa_h1,) = run(h1, [dfa_wave])
+    assert not h1._gram_dev, "horizon 1 took device tables"
+    del h1
+    free_card()
+    for kind, toks in zip(kinds, wave_on):
+        src = grammar_source(kind)
+        assert src is None or accepted(src, toks, vocab, eos), (kind, toks)
+    for toks in dfa_on[4:]:
+        assert accepted(grammar_source("schema"), toks, vocab, eos), toks
+    checks = {"graphs on == off (the wave of 8)": wave_on == wave_off,
+              "horizon 8 (device tables) == 1 (host masks)": dfa_on == dfa_h1,
+              "free rows alone == in the wave": alone == wave_on[:2]}
+    for what, ok in checks.items():
+        log(f"  card in f32: {what}: {'equal' if ok else 'DIFFERENT'}")
+    assert all(checks.values()), checks
+    out["checks"] = list(checks)
+    del f32
+    free_card()
+    return out
+
+
+def constrained_executor(ex, ckpt: Path, card: str) -> dict:
+    """The Executor: a grammar (the step's mask variant) and mirostat (its
+    raw-logits variant) in this process, then ``cli run`` with a grammar
+    and mirostat at once as a subprocess; each reply inside its grammar."""
+    import re
+
+    from blazr_tpu_torch.config import GenerationConfig
+
+    tok = ex.tokenizer
+    prompt = tok.encode("the answer is")
+    t0 = time.perf_counter()
+    toks = [t.token_id for t in ex.generate(prompt, GenerationConfig(
+        max_tokens=8, temperature=0.0, grammar=YES_NO))]
+    assert accepted(YES_NO, toks, tok.vocab_bytes(), tok.eos_token_id), toks
+    t1 = time.perf_counter()
+    host = list(ex.generate(prompt, GenerationConfig(max_tokens=16, **HOST_SAMPLER)))
+    assert len(host) > 0 and all(t.logprob is None for t in host)
+    t2 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(TREE))
+    proc = subprocess.run(
+        [sys.executable, "-m", "blazr_tpu_torch.cli", "run", str(ckpt), "--prompt",
+         "the answer is", "--max-tokens", "16", "--temperature", "0.8", "--seed", "3",
+         "--grammar", CLI_GRAMMAR, "--mirostat", "2"],
+        cwd=TREE, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t2
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    text = proc.stdout.strip()
+    assert re.fullmatch(r"answer: (yes|no)\.", text), (text, proc.stderr[-2000:])
+    log(f"  Executor: yes/no greedy {toks} in {(t1 - t0) * 1e3:.0f} ms; mirostat+DRY+typical "
+        f"{len(host)} tokens in {(t2 - t1) * 1e3:.0f} ms; cli run --grammar --mirostat 2: "
+        f"{text!r} ({wall:.1f} s, the load included; {card})")
+    return dict(cli_s=wall, cli_text=text)
+
+
+def constrained_phase(dev, card: str, sched=None) -> dict:
+    """Phase 7c (``constrained``): the PDA library built from the repo's
+    source; phase 7's checkpoint (CONSTRAINED_LAYERS layers when the phase
+    runs alone; phase 7b's loaded model in a full run) served as ``cli serve
+    --continuous-batching`` serves it (warmed, prefix cache): a JSON-mode
+    and a JSON-schema request alone, each twice (TTFT with the grammar's
+    compile, then cached); the wave of 8 (``constrained_bodies``) at once
+    over HTTP, every constrained reply inside its grammar (``yes``/``no``
+    and the schema's JSON complete), B1 and B2 launched; ms a decode step of
+    an 8-row wave of free rows, with 2 device-table (DFA) rows, and with a
+    PDA and a host-sampler row in the side step (``wave_timing``); the
+    equalities of ``constrained_checks`` with the card in f32; the DFA
+    compile, ``token_tables`` and host mask seconds at the 32000-token
+    vocabulary (``grammar_timers``); the Executor and ``cli run``."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch import native
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.grammar import (GrammarState, compile_grammar_to_dfa,
+                                                make_grammar_state)
+    from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    path = native.lib_path("pda")
+    if path.exists():            # a copied build: build it on this machine
+        path.unlink()
+    t0 = time.perf_counter()
+    native.load_library("pda")
+    out["pda_build_s"] = time.perf_counter() - t0
+    assert path.exists(), path
+    log(f"  native/pda.cpp built with g++ from the checkout -> {path.name} in "
+        f"{out['pda_build_s']:.2f} s")
+    ckpt = http_checkpoint(HTTP_LAYERS if sched is not None else CONSTRAINED_LAYERS)
+    t0 = time.perf_counter()
+    handed = sched is not None
+    sched = sched or ModelScheduler(ckpt, device=dev)
+    ex = sched.get_executor("default")
+    tok = ex.tokenizer
+    inf = ex.app_cfg.inference
+    inf.max_batch_size = 8
+    inf.prefix_cache = True
+    engine = BatchEngine(ex.model, tok, ex.app_cfg)
+    warm_s = engine.warmup()
+    layers = ex.model.num_layers
+    log(f"  {'phase 7b' if handed else 'loaded'}'s {layers}-layer model warmed in "
+        f"{time.perf_counter() - t0:.1f} s (warmup {warm_s:.1f} s); vocabulary "
+        f"{len(tok.vocab_bytes())}")
+    rng = np.random.default_rng(SEED + 19)
+    texts = [_prompt_text(tok, int(n), rng) for n in rng.integers(48, 128, 8)]
+    bodies = constrained_bodies(texts)
+    with grammar_timers() as timers, http_server(sched, engine) as port:
+        ttft = {}
+        for kind in ("free", "json", "schema"):
+            body = dict(next(b for k, b in bodies if k == kind), stream=True)
+            for when in ("first", "cached", "cached", "cached"):
+                n0 = len(timers["dfa_compile"])
+                p0 = dict(engine.perf)
+                r = _stream_chat(port, body)
+                assert r["done"] and r["finish"], r
+                ttft.setdefault(f"{kind}_{when}_ms", []).append((r["ttft"] or r["wall"]) * 1e3)
+                compile_s = sum(timers["dfa_compile"][n0:])
+                ms = {k: (engine.perf[k] - p0.get(k, 0.0)) * 1e3
+                      for k in ("prefill", "p_finish", "decode")}
+                log(f"  {kind} request alone, {when}: client TTFT {ttft[f'{kind}_{when}_ms'][-1]:.1f}"
+                    f" ms (DFA compiles in it {compile_s:.2f} s), e2e {r['wall'] * 1e3:.1f} ms, "
+                    f"{len(r['deltas'])} deltas; engine ms " +
+                    ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+        out["ttft"] = ttft
+        out["http"] = constrained_http(port, bodies, tok, card)
+    vocab = tok.vocab_bytes()
+    for kind in ("yes_no", "schema", "json"):
+        st = make_grammar_state(grammar_source(kind), vocab, eos_token_id=tok.eos_token_id)
+        dfa = compile_grammar_to_dfa(grammar_source(kind))
+        tier = ("exact-PDA (host mask, side step)" if not isinstance(st, GrammarState) else
+                "DFA, device tables" if dfa.num_states <= 512 else "DFA, host masks")
+        log(f"  tier of {kind}: {tier}; its DFA {dfa.num_states} states "
+            f"({'exact' if dfa.exact else 'depth-bounded'})")
+    pda = make_grammar_state(grammar_source("json"), vocab, eos_token_id=tok.eos_token_id)
+    for t in tok.encode('{"'):
+        assert pda.accept_token(t)
+    t0 = time.perf_counter()
+    inside = pda.mask()
+    out["pda_string_mask_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"  a PDA mask inside a JSON string (after '{{\"'): {out['pda_string_mask_ms']:.1f} ms, "
+        f"{int(inside.sum())} of {len(inside)} tokens legal")
+    out["timers"] = {k: (len(v), sum(v), median_ms(v)) for k, v in timers.items()}
+    for key, (n, total, med) in out["timers"].items():
+        log(f"  host {key}: {n} calls, {total:.3f} s in all, median {med:.3f} ms")
+    tables = {h: (b[0].numel() * b[0].element_size() + b[1].numel() * b[1].element_size())
+              for h, b in engine._gram_dev.items()}
+    log(f"  device grammar tables: {[(h, round(n / 2**20, 1)) for h, n in tables.items()]} "
+        f"(height, MiB), outside the KV pool")
+    out["table_mib"] = sum(tables.values()) / 2**20
+    del engine
+    free_card()
+
+    timing = constrained_engine(ex.model, tok)
+    timing.warmup()
+    free8 = wave_requests(tok, bodies, ("free",)) * 4
+    dfa8 = free8[:6] + wave_requests(tok, bodies, ("schema",))
+    side8 = free8[:6] + wave_requests(tok, bodies, ("json", "host"))
+    for reqs in (free8, dfa8, side8):       # 8 horizon rounds of the free rows
+        for _, g in reqs:
+            g.max_tokens = 64
+    for _, g in side8[6:]:                   # a side row takes one token a round
+        g.max_tokens = 8
+
+    async def waves():            # one event loop: the engine's event is bound to it
+        got = {}
+        for label, reqs in (("free rows only", free8), ("with 2 device-table rows", dfa8),
+                            ("with a PDA and a host-sampler row", side8)):
+            # First with the captures of the wave's new graph variants, then warm.
+            await wave_timing(timing, reqs, label + ", first", card, 6)
+            got[label] = await wave_timing(timing, reqs, label, card, 6)
+        return got
+    out["waves"] = asyncio.run(waves())
+    del timing
+    free_card()
+    out.update(constrained_checks(dev, ex.model, tok, bodies, card))
+    out["executor"] = constrained_executor(ex, ckpt, card)
+    del sched, ex
+    free_card()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  constrained phase: {out['phase_s']:.1f} s ({card}; {layers} layers)")
     return out
 
 
@@ -3373,9 +3820,9 @@ def family_serving(dev, card: str, family: str, model, max_seq_len: int) -> dict
         engine, warm_s = family_engine(model, graphs, max_seq_len)
         decode = dict.fromkeys(("steps", "qmm", "paged_attention"), 0)
 
-        def counted_round(decodes, inner=engine._horizon_round, engine=engine):
+        def counted_round(decodes, *args, inner=engine._horizon_round, engine=engine):
             c0, s0 = read_counts(), engine.horizon_steps
-            inner(decodes)
+            inner(decodes, *args)
             c1 = read_counts()
             decode["steps"] += engine.horizon_steps - s0
             for key in ("qmm", "paged_attention"):
@@ -3660,9 +4107,15 @@ def card_vs_cpu_contiguous(dev, cfg, params, cpu_params, n: int, tag: str,
     return worst
 
 
-def moe_forwards(dev) -> dict:
-    """Phase 11 (b): each MoE family at its published width, 2 layers,
-    written to disk as an AWQ-INT4 checkpoint (group 128) in its HF layout
+# Depth of phase 11's reference checkpoints: 2 layers, 1 in a full run
+# (the CPU f32 references are host-bound; every check stays).
+MOE_FORWARD_LAYERS = 2
+FULL_RUN_MOE_FORWARD_LAYERS = 1
+
+
+def moe_forwards(dev, depth: int = MOE_FORWARD_LAYERS) -> dict:
+    """Phase 11 (b): each MoE family at its published width, ``depth``
+    layers, written to disk as an AWQ-INT4 checkpoint (group 128) in its HF layout
     and loaded by load_model onto the card (bf16): the paged forward (a
     prefill of 64 and 37 tokens, 4 decode steps) and the contiguous one (a
     64-token prefill, 4 decode steps) against the port's CPU f32 forward on
@@ -3684,7 +4137,7 @@ def moe_forwards(dev) -> dict:
     with tempfile.TemporaryDirectory(prefix="moe-") as root:
         for family, make in MOE_CONFIGS.items():
             cfg = make()
-            cfg.num_layers = 2
+            cfg.num_layers = depth
             d = Path(root) / family
             t0 = time.perf_counter()
             write_hf_checkpoint(d, cfg, quant="awq", seed=SEED, dtype="bfloat16")
@@ -3713,12 +4166,12 @@ def moe_forwards(dev) -> dict:
                 f"{family} paged, free-running, card in f32", rel_tol=F32_FREE_TOL,
                 card_dtype=torch.float32)
             t5 = time.perf_counter()
-            assert counts["paged_attention"] == 2 * 4 and counts["qmm"] > 0, counts
+            assert counts["paged_attention"] == depth * 4 and counts["qmm"] > 0, counts
             # A sanity floor: a broken router agrees on about k/E of its picks.
             assert tape.share >= 0.9, f"{family}: routing agreement {tape.share}"
             moe = model.cfg.moe
             log(f"  {family}: {cfg.hidden_size}d, {moe.num_experts} experts of "
-                f"{moe.intermediate_size}, top-{moe.experts_per_tok}, 2 layers; written in "
+                f"{moe.intermediate_size}, top-{moe.experts_per_tok}, {depth} layer(s); written in "
                 f"{t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s, CPU weights in "
                 f"{t3 - t2:.1f} s, compared in {t5 - t4:.1f} s; max rel err of the logits "
                 f"by layer: paged "
@@ -3739,11 +4192,12 @@ def moe_forwards(dev) -> dict:
 
 def moe_phase(dev, gen, card: str, full_run: bool) -> dict:
     """Phase 11: B1 at the expert shapes (moe_b1), the 2-layer forwards
-    (moe_forwards), then Mixtral-8x7B and Qwen3-30B-A3B served through the
-    warmed engine (family_serving), at the depth MOE_SERVING gives a full
-    run when ``full_run``. The kernels line takes its MoE row's launches
-    from Mixtral's run with graphs."""
-    out = {"b1": moe_b1(dev, gen), "forwards": moe_forwards(dev)}
+    (moe_forwards; 1 layer in a full run), then Mixtral-8x7B and
+    Qwen3-30B-A3B served through the warmed engine (family_serving), at the
+    depth MOE_SERVING gives a full run when ``full_run``. The kernels line
+    takes its MoE row's launches from Mixtral's run with graphs."""
+    out = {"b1": moe_b1(dev, gen), "forwards": moe_forwards(
+        dev, FULL_RUN_MOE_FORWARD_LAYERS if full_run else MOE_FORWARD_LAYERS)}
     for family, layers, ctx, full_run_layers in MOE_SERVING:
         t0 = time.perf_counter()
         model = llama_family_model(dev, family, full_run_layers if full_run else layers)
@@ -4762,7 +5216,7 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
 
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
           "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "prefix", "http",
-          "routes", "families", "moe", "gguf", "mla", "ssm", "sweep", "timings", "layout_times")
+          "routes", "constrained", "families", "moe", "gguf", "mla", "ssm", "sweep", "timings", "layout_times")
 FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
@@ -4871,7 +5325,12 @@ def main() -> int:
         ("routes", "phase 7b: the other routes of the HTTP server (Anthropic messages, "
          "responses, infill, embeddings, rerank, tools, slots, management, TLS) and the "
          "CLI (serve, ps, generate, info) on phase 7's checkpoint",
-         lambda: routes_phase(dev, card, res.get("http", {}).pop("sched", None))),
+         lambda: routes_phase(dev, card, res.get("http", {}).pop("sched", None),
+                              hand_over="constrained" in phases)),
+        ("constrained", "phase 7c: grammars, JSON mode, JSON schemas and the host samplers "
+         "(mirostat, DRY, typical-p) over HTTP, the device-table and side-step paths timed, "
+         "the Executor and cli run", lambda: constrained_phase(
+             dev, card, (res.get("routes") or res.get("http") or {}).pop("sched", None))),
         ("families", "phase 10: the dense families (2-layer full-width forwards, card "
          "vs CPU), then Qwen3-8B and Gemma2-9B served through the warmed engine",
          lambda: families(dev, card, phases == list(FULL_RUN))),

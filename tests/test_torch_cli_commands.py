@@ -207,3 +207,34 @@ def test_ps_prints_the_servers_api_ps(model_dir, capsys):
     assert got == ref and got[0] == 0
     assert json.loads(got[1]) == {"models": [{"name": "default", "model": "default",
                                               "expires_at": "never", "size_vram": 0}]}
+
+
+@pytest.mark.parametrize("flags", [["--grammar", 'root ::= "a" [b-d]+ "."'], ["--json"]],
+                         ids=["grammar", "json"])
+def test_run_with_a_grammar_matches_jax(model_dir, capsys, flags):
+    """``cli run --grammar`` and ``--json``: the Executor's greedy reply under
+    the grammar equals the JAX ``run``'s."""
+    argv = ["run", str(model_dir), "--prompt", "hello there", "-n", "10", "-t", "0",
+            "--dtype", "f32", "--no-warmup", *flags]
+    rc, out, _ = _port(argv, capsys)
+    jrc, jout, _ = _jax_run(argv, capsys)
+    assert rc == jrc == 0 and out == jout
+    if flags[0] == "--grammar":
+        assert out.startswith("a")
+
+
+def _jax_run(argv: list, capsys):
+    args = jax_cli.build_parser().parse_args(argv)
+    rc = jax_cli.cmd_run(args)
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+def test_run_with_mirostat(model_dir, capsys):
+    """``cli run --mirostat 2`` (a flag the JAX CLI lacks) picks on the host
+    with the seeded generator: the same seed gives the same reply."""
+    argv = ["run", str(model_dir), "--prompt", "hello there", "-n", "8", "-t", "0.9",
+            "--seed", "4", "--dtype", "f32", "--no-warmup", "--mirostat", "2"]
+    first = _port(argv, capsys)
+    assert first[0] == 0 and first[1].strip()
+    assert _port(argv, capsys)[1] == first[1]

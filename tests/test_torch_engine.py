@@ -156,7 +156,16 @@ def test_engine_refuses_what_it_does_not_serve(models):
     assert eng.prefix_cache.host_tier is not None
     eng = BatchEngine(tmodel, _Tok(), AppConfig(model=tmodel.cfg))
     with pytest.raises(NotImplementedError, match="queue A"):
-        eng.submit([1, 2], GenerationConfig(json_mode=True))
+        eng.submit([1, 2], GenerationConfig(lora_adapter="x"))
+    # A grammar and a host sampler are served: the grammar row's first token
+    # is one the grammar allows (tests/test_torch_constrained.py holds the
+    # streams to the JAX engine's).
+    a = AppConfig(model=tmodel.cfg)
+    a.inference.max_seq_len = 64
+    out = asyncio.run(_serve(BatchEngine(tmodel, _Tok(), a), [[[1, 2], [3, 4, 5]]], iter([
+        GenerationConfig(max_tokens=3, temperature=0.0, grammar='root ::= "a" | "b"'),
+        GenerationConfig(max_tokens=3, temperature=0.8, mirostat=2, seed=1)]).__next__))
+    assert out[0][0] in (ord("a"), ord("b")) and len(out[1]) == 3
 
 
 def test_int8_kv_engine_runs(models):
@@ -266,6 +275,8 @@ def test_port_imports_without_jax_or_blazr_tpu():
     assert len(names) >= 90
     assert {f"blazr_tpu_torch.{m}" for m in (
         "kvcache.prefix_cache", "kvcache.host_tier", "server.metrics", "server.slo",
+        "engine.grammar", "engine.grammar_parser", "engine.grammar_json",
+        "engine.grammar_pda", "engine.samplers", "native",
         "quant.int8", "kvcache.contiguous", "models.llama", "models.moe", "engine.executor",
         "engine.generate_text", "model_meta.think", "utils.ppl",
         "tools.bench_pa_wide", "tools.bench_pa_headmajor", "formats.safetensors",

@@ -228,10 +228,16 @@ def test_executor_refuses_what_it_does_not_serve():
     with pytest.raises(NotImplementedError, match="queue A"):
         Executor(tmodel, _Tok(), _apps(tensor_parallel_size=2)[1])
     ex = Executor(tmodel, _Tok(), _apps()[1])
-    for cfg in (GenerationConfig(json_mode=True), GenerationConfig(mirostat=2),
-                GenerationConfig(lora_adapter="x")):
-        with pytest.raises(NotImplementedError, match="queue A"):
-            list(ex.generate([1, 2], cfg))
+    with pytest.raises(NotImplementedError, match="queue A"):
+        list(ex.generate([1, 2], GenerationConfig(lora_adapter="x")))
+    # A grammar and a host sampler are served (tests/test_torch_constrained.py
+    # holds the streams to the JAX executor's).
+    toks = [t.token_id for t in ex.generate([1, 2], GenerationConfig(
+        max_tokens=3, temperature=0.0, grammar='root ::= "a" | "b"'))]
+    assert toks[0] in (ord("a"), ord("b"))
+    toks = list(ex.generate([1, 2], GenerationConfig(max_tokens=3, temperature=0.8,
+                                                     mirostat=2, seed=1)))
+    assert len(toks) == 3 and all(t.logprob is None for t in toks)
 
 
 def test_collect_and_stream_generation():

@@ -18,6 +18,7 @@ import pytest
 from aiohttp.test_utils import TestClient, TestServer
 
 from blazr_tpu.config import ServerConfig as JaxServerConfig
+from blazr_tpu.engine.batch_engine import BatchEngine as JaxEngine
 from blazr_tpu.engine.model_scheduler import ModelScheduler as JaxScheduler
 from blazr_tpu.server import create_app as jax_create_app
 from blazr_tpu_torch.config.server import ServerConfig
@@ -84,10 +85,16 @@ class PortServer:
         return resp.status, dict(resp.getheaders()), data
 
 
-def _jax(model_dir, requests):
-    """Replies of the JAX server to ``requests`` [(path, body)], in order."""
+def _jax(model_dir, requests, engine: bool = False):
+    """Replies of the JAX server to ``requests`` [(path, body)], in order;
+    through its BatchEngine with ``engine``."""
     async def main():
-        app = jax_create_app(JaxScheduler(model_dir, dtype="f32"), JaxServerConfig())
+        sched = JaxScheduler(model_dir, dtype="f32")
+        eng = None
+        if engine:
+            ex = sched.get_executor("default")
+            eng = JaxEngine(ex.model, ex.tokenizer, ex.app_cfg)
+        app = jax_create_app(sched, JaxServerConfig(), batch_engine=eng)
         out = []
         async with TestClient(TestServer(app)) as c:
             for path, body in requests:
@@ -133,6 +140,34 @@ def test_greedy_replies_match_jax(model_dir, jax_replies, engine):
             got, ref = json.loads(data), json.loads(jdata)
             assert _core(got) == _core(ref), key
             assert got["object"] == ref["object"]
+
+
+CONSTRAINED = [
+    dict(CHAT, grammar='root ::= "a"'),
+    dict(CHAT, response_format={"type": "json_object"}),
+    dict(CHAT, max_tokens=24, response_format={"type": "json_schema", "json_schema": {
+        "schema": {"type": "object", "properties": {"ok": {"enum": [True, False]}}}}}),
+    dict(CHAT, temperature=0.9, seed=5, mirostat=2, typical_p=0.8),
+]
+
+
+@pytest.fixture(scope="module")
+def jax_constrained(model_dir):
+    reqs = [("/v1/chat/completions", b) for b in CONSTRAINED]
+    return {engine: _jax(model_dir, reqs, engine) for engine in (False, True)}
+
+
+@pytest.mark.parametrize("engine", [False, True], ids=["executor", "batch_engine"])
+def test_constrained_replies_match_jax(model_dir, jax_constrained, engine):
+    """A grammar, JSON mode, a JSON schema and the host samplers are served
+    and their replies equal the JAX server's through the same entry (its
+    Executor ends a reply at a token the grammar rejects, its BatchEngine
+    does not)."""
+    with PortServer(model_dir, engine=engine) as srv:
+        for body, (jst, jdata) in zip(CONSTRAINED, jax_constrained[engine]):
+            st, _, data = srv.request("POST", "/v1/chat/completions", body)
+            assert st == jst == 200, data
+            assert _core(json.loads(data)) == _core(json.loads(jdata)), body
 
 
 @pytest.mark.parametrize("engine", [False, True], ids=["executor", "batch_engine"])
@@ -212,12 +247,44 @@ def test_models_tokenize_and_template_routes(model_dir):
         assert st == 400 and "temperature" in json.loads(data)["error"]["message"]
         st, headers, _ = srv.request("OPTIONS", "/v1/chat/completions")
         assert st == 204 and headers["Access-Control-Allow-Origin"] == "*"
-        # What the port does not serve yet answers 501, before any stream.
-        for extra in ({"grammar": 'root ::= "a"'}, {"lora_adapter": "x", "stream": True}):
-            st, _, data = srv.request("POST", "/v1/chat/completions", dict(CHAT, **extra))
-            assert st == 501, (extra, data)
+        # What the port does not serve yet (LoRA) answers 501, before any
+        # stream; a grammar is served, its reply inside the grammar (this
+        # model's EOS lies past its vocabulary, so the token after the
+        # complete "a" is one the grammar rejects, which ends the reply, as
+        # in the JAX server), and one that does not parse answers 400.
+        st, _, data = srv.request("POST", "/v1/chat/completions",
+                                  dict(CHAT, lora_adapter="x", stream=True))
+        assert st == 501, data
+        st, _, data = srv.request("POST", "/v1/chat/completions",
+                                  dict(CHAT, grammar='root ::= "a"'))
+        assert st == 200 and json.loads(data)["choices"][0]["message"]["content"][0] == "a"
+        for stream in (False, True):
+            st, _, data = srv.request("POST", "/v1/chat/completions",
+                                      dict(CHAT, grammar="::= x", stream=stream))
+            assert st == 400 and "invalid grammar" in json.loads(data)["error"]["message"]
         # A chat with tools is served (tests/test_torch_routes.py holds it to JAX).
         st, _, data = srv.request("POST", "/v1/chat/completions",
                                   dict(CHAT, tools=[{"type": "function"}]))
         assert st == 200 and json.loads(data)["choices"][0]["finish_reason"] in (
             "stop", "length", "tool_calls")
+
+
+def test_dry_and_dynatemp_fields_are_read():
+    """llama.cpp's DRY and dynamic-temperature fields reach the request's
+    GenerationConfig (the JAX server drops them, ROADMAP §C); the other
+    fields parse as the JAX server parses them."""
+    from blazr_tpu.config import GenerationConfig as JGen
+    from blazr_tpu.server.api_types import gen_config_from_body as jax_parse
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.server.api_types import gen_config_from_body
+
+    extra = dict(dry_multiplier=0.8, dry_base=1.5, dry_allowed_length=3,
+                 dry_sequence_breakers=["\n"], dynatemp_range=0.4, dynatemp_exponent=2.0)
+    body = dict(CHAT, mirostat=2, typical_p=0.7, grammar='root ::= "a"',
+                response_format={"type": "json_object"}, **extra)
+    got = gen_config_from_body(body, GenerationConfig()).to_dict()
+    want = jax_parse(body, JGen()).to_dict()
+    assert all(got[k] == v for k, v in extra.items())
+    assert all(want[k] == JGen().to_dict()[k] for k in extra)
+    assert {k: v for k, v in got.items() if k not in extra} == \
+        {k: v for k, v in want.items() if k not in extra}
