@@ -54,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     loadopts.add_argument("--quant-compute",
                           choices=["auto", "w4a16", "w4a8", "w8a8", "w4a8-prefill"],
                           default=None)
+    loadopts.add_argument("--mmproj", default=None, metavar="PATH",
+                          help="GGUF vision projector (mmproj) sidecar for multimodal "
+                               "models (auto-detected when colocated with the model)")
 
     run = sub.add_parser("run", help="run a model (one-shot or REPL)",
                          parents=[loadopts])
@@ -164,13 +167,13 @@ def main(argv=None) -> int:
 
 
 def _load_executor(model_path: str, dtype, device: str, kv_cache_dtype=None,
-                   quant_compute=None, prefix_cache: bool = False):
+                   quant_compute=None, prefix_cache: bool = False, mmproj=None):
     from ..engine.executor import Executor
     from ..loader import load_model
     from ..tokenizer import load_tokenizer
 
     t0 = time.time()
-    model, app_cfg = load_model(model_path, dtype=dtype, device=device)
+    model, app_cfg = load_model(model_path, dtype=dtype, device=device, mmproj=mmproj)
     if kv_cache_dtype:
         app_cfg.inference.kv_cache_dtype = kv_cache_dtype
     if quant_compute:
@@ -210,7 +213,7 @@ def cmd_run(args) -> int:
 
     ex = _load_executor(args.model, args.dtype, args.device,
                         kv_cache_dtype=args.kv_cache_dtype,
-                        quant_compute=args.quant_compute)
+                        quant_compute=args.quant_compute, mmproj=args.mmproj)
     if not args.no_warmup:
         ex.warmup()
     cfg = GenerationConfig(max_tokens=args.max_tokens, temperature=args.temperature,
@@ -239,7 +242,8 @@ def cmd_generate(args) -> int:
     from ..config.generation import GenerationConfig
 
     ex = _load_executor(args.model, args.dtype, args.device,
-                        kv_cache_dtype=args.kv_cache_dtype, quant_compute=args.quant_compute)
+                        kv_cache_dtype=args.kv_cache_dtype, quant_compute=args.quant_compute,
+                        mmproj=args.mmproj)
     cfg = GenerationConfig(max_tokens=args.max_tokens, temperature=args.temperature)
     _print_stream(ex, ex.tokenizer.encode(args.prompt), cfg)
     return 0
@@ -292,7 +296,7 @@ def cmd_serve(args) -> int:
         api_keys.append(env_key)
     scheduler = ModelScheduler(args.model, max_loaded=args.max_loaded,
                                dtype=args.dtype, quant_compute=args.quant_compute,
-                               device=args.device)
+                               device=args.device, mmproj=args.mmproj)
     if not args.no_warmup and not args.continuous_batching:
         try:
             scheduler.get_executor("default").warmup()

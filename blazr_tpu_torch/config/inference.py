@@ -36,8 +36,8 @@ class InferenceConfig:
     # KV cache
     kv_cache: bool = True
     # auto (model dtype) | int8 (per-token-per-head absmax scales) | int4
-    # (the Executor's contiguous cache only: int4 values held in int8
-    # storage; refused on the paged path instead of being downgraded).
+    # (the Executor's contiguous cache only: two values a byte; refused on
+    # the paged path instead of being downgraded).
     kv_cache_dtype: str = "auto"
     max_batch_size: int = 8
     max_seq_len: Optional[int] = None

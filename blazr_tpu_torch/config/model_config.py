@@ -158,7 +158,14 @@ class MoeConfig:
 
 @dataclass
 class VisionConfig:
-    """Vision-encoder sub-config (multimodal; reference UniversalConfig.vision)."""
+    """Vision-encoder sub-config (multimodal; reference UniversalConfig.vision).
+
+    ``hidden_act`` and ``feature_layer`` are the port's: the HF
+    ``vision_config``'s activation and the LLaVA config's
+    ``vision_feature_layer``. Their defaults are the JAX package's tower:
+    exact GELU, every layer and then the post-norm. CLIP's ``quick_gelu``
+    and LLaVA's feature layer −2 (no post-norm) apply where a config names
+    them (ROADMAP §C). CLS is always dropped (LLaVA's "default" strategy)."""
 
     hidden_size: int = 1024
     num_layers: int = 24
@@ -167,6 +174,8 @@ class VisionConfig:
     patch_size: int = 14
     intermediate_size: int = 4096
     projection_dim: int = 4096
+    hidden_act: str = "gelu"
+    feature_layer: Optional[int] = None        # None: every layer, then the post-norm
 
 
 @dataclass
@@ -323,11 +332,28 @@ _HF_ARCH_TO_MODEL_TYPE = {
 }
 
 
-def vision_config_from_hf(vc: Optional[dict]) -> Optional[VisionConfig]:
-    """HF ``vision_config`` (CLIP naming) → :class:`VisionConfig`."""
+def vision_config_from_hf(vc: Optional[dict],
+                          llava: Optional[dict] = None) -> Optional[VisionConfig]:
+    """HF ``vision_config`` (CLIP naming) → :class:`VisionConfig`; ``llava``
+    is the top level of a LLaVA config, whose ``vision_feature_layer`` is
+    carried where it names one. The activations are exact GELU and CLIP's
+    ``quick_gelu`` and the select strategy is "default" (CLS dropped), as
+    LLaVA-1.5 has them; any other raises."""
     if not isinstance(vc, dict):
         return None
     hidden = vc.get("hidden_size", 1024)
+    llava = llava or {}
+    layer = llava.get("vision_feature_layer")
+    if layer is not None and not isinstance(layer, int):
+        raise NotImplementedError(
+            f"vision_feature_layer {layer!r}: only one layer is served, not a list")
+    strategy = llava.get("vision_feature_select_strategy", "default")
+    if strategy != "default":
+        raise NotImplementedError(
+            f"vision_feature_select_strategy {strategy!r}: only 'default' is served")
+    act = vc.get("hidden_act", "gelu")
+    if act not in ("gelu", "quick_gelu"):
+        raise NotImplementedError(f"vision hidden_act {act!r}: gelu and quick_gelu are served")
     return VisionConfig(
         hidden_size=hidden,
         num_layers=vc.get("num_hidden_layers", vc.get("num_layers", 24)),
@@ -336,6 +362,8 @@ def vision_config_from_hf(vc: Optional[dict]) -> Optional[VisionConfig]:
         patch_size=vc.get("patch_size", 14),
         intermediate_size=vc.get("intermediate_size", hidden * 4),
         projection_dim=vc.get("projection_dim", vc.get("proj_dim", 4096)),
+        hidden_act=act,
+        feature_layer=layer,
     )
 
 
@@ -363,7 +391,7 @@ def universal_from_hf_config(cfg: dict[str, Any]) -> UniversalConfig:
     # and attach the parsed VisionConfig (reference loader/vision.rs:25-80).
     if isinstance(cfg.get("text_config"), dict):
         out = universal_from_hf_config(cfg["text_config"])
-        out.vision = vision_config_from_hf(cfg.get("vision_config"))
+        out.vision = vision_config_from_hf(cfg.get("vision_config"), cfg)
         return out
 
     model_type = cfg.get("model_type")

@@ -145,12 +145,12 @@ class Executor:
         if self.app_cfg.inference.prefix_cache and not self.model.needs_ssm_state:
             self._session = (list(fed_tokens), step)
 
-    def _take(self, prompt_ids: list[int]) -> tuple[ExecutorStep, int]:
+    def _take(self, prompt_ids: list[int], reuse: bool = True) -> tuple[ExecutorStep, int]:
         """A cache (with its decode step) for one generation and the prompt
-        tokens its KV already holds: the session's on a hit, else a free
-        one emptied (the session's last), else a new one."""
+        tokens its KV already holds: the session's on a hit (``reuse``),
+        else a free one emptied (the session's last), else a new one."""
         with self._lock:
-            step, start = self._session_restore(prompt_ids)
+            step, start = self._session_restore(prompt_ids) if reuse else (None, 0)
             if step is None:
                 session = self._session[1] if self._session else None
                 others = [s for s in self._free if s is not session]
@@ -169,9 +169,12 @@ class Executor:
                 self._free.remove(step)
             return step, start
 
-    def _give_back(self, fed_tokens: list[int], step: ExecutorStep) -> None:
+    def _give_back(self, fed_tokens: Optional[list[int]], step: ExecutorStep) -> None:
+        """Return a cache; ``fed_tokens`` (None: the KV holds other rows than
+        tokens, as after an image prefill) may make it the next session."""
         with self._lock:
-            self._session_save(fed_tokens, step)
+            if fed_tokens is not None:
+                self._session_save(fed_tokens, step)
             self._free.append(step)
 
     # ------------------------------------------------------------------
@@ -215,6 +218,21 @@ class Executor:
             last = logits[:, len(piece) - 1, :]
             pos += len(piece)
         return last, cache
+
+    @torch.no_grad()
+    def prefill_embeddings(self, cache, hidden: torch.Tensor) -> torch.Tensor:
+        """Prefill from embeddings [1, T, H] (images, text and audio rows
+        merged) at positions 0..T-1, unpadded, through the decoder layers and
+        the head, as the JAX multimodal executor does (:100-106); the last
+        position's logits [1, V]."""
+        from ..models.llama import forward_head, forward_layers_range
+
+        model = self.model
+        t = hidden.shape[1]
+        positions = torch.arange(t, device=self.device)[None]
+        x, _ = forward_layers_range(model.params, model.cfg, hidden.to(model.dtype), cache,
+                                    positions, 0, model.num_layers)
+        return forward_head(model.params, model.cfg, x[:, -1:])[:, -1, :]
 
     @torch.no_grad()
     def _decode(self, step: ExecutorStep, cfg: GenerationConfig, tok: int, pos: int,
@@ -307,23 +325,43 @@ class Executor:
         """Streaming generation (reference executor_generate.rs:43). Yields
         GeneratedToken; the caller handles stop sequences and text
         assembly (``generate_text.py``)."""
+        return self._generate(prompt_ids, gen_cfg, None)
+
+    def generate_embedded(self, prompt_ids: list[int], hidden: torch.Tensor,
+                          gen_cfg: Optional[GenerationConfig] = None
+                          ) -> Iterator[GeneratedToken]:
+        """``generate`` after a prefill from merged embeddings ``hidden`` [1,
+        T, H] (``prefill_embeddings``; ``executor_multimodal.py``): the same
+        decode steps, sampling, grammar and stop handling as a text prompt.
+        ``prompt_ids`` (the text) is the penalty window's history; the
+        context is T long. The cache is a fresh one and is never kept as a
+        session."""
+        return self._generate(prompt_ids, gen_cfg, hidden)
+
+    def _generate(self, prompt_ids: list[int], gen_cfg: Optional[GenerationConfig],
+                  hidden: Optional[torch.Tensor]) -> Iterator[GeneratedToken]:
         cfg = gen_cfg or self.app_cfg.generation
         cfg.validate()
         check_request(cfg)
-        max_new = min(cfg.max_tokens, self.capacity - len(prompt_ids))
+        n_ctx = len(prompt_ids) if hidden is None else hidden.shape[1]
+        max_new = min(cfg.max_tokens, self.capacity - n_ctx)
         if max_new <= 0:
             return
         pick = self._constraint(cfg)
-        step, start = self._take(prompt_ids)
+        step, start = self._take(prompt_ids, reuse=hidden is None)
         kv_tokens = list(prompt_ids[:start])     # tokens whose KV the cache holds
         try:
-            last, _ = self.prefill(step.cache, prompt_ids[start:], start_pos=start)
-            kv_tokens = list(prompt_ids)
+            if hidden is None:
+                last, _ = self.prefill(step.cache, prompt_ids[start:], start_pos=start)
+                kv_tokens = list(prompt_ids)
+            else:
+                kv_tokens = None                 # image rows: no session to reuse
+                last = self.prefill_embeddings(step.cache, hidden)
             history = list(prompt_ids)
             ids, vals = make_bias_rows([cfg])
             bias = (torch.from_numpy(ids).to(self.device),
                     torch.from_numpy(vals).to(self.device))
-            pos = len(prompt_ids)
+            pos = n_ctx
             tok, lp, top = self._sample(last, cfg, 0, history, bias, pick)
             for i in range(max_new):
                 is_eos = self.tokenizer.is_eos(tok)
@@ -339,7 +377,8 @@ class Executor:
                     return
                 fed = tok
                 tok, lp, top = self._decode(step, cfg, fed, pos, i + 1, history, pick)
-                kv_tokens.append(fed)
+                if kv_tokens is not None:
+                    kv_tokens.append(fed)
                 pos += 1
         finally:
             # Runs on a normal finish and on a client disconnect alike.

@@ -65,8 +65,9 @@ class ModelScheduler:
 
     def __init__(self, model_dir: str | Path, max_loaded: int = 1,
                  dtype: Optional[str] = None, quant_compute: Optional[str] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mmproj: Optional[str] = None):
         self.device = resolve_device(device)
+        self.mmproj = mmproj            # a vision sidecar for every model loaded (--mmproj)
         self.model_dir = Path(model_dir)
         self.max_loaded = max_loaded
         self.dtype = dtype
@@ -140,7 +141,8 @@ class ModelScheduler:
         path = self._resolve_path(name)
         t0 = time.time()
         logger.info("loading model %r from %s", name, path)
-        model, app_cfg = load_model(path, dtype=self.dtype, device=self.device)
+        model, app_cfg = load_model(path, dtype=self.dtype, device=self.device,
+                                    mmproj=self.mmproj)
         if self.quant_compute:
             app_cfg.inference.quant_compute = self.quant_compute
         gguf_path = path if path.suffix == ".gguf" else None

@@ -10,8 +10,11 @@ under buffer donation), ``write_layer`` and ``advance`` update the tensors
 IN PLACE and return the same cache object.
 
 int8 KV holds per-token-per-head absmax scales beside int8 values. int4 KV
-holds the same values as the JAX package (range ±7, scale absmax/7) in int8
-storage, so it does not halve the memory yet (ROADMAP §C).
+holds the JAX package's values (range ±7, scale absmax/7) packed two to a
+byte along head_dim (``[..., head_dim // 2]`` uint8, the even element in
+the low nibble), half of int8's bytes as the JAX cache's ``jnp.int4``;
+``layer_kv`` unpacks a layer where attention reads it, so inside a captured
+decode graph the unpack is captured too.
 """
 
 from __future__ import annotations
@@ -40,6 +43,11 @@ class KVCache:
         return self.k_scale is not None
 
     @property
+    def packed(self) -> bool:
+        """int4 values two to a byte."""
+        return self.k.dtype == torch.uint8
+
+    @property
     def capacity(self) -> int:
         """Usable capacity (one extra hidden slot absorbs padded writes)."""
         return self.k.shape[2] - 1
@@ -61,9 +69,13 @@ def init_kv_cache(num_layers: int, batch: int, capacity: int, kv_heads: int,
     if quantized:
         if kv_dtype not in ("int8", "int4"):
             raise ValueError(f"unknown quantized kv_dtype {kv_dtype!r}")
+        if kv_dtype == "int4" and head_dim % 2:
+            raise ValueError(f"int4 KV packs pairs along head_dim; {head_dim} is odd")
+        store = ((*shape[:4], head_dim // 2), torch.uint8) if kv_dtype == "int4" \
+            else (shape, torch.int8)
         return KVCache(
-            k=torch.zeros(shape, dtype=torch.int8, device=dev),
-            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            k=torch.zeros(store[0], dtype=store[1], device=dev),
+            v=torch.zeros(store[0], dtype=store[1], device=dev),
             length=length,
             k_scale=torch.zeros(shape[:4], dtype=torch.float32, device=dev),
             v_scale=torch.zeros(shape[:4], dtype=torch.float32, device=dev),
@@ -71,6 +83,29 @@ def init_kv_cache(num_layers: int, batch: int, capacity: int, kv_heads: int,
         )
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
                    v=torch.zeros(shape, dtype=dtype, device=dev), length=length)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in ±7 [..., D] → uint8 [..., D // 2], two's-complement
+    nibbles, element 2i in the low nibble of byte i."""
+    n = q.to(torch.int16) & 0xF
+    return (n[..., 0::2] | (n[..., 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_int4``: uint8 [..., D // 2] → int8 [..., D]."""
+    b = p.to(torch.int16)
+    lo, hi = b & 0xF, b >> 4
+    n = torch.stack((lo, hi), dim=-1).flatten(-2)
+    return ((n ^ 8) - 8).to(torch.int8)
+
+
+def layer_kv(cache: KVCache, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer ``layer``'s K and V [B, S+1, H_kv, D] as attention reads them
+    (int4 unpacked to int8 values)."""
+    if cache.packed:
+        return unpack_int4(cache.k[layer]), unpack_int4(cache.v[layer])
+    return cache.k[layer], cache.v[layer]
 
 
 def write_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
@@ -83,6 +118,8 @@ def write_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
     if cache.quantized:
         kq, ks = quantize_tokens(k_new, cache.qmax)
         vq, vs = quantize_tokens(v_new, cache.qmax)
+        if cache.packed:
+            kq, vq = pack_int4(kq), pack_int4(vq)
         cache.k[layer][rows, pos] = kq
         cache.v[layer][rows, pos] = vq
         cache.k_scale[layer][rows, pos] = ks

@@ -162,7 +162,7 @@ def attach_host_tier(prefix_cache: PrefixCache, cache: PagedKVCache,
                 t0 = time.perf_counter()
                 restore_block(cache, blocks[i], item)
                 tier.stats.restore_s += time.perf_counter() - t0
-                prefix_cache.adopt(seq_id, h, blocks[i])
+                prefix_cache.adopt(seq_id, h, blocks[i], i)
                 cached = (i + 1) * bs
             prev = h
         if cached >= len(tokens):

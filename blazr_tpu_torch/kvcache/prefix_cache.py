@@ -7,6 +7,12 @@ shared across sequences through allocator refcounts.
 ``get_or_allocate_blocks`` returns how many leading tokens are already
 cached; prefill then runs only on the uncached suffix. Host-only code.
 
+Eviction is leaf-first: a block's LRU key is (the tick of its last
+lookup, minus its depth in the chain), so among the blocks of the oldest
+lookup the deepest goes first and a chain keeps its reachable prefix. The
+JAX cache stamps every block of a lookup with one tick and evicts a
+chain's root first, which strands the rest of the chain (ROADMAP §C).
+
 The JAX host tier wraps ``_evict_one`` and ``get_or_allocate_blocks`` of
 the instance; here the two calls take hooks instead (``on_evict``,
 ``on_lookup``, set by ``host_tier.attach_host_tier``), with the same
@@ -58,7 +64,8 @@ class PrefixCache:
         self.block_size = allocator.block_size
         self._by_hash: dict[bytes, BlockId] = {}
         self._hash_of: dict[BlockId, bytes] = {}
-        self._lru: dict[bytes, int] = {}
+        # hash -> (tick of its last lookup, -depth): the eviction order.
+        self._lru: dict[bytes, tuple[int, int]] = {}
         self._clock = 0
         self._seq_blocks: dict[int, list[BlockId]] = {}
         # Blocks whose KV has actually been written by a prefill. A block is
@@ -105,7 +112,7 @@ class PrefixCache:
                         self.allocator.inc_ref(hit)
                         blocks.append(hit)
                         cached_tokens += bs
-                        self._lru[h] = self._clock
+                        self._lru[h] = (self._clock, -i)
                         self.stats.hits += 1
                         prev = h
                         continue
@@ -117,7 +124,7 @@ class PrefixCache:
                         # Register the hash now (so concurrent identical
                         # prompts dedupe) but serve hits only after
                         # mark_computed.
-                        self._register(h, blk)
+                        self._register(h, blk, i)
                         pending.append((blk, h, (i + 1) * bs))
                     blocks.append(blk)
                     prev = h
@@ -207,13 +214,14 @@ class PrefixCache:
                     self._lru.pop(h, None)
                     self.stats.cached_blocks -= 1
 
-    def adopt(self, seq_id: int, h: bytes, blk: BlockId) -> None:
+    def adopt(self, seq_id: int, h: bytes, blk: BlockId, depth: int = 0) -> None:
         """Serve ``blk`` of ``seq_id`` as the block of hash ``h`` now: its KV
         was written by other means than this sequence's prefill (a restore
-        from the host tier). Registers it if the hash is free, marks it
-        computed and drops it from the sequence's pending blocks."""
+        from the host tier). Registers it (at chain ``depth``) if the hash is
+        free, marks it computed and drops it from the sequence's pending
+        blocks."""
         if h not in self._by_hash:
-            self._register(h, blk)
+            self._register(h, blk, depth)
         self._computed.add(blk)
         pend = self._pending.get(seq_id)
         if pend:
@@ -228,17 +236,18 @@ class PrefixCache:
                 break                        # nothing evictable
         return self.allocator.allocate(1)[0]
 
-    def _register(self, h: bytes, blk: BlockId) -> None:
+    def _register(self, h: bytes, blk: BlockId, depth: int) -> None:
         if len(self._by_hash) >= self.config.max_cached_blocks:
             self._evict_one()
         self.allocator.inc_ref(blk)          # the cache's own reference
         self._by_hash[h] = blk
         self._hash_of[blk] = h
-        self._lru[h] = self._clock
+        self._lru[h] = (self._clock, -depth)
         self.stats.cached_blocks += 1
 
     def _evict_one(self) -> None:
-        """Evict the least-recently-used cached block that nobody holds."""
+        """Evict the least-recently-used cached block that nobody holds, the
+        deepest first among the blocks of one lookup."""
         for h in sorted(self._lru, key=self._lru.get):  # type: ignore[arg-type]
             blk = self._by_hash.get(h)
             if blk is None:

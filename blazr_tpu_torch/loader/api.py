@@ -5,8 +5,10 @@ Counterpart of ``blazr_tpu/loader/api.py``: auto-detect the format
 package's chain (``config.json``, else GGUF metadata, else tensor names and
 shapes), fill a VarMap and build the Model on the device. AWQ and GPTQ
 checkpoints compute in f16 by default (their scales are f16), GGUF and
-inferred configs in bf16, as in the JAX package. Its vision towers and
-layer offload (item 12) raise, naming ROADMAP queue A.
+inferred configs in bf16, as in the JAX package. A vision tower, in the
+checkpoint (HF LLaVA) or in an ``mmproj`` sidecar (given, or found beside
+the model), is attached by ``loader/vision.py`` (JAX api.py:103-107). Its
+layer offload (item 12) raises, naming ROADMAP queue A.
 """
 
 from __future__ import annotations
@@ -77,10 +79,9 @@ def load_model(path: str | Path, dtype: Optional[str] = None,
                device: DeviceLike = None) -> tuple[Model, AppConfig]:
     """Auto-detect and load a model onto ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
-    if device_layers is not None or mmproj is not None:
-        raise NotImplementedError("layer offload and vision projectors are not "
-                                  "served by blazr_tpu_torch yet (ROADMAP queue A "
-                                  "item 12)")
+    if device_layers is not None:
+        raise NotImplementedError("layer offload is not served by blazr_tpu_torch yet "
+                                  "(ROADMAP queue A item 12)")
     source = detect_model_source(path)
     logger.info("Loading %s model from %s (quant=%s)",
                 source.format.value, source.path, source.quant.value)
@@ -92,12 +93,12 @@ def load_model(path: str | Path, dtype: Optional[str] = None,
         raise NotImplementedError("layer offload (inference.num_device_layers) is "
                                   "not served by blazr_tpu_torch yet (ROADMAP queue A "
                                   "item 12)")
-    if app_cfg.model.vision is not None:
-        raise NotImplementedError("vision towers are not served by blazr_tpu_torch "
-                                  "yet (ROADMAP queue A item 12)")
     _reconcile_config_with_weights(app_cfg.model, vm)
     model = build_model(app_cfg.model, vm, dtype=parse_dtype(app_cfg.inference.dtype),
                         device=dev)
+    from .vision import attach_vision
+
+    attach_vision(model, app_cfg.model, source.path, vm, mmproj_path=mmproj)
     return model, app_cfg
 
 

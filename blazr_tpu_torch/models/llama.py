@@ -31,7 +31,7 @@ from typing import Any, Optional
 import torch
 
 from ..config.model_config import UniversalConfig
-from ..kvcache.contiguous import KVCache, advance, kv_length, write_layer
+from ..kvcache.contiguous import KVCache, advance, kv_length, layer_kv, write_layer
 from .layers import (activation, alibi_slopes, apply_rope, attend, device_scalar,
                      layer_norm, linear, plain_mlp, rms_norm, rope_cos_sin,
                      rope_frequencies)
@@ -53,16 +53,19 @@ def _unserved(what: str, item: str) -> NotImplementedError:
 
 def check_config(cfg: UniversalConfig) -> None:
     """Raise for what the port does not serve: Mamba3 mixers (ROADMAP queue
-    A item 11), vision towers (item 12), and model types outside
-    ``SERVED_FAMILIES`` that are neither MLA nor a Mamba2 hybrid."""
+    A item 11), a vision tower in front of anything but this forward (the
+    multimodal Executor prefills through ``forward_layers_range``), and model
+    types outside ``SERVED_FAMILIES`` that are neither MLA nor a Mamba2
+    hybrid."""
     if cfg.ssm is not None and cfg.ssm.variant == "mamba3":
         raise _unserved("the Mamba3 mixer", "11")
-    if cfg.vision is not None:
-        raise _unserved("a vision tower", "12")
     types = set(cfg.layer_types())
     recurrent = cfg.ssm is not None and "mamba2" in types
     attention = cfg.attention is not None and (
         cfg.attention.is_mla or cfg.model_type in SERVED_FAMILIES)
+    if cfg.vision is not None and (recurrent or (attention and cfg.attention.is_mla)):
+        raise NotImplementedError("a vision tower is served in front of the dense and "
+                                  "MoE families only, not an MLA or Mamba2 model")
     if not (recurrent or (attention and "mamba2" not in types)):
         raise NotImplementedError(
             f"the port serves the families {', '.join(SERVED_FAMILIES)}, MLA models "
@@ -126,7 +129,8 @@ def attention_block(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor,
     b, t, _ = x.shape
     q, k, v = project_qkv(p, cfg, x, cos, sin, alibi)
     write_layer(cache, layer, k, v, positions)
-    out = attend(q, cache.k[layer], cache.v[layer], q_positions=positions,
+    k_all, v_all = layer_kv(cache, layer)
+    out = attend(q, k_all, v_all, q_positions=positions,
                  kv_len=kv_len,
                  sliding_window=att.layer_window(layer if model_layer is None
                                                  else model_layer),

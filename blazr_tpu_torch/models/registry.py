@@ -352,6 +352,14 @@ class Model:
     # (logits [B, T, V] float32, cache); None = the family's
     # (``FamilyKind.forward``).
     forward_fn: Optional[Callable[..., tuple[torch.Tensor, Any]]] = None
+    # The vision tower of a multimodal checkpoint (``loader/vision.py``;
+    # JAX :275-281): ``encode_images``'s f32 params and its VisionConfig.
+    vision_params: Any = None
+    vision_cfg: Any = None
+
+    @property
+    def is_multimodal(self) -> bool:
+        return self.vision_params is not None
 
     def __post_init__(self) -> None:
         if self.forward_fn is None:

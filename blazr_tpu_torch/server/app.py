@@ -13,7 +13,10 @@ three ``/v1/lora`` routes, which answer 501 naming ROADMAP queue A item
 unauthenticated like ``/health``), ``/v1/models[/{id}]``,
 ``/v1/completions`` and ``/v1/chat/completions`` (streaming and not; a chat
 with ``tools`` gets the tools system prompt and its reply's tool calls,
-``server/tools.py``), ``/tokenize``, ``/detokenize``, ``/apply-template``,
+``server/tools.py``; a chat with ``image_url`` parts goes to the model's
+vision tower through the multimodal Executor, ``server/multimodal.py``,
+even when the batch engine serves the other requests, one image chat at a
+time and its image rows counted in the token budget), ``/tokenize``, ``/detokenize``, ``/apply-template``,
 ``/v1/messages`` (the Anthropic API, ``server/anthropic.py``, with its
 ``event:`` stream) and ``/v1/messages/count_tokens``, ``/v1/responses``,
 ``/v1/infill``, ``/v1/embeddings``, ``/rerank`` and ``/v1/rerank``, the
@@ -58,6 +61,10 @@ from .api_types import (ApiError, chat_response, completion_logprobs_block,
                         completion_response, gen_config_from_body, logprobs_block,
                         usage_dict, validate_generation_params)
 from .metrics import CONTENT_TYPE, Metrics, refresh
+from ..engine.executor_multimodal import MediaBoundExecutor, MultimodalExecutor
+from ..utils.preprocess import check_image
+from .multimodal import (MultimodalError, content_text, extract_media, has_audio,
+                         has_images)
 from .slo import SloTracker
 from .slots import SlotManager
 from .streaming import SSE_DONE, SSE_HEADERS, ChatStream, CompletionStream, sse_event
@@ -326,6 +333,10 @@ class AppState:
     slots: SlotManager = field(default_factory=SlotManager)
     slo: SloTracker = None            # type: ignore[assignment]
     user_config: Any = None           # the hot-reloaded UserConfig
+    # Image chats run one at a time: each holds a whole-context Executor
+    # cache outside the batch engine's pool (the JAX server neither gates
+    # them nor counts their image rows in the token budget).
+    media_gate: asyncio.Semaphore = field(default_factory=lambda: asyncio.Semaphore(1))
 
     def __post_init__(self) -> None:
         if self.slo is None:
@@ -371,23 +382,10 @@ class AppState:
 # helpers
 # ---------------------------------------------------------------------------
 
-def _content_text(content) -> str:
-    """Flatten string-or-parts message content; media parts raise."""
-    if content is None:
-        return ""
-    if isinstance(content, str):
-        return content
-    if isinstance(content, list):
-        if any(isinstance(p, dict) and p.get("type") != "text" for p in content):
-            raise ApiError(400, "model does not support image/audio input")
-        return "\n".join(p.get("text", "") for p in content if isinstance(p, dict))
-    return str(content)
-
-
 def _build_prompt(body: dict, model_cfg) -> str:
-    """Apply the chat template, with the tools system prompt when the
-    request has ``tools``."""
-    messages = [ChatMessage(m.get("role", "user"), _content_text(m.get("content")))
+    """Apply the chat template over the messages' text parts, with the
+    tools system prompt when the request has ``tools``."""
+    messages = [ChatMessage(m.get("role", "user"), content_text(m.get("content")))
                 for m in body.get("messages", [])]
     if not messages:
         raise ApiError(400, "messages must not be empty")
@@ -650,15 +648,22 @@ async def chat_completions(request: Request):
     await compile_grammar(executor, cfg)
     prompt = _context_prefix(executor, body) + _build_prompt(body, executor.model.cfg)
     prompt_ids = executor.tokenizer.encode(prompt)
+    executor, image_rows = await _bind_media(executor, body.get("messages", []))
+    media = image_rows > 0
     n = max(1, int(body.get("n", 1)))
-    budget = len(prompt_ids) + cfg.max_tokens * n
+    budget = len(prompt_ids) + image_rows + cfg.max_tokens * n
     if not state.try_admit(budget):
         return _overloaded()
     state.metrics.requests_active.inc()
     t0 = time.time()
+    gated = False
     try:
+        if media:        # one image chat at a time holds an Executor cache
+            await state.media_gate.acquire()
+            gated = True
         if body.get("stream"):
-            return await _stream_chat(request, state, executor, prompt_ids, cfg, body)
+            return await _stream_chat(request, state, executor, prompt_ids, cfg, body,
+                                      direct=media)
         choices = []
         usage_p = usage_c = 0
         want_think = bool(body.get("think", True))
@@ -666,7 +671,7 @@ async def chat_completions(request: Request):
             c = GenerationConfig.from_dict(cfg.to_dict())
             if c.seed is not None and i:
                 c.seed += i
-            if state.batch_engine is not None:
+            if state.batch_engine is not None and not media:
                 res = await _collect_via_engine(state, prompt_ids, c)
                 if want_think:
                     res.thinking, res.text = extract_thinking(res.text)
@@ -694,24 +699,55 @@ async def chat_completions(request: Request):
             body.get("model", "default"), choices,
             usage_dict(usage_p, usage_c, eval_duration=time.time() - t0)))
     finally:
+        if gated:
+            state.media_gate.release()
         state.release(budget)
         state.request_done("chat", t0)
 
 
+async def _bind_media(executor, messages: list) -> tuple[Any, int]:
+    """(executor, the context rows its images add; 0 without media): a
+    request with image or audio parts gets its images decoded and bound to
+    a MultimodalExecutor (the JAX chat route, app.py:481-496). A text model answers 400 before
+    any fetch, and so does an audio part (no model of the port has an audio
+    encoder; the JAX executor drops the audio); an image that does not
+    decode, or that is not a PNG or a baseline JPEG (its header says),
+    answers 400 before any compute."""
+    parts = [m.get("content") for m in messages if isinstance(m, dict)]
+    if not any(has_images(c) or has_audio(c) for c in parts):
+        return executor, 0
+    if not executor.model.is_multimodal:
+        raise ApiError(400, "model does not support image/audio input")
+    if any(has_audio(c) for c in parts):
+        raise ApiError(400, "model does not support audio input (no audio encoder)")
+    try:
+        images, audio = await extract_media(messages)
+        for img in images:
+            check_image(img)
+    except MultimodalError as e:
+        raise ApiError(400, f"failed to decode multimodal content: {e}")
+    model = executor.model
+    mm = MultimodalExecutor(executor, model.vision_params, model.vision_cfg)
+    bound = MediaBoundExecutor(mm, images, audio)
+    return bound, bound.rows
+
+
 async def _stream(request: Request, state: AppState, executor, prompt_ids, cfg,
                   on_item: Callable, head: Optional[bytes], tail: bytes = SSE_DONE,
-                  on_error: Optional[Callable[[str], bytes]] = None) -> StreamResponse:
+                  on_error: Optional[Callable[[str], bytes]] = None,
+                  direct: bool = False) -> StreamResponse:
     """Shared SSE loop: the head events, the events of each delta
     (``on_item``), the tail (``[DONE]``); an error after the head is one
     more event (``on_error``, else an OpenAI error chunk); a client gone
-    mid-stream cancels the engine sequence. The first content delta's time
+    mid-stream cancels the engine sequence. ``direct`` streams from the
+    Executor even where the batch engine serves (a request with media). The first content delta's time
     goes to the TTFT histogram and SLO window, each later one's gap to ITL
     (the JAX ``_stream_chat``, app.py:664-677); a stream that ends counts
     its tokens and e2e latency."""
     resp = StreamResponse(request, dict(SSE_HEADERS))
     await resp.prepare()
     seq_ref: dict = {}
-    if state.batch_engine is not None:
+    if state.batch_engine is not None and not direct:
         source = _engine_tokens(state, prompt_ids, cfg, seq_ref)
     else:
         source = _thread_tokens(executor, prompt_ids, cfg)
@@ -752,7 +788,7 @@ async def _stream(request: Request, state: AppState, executor, prompt_ids, cfg,
     return resp
 
 
-async def _stream_chat(request, state, executor, prompt_ids, cfg, body):
+async def _stream_chat(request, state, executor, prompt_ids, cfg, body, direct=False):
     stream = ChatStream(body.get("model", "default"))
     count = 0
 
@@ -766,7 +802,7 @@ async def _stream_chat(request, state, executor, prompt_ids, cfg, body):
             yield stream.finish(fin.to_openai(), usage_dict(len(prompt_ids), count))
 
     return await _stream(request, state, executor, prompt_ids, cfg, on_item,
-                         stream.role_chunk())
+                         stream.role_chunk(), direct=direct)
 
 
 async def _stream_completion(request, state, executor, prompt_ids, cfg, body):

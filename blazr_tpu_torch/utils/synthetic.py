@@ -17,11 +17,13 @@ tokenizer.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from ..config.model_config import (AttentionConfig, MoeConfig, RopeScaling, SsmConfig,
-                                   UniversalConfig)
+                                   UniversalConfig, VisionConfig)
 from ..quant.qtensor import QuantTensor, stack_quant
 from .device import DeviceLike, resolve_device
 
@@ -636,10 +638,28 @@ def _half_bits(rng, n: int, exp: int) -> np.ndarray:
 def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
                         group_size: int = 128, seed: int = 0,
                         dtype: str = "float16", weight_exp: int = -7,
-                        keep_plain: tuple[str, ...] = ()) -> None:
-    """Write a random checkpoint of the family ``cfg.model_type`` in that
-    family's HF tensor layout to the directory ``path``, with its
-    ``config.json``:
+                        keep_plain: tuple[str, ...] = (), desc_act: bool = True) -> None:
+    """Write ``hf_checkpoint_tensors``' checkpoint to the directory ``path``:
+    ``model.safetensors`` and ``config.json``."""
+    import json
+    from pathlib import Path
+
+    from ..formats.safetensors import write_safetensors
+
+    tensors, config = hf_checkpoint_tensors(cfg, quant, group_size, seed, dtype, weight_exp,
+                                            keep_plain, desc_act)
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    write_safetensors(path / "model.safetensors", tensors)
+    (path / "config.json").write_text(json.dumps(config, indent=1))
+
+
+def hf_checkpoint_tensors(cfg: UniversalConfig, quant: str = "awq", group_size: int = 128,
+                          seed: int = 0, dtype: str = "float16", weight_exp: int = -7,
+                          keep_plain: tuple[str, ...] = (), desc_act: bool = True
+                          ) -> tuple[dict, dict]:
+    """(tensors, ``config.json``) of a random checkpoint of the family
+    ``cfg.model_type`` in that family's HF tensor layout:
 
     * llama, mistral, qwen2 (q/k/v biases), qwen3 (q/k norms), gemma,
       gemma2 (sandwich norms): split q/k/v/o and gate/up/down;
@@ -662,22 +682,19 @@ def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
     ``quant="awq"``: every projection as AutoAWQ's packed ``qweight`` /
     ``qzeros`` (uint32, eight interleaved nibbles along N) and f16
     ``scales`` in [0.001, 0.011], the rest f16 (the loaders refuse a
-    quantized falcon ``query_key_value``). ``quant="plain"``: every tensor
-    in ``dtype`` ("float16", "bfloat16" or "float32"); under AWQ the
+    quantized falcon ``query_key_value``). ``quant="gptq"``: every
+    projection as AutoGPTQ's desc-act layout (``qweight`` packed along K,
+    ``qzeros`` along N, f16 ``scales``, a ``g_idx`` that permutes the
+    groups; none with ``desc_act=False``), the rest in ``dtype``.
+    ``quant="plain"``: every tensor in
+    ``dtype`` ("float16", "bfloat16" or "float32"); under AWQ or GPTQ the
     projections whose names end with one of ``keep_plain`` stay plain too.
     Dense weights have a
     magnitude in [2^weight_exp, 2^(weight_exp+2)) and a random sign; norm
     weights are 1 + 0.1 N(0,1) (0.1 N(0,1) where the family scales by
     1 + w), biases 0.02 N(0,1)."""
-    import json
-    from pathlib import Path
-
-    from ..formats.safetensors import write_safetensors
-
-    if quant not in ("awq", "plain"):
-        raise ValueError(f"quant must be 'awq' or 'plain', not {quant!r}")
-    path = Path(path)
-    path.mkdir(parents=True, exist_ok=True)
+    if quant not in ("awq", "gptq", "plain"):
+        raise ValueError(f"quant must be 'awq', 'gptq' or 'plain', not {quant!r}")
     rng = np.random.default_rng(seed)
     att = cfg.attention
     fam = cfg.model_type
@@ -711,6 +728,14 @@ def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
             tensors[name + ".qzeros"] = words(k // group_size, n // 8)
             tensors[name + ".scales"] = (rng.random((k // group_size, n), np.float32)
                                          * 0.01 + 0.001).astype(np.float16)
+        elif quant == "gptq" and not name.endswith(keep_plain):
+            tensors[name + ".qweight"] = words(k // 8, n)
+            tensors[name + ".qzeros"] = words(k // group_size, n // 8)
+            tensors[name + ".scales"] = (rng.random((k // group_size, n), np.float32)
+                                         * 0.01 + 0.001).astype(np.float16)
+            if desc_act:
+                tensors[name + ".g_idx"] = rng.permutation(
+                    np.arange(k) // group_size).astype(np.int32)
         else:
             tensors[name + ".weight"] = dense(n, k)
         if bias:
@@ -885,14 +910,158 @@ def write_hf_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
             linear(p + "mlp.gate_proj", h, inter)
             linear(p + "mlp.up_proj", h, inter)
             linear(p + "mlp.down_proj", inter, h)
-    write_safetensors(path / "model.safetensors", tensors)
     config = hf_config(cfg)
     config["torch_dtype"] = float_dt
     if quant == "awq":
         config["quantization_config"] = {"quant_method": "awq", "bits": 4,
                                          "group_size": group_size, "zero_point": True,
                                          "version": "gemm"}
+    elif quant == "gptq":
+        config["quantization_config"] = {"quant_method": "gptq", "bits": 4,
+                                         "group_size": group_size, "desc_act": desc_act}
+    return tensors, config
+
+
+# ---------------------------------------------------------------------------
+# LLaVA: a Llama behind a CLIP tower
+# ---------------------------------------------------------------------------
+
+def llava_1_5_7b_config() -> UniversalConfig:
+    """llava-hf/llava-1.5-7b-hf's config.json: Llama-2-7B (vocab 32064: the
+    image and pad tokens added) behind CLIP ViT-L/14-336 (24 blocks, hidden
+    1024, 577 tokens), ``vision_feature_layer`` -2, the "default" strategy,
+    and a 1024 → 4096 → 4096 GELU projector. transformers'
+    ``CLIPVisionConfig`` defaults ``hidden_act`` to ``quick_gelu``; it is
+    named here."""
+    return UniversalConfig(
+        model_type="llama", vocab_size=32064, hidden_size=4096, num_layers=32,
+        max_seq_len=4096, intermediate_size=11008, rms_norm_eps=1e-5,
+        attention=AttentionConfig(num_heads=32, num_kv_heads=32, head_dim=128,
+                                  rope_theta=10000.0),
+        vision=VisionConfig(hidden_size=1024, num_layers=24, num_heads=16, image_size=336,
+                            patch_size=14, intermediate_size=4096, projection_dim=4096,
+                            hidden_act="quick_gelu", feature_layer=-2))
+
+
+def vision_tensors(vcfg: VisionConfig, text_hidden: int, seed: int = 0,
+                   dtype=np.float16) -> dict[str, np.ndarray]:
+    """A random CLIP tower and LLaVA projector under llava-hf's published
+    names (``vision_tower.vision_model.*``, ``multi_modal_projector.linear_{1,2}.*``):
+    dense weights of magnitude [2^-7, 2^-5) with a random sign, LayerNorm
+    weights 1 + 0.1 N(0,1), biases and embeddings 0.02 N(0,1). Every block
+    is written, and the post-LayerNorm, as the published checkpoint has
+    them."""
+    rng = np.random.default_rng(seed)
+    h, inter, ps = vcfg.hidden_size, vcfg.intermediate_size, vcfg.patch_size
+    n_pos = (vcfg.image_size // ps) ** 2 + 1
+
+    def dense(*shape):
+        return _half_bits(rng, int(np.prod(shape)), -7).reshape(shape).astype(dtype)
+
+    def normal(n, std, mean=0.0):
+        return (mean + std * rng.standard_normal(n, dtype=np.float32)).astype(dtype)
+
+    P = "vision_tower.vision_model."
+    out = {P + "embeddings.patch_embedding.weight": dense(h, 3, ps, ps),
+           P + "embeddings.class_embedding": normal(h, 0.02),
+           P + "embeddings.position_embedding.weight": normal(n_pos * h, 0.02).reshape(n_pos, h),
+           P + "pre_layrnorm.weight": normal(h, 0.1, 1.0), P + "pre_layrnorm.bias": normal(h, 0.02),
+           P + "post_layernorm.weight": normal(h, 0.1, 1.0),
+           P + "post_layernorm.bias": normal(h, 0.02),
+           "multi_modal_projector.linear_1.weight": dense(text_hidden, h),
+           "multi_modal_projector.linear_1.bias": normal(text_hidden, 0.02),
+           "multi_modal_projector.linear_2.weight": dense(text_hidden, text_hidden),
+           "multi_modal_projector.linear_2.bias": normal(text_hidden, 0.02)}
+    for i in range(vcfg.num_layers):
+        p = P + f"encoder.layers.{i}."
+        for ln in ("layer_norm1", "layer_norm2"):
+            out[p + ln + ".weight"] = normal(h, 0.1, 1.0)
+            out[p + ln + ".bias"] = normal(h, 0.02)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out[p + f"self_attn.{proj}.weight"] = dense(h, h)
+            out[p + f"self_attn.{proj}.bias"] = normal(h, 0.02)
+        out[p + "mlp.fc1.weight"] = dense(inter, h)
+        out[p + "mlp.fc1.bias"] = normal(inter, 0.02)
+        out[p + "mlp.fc2.weight"] = dense(h, inter)
+        out[p + "mlp.fc2.bias"] = normal(h, 0.02)
+    return out
+
+
+def write_llava_checkpoint(path, cfg: UniversalConfig, quant: str = "awq",
+                           group_size: int = 128, seed: int = 0) -> None:
+    """An HF LLaVA directory: the language model of ``cfg`` (AWQ-INT4 or
+    plain f16, ``hf_checkpoint_tensors``) under ``language_model.``, the
+    tower of ``cfg.vision`` (``vision_tensors``, f16) and the LLaVA
+    ``config.json`` (``text_config``, ``vision_config``, the feature layer
+    and strategy)."""
+    import json
+    from pathlib import Path
+
+    from ..formats.safetensors import write_safetensors
+
+    vcfg = cfg.vision
+    text, text_config = hf_checkpoint_tensors(cfg, quant, group_size, seed)
+    tensors = {"language_model." + k: v for k, v in text.items()}
+    del text
+    tensors.update(vision_tensors(vcfg, cfg.hidden_size, seed + 1))
+    config = {
+        "architectures": ["LlavaForConditionalGeneration"], "model_type": "llava",
+        "text_config": {k: v for k, v in text_config.items() if k != "quantization_config"},
+        "vision_config": {"model_type": "clip_vision_model", "hidden_size": vcfg.hidden_size,
+                          "intermediate_size": vcfg.intermediate_size,
+                          "num_hidden_layers": vcfg.num_layers,
+                          "num_attention_heads": vcfg.num_heads,
+                          "image_size": vcfg.image_size, "patch_size": vcfg.patch_size,
+                          "hidden_act": vcfg.hidden_act, "projection_dim": 768},
+        "vision_feature_layer": vcfg.feature_layer,
+        "vision_feature_select_strategy": "default",
+        "projector_hidden_act": "gelu", "image_token_index": 32000,
+        "torch_dtype": "float16"}
+    if "quantization_config" in text_config:
+        config["quantization_config"] = text_config["quantization_config"]
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    write_safetensors(path / "model.safetensors", tensors)
     (path / "config.json").write_text(json.dumps(config, indent=1))
+
+
+def write_mmproj_gguf(path, vcfg: VisionConfig, text_hidden: int, seed: int = 0,
+                      blocks: Optional[int] = None) -> None:
+    """The tower of ``vision_tensors`` (the same seed, the same values) as a
+    llama.cpp clip ``mmproj`` GGUF file in F16: ``v.patch_embd``,
+    ``v.class_embd``, ``v.position_embd``, ``v.pre_ln``, ``v.blk.N.*``
+    (fc1 as ``ffn_down``, fc2 as ``ffn_up``), ``mm.0`` and ``mm.2``, and
+    ``clip.vision.*`` metadata. ``blocks`` (default all) keeps the first
+    blocks only, as llama.cpp's converter drops those past a LLaVA feature
+    layer; no ``v.post_ln`` is written."""
+    from ..formats.gguf import GgmlType, write_gguf
+
+    src = vision_tensors(vcfg, text_hidden, seed)
+    blocks = vcfg.num_layers if blocks is None else blocks
+    P = "vision_tower.vision_model."
+    names = {P + "embeddings.patch_embedding.weight": "v.patch_embd.weight",
+             P + "embeddings.class_embedding": "v.class_embd",
+             P + "embeddings.position_embedding.weight": "v.position_embd.weight",
+             P + "pre_layrnorm.weight": "v.pre_ln.weight", P + "pre_layrnorm.bias": "v.pre_ln.bias",
+             "multi_modal_projector.linear_1.weight": "mm.0.weight",
+             "multi_modal_projector.linear_1.bias": "mm.0.bias",
+             "multi_modal_projector.linear_2.weight": "mm.2.weight",
+             "multi_modal_projector.linear_2.bias": "mm.2.bias"}
+    parts = {"layer_norm1": "ln1", "layer_norm2": "ln2", "self_attn.q_proj": "attn_q",
+             "self_attn.k_proj": "attn_k", "self_attn.v_proj": "attn_v",
+             "self_attn.out_proj": "attn_out", "mlp.fc1": "ffn_down", "mlp.fc2": "ffn_up"}
+    for i in range(blocks):
+        for hf, gg in parts.items():
+            for kind in ("weight", "bias"):
+                names[P + f"encoder.layers.{i}.{hf}.{kind}"] = f"v.blk.{i}.{gg}.{kind}"
+    tensors = {gg: (src[hf], GgmlType.F16, src[hf].shape) for hf, gg in names.items()}
+    meta = {"general.architecture": "clip", "clip.has_vision_encoder": True,
+            "clip.vision.image_size": vcfg.image_size, "clip.vision.patch_size": vcfg.patch_size,
+            "clip.vision.embedding_length": vcfg.hidden_size,
+            "clip.vision.feed_forward_length": vcfg.intermediate_size,
+            "clip.vision.projection_dim": text_hidden, "clip.vision.block_count": blocks,
+            "clip.vision.head_count": vcfg.num_heads}
+    write_gguf(path, meta, tensors)
 
 
 # Qwen2's pre-tokenizer split (its tokenizer.json's Split regex).

@@ -117,7 +117,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       (DEC_MAX_ROWS) and K splits, B4's K splits, B5's and B6's split
       counts at B2's three points;
   10. (``families``) each dense family (qwen2, qwen3, phi3, gemma, gemma2,
-      starcoder2, falcon) at its published width, 2 layers, written to disk
+      starcoder2, falcon) at its published width, 2 layers (1 in a full run
+      but Gemma2's 2, FULL_RUN_FAMILY_FORWARD_LAYERS), written to disk
       in its HF layout (AWQ-INT4; Falcon plain bf16) and loaded by
       load_model onto the card: a 64-token prefill and 4 decode steps of
       forward_paged (B1, B2) against the CPU f32 forward at 5e-2 of the
@@ -208,7 +209,29 @@ Phases, in order; any failure raises and the script exits non-zero:
       decode step; the wave of 8 greedy requests equal to the 8 served one
       after another (Codestral with the card in f32); ``cli run`` on both
       2-layer checkpoints.
-Phases 7b, 7c and 10-14 run between phases 7 and 8.
+  15. (``vision``) image chats with LLaVA-1.5-7B at full width: B1 against
+      its plain version and timed at its language model's shapes (1 and 600
+      rows, LLAVA_B1_SHAPES); the host's PNG and baseline-JPEG decode and
+      ``preprocess_image`` timed on 640x480 images (a PNG written here with
+      zlib, the repository's JPEG); an HF LLaVA directory (AWQ-INT4
+      Llama-2-7B, FULL_RUN_HTTP_LAYERS layers in a full run and 32 alone,
+      the whole f16 CLIP ViT-L/14-336 tower: quick_gelu, feature layer -2)
+      and a 2-layer text checkpoint with an F16 mmproj sidecar of 23 blocks
+      written and loaded as ``cli serve`` loads them: the tower (f32) held
+      to the CPU at 1e-3 of its largest output and timed an image, a 2-layer
+      forward from the merged embeddings (f16 on the card, f32 on the CPU)
+      at 5e-2, the merged prefill timed with its B1 launches and traced
+      (top device ops; the Executor's ``attend`` timed at its shapes),
+      greedy image chats equal with graphs on and off (TTFT from before the
+      image's decode, beside a text chat's; ms a decode token); over HTTP
+      with the batch engine on, a PNG chat and a streamed JPEG chat equal
+      to the Executor in-process, a text chat unchanged around them, a GIF,
+      a progressive JPEG and an audio part answering 400, ``/metrics``
+      counting every token sent, then two image chats at once beside a
+      wave of text chats (run one at a time, equal to the Executor
+      in-process); the text checkpoint answering an image with 400, and
+      200 with ``mmproj=``.
+Phases 7b, 7c and 10-15 run between phases 7 and 8.
 Each serving run sets the launch counts to 0 just before it and reads
 them just after; a replayed graph adds the launches it holds, and the
 kernels line counts the first run with graphs (the default path). Under
@@ -3695,17 +3718,21 @@ def ppl_gate(dev) -> dict:
 # 11 at their depths before phase 12, and 862.6-937.7 s with these cuts);
 # ``--phases build,families`` serves them whole.
 FAMILY_SERVING = (("qwen3", 36, 4096, 6), ("gemma2", 42, 8192, 6))
+# The 2-layer forwards held to the CPU, 1 layer in a full run (the CPU's f32
+# reference is host-bound); Gemma2 keeps 2 for its window check.
+FAMILY_FORWARD_LAYERS = 2
+FULL_RUN_FAMILY_FORWARD_LAYERS = 1
 FAMILY_REQUEST_LENS = (64, 512, 200, 333, 128, 480, 96, 256)
 
 
-def family_forwards(dev) -> dict:
-    """Phase 10, part 1: each dense family at its published width, 2 layers,
-    written to disk in its HF layout (AWQ-INT4, group 128; Falcon plain
-    bf16), loaded by load_model onto the card (bf16), a 64-token prefill
-    and 4 decode steps against the port's CPU f32 forward on the same
-    params; then Gemma2 past its window in a config copy whose window is cut
-    to 64 (layer 0 slides, layer 1 does not). B1 and B2 launches counted
-    per family."""
+def family_forwards(dev, depth: int = FAMILY_FORWARD_LAYERS) -> dict:
+    """Phase 10, part 1: each dense family at its published width, ``depth``
+    layers (Gemma2 always 2), written to disk in its HF layout (AWQ-INT4,
+    group 128; Falcon plain bf16), loaded by load_model onto the card
+    (bf16), a 64-token prefill and 4 decode steps against the port's CPU
+    f32 forward on the same params; then Gemma2 past its window in a config
+    copy whose window is cut to 64 (layer 0 slides, layer 1 does not). B1
+    and B2 launches counted per family."""
     import shutil
     import tempfile
 
@@ -3718,7 +3745,7 @@ def family_forwards(dev) -> dict:
     with tempfile.TemporaryDirectory(prefix="families-") as root:
         for family, make in FAMILY_CONFIGS.items():
             cfg = make()
-            cfg.num_layers = 2
+            cfg.num_layers = 2 if family == "gemma2" else depth
             d = Path(root) / family
             t0 = time.perf_counter()
             write_hf_checkpoint(d, cfg, quant="plain" if family == "falcon" else "awq",
@@ -3733,7 +3760,7 @@ def family_forwards(dev) -> dict:
             reset_counts()
             err = card_vs_cpu(dev, model.cfg, model.params, cpu, [64, 37], family)
             counts = read_counts()
-            assert counts["paged_attention"] == 2 * 4, counts
+            assert counts["paged_attention"] == cfg.num_layers * 4, counts
             assert counts["qmm"] > 0 or family == "falcon", counts
             row = dict(max_rel_err=err, qmm=counts["qmm"],
                        paged_attention=counts["paged_attention"])
@@ -3744,7 +3771,8 @@ def family_forwards(dev) -> dict:
                 row["window_64_max_rel_err"] = card_vs_cpu(
                     dev, cut, model.params, cpu, [200, 130],
                     "gemma2 (config copy, window cut to 64: layer 0 slides, layer 1 not)")
-            log(f"  {family}: {cfg.hidden_size}d, vocab {cfg.vocab_size}, 2 layers; "
+            log(f"  {family}: {cfg.hidden_size}d, vocab {cfg.vocab_size}, {cfg.num_layers} "
+                f"layers; "
                 f"written in {t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s; max rel err "
                 f"{err:.4g}; launches B1 {counts['qmm']}, B2 {counts['paged_attention']}")
             out[family] = row
@@ -3876,7 +3904,8 @@ def families(dev, card: str, full_run: bool) -> dict:
     Gemma2-9B served (family_serving) at the depth FAMILY_SERVING gives a
     full run when ``full_run``. The kernels line takes its family rows'
     launches from Qwen3-8B's run with graphs."""
-    out = {"forwards": family_forwards(dev)}
+    out = {"forwards": family_forwards(
+        dev, FULL_RUN_FAMILY_FORWARD_LAYERS if full_run else FAMILY_FORWARD_LAYERS)}
     for family, layers, ctx, full_run_layers in FAMILY_SERVING:
         model = llama_family_model(dev, family, full_run_layers if full_run else layers)
         out[family] = family_serving(dev, card, family, model, ctx)
@@ -3912,10 +3941,15 @@ F32_FREE_TOL = 1e-3
 
 
 def moe_b1(dev, gen) -> dict:
-    """Phase 11 (a): B1 against its plain version at every MoE expert shape
-    and row count (MOE_B1_SHAPES x MOE_B1_ROWS, tolerance as phase 2's), then
-    timed: kernel, bound, plain version and torch.matmul on the
-    bf16-dequantized weight."""
+    """Phase 11 (a): B1 at every MoE expert shape and row count
+    (MOE_B1_SHAPES x MOE_B1_ROWS; ``b1_at_shapes``)."""
+    return b1_at_shapes(dev, gen, MOE_B1_SHAPES, MOE_B1_ROWS)
+
+
+def b1_at_shapes(dev, gen, shapes: dict, row_counts: tuple) -> dict:
+    """B1 against its plain version at each (K, N) of ``shapes`` and each row
+    count (tolerance as phase 2's), then timed: kernel, bound, plain version
+    and torch.matmul on the bf16-dequantized weight."""
     import torch
 
     from blazr_tpu_torch.quant.kernels import qmm, qmm_reference
@@ -3923,10 +3957,10 @@ def moe_b1(dev, gen) -> dict:
 
     gs, rel_tol = 128, 8e-3
     rows, worst = {}, 0.0
-    for pname, (k, n) in MOE_B1_SHAPES.items():
+    for pname, (k, n) in shapes.items():
         qw, s, mn = rand_planes(k, n, 4, gs, gen, dev)
         w = dequantize_planes(qw, s, mn, 4, True, gs, torch.bfloat16)
-        for m in MOE_B1_ROWS:
+        for m in row_counts:
             x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
             got = qmm(x, qw, s, mn, bits=4, signed=True, group_size=gs, device=dev)
             ref = qmm_reference(x.float(), qw, s, mn, bits=4, signed=True, group_size=gs)
@@ -4958,6 +4992,566 @@ def ssm_phase(dev, card: str, full_run: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15 (vision): image chats with LLaVA-1.5-7B
+# ---------------------------------------------------------------------------
+
+# B1 at LLaVA-1.5-7B's language-model projections (K, N): Llama-2-7B's q, k,
+# v and o (one shape), gate and up (one shape) and down; its head is plain
+# f16 in the AWQ checkpoint (cuBLAS). Rows: a decode step and an image
+# chat's merged prefill (576 image rows and 24 text tokens).
+LLAVA_B1_SHAPES = {"llava q/k/v/o": (4096, 4096), "llava gate/up": (4096, 11008),
+                   "llava down": (11008, 4096)}
+LLAVA_B1_ROWS = (1, 600)
+VISION_TOKENS = 32                  # greedy tokens an image chat
+VISION_TOWER_TOL = 1e-3             # the tower, card f32 vs CPU f32, of the largest output
+# The mmproj form: a 2-layer text checkpoint and the tower's first 23 blocks,
+# as llama.cpp's converter writes LLaVA-1.5's sidecar (feature layer -2).
+VISION_MMPROJ_LAYERS, VISION_MMPROJ_BLOCKS = 2, 23
+
+
+def write_png(rgb) -> bytes:
+    """An RGB PNG of ``rgb`` [H, W, 3] uint8 with zlib alone, its rows
+    filtered Sub, Up, Average and Paeth in turn (the decoder's slow path)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    x = rgb.astype(np.int32)
+    rows = []
+    for r in range(h):
+        t = 1 + r % 4
+        cur, up = x[r], (x[r - 1] if r else np.zeros_like(x[r]))
+        left = np.vstack([np.zeros((1, 3), np.int32), cur[:-1]])
+        ul = np.vstack([np.zeros((1, 3), np.int32), up[:-1]])
+        if t == 4:
+            p = left + up - ul
+            pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+        else:
+            pred = (left, up, (left + up) >> 1)[t - 1]
+        rows.append(bytes([t]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b""))
+
+
+def vision_images() -> dict:
+    """The phase's images: a 640x480 PNG written here (a smooth field and
+    seeded noise), the repository's 640x480 baseline JPEG, and a GIF and a
+    progressive JPEG that must be refused."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 15)
+    y, x = np.mgrid[0:480, 0:640]
+    field = np.stack([128 + 90 * np.sin(x / 37.0 + c) * np.cos(y / 23.0 + 2 * c)
+                      for c in range(3)], -1)
+    rgb = np.clip(field + rng.normal(0, 8, field.shape), 0, 255).astype(np.uint8)
+    data = REPO / "tests" / "data"
+    return {"png": write_png(rgb), "jpeg": (data / "vision_640x480.jpg").read_bytes(),
+            "gif": (data / "vision.gif").read_bytes(),
+            "progressive": (data / "vision_progressive.jpg").read_bytes()}
+
+
+def host_preprocess(images: dict) -> dict:
+    """Host ms per image: the decode alone and the whole ``preprocess_image``
+    (decode, bicubic resize to 336, crop, normalise), median of 5."""
+    from blazr_tpu_torch.utils.preprocess import decode_rgb, preprocess_image
+
+    out = {}
+    for kind in ("png", "jpeg"):
+        data = images[kind]
+        decode_rgb(data)                              # builds native/jpeg.cpp once
+        dec, pre = [], []                             # seconds
+        for _ in range(5):
+            t0 = time.perf_counter()
+            decode_rgb(data)
+            dec.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            preprocess_image(data, 336)
+            pre.append(time.perf_counter() - t0)
+        out[kind] = dict(decode_ms=median_ms(dec), preprocess_ms=median_ms(pre),
+                         bytes=len(data))
+        log(f"  host {kind} 640x480 ({len(data)} B): decode {out[kind]['decode_ms']:.1f} ms, "
+            f"preprocess_image(336) {out[kind]['preprocess_ms']:.1f} ms (median of 5)")
+    return out
+
+
+def vision_checkpoints(root: Path, layers: int) -> dict:
+    """The two forms of LLaVA-1.5-7B at full width: an HF LLaVA directory
+    (``layers`` layers of AWQ-INT4 Llama-2-7B, the whole f16 tower) and a
+    VISION_MMPROJ_LAYERS-layer text checkpoint with an mmproj sidecar kept
+    outside it (served with ``mmproj=``; without it the same directory is a
+    text model), each with a 32064-token BPE tokenizer.json."""
+    import dataclasses
+
+    from blazr_tpu_torch.utils.synthetic import (llava_1_5_7b_config, write_bpe_tokenizer_json,
+                                                 write_hf_checkpoint, write_llava_checkpoint,
+                                                 write_mmproj_gguf)
+
+    cfg = llava_1_5_7b_config()
+    t0 = time.perf_counter()
+    write_llava_checkpoint(root / "llava", dataclasses.replace(cfg, num_layers=layers),
+                           seed=SEED)
+    write_bpe_tokenizer_json(root / "llava", cfg.vocab_size, seed=SEED)
+    t1 = time.perf_counter()
+    write_hf_checkpoint(root / "text", dataclasses.replace(
+        cfg, num_layers=VISION_MMPROJ_LAYERS, vision=None), seed=SEED)
+    write_bpe_tokenizer_json(root / "text", cfg.vocab_size, seed=SEED)
+    write_mmproj_gguf(root / "mmproj-llava-1.5-7b-f16.gguf", cfg.vision, cfg.hidden_size,
+                      seed=SEED + 1, blocks=VISION_MMPROJ_BLOCKS)
+    t2 = time.perf_counter()
+    sizes = {k: sum(f.stat().st_size for f in (root / k).iterdir()) / 1e9
+             for k in ("llava", "text")}
+    log(f"  wrote the {layers}-layer HF LLaVA directory ({sizes['llava']:.2f} GB) in "
+        f"{t1 - t0:.1f} s; the {VISION_MMPROJ_LAYERS}-layer text checkpoint "
+        f"({sizes['text']:.2f} GB) and its F16 mmproj ({VISION_MMPROJ_BLOCKS} blocks, "
+        f"{(root / 'mmproj-llava-1.5-7b-f16.gguf').stat().st_size / 1e9:.2f} GB) in "
+        f"{t2 - t1:.1f} s")
+    return dict(llava=root / "llava", text=root / "text",
+                mmproj=root / "mmproj-llava-1.5-7b-f16.gguf", write_s=t2 - t0)
+
+
+def vision_tower_check(dev, model, pixels) -> dict:
+    """The tower at full width on the card (f32) against the CPU (f32) on one
+    image at VISION_TOWER_TOL of the largest output; then its device ms per
+    image at batch 1 and 4, beside its bound (f32 on the CUDA cores)."""
+    import torch
+
+    from blazr_tpu_torch.models.vision import encode_images, vision_flops
+
+    params, vcfg = model.vision_params, model.vision_cfg
+    x = torch.from_numpy(pixels[:1]).to(dev)
+    got = encode_images(params, vcfg, x).cpu()
+    t0 = time.perf_counter()
+    ref = encode_images(to_cpu_f32(params), vcfg, x.cpu())
+    cpu_s = time.perf_counter() - t0
+    assert got.shape == ref.shape == (1, 576, 4096) and torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    tol = VISION_TOWER_TOL * ref.abs().max().item()
+    assert err <= tol, f"tower: {err} > {tol}"
+    out = dict(max_abs_err=err, tol=tol, cpu_s=cpu_s)
+    nbytes = sum(t.numel() * 4 for t in _leaves(params))
+    for n in (1, 4):
+        xb = torch.from_numpy(pixels[[i % len(pixels) for i in range(n)]]).to(dev)
+        ms = time_eager(lambda: encode_images(params, vcfg, xb), iters=5, warmup=1)
+        bms, by = bound(nbytes + xb.numel() * 4 + n * 576 * 4096 * 4, vision_flops(vcfg, n),
+                        H100_F32_FLOPS)
+        out[f"batch{n}"] = dict(ms=ms, ms_per_image=ms / n, bound_ms=bms, bound_by=by)
+        log(f"  tower (24 blocks, feature layer -2, f32) batch {n}: {ms / n:.2f} ms an image "
+            f"on the card, bound {bms / n:.2f} ms ({by}, {vision_flops(vcfg) / 1e9:.0f} "
+            f"GFLOP an image)")
+    log(f"  tower card vs CPU f32: max_abs_err {err:.4g} (tol {tol:.4g}); CPU {cpu_s:.1f} s")
+    return out
+
+
+def _leaves(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def vision_forward_check(dev, model, hidden) -> dict:
+    """The first 2 decoder layers and the head from the merged embeddings
+    (an image's 576 rows and the text), the card (f16, B1) against the CPU
+    (f32, the weights dequantized on the card): every position's hidden
+    state and the last position's logits at 5e-2 of their largest."""
+    import dataclasses
+
+    import torch
+
+    from blazr_tpu_torch.kvcache.contiguous import init_kv_cache
+    from blazr_tpu_torch.models.llama import forward_head, forward_layers_range
+
+    cfg = dataclasses.replace(model.cfg, num_layers=2)
+    params = dict(model.params, layers=model.params["layers"][:2])
+    cpu = to_cpu_f32(params, dense=True)
+    t = hidden.shape[1]
+    out = {}
+    for name, d, pr, x, dt in (("gpu", dev, params, hidden, model.dtype),
+                               ("cpu", torch.device("cpu"), cpu, hidden.float().cpu(),
+                                torch.float32)):
+        cache = init_kv_cache(2, 1, t + 1, cfg.attention.kv_heads(), model.head_dim, dtype=dt,
+                              device=d)
+        pos = torch.arange(t, device=d)[None]
+        with torch.no_grad():
+            h, _ = forward_layers_range(pr, cfg, x, cache, pos, 0, 2)
+            logits = forward_head(pr, cfg, h[:, -1:])
+        out[name] = (h.float().cpu(), logits.float().cpu())
+    errs = {}
+    for i, what in enumerate(("hidden", "logits")):
+        g, c = out["gpu"][i], out["cpu"][i]
+        assert g.shape == c.shape and torch.isfinite(g).all(), what
+        errs[what] = ((g - c).abs().max() / c.abs().max()).item()
+        assert errs[what] <= 5e-2, f"merged forward {what}: {errs[what]} > 5e-2"
+    log(f"  2-layer forward from {t} merged rows, card f16 vs CPU f32: hidden "
+        f"{errs['hidden']:.4g}, logits {errs['logits']:.4g} of the largest (tol 5e-2)")
+    return errs
+
+
+def vision_prefill_trace(ex, step, hidden, card: str) -> dict:
+    """One merged prefill under torch.profiler: its device-busy ms, B1's
+    share and the top device ops; then the Executor's attention alone at
+    the prefill's shapes (``attend``: the T rows' queries over the whole
+    cache, f32 sums, its mask and softmax), timed a layer and times the
+    layers."""
+    import torch
+
+    from blazr_tpu_torch.models.layers import attend
+
+    model = ex.model
+    step.cache.length.zero_()
+    wall, busy, events, names, _ = device_busy(lambda: ex.prefill_embeddings(step.cache,
+                                                                             hidden))
+    ops = top_ops(names, 8)
+    b1 = sum(sec for name, (sec, _) in names.items() if short_name(name).startswith("qmm")
+             or short_name(name) == "reduce_splits")
+    t, heads, d = hidden.shape[1], model.cfg.attention.num_heads, model.head_dim
+    kv_heads, cap = model.cfg.attention.kv_heads(), ex.capacity
+    g = torch.Generator(device=model.device).manual_seed(SEED)
+    q = torch.randn(1, t, heads, d, device=model.device, dtype=model.dtype, generator=g)
+    k, v = (torch.randn(1, cap, kv_heads, d, device=model.device, dtype=model.dtype,
+                        generator=g) for _ in range(2))
+    pos = torch.arange(t, device=model.device)[None]
+    kv_len = torch.tensor([t], device=model.device)
+    attn_ms = time_eager(lambda: attend(q, k, v, q_positions=pos, kv_len=kv_len), iters=5,
+                         warmup=1)
+    out = dict(wall_ms=wall * 1e3, busy_ms=busy * 1e3, events=events, b1_ms=b1 * 1e3,
+               attend_ms_layer=attn_ms, attend_ms=attn_ms * model.num_layers,
+               top=[(n, sec * 1e3, calls) for n, (sec, calls) in ops])
+    log(f"  profiled merged prefill ({t} rows, {model.num_layers} layers, cache of {cap}): "
+        f"wall {out['wall_ms']:.2f} ms, device busy {out['busy_ms']:.2f} ms over {events} "
+        f"device events, B1 {out['b1_ms']:.2f} ms ({card}; under the profiler)")
+    log("  top device ops of the merged prefill: " + "; ".join(
+        f"{n} {ms:.2f} ms/{calls}" for n, ms, calls in out["top"]))
+    log(f"  attend over the whole cache at the prefill's shapes: {attn_ms:.3f} ms a layer, "
+        f"{out['attend_ms']:.2f} ms for {model.num_layers} layers ({card})")
+    return out
+
+
+def vision_chats(dev, ex, images: dict, card: str) -> dict:
+    """The Executor (decode graphs on, and a second one with them off):
+    the merged prefill's device ms and B1 launches, and its trace; an
+    image chat's TTFT (the clock started before the images are decoded)
+    beside a text chat's with the same text, and ms a decode token; greedy
+    image chats equal with graphs on and off."""
+    import torch
+
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.engine.executor_multimodal import MultimodalExecutor
+
+    model, tok = ex.model, ex.tokenizer
+    text = "Describe this picture in one short paragraph, naming its main colours."
+    prompt = tok.encode(text)
+    mm = MultimodalExecutor(ex, model.vision_params, model.vision_cfg)
+    hidden = mm.merged_embeddings(prompt, [images["jpeg"]])
+    out = dict(rows=hidden.shape[1], forward=vision_forward_check(dev, model, hidden))
+    step, _ = ex._take(prompt, reuse=False)
+    try:
+        ex.prefill_embeddings(step.cache, hidden)
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step.cache.length.zero_()
+        ex.prefill_embeddings(step.cache, hidden)
+        end.record()
+        torch.cuda.synchronize()
+        out["prefill_ms"] = start.elapsed_time(end)
+        out["prefill_qmm"] = read_counts()["qmm"]
+        out["prefill_trace"] = vision_prefill_trace(ex, step, hidden, card)
+    finally:
+        ex._give_back(None, step)
+    assert out["prefill_qmm"] == 7 * model.num_layers, out
+    log(f"  merged prefill of {out['rows']} rows ({model.num_layers} layers): "
+        f"{out['prefill_ms']:.2f} ms, {out['prefill_qmm']} B1 launches")
+
+    def first_and_rest(start) -> tuple[list, float, float]:
+        """``start()`` makes the generation; the clock runs from before it."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, t1 = [], None
+        for g in start():
+            toks.append(g.token_id)
+            if t1 is None:
+                t1 = time.perf_counter()
+        t2 = time.perf_counter()
+        return toks, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(1, len(toks) - 1)
+
+    off_app = AppConfig.from_dict(ex.app_cfg.to_dict())
+    off_app.inference.graphs = False
+    ex_off = Executor(model, tok, off_app)
+    runs = {}
+    for graphs, e in ((True, ex), (False, ex_off), (False, ex_off), (True, ex)):
+        m = MultimodalExecutor(e, model.vision_params, model.vision_cfg)
+        for kind in ("png", "jpeg"):
+            cfg = GenerationConfig(max_tokens=VISION_TOKENS, temperature=0.0)
+            toks, ttft, per = first_and_rest(lambda: m.generate_multimodal(
+                prompt, images=[images[kind]], gen_cfg=cfg))
+            runs.setdefault((graphs, kind), []).append(dict(tokens=toks, ttft_ms=ttft,
+                                                           ms_per_token=per))
+        cfg = GenerationConfig(max_tokens=VISION_TOKENS, temperature=0.0)
+        toks, ttft, per = first_and_rest(lambda: e.generate(prompt, cfg))
+        runs.setdefault((graphs, "text"), []).append(dict(tokens=toks, ttft_ms=ttft,
+                                                         ms_per_token=per))
+    for kind in ("png", "jpeg", "text"):
+        streams = [r["tokens"] for g in (True, False) for r in runs[(g, kind)]]
+        assert all(s == streams[0] for s in streams), f"{kind}: graphs on != off"
+        assert len(streams[0]) == VISION_TOKENS, kind
+    warm = {k: runs[(True, k)][-1] for k in ("png", "jpeg", "text")}
+    out.update(ttft_ms={k: v["ttft_ms"] for k, v in warm.items()},
+               ms_per_token={k: v["ms_per_token"] for k, v in warm.items()},
+               ms_per_token_off={k: runs[(False, k)][-1]["ms_per_token"]
+                                 for k in ("png", "jpeg", "text")})
+    log(f"  Executor, graphs on (the second pass): TTFT image, host decode and tower included, "
+        f"(PNG) {warm['png']['ttft_ms']:.1f}"
+        f" / (JPEG) {warm['jpeg']['ttft_ms']:.1f} ms vs text {warm['text']['ttft_ms']:.1f} ms; "
+        f"ms a decode token {warm['png']['ms_per_token']:.3f} (image) / "
+        f"{warm['text']['ms_per_token']:.3f} (text); graphs off "
+        f"{out['ms_per_token_off']['png']:.3f}; greedy streams equal on/off ({card})")
+    return out
+
+
+def _image_chat(url: str, text: str, stream: bool = False) -> dict:
+    return {"messages": [{"role": "user", "content": [
+        {"type": "text", "text": text}, {"type": "image_url", "image_url": {"url": url}}]}],
+        "max_tokens": VISION_TOKENS, "temperature": 0, "stream": stream}
+
+
+def _data_uri(data: bytes, mime: str) -> str:
+    import base64
+
+    return f"data:{mime};base64," + base64.b64encode(data).decode()
+
+
+def vision_http(dev, sched, images: dict, card: str) -> dict:
+    """The model behind the port's HTTP server with the batch engine (not
+    warmed; its prefix cache off, so that the text chat sent twice
+    prefills twice: a whole-prompt hit recomputes the last token on other
+    shapes, and f16 greedy tokens may then differ): a text chat (the
+    engine), a PNG chat and a streamed JPEG chat (the Executor), the text
+    chat again (the same reply), a GIF, a progressive JPEG and an audio
+    part (400). Each image reply equals the same request through the
+    Executor in-process; ``/metrics`` counts every reply's tokens. Then a
+    wave of text chats alone and beside two image chats at once
+    (``vision_concurrent``). Launch counts are set to 0 just before and
+    read just after."""
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.executor_multimodal import MediaBoundExecutor, MultimodalExecutor
+    from blazr_tpu_torch.engine.generate_text import collect_generation
+    from blazr_tpu_torch.server.api_types import gen_config_from_body
+    from blazr_tpu_torch.server.app import _build_prompt
+
+    ex = sched.get_executor("default")
+    engine = BatchEngine(ex.model, ex.tokenizer, ex.app_cfg)
+    assert engine.prefix_cache is None
+    text = "Describe this picture in one short paragraph, naming its main colours."
+    png_req = _image_chat(_data_uri(images["png"], "image/png"), text)
+    jpeg_req = _image_chat(_data_uri(images["jpeg"], "image/jpeg"), text, stream=True)
+    text_req = {"messages": [{"role": "user", "content": text}],
+                "max_tokens": VISION_TOKENS, "temperature": 0}
+    audio_req = {"messages": [{"role": "user", "content": [
+        {"type": "text", "text": text},
+        {"type": "input_audio", "input_audio": {"data": "AAAA", "format": "pcm16"}}]}],
+        "max_tokens": 4}
+    want = {}                                         # the Executor in-process
+    for kind, req in (("png", png_req), ("jpeg", jpeg_req)):
+        cfg = gen_config_from_body(req, ex.app_cfg.generation)
+        ids = ex.tokenizer.encode(_build_prompt(req, ex.model.cfg))
+        mm = MediaBoundExecutor(MultimodalExecutor(ex, ex.model.vision_params,
+                                                   ex.model.vision_cfg), [images[kind]], [])
+        want[kind] = collect_generation(mm, ids, cfg)
+    out: dict = {}
+    sent = 0                                          # completion tokens sent back
+    reset_counts()
+    with http_server(sched, engine) as port:
+        st, body = _http(port, "POST", "/v1/chat/completions", text_req)
+        assert st == 200, (st, body)
+        text_reply = json.loads(body)["choices"][0]["message"]["content"]
+        sent += json.loads(body)["usage"]["completion_tokens"]
+        t0 = time.perf_counter()
+        st, body = _http(port, "POST", "/v1/chat/completions", png_req)
+        out["png_e2e_ms"] = (time.perf_counter() - t0) * 1e3
+        assert st == 200, (st, body)
+        png_reply = json.loads(body)
+        streamed = _stream_chat(port, jpeg_req)
+        assert streamed["done"] and streamed["role"] == "assistant", streamed
+        out["jpeg_stream_ttft_ms"] = streamed["ttft"] * 1e3
+        out["jpeg_stream_e2e_ms"] = streamed["wall"] * 1e3
+        st, body = _http(port, "POST", "/v1/chat/completions", text_req)
+        assert st == 200 and json.loads(body)["choices"][0]["message"]["content"] \
+            == text_reply, "the text chat changed around the image chats"
+        sent += json.loads(body)["usage"]["completion_tokens"]
+        refused = {}
+        for name, req in (("gif", _image_chat(_data_uri(images["gif"], "image/gif"), text)),
+                          ("progressive", _image_chat(_data_uri(
+                              images["progressive"], "image/jpeg"), text)),
+                          ("audio", audio_req)):
+            st, body = _http(port, "POST", "/v1/chat/completions", req)
+            assert st == 400, (name, st, body)
+            refused[name] = json.loads(body)["error"]["message"]
+        st, body = _http(port, "GET", "/metrics")
+        assert st == 200
+        generated = parse_metrics(body.decode())[("blazr_tpu_tokens_generated_total", ())]
+        out["concurrent"] = vision_concurrent(port, png_req, dict(jpeg_req, stream=False),
+                                              text_req, want, card)
+    out.update(read_counts())
+    assert out["qmm"] > 0 and out["paged_attention"] > 0, out
+    sent += png_reply["usage"]["completion_tokens"] + len(want["jpeg"].tokens)
+    assert generated == sent, (generated, sent)
+    for kind, got in (("png", png_reply["choices"][0]["message"]["content"]),
+                      ("jpeg", "".join(streamed["deltas"]))):
+        assert got == want[kind].text, (kind, got[:200], want[kind].text[:200])
+    log(f"  HTTP (batch engine on): PNG chat e2e {out['png_e2e_ms']:.1f} ms, streamed JPEG "
+        f"chat TTFT {out['jpeg_stream_ttft_ms']:.1f} ms / e2e {out['jpeg_stream_e2e_ms']:.1f} "
+        f"ms; both equal the Executor in-process; the text chat unchanged; 400 for "
+        f"{sorted(refused)}; /metrics {generated:.0f} tokens; launches B1 {out['qmm']}, "
+        f"B2 {out['paged_attention']} ({card})")
+    out["refused"] = refused
+    return out
+
+
+VISION_WAVE_TEXT_CHATS = 4
+
+
+def vision_concurrent(port: int, png_req: dict, jpeg_req: dict, text_req: dict, want: dict,
+                      card: str) -> dict:
+    """A wave of VISION_WAVE_TEXT_CHATS text chats (the batch engine) alone,
+    twice (the first pass carries the wave's graph captures; the second is
+    the baseline), then the same wave with two image chats sent at once
+    beside it: the
+    server runs the image chats on the Executor one at a time, each reply
+    equal to the Executor in-process; the text chats answer 200 with
+    VISION_TOKENS tokens. Each reply's e2e, and the card's allocated
+    memory before and after the mixed wave."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    texts = [(f"text{i}", text_req) for i in range(VISION_WAVE_TEXT_CHATS)]
+    reqs = [("png", png_req), ("jpeg", jpeg_req)] + texts
+
+    def send(item):
+        t0 = time.perf_counter()
+        st, body = _http(port, "POST", "/v1/chat/completions", item[1])
+        return item[0], st, body, (time.perf_counter() - t0) * 1e3
+
+    for _ in range(2):
+        with ThreadPoolExecutor(len(texts)) as pool:
+            alone = list(pool.map(send, texts))
+    assert all(st == 200 and json.loads(body)["usage"]["completion_tokens"] == VISION_TOKENS
+               for _, st, body, _ in alone), alone
+    alone_ms = sorted(ms for _, _, _, ms in alone)
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(reqs)) as pool:
+        got = list(pool.map(send, reqs))
+    wall = (time.perf_counter() - t0) * 1e3
+    e2e = {}
+    for name, st, body, ms in got:
+        assert st == 200, (name, st, body)
+        reply = json.loads(body)
+        e2e[name] = ms
+        if name in want:
+            assert reply["choices"][0]["message"]["content"] == want[name].text, name
+        else:
+            assert reply["usage"]["completion_tokens"] == VISION_TOKENS, reply["usage"]
+    mem1 = torch.cuda.memory_allocated()
+    text_ms = sorted(v for k, v in e2e.items() if k.startswith("text"))
+    log(f"  HTTP, two image chats at once beside {VISION_WAVE_TEXT_CHATS} text chats: wall "
+        f"{wall:.1f} ms; e2e PNG {e2e['png']:.1f} / JPEG {e2e['jpeg']:.1f} ms (one at a time "
+        f"on the Executor; both equal the Executor in-process), text {text_ms[0]:.1f}-"
+        f"{text_ms[-1]:.1f} ms (the wave alone, warm, {alone_ms[0]:.1f}-{alone_ms[-1]:.1f} ms); "
+        f"allocated {mem0 / 2**30:.2f} -> {mem1 / 2**30:.2f} GiB ({card})")
+    return dict(wall_ms=wall, e2e_ms=e2e, text_alone_ms=alone_ms,
+                mem_gib=(mem0 / 2**30, mem1 / 2**30))
+
+
+def vision_mmproj(dev, ckpts: dict, images: dict) -> dict:
+    """The mmproj form: the text checkpoint alone answers an image chat with
+    400 (a text model, before any fetch); with ``mmproj=`` (``serve
+    --mmproj``) it attaches the sidecar's 23 blocks and answers 200."""
+    from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
+
+    req = _image_chat(_data_uri(images["png"], "image/png"), "What is in this image?")
+    out = {}
+    for name, mmproj in (("text", None), ("mmproj", str(ckpts["mmproj"]))):
+        sched = ModelScheduler(ckpts["text"], device=dev, mmproj=mmproj)
+        ex = sched.get_executor("default")
+        assert ex.model.is_multimodal == (mmproj is not None)
+        with http_server(sched, None) as port:
+            st, body = _http(port, "POST", "/v1/chat/completions", req)
+        out[name] = st
+        if mmproj is not None:
+            assert st == 200 and ex.model.vision_cfg.num_layers == VISION_MMPROJ_BLOCKS, body
+        else:
+            assert st == 400 and b"does not support" in body, body
+        del sched, ex
+        free_card()
+    log(f"  text checkpoint: an image chat answers {out['text']}; with its mmproj sidecar "
+        f"({VISION_MMPROJ_BLOCKS} blocks) {out['mmproj']}")
+    return out
+
+
+def vision_phase(dev, gen, card: str, full_run: bool) -> dict:
+    """Phase 15: B1 at LLaVA-1.5-7B's shapes against its plain version and
+    timed; the two checkpoint forms written; the host's image preprocessing
+    timed; the HF LLaVA directory loaded as ``cli serve`` loads it (f16,
+    the tower f32) at FULL_RUN_HTTP_LAYERS layers in a full run (32 alone):
+    the tower and a 2-layer merged forward held to the CPU, the Executor's
+    image chats (graphs on and off), the HTTP route, then the mmproj form."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
+    from blazr_tpu_torch.utils.preprocess import preprocess_image
+
+    out = {"b1": b1_at_shapes(dev, gen, LLAVA_B1_SHAPES, LLAVA_B1_ROWS)}
+    images = vision_images()
+    out["host"] = host_preprocess(images)
+    layers = FULL_RUN_HTTP_LAYERS if full_run else 32
+    root = Path(tempfile.mkdtemp(prefix="blazr_llava_"))
+    try:
+        ckpts = vision_checkpoints(root, layers)
+        t0 = time.perf_counter()
+        sched = ModelScheduler(ckpts["llava"], device=dev)
+        ex = sched.get_executor("default")
+        torch.cuda.synchronize()
+        model = ex.model
+        out["load_s"] = time.perf_counter() - t0
+        vcfg = model.vision_cfg
+        assert model.is_multimodal and model.dtype == torch.float16
+        assert (vcfg.hidden_act, vcfg.feature_layer, vcfg.num_layers) == ("quick_gelu", -2, 24)
+        log(f"  loaded the {layers}-layer LLaVA-1.5-7B (AWQ-INT4 f16, tower f32) in "
+            f"{out['load_s']:.1f} s; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+            "allocated")
+        pixels = np.stack([preprocess_image(images[k], 336) for k in ("png", "jpeg")])
+        out["tower"] = vision_tower_check(dev, model, pixels)
+        out["chats"] = vision_chats(dev, ex, images, card)
+        out["http"] = vision_http(dev, sched, images, card)
+        del sched, ex, model
+        free_card()
+        out["mmproj"] = vision_mmproj(dev, ckpts, images)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out.update(qmm=out["http"]["qmm"], paged_attention=out["http"]["paged_attention"])
+    return out
+
+
 B3_TIMED_ROWS = (1, 8, 512)
 
 
@@ -5205,6 +5799,17 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
             replaces="blazr_tpu/attention/paged_attention.py:34",
             launches=got("ssm", "paged_attention"), max_abs_err=got("b2", "max_abs_err"),
             **{key: b2[key] for key in keys}))
+    if "vision" in res:   # B1 at LLaVA-1.5-7B's shapes, timed in phase 15
+        rows = res["vision"]["b1"]["rows"]
+        line.append(dict(
+            name="qmm_w4a16 (B1), LLaVA-1.5-7B image chats", route="cuda",
+            source="blazr_tpu_torch/csrc/qmm.cu",
+            replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
+            launches=got("vision", "qmm"), max_abs_err=res["vision"]["b1"]["max_abs_err"],
+            **{key: rows[("llava gate/up", 600)][key] for key in keys},
+            decode={key: rows[("llava gate/up", 1)][key] for key in keys},
+            at=[{key: row[key] for key in keys} for sh, row in rows.items()
+                if sh[0] != "llava gate/up"]))
     if gguf:           # B3 and B4 on the file's Q4_K gate weight, beside their rows
         for row in line:
             kernel = row["name"].split("(")[-1].rstrip(")")
@@ -5216,7 +5821,8 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
 
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
           "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "prefix", "http",
-          "routes", "constrained", "families", "moe", "gguf", "mla", "ssm", "sweep", "timings", "layout_times")
+          "routes", "constrained", "families", "moe", "gguf", "mla", "ssm", "vision", "sweep",
+          "timings", "layout_times")
 FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
@@ -5346,6 +5952,9 @@ def main() -> int:
         ("ssm", "phase 14: Mamba-Codestral-7B and the hybrid at Bamba-9B's widths: 2-layer "
          "checkpoints card vs CPU, served, rows isolated, cli run",
          lambda: ssm_phase(dev, card, phases == list(FULL_RUN))),
+        ("vision", "phase 15: image chats with LLaVA-1.5-7B (B1 at its shapes, the host's "
+         "image decode, the tower and a merged forward card vs CPU, the Executor, HTTP, "
+         "the mmproj sidecar)", lambda: vision_phase(dev, gen, card, phases == list(FULL_RUN))),
         ("sweep", "phase 8: the sweeps behind the launch plans of B1-B6",
          lambda: (b1_variants(dev, gen), b2_splits(dev, gen), b3_sweeps(dev, gen),
                   b4_splits(dev, gen), layout_splits(dev, gen))),

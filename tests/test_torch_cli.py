@@ -1,8 +1,8 @@
 """The port's CLI names, for each command of the JAX CLI it does not run,
 the ROADMAP queue A item that ports it. These tests hold each pointer to
 ROADMAP.md: the item's entry in queue A must name the command. The loader's
-docstring points vision towers and layer offload at their item the same
-way, and so does each runtime message of what the engines and the loader
+docstring points layer offload at its item the same way (vision towers are
+served since their part of item 12 was ported), and so does each runtime message of what the engines and the loader
 do not serve yet: its item must be an entry of queue A."""
 
 import re
@@ -43,9 +43,12 @@ def test_not_ported_commands_point_at_their_queue_item(command):
 
 
 def test_loader_points_vision_and_offload_at_item_12():
+    """Vision towers are served (``loader/vision.py``); layer offload still
+    names item 12, whose entry names ``loader/offloading.py``."""
     entry = _queue_a_entries()["12"]
-    assert "vision towers and layer offload (item 12)" in " ".join(api.__doc__.split())
-    assert "loader/vision.py" in entry and "loader/offloading.py" in entry
+    doc = " ".join(api.__doc__.split())
+    assert "layer offload (item 12)" in doc
+    assert "loader/offloading.py" in entry
 
 
 def _item_of(message: str) -> str:

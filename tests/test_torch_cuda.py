@@ -540,6 +540,26 @@ def test_executor_graphs_equal_eager(cuda):
     assert runs[True][2] == 2 and runs[False][2] == 0
 
 
+def test_executor_int4_kv_unpacks_inside_its_graph(cuda):
+    """int4 KV, two values a byte: the Executor's captured step unpacks the
+    cache inside the graph and gives the eager step's greedy tokens."""
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.engine.executor import Executor
+
+    model = _tiny_model(cuda)
+    runs = {}
+    for graphs in (True, False):
+        app = AppConfig(model=model.cfg)
+        app.inference.graphs = graphs
+        app.inference.kv_cache_dtype = "int4"
+        ex = Executor(model, _Tok(), app)
+        runs[graphs] = [t.token_id for t in ex.generate(
+            list(range(5, 30)), GenerationConfig(max_tokens=12, temperature=0.0))]
+        assert ex._init_cache(1).k.dtype == torch.uint8
+        assert ex.graphs.captured == (1 if graphs else 0)
+    assert runs[True] == runs[False] and len(runs[True]) == 12
+
+
 def test_replays_count_their_launches(cuda):
     """A captured step's first call runs eagerly, later calls replay it; the
     launch count is the kernels' real launches and the output the eager

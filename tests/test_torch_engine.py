@@ -247,7 +247,7 @@ def test_greedy_rows_are_exact_argmax():
 # Packages the port and chip_smoke.py must not import: JAX, the JAX package,
 # and what the JAX entry path leans on that the card's machine lacks.
 FORBIDDEN = ("jax", "blazr_tpu", "aiohttp", "regex", "prometheus_client",
-             "ml_dtypes", "safetensors", "tokenizers", "yaml", "huggingface_hub")
+             "ml_dtypes", "safetensors", "tokenizers", "yaml", "huggingface_hub", "PIL")
 
 
 def test_port_imports_without_jax_or_blazr_tpu():

@@ -190,6 +190,11 @@ def test_executor_quantized_kv_matches_jax(kv):
     assert got == ref
     cache = ex._init_cache(1)
     assert cache.quantized and cache.qmax == (7.0 if kv == "int4" else 127.0)
+    # int4 packs two values a byte: half of int8's KV bytes (ROADMAP §C).
+    int8 = tmodel.init_cache(1, ex.capacity, kv_quant=True, kv_dtype="int8")
+    nbytes = sum(t.numel() * t.element_size() for t in (cache.k, cache.v))
+    assert nbytes == sum(t.numel() * t.element_size()
+                         for t in (int8.k, int8.v)) // (2 if kv == "int4" else 1)
 
 
 def test_session_reuse_matches_fresh_run(monkeypatch):

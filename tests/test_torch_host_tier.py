@@ -24,7 +24,6 @@ from blazr_tpu.engine.batch_engine import BatchEngine as JEngine
 from blazr_tpu.kvcache.block_allocator import BlockAllocator as JAlloc
 from blazr_tpu.kvcache.host_tier import attach_host_tier as jax_attach
 from blazr_tpu.kvcache.paged import init_paged_cache as jax_init_cache
-from blazr_tpu.kvcache.prefix_cache import PrefixCache as JPrefix
 from blazr_tpu.utils.synthetic import synth_llama_params as jax_synth
 from blazr_tpu.utils.synthetic import synth_model, tiny_llama_config as jax_tiny
 from blazr_tpu_torch.config import AppConfig, GenerationConfig
@@ -36,6 +35,7 @@ from blazr_tpu_torch.kvcache.paged import init_paged_cache
 from blazr_tpu_torch.kvcache.prefix_cache import PrefixCache
 from blazr_tpu_torch.models.registry import Model
 from blazr_tpu_torch.utils.synthetic import tiny_llama_config
+from test_torch_prefix_cache import _JPrefixLeafFirst
 
 CPU = "cpu"
 
@@ -179,7 +179,7 @@ def test_seeded_evictions_and_restores_match_jax(seed, quantized):
     bs, nb, L, H, D = 4, 7, 2, 2, 8
     rng = np.random.default_rng(seed)
     jalloc, talloc = JAlloc(nb, bs), BlockAllocator(nb, bs)
-    jpc, tpc = JPrefix(jalloc), PrefixCache(talloc)
+    jpc, tpc = _JPrefixLeafFirst(jalloc), PrefixCache(talloc)
     jc = {"c": jax_init_cache(num_layers=L, num_blocks=nb, block_size=bs, kv_heads=H,
                               head_dim=D, dtype=jnp.float32, quantized=quantized)}
     tc = init_paged_cache(num_layers=L, num_blocks=nb, block_size=bs, kv_heads=H,
@@ -299,7 +299,13 @@ def test_engine_restores_evicted_prefix_like_jax(models, kv):
     a = list(range(40, 56))
     b = list(range(100, 156))
     waves = [[a + [1, 2]], [b + [3]], [a + [1, 2]], [a + [5]]]
-    jeng = JEngine(jmodel, _Tok(), _app(JApp, jmodel.cfg, kv))
+    import blazr_tpu.engine.batch_engine as jbe
+
+    real, jbe.PrefixCache = jbe.PrefixCache, _JPrefixLeafFirst    # ROADMAP §C
+    try:
+        jeng = JEngine(jmodel, _Tok(), _app(JApp, jmodel.cfg, kv))
+    finally:
+        jbe.PrefixCache = real
     ref = asyncio.run(_waves(jeng, waves, lambda: JGen(max_tokens=6, temperature=0.0)))
     teng = BatchEngine(tmodel, _Tok(), _app(AppConfig, tmodel.cfg, kv))
     ptrs = _ptrs(teng.cache)

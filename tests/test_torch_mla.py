@@ -119,6 +119,26 @@ def test_contiguous_forward_matches_jax(ckpts, quant, latents):
     assert _teacher_forced(jm, tm, quantized=latents == "int8") < 1e-4
 
 
+@pytest.mark.parametrize("desc_act", [False, True], ids=["groups", "desc-act"])
+def test_gptq_checkpoint_matches_jax(tmp_path, desc_act):
+    """A GPTQ DeepSeek in groups of 32 (kv_b_proj plain, as the JAX loader
+    needs it; ROADMAP §C): in group order both loaders read it alike and the
+    contiguous forwards agree. Desc-act experts load in neither package (the
+    JAX ``stack_quant`` asserts, the port's raises ValueError; pinned)."""
+    write_hf_checkpoint(tmp_path, tiny_recurrent_config("deepseek"), quant="gptq",
+                        group_size=32, seed=38, dtype="float32", weight_exp=-4,
+                        keep_plain=("kv_b_proj",), desc_act=desc_act)
+    if desc_act:
+        with pytest.raises(AssertionError, match="desc-act"):
+            jax_load(tmp_path, dtype="f32")
+        with pytest.raises(ValueError, match="desc-act"):
+            load_model(tmp_path, dtype="f32", device=CPU)
+        return
+    jm, tm = _pair(tmp_path)
+    assert tm.params["layers"][1]["moe"]["experts_gate"].bits == 4
+    assert _teacher_forced(jm, tm) < 1e-4
+
+
 @pytest.mark.parametrize("latents", ["float", "int8"])
 def test_paged_forward_matches_jax(ckpts, latents):
     """Two sequences prefilled in one padded batch on latent pages, then

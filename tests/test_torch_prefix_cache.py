@@ -26,6 +26,7 @@ from blazr_tpu.engine.sequence_scheduler import SchedulerConfig as JSchedCfg
 from blazr_tpu.engine.sequence_scheduler import SequenceScheduler as JSched
 from blazr_tpu.kvcache.block_allocator import BlockAllocator as JAlloc
 from blazr_tpu.kvcache.prefix_cache import PrefixCache as JPrefix
+from blazr_tpu.kvcache.prefix_cache import _chain_hash as jax_chain_hash
 from blazr_tpu.kvcache.prefix_cache import PrefixCacheConfig as JPrefixCfg
 from blazr_tpu.utils.synthetic import synth_llama_params as jax_synth
 from blazr_tpu.utils.synthetic import synth_model, tiny_llama_config as jax_tiny
@@ -55,8 +56,45 @@ class _JPrefixUnaliased(JPrefix):
         return cached, blocks
 
 
+class _LeafFirstLRU(dict):
+    """The JAX cache's LRU ticks, read through ``get`` as (tick, -depth): the
+    key its ``_evict_one`` and its host tier's copy of that scan sort by."""
+
+    def __init__(self, depth: dict):
+        super().__init__()
+        self.depth = depth
+
+    def get(self, h, default=None):
+        if h not in self:
+            return default
+        return (dict.__getitem__(self, h), -self.depth.get(h, 0))
+
+
+class _JPrefixLeafFirst(_JPrefixUnaliased):
+    """The JAX cache with its root-first eviction taken out too: it stamps
+    every block of a lookup with one tick and its stable sort evicts a
+    chain's root first, stranding the rest of the chain
+    (``blazr_tpu/kvcache/prefix_cache.py:83``, ``:210-212``; ROADMAP §C).
+    The port evicts the deepest block of the oldest lookup first; here each
+    hash's depth in its chain breaks the JAX tick's ties the same way
+    (``test_eviction_keeps_a_reachable_prefix`` pins the fault itself)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._depth: dict = {}
+        self._lru = _LeafFirstLRU(self._depth)
+
+    def get_or_allocate_blocks(self, seq_id, tokens):
+        cached, blocks = super().get_or_allocate_blocks(seq_id, tokens)
+        prev, bs = b"root", self.block_size
+        for i in range(len(tokens) // bs):
+            prev = jax_chain_hash(prev, tuple(tokens[i * bs:(i + 1) * bs]))
+            self._depth[prev] = i
+        return cached, blocks
+
+
 PORT = (BlockAllocator, PrefixCache, PrefixCacheConfig)
-JAX = (JAlloc, _JPrefixUnaliased, JPrefixCfg)
+JAX = (JAlloc, _JPrefixLeafFirst, JPrefixCfg)
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +214,28 @@ def test_adopt_serves_a_block_written_elsewhere():
     assert cached == 4 and again[0] == blocks[0]
     pc.adopt(3, h0, again[1])                        # h0 is blocks[0]'s
     assert pc._by_hash[h0] == blocks[0] and again[1] in pc._computed
+
+
+@pytest.mark.parametrize("cls,hits", [(PrefixCache, 2), (JPrefix, 0)], ids=["port", "jax"])
+def test_eviction_keeps_a_reachable_prefix(cls, hits):
+    """A 12-token prompt (three blocks of 4) computed and released, then one
+    new block registered past ``max_cached_blocks=3``: the port evicts the
+    chain's deepest block, so the prompt again hits its first two; the JAX
+    cache evicts the root and the prompt hits nothing, though two of its
+    blocks stay cached (the fault ``_JPrefixLeafFirst`` takes out of the JAX
+    side of the other tests)."""
+    alloc = (BlockAllocator if cls is PrefixCache else JAlloc)(8, 4)
+    pc = cls(alloc, (PrefixCacheConfig if cls is PrefixCache else JPrefixCfg)(
+        max_cached_blocks=3))
+    prompt = list(range(12))
+    pc.get_or_allocate_blocks(1, prompt)
+    pc.mark_computed(1, 12)
+    pc.release_blocks(1)
+    pc.get_or_allocate_blocks(2, [50, 51, 52, 53])
+    assert pc.stats.evictions == 1
+    before = pc.stats.hits
+    cached, _ = pc.get_or_allocate_blocks(3, prompt)
+    assert pc.stats.hits - before == hits and cached == 4 * hits
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -361,11 +421,11 @@ def _app(cls, cfg, **inf):
 
 def _both(models, waves, max_tokens, **inf):
     """(port streams, port engine), (JAX streams, JAX engine); the JAX
-    engine's prefix cache is ``_JPrefixUnaliased``."""
+    engine's prefix cache is ``_JPrefixLeafFirst``."""
     import blazr_tpu.engine.batch_engine as jbe
 
     jmodel, tmodel = models
-    real, jbe.PrefixCache = jbe.PrefixCache, _JPrefixUnaliased
+    real, jbe.PrefixCache = jbe.PrefixCache, _JPrefixLeafFirst
     try:
         jeng = JEngine(jmodel, _Tok(), _app(JApp, jmodel.cfg, **inf))
     finally:
