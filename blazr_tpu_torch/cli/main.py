@@ -11,11 +11,17 @@ continuous-batching engine; ``--tls-cert``/``--tls-key`` serve HTTPS),
 ``tokenize``, ``completions`` (a bash or zsh completion script) and
 ``pull`` (a Hub download; needs ``huggingface_hub`` and a network). The
 commands that load a model run on ``cuda`` unless ``--device cpu``.
+``run`` and ``serve --continuous-batching`` speculate under
+``--prompt-lookup`` or ``--draft-model`` (``--num-speculative-tokens``);
+``serve`` without ``--continuous-batching`` refuses both, and so does
+either command given both.
 ``swarm`` and ``disagg`` exit 2 and name their ROADMAP item.
 
     python -m blazr_tpu_torch.cli serve --model FILE.gguf --continuous-batching
     python -m blazr_tpu_torch.cli serve --model DIR --tls-cert cert.pem --tls-key key.pem
     python -m blazr_tpu_torch.cli run DIR --prompt "..." --device cpu
+    python -m blazr_tpu_torch.cli run DIR --prompt "..." --prompt-lookup
+    python -m blazr_tpu_torch.cli serve --model DIR --continuous-batching --draft-model DRAFT
     python -m blazr_tpu_torch.cli generate DIR "..." -t 0
     python -m blazr_tpu_torch.cli info DIR
     python -m blazr_tpu_torch.cli bench FILE.gguf --prompt-lens 32,128,512
@@ -32,6 +38,7 @@ import os
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 # Commands of the JAX CLI this one does not run, with the ROADMAP queue A
 # item that ports them.
@@ -58,8 +65,16 @@ def build_parser() -> argparse.ArgumentParser:
                           help="GGUF vision projector (mmproj) sidecar for multimodal "
                                "models (auto-detected when colocated with the model)")
 
+    specopts = argparse.ArgumentParser(add_help=False)
+    specopts.add_argument("--prompt-lookup", action="store_true",
+                          help="speculative decoding with drafts from n-gram matches in "
+                               "the sequence's own history (greedy rows)")
+    specopts.add_argument("--draft-model", default=None, metavar="PATH",
+                          help="speculative decoding with this (smaller) draft model")
+    specopts.add_argument("--num-speculative-tokens", type=int, default=5)
+
     run = sub.add_parser("run", help="run a model (one-shot or REPL)",
-                         parents=[loadopts])
+                         parents=[loadopts, specopts])
     run.add_argument("model", help="model dir / file")
     run.add_argument("--prompt", "-p", help="prompt (omits REPL)")
     run.add_argument("--max-tokens", "-n", type=int, default=256)
@@ -88,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     chat.add_argument("--dtype", choices=["f32", "f16", "bf16"])
 
     serve = sub.add_parser("serve", help="start the OpenAI-compatible server",
-                           parents=[loadopts])
+                           parents=[loadopts, specopts])
     serve.add_argument("--model", default=os.environ.get("BLAZR_TPU_MODEL_DIR", "."))
     serve.add_argument("--host", default="0.0.0.0")
     serve.add_argument("--port", type=int, default=8080)
@@ -189,6 +204,46 @@ def _load_executor(model_path: str, dtype, device: str, kv_cache_dtype=None,
     return ex
 
 
+def _spec_flags(args) -> Optional[str]:
+    """Why the speculation flags cannot be served as given, or None."""
+    if args.prompt_lookup and args.draft_model:
+        return "--prompt-lookup and --draft-model are two draft sources: give one"
+    if (args.prompt_lookup or args.draft_model) and args.num_speculative_tokens < 1:
+        return "--num-speculative-tokens must be at least 1"
+    return None
+
+
+def _speculator(args, ex):
+    """The speculative executor that ``run`` drives under its flags (JAX
+    cli/main.py:382-392), or None."""
+    if args.prompt_lookup:
+        from ..engine.speculative import PromptLookupExecutor
+
+        return PromptLookupExecutor(ex, num_speculative_tokens=args.num_speculative_tokens)
+    if args.draft_model:
+        from ..config.inference import SpeculativeDecodingConfig
+        from ..engine.speculative import SpeculativeExecutor
+
+        draft = _load_executor(args.draft_model, args.dtype, args.device,
+                               kv_cache_dtype=args.kv_cache_dtype,
+                               quant_compute=args.quant_compute)
+        return SpeculativeExecutor(draft, ex, SpeculativeDecodingConfig(
+            num_speculative_tokens=args.num_speculative_tokens))
+    return None
+
+
+def _print_speculative(spec, prompt_ids, cfg) -> None:
+    """A speculative stream and its acceptance line (JAX :393-402)."""
+    t0 = time.time()
+    n = 0
+    for gt in spec.generate(prompt_ids, cfg):
+        print(gt.text, end="", flush=True)
+        n += 1
+    dt = time.time() - t0
+    print(f"\n[{n} tokens, {n / max(dt, 1e-9):.1f} tok/s, "
+          f"acceptance {spec.stats.acceptance_rate:.0%}]", file=sys.stderr)
+
+
 def _print_stream(executor, prompt_ids, cfg) -> None:
     from ..engine.generate_text import stream_generation
 
@@ -211,6 +266,10 @@ def _print_stream(executor, prompt_ids, cfg) -> None:
 def cmd_run(args) -> int:
     from ..config.generation import GenerationConfig
 
+    why = _spec_flags(args)
+    if why:
+        print(f"error: {why}", file=sys.stderr)
+        return 2
     ex = _load_executor(args.model, args.dtype, args.device,
                         kv_cache_dtype=args.kv_cache_dtype,
                         quant_compute=args.quant_compute, mmproj=args.mmproj)
@@ -222,8 +281,16 @@ def cmd_run(args) -> int:
     if args.grammar:
         g = Path(args.grammar)
         cfg.grammar = g.read_text() if g.exists() else args.grammar
+    spec = _speculator(args, ex)
+
+    def answer(text: str) -> None:
+        if spec is not None:
+            _print_speculative(spec, ex.tokenizer.encode(text), cfg)
+        else:
+            _print_stream(ex, ex.tokenizer.encode(text), cfg)
+
     if args.prompt:
-        _print_stream(ex, ex.tokenizer.encode(args.prompt), cfg)
+        answer(args.prompt)
         return 0
     print("interactive mode — /exit to quit", file=sys.stderr)
     while True:
@@ -234,7 +301,7 @@ def cmd_run(args) -> int:
         if line in ("/exit", "/quit"):
             break
         if line:
-            _print_stream(ex, ex.tokenizer.encode(line), cfg)
+            answer(line)
     return 0
 
 
@@ -284,12 +351,20 @@ def cmd_chat(args) -> int:
 def cmd_serve(args) -> int:
     """The JAX ``cmd_serve`` (cli/main.py:487): under
     ``--continuous-batching`` the batch engine serves with the prefix cache
-    on and is warmed before the server starts (unless ``--no-warmup``);
-    without it the Executor is warmed instead."""
+    on and is warmed before the server starts (unless ``--no-warmup``),
+    speculating under ``--prompt-lookup`` or ``--draft-model`` (the draft
+    loaded by ``load_model``, JAX :531-545); without it the Executor is
+    warmed instead, and the speculation flags are refused."""
     from ..config.server import ServerConfig
     from ..engine.model_scheduler import ModelScheduler
     from ..server import run_server
 
+    why = _spec_flags(args)
+    if not why and (args.prompt_lookup or args.draft_model) and not args.continuous_batching:
+        why = "--prompt-lookup and --draft-model need --continuous-batching"
+    if why:
+        print(f"error: {why}", file=sys.stderr)
+        return 2
     api_keys = args.api_key or []
     env_key = os.environ.get("BLAZR_TPU_API_KEY")
     if env_key:
@@ -320,7 +395,18 @@ def cmd_serve(args) -> int:
         inf.prefix_cache = True
         inf.kv_cache_dtype = args.kv_cache_dtype
         inf.decode_horizon = args.decode_horizon
-        batch_engine = BatchEngine(ex.model, ex.tokenizer, ex.app_cfg)
+        draft = None
+        if args.prompt_lookup or args.draft_model:
+            from ..config.inference import SpeculativeDecodingConfig
+
+            inf.speculative = SpeculativeDecodingConfig(
+                draft_model=args.draft_model,
+                num_speculative_tokens=args.num_speculative_tokens)
+        if args.draft_model:
+            from ..loader import load_model
+
+            draft, _ = load_model(args.draft_model, dtype=args.dtype, device=args.device)
+        batch_engine = BatchEngine(ex.model, ex.tokenizer, ex.app_cfg, draft_model=draft)
         if not args.no_warmup:
             dt = batch_engine.warmup()
             print(f"batch engine warmed in {dt:.1f}s", file=sys.stderr)

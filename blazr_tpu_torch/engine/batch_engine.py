@@ -63,11 +63,26 @@ Constrained decoding and the host samplers (JAX :989-1060, :1473-1506,
     the horizon. A batch that is all such rows, mixed DFAs, a DFA too large
     for tables, and every grammar under ``decode_horizon`` 1 take a T=1
     step with the host's masks after a flush (``_single_step_batch``).
-Left out of this slice, each naming its ROADMAP queue A item: speculation
-(5a.5), LoRA (5a.6), tensor/sequence parallel meshes (13) and weight
-offload (12). A request or config that asks for one raises instead of
-being served differently. int4 KV on the paged path raises instead of
-being downgraded.
+Speculative decoding (JAX :287-364, :650-776, :1462-1669;
+``inference.speculative``): greedy rows (``_spec_eligible``) draft up to
+k tokens, from the sequence's own history (``prompt_lookup_draft``) or, with
+a ``draft_model``, from one replay of the draft's greedy chain
+(``decode_graph.DraftChain``) over the draft's own paged cache on the same
+block ids (its prefill mirrors every target prefill group), and the
+target verifies every row in ONE ``[bmax, k+1]`` step
+(``decode_graph.VerifyStep``: the verify graph, then ``spec_finish``'s, and
+one read). A row keeps the longest draft prefix the target's argmax agrees
+with, then the target's token; rows that do not draft (sampled, grammar,
+logprobs rows) ride along on position 0 with the plain step's sampling.
+Side rows step apart as above; a round flushes the pipeline first. The
+depth adapts to the acceptance (``_adapt_spec_depth``). Unlike the
+reference, the chain writes its last draft's K/V (ROADMAP §C), and a
+recurrent-state target or draft raises instead of turning speculation off.
+
+Left out of this slice, each naming its ROADMAP queue A item: LoRA (5a.6),
+tensor/sequence parallel meshes (13) and weight offload (12). A request or
+config that asks for one raises instead of being served differently.
+int4 KV on the paged path raises instead of being downgraded.
 
 Every family of ``models/paged_multi.py`` is served: MLA models on latent
 pages, Mamba2 and hybrid models on the state pool's rows
@@ -103,13 +118,14 @@ from ..models.paged_multi import trash_slot, zero_state_rows
 from ..models.registry import init_engine_cache, make_paged_forward
 from ..models.registry import Model
 from ..quant.qtensor import apply_quant_compute, quant_leaves
-from .decode_graph import TOPK_K, BatchStep, StepGraphs, pack_rows
+from .decode_graph import TOPK_K, BatchStep, DraftChain, StepGraphs, VerifyStep, pack_rows
 from .grammar import GrammarState, make_grammar_state, padded_mask
 from .grammar_json import request_grammar_source
 from .samplers import MirostatState, dry_breaker_ids, host_sample, needs_host_sampling
 from .sampling import SamplingParams, make_bias_rows, make_window, sample_tokens
 from .sequence_scheduler import (SchedulerConfig, Sequence, SequenceScheduler,
                                  SequenceState)
+from .speculative import check_speculative, prompt_lookup_draft
 from .types import FinishReason, GeneratedToken, TokenLogprob
 
 logger = logging.getLogger(__name__)
@@ -183,7 +199,8 @@ class BatchEngine:
     device the model's params lie on."""
 
     def __init__(self, model: Model, tokenizer,
-                 app_cfg: Optional[AppConfig] = None):
+                 app_cfg: Optional[AppConfig] = None,
+                 draft_model: Optional[Model] = None):
         self.model = model
         self.tokenizer = tokenizer
         self.app_cfg = app_cfg or AppConfig(model=model.cfg)
@@ -235,9 +252,11 @@ class BatchEngine:
             # out at its first prefill; row max_batch is the pad rows' trash.
             self._free_rows = list(range(self.max_batch))
             self._seq_rows: dict[int, int] = {}
+        self._init_speculation(inf, draft_model, num_blocks)
         if self.prefix_cache is not None and inf.gpu_prefix_cache:
             attach_host_tier(self.prefix_cache, self.cache,
-                             max_blocks=inf.prefix_cache_ram_tier)
+                             max_blocks=inf.prefix_cache_ram_tier,
+                             draft_cache=self._draft_cache)
         self._fwd = make_paged_forward(model.cfg)
         self._trash = trash_slot(self.cache)
         self.horizon_dispatches = 0
@@ -248,6 +267,8 @@ class BatchEngine:
         self._pipe_depth = max(1, int(inf.decode_pipe_depth or 1))
         self._steps: dict[int, BatchStep] = {}          # by bmax
         self._side_steps: dict[int, BatchStep] = {}     # the side step's, by bmax
+        self._verify_steps: dict[int, VerifyStep] = {}  # the speculative round's, by bmax
+        self._chains: dict[int, DraftChain] = {}        # the draft chain's, by bmax
         self.graphs = StepGraphs(self.device, inf.graphs)
         self._preemptions = 0
         # Wall time by phase (seconds; "<phase>_n" counts calls) and the
@@ -277,13 +298,51 @@ class BatchEngine:
                              "paged path (use 'int8' or 'auto')")
         if inf.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(f"unknown kv_cache_dtype {inf.kv_cache_dtype!r}")
-        if inf.speculative is not None and inf.speculative.num_speculative_tokens > 0:
-            raise _not_served("speculative decoding", "5a.5")
         if max(inf.tensor_parallel_size, inf.data_parallel_size,
                inf.expert_parallel_size, inf.sequence_parallel_size) > 1:
             raise _not_served("multi-device serving", "13")
         if inf.moe_offload or inf.num_device_layers is not None:
             raise _not_served("weight offload", "12")
+
+    def _init_speculation(self, inf, draft_model: Optional[Model], num_blocks: int) -> None:
+        """Speculation's state (JAX :287-364): the depth k, the counters,
+        and a draft model's paged cache over the target's block geometry
+        (its own widths, int8 as the target's KV)."""
+        spec = inf.speculative
+        self._spec_k = (spec.num_speculative_tokens
+                        if spec is not None and spec.num_speculative_tokens > 0 else 0)
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        # Adaptive depth: drafts fill at most _spec_depth of the k verify
+        # positions; the verify step's shapes stay fixed at k+1.
+        self._spec_adaptive = bool(spec is not None and spec.adaptive_depth)
+        self._spec_depth = self._spec_k
+        self._spec_win = [0, 0]          # drafted, accepted (rolling window)
+        self._spec_rounds = 0
+        self._spec_read_t: Optional[float] = None
+        self._draft: Optional[Model] = None
+        self._draft_cache = None
+        if not self._spec_k:
+            return
+        check_speculative(self.model)
+        if draft_model is None:
+            if spec.draft_model:
+                logger.warning("speculative.draft_model set but no draft model given; "
+                               "using prompt-lookup drafts")
+            return
+        check_speculative(draft_model)
+        if draft_model.vocab_size != self.model.vocab_size:
+            raise ValueError(f"draft model vocab ({draft_model.vocab_size}) != target "
+                             f"vocab ({self.model.vocab_size})")
+        if draft_model.device != self.device:
+            raise ValueError(f"draft model on {draft_model.device}, target on {self.device}")
+        self._draft = draft_model
+        self._draft_cache, _ = init_engine_cache(
+            draft_model.cfg, num_blocks, self.block_size, self.max_batch,
+            dtype=draft_model.dtype, quantized=inf.kv_cache_dtype == "int8",
+            device=self.device)
+        self._dfwd = make_paged_forward(draft_model.cfg)
+        self._d_trash = trash_slot(self._draft_cache)
 
     # ------------------------------------------------------------------
     # submission API
@@ -513,13 +572,26 @@ class BatchEngine:
         last_idx = torch.tensor([max(c - 1, 0) for c in chunks] + [0] * pad,
                                 device=dev)
         self.perf["prefill_tokens"] += sum(chunks)
+        inputs = (torch.from_numpy(toks).to(dev), torch.from_numpy(pos).to(dev),
+                  torch.from_numpy(slots).to(dev), torch.from_numpy(bt).to(dev), seq_lens)
         logits, self.cache = self._fwd(
-            self.model.params, self.model.cfg, torch.from_numpy(toks).to(dev),
-            self.cache, torch.from_numpy(pos).to(dev),
-            torch.from_numpy(slots).to(dev), torch.from_numpy(bt).to(dev),
-            seq_lens, last_idx=last_idx)
+            self.model.params, self.model.cfg, inputs[0], self.cache, *inputs[1:],
+            last_idx=last_idx)
+        if self._draft is not None:
+            self._draft_prefill(*inputs, last_idx)
         packed, last = self._first_tokens(logits[:n_real, 0, :], finishing, cfgs, wins)
         return group, chunks, finishing, packed, last
+
+    def _draft_prefill(self, toks, pos, slots, bt, seq_lens, last_idx) -> None:
+        """The draft's mirror of a target prefill group (JAX
+        ``draft_prefill``, :689-701): the same tokens, slots and tables on
+        the draft's cache, so its chain attends the whole history; the
+        logits are dropped."""
+        t0 = time.perf_counter()
+        self._dfwd(self._draft.params, self._draft.cfg, toks, self._draft_cache, pos, slots,
+                   bt, seq_lens, last_idx=last_idx)
+        self.perf["draft_prefill"] += time.perf_counter() - t0
+        self.perf["draft_prefill_n"] += 1
 
     def _first_tokens(self, last: torch.Tensor, finishing: list, cfgs: list, wins: list):
         """The first tokens of a prefill group's finishing rows: sampled on
@@ -630,18 +702,34 @@ class BatchEngine:
         g = self._grammars.get(seq.seq_id)
         return g is not None and not isinstance(g, GrammarState)
 
+    def _spec_eligible(self, seq: Sequence) -> bool:
+        """Argmax verification is exact only for pure greedy rows (JAX
+        :1462-1471); logprobs rows ride position 0 instead of drafting."""
+        g = seq.gen_cfg
+        return (g.temperature == 0.0 and g.repeat_penalty == 1.0
+                and g.frequency_penalty == 0.0 and g.presence_penalty == 0.0
+                and not g.logit_bias and not g.logprobs
+                and seq.seq_id not in self._grammars
+                and seq.seq_id not in self._host_states)
+
     @torch.no_grad()
     def _process_decode_batch(self, decodes: list[Sequence]) -> None:
         """One decode round (JAX :1484-1506, :1690-1706). Side rows step
         once on their own, without flushing the pipeline, while the other
-        rows keep the horizon; a batch that needs the host's masks or
-        logits for every row takes a flushed T=1 step."""
-        if self._horizon > 1:
+        rows keep the horizon or the speculative round; a batch with a
+        greedy row takes a speculative round when speculation is on; a
+        batch that needs the host's masks or logits for every row takes a
+        flushed T=1 step."""
+        if self._horizon > 1 or self._spec_k:
             side = [s for s in decodes if self._side_row(s)]
             if side and len(side) < len(decodes):
                 rest = [s for s in decodes if not self._side_row(s)]
                 self._single_step_batch(side, flush=False, side=True)
                 decodes = rest
+        if self._spec_k and any(self._spec_eligible(s) for s in decodes):
+            self._process_decode_batch_spec(decodes)
+            return
+        self._spec_read_t = None             # the next spec round's gap is not a spec gap
         bmax = min(_next_pow2(len(decodes), minimum=1), self.max_batch)
         decodes = decodes[:bmax]
         host = any(s.seq_id in self._host_states for s in decodes)
@@ -706,6 +794,132 @@ class BatchEngine:
         finally:
             buf, self._defer_puts = self._defer_puts, None
             self._flush_puts(buf)
+
+    def _verify_step(self, bmax: int) -> VerifyStep:
+        step = self._verify_steps.get(bmax)
+        if step is None:
+            step = self._verify_steps[bmax] = VerifyStep(self, bmax, self._spec_k)
+        return step
+
+    def _chain(self, bmax: int) -> DraftChain:
+        chain = self._chains.get(bmax)
+        if chain is None:
+            chain = self._chains[bmax] = DraftChain(self, bmax, self._spec_k)
+        return chain
+
+    def _device_drafts(self, rows: list) -> np.ndarray:
+        """[bmax, k] drafts of one draft-chain replay over ``rows`` (None: a
+        pad row). Blocks cover the chain's writes (pos0 … pos0+k) and the
+        verify's; where the allocator has none, the writes go to the trash
+        slot (drafts degrade, verification stays exact)."""
+        chain = self._chain(len(rows))
+        for seq in rows:
+            if seq is not None:
+                self.scheduler._ensure_block_for(
+                    seq, min(seq.total_len - 1 + self._spec_k, self.max_seq_len - 1))
+        chain.up.upload(chain.build(rows), chain.tab)
+        self.graphs.run(("chain", len(rows)), chain.chain_fn())
+        return chain.down.read(chain.down.download(chain.drafts))
+
+    def _process_decode_batch_spec(self, decodes: list[Sequence]) -> None:
+        """One speculative round (JAX :1508-1651): drafts for the greedy
+        rows, ONE verify replay over every row, one ``spec_finish`` replay
+        and ONE read; each drafting row accepts the longest prefix of its
+        drafts that matches the target's argmax, then emits the target's
+        token there. The other rows emit position 0's token, sampled as the
+        plain step samples it."""
+        # Drafts and tables read the rows' last tokens: land the pipeline.
+        self._flush_pipe()
+        decodes = [s for s in decodes if s.state == SequenceState.RUNNING]
+        if not decodes:
+            return
+        t0 = time.perf_counter()
+        if self._spec_read_t is not None:
+            self.perf["spec_gap"] += t0 - self._spec_read_t
+            self.perf["spec_gap_n"] += 1
+        k1 = self._spec_k + 1
+        bmax = min(_next_pow2(len(decodes), minimum=1), self.max_batch)
+        decodes = decodes[:bmax]
+        rows = list(decodes) + [None] * (bmax - len(decodes))
+        device_drafts = None
+        if self._draft is not None:
+            device_drafts = self._device_drafts(rows)
+        drafts: list[list[int]] = []
+        for i, seq in enumerate(decodes):
+            draft: list[int] = []
+            if self._spec_eligible(seq):
+                budget = min(self._spec_depth, seq.gen_cfg.max_tokens - seq.emitted,
+                             self.max_seq_len - 1 - seq.total_len)
+                if budget > 0:
+                    draft = (device_drafts[i, :budget].tolist() if device_drafts is not None
+                             else prompt_lookup_draft(seq.all_tokens, budget))
+                if draft and not self.scheduler._ensure_block_for(
+                        seq, seq.total_len - 1 + len(draft)):
+                    draft = []            # allocator pressure: a plain row
+            drafts.append(draft)
+        step = self._verify_step(bmax)
+        windows = [None if s is None else
+                   make_window(self._windows[s.seq_id], s.gen_cfg.repeat_last_n)
+                   for s in rows]
+        table = step.build(rows, drafts + [[]] * (bmax - len(decodes)), windows)
+        use_topk = any(s.gen_cfg.logprobs for s in decodes)
+        any_sampled = any(s.gen_cfg.temperature > 0.0 for s in decodes)
+        masked = any(s.seq_id in self._grammars for s in decodes)
+        if masked:
+            step.mask_up.upload(self._grammar_mask([s.seq_id for s in decodes], bmax),
+                                step.mask)
+        step.up.upload(table, step.tab)
+        self.graphs.run(("verify", bmax), step.verify_fn())
+        self.graphs.run(("spec_finish", bmax, use_topk, any_sampled, masked),
+                        step.finish_fn(use_topk, any_sampled, masked))
+        out = step.down[use_topk].read(step.down[use_topk].download(step.out[use_topk]))
+        self._spec_read_t = time.perf_counter()
+        self.perf["spec"] += self._spec_read_t - t0
+        self.perf["spec_n"] += 1
+        drafted0, accepted0 = self.spec_drafted, self.spec_accepted
+        self._defer_puts = []
+        try:
+            for i, seq in enumerate(decodes):
+                row, draft = out[i], drafts[i]
+                if not draft:
+                    self._emit(seq, int(row[k1]), float(row[k1 + 1]),
+                               top=self._top_row(seq, row[k1:]))
+                    continue
+                # Accept drafts while they match the argmax, then emit the
+                # target's token at the first mismatch (or after the last).
+                self.spec_drafted += len(draft)
+                n = 0
+                for d in draft:
+                    if d != int(row[n]):
+                        break
+                    self.spec_accepted += 1
+                    self._emit(seq, d, float("nan"))
+                    n += 1
+                    if seq.state != SequenceState.RUNNING:
+                        break             # finished (EOS / length) inside the span
+                if seq.state == SequenceState.RUNNING:
+                    self._emit(seq, int(row[n]), float("nan"))
+        finally:
+            buf, self._defer_puts = self._defer_puts, None
+            self._flush_puts(buf)
+        self._adapt_spec_depth(self.spec_drafted - drafted0, self.spec_accepted - accepted0)
+
+    def _adapt_spec_depth(self, drafted: int, accepted: int) -> None:
+        """Step the depth from one round's acceptance (JAX :1653-1669):
+        rounds that drafted feed a rolling window; every 8 such rounds the
+        depth steps within [1, k]: above 80% acceptance up, below 40% down."""
+        if not self._spec_adaptive or drafted <= 0:
+            return
+        self._spec_win[0] += drafted
+        self._spec_win[1] += accepted
+        self._spec_rounds += 1
+        if self._spec_rounds % 8 == 0:
+            rate = self._spec_win[1] / max(1, self._spec_win[0])
+            if rate > 0.8:
+                self._spec_depth = min(self._spec_depth + 1, self._spec_k)
+            elif rate < 0.4:
+                self._spec_depth = max(self._spec_depth - 1, 1)
+            self._spec_win = [0, 0]
 
     def _horizon_round(self, decodes: list[Sequence], tables=None) -> None:
         """Dispatch one (possibly chained) decode round of up to
@@ -907,7 +1121,9 @@ class BatchEngine:
         power-of-two token bucket up to the chunk, and capture the decode
         step of every decode batch (``bmax``: each power of two below
         ``max_batch``, and ``max_batch``) under both top-K logprobs
-        variants and both sampled keys. Eager PyTorch
+        variants and both sampled keys, and with speculation the draft
+        prefill beside each prefill and every graph of the speculative
+        round (``_warm_spec``). Eager PyTorch
         compiles nothing per shape, so the JAX engine's grid of prefill
         group sizes has no counterpart. Every row is a pad row: its writes
         go to the trash slot (and the state pool's trash row), and neither
@@ -925,15 +1141,20 @@ class BatchEngine:
         win = make_window([], gen.repeat_last_n)
         for t in t_buckets:
             mb = blocks_needed(t, self.block_size)
+            inputs = (torch.zeros((1, t), dtype=torch.long, device=dev),
+                      torch.arange(t, device=dev)[None],
+                      torch.full((1, t), self._trash, dtype=torch.long, device=dev),
+                      torch.full((1, mb), PAD_BLOCK, dtype=torch.int32, device=dev),
+                      torch.tensor([t], dtype=torch.int32, device=dev))
+            last_idx = torch.tensor([t - 1], device=dev)
             logits, self.cache = self._fwd(
-                self.model.params, self.model.cfg,
-                torch.zeros((1, t), dtype=torch.long, device=dev), self.cache,
-                torch.arange(t, device=dev)[None],
-                torch.full((1, t), self._trash, dtype=torch.long, device=dev),
-                torch.full((1, mb), PAD_BLOCK, dtype=torch.int32, device=dev),
-                torch.tensor([t], dtype=torch.int32, device=dev),
+                self.model.params, self.model.cfg, inputs[0], self.cache, *inputs[1:],
                 torch.tensor([self.max_batch], device=dev),     # the trash state row
-                last_idx=torch.tensor([t - 1], device=dev))
+                last_idx=last_idx)
+            if self._draft is not None:
+                # The target's trash slot is a pad slot of the draft's too:
+                # every cache has NB·BS slots and one trash slot after them.
+                self._draft_prefill(*inputs, last_idx)
             sp, window, bias_ids, bias_vals = self._sampling([gen], 0, [win])
             tok, logprobs = sample_tokens(logits[:, 0, :], sp, window, bias_ids, bias_vals)
             pack_rows(tok, logprobs, True)
@@ -948,6 +1169,8 @@ class BatchEngine:
                     step.up.upload(table, step.tab)
                     self.graphs.run((bmax, False, use_topk, any_sampled, None, False, False),
                                     step.step_fn(use_topk, any_sampled))
+            if self._spec_k:
+                self._warm_spec(bmax)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
@@ -955,6 +1178,23 @@ class BatchEngine:
                     "graphs (%.1f MiB pool)", dt, len(t_buckets), self.graphs.captured,
                     self.graphs.pool_bytes / 2**20)
         return dt
+
+    def _warm_spec(self, bmax: int) -> None:
+        """Capture the speculative round's graphs at ``bmax`` pad rows (JAX
+        :922-980): the draft chain, the verify step, and ``spec_finish``
+        under each (top-K logprobs, sampled rows, grammar mask) key."""
+        if self._draft is not None:
+            chain = self._chain(bmax)
+            chain.up.upload(chain.build([None] * bmax), chain.tab)
+            self.graphs.run(("chain", bmax), chain.chain_fn())
+        step = self._verify_step(bmax)
+        step.up.upload(step.build([None] * bmax, [[]] * bmax, [None] * bmax), step.tab)
+        self.graphs.run(("verify", bmax), step.verify_fn())
+        for use_topk in (False, True):
+            for any_sampled in (False, True):
+                for masked in (False, True):
+                    self.graphs.run(("spec_finish", bmax, use_topk, any_sampled, masked),
+                                    step.finish_fn(use_topk, any_sampled, masked))
 
     # ------------------------------------------------------------------
     # token delivery

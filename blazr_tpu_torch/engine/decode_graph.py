@@ -1,7 +1,9 @@
 """Fixed-shape decode steps, captured as CUDA graphs on the card.
 
 Counterpart of the JAX package's jitted decode programs: ``decode_step``
-and ``horizon_step`` of ``blazr_tpu/engine/batch_engine.py`` (:512-600) and
+and ``horizon_step`` of ``blazr_tpu/engine/batch_engine.py`` (:512-600),
+its speculative ``verify_step``, ``spec_finish`` and ``draft_chain``
+(:650-776), and
 the Executor's ``decode_step`` (``blazr_tpu/engine/executor.py:130``),
 which the JAX config calls the XLA analogue of CUDA graph capture
 (``blazr_tpu/config/inference.py:138-140``). A step is a function over
@@ -435,6 +437,195 @@ class BatchStep:
             self.win.copy_(torch.where((rln > 0)[:, None], wnew, window))
             self.tok.copy_(newtok)
             t[:, lay["i"]] += 1
+
+        return step
+
+
+# ---------------------------------------------------------------------------
+# BatchEngine's speculative round: the verify step, spec_finish, the draft
+# chain
+# ---------------------------------------------------------------------------
+
+SPEC_HEAD = ("pos0", "span", "live")
+
+
+class VerifyStep:
+    """The speculative round's fixed-shape steps at ``bmax`` rows and depth
+    ``k``: the counterparts of ``verify_step`` and ``spec_finish`` of
+    ``blazr_tpu/engine/batch_engine.py`` (:715-776), each a graph of its
+    own, over ONE table uploaded a round: ``SPEC_HEAD``, the k+1 tokens
+    (``t0``: the row's last token, then its drafts), the sampling tail and
+    the block tables.
+
+    ``verify_fn``: the target's forward over ``[bmax, k+1]`` in its verify
+    forms (``forward_paged(verify=True)``: B2 a position, MoE's decode
+    form). Positions derive from ``pos0``; slots outside a row's ``span``
+    (1 + its drafts) and every slot of a pad row (``live`` 0) are the trash
+    slot; a row's valid length is ``pos0 + span`` (0 on a pad row). The
+    logits ``[bmax, k+1, V]`` stay in ``logits``.
+
+    ``finish_fn``: samples position 0 as the plain step samples (penalty
+    window, logit bias, the host's grammar mask under ``masked``, top-K
+    logprobs under ``use_topk``) and takes the argmax of every position;
+    ``out[use_topk]`` gets ``[argmax x (k+1) | token, logprob(, top-K)]``
+    (float64), read once a round. Rows whose token the host samplers pick
+    never reach it (they step on the side)."""
+
+    def __init__(self, engine, bmax: int, k: int):
+        self.engine = engine
+        self.bmax = bmax
+        self.k1 = k + 1
+        self.lay = TableLayout(SPEC_HEAD + tuple(f"t{j}" for j in range(self.k1)),
+                               engine.max_blocks_per_seq)
+        dev = engine.device
+        v = engine.model.vocab_size
+        self.tab = torch.zeros((bmax, self.lay.width), dtype=torch.int32, device=dev)
+        self.logits = torch.zeros((bmax, self.k1, v), dtype=torch.float32, device=dev)
+        self.mask = torch.ones((bmax, v), dtype=torch.bool, device=dev)
+        self.out = {w: torch.zeros((bmax, self.k1 + out_width(w)), dtype=torch.float64,
+                                   device=dev) for w in (False, True)}
+        # A round is read before the next is built: two slots each.
+        self.up = HostRing(dev, 2, (bmax, self.lay.width), torch.int32)
+        self.mask_up = HostRing(dev, 2, (bmax, v), torch.bool)
+        self.down = {w: HostRing(dev, 2, (bmax, self.k1 + out_width(w)), torch.float64)
+                     for w in (False, True)}
+
+    def build(self, rows: list, drafts: list[list[int]], windows: list[np.ndarray]
+              ) -> np.ndarray:
+        """The round's table over ``rows`` (None: a pad row) with each row's
+        drafts."""
+        lay = self.lay
+        tab = np.zeros((self.bmax, lay.width), dtype=np.int32)
+        tab[:, lay.bt:] = PAD_BLOCK
+        tab[:, lay["span"]] = 1
+        cfgs, steps, wins = [], [], []
+        pad_win = np.full((PENALTY_WINDOW,), -1, dtype=np.int64)
+        for i, seq in enumerate(rows):
+            if seq is None:
+                cfgs.append(GenerationConfig(temperature=0.0))
+                steps.append(0)
+                wins.append(pad_win)
+                continue
+            tab[i, lay["pos0"]] = seq.total_len - 1
+            tab[i, lay["span"]] = 1 + len(drafts[i])
+            tab[i, lay["live"]] = 1
+            t0 = lay["t0"]
+            tab[i, t0] = seq.all_tokens[-1]
+            tab[i, t0 + 1:t0 + 1 + len(drafts[i])] = drafts[i]
+            blocks = seq.block_table[:lay.mb]
+            tab[i, lay.bt:lay.bt + len(blocks)] = blocks
+            cfgs.append(seq.gen_cfg)
+            steps.append(seq.emitted)
+            wins.append(windows[i])
+        fill_sampling(tab, lay, cfgs, steps, wins)
+        return tab
+
+    def verify_fn(self) -> Callable[[], None]:
+        eng = self.engine
+        lay = self.lay
+        bs, mb, trash = eng.block_size, lay.mb, eng._trash
+        max_pos = eng.max_seq_len - 1
+
+        def step() -> None:
+            t = self.tab
+            pos0 = t[:, lay["pos0"]:lay["pos0"] + 1].long()
+            span = t[:, lay["span"]:lay["span"] + 1].long()
+            live = t[:, lay["live"]:lay["live"] + 1] != 0
+            j = torch.arange(self.k1, device=t.device)[None, :]
+            pos = pos0 + j                                               # [B, k+1]
+            bt = t[:, lay.bt:].contiguous()
+            blk = bt.gather(1, (pos // bs).clamp(max=mb - 1)).long()
+            slot = torch.where(live & (j < span) & (blk != PAD_BLOCK) & (pos < mb * bs),
+                               blk * bs + pos % bs, torch.full_like(pos, trash))
+            seq_lens = torch.where(live, pos0 + span, torch.zeros_like(pos0))[:, 0]
+            tokens = t[:, lay["t0"]:lay["t0"] + self.k1].long()
+            logits, _ = eng._fwd(eng.model.params, eng.model.cfg, tokens, eng.cache,
+                                 pos.clamp(max=max_pos), slot, bt, seq_lens.to(torch.int32),
+                                 verify=True)
+            self.logits.copy_(logits)
+
+        return step
+
+    def finish_fn(self, use_topk: bool, any_sampled: bool,
+                  masked: bool) -> Callable[[], None]:
+        out = self.out[use_topk]
+        gmask = self.mask if masked else None
+
+        def step() -> None:
+            sp, window, bias_ids, bias_vals = unpack_sampling(self.tab, self.lay, any_sampled)
+            tok, logprobs = sample_tokens(self.logits[:, 0, :], sp, window, bias_ids,
+                                          bias_vals, gmask)
+            am = self.logits.argmax(dim=-1).to(torch.float64)
+            out.copy_(torch.cat([am, pack_rows(tok, logprobs, use_topk)], dim=1))
+
+        return step
+
+
+CHAIN_HEAD = ("tok", "pos", "live")
+
+
+class DraftChain:
+    """The draft model's greedy chain at ``bmax`` rows (JAX ``draft_chain``,
+    ``blazr_tpu/engine/batch_engine.py:650-687``), one graph: k+1 T=1
+    steps over the draft's paged cache and the target's block tables (the
+    two caches share block ids), each argmax fed back on the device. Step j
+    writes the K/V of its input at ``pos + j``: the row's last token, then
+    d1 … dk; ``drafts`` gets d1 … dk. The reference stops after k steps, so
+    d_k's K/V is never written and a round that accepts every draft leaves
+    the next one an unwritten slot (ROADMAP §C); the last step here writes
+    it and its logits are dropped. The table: ``CHAIN_HEAD`` and the block
+    tables (its sampling tail unused)."""
+
+    def __init__(self, engine, bmax: int, k: int):
+        self.engine = engine
+        self.bmax = bmax
+        self.k = k
+        self.lay = TableLayout(CHAIN_HEAD, engine.max_blocks_per_seq)
+        dev = engine.device
+        self.tab = torch.zeros((bmax, self.lay.width), dtype=torch.int32, device=dev)
+        self.drafts = torch.zeros((bmax, k), dtype=torch.int64, device=dev)
+        self.up = HostRing(dev, 2, (bmax, self.lay.width), torch.int32)
+        self.down = HostRing(dev, 2, (bmax, k), torch.int64)
+
+    def build(self, rows: list) -> np.ndarray:
+        lay = self.lay
+        tab = np.zeros((self.bmax, lay.width), dtype=np.int32)
+        tab[:, lay.bt:] = PAD_BLOCK
+        for i, seq in enumerate(rows):
+            if seq is None:
+                continue
+            tab[i, lay["tok"]] = seq.all_tokens[-1]
+            tab[i, lay["pos"]] = seq.total_len - 1
+            tab[i, lay["live"]] = 1
+            blocks = seq.block_table[:lay.mb]
+            tab[i, lay.bt:lay.bt + len(blocks)] = blocks
+        return tab
+
+    def chain_fn(self) -> Callable[[], None]:
+        eng = self.engine
+        draft = eng._draft
+        lay = self.lay
+        bs, mb, trash = eng.block_size, lay.mb, eng._d_trash
+        max_pos = eng.max_seq_len - 1
+
+        def step() -> None:
+            t = self.tab
+            tok = t[:, lay["tok"]].long()
+            pos0 = t[:, lay["pos"]].long()
+            live = t[:, lay["live"]] != 0
+            bt = t[:, lay.bt:].contiguous()
+            for j in range(self.k + 1):
+                pos = pos0 + j
+                blk = bt.gather(1, (pos // bs).clamp(max=mb - 1)[:, None])[:, 0].long()
+                slot = torch.where(live & (blk != PAD_BLOCK) & (pos < mb * bs),
+                                   blk * bs + pos % bs, torch.full_like(pos, trash))
+                seq_lens = torch.where(live, pos + 1, torch.zeros_like(pos)).to(torch.int32)
+                logits, _ = eng._dfwd(draft.params, draft.cfg, tok[:, None], eng._draft_cache,
+                                      pos.clamp(max=max_pos)[:, None], slot[:, None], bt,
+                                      seq_lens)
+                if j < self.k:
+                    tok = logits[:, -1, :].argmax(dim=-1)
+                    self.drafts[:, j] = tok
 
         return step
 

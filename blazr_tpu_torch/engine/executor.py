@@ -32,6 +32,9 @@ it rejects or on EOS once complete. Mirostat, DRY, typical-p and dynamic
 temperature pick on the host from the raw logits (the step's "raw"
 variant, a forward alone), with a seeded numpy generator.
 
+Speculative decoding (``engine/speculative.py``) drives ``_forward_step``
+and ``_verify_step`` (JAX :147-156) over caches taken from ``_take``.
+
 Not served yet; each raises ``NotImplementedError`` naming its ROADMAP
 queue A item, as ``BatchEngine`` does: LoRA (5a.6), TP/EP/SP meshes and
 ring prefill (13), MoE offload and streaming (host-offloaded) models (12).
@@ -233,6 +236,22 @@ class Executor:
         x, _ = forward_layers_range(model.params, model.cfg, hidden.to(model.dtype), cache,
                                     positions, 0, model.num_layers)
         return forward_head(model.params, model.cfg, x[:, -1:])[:, -1, :]
+
+    @torch.no_grad()
+    def _forward_step(self, cache, tokens: torch.Tensor, positions: torch.Tensor,
+                      seq_lens: torch.Tensor):
+        """(the last position's logits [1, V], cache): one forward over a
+        cache from ``_take`` (JAX ``forward_step``, :147-150), written in
+        place; the speculative executors' draft step."""
+        logits, cache = self.model.forward(tokens, cache, positions, seq_lens)
+        return logits[:, -1, :], cache
+
+    @torch.no_grad()
+    def _verify_step(self, cache, tokens: torch.Tensor, positions: torch.Tensor,
+                     seq_lens: torch.Tensor):
+        """(logits [1, T, V] of every position, cache): the speculative
+        verify over ``[cur, drafts...]`` (JAX ``verify_step``, :152-156)."""
+        return self.model.forward(tokens, cache, positions, seq_lens)
 
     @torch.no_grad()
     def _decode(self, step: ExecutorStep, cfg: GenerationConfig, tok: int, pos: int,

@@ -3,8 +3,9 @@
 Counterpart of ``blazr_tpu/kvcache/host_tier.py`` (the reference
 ``GpuPrefixCache``: device→RAM two-tier, config ``gpu_prefix_cache`` +
 ``prefix_cache_ram_tier``). When a computed cached block is evicted from
-the device pool, its K/V (and, in int8 mode, its scale planes) are copied
-to host RAM keyed by the chain hash; a later lookup that misses on the
+the device pool, its K/V (and, in int8 mode, its scale planes; and a
+speculative draft model's planes of the same block, whose paged cache shares
+the target's block ids) are copied to host RAM keyed by the chain hash; a later lookup that misses on the
 device restores them into the freshly allocated block instead of
 recomputing its prefill.
 
@@ -105,30 +106,37 @@ class HostKVTier:
         return len(self._store)
 
 
-def block_planes(cache: PagedKVCache, blk: int) -> list[torch.Tensor]:
-    """Block ``blk``'s slots of every cache plane (views; slot axis 1)."""
+def block_planes(cache: PagedKVCache, blk: int,
+                 draft_cache: Optional[PagedKVCache] = None) -> list[torch.Tensor]:
+    """Block ``blk``'s slots of every cache plane (views; slot axis 1), then
+    those of ``draft_cache``'s."""
     bs = cache.block_size
     planes = [cache.k, cache.v]
     if cache.quantized:
         planes += [cache.k_scale, cache.v_scale]
-    return [p[:, blk * bs:(blk + 1) * bs] for p in planes]
+    out = [p[:, blk * bs:(blk + 1) * bs] for p in planes]
+    return out if draft_cache is None else out + block_planes(draft_cache, blk)
 
 
-def restore_block(cache: PagedKVCache, blk: int, item: tuple[torch.Tensor, ...]) -> None:
+def restore_block(cache: PagedKVCache, blk: int, item: tuple[torch.Tensor, ...],
+                  draft_cache: Optional[PagedKVCache] = None) -> None:
     """Write a saved block's contents into block ``blk``'s slots of the
     existing cache tensors, in place. A float block carries 2 planes; an
-    int8 block 4 (the scales travel with it)."""
-    for dst, src in zip(block_planes(cache, blk), item):
+    int8 block 4 (the scales travel with it); a draft cache's follow."""
+    for dst, src in zip(block_planes(cache, blk, draft_cache), item):
         dst.copy_(src, non_blocking=dst.is_cuda)
 
 
 def attach_host_tier(prefix_cache: PrefixCache, cache: PagedKVCache,
                      max_blocks: int = 5000,
-                     max_bytes: int = MAX_BYTES) -> HostKVTier:
+                     max_bytes: int = MAX_BYTES,
+                     draft_cache: Optional[PagedKVCache] = None) -> HostKVTier:
     """Wire a HostKVTier of ``max_blocks`` slots (fewer if they would take
     more than ``max_bytes``; at least one) into a PrefixCache and the
     PagedKVCache whose tensors it serves (never replaced: restores write
-    into them).
+    into them). A draft model's cache over the same block ids
+    (``draft_cache``) is saved and restored with it, so a restored block's
+    draft K/V is its own.
 
     * On eviction of a computed block: its KV slots are copied host-side.
     * After a lookup: blocks past the device tier's hits whose hash is in
@@ -138,13 +146,13 @@ def attach_host_tier(prefix_cache: PrefixCache, cache: PagedKVCache,
       whole-prompt hit is capped at ``len(tokens) - 1``: its last token's
       logits are needed).
     """
-    planes = block_planes(cache, 0)
+    planes = block_planes(cache, 0, draft_cache)
     block_bytes = sum(p.numel() * p.element_size() for p in planes)
     tier = HostKVTier(max(1, min(max_blocks, max_bytes // block_bytes)), planes)
 
     def on_evict(h: bytes, blk: int) -> None:
         t0 = time.perf_counter()
-        tier.save(h, *block_planes(cache, blk))
+        tier.save(h, *block_planes(cache, blk, draft_cache))
         tier.stats.save_s += time.perf_counter() - t0
 
     def on_lookup(seq_id: int, tokens: list[int], cached: int, blocks: list[int]) -> int:
@@ -160,7 +168,7 @@ def attach_host_tier(prefix_cache: PrefixCache, cache: PagedKVCache,
                 if item is None:
                     break
                 t0 = time.perf_counter()
-                restore_block(cache, blocks[i], item)
+                restore_block(cache, blocks[i], item, draft_cache)
                 tier.stats.restore_s += time.perf_counter() - t0
                 prefix_cache.adopt(seq_id, h, blocks[i], i)
                 cached = (i + 1) * bs

@@ -143,12 +143,13 @@ def attention_block(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor,
     return linear(out, p["o"], p.get("o_bias"))
 
 
-def mlp(p: dict[str, Any], cfg: UniversalConfig, h: torch.Tensor) -> torch.Tensor:
-    """The layer's feed-forward: MoE (``moe.moe_forward``), plain (fc,
-    starcoder2/falcon), fused gate+up, or split gated; the gate takes GELU
-    for Gemma, else SiLU."""
+def mlp(p: dict[str, Any], cfg: UniversalConfig, h: torch.Tensor,
+        every_expert: bool = False) -> torch.Tensor:
+    """The layer's feed-forward: MoE (``moe.moe_forward``; ``every_expert``
+    takes its decode form at any T), plain (fc, starcoder2/falcon), fused
+    gate+up, or split gated; the gate takes GELU for Gemma, else SiLU."""
     if p.get("moe") is not None:
-        return moe_forward(h, p["moe"], cfg.moe)
+        return moe_forward(h, p["moe"], cfg.moe, every_expert)
     if p.get("fc") is not None:
         return plain_mlp(h, p["fc"], p.get("fc_bias"), p["down"], p.get("down_bias"),
                          act=cfg.hidden_act)
@@ -161,7 +162,7 @@ def mlp(p: dict[str, Any], cfg: UniversalConfig, h: torch.Tensor) -> torch.Tenso
 
 
 def decoder_layer(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor,
-                  attn) -> torch.Tensor:
+                  attn, every_expert: bool = False) -> torch.Tensor:
     """One decoder layer around ``attn(h) → attention output``: the
     sequential block (with Gemma2's sandwich norms where the layer has them)
     or Falcon's parallel block, where attention and the MLP read the same
@@ -171,13 +172,13 @@ def decoder_layer(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor,
     if cfg.parallel_residual:
         if p.get("post_norm") is not None:
             h = norm(cfg, x, p["post_norm"], p.get("post_norm_bias"))
-        return x + attn_out + mlp(p, cfg, h)
+        return x + attn_out + mlp(p, cfg, h, every_expert)
     if p.get("post_attn_norm") is not None:
         attn_out = rms_norm(attn_out, p["post_attn_norm"], cfg.rms_norm_eps,
                             norm_offset(cfg))
     x = x + attn_out
     h = norm(cfg, x, p["post_norm"], p.get("post_norm_bias"))
-    mlp_out = mlp(p, cfg, h)
+    mlp_out = mlp(p, cfg, h, every_expert)
     if p.get("post_ffw_norm") is not None:
         mlp_out = rms_norm(mlp_out, p["post_ffw_norm"], cfg.rms_norm_eps,
                            norm_offset(cfg))

@@ -6,7 +6,12 @@ switches, the MoE FFN (JAX :193-196) and the same corrections to the
 reference (no ring attention). K/V are written to their slots in place;
 decode (``t == 1``) attends through kernel B2 (``attention.paged_attention``)
 with the layer's window and score scale, prefill gathers each sequence's
-pages and runs ``layers.attend``. The JAX package gates its kernel on
+pages and runs ``layers.attend``. The speculative verify step (``verify``,
+T = k+1 positions a row) also attends through B2, one query row a (row,
+position) over the row's block table with ``position + 1`` keys (0 past the
+row's valid length), the same causal function as the gather's; and its MoE
+layers take the decode form (``moe.moe_ffn(every_expert=True)``), so the
+step reads nothing on the host and is captured as one CUDA graph. The JAX package gates its kernel on
 ``head_dim % 128``, a TPU tiling rule; B2 takes any head_dim that is a
 multiple of 32 up to 256 (Falcon's 64, Phi-3's 96).
 """
@@ -40,6 +45,7 @@ def _paged_attention_block(
     cos: torch.Tensor,
     sin: torch.Tensor,
     alibi: Optional[torch.Tensor],
+    per_query: bool = False,          # T > 1 through B2, a query row a position
 ) -> torch.Tensor:
     att = cfg.attention
     b, t, _ = x.shape
@@ -48,10 +54,15 @@ def _paged_attention_block(
     window = att.layer_window(layer)
     scale = att.score_scale(q.shape[-1])
 
-    if t == 1:
+    if t == 1 or per_query:
+        tables, lens = block_tables, seq_lens
+        if t > 1:
+            tables = block_tables.repeat_interleave(t, dim=0)
+            lens = torch.where(positions + 1 <= seq_lens[:, None], positions + 1,
+                               torch.zeros_like(positions)).reshape(-1).to(torch.int32)
         out = paged_attention_decode(
-            q[:, 0].contiguous(), cache.k[layer], cache.v[layer], block_tables,
-            seq_lens, block_size=cache.block_size, num_blocks=cache.num_blocks,
+            q.reshape(b * t, q.shape[2], q.shape[3]), cache.k[layer], cache.v[layer],
+            tables, lens, block_size=cache.block_size, num_blocks=cache.num_blocks,
             k_scale=cache.k_scale[layer] if cache.quantized else None,
             v_scale=cache.v_scale[layer] if cache.quantized else None,
             sliding_window=window, logit_softcap=cfg.attn_logit_softcapping or None,
@@ -80,11 +91,13 @@ def forward_paged(
     seq_lens: torch.Tensor,           # [B] int32
     last_idx: Optional[torch.Tensor] = None,   # [B]: head on this pos only
     *,
+    verify: bool = False,
     device: DeviceLike = None,
 ) -> tuple[torch.Tensor, PagedKVCache]:
     """Logits [B, T (or 1), V] float32 and the cache (written in place).
-    Runs on ``device`` (default ``cuda``); params, cache and inputs must
-    lie there."""
+    ``verify``: the speculative verify step's forms (B2 a position, MoE's
+    decode form). Runs on ``device`` (default ``cuda``); params, cache and
+    inputs must lie there."""
     dev = resolve_device(device)
     check_on(dev, params["embed"], cache.k, tokens, positions, slot_mapping,
              block_tables, seq_lens)
@@ -95,6 +108,6 @@ def forward_paged(
     for i, p in enumerate(params["layers"]):
         x = decoder_layer(p, cfg, x, lambda h: _paged_attention_block(
             p, cfg, h, cache, i, positions, slot_mapping, block_tables, seq_lens,
-            cos, sin, alibi))
+            cos, sin, alibi, per_query=verify), every_expert=verify)
 
     return forward_head(params, cfg, last_positions(x, last_idx)), cache

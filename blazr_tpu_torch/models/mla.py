@@ -186,11 +186,12 @@ def mla_attention_block(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor
 
 
 def decoder_layer(p: dict[str, Any], cfg: UniversalConfig, x: torch.Tensor,
-                  attn) -> torch.Tensor:
+                  attn, every_expert: bool = False) -> torch.Tensor:
     """One DeepSeek layer around ``attn(h)``: pre-norm attention, then the
     MoE FFN or the dense MLP (``llama.mlp``)."""
     x = x + attn(rms_norm(x, p["input_norm"], cfg.rms_norm_eps))
-    return x + llama.mlp(p, cfg, rms_norm(x, p["post_norm"], cfg.rms_norm_eps))
+    return x + llama.mlp(p, cfg, rms_norm(x, p["post_norm"], cfg.rms_norm_eps),
+                         every_expert)
 
 
 def forward(params: dict[str, Any], cfg: UniversalConfig, tokens: torch.Tensor,

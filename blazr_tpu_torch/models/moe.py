@@ -11,9 +11,11 @@ Dense expert stacks take the JAX package's einsum over every expert.
 Quantized stacks (``qtensor.stack_quant``) run each expert projection
 through ``layers.linear`` (kernel B1 on the card) and sum
 ``weights[:, e] · down_e(silu(gate_e x) · up_e x)`` in f32 over the experts
-in ascending order. Which rows an expert takes follows the call's shape:
+in ascending order. Which rows an expert takes follows the call's shape,
+unless the caller asks for every expert (``every_expert``):
 
-  * decode (T = 1, the shape of every captured decode step): every expert
+  * decode (T = 1, the shape of every captured decode step, and the
+    speculative verify step at T = k+1, which asks for it): every expert
     over every row, the JAX scan; an unchosen expert weighs 0. Fixed shapes
     and no host read, so the step stays one CUDA graph;
   * prefill (T > 1, eager): each expert over the rows routed to it, added
@@ -144,8 +146,10 @@ def _shared_expert_add(out: torch.Tensor, flat: torch.Tensor,
     return out + s
 
 
-def moe_ffn(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig) -> torch.Tensor:
-    """The MoE FFN over x [B, T, H]: router, experts, shared expert."""
+def moe_ffn(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig,
+            every_expert: bool = False) -> torch.Tensor:
+    """The MoE FFN over x [B, T, H]: router, experts, shared expert.
+    ``every_expert`` takes the decode form at any T (a captured step)."""
     b, t, h = x.shape
     flat = x.reshape(b * t, h)
     topk_idx, topk_w = route(flat, p["router"], moe, p.get("correction_bias"))
@@ -154,7 +158,7 @@ def moe_ffn(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig) -> torch.Tensor:
     if not isinstance(gate, QuantTensor):
         all_out = _expert_mlp_all(flat, gate, up, down)              # [N, E, H]
         out = torch.einsum("neh,ne->nh", all_out.to(torch.float32), weights)
-    elif t == 1:
+    elif t == 1 or every_expert:
         out = _weighted_expert_sum(flat, gate, up, down, weights)
     else:
         out = _routed_expert_sum(flat, gate, up, down, topk_idx, weights)
@@ -162,7 +166,8 @@ def moe_ffn(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig) -> torch.Tensor:
     return out.reshape(b, t, h).to(x.dtype)
 
 
-def moe_forward(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig) -> torch.Tensor:
+def moe_forward(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig,
+                every_expert: bool = False) -> torch.Tensor:
     """The serving path's MoE call. The JAX package also dispatches to expert
     offload and expert parallelism here; the port raises for both."""
     if p.get("resident_ids") is not None:
@@ -171,7 +176,7 @@ def moe_forward(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig) -> torch.Ten
     if moe.use_ep:
         raise NotImplementedError("expert parallelism is not served by "
                                   "blazr_tpu_torch yet (ROADMAP queue A item 13)")
-    return moe_ffn(x, p, moe)
+    return moe_ffn(x, p, moe, every_expert)
 
 
 def is_moe_layer(vm, pfx: str, cfg: UniversalConfig) -> bool:

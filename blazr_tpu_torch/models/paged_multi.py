@@ -7,6 +7,9 @@ step signature
     fwd(params, cfg, tokens, cache, positions, slots, block_tables,
         seq_lens, state_rows=None, last_idx=None) -> (logits, cache)
 
+(the dense, MoE and MLA steps also take ``verify``, the speculative verify
+step's forms; the recurrent families serve no speculation)
+
 which ``registry.make_paged_forward`` looks up by family (the JAX
 ``resolve_paged_kind`` :54 and ``make_paged_forward`` :410 are
 ``registry.resolve_paged_kind`` and ``registry.FAMILY_KINDS``); the dense
@@ -125,12 +128,15 @@ def _paged_mla_block(p, cfg, x, cache: PagedMLACache, layer, positions, slot_map
 
 
 def mla_forward_paged(params, cfg, tokens, cache: PagedMLACache, positions, slot_mapping,
-                      block_tables, seq_lens, state_rows=None, last_idx=None):
+                      block_tables, seq_lens, state_rows=None, last_idx=None, verify=False):
+    """``verify`` (the speculative verify step) takes MoE's decode form; the
+    latent attention is the plain gather at every T."""
     x = llama.forward_embed(params, cfg, tokens)
     cos, sin = mla.rope(cfg, positions)
     for i, p in enumerate(params["layers"]):
         x = mla.decoder_layer(p, cfg, x, lambda h: _paged_mla_block(
-            p, cfg, h, cache, i, positions, slot_mapping, block_tables, seq_lens, cos, sin))
+            p, cfg, h, cache, i, positions, slot_mapping, block_tables, seq_lens, cos, sin),
+            every_expert=verify)
     return llama.forward_head(params, cfg, llama.last_positions(x, last_idx)), cache
 
 

@@ -285,9 +285,9 @@ def _build_llama(cfg, vm, dtype, device) -> dict:
 
 
 def _llama_paged(params, cfg, tokens, cache, positions, slots, block_tables, seq_lens,
-                 state_rows=None, last_idx=None):
+                 state_rows=None, last_idx=None, verify=False):
     return forward_paged(params, cfg, tokens, cache, positions, slots, block_tables,
-                         seq_lens, last_idx=last_idx, device=tokens.device)
+                         seq_lens, last_idx=last_idx, verify=verify, device=tokens.device)
 
 
 def _head_dim(cfg: UniversalConfig) -> int:

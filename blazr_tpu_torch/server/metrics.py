@@ -235,8 +235,14 @@ def refresh(metrics: Metrics, scheduler, engine: Optional[object]) -> None:
         bs = st["block_stats"]
         if bs["total_blocks"]:
             metrics.kv_block_utilization.set(bs["allocated_blocks"] / bs["total_blocks"])
-        # The port does not speculate, and has no expert-parallel dispatch:
-        # those gauges stay 0.
+        drafted = getattr(engine, "spec_drafted", 0)
+        accepted = getattr(engine, "spec_accepted", 0)
+        metrics.spec_drafted.set(drafted)
+        metrics.spec_accepted.set(accepted)
+        if drafted:
+            metrics.spec_acceptance_rate.set(accepted / drafted)
+        metrics.spec_depth.set(getattr(engine, "_spec_depth", 0))
+        # The port has no expert-parallel dispatch: that gauge stays 0.
         if engine.horizon_dispatches:
             metrics.horizon_steps_per_dispatch.set(
                 engine.horizon_steps / engine.horizon_dispatches)

@@ -167,7 +167,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       Q4_K_M file (architecture llama, permuted Q/K rows, Q4_K with Q6_K for
       the head and for attn_v and ffn_down where ``use_more_bits`` picks,
       F32 norms, Q4_K token_embd, an embedded 32000-token SentencePiece
-      tokenizer) at its published width, GGUF_LAYERS layers, alone in a
+      tokenizer) at its published width, GGUF_LAYERS layers (2 in a full
+      run), alone in a
       directory, and loaded as ``cli serve`` loads it (config and tokenizer
       from the file); the paged and contiguous forwards against the CPU f32
       forward (layer by layer at 5e-2), the paged one free-running in bf16
@@ -231,7 +232,25 @@ Phases, in order; any failure raises and the script exits non-zero:
       wave of text chats (run one at a time, equal to the Executor
       in-process); the text checkpoint answering an image with 400, and
       200 with ``mmproj=``.
-Phases 7b, 7c and 10-15 run between phases 7 and 8.
+  16. (``spec``) speculative decoding with Mistral-7B AWQ-INT4
+      (FULL_RUN_SPEC_LAYERS layers in a full run, 32 alone), 8 extractive
+      greedy requests of 256-512 tokens, 64 new tokens each, max batch 8,
+      block 64, k = 5: B1 at the verify step's 48 rows and B2 at its query
+      rows (each row's table repeated, ``position + 1`` keys) against their
+      plain versions and timed (B2 beside the engine's gather form and SDPA);
+      with the card in f32, prompt lookup and an identical-weights draft
+      equal to speculation off on a greedy and a mixed wave (a sampled, a
+      DFA-grammar and a logprobs row), every identical draft accepted, the
+      only partings exact ties (the plain run's top-2 logit gap below 1e-4,
+      printed); in bf16 speculation off, prompt lookup and a
+      TinyLlama-1.1B-width draft, each wave's decode profiled (tok/s, ms a
+      round, acceptance, the device idle share, the host gap between a
+      round's read and the next replay, launches); one verify replay beside
+      one decode step, one chain replay and one draft prefill; no graph
+      captured after warmup; ``cli run --prompt-lookup`` and
+      ``--draft-model`` equal to greedy; ``cli serve --continuous-batching
+      --prompt-lookup`` answering 3 chats, its ``/metrics`` spec gauges.
+Phases 7b, 7c and 10-16 run between phases 7 and 8.
 Each serving run sets the launch counts to 0 just before it and reads
 them just after; a replayed graph adds the launches it holds, and the
 kernels line counts the first run with graphs (the default path). Under
@@ -4065,8 +4084,8 @@ class LayerTape:
             m.decoder_layer, m.forward_head = self.layer, self.head
         self.saved = [(m, name, getattr(m, name)) for m, name in self.sites]
         for m, name, real in self.saved:
-            setattr(m, name, lambda p, cfg, x, mixer, real=real: self.layer(
-                p, cfg, x, mixer, real))
+            setattr(m, name, lambda p, cfg, x, mixer, real=real, **kw: self.layer(
+                p, cfg, x, mixer, real, **kw))
         return self
 
     def __exit__(self, *exc):
@@ -4082,16 +4101,16 @@ class LayerTape:
         assert x_card.shape == x.shape
         return x_card, out_card
 
-    def layer(self, p, cfg, x, attn, real=None):
+    def layer(self, p, cfg, x, attn, real=None, **kw):
         import torch
 
         real = real or self.real_layer
         if x.dtype != torch.float32:                   # the card's bf16 forward
-            out = real(p, cfg, x, attn)
+            out = real(p, cfg, x, attn, **kw)
             self.queue.append((x.float().cpu(), out.float().cpu()))
             return out
         x_card, out_card = self._forced(x)
-        out = real(p, cfg, x_card, attn)
+        out = real(p, cfg, x_card, attn, **kw)
         rel = ((out_card - out).abs().max() / out.abs().max()).item()
         self.worst = max(self.worst, rel)
         assert rel <= self.rel_tol, f"a decoder layer's output: {rel} > {self.rel_tol}"
@@ -4250,6 +4269,7 @@ def moe_phase(dev, gen, card: str, full_run: bool) -> dict:
 # Depth of the Mistral-7B-Instruct-v0.2 Q4_K_M file (of 32 layers): about
 # 1.1 B parameters, a 0.6 GB file; the widths are the published ones.
 GGUF_LAYERS = 4
+FULL_RUN_GGUF_LAYERS = 2            # a full run's cut (PR 17, for phase 16's time)
 GGUF_REQUEST_LENS = (64, 512, 200, 333, 128, 480, 96, 256)
 # The rows B1 is timed at on the file's own weights: a decode step, a
 # decode batch, a prefill group.
@@ -4324,9 +4344,10 @@ def gguf_b1(dev, gen, model) -> dict:
     from blazr_tpu_torch.quant.qtensor import dequantize
 
     layers = model.params["layers"]
+    last = len(layers) - 1                  # llama.cpp's Q6_K layer at every depth
     weights = {f"{kind} L{i} ({layers[i][kind].fmt[5:].upper()})": layers[i][kind]
-               for i, kind in ((0, "q"), (0, "k"), (0, "gate"), (0, "down"), (3, "v"),
-                               (3, "down"))}
+               for i, kind in ((0, "q"), (0, "k"), (0, "gate"), (0, "down"), (last, "v"),
+                               (last, "down"))}
     weights[f"head ({model.params['lm_head'].fmt[5:].upper()})"] = model.params["lm_head"]
     rel_tol, rows, worst = 8e-3, {}, 0.0
     for name, qt in weights.items():
@@ -5552,6 +5573,628 @@ def vision_phase(dev, gen, card: str, full_run: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: speculative decoding
+# ---------------------------------------------------------------------------
+
+FULL_RUN_SPEC_LAYERS = 4            # --phases build,spec serves all 32
+FULL_RUN_SPEC_DRAFT_LAYERS = 4      # the TinyLlama-width draft's 22, cut alike
+SPEC_CLI_LAYERS = 1                 # the checkpoint cli run and cli serve load (5 times)
+SPEC_K = 5                          # num_speculative_tokens
+SPEC_TOKENS = 64                    # greedy tokens a request
+SPEC_TIE = 1e-4                     # the one allowed parting: a plain top-2 logit gap below it
+# The B1 shapes of the verify step (8 rows x (k+1) = 48 rows).
+SPEC_B1_ROWS = (48,)
+
+
+def tinyllama_config():
+    """TinyLlama-1.1B's published widths (TinyLlama/TinyLlama-1.1B-intermediate-
+    step-1431k-3T config.json): Llama-2's 32,000-token vocabulary, so it can
+    draft for Mistral-7B."""
+    from blazr_tpu_torch.config.model_config import AttentionConfig, UniversalConfig
+
+    return UniversalConfig(
+        model_type="llama", vocab_size=32000, hidden_size=2048, num_layers=22,
+        max_seq_len=2048, intermediate_size=5632, rms_norm_eps=1e-5,
+        attention=AttentionConfig(num_heads=32, num_kv_heads=4, head_dim=64,
+                                  rope_theta=10000.0))
+
+
+def spec_prompts(rng, n: int = 8) -> list:
+    """``n`` extractive prompts of 256-512 tokens: a passage of 64-128
+    tokens, other text around it, then its first 16 or more tokens quoted
+    again at the end (the traffic prompt lookup drafts from)."""
+    out = []
+    for _ in range(n):
+        total = int(rng.integers(256, 513))
+        passage = rng.integers(3, 32000, int(rng.integers(64, 129))).tolist()
+        quote = passage[:int(rng.integers(16, len(passage)))]
+        other = rng.integers(3, 32000, total - len(passage) - len(quote)).tolist()
+        cut = int(rng.integers(0, len(other) + 1))
+        out.append(other[:cut] + passage + other[cut:] + quote)
+    return out
+
+
+def spec_greedy():
+    from blazr_tpu_torch.config import GenerationConfig
+
+    return GenerationConfig(max_tokens=SPEC_TOKENS, temperature=0.0, repeat_penalty=1.0)
+
+
+def spec_engine(model, tok, spec: bool, draft=None):
+    """The BatchEngine as ``serve --continuous-batching`` builds it (max batch
+    8, block 64, horizon 8, graphs on), speculating with k = SPEC_K under
+    ``spec`` (a draft model's chain with ``draft``, else prompt lookup)."""
+    from blazr_tpu_torch.config import AppConfig
+    from blazr_tpu_torch.config.inference import SpeculativeDecodingConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+
+    app = AppConfig(model=model.cfg)
+    app.inference.max_batch_size = 8
+    if spec:
+        app.inference.speculative = SpeculativeDecodingConfig(num_speculative_tokens=SPEC_K)
+    return BatchEngine(model, tok, app, draft_model=draft)
+
+
+def top2_gap(model, ids: list) -> float:
+    """The top-2 logit gap of ``model``'s next token after ``ids`` (one
+    contiguous forward)."""
+    import torch
+
+    dev = model.device
+    cache = model.init_cache(1, len(ids) + 1)
+    logits, _ = model.forward(torch.tensor([ids], device=dev), cache,
+                              torch.arange(len(ids), device=dev)[None])
+    top = logits[0, -1].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def record_drafts(engine) -> list:
+    """Wrap the engine's draft chain: each round's rows as (seq id, length)
+    and its [bmax, k] drafts."""
+    rounds: list = []
+    inner = engine._device_drafts
+
+    def wrapped(rows):
+        drafts = inner(rows)
+        rounds.append(([None if s is None else (s.seq_id, s.total_len) for s in rows],
+                       drafts.copy()))
+        return drafts
+    engine._device_drafts = wrapped
+    return rounds
+
+
+def rejections(rounds: list, seqs: dict) -> list:
+    """(seq id, position) of each round's first draft that the final stream
+    (``seqs``: id -> prompt + tokens) does not take: where a row rejected
+    its draft. Drafts past a stream's end are never compared (there the
+    budget cut them)."""
+    out = []
+    for rows, drafts in rounds:
+        for i, row in enumerate(rows):
+            if row is None or row[0] not in seqs:
+                continue
+            sid, total = row
+            toks = seqs[sid]
+            for j, d in enumerate(drafts[i]):
+                if total + j >= len(toks):
+                    break
+                if int(d) != toks[total + j]:
+                    out.append((sid, total + j))
+                    break
+    return out
+
+
+def spec_checks(dev, model, tok, prompts: list, card: str) -> dict:
+    """The equalities, the card in f32 (B1's split-K variant at every row
+    count): a greedy wave and a mixed wave (a seeded sampled row, a
+    DFA-grammar row, a logprobs row beside 5 greedy rows), served with
+    prompt lookup and with an identical-weights draft (the target's own
+    params, its own cache), equal the same engine's with speculation off on
+    every row; the identical draft accepts every draft. The one difference
+    allowed is an exact tie in rounding (the verify's 48-row products may
+    sum in another order than a decode step's): where a stream parts from
+    the plain one, or the identical draft is rejected, the plain run's top-2
+    logit gap there is printed and must be below SPEC_TIE. No graph but a
+    grammar table's horizon step is captured after warmup."""
+    import torch
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.models.registry import Model
+
+    f32 = Model(model.cfg, card_f32(model.params), torch.float32)
+    greedy = [(p, spec_greedy()) for p in prompts]
+    mixed = greedy[:5] + [
+        (prompts[5], GenerationConfig(max_tokens=SPEC_TOKENS, temperature=0.8, seed=11)),
+        (prompts[6], GenerationConfig(max_tokens=16, temperature=0.0, repeat_penalty=1.0,
+                                      grammar=YES_NO)),
+        (prompts[7], GenerationConfig(max_tokens=SPEC_TOKENS, temperature=0.0,
+                                      repeat_penalty=1.0, logprobs=True, top_logprobs=5))]
+    waves = {"greedy": greedy, "mixed": mixed}
+    streams, out = {}, {}
+    for name, spec, draft in (("plain", False, None), ("lookup", True, None),
+                              ("draft", True, f32)):
+        eng = spec_engine(f32, tok, spec, draft)
+        eng.warmup()
+        before = set(eng.graphs._graphs)
+        rounds = record_drafts(eng) if draft is not None else None
+
+        async def go():
+            return {w: await serve(eng, [reqs]) for w, reqs in waves.items()}
+        recs = asyncio.run(go())
+        streams[name] = {w: [r["tokens"] for r in rs] for w, rs in recs.items()}
+        late = [key for key in set(eng.graphs._graphs) - before
+                if not (isinstance(key[0], int) and key[4] is not None)]
+        assert not late, f"{name}: graphs captured after warmup {late}"
+        out[name] = dict(drafted=eng.spec_drafted, accepted=eng.spec_accepted)
+        if rounds is not None:
+            # The rows that draft: the greedy ones without logprobs or a grammar.
+            seqs = {r["handle"].seq_id: list(reqs[i][0]) + r["tokens"]
+                    for w, reqs in waves.items() for i, r in enumerate(recs[w])
+                    if reqs[i][1].temperature == 0.0 and not reqs[i][1].logprobs
+                    and not reqs[i][1].grammar}
+            out[name]["rejections"] = [
+                (w, i, pos - len(reqs[i][0])) for sid, pos in rejections(rounds, seqs)
+                for w, reqs in waves.items() for i, r in enumerate(recs[w])
+                if r["handle"].seq_id == sid]
+        del eng
+        free_card()
+    ties = []
+    for name in ("lookup", "draft"):
+        for w, reqs in waves.items():
+            for i, (got, want) in enumerate(zip(streams[name][w], streams["plain"][w])):
+                if got == want:
+                    continue
+                t = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                         min(len(got), len(want)))
+                gap = top2_gap(f32, list(reqs[i][0]) + want[:t])
+                log(f"  card in f32: {name}, {w} wave, row {i} parts from the plain run at "
+                    f"token {t}: the plain run's top-2 logit gap there {gap:.3g}")
+                ties.append(gap)
+                assert gap < SPEC_TIE, (name, w, i, t, gap)
+    d = out["draft"]
+    for w, i, t in d["rejections"]:
+        gap = top2_gap(f32, list(waves[w][i][0]) + streams["plain"][w][i][:t])
+        log(f"  card in f32: the identical draft was rejected in the {w} wave, row {i}, at "
+            f"token {t}: the plain run's top-2 logit gap there {gap:.3g}")
+        ties.append(gap)
+        assert gap < SPEC_TIE, (w, i, t, gap)
+    assert (d["accepted"] == d["drafted"]) == (not d["rejections"]), d
+    assert d["drafted"] > 0 and out["lookup"]["drafted"] > 0, out
+    log(f"  card in f32: prompt lookup and the identical draft == speculation off on every "
+        f"row of the greedy and the mixed wave ({len(ties) - len(d['rejections'])} partings, "
+        f"each at an exact tie); the identical draft accepted {d['accepted']} of "
+        f"{d['drafted']} ({len(d['rejections'])} rejections, each at an exact tie); prompt "
+        f"lookup {out['lookup']['accepted']} of {out['lookup']['drafted']}; no graph but "
+        f"grammar tables' captured after warmup")
+    out["ties"] = ties
+    out["distinct"] = [len(set(t)) for t in streams["plain"]["greedy"]]
+    log(f"  card in f32: distinct tokens in each greedy stream of {SPEC_TOKENS}: "
+        f"{out['distinct']} (random weights)")
+    del f32
+    free_card()
+    return out
+
+
+async def profiled_decode(engine, reqs: list, profile: bool) -> tuple[list, tuple]:
+    """Serve ``reqs`` at once; with ``profile`` the profiler window opens once
+    every request has its first token (the prefills done), so it holds
+    decode rounds only."""
+    task = asyncio.create_task(engine.run())
+    recs = []
+
+    async def consume(rec):
+        async for t in rec["handle"].tokens():
+            if rec["ttft"] is None:
+                rec["ttft"] = time.perf_counter() - rec["t_submit"]
+                rec["first"].set()
+            rec["tokens"].append(t.token_id)
+        rec["t_done"] = time.perf_counter()
+
+    for prompt, gen in reqs:
+        recs.append(dict(handle=engine.submit(prompt, gen), t_submit=time.perf_counter(),
+                         ttft=None, tokens=[], first=asyncio.Event()))
+    consumers = [asyncio.create_task(consume(r)) for r in recs]
+    await asyncio.wait_for(asyncio.gather(*[r["first"].wait() for r in recs]), 600)
+    prof, t0 = start_profile() if profile else (None, None)
+    await asyncio.wait_for(asyncio.gather(*consumers), 900)
+    window = stop_profile(prof, t0) if profile else None
+    engine.stop()
+    await task
+    return recs, window
+
+
+def replay_ms(engine, key, iters: int = 20) -> float:
+    """Device time (ms) of one replay of the engine's captured graph ``key``
+    (a step that reads no step counter: the verify step, spec_finish, the
+    chain)."""
+    import torch
+
+    graph = engine.graphs._graphs[key][0]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def decode_step_ms(engine, bmax: int = 8, rounds: int = 4) -> float:
+    """Device time (ms) of one plain decode step at ``bmax`` rows: whole
+    rounds of the horizon graph replayed over the last round's table, its
+    step counter set back to 0 before each round (a step writes its output
+    at that index)."""
+    import torch
+
+    step = engine._step(bmax)
+    graph = engine.graphs._graphs[(bmax, False, False, False, None, False, False)][0]
+    tab0 = step.tab.clone()
+    tab0[:, step.lay["i"]] = 0
+    horizon = step.out[False].shape[0]
+
+    def one_round():
+        step.tab.copy_(tab0)
+        for _ in range(horizon):
+            graph.replay()
+    one_round()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        one_round()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (rounds * horizon)
+
+
+def spec_wave(engine, reqs: list, label: str, card: str, steps_key: str) -> dict:
+    """``reqs`` at once through a warmed engine, twice: first timed, with the
+    launch counts set to 0 just before and read just after (decode tokens/s,
+    ms a round, ms a token a row, speculation's counters, the host gap from
+    a round's read to the next round's first replay), then with its decode
+    rounds profiled (the device idle share under the profiler)."""
+    import torch
+
+    p0 = dict(engine.perf)
+    d0, a0 = engine.spec_drafted, engine.spec_accepted
+    s0 = engine.horizon_steps
+    got: dict = {}
+
+    async def waves():            # one event loop: the engine's event is bound to it
+        reset_counts()
+        recs, _ = await profiled_decode(engine, reqs, profile=False)
+        torch.cuda.synchronize()
+        got.update(launches=read_counts(), perf=dict(engine.perf),
+                   drafted=engine.spec_drafted, accepted=engine.spec_accepted,
+                   steps=engine.horizon_steps)
+        _, window = await profiled_decode(engine, reqs, profile=True)
+        return recs, window
+    recs, window = asyncio.run(waves())
+    launches = got["launches"]
+    perf = {k: got["perf"][k] - p0.get(k, 0.0) for k in got["perf"]}
+    decoded = sum(len(r["tokens"]) - 1 for r in recs)
+    span = max(r["t_done"] for r in recs) - max(r["t_submit"] + r["ttft"] for r in recs)
+    rounds = perf.get(steps_key + "_n", 0)
+    out = dict(tok_s=decoded / span, decoded=decoded, rounds=rounds,
+               ms_round=perf.get(steps_key, 0.0) / max(rounds, 1) * 1e3,
+               b1=launches["qmm"], b2=launches["paged_attention"],
+               drafted=got["drafted"] - d0, accepted=got["accepted"] - a0,
+               steps=got["steps"] - s0,
+               gap_ms=perf.get("spec_gap", 0.0) / max(perf.get("spec_gap_n", 0), 1) * 1e3,
+               streams=[r["tokens"] for r in recs])
+    wall, busy = window[0], window[1]
+    out.update(idle=1 - busy / wall if busy > 0 else None, profiled_wall_s=wall,
+               profiled_busy_s=busy)
+    acc = out["accepted"] / out["drafted"] if out["drafted"] else 0.0
+    log(f"  {label}: {out['tok_s']:.1f} decode tok/s over {decoded} tokens, {rounds:.0f} "
+        f"rounds of {out['ms_round']:.2f} ms"
+        + (f" ({out['steps']} horizon steps, "
+           f"{perf.get('decode', 0.0) * 1e3 / max(out['steps'], 1):.2f} ms a step)"
+           if steps_key == "decode" else
+           f"; accepted {out['accepted']} of {out['drafted']} drafts ({acc:.2f}), "
+           f"{decoded / max(rounds, 1):.2f} tokens emitted a verify (of up to 8 rows), host "
+           f"{out['gap_ms']:.2f} ms from a round's read to the next round's first replay")
+        + f"; B1 {out['b1']}, B2 {out['b2']}; profiled again: decode window {wall:.3f} s, "
+        f"device busy {busy:.3f} s, idle share "
+        + (f"{out['idle']:.3f}" if out["idle"] is not None else "not measured")
+        + f" ({card})")
+    return out
+
+
+def spec_b2(dev, gen, ctx: list) -> dict:
+    """B2 as the verify step calls it (8 rows of ``ctx`` keys before k+1 =
+    6 query positions, each row's 64-slot table repeated, ``position + 1``
+    keys; Mistral's 32/8 heads, D 128, window 4096, bf16) against its plain
+    version, and timed beside the engine's plain gather form (``attend`` over
+    each row's whole table) and SDPA over the gathered KV with a causal
+    mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from blazr_tpu_torch.attention.paged_attention import (
+        paged_attention_decode, paged_attention_reference)
+    from blazr_tpu_torch.kvcache.paged import page_slot_index
+    from blazr_tpu_torch.models.layers import attend
+
+    h_q, h_kv, d, bs, window, k1 = 32, 8, 128, 64, 4096, SPEC_K + 1
+    b = len(ctx)
+    s = pa_inputs(dev, gen, b=b, h_q=h_q, h_kv=h_kv, d=d, bs=bs,
+                  seq_lens=[c + k1 for c in ctx], width=64)
+    pos = torch.tensor([[c + j for j in range(k1)] for c in ctx], device=dev)
+    lens = (pos + 1).reshape(-1).to(torch.int32)
+    q = torch.randn((b * k1, h_q, d), device=dev, generator=gen).to(torch.bfloat16)
+    tables = s["bt"].repeat_interleave(k1, dim=0)
+    kw = dict(block_size=bs, sliding_window=window)
+    got = paged_attention_decode(q, s["kc"], s["vc"], tables, lens, num_blocks=s["nb"],
+                                 device=dev, **kw)
+    ref = paged_attention_reference(q.float(), s["kc"], s["vc"], tables, lens, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - ref).abs().max().item()
+    tol = 1e-2 * max(1.0, ref.abs().max().item())
+    assert torch.isfinite(got).all() and err <= tol, (err, tol)
+    ms = time_ms(lambda: paged_attention_decode(q, s["kc"], s["vc"], tables, lens,
+                                                num_blocks=s["nb"], device=dev, **kw),
+                 iters=50)
+    plain_ms = time_eager(lambda: paged_attention_reference(q, s["kc"], s["vc"], tables,
+                                                            lens, **kw), iters=3, warmup=1)
+    idx = page_slot_index(bs, s["bt"])                               # [B, 64 x 64]
+    q4 = q.reshape(b, k1, h_q, d)
+    kv_len = torch.tensor([c + k1 for c in ctx], dtype=torch.int32, device=dev)
+    gather_ms = time_ms(lambda: attend(q4, s["kc"][idx], s["vc"][idx], q_positions=pos,
+                                       kv_len=kv_len, sliding_window=window), iters=10)
+    k = s["kc"][idx].permute(0, 2, 1, 3).contiguous()                # [B, H_kv, S, D]
+    v = s["vc"][idx].permute(0, 2, 1, 3).contiguous()
+    kv_pos = torch.arange(k.shape[2], device=dev)
+    mask = (kv_pos[None, None, :] <= pos[:, :, None])[:, None]       # [B, 1, k+1, S]
+    qs = q4.permute(0, 2, 1, 3)                                      # [B, H_q, k+1, D]
+    try:
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, enable_gqa=True), iters=50)
+    except TypeError:                    # PyTorch without enable_gqa
+        ke, ve = (x.repeat_interleave(h_q // h_kv, dim=1) for x in (k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ke, ve, attn_mask=mask), iters=50)
+    keys = sum(c + k1 for c in ctx)
+    nbytes = 2 * keys * h_kv * d * 2 + 2 * q.numel() * 2 + s["bt"].numel() * 4
+    bms, by = bound(nbytes, 4.0 * h_q * d * float(lens.sum()))
+    log(f"  B2 at the verify step (B={b} x {k1} query rows, ctx {min(ctx)}-{max(ctx)}, "
+        f"tables 64 slots repeated): max_abs_err {err:.4g} (tol {tol:.4g}); kernel "
+        f"{ms:.4f} ms, bound {bms:.4f} ms ({by}, x{ms / bms:.1f}), the gather form "
+        f"(attend over the whole table) {gather_ms:.4f} ms (x{gather_ms / ms:.1f} B2's), "
+        f"SDPA (GQA, gathered KV, causal mask) {library_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
+                gather_ms=gather_ms, max_abs_err=err,
+                shape=f"B={b}x{k1} ctx {min(ctx)}-{max(ctx)} tables 64")
+
+
+def spec_cli(dev, ckpt: Path, card: str) -> dict:
+    """``cli run --prompt-lookup`` and ``--draft-model`` (the checkpoint as
+    its own draft) in this process, f32, each stream the Executor's
+    penalty-free greedy one; then ``cli serve --continuous-batching
+    --prompt-lookup`` answering 3 greedy chats over HTTP, its replies and
+    its ``/metrics`` spec gauges equal to those of the same engine built
+    in this process as ``cli serve`` builds it (the kernels are
+    deterministic), behind the in-process server."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from blazr_tpu_torch.cli.main import main as cli_main
+    from blazr_tpu_torch.config.inference import SpeculativeDecodingConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
+    from blazr_tpu_torch.loader import load_model
+    from blazr_tpu_torch.tokenizer import load_tokenizer
+
+    out: dict = {}
+    tok = load_tokenizer(ckpt)
+    rng = np.random.default_rng(SEED + 16)
+    passage = _prompt_text(tok, 48, rng)
+    text = passage + " " + _prompt_text(tok, 32, rng) + " " + passage
+    ids = tok.encode(text)
+    t0 = time.perf_counter()
+    model, app = load_model(ckpt, dtype="f32", device=dev)
+    want = [t.token_id for t in Executor(model, tok, app).generate(ids, spec_greedy())][:16]
+    del model
+    free_card()
+    want_text = "".join(tok.decode([t]) for t in want)
+    log(f"  the Executor's greedy reference (f32, 16 tokens) in "
+        f"{time.perf_counter() - t0:.1f} s with the load")
+    for flags in (["--prompt-lookup"], ["--draft-model", str(ckpt)]):
+        stdout, stderr = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+            rc = cli_main(["run", str(ckpt), "--prompt", text, "-n", "16", "-t", "0",
+                           "--dtype", "f32", "--no-warmup", *flags])
+        wall = time.perf_counter() - t0
+        accept = [line for line in stderr.getvalue().splitlines() if "acceptance" in line]
+        assert rc == 0 and accept, stderr.getvalue()[-2000:]
+        got = stdout.getvalue()
+        if got != want_text:
+            t = next(j for j in range(len(want))
+                     if not got.startswith("".join(tok.decode([x]) for x in want[:j + 1])))
+            m, _ = load_model(ckpt, dtype="f32", device=dev)
+            gap = top2_gap(m, ids + want[:t])
+            del m
+            free_card()
+            log(f"  cli run {flags[0]} parts from greedy at token {t}: top-2 gap {gap:.3g}")
+            assert gap < SPEC_TIE, (flags, t, gap)
+        out[flags[0]] = dict(wall_s=wall, accept=accept[-1])
+        log(f"  cli run {flags[0]}: the Executor's greedy stream; {accept[-1].strip()} "
+            f"({wall:.1f} s with the load; {card})")
+    bodies = [{"messages": [{"role": "user", "content": c}], "max_tokens": 64,
+               "temperature": 0, "repeat_penalty": 1.0, "stream": True}
+              for c in (text, passage + " " + passage, _prompt_text(tok, 200, rng))]
+
+    def chats(port) -> list:
+        replies = []
+        for body in bodies:
+            r = _stream_chat(port, body)
+            assert r["done"] and r["finish"] and r["deltas"], r
+            replies.append("".join(r["deltas"]))
+        return replies
+    t0 = time.perf_counter()
+    sched = ModelScheduler(ckpt, device=dev)
+    ex = sched.get_executor("default")
+    inf = ex.app_cfg.inference
+    inf.max_batch_size = 8
+    inf.prefix_cache = True
+    inf.speculative = SpeculativeDecodingConfig(num_speculative_tokens=SPEC_K)
+    engine = BatchEngine(ex.model, ex.tokenizer, ex.app_cfg)
+    engine.warmup()
+    with http_server(sched, engine) as port:
+        twin = chats(port)
+    want_g = {"spec_drafted_total": engine.spec_drafted,
+              "spec_accepted_total": engine.spec_accepted, "spec_depth": engine._spec_depth}
+    log(f"  the in-process twin of cli serve: 3 chats, drafted {engine.spec_drafted}, "
+        f"accepted {engine.spec_accepted} ({time.perf_counter() - t0:.1f} s with the load "
+        "and warmup)")
+    del engine, ex, sched
+    free_card()
+    with tempfile.TemporaryDirectory() as d:
+        with cli_serve(ckpt, Path(d) / "serve.err", "--prompt-lookup") as (port, up, warmed):
+            replies = chats(port)
+            st, body = _http(port, "GET", "/metrics")
+            assert st == 200, st
+            m = parse_metrics(body.decode())
+    g = {k: m[(f"blazr_tpu_{k}", ())] for k in (
+        "spec_drafted_total", "spec_accepted_total", "spec_acceptance_rate", "spec_depth")}
+    assert replies == twin, (replies, twin)
+    assert all(g[k] == v for k, v in want_g.items()), (g, want_g)
+    rate = want_g["spec_accepted_total"] / want_g["spec_drafted_total"] \
+        if want_g["spec_drafted_total"] else 0.0
+    assert abs(g["spec_acceptance_rate"] - rate) < 1e-9, g
+    out["serve"] = dict(up_s=up, metrics=g)
+    log(f"  cli serve --continuous-batching --prompt-lookup: up in {up:.1f} s ({warmed}); "
+        "3 greedy chats equal to the twin's; /metrics "
+        + ", ".join(f"{k} {v:g}" for k, v in g.items()) + " = the twin engine's counters")
+    return out
+
+
+def spec_phase(dev, gen, card: str, full_run: bool) -> dict:
+    """Phase 16 (``spec``): Mistral-7B AWQ-INT4 (FULL_RUN_SPEC_LAYERS layers in
+    a full run, 32 alone) served by the warmed BatchEngine with k = SPEC_K,
+    8 extractive greedy requests of 256-512 tokens and SPEC_TOKENS new
+    tokens in one wave: B1 at the verify's 48 rows and B2 at its query rows
+    against their plain versions; the f32 equalities (``spec_checks``); in
+    bf16, speculation off, prompt lookup and a TinyLlama-1.1B-width draft
+    (random weights), each wave's decode profiled (tok/s, ms a round, idle
+    share, acceptance, launches); one verify replay against one decode step,
+    the verify's attention both ways, the chain and the draft prefill timed;
+    no graph captured after warmup; then ``cli run`` and ``cli serve``."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.tokenizer import load_tokenizer
+    from blazr_tpu_torch.utils.synthetic import synth_llama_params
+
+    t_phase = time.perf_counter()
+    layers = FULL_RUN_SPEC_LAYERS if full_run else 32
+    k, n = B1_SHAPES["gateup"]
+    out = {"b1": b1_at_shapes(dev, gen, {"gate+up": (k, n), "qkv": B1_SHAPES["qkv"],
+                                          "o": B1_SHAPES["o"], "down": B1_SHAPES["down"]},
+                              SPEC_B1_ROWS)}
+    rng = np.random.default_rng(SEED + 16)
+    prompts = spec_prompts(rng)
+    out["b2"] = spec_b2(dev, gen, [len(p) + SPEC_TOKENS // 2 for p in prompts])
+    ckpt = http_checkpoint(SPEC_CLI_LAYERS)
+    tok = load_tokenizer(ckpt)
+    model = mistral_model(dev, layers)
+    t0 = time.perf_counter()
+    out["checks"] = spec_checks(dev, model, tok, prompts, card)
+    log(f"  (the f32 checks: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+
+    reqs = [(p, spec_greedy()) for p in prompts]
+    plain = spec_engine(model, tok, spec=False)
+    plain.warmup()
+    out["off"] = spec_wave(plain, reqs, f"speculation off ({layers} layers)", card, "decode")
+    out["decode_step_ms"] = decode_step_ms(plain)
+    del plain
+    free_card()
+
+    eng = spec_engine(model, tok, spec=True)
+    t0 = time.perf_counter()
+    warm_s = eng.warmup()
+    n_warm = eng.graphs.captured
+    log(f"  prompt-lookup engine warmed in {warm_s:.1f} s: {n_warm} graphs "
+        f"({eng.graphs.capture_s:.1f} s of captures, "
+        f"{eng.graphs.pool_bytes / 2**20:.1f} MiB pool)")
+    lookup = out["lookup"] = spec_wave(eng, reqs, f"prompt lookup ({layers} layers)", card,
+                                       "spec")
+    same = sum(a == b for a, b in zip(lookup["streams"], out["off"]["streams"]))
+    log(f"  bf16: {same} of 8 prompt-lookup streams equal speculation off's (the f32 "
+        "checks hold the equality; bf16 rounds the 48-row and 8-row products apart)")
+    out["verify_ms"] = replay_ms(eng, ("verify", 8))
+    tally = {w.__name__: c for w, c in eng.graphs._graphs[("verify", 8)][1]}
+    out["verify_b1"], out["verify_b2"] = tally.get("qmm", 0), tally.get(
+        "paged_attention_decode", 0)
+    assert out["verify_b2"] == layers, tally          # B2 once a layer, every position
+    out["finish_ms"] = replay_ms(eng, ("spec_finish", 8, False, False, False))
+    assert eng.graphs.captured == n_warm, "a graph was captured after warmup"
+    out["warm"] = dict(s=warm_s, graphs=n_warm, pool_mib=eng.graphs.pool_bytes / 2**20)
+    log(f"  one verify replay {out['verify_ms']:.3f} ms (B1 {out['verify_b1']}, B2 "
+        f"{out['verify_b2']} launches), spec_finish {out['finish_ms']:.3f} ms, against one "
+        f"plain decode step {out['decode_step_ms']:.3f} ms "
+        f"(x{out['verify_ms'] / out['decode_step_ms']:.2f}; {card})")
+    del eng
+    free_card()
+
+    log(f"  (speculation off and prompt lookup in bf16: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    dcfg = tinyllama_config()
+    dcfg.num_layers = FULL_RUN_SPEC_DRAFT_LAYERS if full_run else dcfg.num_layers
+    dparams = synth_llama_params(dcfg, quant="awq", dtype=torch.bfloat16, seed=SEED + 1,
+                                 device=dev)
+    draft = Model(dcfg, dparams, torch.bfloat16)
+    eng = spec_engine(model, tok, spec=True, draft=draft)
+    eng.warmup()
+    n_warm = eng.graphs.captured
+    out["draft"] = spec_wave(eng, reqs, f"TinyLlama-1.1B-width draft ({layers}-layer "
+                             "target)", card, "spec")
+    same = sum(a == b for a, b in zip(out["draft"]["streams"], out["off"]["streams"]))
+    log(f"  bf16: {same} of 8 draft-model streams equal speculation off's")
+    assert eng.graphs.captured == n_warm, "a graph was captured after warmup"
+    out["chain_ms"] = replay_ms(eng, ("chain", 8))
+    t = 512
+    dprefill = (torch.zeros((1, t), dtype=torch.long, device=dev),
+                torch.arange(t, device=dev)[None],
+                torch.full((1, t), eng._trash, dtype=torch.long, device=dev),
+                torch.full((1, t // 64), 0x7FFFFFFF, dtype=torch.int32, device=dev),
+                torch.tensor([t], dtype=torch.int32, device=dev),
+                torch.tensor([t - 1], device=dev))
+    out["draft_prefill_ms"] = time_eager(lambda: eng._draft_prefill(*dprefill), iters=5)
+    log(f"  TinyLlama-width draft ({dcfg.num_layers} layers, 2048 wide, random weights): "
+        f"one chain replay "
+        f"(k+1 = {SPEC_K + 1} T=1 steps at 8 rows) {out['chain_ms']:.3f} ms, one 512-token "
+        f"draft prefill {out['draft_prefill_ms']:.3f} ms ({card})")
+    del eng, draft, dparams
+    free_card()
+    # The main path's launches: the prompt-lookup and draft waves' (counted
+    # from 0 before each).
+    out["qmm"] = lookup["b1"] + out["draft"]["b1"]
+    out["paged_attention"] = lookup["b2"] + out["draft"]["b2"]
+    assert out["qmm"] > 0 and out["paged_attention"] > 0, out
+    del model
+    free_card()
+    log(f"  (the TinyLlama-width draft: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["cli"] = spec_cli(dev, ckpt, card)
+    log(f"  (cli run and cli serve: {time.perf_counter() - t0:.1f} s)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  spec phase: {out['phase_s']:.1f} s ({card}; {layers} layers)")
+    return out
+
+
 B3_TIMED_ROWS = (1, 8, 512)
 
 
@@ -5810,6 +6453,23 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
             decode={key: rows[("llava gate/up", 1)][key] for key in keys},
             at=[{key: row[key] for key in keys} for sh, row in rows.items()
                 if sh[0] != "llava gate/up"]))
+    if "spec" in res:  # B1 at the verify's 48 rows and B2 at its query rows, phase 16
+        sp = res["spec"]
+        rows = sp["b1"]["rows"]
+        line.append(dict(
+            name="qmm_w4a16 (B1), speculative verify (48 rows) and draft chain", route="cuda",
+            source="blazr_tpu_torch/csrc/qmm.cu",
+            replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
+            launches=got("spec", "qmm"), max_abs_err=sp["b1"]["max_abs_err"],
+            **{key: rows[("gate+up", 48)][key] for key in keys},
+            at=[{key: row[key] for key in keys} for sh, row in rows.items()
+                if sh[0] != "gate+up"]))
+        line.append(dict(
+            name="paged_attention_decode (B2), speculative verify (a query row a position)",
+            route="cuda", source="blazr_tpu_torch/csrc/paged_attention.cu",
+            replaces="blazr_tpu/attention/paged_attention.py:34",
+            launches=got("spec", "paged_attention"), max_abs_err=sp["b2"]["max_abs_err"],
+            gather_ms=sp["b2"]["gather_ms"], **{key: sp["b2"][key] for key in keys}))
     if gguf:           # B3 and B4 on the file's Q4_K gate weight, beside their rows
         for row in line:
             kernel = row["name"].split("(")[-1].rstrip(")")
@@ -5821,8 +6481,8 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
 
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
           "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "prefix", "http",
-          "routes", "constrained", "families", "moe", "gguf", "mla", "ssm", "vision", "sweep",
-          "timings", "layout_times")
+          "routes", "constrained", "families", "moe", "gguf", "mla", "ssm", "vision", "spec",
+          "sweep", "timings", "layout_times")
 FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
@@ -5839,11 +6499,12 @@ def main() -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    global TREE, SERVE_LAYERS, HTTP_LAYERS
+    global TREE, SERVE_LAYERS, HTTP_LAYERS, GGUF_LAYERS
     TREE = args.tree.resolve()
     if phases == list(FULL_RUN):
         SERVE_LAYERS = FULL_RUN_SERVE_LAYERS
         HTTP_LAYERS = FULL_RUN_HTTP_LAYERS
+        GGUF_LAYERS = FULL_RUN_GGUF_LAYERS
     other = TREE != REPO
     if other and phases == list(FULL_RUN):
         ap.error("--tree runs a subset of phases")
@@ -5955,6 +6616,10 @@ def main() -> int:
         ("vision", "phase 15: image chats with LLaVA-1.5-7B (B1 at its shapes, the host's "
          "image decode, the tower and a merged forward card vs CPU, the Executor, HTTP, "
          "the mmproj sidecar)", lambda: vision_phase(dev, gen, card, phases == list(FULL_RUN))),
+        ("spec", "phase 16: speculative decoding with Mistral-7B (prompt-lookup and "
+         "draft-model drafts verified in one [8, k+1] step; B1 and B2 at the verify's "
+         "shapes, the f32 equalities, spec on/off timed, cli run and cli serve)",
+         lambda: spec_phase(dev, gen, card, phases == list(FULL_RUN))),
         ("sweep", "phase 8: the sweeps behind the launch plans of B1-B6",
          lambda: (b1_variants(dev, gen), b2_splits(dev, gen), b3_sweeps(dev, gen),
                   b4_splits(dev, gen), layout_splits(dev, gen))),

@@ -12,7 +12,6 @@ import pytest
 
 from blazr_tpu_torch.cli.main import NOT_PORTED
 from blazr_tpu_torch.config import AppConfig, GenerationConfig
-from blazr_tpu_torch.config.inference import SpeculativeDecodingConfig
 from blazr_tpu_torch.engine import batch_engine, executor
 from blazr_tpu_torch.loader import api
 
@@ -77,12 +76,12 @@ def test_request_refusals_name_their_queue_item(what):
     assert _item_of(str(e.value)) == _ITEMS[what] and _in_queue_a(_ITEMS[what])
 
 
-@pytest.mark.parametrize("what,item", [("speculative", "5a.5"), ("tp", "13"),
+@pytest.mark.parametrize("what,item", [("moe_offload", "12"), ("tp", "13"),
                                        ("offload", "12")])
 def test_engine_config_refusals_name_their_queue_item(what, item):
     inf = AppConfig().inference
-    if what == "speculative":
-        inf.speculative = SpeculativeDecodingConfig(num_speculative_tokens=2)
+    if what == "moe_offload":
+        inf.moe_offload = True
     elif what == "tp":
         inf.tensor_parallel_size = 2
     else:

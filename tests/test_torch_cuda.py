@@ -514,6 +514,82 @@ def test_batch_engine_graphs_equal_eager(cuda):
     assert runs[True][2] > 0 and runs[False][2] == 0
 
 
+def test_verify_step_replay_equals_its_eager_run(cuda):
+    """The speculative verify step and ``spec_finish`` at 4 rows and k = 3:
+    the warmed graphs' replay over two real rows (spans 4 and 2) and two
+    pad rows writes the logits and the packed out of the same step run
+    eagerly, with equal B1 and B2 launches; B2 runs once a layer over the
+    [4·(k+1)] query rows."""
+    import numpy as np
+
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.config.inference import SpeculativeDecodingConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.sequence_scheduler import Sequence
+
+    model = _tiny_model(cuda)
+    outs = {}
+    for graphs in (True, False):
+        app = AppConfig(model=model.cfg)
+        app.inference.graphs = graphs
+        app.inference.max_batch_size = 4
+        app.inference.speculative = SpeculativeDecodingConfig(num_speculative_tokens=3)
+        eng = BatchEngine(model, _Tok(), app)
+        eng.warmup()
+        captured = eng.graphs.captured
+        rows = []
+        for sid, (n, blocks) in enumerate(((37, [5, 2, 9]), (70, [1, 3, 4, 7, 8]))):
+            seq = Sequence(seq_id=sid, prompt_tokens=list(range(3, 3 + n)),
+                           gen_cfg=GenerationConfig(temperature=0.0, repeat_penalty=1.0))
+            seq.block_table = blocks
+            rows.append(seq)
+        step = eng._verify_step(4)
+        table = step.build(rows + [None, None], [[11, 12, 13], [14]] + [[]] * 2,
+                           [np.full((64,), -1, np.int64)] * 4)
+        step.up.upload(table, step.tab)
+        read = _reset_counts()
+        eng.graphs.run(("verify", 4), step.verify_fn())
+        eng.graphs.run(("spec_finish", 4, False, False, False),
+                       step.finish_fn(False, False, False))
+        torch.cuda.synchronize()
+        assert eng.graphs.captured == captured          # warmup captured both
+        outs[graphs] = (step.logits[:2].clone(), step.out[False][:2].clone(), read())
+    (lg, og, ng), (le, oe, ne) = outs[True], outs[False]
+    assert torch.equal(lg, le) and torch.equal(og, oe)
+    assert ng == ne and ng[4] == model.num_layers           # B2 once a layer
+    assert torch.isfinite(lg).all()
+
+
+def test_paged_attention_kernel_repeated_tables_and_empty_rows(cuda):
+    """B2 as the verify step calls it: each of 3 rows' tables repeated k+1 =
+    6 times, a query row a position with ``position + 1`` keys and 0 past
+    the span; the live rows equal the plain version, rows with seq_len 0
+    are exact zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    bs, nb, mb, h_q, h_kv, d, k1 = 64, 32, 16, 32, 8, 128, 6
+    k_cache = torch.randn((nb * bs + 1, h_kv, d), device=cuda, generator=gen).to(torch.bfloat16)
+    v_cache = torch.randn((nb * bs + 1, h_kv, d), device=cuda, generator=gen).to(torch.bfloat16)
+    perm = torch.randperm(nb, device=cuda, generator=gen).to(torch.int32)
+    tables = torch.full((3, mb), 0x7FFFFFFF, dtype=torch.int32, device=cuda)
+    pos0, spans = [700, 63, 1000], [6, 1, 3]
+    for i, p in enumerate(pos0):
+        n = -(-(p + k1) // bs)
+        tables[i, :n] = perm[i * 10:i * 10 + n] if n <= 10 else perm[:n]
+    lens = torch.tensor([[p + j + 1 if j < s else 0 for j in range(k1)]
+                         for p, s in zip(pos0, spans)], dtype=torch.int32, device=cuda)
+    q = torch.randn((3 * k1, h_q, d), device=cuda, generator=gen).to(torch.bfloat16)
+    rep = tables.repeat_interleave(k1, dim=0)
+    for window in (None, 256):
+        got = paged_attention_decode(q, k_cache, v_cache, rep, lens.reshape(-1), block_size=bs,
+                                     num_blocks=nb, sliding_window=window, device=cuda)
+        ref = paged_attention_reference(q, k_cache, v_cache, rep, lens.reshape(-1),
+                                        block_size=bs, sliding_window=window)
+        live = lens.reshape(-1) > 0
+        err = (got[live].float() - ref[live].float()).abs().max().item()
+        assert err < 2e-2, err
+        assert torch.count_nonzero(got[~live]) == 0
+
+
 def test_executor_graphs_equal_eager(cuda):
     """The Executor's graphed step gives the eager step's tokens and
     logprobs (greedy with top-20 logprobs, and a seeded sampled request),

@@ -28,7 +28,8 @@ from blazr_tpu_torch.convert import params_from_jax
 from blazr_tpu_torch.engine import sampling as ts
 from blazr_tpu_torch.engine.batch_engine import BatchEngine
 from blazr_tpu_torch.models.registry import Model
-from blazr_tpu_torch.utils.synthetic import tiny_llama_config
+from blazr_tpu_torch.utils.synthetic import (synth_recurrent_params, tiny_llama_config,
+                                             tiny_recurrent_config)
 
 CPU = "cpu"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -143,10 +144,14 @@ def test_engine_refuses_what_it_does_not_serve(models):
     a.inference.kv_cache_dtype = "int4"
     with pytest.raises(ValueError, match="int4"):
         BatchEngine(tmodel, _Tok(), a)
-    a = AppConfig(model=tmodel.cfg)
+    # Speculation is served, but not over a recurrent state (ROADMAP §C).
+    ssm_cfg = tiny_recurrent_config("mamba2")
+    ssm = Model(ssm_cfg, synth_recurrent_params(ssm_cfg, quant="awq", dtype=torch.float32,
+                                                group_size=32, device="cpu"), torch.float32)
+    a = AppConfig(model=ssm_cfg)
     a.inference.speculative = SpeculativeDecodingConfig(num_speculative_tokens=2)
-    with pytest.raises(NotImplementedError, match="queue A"):
-        BatchEngine(tmodel, _Tok(), a)
+    with pytest.raises(ValueError, match="recurrent state"):
+        BatchEngine(ssm, _Tok(), a)
     # The prefix cache (and its host tier) is served now.
     a = AppConfig(model=tmodel.cfg)
     a.inference.prefix_cache = True
@@ -290,7 +295,7 @@ def test_port_imports_without_jax_or_blazr_tpu():
         "kvcache.ssm_state", "server.encoding", "server.pooling", "server.embeddings",
         "server.rerank", "server.tools", "server.anthropic", "server.responses",
         "server.infill", "server.audio", "server.slots", "server.management",
-        "server.config_watch", "config.user")} <= names
+        "server.config_watch", "config.user", "engine.speculative")} <= names
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
