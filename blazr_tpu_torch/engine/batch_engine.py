@@ -79,9 +79,22 @@ depth adapts to the acceptance (``_adapt_spec_depth``). Unlike the
 reference, the chain writes its last draft's K/V (ROADMAP §C), and a
 recurrent-state target or draft raises instead of turning speculation off.
 
-Left out of this slice, each naming its ROADMAP queue A item: LoRA (5a.6),
-tensor/sequence parallel meshes (13) and weight offload (12). A request or
-config that asks for one raises instead of being served differently.
+LoRA (``engine/lora.py``): the model has one live adapter, as in the JAX
+package, where the engine and the Executor share the model's params.
+``set_lora`` queues a switch and returns a future; the loop applies it at
+the next step boundary (``_lora_boundary``), stream-ordered after the rounds
+in flight, and running rows continue under the new weights, as they do in
+JAX. A request's ``lora_adapter`` (an adapter of ``lora_registry``) queues
+the switch to it before the request is scheduled. The switch writes dense
+weights and same-shaped low-rank buffers in place, so the captured graphs
+stay valid; a switch that replaced buffers drops the graphs, which are
+captured again at their next use. Every switch drops the prefix cache and
+its host tier: their K/V was computed under the previous weights (the JAX
+engine keeps serving it; ROADMAP §C). A draft model keeps its own weights.
+
+Left out of this slice, each naming its ROADMAP queue A item: tensor and
+sequence parallel meshes (13) and weight offload (12). A config that asks
+for one raises instead of being served differently.
 int4 KV on the paged path raises instead of being downgraded.
 
 Every family of ``models/paged_multi.py`` is served: MLA models on latent
@@ -98,6 +111,7 @@ pool's trash row. The prefix cache is off for them.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import dataclasses
 import logging
 import threading
@@ -121,6 +135,7 @@ from ..quant.qtensor import apply_quant_compute, quant_leaves
 from .decode_graph import TOPK_K, BatchStep, DraftChain, StepGraphs, VerifyStep, pack_rows
 from .grammar import GrammarState, make_grammar_state, padded_mask
 from .grammar_json import request_grammar_source
+from .lora import LoraAdapter, LoraAdapterRegistry, lora_state
 from .samplers import MirostatState, dry_breaker_ids, host_sample, needs_host_sampling
 from .sampling import SamplingParams, make_bias_rows, make_window, sample_tokens
 from .sequence_scheduler import (SchedulerConfig, Sequence, SequenceScheduler,
@@ -186,12 +201,6 @@ class RequestHandle:
 def _not_served(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not served by blazr_tpu_torch yet (ROADMAP queue A item {item})")
-
-
-def check_request(gen_cfg: GenerationConfig) -> None:
-    """Raise for a request that asks for what the port does not serve yet."""
-    if gen_cfg.lora_adapter:
-        raise _not_served("LoRA", "5a.6")
 
 
 class BatchEngine:
@@ -289,7 +298,17 @@ class BatchEngine:
         self._stop = False
         self._loop = None
         self._loop_thread = None
+        self._running = False
         self._defer_puts: Optional[list] = None
+        # LoRA: this engine applies the model's switches (the Executor on the
+        # same model hands its own to it); queued (adapter, future) pairs.
+        self._lora = lora_state(model)
+        self._lora.attach(self)
+        self._lora_epoch, self._lora_sig = self._lora.epoch, self._lora.sig
+        self._lora_mu = threading.Lock()
+        self._lora_pending: list[tuple[Optional[LoraAdapter], concurrent.futures.Future]] = []
+        # Where a request's ``lora_adapter`` is looked up (the server's).
+        self.lora_registry: Optional[LoraAdapterRegistry] = None
 
     @staticmethod
     def _check_config(inf) -> None:
@@ -351,11 +370,15 @@ class BatchEngine:
                gen_cfg: Optional[GenerationConfig] = None) -> RequestHandle:
         gen_cfg = gen_cfg or GenerationConfig()
         gen_cfg.validate()
-        check_request(gen_cfg)
-        # What can reject the request (the grammar's compile) runs before
-        # the scheduler is touched: a failure after add_request would leave
-        # an orphaned sequence queued.
+        # What can reject the request (an adapter not loaded, the grammar's
+        # compile) runs before the scheduler is touched: a failure after
+        # add_request would leave an orphaned sequence queued.
+        name = gen_cfg.lora_adapter
+        adapter = (LoraAdapterRegistry.lookup(self.lora_registry, name)
+                   if name and name != self._lora.active else None)
         g = self._grammar_for(gen_cfg)
+        if adapter is not None:
+            self.set_lora(adapter)          # lands before this request is scheduled
         seq_id = self.scheduler.add_request(prompt_tokens, gen_cfg)
         handle = RequestHandle(seq_id=seq_id, queue=asyncio.Queue(),
                                prompt_tokens=len(prompt_tokens))
@@ -409,6 +432,60 @@ class BatchEngine:
         self._notify.set()
 
     # ------------------------------------------------------------------
+    # LoRA
+    # ------------------------------------------------------------------
+    def set_lora(self, adapter: Optional[LoraAdapter]) -> concurrent.futures.Future:
+        """Queue a switch to ``adapter`` (None: the base) for the next step
+        boundary; the future ends when it landed (its exception: an adapter
+        the model cannot take). With no loop running, now is a boundary."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._lora_mu:
+            self._lora_pending.append((adapter, fut))
+        if not self._running:
+            self._lora_boundary()
+        else:
+            self._loop.call_soon_threadsafe(self._notify.set)
+        return fut
+
+    def clear_lora(self) -> concurrent.futures.Future:
+        return self.set_lora(None)
+
+    @property
+    def active_lora(self) -> Optional[str]:
+        return self._lora.active
+
+    def _lora_boundary(self) -> None:
+        """Between two steps: apply the queued switches, then drop what a
+        switch made stale: cached K/V of the previous weights (the prefix
+        cache and its host tier) and graphs over replaced LoRA buffers."""
+        with self._lora_mu:
+            pending, self._lora_pending = self._lora_pending, []
+        for adapter, fut in pending:
+            try:
+                self._lora.activate(adapter)
+            except Exception as e:          # the caller's to see
+                fut.set_exception(e)
+            else:
+                fut.set_result(self._lora.active)
+        if self._lora.epoch != self._lora_epoch:
+            self._lora_epoch = self._lora.epoch
+            if self.prefix_cache is not None:
+                self.prefix_cache.clear()
+            self.perf["lora_switch_n"] += 1
+        self._sync_graphs()
+
+    def _sync_graphs(self) -> None:
+        if self._lora.sig != self._lora_sig:
+            self._lora_sig = self._lora.sig
+            self.graphs.reset()
+
+    def _holding_weights(self, fn, *args, **kw):
+        """``fn`` with LoRA switches held off (another engine's included)."""
+        with self._lora.lock:
+            self._sync_graphs()
+            return fn(*args, **kw)
+
+    # ------------------------------------------------------------------
     # main loop
     # ------------------------------------------------------------------
     async def run(self) -> None:
@@ -417,9 +494,20 @@ class BatchEngine:
         # wakes the loop for each delivery (see _put_now).
         self._loop = asyncio.get_running_loop()
         self._loop_thread = threading.get_ident()
+        self._notify = asyncio.Event()      # of this loop (an engine may serve again)
+        self._running = True
         logger.info("batch engine started (max_batch=%d, blocks=%d, device=%s)",
                     self.max_batch, self.allocator.num_blocks, self.device)
+        try:
+            await self._serve()
+        finally:
+            self._running = False
+            self._lora_boundary()       # a switch queued as the loop ended
+        logger.info("batch engine stopped")
+
+    async def _serve(self) -> None:
         while not self._stop:
+            self._lora_boundary()
             if not self.scheduler.has_work:
                 # No running rows: unread rounds are overrun of finished or
                 # aborted sequences; drop them.
@@ -437,7 +525,6 @@ class BatchEngine:
                 for seq in list(self.scheduler.running.values()):
                     self.scheduler.abort_sequence(seq.seq_id)
                     self._finish(seq.seq_id, None)
-        logger.info("batch engine stopped")
 
     async def step_once(self) -> bool:
         """One scheduling iteration: schedule, dispatch prefills, run ONE
@@ -459,7 +546,7 @@ class BatchEngine:
                        for s in batch.decode_sequences)
         if batch.prefill_sequences:
             t0 = time.perf_counter()
-            pending = await asyncio.to_thread(self._dispatch_prefills,
+            pending = await asyncio.to_thread(self._holding_weights, self._dispatch_prefills,
                                               batch.prefill_sequences, cold=cold)
             self.perf["prefill"] += time.perf_counter() - t0
             self.perf["prefill_n"] += 1
@@ -467,7 +554,8 @@ class BatchEngine:
                    if s.state == SequenceState.RUNNING]
         if decodes:
             t0 = time.perf_counter()
-            await asyncio.to_thread(self._process_decode_batch, decodes)
+            await asyncio.to_thread(self._holding_weights, self._process_decode_batch,
+                                    decodes)
             self.perf["decode"] += time.perf_counter() - t0
             self.perf["decode_n"] += 1
         if pending:

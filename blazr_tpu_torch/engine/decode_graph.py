@@ -25,6 +25,10 @@ place.
 The plans the wrappers take from shapes and the knobs they read
 (``BLAZR_TPU_STREAM_KERNEL``) are frozen into a graph at capture.
 
+A LoRA switch that replaces the low-rank buffers a graph reads
+(``engine/lora.py``) makes its engine call ``reset``: the graphs go, and
+each key is captured again at its next use (``captures`` counts them all).
+
 Launch counts: a wrapper counts its launch in Python, which a replay does
 not run. The capture takes each wrapper's tally (the counts the captured
 call added without launching) and takes it back; every replay adds it, so
@@ -54,12 +58,13 @@ _BIAS = 16                              # logit-bias entries a row (make_bias_ro
 def counted() -> tuple:
     """Every kernel wrapper of the port that counts its launches."""
     from ..attention.paged_attention import paged_attention_decode
+    from ..models.layers import lora_matmul
     from ..quant import int8, kernels
     from ..tools.bench_pa_headmajor import pa_headmajor
     from ..tools.bench_pa_wide import pa_wide
 
     return (kernels.qmm, kernels.qmm_stream, int8.qmm_int8, int8.quantize_activations,
-            paged_attention_decode, pa_wide, pa_headmajor)
+            paged_attention_decode, pa_wide, pa_headmajor, lora_matmul)
 
 
 class StepGraphs:
@@ -73,10 +78,20 @@ class StepGraphs:
         self._pool = None
         self.capture_s = 0.0            # wall time of warm runs and captures
         self.pool_bytes = 0             # memory the graphs' pool holds
+        self.captures = 0               # every capture, those before a reset too
 
     @property
     def captured(self) -> int:
         return len(self._graphs)
+
+    def reset(self) -> None:
+        """Drop every graph: the next call of each key captures it again,
+        into a new pool. Replays in flight end first: their graphs and
+        pool go with this call."""
+        if self.enabled and self._graphs:
+            torch.cuda.synchronize(self.device)
+        self._graphs.clear()
+        self._pool = None
 
     def run(self, key: Hashable, fn: Callable[[], None]) -> None:
         """One step of ``fn`` under ``key``."""
@@ -122,6 +137,7 @@ class StepGraphs:
         torch.cuda.empty_cache()
         self.pool_bytes += max(0, torch.cuda.memory_reserved(dev) - reserved)
         self.capture_s += time.perf_counter() - t0
+        self.captures += 1
         return graph, tally
 
 
@@ -657,6 +673,7 @@ class ExecutorStep:
                     for w in (False, True)}
         self.mask = torch.ones((1, model.vocab_size), dtype=torch.bool, device=device)
         self.logits = torch.zeros((1, model.vocab_size), dtype=torch.float32, device=device)
+        self.lora_epoch = 0             # the LoRA switch its K/V was computed after
 
     def build(self, cfg: GenerationConfig, tok: int, pos: int, step: int,
               window: np.ndarray) -> np.ndarray:

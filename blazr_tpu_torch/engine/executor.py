@@ -35,13 +35,23 @@ variant, a forward alone), with a seeded numpy generator.
 Speculative decoding (``engine/speculative.py``) drives ``_forward_step``
 and ``_verify_step`` (JAX :147-156) over caches taken from ``_take``.
 
+LoRA (JAX :565-592): ``set_lora`` / ``clear_lora`` switch the model's one
+live adapter (``engine/lora.py``), through the model's ``BatchEngine`` at
+its next step boundary when one serves the same model; a request's
+``lora_adapter`` names an adapter of ``lora_registry`` and switches to it.
+Every forward holds the switch's lock. After a switch the session's K/V,
+computed under the previous weights, is never reused (the JAX executor
+reuses it; ROADMAP §C), and graphs over replaced LoRA buffers are captured
+again.
+
 Not served yet; each raises ``NotImplementedError`` naming its ROADMAP
-queue A item, as ``BatchEngine`` does: LoRA (5a.6), TP/EP/SP meshes and
-ring prefill (13), MoE offload and streaming (host-offloaded) models (12).
+queue A item, as ``BatchEngine`` does: TP/EP/SP meshes and ring prefill
+(13), MoE offload and streaming (host-offloaded) models (12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -54,10 +64,11 @@ from ..config.app import AppConfig
 from ..config.generation import GenerationConfig
 from ..models.registry import Model
 from ..quant.qtensor import apply_quant_compute
-from .batch_engine import _next_pow2, _not_served, check_request
+from .batch_engine import _next_pow2, _not_served
 from .decode_graph import TOPK_K, ExecutorStep, StepGraphs, pack_rows
 from .grammar import make_grammar_state, padded_mask
 from .grammar_json import request_grammar_source
+from .lora import LoraAdapter, LoraAdapterRegistry, lora_state
 from .samplers import MirostatState, dry_breaker_ids, host_sample, needs_host_sampling
 from .sampling import SamplingParams, make_bias_rows, make_window, sample_tokens
 from .types import GeneratedToken, TokenLogprob
@@ -91,6 +102,10 @@ class Executor:
         # In place: a w8a8-widened weight replaces its 4-bit copy one leaf
         # at a time, so the 4-bit copy is freed.
         apply_quant_compute(model.params, inf.quant_compute, inplace=True)
+        self._lora = lora_state(model)
+        self._lora_sig = self._lora.sig
+        # Where a request's ``lora_adapter`` is looked up (the server's).
+        self.lora_registry: Optional[LoraAdapterRegistry] = None
 
     @staticmethod
     def _check_config(inf) -> None:
@@ -107,6 +122,42 @@ class Executor:
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+    # ------------------------------------------------------------------
+    # LoRA
+    # ------------------------------------------------------------------
+    def set_lora(self, adapter: Optional[LoraAdapter]) -> None:
+        """Make ``adapter`` (None: the base) the model's live adapter: over
+        the clean base, so adapters replace each other. Raises
+        ``ValueError`` for an adapter with modules the model cannot take."""
+        engine = self._lora.engine
+        if engine is not None:
+            engine.set_lora(adapter).result()
+        else:
+            self._lora.activate(adapter)
+
+    def clear_lora(self) -> None:
+        self.set_lora(None)
+
+    @property
+    def active_lora(self) -> Optional[str]:
+        return self._lora.active
+
+    def select_lora(self, name: Optional[str]) -> None:
+        """Switch to the registry's adapter ``name`` unless it is live;
+        ``KeyError`` when it is not loaded."""
+        if name and name != self._lora.active:
+            self.set_lora(LoraAdapterRegistry.lookup(self.lora_registry, name))
+
+    @contextlib.contextmanager
+    def _weights(self):
+        """Hold the LoRA switch off while device work is queued; graphs over
+        LoRA buffers a switch replaced are dropped first."""
+        with self._lora.lock:
+            if self._lora.sig != self._lora_sig:
+                self.graphs.reset()
+                self._lora_sig = self._lora.sig
+            yield
 
     def _init_cache(self, batch: int):
         """The family's cache honouring ``inference.kv_cache_dtype`` (int8
@@ -131,6 +182,9 @@ class Executor:
         if (not self.app_cfg.inference.prefix_cache or self._session is None
                 or self._session[1] not in self._free):
             return None, 0
+        if self._session[1].lora_epoch != self._lora.epoch:
+            self._session = None          # K/V of other weights (a LoRA switch)
+            return None, 0
         toks, step = self._session
         limit = min(len(toks), len(prompt_ids) - 1)
         n = 0
@@ -145,7 +199,8 @@ class Executor:
     def _session_save(self, fed_tokens: list[int], step: ExecutorStep) -> None:
         # Positional caches only (KV, MLA latents): a recurrent state holds
         # every token fed and cannot be trimmed back to a prefix.
-        if self.app_cfg.inference.prefix_cache and not self.model.needs_ssm_state:
+        if (self.app_cfg.inference.prefix_cache and not self.model.needs_ssm_state
+                and step.lora_epoch == self._lora.epoch):
             self._session = (list(fed_tokens), step)
 
     def _take(self, prompt_ids: list[int], reuse: bool = True) -> tuple[ExecutorStep, int]:
@@ -170,6 +225,8 @@ class Executor:
                     step.cache.length.zero_()
             if step in self._free:
                 self._free.remove(step)
+            if start == 0:
+                step.lora_epoch = self._lora.epoch   # the weights its K/V is under
             return step, start
 
     def _give_back(self, fed_tokens: Optional[list[int]], step: ExecutorStep) -> None:
@@ -188,6 +245,10 @@ class Executor:
         two; pad positions write to the cache's trash slot. Models with a
         recurrent state run exact power-of-two pieces instead (JAX :308-332):
         a pad token would enter the scan."""
+        with self._weights():
+            return self._prefill(cache, prompt_ids, start_pos)
+
+    def _prefill(self, cache, prompt_ids: list[int], start_pos: int):
         n = len(prompt_ids)
         assert n > 0, "empty prompt"
         bucket = min(_next_pow2(n), self.capacity)
@@ -233,9 +294,10 @@ class Executor:
         model = self.model
         t = hidden.shape[1]
         positions = torch.arange(t, device=self.device)[None]
-        x, _ = forward_layers_range(model.params, model.cfg, hidden.to(model.dtype), cache,
-                                    positions, 0, model.num_layers)
-        return forward_head(model.params, model.cfg, x[:, -1:])[:, -1, :]
+        with self._weights():
+            x, _ = forward_layers_range(model.params, model.cfg, hidden.to(model.dtype),
+                                        cache, positions, 0, model.num_layers)
+            return forward_head(model.params, model.cfg, x[:, -1:])[:, -1, :]
 
     @torch.no_grad()
     def _forward_step(self, cache, tokens: torch.Tensor, positions: torch.Tensor,
@@ -243,7 +305,8 @@ class Executor:
         """(the last position's logits [1, V], cache): one forward over a
         cache from ``_take`` (JAX ``forward_step``, :147-150), written in
         place; the speculative executors' draft step."""
-        logits, cache = self.model.forward(tokens, cache, positions, seq_lens)
+        with self._weights():
+            logits, cache = self.model.forward(tokens, cache, positions, seq_lens)
         return logits[:, -1, :], cache
 
     @torch.no_grad()
@@ -251,7 +314,8 @@ class Executor:
                      seq_lens: torch.Tensor):
         """(logits [1, T, V] of every position, cache): the speculative
         verify over ``[cur, drafts...]`` (JAX ``verify_step``, :152-156)."""
-        return self.model.forward(tokens, cache, positions, seq_lens)
+        with self._weights():
+            return self.model.forward(tokens, cache, positions, seq_lens)
 
     @torch.no_grad()
     def _decode(self, step: ExecutorStep, cfg: GenerationConfig, tok: int, pos: int,
@@ -269,8 +333,9 @@ class Executor:
             cfg, tok, pos, index, make_window(history, cfg.repeat_last_n))))
         if mode == "mask":
             step.mask.copy_(torch.from_numpy(padded_mask(grammar, self.model.vocab_size))[None])
-        self.graphs.run((step, use_topk, sampled, mode),
-                        step.step_fn(use_topk, sampled, mode))
+        with self._weights():
+            self.graphs.run((step, use_topk, sampled, mode),
+                            step.step_fn(use_topk, sampled, mode))
         if mode == "raw":
             return self._host_row(step.logits, grammar, host, history)
         return self._row(step.out[use_topk][0].cpu().numpy(), cfg)
@@ -361,7 +426,7 @@ class Executor:
                   hidden: Optional[torch.Tensor]) -> Iterator[GeneratedToken]:
         cfg = gen_cfg or self.app_cfg.generation
         cfg.validate()
-        check_request(cfg)
+        self.select_lora(cfg.lora_adapter)
         n_ctx = len(prompt_ids) if hidden is None else hidden.shape[1]
         max_new = min(cfg.max_tokens, self.capacity - n_ctx)
         if max_new <= 0:

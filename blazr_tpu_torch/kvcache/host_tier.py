@@ -99,6 +99,11 @@ class HostKVTier:
         self.stats.restored += 1
         return tuple(p[slot] for p in self._pool)
 
+    def clear(self) -> None:
+        """Drop every entry; their slots are free again."""
+        self._free.extend(self._store.values())
+        self._store.clear()
+
     def __contains__(self, h: bytes) -> bool:
         return h in self._store
 

@@ -227,6 +227,23 @@ class PrefixCache:
         if pend:
             pend[:] = [p for p in pend if p[0] != blk]
 
+    def clear(self) -> None:
+        """Serve nothing cached from now on (a LoRA switch changed the
+        weights the K/V was computed under): every registered hash goes, its
+        cache reference freed (blocks that sequences hold stay theirs, and
+        blocks registered but not yet computed are never served), and the
+        host tier empties."""
+        for h, blk in self._by_hash.items():
+            self.allocator.free([blk])
+        self.stats.cached_blocks -= len(self._by_hash)
+        self._by_hash.clear()
+        self._hash_of.clear()
+        self._lru.clear()
+        self._computed.clear()
+        self._pending.clear()
+        if self.host_tier is not None:
+            self.host_tier.clear()
+
     # ------------------------------------------------------------------
     def _fresh_block(self) -> BlockId:
         while not self.allocator.can_allocate(1):

@@ -2,13 +2,18 @@
 
 Counterpart of ``blazr_tpu/models/layers.py``. Linear weights are stored
 [in_features, out_features] so the forward is ``x @ w``; quantized weights
-are ``quant.qtensor.QuantTensor`` and go through kernel B1. ``attend`` is
+are ``quant.qtensor.QuantTensor`` and go through kernel B1 (or B3, B4), and
+a packed weight under a LoRA adapter is a ``LoraLinear`` (JAX
+``engine/lora.py:30``), whose low-rank term is two plain matmuls beside the
+base's kernel, as in the JAX package, where it is XLA outside any Pallas
+kernel (``layers.py:35-47``). ``attend`` is
 XLA einsums in the JAX package, not a Pallas kernel, so it stays plain
 PyTorch here (prefill attention).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Any, Optional
@@ -21,12 +26,41 @@ from ..quant.matmul import quant_matmul
 from ..quant.qtensor import QuantTensor
 
 
+@dataclasses.dataclass
+class LoraLinear:
+    """A packed base weight and an activation-side LoRA term: ``linear``
+    computes ``x @ base + (x @ a) @ b``, the base staying packed (merging W
+    + s·BA would dequantize it). ``a`` and ``b`` are buffers a captured
+    decode graph reads: a switch to an adapter of the same shapes writes
+    them in place (``engine/lora.py``)."""
+
+    base: QuantTensor
+    a: torch.Tensor                 # [in, r]
+    b: torch.Tensor                 # [r, out], the scale folded in
+
+
+def lora_matmul(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(x @ a) @ b`` in x's dtype: two plain matmuls, counted in
+    ``launches`` (two a call) so that a replayed graph's share is known."""
+    lora_matmul.launches += 2
+    return (x @ a.to(x.dtype)) @ b.to(x.dtype)
+
+
+lora_matmul.launches = 0
+
+
 def linear(x: torch.Tensor, w: Any, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x @ w`` where ``w`` is a plain [K, N] tensor or a QuantTensor."""
+    """``x @ w`` where ``w`` is a plain [K, N] tensor, a QuantTensor, or a
+    LoraLinear (its base's route, then the low-rank term, then the bias)."""
+    lora = None
+    if isinstance(w, LoraLinear):
+        lora, w = w, w.base
     if isinstance(w, QuantTensor):
         y = quant_matmul(x, w)
     else:
         y = x @ w.to(x.dtype)
+    if lora is not None:
+        y = y + lora_matmul(x, lora.a, lora.b)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

@@ -356,6 +356,8 @@ class Model:
     # JAX :275-281): ``encode_images``'s f32 params and its VisionConfig.
     vision_params: Any = None
     vision_cfg: Any = None
+    # The live LoRA adapter's state (``engine/lora.py::lora_state``).
+    lora: Any = None
 
     @property
     def is_multimodal(self) -> bool:

@@ -3,7 +3,9 @@
 ``pda.cpp`` is the port's copy of ``blazr_tpu/native/pda.cpp``: the exact
 pushdown automaton of the grammar tier (``engine/grammar_pda.py``).
 ``jpeg.cpp`` is the port's baseline JPEG decoder (``utils/preprocess.py``;
-the JAX package decodes images with Pillow). Each is compiled with ``g++ -O3 -shared -fPIC -std=c++17`` into
+the JAX package decodes images with Pillow). ``bpe.cpp`` is the port's copy
+of ``blazr_tpu/native/bpe.cpp``: the BPE merge core and pre-tokenizer of
+``tokenizer/bpe.py`` (``tokenizer/bpe_native.py``). Each is compiled with ``g++ -O3 -shared -fPIC -std=c++17`` into
 ``native/_build/lib<name>-<hash>.so`` (the hash covers the source and the
 flags; the directory is listed in ``.gitignore``) and loaded with
 ``ctypes``. A build or load that fails raises: nothing falls back to a

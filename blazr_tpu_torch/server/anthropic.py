@@ -22,12 +22,11 @@ import json
 import time
 
 from ..config.generation import GenerationConfig
-from ..engine.batch_engine import check_request
 from ..engine.generate_text import collect_generation
 from ..model_meta.chat_template import ChatMessage, ChatTemplate
 from .api_types import ApiError, new_id
 from .app import (Response, _collect_via_engine, _get_executor, _overloaded, _stream,
-                  generation_defaults)
+                  apply_request_lora, generation_defaults)
 
 STOP_REASONS = {"eos": "end_turn", "length": "max_tokens", "stop": "stop_sequence"}
 
@@ -87,7 +86,7 @@ async def messages_handler(request):
     executor = await asyncio.to_thread(_get_executor, state, body)
     prompt_ids = _prompt_ids(executor, body)
     cfg = _gen_config(body, generation_defaults(state, executor))
-    check_request(cfg)
+    await apply_request_lora(request, executor, cfg)
     budget = len(prompt_ids) + cfg.max_tokens
     if not state.try_admit(budget):
         return _overloaded()

@@ -7,9 +7,8 @@ connection after each response, so a streamed (SSE, ``text/event-stream``)
 body simply ends when the connection does. The continuous-batching engine's
 ``run()`` is a task on the same event loop.
 
-Routes: every one of the JAX ``create_app`` (app.py:1020-1060) but the
-three ``/v1/lora`` routes, which answer 501 naming ROADMAP queue A item
-5a.6. ``/health``, ``/metrics`` (the Prometheus text format,
+Routes: every one of the JAX ``create_app`` (app.py:1020-1060).
+``/health``, ``/metrics`` (the Prometheus text format,
 unauthenticated like ``/health``), ``/v1/models[/{id}]``,
 ``/v1/completions`` and ``/v1/chat/completions`` (streaming and not; a chat
 with ``tools`` gets the tools system prompt and its reply's tool calls,
@@ -20,8 +19,11 @@ time and its image rows counted in the token budget), ``/tokenize``, ``/detokeni
 ``/v1/messages`` (the Anthropic API, ``server/anthropic.py``, with its
 ``event:`` stream) and ``/v1/messages/count_tokens``, ``/v1/responses``,
 ``/v1/infill``, ``/v1/embeddings``, ``/rerank`` and ``/v1/rerank``, the
-audio stubs (the JAX 501 bodies), and the Ollama-style management and slot
-routes (``server/management.py``; ``/api/pull`` streams NDJSON lines). Bearer/
+audio stubs (the JAX 501 bodies), the Ollama-style management and slot
+routes (``server/management.py``; ``/api/pull`` streams NDJSON lines), and
+the ``/v1/lora`` routes (``server/lora_routes.py``; a generation request's
+``lora_adapter`` switches the model's live adapter on every generation
+route, where the JAX server switches on completions and chat only). Bearer/
 x-api-key auth, the ``max_inflight_tokens`` admission of the JAX server
 (503 + Retry-After), CORS, the per-request timeout (408) and the
 concurrency cap. ``ServerConfig.tls_cert`` and ``tls_key`` serve HTTPS
@@ -49,10 +51,10 @@ from urllib.parse import urlsplit
 
 from ..config.generation import GenerationConfig
 from ..config.server import ServerConfig
-from ..engine.batch_engine import check_request
 from ..engine.generate_text import StopScanner, collect_generation, stream_generation
 from ..engine.grammar_json import request_grammar_source
 from ..engine.grammar_parser import GrammarParseError
+from ..engine.lora import LoraAdapterRegistry, lora_state
 from ..engine.model_scheduler import ModelScheduler
 from ..engine.types import FinishReason, GenerationResult
 from ..model_meta.chat_template import ChatMessage, ChatTemplate, TemplateFormat
@@ -78,10 +80,6 @@ _REASONS = {200: "OK", 201: "Created", 204: "No Content", 400: "Bad Request",
             500: "Internal Server Error", 501: "Not Implemented",
             503: "Service Unavailable"}
 _MAX_HEADER_BYTES = 64 * 1024
-
-# Routes of the JAX create_app (app.py:1020-1060) this server does not serve:
-# the LoRA adapter registry comes with engine/lora.py.
-UNPORTED_ROUTES = [("POST", "/v1/lora"), ("GET", "/v1/lora"), ("DELETE", "/v1/lora/{name}")]
 
 
 # ---------------------------------------------------------------------------
@@ -337,6 +335,8 @@ class AppState:
     # cache outside the batch engine's pool (the JAX server neither gates
     # them nor counts their image rows in the token budget).
     media_gate: asyncio.Semaphore = field(default_factory=lambda: asyncio.Semaphore(1))
+    # The loaded LoRA adapters (the /v1/lora routes).
+    lora_registry: LoraAdapterRegistry = field(default_factory=LoraAdapterRegistry)
 
     def __post_init__(self) -> None:
         if self.slo is None:
@@ -421,9 +421,11 @@ def generation_defaults(state: AppState, executor) -> GenerationConfig:
 def _get_executor(state: AppState, body: dict):
     name = body.get("model") or "default"
     try:
-        return state.scheduler.get_executor(name, body.get("keep_alive"))
+        ex = state.scheduler.get_executor(name, body.get("keep_alive"))
     except FileNotFoundError as e:
         raise ApiError(404, str(e), "not_found_error")
+    ex.lora_registry = state.lora_registry
+    return ex
 
 
 def _context_prefix(executor, body: dict) -> str:
@@ -555,6 +557,32 @@ async def get_model(request: Request) -> Response:
                           "owned_by": "blazr_tpu"})
 
 
+async def set_live_lora(executor, adapter) -> None:
+    """Make ``adapter`` (None: the base) the live adapter of ``executor``'s
+    model, off the event loop (through the model's batch engine, at its
+    next step boundary, when one serves it); an adapter the model cannot
+    take answers 400."""
+    if lora_state(executor.model).adapter is adapter:
+        return
+    try:
+        await asyncio.to_thread(executor.set_lora, adapter)
+    except ValueError as e:
+        raise ApiError(400, str(e))
+
+
+async def apply_request_lora(request: Request, executor, cfg: GenerationConfig) -> None:
+    """A request's ``lora_adapter`` (JAX ``_apply_request_lora``,
+    app.py:335-351): 404 when it is not loaded, else it becomes the live
+    adapter before the request runs."""
+    if not cfg.lora_adapter:
+        return
+    adapter = request.app.state.lora_registry.get(cfg.lora_adapter)
+    if adapter is None:
+        raise ApiError(404, f"LoRA adapter {cfg.lora_adapter!r} not loaded",
+                       "not_found_error")
+    await set_live_lora(executor, adapter)
+
+
 async def compile_grammar(executor, cfg: GenerationConfig) -> None:
     """Compile a request's grammar off the event loop, before any reply
     byte: a grammar that does not parse answers 400, streamed or not, and
@@ -570,7 +598,7 @@ async def completions(request: Request):
     validate_generation_params(body)
     executor = await asyncio.to_thread(_get_executor, state, body)
     cfg = gen_config_from_body(body, generation_defaults(state, executor))
-    check_request(cfg)
+    await apply_request_lora(request, executor, cfg)
     await compile_grammar(executor, cfg)
     ctx_prefix = _context_prefix(executor, body)
     prompt = body.get("prompt", "")
@@ -644,7 +672,7 @@ async def chat_completions(request: Request):
     validate_generation_params(body)
     executor = await asyncio.to_thread(_get_executor, state, body)
     cfg = gen_config_from_body(body, generation_defaults(state, executor))
-    check_request(cfg)
+    await apply_request_lora(request, executor, cfg)
     await compile_grammar(executor, cfg)
     prompt = _context_prefix(executor, body) + _build_prompt(body, executor.model.cfg)
     prompt_ids = executor.tokenizer.encode(prompt)
@@ -838,11 +866,6 @@ async def apply_template(request: Request) -> Response:
     return Response.json({"prompt": _build_prompt(body, executor.model.cfg)})
 
 
-async def not_ported(request: Request):
-    raise ApiError(501, f"{request.method} {request.path} is not served by "
-                   "blazr_tpu_torch yet (ROADMAP queue A item 5a.6)", "not_implemented_error")
-
-
 # ---------------------------------------------------------------------------
 # app factory
 # ---------------------------------------------------------------------------
@@ -855,6 +878,7 @@ def create_app(scheduler: ModelScheduler, server_cfg: Optional[ServerConfig] = N
     from .audio import speech_handler, transcriptions_handler
     from .embeddings import embeddings_handler
     from .infill import infill_handler
+    from .lora_routes import lora_delete, lora_list, lora_load
     from .rerank import rerank_handler
     from .responses import responses_handler
 
@@ -882,13 +906,15 @@ def create_app(scheduler: ModelScheduler, server_cfg: Optional[ServerConfig] = N
             ("POST", "/rerank", rerank_handler), ("POST", "/v1/rerank", rerank_handler),
             ("POST", "/v1/infill", infill_handler),
             ("POST", "/v1/audio/speech", speech_handler),
-            ("POST", "/v1/audio/transcriptions", transcriptions_handler)):
+            ("POST", "/v1/audio/transcriptions", transcriptions_handler),
+            ("POST", "/v1/lora", lora_load), ("GET", "/v1/lora", lora_list),
+            ("DELETE", "/v1/lora/{name}", lora_delete)):
         app.add(method, path, handler)
-    for method, path in UNPORTED_ROUTES:
-        app.add(method, path, not_ported)
 
     tasks: dict[str, asyncio.Task] = {}
     if batch_engine is not None:
+        batch_engine.lora_registry = state.lora_registry
+
         async def start_engine():
             tasks["engine"] = asyncio.create_task(batch_engine.run())
 

@@ -12,11 +12,10 @@ from __future__ import annotations
 
 import asyncio
 
-from ..engine.batch_engine import check_request
 from ..engine.generate_text import collect_generation
 from .api_types import ApiError, gen_config_from_body, new_id, usage_dict
 from .app import (Response, _collect_via_engine, _get_executor, _overloaded,
-                  generation_defaults)
+                  apply_request_lora, generation_defaults)
 
 FIM_PREFIX_ALIASES = ["<fim_prefix>", "<|fim_prefix|>", "<PRE>", "<|fim▁begin|>"]
 FIM_SUFFIX_ALIASES = ["<fim_suffix>", "<|fim_suffix|>", "<SUF>", "<|fim▁hole|>"]
@@ -63,7 +62,7 @@ async def infill_handler(request):
         cfg.validate()
     except (TypeError, ValueError) as e:
         raise ApiError(400, f"invalid sampling parameters: {e}")
-    check_request(cfg)
+    await apply_request_lora(request, executor, cfg)
     budget = len(prompt_ids) + cfg.max_tokens
     if not state.try_admit(budget):
         return _overloaded()

@@ -13,13 +13,12 @@ import asyncio
 import time
 
 from ..config.generation import GenerationConfig
-from ..engine.batch_engine import check_request
 from ..engine.generate_text import collect_generation
 from ..model_meta.chat_template import ChatMessage, ChatTemplate
 from ..model_meta.think import extract_thinking
 from .api_types import ApiError, new_id
 from .app import (Response, _collect_via_engine, _get_executor, _overloaded,
-                  generation_defaults)
+                  apply_request_lora, generation_defaults)
 
 
 def _input_to_messages(body: dict) -> list[ChatMessage]:
@@ -67,7 +66,7 @@ async def responses_handler(request):
         cfg.validate()
     except (TypeError, ValueError) as e:
         raise ApiError(400, f"invalid sampling parameters: {e}")
-    check_request(cfg)
+    await apply_request_lora(request, executor, cfg)
     budget = len(prompt_ids) + cfg.max_tokens
     if not state.try_admit(budget):
         return _overloaded()

@@ -2,8 +2,13 @@ r"""Byte-level BPE engine.
 
 Counterpart of ``blazr_tpu/tokenizer/bpe.py``: byte-pair encoding over a
 rank table with regex pre-tokenization (tiktoken-style), special-token
-handling, and exact decode. The merge loop is Python (the JAX package's C++
-core, ``blazr_tpu/native/bpe.cpp``, is not ported: ROADMAP queue A).
+handling, and exact decode. Encoding runs the C++ core (``native/bpe.cpp``,
+the port's copy of ``blazr_tpu/native/bpe.cpp``, through
+``tokenizer/bpe_native.py``), as the JAX tokenizer does (its :64-79): for
+the GPT-2 and cl100k/llama3 patterns the core pre-tokenizes and merges in
+one call, for the others it merges the pieces the Python pattern cuts. The
+Python merge loop stays as the plain version (``native=False``), which the
+tests hold the core to; a core that does not build or load raises.
 
 The pre-tokenization patterns use Unicode property classes (``\p{L}``,
 ``\p{N}``, ...) that the standard library's ``re`` lacks. ``compile_pattern``
@@ -159,6 +164,7 @@ class BpeTokenizer:
         special_tokens: Optional[dict[str, int]] = None,
         bos_token_id: Optional[int] = None,
         eos_token_id: Optional[int] = None,
+        native: bool = True,
     ):
         self.ranks = ranks
         self._pattern_str = pattern
@@ -177,6 +183,15 @@ class BpeTokenizer:
         else:
             self._special_re = None
         self._n_vocab = max(self._decoder) + 1 if self._decoder else 0
+        self._native = None
+        self._native_mode = None     # 0 the GPT-2 pattern, 1 the cl100k family
+        if native:
+            from .bpe_native import NativeBpe
+
+            self._native = NativeBpe(ranks)
+            self._native_mode = {PATTERN_GPT2: 0, PATTERN_CL100K: 1}.get(pattern)
+            if self._native_mode is not None:
+                self._native.enable_pretokenizer()
 
     # -- introspection -----------------------------------------------------
     @property
@@ -229,6 +244,11 @@ class BpeTokenizer:
 
     def encode_ordinary(self, text: str) -> list[int]:
         """Encode without special-token recognition."""
+        if self._native is not None:
+            if self._native_mode is not None:
+                return self._native.encode_text(text.encode("utf-8"), self._native_mode)
+            pieces = [m.group().encode("utf-8") for m in self.pattern.finditer(text)]
+            return self._native.encode_pieces(pieces) if pieces else []
         ids: list[int] = []
         for m in self.pattern.finditer(text):
             ids.extend(self._bpe_merge(m.group().encode("utf-8")))

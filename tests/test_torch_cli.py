@@ -63,17 +63,32 @@ def _in_queue_a(item: str) -> bool:
     return item in entries or any(f"({item})" in body for body in entries.values())
 
 
-# Grammars (5a.4) and the host samplers (5a.3) are served since they were
-# ported; LoRA is the one request feature left to refuse.
+# Grammars (5a.4), the host samplers (5a.3) and LoRA (5a.6) are served
+# since they were ported: no request feature is refused any more. A request
+# that names a LoRA adapter the engine's registry lacks fails as not loaded.
 _REQUESTS = {"lora": dict(lora_adapter="a")}
-_ITEMS = {"lora": "5a.6"}
 
 
 @pytest.mark.parametrize("what", sorted(_REQUESTS))
 def test_request_refusals_name_their_queue_item(what):
-    with pytest.raises(NotImplementedError) as e:
-        batch_engine.check_request(GenerationConfig(**_REQUESTS[what]))
-    assert _item_of(str(e.value)) == _ITEMS[what] and _in_queue_a(_ITEMS[what])
+    assert not hasattr(batch_engine, "check_request")
+    assert "5a.6" not in (batch_engine.__doc__ or "")
+    model = _tiny_model()
+    eng = batch_engine.BatchEngine(model, None, AppConfig(model=model.cfg))
+    with pytest.raises(KeyError, match="not loaded"):
+        eng.submit([1, 2], GenerationConfig(**_REQUESTS[what]))
+    assert not eng.scheduler.has_work
+
+
+def _tiny_model():
+    import torch
+
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.utils.synthetic import synth_llama_params, tiny_llama_config
+
+    cfg = tiny_llama_config()
+    return Model(cfg, synth_llama_params(cfg, quant="dense", dtype=torch.float32,
+                                         device="cpu"), torch.float32)
 
 
 @pytest.mark.parametrize("what,item", [("moe_offload", "12"), ("tp", "13"),
@@ -113,15 +128,20 @@ def test_loader_refusals_name_item_12():
 
 
 def test_unported_routes_name_their_queue_item():
-    """The server's 501 for the LoRA routes names the item that ports them."""
-    import asyncio
-    import types
+    """No route of the JAX server is left unported: the port's app serves
+    every (method, path) of the JAX create_app, the /v1/lora routes too."""
+    from blazr_tpu.config.server import ServerConfig as JServerConfig
+    from blazr_tpu.engine.model_scheduler import ModelScheduler as JScheduler
+    from blazr_tpu.server.app import create_app as jax_create_app
+    from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
+    from blazr_tpu_torch.server import app as port_app
 
-    from blazr_tpu_torch.server.api_types import ApiError
-    from blazr_tpu_torch.server.app import UNPORTED_ROUTES, not_ported
-
-    for method, path in UNPORTED_ROUTES:
-        with pytest.raises(ApiError) as e:
-            asyncio.run(not_ported(types.SimpleNamespace(method=method, path=path)))
-        assert e.value.status == 501
-        assert _item_of(e.value.message) == "5a.6" and _in_queue_a("5a.6")
+    assert not hasattr(port_app, "UNPORTED_ROUTES") and not hasattr(port_app, "not_ported")
+    jax = {(r.method, r.resource.canonical)
+           for r in jax_create_app(JScheduler("."), JServerConfig()).router.routes()
+           if r.method != "HEAD"}
+    port = {(m, pat.pattern) for m, pat, _ in
+            port_app.create_app(ModelScheduler(".", device="cpu"))._routes}
+    assert {("POST", "/v1/lora"), ("GET", "/v1/lora"), ("DELETE", "/v1/lora/{name}")} <= jax
+    assert {(m, "^" + re.sub(r"\{(\w+)\}", r"(?P<\1>[^/]+)", p) + "$")
+            for m, p in jax} <= port

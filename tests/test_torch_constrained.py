@@ -33,6 +33,15 @@ from blazr_tpu_torch.engine.grammar_pda import PdaGrammarState
 from blazr_tpu_torch.models.registry import Model
 from blazr_tpu_torch.tokenizer.byte_tok import ByteTokenizer
 from blazr_tpu_torch.utils.synthetic import tiny_llama_config
+from test_torch_grammar import ensure_jax_pda
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_pda_loaded():
+    """The JAX grammars here reach its PDA library: make sure it is loaded
+    (``test_torch_grammar.ensure_jax_pda``)."""
+    ensure_jax_pda()
+
 
 DIGITS = 'root ::= [0-9]+ ("," [0-9]+)*'
 DEEP = 'root ::= e\ne ::= "(" e ")" | "[" e "]" | "{" e "}" | "x"\n'

@@ -660,6 +660,102 @@ def test_replays_count_their_launches(cuda):
     assert torch.equal(y, ref)
 
 
+def _lora(name, cfg, modules, rank, seed):
+    """A LoraAdapter over ``modules`` of every layer of ``cfg``, random A
+    and B from ``seed`` (std 0.05), alpha twice the rank."""
+    import numpy as np
+
+    from blazr_tpu_torch.engine.lora import LoraAdapter
+
+    att = cfg.attention
+    h, q, kv = cfg.hidden_size, att.num_heads * att.head_dim, att.kv_heads() * att.head_dim
+    dims = {"q_proj": (h, q), "k_proj": (h, kv), "v_proj": (h, kv), "o_proj": (q, h),
+            "gate_proj": (h, cfg.intermediate_size), "up_proj": (h, cfg.intermediate_size),
+            "down_proj": (cfg.intermediate_size, h)}
+    rng = np.random.default_rng(seed)
+    weights = {}
+    for i in range(cfg.num_layers):
+        for m in modules:
+            k, n = dims[m]
+            block = "self_attn" if m[0] in "qkvo" else "mlp"
+            weights[f"model.layers.{i}.{block}.{m}"] = (
+                (rng.standard_normal((rank, k)) * 0.05).astype(np.float32),
+                (rng.standard_normal((n, rank)) * 0.05).astype(np.float32))
+    return LoraAdapter(name=name, rank=rank, alpha=2.0 * rank, weights=weights)
+
+
+_LORA_ALL = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def _lora_waves(cuda, model, graphs: bool, adapters: list) -> list:
+    """One wave of 3 greedy requests under each adapter in turn, through one
+    BatchEngine at horizon 4: ((token, logprob) streams, graphs captured in
+    the wave, whether the switch before it replaced LoRA buffers) per
+    adapter."""
+    import asyncio
+
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.lora import lora_state
+
+    app = AppConfig(model=model.cfg)
+    app.inference.decode_horizon = 4
+    app.inference.graphs = graphs
+    eng = BatchEngine(model, _Tok(), app)
+    prompts = [list(range(1, 1 + n)) for n in (5, 40, 130)]
+
+    async def serve():
+        task = asyncio.create_task(eng.run())
+        handles = [eng.submit(p, GenerationConfig(max_tokens=12, temperature=0.0))
+                   for p in prompts]
+        out = await asyncio.gather(*[asyncio.wait_for(_tokens(h), 300) for h in handles])
+        eng.stop()
+        await task
+        return out
+
+    out = []
+    for adapter in adapters:
+        sig = lora_state(model).sig
+        eng.set_lora(adapter).result()
+        before = eng.graphs.captures
+        streams = asyncio.run(serve())
+        torch.cuda.synchronize()
+        out.append((streams, eng.graphs.captures - before, lora_state(model).sig != sig))
+    eng.clear_lora().result()
+    return out
+
+
+async def _tokens(h):
+    return [(t.token_id, t.logprob) async for t in h.tokens()]
+
+
+def test_lora_in_place_switch_replays_equal_eager(cuda):
+    """Adapter A, then A2 of the same targets and rank: the switch to A2
+    writes the graphs' LoRA buffers in place and captures nothing, and the
+    replayed graphs give the eager run's streams under both."""
+    model = _tiny_model(cuda)
+    ads = [_lora("A", model.cfg, _LORA_ALL, 4, 1), _lora("A2", model.cfg, _LORA_ALL, 4, 2)]
+    graphed = _lora_waves(cuda, model, True, ads)
+    eager = _lora_waves(cuda, model, False, ads)
+    assert [g[0] for g in graphed] == [e[0] for e in eager]
+    assert graphed[0][0] != graphed[1][0]
+    assert graphed[0][1] > 0 and graphed[0][2]            # A: new buffers, captured
+    assert graphed[1][1] == 0 and not graphed[1][2]       # A2: in place, no capture
+
+
+def test_lora_rank_change_recaptures(cuda):
+    """Adapter A (rank 4, every projection), then B (rank 2 on q/v): the
+    switch replaces the buffers, the graphs are captured again, and the
+    streams equal the eager run's; back to the base, likewise."""
+    model = _tiny_model(cuda)
+    ads = [_lora("A", model.cfg, _LORA_ALL, 4, 1),
+           _lora("B", model.cfg, ("q_proj", "v_proj"), 2, 3), None]
+    graphed = _lora_waves(cuda, model, True, ads)
+    eager = _lora_waves(cuda, model, False, ads)
+    assert [g[0] for g in graphed] == [e[0] for e in eager]
+    assert all(g[1] > 0 and g[2] for g in graphed)
+
+
 def test_graph_capture_error_is_raised_not_run_eagerly(cuda):
     """With graphs on, a step the card cannot capture (here a host read of a
     device value inside the sampler) raises from generate(); the Executor

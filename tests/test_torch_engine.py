@@ -159,9 +159,12 @@ def test_engine_refuses_what_it_does_not_serve(models):
     eng = BatchEngine(tmodel, _Tok(), a)
     assert eng.scheduler.prefix_cache is eng.prefix_cache is not None
     assert eng.prefix_cache.host_tier is not None
+    # A LoRA adapter is served (tests/test_torch_lora.py); one the engine's
+    # registry lacks fails the caller alone, before the scheduler is touched.
     eng = BatchEngine(tmodel, _Tok(), AppConfig(model=tmodel.cfg))
-    with pytest.raises(NotImplementedError, match="queue A"):
+    with pytest.raises(KeyError, match="not loaded"):
         eng.submit([1, 2], GenerationConfig(lora_adapter="x"))
+    assert not eng.scheduler.has_work
     # A grammar and a host sampler are served: the grammar row's first token
     # is one the grammar allows (tests/test_torch_constrained.py holds the
     # streams to the JAX engine's).
@@ -295,7 +298,8 @@ def test_port_imports_without_jax_or_blazr_tpu():
         "kvcache.ssm_state", "server.encoding", "server.pooling", "server.embeddings",
         "server.rerank", "server.tools", "server.anthropic", "server.responses",
         "server.infill", "server.audio", "server.slots", "server.management",
-        "server.config_watch", "config.user", "engine.speculative")} <= names
+        "server.config_watch", "config.user", "engine.speculative", "engine.lora",
+        "server.lora_routes", "tokenizer.bpe_native")} <= names
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

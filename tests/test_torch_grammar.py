@@ -4,8 +4,12 @@ library, the tier factory) against blazr_tpu's on the CPU. Token byte
 strings come from a seeded numpy generator; every table, mask and string
 must be exactly equal."""
 
+import ctypes
 import dataclasses
+import os
 import shutil
+import subprocess
+import time
 
 import numpy as np
 import pytest
@@ -19,6 +23,52 @@ from blazr_tpu_torch.engine import grammar as tg
 from blazr_tpu_torch.engine import grammar_json as tj
 from blazr_tpu_torch.engine import grammar_parser as tp
 from blazr_tpu_torch.engine import grammar_pda as tpda
+
+def ensure_jax_pda() -> None:
+    """Make sure the JAX package's PDA library is loaded in this process.
+
+    Its loader (``blazr_tpu/native/__init__.py``) compiles ``pda.cpp`` with
+    ``g++ -o`` straight onto ``libpda.so`` and caches a failed load as None
+    for the life of the process; an xdist worker that loads while another
+    worker's g++ is still writing the file gets None, and every JAX grammar
+    that needs the PDA then takes another tier (PdaUnsupported). Here the
+    cached None is dropped and the load retried, after building the library
+    once more into a temporary file that replaces ``libpda.so`` atomically;
+    a library that still does not load fails the test with the loader's
+    own message, never a skip."""
+    from blazr_tpu import native as jnative
+
+    so = jnative._DIR / "libpda.so"
+    err = None
+    for attempt in range(20):
+        lib = jnative.load_library("pda")
+        if lib is not None:
+            jpda._load()
+            return
+        try:
+            ctypes.CDLL(str(so))
+        except OSError as e:
+            err = e
+        if attempt:
+            time.sleep(0.5)               # a builder in another process finishing
+        tmp = so.with_name(f".libpda.{os.getpid()}.so")
+        build = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                                "-march=native", str(jnative._DIR / "pda.cpp"), "-o",
+                                str(tmp)], capture_output=True, text=True, timeout=300)
+        if build.returncode == 0:
+            os.replace(tmp, so)
+        else:
+            err = build.stderr
+        with jnative._LOCK:
+            jnative._LIBS.pop("pda", None)
+        jpda._lib = None
+    pytest.fail(f"the JAX PDA library does not load: {err}")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_pda_loaded():
+    ensure_jax_pda()
+
 
 GRAMMARS = {
     "yes_no": 'root ::= "yes" | "no"',

@@ -507,18 +507,20 @@ def test_tool_call_reply_matches_jax(model_dir, canned_reply):
 
 def test_audio_stubs_and_lora_routes(model_dir):
     """The audio routes answer the JAX stubs' 501 bodies; the LoRA routes
-    answer 501 naming their queue item (the JAX server serves them)."""
+    answer as the JAX ones do with nothing loaded: a path that is not an
+    adapter 400, an empty listing, an unknown name's DELETE 404 (their
+    served path: tests/test_torch_lora.py)."""
     reqs = [("POST", "/v1/audio/speech", {"input": "hi"}),
-            ("POST", "/v1/audio/transcriptions", {})]
+            ("POST", "/v1/audio/transcriptions", {}),
+            ("POST", "/v1/lora", {"path": "x"}), ("GET", "/v1/lora", None),
+            ("DELETE", "/v1/lora/a", None)]
     ref = _jax_json(model_dir, reqs)
     with PortServer(model_dir) as srv:
         got = [srv.json(*r) for r in reqs]
-        lora = [srv.json("POST", "/v1/lora", {"path": "x"}), srv.json("GET", "/v1/lora"),
-                srv.json("DELETE", "/v1/lora/a")]
-    assert got == ref and [g[0] for g in got] == [501, 501]
+    assert [g[0] for g in got] == [g[0] for g in ref] == [501, 501, 400, 200, 404]
+    assert got[:2] == ref[:2] and got[3] == ref[3] == (200, {"adapters": []})
     assert got[0][1]["error"]["type"] == "not_implemented_error"
-    for st, body in lora:
-        assert st == 501 and "item 5a.6" in body["error"]["message"]
+    assert got[4][1]["error"]["type"] == ref[4][1]["error"]["type"] == "not_found_error"
 
 
 async def _slots_script(call):

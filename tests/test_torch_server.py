@@ -25,9 +25,17 @@ from blazr_tpu_torch.config.server import ServerConfig
 from blazr_tpu_torch.engine.batch_engine import BatchEngine
 from blazr_tpu_torch.engine.model_scheduler import ModelScheduler
 from blazr_tpu_torch.server import create_app, serve
-from blazr_tpu_torch.server.app import UNPORTED_ROUTES
 
 from fixtures import write_byte_tokenizer_json, write_tiny_llama_checkpoint
+from test_torch_grammar import ensure_jax_pda
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_pda_loaded():
+    """The JAX grammars here reach its PDA library: make sure it is loaded
+    (``test_torch_grammar.ensure_jax_pda``)."""
+    ensure_jax_pda()
+
 
 CHAT = {"messages": [{"role": "system", "content": "be brief"},
                      {"role": "user", "content": "hello there, tiny model"}],
@@ -216,13 +224,13 @@ def test_auth_budget_and_unported_routes(model_dir):
         assert json.loads(data)["error"]["type"] == "overloaded_error"
         assert srv.request("POST", "/v1/completions", COMPLETION,
                            {"x-api-key": "sekrit"})[0] == 200
-        assert UNPORTED_ROUTES == [("POST", "/v1/lora"), ("GET", "/v1/lora"),
-                                   ("DELETE", "/v1/lora/{name}")]
-        for method, path in UNPORTED_ROUTES:
-            st, _, data = srv.request(method, path.replace("{name}", "a"), {}, auth)
-            assert st == 501 and "item 5a.6" in json.loads(data)["error"]["message"]
+        # No route is left unported: the LoRA routes are served behind the
+        # key (POST without a path 400, the empty listing, an unknown name 404).
+        for method, path, want in (("POST", "/v1/lora", 400), ("GET", "/v1/lora", 200),
+                                   ("DELETE", "/v1/lora/a", 404)):
+            assert srv.request(method, path, {}, auth)[0] == want
+            assert srv.request(method, path, {})[0] == 401
         # /metrics is served, without a key (as /health), in the text format.
-        assert ("GET", "/metrics") not in UNPORTED_ROUTES
         st, headers, data = srv.request("GET", "/metrics")
         assert st == 200 and headers["Content-Type"].startswith("text/plain")
         assert b'blazr_tpu_requests_total{endpoint="completions",status="200"} 2.0' in data
@@ -247,14 +255,15 @@ def test_models_tokenize_and_template_routes(model_dir):
         assert st == 400 and "temperature" in json.loads(data)["error"]["message"]
         st, headers, _ = srv.request("OPTIONS", "/v1/chat/completions")
         assert st == 204 and headers["Access-Control-Allow-Origin"] == "*"
-        # What the port does not serve yet (LoRA) answers 501, before any
-        # stream; a grammar is served, its reply inside the grammar (this
-        # model's EOS lies past its vocabulary, so the token after the
-        # complete "a" is one the grammar rejects, which ends the reply, as
-        # in the JAX server), and one that does not parse answers 400.
+        # A LoRA adapter that is not loaded answers 404, before any stream
+        # (the JAX server's answer); a grammar is served, its reply inside
+        # the grammar (this model's EOS lies past its vocabulary, so the
+        # token after the complete "a" is one the grammar rejects, which
+        # ends the reply, as in the JAX server), and one that does not parse
+        # answers 400.
         st, _, data = srv.request("POST", "/v1/chat/completions",
                                   dict(CHAT, lora_adapter="x", stream=True))
-        assert st == 501, data
+        assert st == 404 and "not loaded" in json.loads(data)["error"]["message"], data
         st, _, data = srv.request("POST", "/v1/chat/completions",
                                   dict(CHAT, grammar='root ::= "a"'))
         assert st == 200 and json.loads(data)["choices"][0]["message"]["content"][0] == "a"
