@@ -15,6 +15,12 @@ commands that load a model run on ``cuda`` unless ``--device cpu``.
 ``--prompt-lookup`` or ``--draft-model`` (``--num-speculative-tokens``);
 ``serve`` without ``--continuous-batching`` refuses both, and so does
 either command given both.
+``run``, ``generate`` and ``serve`` take ``--device-layers N`` (layer
+offload: the other layers stream from host RAM, through the Executor; ``serve
+--continuous-batching`` refuses it, ROADMAP §C), ``--moe-offload
+auto|gpu|cpu|hybrid`` and ``--moe-device-experts K`` (MoE expert offload), as
+the JAX ``run`` and ``generate`` do (cli/main.py:40-70, :299-320); the JAX
+``serve`` lacks the three.
 ``swarm`` and ``disagg`` exit 2 and name their ROADMAP item.
 
     python -m blazr_tpu_torch.cli serve --model FILE.gguf --continuous-batching
@@ -23,6 +29,8 @@ either command given both.
     python -m blazr_tpu_torch.cli run DIR --prompt "..." --prompt-lookup
     python -m blazr_tpu_torch.cli serve --model DIR --continuous-batching --draft-model DRAFT
     python -m blazr_tpu_torch.cli generate DIR "..." -t 0
+    python -m blazr_tpu_torch.cli run DIR --prompt "..." --device-layers 16
+    python -m blazr_tpu_torch.cli run MIXTRAL --prompt "..." --moe-offload hybrid
     python -m blazr_tpu_torch.cli info DIR
     python -m blazr_tpu_torch.cli bench FILE.gguf --prompt-lens 32,128,512
     python -m blazr_tpu_torch.cli convert DIR out.gguf --quant Q4_K
@@ -61,6 +69,16 @@ def build_parser() -> argparse.ArgumentParser:
     loadopts.add_argument("--quant-compute",
                           choices=["auto", "w4a16", "w4a8", "w8a8", "w4a8-prefill"],
                           default=None)
+    loadopts.add_argument("--device-layers", type=int, default=None, metavar="N",
+                          help="decoder layers kept on the card; the rest stream from "
+                               "host RAM (the reference's n-gpu-layers)")
+    loadopts.add_argument("--moe-offload", choices=["auto", "gpu", "cpu", "hybrid"],
+                          default=None,
+                          help="MoE expert offload: the hot experts on the card, the "
+                               "cold ones in host RAM")
+    loadopts.add_argument("--moe-device-experts", type=int, default=None, metavar="K",
+                          help="card-resident experts a layer under --moe-offload "
+                               "(default: half for hybrid, one for cpu)")
     loadopts.add_argument("--mmproj", default=None, metavar="PATH",
                           help="GGUF vision projector (mmproj) sidecar for multimodal "
                                "models (auto-detected when colocated with the model)")
@@ -182,13 +200,19 @@ def main(argv=None) -> int:
 
 
 def _load_executor(model_path: str, dtype, device: str, kv_cache_dtype=None,
-                   quant_compute=None, prefix_cache: bool = False, mmproj=None):
+                   quant_compute=None, prefix_cache: bool = False, mmproj=None,
+                   device_layers=None, moe_offload=None, moe_device_experts=None):
     from ..engine.executor import Executor
     from ..loader import load_model
     from ..tokenizer import load_tokenizer
 
     t0 = time.time()
-    model, app_cfg = load_model(model_path, dtype=dtype, device=device, mmproj=mmproj)
+    model, app_cfg = load_model(model_path, dtype=dtype, device=device, mmproj=mmproj,
+                                device_layers=device_layers)
+    if moe_offload:
+        app_cfg.inference.moe_offload = moe_offload
+    if moe_device_experts is not None:
+        app_cfg.inference.moe_device_experts = moe_device_experts
     if kv_cache_dtype:
         app_cfg.inference.kv_cache_dtype = kv_cache_dtype
     if quant_compute:
@@ -202,6 +226,11 @@ def _load_executor(model_path: str, dtype, device: str, kv_cache_dtype=None,
           f"vocab {model.vocab_size}) on {model.device} in {time.time() - t0:.1f}s",
           file=sys.stderr)
     return ex
+
+
+def _offload_flags(args) -> dict:
+    return dict(device_layers=args.device_layers, moe_offload=args.moe_offload,
+                moe_device_experts=args.moe_device_experts)
 
 
 def _spec_flags(args) -> Optional[str]:
@@ -272,7 +301,8 @@ def cmd_run(args) -> int:
         return 2
     ex = _load_executor(args.model, args.dtype, args.device,
                         kv_cache_dtype=args.kv_cache_dtype,
-                        quant_compute=args.quant_compute, mmproj=args.mmproj)
+                        quant_compute=args.quant_compute, mmproj=args.mmproj,
+                        **_offload_flags(args))
     if not args.no_warmup:
         ex.warmup()
     cfg = GenerationConfig(max_tokens=args.max_tokens, temperature=args.temperature,
@@ -310,7 +340,7 @@ def cmd_generate(args) -> int:
 
     ex = _load_executor(args.model, args.dtype, args.device,
                         kv_cache_dtype=args.kv_cache_dtype, quant_compute=args.quant_compute,
-                        mmproj=args.mmproj)
+                        mmproj=args.mmproj, **_offload_flags(args))
     cfg = GenerationConfig(max_tokens=args.max_tokens, temperature=args.temperature)
     _print_stream(ex, ex.tokenizer.encode(args.prompt), cfg)
     return 0
@@ -371,7 +401,8 @@ def cmd_serve(args) -> int:
         api_keys.append(env_key)
     scheduler = ModelScheduler(args.model, max_loaded=args.max_loaded,
                                dtype=args.dtype, quant_compute=args.quant_compute,
-                               device=args.device, mmproj=args.mmproj)
+                               device=args.device, mmproj=args.mmproj,
+                               **_offload_flags(args))
     if not args.no_warmup and not args.continuous_batching:
         try:
             scheduler.get_executor("default").warmup()

@@ -92,10 +92,17 @@ captured again at their next use. Every switch drops the prefix cache and
 its host tier: their K/V was computed under the previous weights (the JAX
 engine keeps serving it; ROADMAP §C). A draft model keeps its own weights.
 
-Left out of this slice, each naming its ROADMAP queue A item: tensor and
-sequence parallel meshes (13) and weight offload (12). A config that asks
-for one raises instead of being served differently.
-int4 KV on the paged path raises instead of being downgraded.
+MoE expert offload (``engine/moe_offload.py``; JAX :1145-1150): the model's
+offload runtime (installed here under ``inference.moe_offload`` unless an
+Executor over the same model installed it) ticks once per engine step. Its
+forward reads the host once a MoE layer, so the engine's steps run eagerly,
+without graphs (ROADMAP §C). Prefill and decode phases are traced by
+``utils/tracing.span`` (JAX :1125, :1136), outside any graph.
+
+Left out: tensor and sequence parallel meshes raise, naming ROADMAP queue A
+item 13. A streaming model (layer offload) raises too: the JAX engine cannot
+be built over one (ROADMAP §C). int4 KV on the paged path raises instead of
+being downgraded.
 
 Every family of ``models/paged_multi.py`` is served: MLA models on latent
 pages, Mamba2 and hybrid models on the state pool's rows
@@ -132,10 +139,12 @@ from ..models.paged_multi import trash_slot, zero_state_rows
 from ..models.registry import init_engine_cache, make_paged_forward
 from ..models.registry import Model
 from ..quant.qtensor import apply_quant_compute, quant_leaves
+from ..utils.tracing import span
 from .decode_graph import TOPK_K, BatchStep, DraftChain, StepGraphs, VerifyStep, pack_rows
 from .grammar import GrammarState, make_grammar_state, padded_mask
 from .grammar_json import request_grammar_source
 from .lora import LoraAdapter, LoraAdapterRegistry, lora_state
+from .moe_offload import ensure_offload
 from .samplers import MirostatState, dry_breaker_ids, host_sample, needs_host_sampling
 from .sampling import SamplingParams, make_bias_rows, make_window, sample_tokens
 from .sequence_scheduler import (SchedulerConfig, Sequence, SequenceScheduler,
@@ -198,6 +207,13 @@ class RequestHandle:
                 return
 
 
+def _streaming_refused() -> NotImplementedError:
+    return NotImplementedError(
+        "layer offload (a model streamed from host RAM) is not served by BatchEngine: "
+        "the JAX BatchEngine cannot be built over a StreamingModel; serve it through "
+        "the Executor (ROADMAP §C)")
+
+
 def _not_served(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not served by blazr_tpu_torch yet (ROADMAP queue A item {item})")
@@ -215,6 +231,8 @@ class BatchEngine:
         self.app_cfg = app_cfg or AppConfig(model=model.cfg)
         inf = self.app_cfg.inference
         self._check_config(inf)
+        if getattr(model, "is_streaming", False):
+            raise _streaming_refused()
         self.device = model.device
         self.block_size = inf.block_size
         self.max_batch = inf.max_batch_size
@@ -241,6 +259,7 @@ class BatchEngine:
             ),
             prefix_cache=self.prefix_cache)
         model.params = apply_quant_compute(model.params, inf.quant_compute)
+        self._moe_rt = ensure_offload(model, inf)
         # Row-count routing (w4a8-prefill) needs the JAX engine's padded
         # prefill groups; other modes run the real number of prompts.
         self._pad_groups = any(qt.act_quant_min_m > 0
@@ -278,7 +297,10 @@ class BatchEngine:
         self._side_steps: dict[int, BatchStep] = {}     # the side step's, by bmax
         self._verify_steps: dict[int, VerifyStep] = {}  # the speculative round's, by bmax
         self._chains: dict[int, DraftChain] = {}        # the draft chain's, by bmax
-        self.graphs = StepGraphs(self.device, inf.graphs)
+        if self._moe_rt is not None and inf.graphs and self.device.type == "cuda":
+            logger.info("decode steps run eagerly: the MoE offload forward reads host "
+                        "memory inside the step")
+        self.graphs = StepGraphs(self.device, inf.graphs and self._moe_rt is None)
         self._preemptions = 0
         # Wall time by phase (seconds; "<phase>_n" counts calls) and the
         # prompt tokens the prefills computed ("prefill_tokens").
@@ -320,8 +342,8 @@ class BatchEngine:
         if max(inf.tensor_parallel_size, inf.data_parallel_size,
                inf.expert_parallel_size, inf.sequence_parallel_size) > 1:
             raise _not_served("multi-device serving", "13")
-        if inf.moe_offload or inf.num_device_layers is not None:
-            raise _not_served("weight offload", "12")
+        if inf.num_device_layers is not None:
+            raise _streaming_refused()
 
     def _init_speculation(self, inf, draft_model: Optional[Model], num_blocks: int) -> None:
         """Speculation's state (JAX :287-364): the depth k, the counters,
@@ -545,23 +567,30 @@ class BatchEngine:
         cold = not any(s.state == SequenceState.RUNNING
                        for s in batch.decode_sequences)
         if batch.prefill_sequences:
-            t0 = time.perf_counter()
-            pending = await asyncio.to_thread(self._holding_weights, self._dispatch_prefills,
-                                              batch.prefill_sequences, cold=cold)
-            self.perf["prefill"] += time.perf_counter() - t0
-            self.perf["prefill_n"] += 1
+            with span("prefill", backend="paged", batch=len(batch.prefill_sequences)):
+                t0 = time.perf_counter()
+                pending = await asyncio.to_thread(self._holding_weights,
+                                                  self._dispatch_prefills,
+                                                  batch.prefill_sequences, cold=cold)
+                self.perf["prefill"] += time.perf_counter() - t0
+                self.perf["prefill_n"] += 1
         decodes = [s for s in batch.decode_sequences
                    if s.state == SequenceState.RUNNING]
         if decodes:
-            t0 = time.perf_counter()
-            await asyncio.to_thread(self._holding_weights, self._process_decode_batch,
-                                    decodes)
-            self.perf["decode"] += time.perf_counter() - t0
-            self.perf["decode_n"] += 1
+            with span("decode", backend="paged", batch=len(decodes)):
+                t0 = time.perf_counter()
+                await asyncio.to_thread(self._holding_weights, self._process_decode_batch,
+                                        decodes)
+                self.perf["decode"] += time.perf_counter() - t0
+                self.perf["decode_n"] += 1
         if pending:
             t0 = time.perf_counter()
             await asyncio.to_thread(self._finish_prefills, pending)
             self.perf["p_finish"] += time.perf_counter() - t0
+        if self._moe_rt is not None:
+            # Once per engine step (JAX :1145-1150): usage decay, rebalance;
+            # under the weights' lock, as another engine's forward reads them.
+            await asyncio.to_thread(self._holding_weights, self._moe_rt.tick)
         self.scheduler.cleanup_finished()
         return True
 

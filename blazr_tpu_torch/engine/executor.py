@@ -44,9 +44,22 @@ computed under the previous weights, is never reused (the JAX executor
 reuses it; ROADMAP §C), and graphs over replaced LoRA buffers are captured
 again.
 
-Not served yet; each raises ``NotImplementedError`` naming its ROADMAP
-queue A item, as ``BatchEngine`` does: TP/EP/SP meshes and ring prefill
-(13), MoE offload and streaming (host-offloaded) models (12).
+MoE expert offload (JAX :102-114, :596-611): under
+``inference.moe_offload`` the model's MoE layers keep their hot experts on
+the card and the rest in host RAM (``engine/moe_offload.py``, installed once
+per model and shared with a ``BatchEngine`` over it); the runtime ticks once
+a forward pass (each prefill piece, each decode token) and rebalances every
+``moe_rebalance_interval`` ticks. A streaming model (``device_layers``,
+``engine/offload_stream.py``; JAX :179-200) runs its host layers through
+the card's two slots. Both read the host inside the forward, so their
+decode steps run eagerly, without graphs (ROADMAP §C). A streaming model
+given a ``quant_compute`` mode or ``moe_offload`` raises ``ValueError``:
+the JAX Executor serves it with neither, without a word (ROADMAP §C). The
+prefill is traced by ``utils/tracing.span`` (JAX :453).
+
+Not served yet: TP/EP/SP meshes and ring prefill raise
+``NotImplementedError`` naming ROADMAP queue A item 13, as ``BatchEngine``
+does.
 """
 
 from __future__ import annotations
@@ -64,11 +77,13 @@ from ..config.app import AppConfig
 from ..config.generation import GenerationConfig
 from ..models.registry import Model
 from ..quant.qtensor import apply_quant_compute
+from ..utils.tracing import span
 from .batch_engine import _next_pow2, _not_served
 from .decode_graph import TOPK_K, ExecutorStep, StepGraphs, pack_rows
 from .grammar import make_grammar_state, padded_mask
 from .grammar_json import request_grammar_source
 from .lora import LoraAdapter, LoraAdapterRegistry, lora_state
+from .moe_offload import ensure_offload
 from .samplers import MirostatState, dry_breaker_ids, host_sample, needs_host_sampling
 from .sampling import SamplingParams, make_bias_rows, make_window, sample_tokens
 from .types import GeneratedToken, TokenLogprob
@@ -98,10 +113,20 @@ class Executor:
         self._free: list[ExecutorStep] = []
         self._lock = threading.Lock()
         self._vocab_bytes: Optional[list[bytes]] = None
-        self.graphs = StepGraphs(model.device, inf.graphs)
-        # In place: a w8a8-widened weight replaces its 4-bit copy one leaf
-        # at a time, so the 4-bit copy is freed.
-        apply_quant_compute(model.params, inf.quant_compute, inplace=True)
+        streaming = getattr(model, "is_streaming", False)
+        if streaming:
+            self._check_streaming(inf)
+        self._moe_rt = None
+        if not streaming:
+            # In place: a w8a8-widened weight replaces its 4-bit copy one
+            # leaf at a time, so the 4-bit copy is freed.
+            apply_quant_compute(model.params, inf.quant_compute, inplace=True)
+            self._moe_rt = ensure_offload(model, inf)
+        eager = streaming or self._moe_rt is not None
+        if eager and inf.graphs and model.device.type == "cuda":
+            logger.info("decode steps run eagerly: the %s forward reads host memory "
+                        "inside the step", "streaming" if streaming else "MoE offload")
+        self.graphs = StepGraphs(model.device, inf.graphs and not eager)
         self._lora = lora_state(model)
         self._lora_sig = self._lora.sig
         # Where a request's ``lora_adapter`` is looked up (the server's).
@@ -114,14 +139,39 @@ class Executor:
         if max(inf.tensor_parallel_size, inf.data_parallel_size,
                inf.expert_parallel_size, inf.sequence_parallel_size) > 1:
             raise _not_served("multi-device serving and ring prefill", "13")
+
+    @staticmethod
+    def _check_streaming(inf) -> None:
+        """A streamed model runs its weights as loaded: refuse the modes that
+        would transform them rather than serve without them."""
+        asked = []
+        if inf.quant_compute not in (None, "auto", "w4a16"):
+            asked.append(f"quant_compute={inf.quant_compute!r}")
         if inf.moe_offload:
-            raise _not_served("MoE expert offload", "12")
-        if inf.num_device_layers is not None:
-            raise _not_served("streaming (host-offloaded) models", "12")
+            asked.append(f"moe_offload={inf.moe_offload!r}")
+        if asked:
+            raise ValueError(f"a model with layers streamed from host RAM (device_layers) "
+                             f"is served as loaded, without {' or '.join(asked)} "
+                             f"(ROADMAP §C)")
 
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+    def close(self) -> None:
+        """Release the MoE offload runtime's host memory (model unload)."""
+        if self._moe_rt is not None:
+            self._moe_rt.close()
+            self._moe_rt = None
+            self.model.moe_offload_rt = None
+
+    def _moe_tick(self) -> None:
+        """One forward pass done: drive the offload manager (usage decay,
+        the periodic rebalance), under the weights' lock: a rebalance
+        rewrites resident experts that another engine's forward reads."""
+        if self._moe_rt is not None:
+            with self._lora.lock:
+                self._moe_rt.tick()
 
     # ------------------------------------------------------------------
     # LoRA
@@ -267,6 +317,7 @@ class Executor:
                 last = logits[:, sub - 1, :]
                 pos += sub
                 idx += sub
+                self._moe_tick()
             return last, cache
         for idx in range(0, n, chunk):
             piece = prompt_ids[idx:idx + chunk]
@@ -281,6 +332,7 @@ class Executor:
                 torch.tensor([pos + len(piece)], dtype=torch.int32, device=dev))
             last = logits[:, len(piece) - 1, :]
             pos += len(piece)
+            self._moe_tick()
         return last, cache
 
     @torch.no_grad()
@@ -295,8 +347,12 @@ class Executor:
         t = hidden.shape[1]
         positions = torch.arange(t, device=self.device)[None]
         with self._weights():
-            x, _ = forward_layers_range(model.params, model.cfg, hidden.to(model.dtype),
-                                        cache, positions, 0, model.num_layers)
+            run_layers = getattr(model, "run_layers", None)      # a streaming model
+            if run_layers is not None:
+                x = run_layers(hidden.to(model.dtype), cache, positions)
+            else:
+                x, _ = forward_layers_range(model.params, model.cfg, hidden.to(model.dtype),
+                                            cache, positions, 0, model.num_layers)
             return forward_head(model.params, model.cfg, x[:, -1:])[:, -1, :]
 
     @torch.no_grad()
@@ -337,8 +393,11 @@ class Executor:
             self.graphs.run((step, use_topk, sampled, mode),
                             step.step_fn(use_topk, sampled, mode))
         if mode == "raw":
-            return self._host_row(step.logits, grammar, host, history)
-        return self._row(step.out[use_topk][0].cpu().numpy(), cfg)
+            row = self._host_row(step.logits, grammar, host, history)
+        else:
+            row = self._row(step.out[use_topk][0].cpu().numpy(), cfg)
+        self._moe_tick()
+        return row
 
     @torch.no_grad()
     def _sample(self, last: torch.Tensor, cfg: GenerationConfig, step: int,
@@ -436,7 +495,11 @@ class Executor:
         kv_tokens = list(prompt_ids[:start])     # tokens whose KV the cache holds
         try:
             if hidden is None:
-                last, _ = self.prefill(step.cache, prompt_ids[start:], start_pos=start)
+                backend = ("mamba2" if self.model.needs_ssm_state
+                           and not self.model.needs_kv_cache else "contiguous")
+                with span("prefill", backend=backend, tokens=len(prompt_ids) - start,
+                          cached=start):
+                    last, _ = self.prefill(step.cache, prompt_ids[start:], start_pos=start)
                 kv_tokens = list(prompt_ids)
             else:
                 kv_tokens = None                 # image rows: no session to reuse

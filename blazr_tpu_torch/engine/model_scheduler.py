@@ -65,8 +65,15 @@ class ModelScheduler:
 
     def __init__(self, model_dir: str | Path, max_loaded: int = 1,
                  dtype: Optional[str] = None, quant_compute: Optional[str] = None,
-                 device: DeviceLike = None, mmproj: Optional[str] = None):
+                 device: DeviceLike = None, mmproj: Optional[str] = None,
+                 device_layers: Optional[int] = None, moe_offload: Optional[str] = None,
+                 moe_device_experts: Optional[int] = None):
         self.device = resolve_device(device)
+        # Layer and MoE expert offload for every model loaded (the CLI's
+        # --device-layers, --moe-offload, --moe-device-experts).
+        self.device_layers = device_layers
+        self.moe_offload = moe_offload
+        self.moe_device_experts = moe_device_experts
         self.mmproj = mmproj            # a vision sidecar for every model loaded (--mmproj)
         self.model_dir = Path(model_dir)
         self.max_loaded = max_loaded
@@ -142,7 +149,11 @@ class ModelScheduler:
         t0 = time.time()
         logger.info("loading model %r from %s", name, path)
         model, app_cfg = load_model(path, dtype=self.dtype, device=self.device,
-                                    mmproj=self.mmproj)
+                                    mmproj=self.mmproj, device_layers=self.device_layers)
+        if self.moe_offload:
+            app_cfg.inference.moe_offload = self.moe_offload
+        if self.moe_device_experts is not None:
+            app_cfg.inference.moe_device_experts = self.moe_device_experts
         if self.quant_compute:
             app_cfg.inference.quant_compute = self.quant_compute
         gguf_path = path if path.suffix == ".gguf" else None

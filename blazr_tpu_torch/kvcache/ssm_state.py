@@ -7,8 +7,10 @@ Counterpart of ``blazr_tpu/kvcache/ssm_state.py`` (``SSMState`` :21,
     ssm:  [L, B, num_heads, head_dim, state_size]
 
 O(1) in the sequence length. Unlike the JAX pytree, the forwards write the
-tensors IN PLACE, so a captured decode graph holds them. Mamba3's wider
-buffers are not served (``models/llama.py::check_config``).
+tensors IN PLACE, so a captured decode graph holds them. A Mamba3 mixer's
+conv buffer (JAX :45-55) is (x|B|C) widened by the MIMO rank, with one
+column for the previous token's post-activation (x|B), after the conv
+window when ``use_conv`` is on.
 """
 
 from __future__ import annotations
@@ -47,9 +49,16 @@ def init_ssm_state(cfg: UniversalConfig, batch: int,
     assert ssm is not None
     dev = resolve_device(device)
     conv_dim = ssm.inner_size + 2 * ssm.n_groups * ssm.state_size
+    cols = ssm.conv_kernel - 1
+    if ssm.variant == "mamba3":
+        from ..models.mamba2 import _m3, _m3_widths
+
+        _, x_w, b_w, c_w = _m3_widths(ssm)
+        conv_dim = x_w + b_w + c_w
+        cols = (ssm.conv_kernel - 1 if _m3(ssm)["conv"] else 0) + 1
     layers = num_layers if num_layers is not None else cfg.num_layers
     return SSMState(
-        conv=torch.zeros((layers, batch, conv_dim, ssm.conv_kernel - 1),
+        conv=torch.zeros((layers, batch, conv_dim, cols),
                          dtype=torch.float32, device=dev),
         ssm=torch.zeros((layers, batch, ssm.num_heads, ssm.head_dim, ssm.state_size),
                         dtype=torch.float32, device=dev),

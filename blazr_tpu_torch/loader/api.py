@@ -7,8 +7,11 @@ shapes), fill a VarMap and build the Model on the device. AWQ and GPTQ
 checkpoints compute in f16 by default (their scales are f16), GGUF and
 inferred configs in bf16, as in the JAX package. A vision tower, in the
 checkpoint (HF LLaVA) or in an ``mmproj`` sidecar (given, or found beside
-the model), is attached by ``loader/vision.py`` (JAX api.py:103-107). Its
-layer offload (item 12) raises, naming ROADMAP queue A.
+the model), is attached by ``loader/vision.py`` (JAX api.py:103-107). Layer
+offload (``device_layers``, else ``inference.num_device_layers``) below the
+model's depth keeps the first layers on the card and streams the others from
+host RAM (``loader/offloading.py``'s map, ``engine/offload_stream.py``; JAX
+api.py:108-115).
 """
 
 from __future__ import annotations
@@ -77,11 +80,9 @@ def resolve_config(source: ModelSource, vm: Optional[VarMap] = None) -> AppConfi
 def load_model(path: str | Path, dtype: Optional[str] = None,
                device_layers: Optional[int] = None, mmproj: Optional[str] = None,
                device: DeviceLike = None) -> tuple[Model, AppConfig]:
-    """Auto-detect and load a model onto ``device`` (default ``cuda``)."""
+    """Auto-detect and load a model onto ``device`` (default ``cuda``);
+    with ``device_layers`` below its depth, a ``StreamingModel``."""
     dev = resolve_device(device)
-    if device_layers is not None:
-        raise NotImplementedError("layer offload is not served by blazr_tpu_torch yet "
-                                  "(ROADMAP queue A item 12)")
     source = detect_model_source(path)
     logger.info("Loading %s model from %s (quant=%s)",
                 source.format.value, source.path, source.quant.value)
@@ -89,16 +90,21 @@ def load_model(path: str | Path, dtype: Optional[str] = None,
     app_cfg = resolve_config(source, vm)
     if dtype is not None:
         app_cfg.inference.dtype = dtype
-    if app_cfg.inference.num_device_layers is not None:
-        raise NotImplementedError("layer offload (inference.num_device_layers) is "
-                                  "not served by blazr_tpu_torch yet (ROADMAP queue A "
-                                  "item 12)")
+    if device_layers is None:
+        device_layers = app_cfg.inference.num_device_layers
     _reconcile_config_with_weights(app_cfg.model, vm)
     model = build_model(app_cfg.model, vm, dtype=parse_dtype(app_cfg.inference.dtype),
                         device=dev)
     from .vision import attach_vision
 
     attach_vision(model, app_cfg.model, source.path, vm, mmproj_path=mmproj)
+    if device_layers is not None and device_layers < model.num_layers:
+        from ..engine.offload_stream import maybe_stream
+        from .offloading import LayerDeviceMap
+
+        app_cfg.inference.num_device_layers = device_layers
+        model = maybe_stream(model, LayerDeviceMap.with_device_layers(model.num_layers,
+                                                                      device_layers))
     return model, app_cfg
 
 

@@ -39,6 +39,9 @@ class VarMap:
     def insert(self, name: str, value: Weight) -> None:
         self._store[name] = value
 
+    def get(self, name: str, default=None) -> Optional[Weight]:
+        return self._store.get(name, default)
+
     def take(self, name: str) -> Weight:
         """Remove and return (frees host memory as weights move to device)."""
         return self._store.pop(name)

@@ -104,7 +104,7 @@ def build_hybrid_params(cfg: UniversalConfig, vm, dtype: torch.dtype,
             layers.append(build_llama_layer_params(pb, i, cfg))
             continue
         p = mamba2.mamba_layer_params(pb, (pfx,), norms=("input_layernorm.weight",
-                                                         "norm.weight"))
+                                                         "norm.weight"), ssm=cfg.ssm)
         gate = pb.get(pfx + "mlp.gate_proj.weight", transpose=True, required=False)
         if gate is not None:
             p["post_norm"] = pb.get(pfx + "post_attention_layernorm.weight",

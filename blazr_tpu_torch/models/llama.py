@@ -46,19 +46,11 @@ SERVED_FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "phi3", "gemma", "gemma
                    "deepseek", "mamba2", "bamba")
 
 
-def _unserved(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not served by blazr_tpu_torch yet "
-                               f"(ROADMAP queue A item {item})")
-
-
 def check_config(cfg: UniversalConfig) -> None:
-    """Raise for what the port does not serve: Mamba3 mixers (ROADMAP queue
-    A item 11), a vision tower in front of anything but this forward (the
-    multimodal Executor prefills through ``forward_layers_range``), and model
-    types outside ``SERVED_FAMILIES`` that are neither MLA nor a Mamba2
-    hybrid."""
-    if cfg.ssm is not None and cfg.ssm.variant == "mamba3":
-        raise _unserved("the Mamba3 mixer", "11")
+    """Raise for what the port does not serve: a vision tower in front of
+    anything but this forward (the multimodal Executor prefills through
+    ``forward_layers_range``), and model types outside ``SERVED_FAMILIES``
+    that are neither MLA nor a Mamba2 (or Mamba3) hybrid."""
     types = set(cfg.layer_types())
     recurrent = cfg.ssm is not None and "mamba2" in types
     attention = cfg.attention is not None and (

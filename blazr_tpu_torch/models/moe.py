@@ -25,8 +25,9 @@ unless the caller asks for every expert (``every_expert``):
 
 Qwen2-MoE's shared expert, scaled by ``sigmoid(shared_expert_gate(x))``,
 follows transformers' ``Qwen2MoeSparseMoeBlock``; the JAX package drops it
-(ROADMAP §C). Expert offload (queue A item 12) and expert parallelism
-(item 13) raise.
+(ROADMAP §C). An offloaded layer (``engine/moe_offload.py``) takes
+``moe_ffn_offload`` (JAX :150): its resident experts as above, its cold
+experts' term on the host. Expert parallelism (item 13) raises.
 """
 
 from __future__ import annotations
@@ -114,14 +115,16 @@ def _routed_expert_sum(flat: torch.Tensor, gate: QuantTensor, up: QuantTensor,
                        weights: torch.Tensor) -> torch.Tensor:
     """Prefill form of ``_weighted_expert_sum``: expert e runs over the rows
     that chose it (ascending), each row's term added back in ascending e. A
-    row chooses an expert at most once, so each add is one term a row. Reads
-    the per-expert row counts to the host once."""
+    row chooses an expert at most once, so each add is one term a row; an id
+    of -1 is no expert of the stack. Reads the per-expert row counts to the
+    host once."""
     k = topk_idx.shape[1]
     flat_idx = topk_idx.reshape(-1)
     rows_by_expert = torch.argsort(flat_idx, stable=True) // k
-    counts = torch.bincount(flat_idx, minlength=weights.shape[1]).tolist()
+    # Ids of -1 (an offloaded layer's cold experts) sort first and are skipped.
+    counts = torch.bincount(flat_idx + 1, minlength=weights.shape[1] + 1).tolist()
     acc = torch.zeros(flat.shape, dtype=torch.float32, device=flat.device)
-    start = 0
+    start = counts.pop(0)
     for e, c in enumerate(counts):
         if c:
             rows = rows_by_expert[start:start + c]
@@ -166,13 +169,42 @@ def moe_ffn(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig,
     return out.reshape(b, t, h).to(x.dtype)
 
 
+def moe_ffn_offload(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig,
+                    every_expert: bool = False) -> torch.Tensor:
+    """The MoE FFN of an offloaded layer (JAX :150-192): the card holds the
+    resident stack (``p["resident_ids"]``: slot → expert), which runs as
+    ``moe_ffn``'s quantized forms do (B1), in slot order; the cold experts'
+    term is computed on the host in f32 by the layer's offload runtime
+    (``engine/moe_offload.py``), which also counts the routed ids."""
+    b, t, h = x.shape
+    flat = x.reshape(b * t, h)
+    topk_idx, topk_w = route(flat, p["router"], moe, p.get("correction_bias"))
+    weights = _scatter_weights(topk_idx, topk_w, moe.num_experts)
+    rt, layer = p["offload_rt"], p["offload_layer"]
+    rt.record(layer, topk_idx)
+    res_ids = p["resident_ids"]
+    res_w = weights.index_select(1, res_ids)                           # [N, K]
+    gate, up, down = p["experts_gate"], p["experts_up"], p["experts_down"]
+    if t == 1 or every_expert:
+        out = _weighted_expert_sum(flat, gate, up, down, res_w)
+    else:
+        slot_of = torch.full((moe.num_experts,), -1, dtype=torch.long, device=flat.device)
+        slot_of[res_ids] = torch.arange(res_ids.numel(), device=flat.device)
+        out = _routed_expert_sum(flat, gate, up, down, slot_of[topk_idx], res_w)
+    cold_w = weights.index_fill(1, res_ids, 0.0)
+    cold = rt.cold_term(layer, flat, cold_w)
+    if cold is not None:
+        out = out + cold
+    out = _shared_expert_add(out, flat, p)
+    return out.reshape(b, t, h).to(x.dtype)
+
+
 def moe_forward(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig,
                 every_expert: bool = False) -> torch.Tensor:
-    """The serving path's MoE call. The JAX package also dispatches to expert
-    offload and expert parallelism here; the port raises for both."""
+    """The serving path's MoE call: an offloaded layer's form, else
+    ``moe_ffn``. Expert parallelism (ROADMAP queue A item 13) raises."""
     if p.get("resident_ids") is not None:
-        raise NotImplementedError("MoE expert offload is not served by "
-                                  "blazr_tpu_torch yet (ROADMAP queue A item 12)")
+        return moe_ffn_offload(x, p, moe, every_expert)
     if moe.use_ep:
         raise NotImplementedError("expert parallelism is not served by "
                                   "blazr_tpu_torch yet (ROADMAP queue A item 13)")

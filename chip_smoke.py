@@ -264,7 +264,30 @@ Phases, in order; any failure raises and the script exits non-zero:
       each switch's ms and captures; the ``/v1/lora`` routes and a chat's
       ``lora_adapter`` over ``cli serve --continuous-batching``; the C++ BPE
       core's encode of ~32,000 tokens beside the Python merge loop's.
-Phases 7b, 7c and 10-17 run between phases 7 and 8.
+  18. (``offload``) MoE expert offload, layer offload, the Mamba3 mixer,
+      data-parallel replicas and tracing, at full widths: (a) Mixtral-8x7B
+      AWQ-INT4 (all 32 layers, 1 in a full run) under ``--moe-offload
+      hybrid``, 4 of 8 experts on the card and a rebalance every 2 passes,
+      serving 8 greedy requests of phase 5's prompt lengths through the
+      BatchEngine (4 tokens each, 8 in a full run) and one through the
+      Executor (both eager): B1 and B2 launches, the host term's calls, the
+      cold cache's hits and misses against its cap, ms a step, the
+      resident planes rewritten in place; with the card in f32 (2 layers)
+      the logits after rebalances within 1e-4 of the resident model's and
+      the greedy tokens equal. (b) Mistral-7B AWQ-INT4, 32 layers with 16
+      streamed from pinned host memory (8 with 4 in a full run): logits
+      equal the resident model's exactly, ms a token and tok/s beside the
+      floor of the host layers' bytes, the copies' overlap with compute
+      under torch.profiler, ``cli run --device-layers`` in this process
+      (alone, its stream equal to ``cli run``'s). (c) The Mamba3 mixer at
+      Mamba-Codestral-7B's widths (2 layers; rope with rank 0 and 2, conv
+      off, and rank 2 with the conv alone): the card in f32 against the CPU
+      within 1e-3, bf16 reported; both engines' greedy streams equal in f32,
+      the BatchEngine's decode step timed in bf16. (d) Two warmed
+      BatchEngine replicas of a 4-layer Mistral-7B (2 in a full run), the
+      card in f32, behind a cache-aware DataParallelGroup, the trace spans
+      captured; their 8 greedy streams equal one engine's.
+Phases 7b, 7c and 10-18 run between phases 7 and 8.
 Each serving run sets the launch counts to 0 just before it and reads
 them just after; a replayed graph adds the launches it holds, and the
 kernels line counts the first run with graphs (the default path). Under
@@ -1672,6 +1695,26 @@ def free_card() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def cli_here(*argv) -> tuple[str, str, float]:
+    """(stdout, stderr, wall s) of ``python -m blazr_tpu_torch.cli ARGV``
+    run in this process (the CLI's ``main``; on the card unless ARGV says
+    otherwise): phase 18's ``cli run --device-layers``, without a new
+    interpreter's imports and CUDA start (~15-25 s a process on the card's
+    host). Fails unless it returns 0."""
+    import io
+
+    from blazr_tpu_torch.cli.main import main as cli_main
+
+    stdout, stderr = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        rc = cli_main([str(a) for a in argv])
+    wall = time.perf_counter() - t0
+    assert rc == 0, (argv, stderr.getvalue()[-4000:])
+    free_card()
+    return stdout.getvalue(), stderr.getvalue(), wall
 
 
 def make_engine(model, quant_compute: str, graphs: bool):
@@ -6634,6 +6677,574 @@ def lora_phase(dev, card: str, full_run: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18 (offload): MoE expert offload, layer offload, the Mamba3 mixer,
+# data-parallel replicas and the trace spans
+# ---------------------------------------------------------------------------
+
+OFFLOAD_MIXTRAL_LAYERS = 32         # Mixtral-8x7B's depth: 128 cold experts, 90 GB in
+                                    # f32, against the host term's 8 GiB cache
+FULL_RUN_OFFLOAD_MIXTRAL_LAYERS = 1
+OFFLOAD_F32_LAYERS = 2              # the f32 check (a resident twin in f32 beside it)
+OFFLOAD_RESIDENT = 4                # experts a layer on the card, of 8 (hybrid's half)
+OFFLOAD_REBALANCE = 2               # forward passes (engine steps) between rebalances
+OFFLOAD_TOKENS = 4                  # greedy tokens a request at 32 layers
+FULL_RUN_OFFLOAD_TOKENS = 8         # at 1 layer
+OFFLOAD_PROMPTS = FAMILY_REQUEST_LENS
+STREAM_DEPTH = (32, 16)             # Mistral-7B layers, of which on the card
+FULL_RUN_STREAM_DEPTH = (8, 4)
+STREAM_TOKENS = 32                  # greedy tokens of the streamed Executor
+PCIE_PRACTICAL_BYTES_PER_S = 50e9   # pinned host-to-device copies, a practical rate
+MAMBA3_LAYERS = 2                   # Codestral's 64; the card-vs-CPU checks and the engines
+MAMBA3_TOKENS = 16
+MAMBA3_TOL = 1e-3                   # the card in f32 against the CPU in f32 (F32_FREE_TOL)
+DP_LAYERS = 4                       # the replicas' Mistral-7B (2 in a full run)
+DP_TOKENS = 32
+
+
+def offload_requests(vocab: int, n_new: int) -> list:
+    import numpy as np
+
+    from blazr_tpu_torch.config import GenerationConfig
+
+    rng = np.random.default_rng(SEED + 18)
+    return [(rng.integers(0, vocab, n).tolist(),
+             GenerationConfig(max_tokens=n_new, temperature=0.0)) for n in OFFLOAD_PROMPTS]
+
+
+def offload_app(cfg, **inf):
+    from blazr_tpu_torch.config import AppConfig
+
+    app = AppConfig(model=cfg)
+    app.inference.max_seq_len = 1024
+    app.inference.max_batch_size = 8
+    for k, v in inf.items():
+        setattr(app.inference, k, v)
+    return app
+
+
+def _plane_ptrs(rt) -> dict:
+    from blazr_tpu_torch.engine.moe_offload import _EXPERT_KEYS, _planes
+
+    return {layer: [t.data_ptr() for key in _EXPERT_KEYS for t in _planes(p[key])]
+            + [p["resident_ids"].data_ptr()] for layer, p in rt.params.items()}
+
+
+def offload_f32_check(dev, layers: int) -> dict:
+    """Mixtral-8x7B at ``layers`` layers with the card in f32: the model with every
+    expert on the card and the same weights under the hybrid offload (4 of
+    8 resident, a rebalance every pass) serve one greedy prompt through the
+    Executor; after the rebalances the offloaded model's logits over a
+    64-token prefill and 4 decode steps equal the resident model's within
+    1e-4 of their largest, and the greedy tokens are equal."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.models.registry import Model
+
+    synth = llama_family_model(dev, "mixtral", layers)
+    cfg = synth.cfg
+    ref = Model(cfg, card_f32(synth.params), torch.float32)
+    off = Model(cfg, card_f32(synth.params), torch.float32)
+    del synth
+    rng = np.random.default_rng(SEED + 19)
+    prompt = rng.integers(0, cfg.vocab_size, 48).tolist()
+    gen = GenerationConfig(max_tokens=8, temperature=0.0)
+    want = [t.token_id for t in Executor(ref, StubTokenizer(), offload_app(cfg)).generate(
+        prompt, gen)]
+    ex = Executor(off, StubTokenizer(), offload_app(
+        cfg, moe_offload="hybrid", moe_device_experts=OFFLOAD_RESIDENT,
+        moe_rebalance_interval=1))
+    got = [t.token_id for t in ex.generate(prompt, gen)]
+    rt = ex._moe_rt
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 68))).to(dev)
+    pos = torch.arange(68, device=dev)[None]
+    errs = []
+    with torch.no_grad():
+        caches = [m.init_cache(1, 128) for m in (ref, off)]
+        for lo, hi in ((0, 64), (64, 65), (65, 66), (66, 67), (67, 68)):
+            a, b = (m.forward(toks[:, lo:hi], c, pos[:, lo:hi])[0]
+                    for m, c in zip((ref, off), caches))
+            errs.append(float((a - b).abs().max() / a.abs().max()))
+    err = max(errs)
+    moved, rebalances = rt.moved, rt.manager.rebalances
+    log(f"  f32 check ({layers} layers, {rebalances} rebalances, {moved} experts moved): max rel "
+        f"err of the logits {err:.3g} (tol 1e-4); greedy tokens "
+        f"{'equal' if got == want else 'DIFFER'}")
+    assert moved > 0 and err <= 1e-4 and got == want, (moved, err, got, want)
+    del ex, ref, off, rt
+    free_card()
+    return dict(max_rel_err=err, moved=moved, rebalances=rebalances, tokens_equal=True)
+
+
+def offload_mixtral(dev, card: str, full_run: bool) -> dict:
+    """Part (a): Mixtral-8x7B AWQ-INT4 at full width and depth (1 layer in a
+    full run) under ``--moe-offload hybrid`` (4 of 8 experts resident, a
+    rebalance every 2 passes): 8 greedy requests of phase 5's prompt lengths
+    through the BatchEngine (eager), then one through the Executor. B1 and
+    B2 launches, the host term's calls and expert terms, the cold cache's
+    hits and misses, ms a step; the resident planes rewritten in place
+    (their data pointers unchanged); then the f32 check."""
+    import torch
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.executor import Executor
+
+    n_new = FULL_RUN_OFFLOAD_TOKENS if full_run else OFFLOAD_TOKENS
+    layers = FULL_RUN_OFFLOAD_MIXTRAL_LAYERS if full_run else OFFLOAD_MIXTRAL_LAYERS
+    model = llama_family_model(dev, "mixtral", layers)
+    app = offload_app(model.cfg, moe_offload="hybrid", moe_device_experts=OFFLOAD_RESIDENT,
+                      moe_rebalance_interval=OFFLOAD_REBALANCE)
+    t0 = time.perf_counter()
+    ex = Executor(model, StubTokenizer(), app)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    rt = ex._moe_rt
+    assert rt is not None and all(len(r) == OFFLOAD_RESIDENT for r in rt.resident.values())
+    host_gb = sum(t.numel() * t.element_size() for lay in rt.host.values()
+                  for w in lay.values() for t in (w.qweight, w.scales, w.mins)) / 1e9
+    ptrs = _plane_ptrs(rt)
+    engine = BatchEngine(model, StubTokenizer(), app)
+    assert engine._moe_rt is rt and not engine.graphs.enabled
+    reqs = offload_requests(model.cfg.vocab_size, n_new)
+    cache = rt.cold_cache
+
+    def tallies():
+        return (rt.cold_accesses, rt.cold_experts, rt.manager.rebalances, rt.moved,
+                cache.hits, cache.misses)
+
+    before = tallies()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = asyncio.run(serve(engine, [reqs]))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    torch.cuda.synchronize()
+    for r in results:
+        assert len(r["tokens"]) == n_new, r["tokens"]
+    steps = engine.horizon_steps
+    calls, experts, rebal, moved, hits, misses = (a - b for a, b in zip(tallies(), before))
+    ms_step = engine.perf["decode"] * 1e3 / max(steps, 1)
+    assert counts["qmm"] > 0 and counts["paged_attention"] > 0, counts
+    assert rebal > 0 and calls > 0 and _plane_ptrs(rt) == ptrs, (rebal, calls)
+    assert cache.peak_bytes <= cache.max_bytes, (cache.peak_bytes, cache.max_bytes)
+    engine_out = dict(layers=layers, wall_s=wall, decode_steps=steps, ms_per_step=ms_step,
+                      decode_s=engine.perf["decode"], prefill_s=engine.perf["prefill"],
+                      tok_s=8 * n_new / wall, host_calls=calls, host_experts=experts,
+                      cache_hits=hits, cache_misses=misses, rebalances=rebal, moved=moved,
+                      **counts)
+    log(f"  BatchEngine, {layers} layers, 8 greedy requests ({min(OFFLOAD_PROMPTS)}-"
+        f"{max(OFFLOAD_PROMPTS)}-token prompts) x {n_new} tokens: {wall:.1f} s, {steps} "
+        f"decode steps at {ms_step:.1f} ms ({engine.perf['decode']:.2f} s decode, "
+        f"{engine.perf['prefill']:.2f} s prefill), B1 {counts['qmm']}, B2 "
+        f"{counts['paged_attention']}; host term {calls} calls, {experts} expert terms, "
+        f"cold cache {hits} hits and {misses} misses; {rebal} rebalances moved {moved} "
+        f"experts in place; {card}")
+    prompt = reqs[1][0]
+    reset_counts()
+    stamps = []
+    t0 = time.perf_counter()
+    before = tallies()
+    for _ in ex.generate(prompt, GenerationConfig(max_tokens=n_new, temperature=0.0)):
+        stamps.append(time.perf_counter())
+    counts = read_counts()
+    calls, experts, _, _, hits, misses = (a - b for a, b in zip(tallies(), before))
+    ms_tok = (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
+    ex_out = dict(ttft_s=stamps[0] - t0, ms_per_token=ms_tok, qmm=counts["qmm"],
+                  host_calls=calls, host_experts=experts, cache_hits=hits, cache_misses=misses)
+    log(f"  Executor, {len(prompt)}-token prompt: TTFT {ex_out['ttft_s'] * 1e3:.0f} ms, "
+        f"{ms_tok:.1f} ms a token, B1 {counts['qmm']}, host term {calls} calls, {experts} "
+        f"expert terms, {hits} hits and {misses} misses; cold cache keeps "
+        f"{cache.bytes / 2**30:.2f} GiB (peak with its scratch {cache.peak_bytes / 2**30:.2f} "
+        f"of {cache.max_bytes / 2**30:.0f} GiB); install {install_s:.1f} s, host mirror "
+        f"{host_gb:.2f} GB pinned")
+    assert counts["qmm"] > 0 and cache.peak_bytes <= cache.max_bytes
+    out = dict(engine=engine_out, executor=ex_out, install_s=install_s, host_gb=host_gb,
+               cold_kept_gib=cache.bytes / 2**30, cold_peak_gib=cache.peak_bytes / 2**30)
+    del engine, ex, model, rt, cache
+    free_card()
+    out["f32"] = offload_f32_check(dev, OFFLOAD_F32_LAYERS)
+    return out
+
+
+def _union(spans: list) -> list:
+    out = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def copy_overlap(prof) -> dict:
+    """From a profiler window: the host-to-device copies' device time and
+    the share of it during which a kernel ran (the union of the copies'
+    spans against the union of the kernels')."""
+    import torch
+
+    copies, kernels = [], []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (ev.time_range.start, ev.time_range.end)
+        if "Memcpy HtoD" in ev.name:
+            copies.append(span)
+        elif "Memcpy" not in ev.name and "Memset" not in ev.name:
+            kernels.append(span)
+    cu, ku = _union(copies), _union(kernels)
+    inter = 0.0
+    for lo, hi in cu:
+        for klo, khi in ku:
+            inter += max(0.0, min(hi, khi) - max(lo, klo))
+    copy_us = sum(hi - lo for lo, hi in cu)
+    return dict(copy_ms=copy_us / 1e3, kernel_ms=sum(hi - lo for lo, hi in ku) / 1e3,
+                overlap=inter / copy_us if copy_us else 0.0, copies=len(copies))
+
+
+def stream_cli(full_run: bool) -> dict:
+    """``cli run CKPT --device-layers N`` (``cli_here``) on phase 7's
+    checkpoint (written here if phase 7 did not run), half its layers on
+    the card: 16 greedy tokens; alone, its stream equals ``cli run``'s
+    without the flag."""
+    d = http_checkpoint()
+    argv = ("run", d, "--prompt", "layers that live in host memory", "--max-tokens", "16",
+            "--temperature", "0")
+    stdout, stderr, wall = cli_here(*argv, "--device-layers", HTTP_LAYERS // 2)
+    summary = [line for line in stderr.splitlines() if line.startswith("[")
+               and " tokens, " in line]
+    assert stdout.strip() and summary, (stdout[-2000:], stderr[-2000:])
+    log(f"  cli run --device-layers {HTTP_LAYERS // 2} ({HTTP_LAYERS}-layer checkpoint): "
+        f"{summary[-1]} ({wall:.1f} s, the load included)")
+    if not full_run:
+        resident, _, _ = cli_here(*argv)
+        assert stdout == resident, (stdout, resident)
+    return dict(wall_s=wall, summary=summary[-1])
+
+
+def offload_stream(dev, card: str, full_run: bool) -> dict:
+    """Part (b): Mistral-7B AWQ-INT4 with STREAM_DEPTH (FULL_RUN_STREAM_DEPTH)
+    layers, the second half streamed from pinned host memory through the
+    card's two slots. The logits of a 128-token prefill and 4 decode steps
+    equal the fully resident model's exactly; the Executor's ms a token and
+    tok/s, streamed and resident (both eager), beside the floor of the host
+    layers' bytes at the measured pinned copy rate and at 50 GB/s; the
+    copies' overlap with compute under torch.profiler; cli run."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.engine.offload_stream import _tensors, stream_model
+    from blazr_tpu_torch.loader.offloading import LayerDeviceMap
+
+    layers, on_card = FULL_RUN_STREAM_DEPTH if full_run else STREAM_DEPTH
+    model = mistral_model(dev, layers)
+    rng = np.random.default_rng(SEED + 20)
+    prompt = rng.integers(0, model.cfg.vocab_size, 128).tolist()
+    feed = torch.tensor([prompt + rng.integers(0, 32000, 4).tolist()], device=dev)
+    pos = torch.arange(132, device=dev)[None]
+    gen = GenerationConfig(max_tokens=STREAM_TOKENS, temperature=0.0)
+
+    def logits(m):
+        cache = m.init_cache(1, 256)
+        with torch.no_grad():
+            out = [m.forward(feed[:, :128], cache, pos[:, :128])[0][:, -1]]
+            out += [m.forward(feed[:, i:i + 1], cache, pos[:, i:i + 1])[0][:, -1]
+                    for i in range(128, 132)]
+        return torch.cat(out)
+
+    def run(ex):
+        stamps = []
+        t0 = time.perf_counter()
+        toks = []
+        for t in ex.generate(prompt, gen):
+            stamps.append(time.perf_counter())
+            toks.append(t.token_id)
+        return toks, stamps[0] - t0, (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
+
+    want = logits(model)
+    app = offload_app(model.cfg)
+    app.inference.graphs = False
+    res_toks, res_ttft, res_ms = run(Executor(model, StubTokenizer(), app))
+    t0 = time.perf_counter()
+    streamed = stream_model(model, LayerDeviceMap.with_device_layers(layers, on_card))
+    torch.cuda.synchronize()
+    pin_s = time.perf_counter() - t0
+    del model
+    free_card()
+    got = logits(streamed)
+    err = float((got - want).abs().max())
+    host_bytes = len(streamed.host_layers) * streamed.layer_bytes
+    # The pinned copy rate: one host layer into a slot, timed with events.
+    src, dst = _tensors(streamed.host_layers[0]), _tensors(streamed._slots[0])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(2):
+        start.record()
+        for d, h in zip(dst, src):
+            d.copy_(h, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+    rate = streamed.layer_bytes / (start.elapsed_time(end) / 1e3)
+    ex = Executor(streamed, StubTokenizer(), offload_app(streamed.cfg))
+    assert not ex.graphs.enabled
+    reset_counts()
+    toks, ttft, ms_tok = run(ex)
+    counts = read_counts()
+    assert counts["qmm"] > 0 and toks == res_toks, (counts, toks, res_toks)
+    prof, t0 = start_profile()
+    for _ in ex.generate(prompt, GenerationConfig(max_tokens=5, temperature=0.0)):
+        pass
+    wall, busy, _, _, _ = stop_profile(prof, t0)
+    ov = copy_overlap(prof)
+    floor_ms, floor50_ms = host_bytes / rate * 1e3, host_bytes / PCIE_PRACTICAL_BYTES_PER_S * 1e3
+    log(f"  {layers} layers, {on_card} on the card: logits max |diff| {err:.3g} against the "
+        f"resident model; {len(streamed.host_layers)} host layers of "
+        f"{streamed.layer_bytes / 1e6:.1f} MB ({host_bytes / 1e9:.2f} GB a token, pinned in "
+        f"{pin_s:.1f} s); pinned copy {rate / 1e9:.1f} GB/s")
+    log(f"  Executor streamed: TTFT {ttft * 1e3:.0f} ms, {ms_tok:.2f} ms a token "
+        f"({1e3 / ms_tok:.1f} tok/s) against floors of {floor_ms:.2f} ms (measured rate) "
+        f"and {floor50_ms:.2f} ms (50 GB/s); resident, eager: {res_ms:.2f} ms a token; "
+        f"B1 {counts['qmm']}; greedy tokens equal; {card}")
+    log(f"  profiled 5 tokens: copies {ov['copy_ms']:.1f} ms of device time ({ov['copies']} "
+        f"copies), kernels {ov['kernel_ms']:.1f} ms, {ov['overlap']:.3f} of the copy time "
+        f"under a kernel; device busy {busy / wall:.3f} of {wall * 1e3:.0f} ms")
+    assert err == 0.0, err
+    del ex, streamed
+    free_card()
+    return dict(layers=layers, on_card=on_card, max_abs_err=err, host_gb=host_bytes / 1e9,
+                copy_gb_s=rate / 1e9, ms_per_token=ms_tok, tok_s=1e3 / ms_tok, ttft_s=ttft,
+                floor_ms=floor_ms, floor50_ms=floor50_ms, resident_ms_per_token=res_ms,
+                overlap=ov, busy=busy / wall, qmm=counts["qmm"], cli=stream_cli(full_run))
+
+
+MAMBA3_VARIANTS = {"rope, rank 0, no conv": dict(complex_rope=True, mimo_rank=0, use_conv=False),
+                   "rope, rank 2, no conv": dict(complex_rope=True, mimo_rank=2, use_conv=False),
+                   "rope, rank 2, conv": dict(complex_rope=True, mimo_rank=2, use_conv=True)}
+
+
+def mamba3_model(dev, flags: dict, layers: int):
+    """Codestral's published widths with the Mamba3 mixer (bf16): the
+    phase-14 model's params, each layer's in_proj widened for the rank (a
+    new random AWQ-INT4 weight, groups of 128), the conv where it is on, and
+    random ``lam`` [H] and ``omega`` [H, N/2]."""
+    import torch
+
+    from blazr_tpu_torch.models.mamba2 import _m3_widths
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.utils.synthetic import _rand_awq_qt
+
+    model = recurrent_model(dev, "mamba2", layers)
+    cfg = model.cfg
+    cfg.ssm = dataclasses.replace(cfg.ssm, variant="mamba3", **flags)
+    ssm = cfg.ssm
+    _, x_w, b_w, c_w = _m3_widths(ssm)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 21)
+    for p in model.params["layers"]:
+        p["in_proj"] = _rand_awq_qt(g, cfg.hidden_size, ssm.inner_size + x_w + b_w + c_w
+                                    + ssm.num_heads, 128, dev)
+        p["conv_w"] = (torch.randn((x_w + b_w + c_w, ssm.conv_kernel), device=dev,
+                                   generator=g) * 0.2).to(torch.bfloat16) \
+            if flags["use_conv"] else None
+        p["conv_b"] = None
+        p["lam"] = torch.randn((ssm.num_heads,), device=dev, generator=g)
+        p["omega"] = torch.rand((ssm.num_heads, ssm.state_size // 2), device=dev,
+                                generator=g) + 0.1
+    return model
+
+
+def in_f32(model):
+    """The same weights with the card in f32 (QuantTensors shared)."""
+    import torch
+
+    from blazr_tpu_torch.models.registry import Model
+
+    return Model(model.cfg, card_f32(model.params), torch.float32)
+
+
+def mamba3_check(dev, name: str, flags: dict) -> dict:
+    """A 2-layer model of ``flags``: the card's contiguous forward (a
+    96-token prefill of two rows, the chunked scan, then 4 single-token
+    steps, the step form) against the CPU f32 forward on the same weights
+    dequantized: with the card in f32 within MAMBA3_TOL of the largest
+    logit, in bf16 reported."""
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.kvcache.ssm_state import init_ssm_state
+
+    out = {}
+    rng = np.random.default_rng(SEED + 22)
+    bf16 = mamba3_model(dev, flags, MAMBA3_LAYERS)
+    cpu = to_cpu_f32(bf16.params, dense=True)
+    toks = rng.integers(0, bf16.cfg.vocab_size, (2, 100))
+    for dtype, model in (("f32", in_f32(bf16)), ("bf16", bf16)):
+        errs = []
+        states = [model.init_cache(2, 128), init_ssm_state(model.cfg, 2, device="cpu")]
+        with torch.no_grad():
+            for lo, hi in ((0, 96), (96, 97), (97, 98), (98, 99), (99, 100)):
+                t = torch.from_numpy(toks[:, lo:hi])
+                p = torch.arange(lo, hi)[None].expand(2, -1)
+                a = model.forward_fn(model.params, model.cfg, t.to(dev), states[0],
+                                     p.to(dev))[0].float().cpu()
+                b = model.forward_fn(cpu, model.cfg, t, states[1], p)[0]
+                errs.append(float((a - b).abs().max() / b.abs().max()))
+        out[dtype] = max(errs)
+        del model, states
+    del bf16, cpu
+    free_card()
+    log(f"  mamba3 {name}: card vs CPU (96-token prefill, 4 steps), max rel err "
+        f"{out['f32']:.3g} with the card in f32 (tol {MAMBA3_TOL}), {out['bf16']:.3g} in bf16")
+    assert out["f32"] <= MAMBA3_TOL, out
+    return out
+
+
+def mamba3_engines(dev, card: str) -> dict:
+    """The rank-2 Mamba3 model (2 layers, card in f32) serving 8 greedy
+    requests through the BatchEngine (its state rows, graphs on) and each
+    through the Executor: equal streams; then in bf16, the BatchEngine's ms
+    a decode step and its B1 launches."""
+    import torch
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.executor import Executor
+
+    flags = MAMBA3_VARIANTS["rope, rank 2, no conv"]
+    reqs = [(p, GenerationConfig(max_tokens=MAMBA3_TOKENS, temperature=0.0))
+            for p, _ in offload_requests(32000, 1)]
+    model = mamba3_model(dev, flags, MAMBA3_LAYERS)
+    f32 = in_f32(model)
+    engine, _ = family_engine(f32, True, 1024)
+    wave = [r["tokens"] for r in asyncio.run(serve(engine, [reqs]))]
+    ex = Executor(f32, StubTokenizer(), offload_app(f32.cfg))
+    alone = [[t.token_id for t in ex.generate(p, g)] for p, g in reqs]
+    assert wave == alone, [i for i, (a, b) in enumerate(zip(wave, alone)) if a != b]
+    del engine, ex, f32
+    free_card()
+    engine, _ = family_engine(model, True, 1024)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = asyncio.run(serve(engine, [reqs]))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts["qmm"] > 0 and all(len(r["tokens"]) == MAMBA3_TOKENS for r in results)
+    ms_step = decode_step_ms(engine)
+    log(f"  mamba3 rank 2: the BatchEngine's 8 streams (card in f32) equal the Executor's; "
+        f"bf16: 8 x {MAMBA3_TOKENS} tokens in {wall:.2f} s, a batch-8 decode step "
+        f"{ms_step:.3f} ms (a replayed graph), B1 {counts['qmm']}; {card}")
+    del engine, model
+    free_card()
+    return dict(streams_equal=True, wall_s=wall, ms_per_step=ms_step, qmm=counts["qmm"])
+
+
+def offload_dp(dev, card: str, full_run: bool) -> dict:
+    """Part (d): two BatchEngine replicas of one Mistral-7B model (DP_LAYERS
+    layers, 2 in a full run; the card in f32; each its own KV pool, warmed)
+    behind a cache-aware DataParallelGroup serve 8 greedy requests of two
+    prompt families at once, with the trace spans captured; then one engine
+    serves them alone, and every stream must equal the replicas' (state
+    shared between replicas would show). Spans counted, requests per
+    replica, tok/s both ways."""
+    import logging
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.data_parallel import DataParallelGroup
+    from blazr_tpu_torch.utils import tracing
+
+    model = in_f32(mistral_model(dev, 2 if full_run else DP_LAYERS))
+    engines = [family_engine(model, True, 1024)[0] for _ in range(3)]
+    group = DataParallelGroup(engines[:2])
+    texts = [("the first family of prompts " * 8 + str(i)) for i in range(4)]
+    texts += [("another family, of other prompts " * 8 + str(i)) for i in range(4)]
+    reqs = [(p, GenerationConfig(max_tokens=DP_TOKENS, temperature=0.0))
+            for p, _ in offload_requests(model.cfg.vocab_size, 1)]
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.DEBUG)
+            self.lines: list = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    handler = Lines()
+    tracing.logger.addHandler(handler)
+    tracing.logger.setLevel(logging.DEBUG)
+
+    async def both():
+        tasks = [asyncio.create_task(r.engine.run()) for r in group.replicas]
+        picks, handles = [], []
+        for text, (prompt, gen) in zip(texts, reqs):
+            r = group.select(text)
+            picks.append(r)
+            handles.append(r.engine.submit(prompt, gen))
+
+        async def collect(h):
+            return [t.token_id async for t in h.tokens()]
+
+        out = await asyncio.wait_for(asyncio.gather(*[collect(h) for h in handles]), 600)
+        for r in picks:
+            group.release(r)
+        for r in group.replicas:
+            r.engine.stop()
+        await asyncio.gather(*tasks)
+        return out, [r.index for r in picks]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    streams, picked = asyncio.run(both())
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    tracing.logger.removeHandler(handler)
+    tracing.logger.setLevel(logging.NOTSET)
+    t0 = time.perf_counter()
+    alone = [r["tokens"] for r in asyncio.run(serve(engines[2], [reqs]))]
+    wall1 = time.perf_counter() - t0
+    starts = [line for line in handler.lines if "_start" in line]
+    ends = [line for line in handler.lines if "_end" in line and "elapsed_ms=" in line]
+    agree = sum(a == b for a, b in zip(streams, alone))
+    log(f"  two replicas ({model.cfg.num_layers} layers, the card in f32): requests per "
+        f"replica {[picked.count(i) for i in (0, 1)]}, 8 x {DP_TOKENS} tokens in {wall:.2f} s "
+        f"({8 * DP_TOKENS / wall:.0f} tok/s) against {wall1:.2f} s on one engine; "
+        f"{agree} of 8 streams equal one engine's; B1 "
+        f"{counts['qmm']}, B2 {counts['paged_attention']}; {len(starts)} span starts, "
+        f"{len(ends)} ends, e.g. '{ends[0] if ends else ''}'; {card}")
+    assert len(set(picked)) == 2 and all(len(s) == DP_TOKENS for s in streams)
+    assert streams == alone, [i for i, (a, b) in enumerate(zip(streams, alone)) if a != b]
+    assert starts and len(starts) == len(ends), (len(starts), len(ends))
+    assert counts["qmm"] > 0 and counts["paged_attention"] > 0, counts
+    assert [s["active"] for s in group.stats()] == [0, 0]
+    del engines, group, model
+    free_card()
+    return dict(per_replica=[picked.count(i) for i in (0, 1)], wall_s=wall, alone_s=wall1,
+                agree=agree, spans=len(starts), qmm=counts["qmm"],
+                paged_attention=counts["paged_attention"])
+
+
+def offload_phase(dev, card: str, full_run: bool) -> dict:
+    """Phase 18: (a) Mixtral-8x7B under the hybrid expert offload, (b)
+    Mistral-7B with half its layers streamed from host memory, (c) the
+    Mamba3 mixer at Codestral's widths, (d) two BatchEngine replicas behind
+    a DataParallelGroup with the trace spans."""
+    out = {}
+    for part, fn in (("moe", lambda: offload_mixtral(dev, card, full_run)),
+                     ("stream", lambda: offload_stream(dev, card, full_run)),
+                     ("mamba3", lambda: dict(
+                         {name: mamba3_check(dev, name, flags)
+                          for name, flags in MAMBA3_VARIANTS.items()
+                          if not (full_run and flags["use_conv"])},
+                         engines=mamba3_engines(dev, card))),
+                     ("dp", lambda: offload_dp(dev, card, full_run))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        log(f"  ({part}: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def tok_cfg():
     """Mistral-7B's config: the widths of phase 7's checkpoint."""
     from blazr_tpu_torch.utils.synthetic import mistral_7b_config
@@ -6928,7 +7539,7 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
           "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "prefix", "http",
           "routes", "constrained", "families", "moe", "gguf", "mla", "ssm", "vision", "spec",
-          "lora", "sweep", "timings", "layout_times")
+          "lora", "offload", "sweep", "timings", "layout_times")
 FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
@@ -7070,6 +7681,10 @@ def main() -> int:
          "again through the warmed engine, the switches' cost and captures, the f32 and "
          "dense-merge equalities, the /v1/lora routes over cli serve) and the C++ BPE core",
          lambda: lora_phase(dev, card, phases == list(FULL_RUN))),
+        ("offload", "phase 18: MoE expert offload (Mixtral-8x7B, hybrid, the host term), "
+         "layer offload (Mistral-7B, half its layers streamed), the Mamba3 mixer at "
+         "Codestral's widths, two BatchEngine replicas behind a DataParallelGroup with "
+         "the trace spans", lambda: offload_phase(dev, card, phases == list(FULL_RUN))),
         ("sweep", "phase 8: the sweeps behind the launch plans of B1-B6",
          lambda: (b1_variants(dev, gen), b2_splits(dev, gen), b3_sweeps(dev, gen),
                   b4_splits(dev, gen), layout_splits(dev, gen))),

@@ -1,9 +1,11 @@
 """The port's CLI names, for each command of the JAX CLI it does not run,
 the ROADMAP queue A item that ports it. These tests hold each pointer to
-ROADMAP.md: the item's entry in queue A must name the command. The loader's
-docstring points layer offload at its item the same way (vision towers are
-served since their part of item 12 was ported), and so does each runtime message of what the engines and the loader
-do not serve yet: its item must be an entry of queue A."""
+ROADMAP.md: the item's entry in queue A must name the command. Each runtime
+message of what the engines and the loader do not serve yet names its item,
+which must be an entry of queue A. Item 12 is served since its last part was
+ported: the loader's docstring points layer offload at its modules, MoE
+offload and streaming models pass the engines' checks, and the one refusal
+left (``BatchEngine`` over a streaming model) names ROADMAP §C."""
 
 import re
 from pathlib import Path
@@ -42,11 +44,15 @@ def test_not_ported_commands_point_at_their_queue_item(command):
 
 
 def test_loader_points_vision_and_offload_at_item_12():
-    """Vision towers are served (``loader/vision.py``); layer offload still
-    names item 12, whose entry names ``loader/offloading.py``."""
+    """Vision towers are served (``loader/vision.py``) and so is layer
+    offload: the loader's docstring names the modules that serve it, no
+    longer item 12, and the item-12 entry names ``loader/offloading.py``
+    among what landed."""
     entry = _queue_a_entries()["12"]
     doc = " ".join(api.__doc__.split())
-    assert "layer offload (item 12)" in doc
+    assert "item 12" not in doc
+    assert "loader/offloading.py" in doc and "engine/offload_stream.py" in doc
+    assert "loader/vision.py" in doc
     assert "loader/offloading.py" in entry
 
 
@@ -94,37 +100,67 @@ def _tiny_model():
 @pytest.mark.parametrize("what,item", [("moe_offload", "12"), ("tp", "13"),
                                        ("offload", "12")])
 def test_engine_config_refusals_name_their_queue_item(what, item):
+    """Meshes raise naming item 13. Of item 12, MoE offload is served and
+    passes the check; layer offload raises naming ROADMAP §C, where the JAX
+    engine's failure over a streaming model is pinned."""
     inf = AppConfig().inference
     if what == "moe_offload":
-        inf.moe_offload = True
-    elif what == "tp":
+        inf.moe_offload = "hybrid"
+        batch_engine.BatchEngine._check_config(inf)
+        return
+    if what == "tp":
         inf.tensor_parallel_size = 2
     else:
         inf.num_device_layers = 1
     with pytest.raises(NotImplementedError) as e:
         batch_engine.BatchEngine._check_config(inf)
-    assert _item_of(str(e.value)) == item and _in_queue_a(item)
+    if what == "offload":
+        assert "ROADMAP §C" in str(e.value) and "queue A" not in str(e.value)
+        assert "Executor" in str(e.value)
+    else:
+        assert _item_of(str(e.value)) == item and _in_queue_a(item)
 
 
 @pytest.mark.parametrize("what,item", [("tp", "13"), ("moe_offload", "12"),
                                        ("stream", "12")])
 def test_executor_refusals_name_their_queue_item(what, item):
+    """Meshes raise naming item 13; MoE offload and streaming models (item
+    12) are served and pass the check."""
     inf = AppConfig().inference
     if what == "tp":
         inf.expert_parallel_size = 2
     elif what == "moe_offload":
-        inf.moe_offload = True
+        inf.moe_offload = "hybrid"
     else:
         inf.num_device_layers = 2
+    if what != "tp":
+        executor.Executor._check_config(inf)
+        return
     with pytest.raises(NotImplementedError) as e:
         executor.Executor._check_config(inf)
     assert _item_of(str(e.value)) == item and _in_queue_a(item)
 
 
-def test_loader_refusals_name_item_12():
-    with pytest.raises(NotImplementedError) as e:
-        api.load_model(".", device_layers=1, device="cpu")
-    assert _item_of(str(e.value)) == "12"
+def test_loader_refusals_name_item_12(tmp_path):
+    """Layer offload loads (item 12 is served): ``device_layers`` below the
+    depth gives a streaming model with its layers split, at or above it the
+    model itself; a family the streaming forward does not run (Mamba2)
+    raises ``ValueError`` naming it."""
+    from blazr_tpu_torch.engine.offload_stream import StreamingModel
+    from blazr_tpu_torch.utils.synthetic import (tiny_llama_config, tiny_recurrent_config,
+                                                 write_hf_checkpoint)
+
+    write_hf_checkpoint(tmp_path / "l", tiny_llama_config(), quant="plain", dtype="float32")
+    model, app = api.load_model(tmp_path / "l", device_layers=1, device="cpu")
+    assert isinstance(model, StreamingModel) and model.is_streaming
+    assert (model.num_device_layers, len(model.host_layers)) == (1, 1)
+    assert len(model.params["layers"]) == 1 and app.inference.num_device_layers == 1
+    model, app = api.load_model(tmp_path / "l", device_layers=2, device="cpu")
+    assert not isinstance(model, StreamingModel) and app.inference.num_device_layers is None
+    write_hf_checkpoint(tmp_path / "m", tiny_recurrent_config("mamba2"), quant="plain",
+                        dtype="float32")
+    with pytest.raises(ValueError, match="llama-forward families"):
+        api.load_model(tmp_path / "m", device_layers=1, device="cpu")
 
 
 def test_unported_routes_name_their_queue_item():

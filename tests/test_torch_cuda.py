@@ -1149,3 +1149,153 @@ def test_recurrent_decode_step_in_a_cuda_graph(cuda, family):
         torch.cuda.synchronize()
         assert _rel_err(out, step_cpu(args)) < 1e-4, f"replay {j}"
     assert kernels.qmm.launches == before                   # replays run no Python
+
+
+# ---------------------------------------------------------------------------
+# MoE expert offload and layer offload on the card
+# ---------------------------------------------------------------------------
+
+def _tiny_moe_model(dev, dtype=torch.float32, layers=2):
+    import dataclasses as dc
+
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.utils.synthetic import MOE_CONFIGS, synth_llama_params
+
+    cfg = MOE_CONFIGS["mixtral"]()
+    cfg = dc.replace(cfg, vocab_size=512, hidden_size=256, num_layers=layers,
+                     intermediate_size=256,
+                     attention=dc.replace(cfg.attention, num_heads=4, num_kv_heads=2,
+                                          head_dim=64),
+                     moe=dc.replace(cfg.moe, intermediate_size=256))
+    return Model(cfg, synth_llama_params(cfg, quant="awq", dtype=dtype, seed=3, device=dev),
+                 dtype)
+
+
+def _offload_app(cfg, **inf):
+    from blazr_tpu_torch.config import AppConfig
+
+    app = AppConfig(model=cfg)
+    app.inference.max_seq_len = 128
+    for k, v in inf.items():
+        setattr(app.inference, k, v)
+    return app
+
+
+class _Ids:
+    eos_token_id = -1
+
+    def is_eos(self, t):
+        return False
+
+    def decode(self, ids):
+        return ""
+
+
+def test_moe_offload_rebalance_writes_in_place(cuda):
+    """Under the hybrid offload (2 of 8 resident, a rebalance every pass)
+    the Executor's greedy tokens equal the resident model's; the
+    rebalances moved experts by writing the resident planes and
+    ``resident_ids`` in place (their data pointers unchanged), and the
+    logits after them equal the resident model's within 1e-4 (f32)."""
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.engine.moe_offload import _EXPERT_KEYS, _planes
+
+    ref, off = _tiny_moe_model(cuda), _tiny_moe_model(cuda)
+    gen = GenerationConfig(max_tokens=12, temperature=0.0)
+    prompt = list(range(5, 40))
+    want = [t.token_id for t in Executor(ref, _Ids(), _offload_app(ref.cfg)).generate(
+        prompt, gen)]
+    ex = Executor(off, _Ids(), _offload_app(off.cfg, moe_offload="hybrid",
+                                            moe_device_experts=2, moe_rebalance_interval=1))
+    rt = ex._moe_rt
+
+    def ptrs():
+        return [[t.data_ptr() for k in _EXPERT_KEYS for t in _planes(p[k])]
+                + [p["resident_ids"].data_ptr()] for p in rt.params.values()]
+
+    before = ptrs()
+    got = [t.token_id for t in ex.generate(prompt, gen)]
+    assert got == want and rt.moved > 0 and ptrs() == before
+    for layer, res in rt.resident.items():
+        assert rt.params[layer]["resident_ids"].tolist() == res
+    toks = torch.arange(3, 35, device=cuda)[None]
+    pos = torch.arange(32, device=cuda)[None]
+    a, _ = ref.forward(toks, ref.init_cache(1, 64), pos)
+    b, _ = off.forward(toks, off.init_cache(1, 64), pos)
+    assert _rel_err(b, a.cpu()) < 1e-4
+
+
+def test_streamed_layers_equal_the_resident_model(cuda):
+    """A 4-layer model with 1 layer on the card and 3 streamed through the
+    two slots (pinned host copies, a copy stream, events): the logits of a
+    prefill and 3 decode steps equal the resident model's exactly, and the
+    Executor's greedy tokens too."""
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.engine.offload_stream import stream_model
+    from blazr_tpu_torch.loader.offloading import LayerDeviceMap
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.utils.synthetic import synth_llama_params, tiny_llama_config
+
+    cfg = tiny_llama_config()
+    cfg.hidden_size, cfg.num_layers, cfg.intermediate_size = 256, 4, 512
+    cfg.attention.head_dim = 64
+    model = Model(cfg, synth_llama_params(cfg, quant="awq", dtype=torch.bfloat16, seed=4,
+                                          device=cuda), torch.bfloat16)
+    toks = torch.arange(7, 27, device=cuda)[None]
+    pos = torch.arange(20, device=cuda)[None]
+
+    def run(m):
+        cache = m.init_cache(1, 64)
+        out = [m.forward(toks[:, :17], cache, pos[:, :17])[0][:, -1]]
+        out += [m.forward(toks[:, i:i + 1], cache, pos[:, i:i + 1])[0][:, -1]
+                for i in range(17, 20)]
+        return torch.cat(out)
+
+    gen = GenerationConfig(max_tokens=10, temperature=0.0)
+    want = run(model)
+    want_toks = [t.token_id for t in Executor(model, _Ids(), _offload_app(cfg)).generate(
+        [3, 4, 5], gen)]
+    streamed = stream_model(model, LayerDeviceMap.with_device_layers(4, 1))
+    assert all(t.is_pinned() for lp in streamed.host_layers
+               for t in (lp["qkv"].qweight, lp["down"].scales))
+    assert torch.equal(run(streamed), want)
+    got = [t.token_id for t in Executor(streamed, _Ids(), _offload_app(cfg)).generate(
+        [3, 4, 5], gen)]
+    assert got == want_toks
+    assert streamed.copied_bytes > 0
+
+
+def test_cold_term_stays_under_its_cap_at_mixtral_width(cuda):
+    """One Mixtral-8x7B MoE layer at its published width (hidden 4096, 8
+    experts of 14336, AWQ-INT4) under the hybrid offload, its host term
+    capped at two experts' f32 bytes: 8 rows routed over every cold expert,
+    twice; the cache keeps one expert beside its scratch and never holds
+    more than the cap, the kept expert hits on the second pass, and the
+    term equals the uncapped one."""
+    import dataclasses as dc
+
+    from blazr_tpu_torch.config import AppConfig
+    from blazr_tpu_torch.engine.moe_offload import ColdExpertCache, install_offload
+    from blazr_tpu_torch.utils.synthetic import MOE_CONFIGS, synth_llama_params
+
+    cfg = dc.replace(MOE_CONFIGS["mixtral"](), num_layers=1)
+    params = synth_llama_params(cfg, quant="awq", dtype=torch.bfloat16, seed=5, device=cuda)
+    inf = AppConfig().inference
+    inf.moe_offload, inf.moe_device_experts = "hybrid", 4
+    _, rt = install_offload(params, cfg, inf, cuda)
+    one = 4 * 3 * cfg.hidden_size * cfg.moe.intermediate_size
+    rt.cold_cache = ColdExpertCache(2 * one)
+    gen = torch.Generator().manual_seed(6)
+    x = (torch.randn((8, cfg.hidden_size), generator=gen) * 0.1).to(cuda)
+    w = torch.zeros((8, 8))
+    for r in range(8):
+        w[r, 4 + r % 4] = 0.7
+        w[r, 4 + (r + 1) % 4] = 0.3
+    capped = [rt.cold_term(0, x, w.to(cuda)) for _ in range(2)]
+    assert rt.cold_cache.peak_bytes == 2 * one and rt.cold_cache.bytes == one
+    assert rt.cold_cache.misses == 7 and rt.cold_cache.hits == 1 and rt.cold_experts == 8
+    rt.cold_cache = ColdExpertCache(8 * one)
+    free = rt.cold_term(0, x, w.to(cuda))
+    assert torch.equal(capped[0], free) and torch.equal(capped[1], free)

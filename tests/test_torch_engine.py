@@ -299,7 +299,9 @@ def test_port_imports_without_jax_or_blazr_tpu():
         "server.rerank", "server.tools", "server.anthropic", "server.responses",
         "server.infill", "server.audio", "server.slots", "server.management",
         "server.config_watch", "config.user", "engine.speculative", "engine.lora",
-        "server.lora_routes", "tokenizer.bpe_native")} <= names
+        "server.lora_routes", "tokenizer.bpe_native", "engine.moe_offload",
+        "engine.offload_stream", "engine.data_parallel", "engine.cache_router",
+        "loader.offloading", "utils.tracing")} <= names
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

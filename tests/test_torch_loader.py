@@ -227,9 +227,11 @@ def test_unserved_families_and_gguf_raise(tmp_path, ckpts):
     """The dense and MoE families load (tests/test_torch_families.py,
     tests/test_torch_moe.py), so do GGUF files (tests/test_torch_gguf.py)
     and DeepSeek MLA, Mamba2 and hybrid checkpoints (tests/test_torch_mla.py
-    and the others); a Mamba3 checkpoint still raises, naming queue A item
-    11, whether from safetensors or from GGUF metadata. A file that is not
-    GGUF raises as the JAX reader does."""
+    and the others), and so do Mamba3 checkpoints (tests/test_torch_mamba3.py):
+    a config that names Mamba3 over weights that lack its mixer raises for
+    the missing tensor, whether from safetensors or from GGUF metadata, and
+    no longer names queue A item 11. A file that is not GGUF raises as the
+    JAX reader does."""
     from blazr_tpu_torch.formats import GgmlType, write_gguf
     from blazr_tpu_torch.utils.synthetic import write_gguf_checkpoint
 
@@ -238,7 +240,7 @@ def test_unserved_families_and_gguf_raise(tmp_path, ckpts):
                                            "state_size": 16, "mamba3_enabled": True})):
         d = tmp_path / name
         write_tiny_llama_checkpoint(d, np.random.default_rng(5), cfg=extra)
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(KeyError, match="Missing tensor .*mixer.in_proj"):
             load_model(d, device=CPU)
     g = tmp_path / "model.gguf"
     write_gguf_checkpoint(g, UniversalConfig(
@@ -253,7 +255,7 @@ def test_unserved_families_and_gguf_raise(tmp_path, ckpts):
                         "mamba3.embedding_length": 64, "mamba3.block_count": 1},
                {"token_embd.weight": (np.zeros((256, 64), np.float32), GgmlType.F32,
                                       (256, 64))})
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(KeyError, match="Missing tensor"):
         load_model(mamba3, device=CPU)
     bad = tmp_path / "bad.gguf"
     bad.write_bytes(b"NOTGGUF-at-all..........")

@@ -583,10 +583,10 @@ def test_norm_topk_prob_default_follows_transformers(model_type, arch, port, jax
 @pytest.mark.parametrize("kind", ["mla", "mamba2", "hybrid"])
 def test_unserved_families_raise_item_11(kind):
     """MLA, Mamba2 and hybrid models are served now (tests/test_torch_mla.py,
-    test_torch_mamba2.py, test_torch_hybrid.py); what stays of item 11 is the
-    Mamba3 mixer, which raises naming it for each kind of recurrent config;
-    a vision tower (served in front of the dense and MoE forward) raises in
-    front of these kinds."""
+    test_torch_mamba2.py, test_torch_hybrid.py), and the last of item 11, the
+    Mamba3 mixer, is served too (tests/test_torch_mamba3.py): no kind of
+    recurrent config raises for it any more; a vision tower (served in front
+    of the dense and MoE forward) raises in front of these kinds."""
     cfg = _tiny("mixtral")
     if kind == "mla":
         cfg = dataclasses.replace(cfg, model_type="deepseek", attention=dataclasses.replace(
@@ -602,8 +602,7 @@ def test_unserved_families_raise_item_11(kind):
         cfg = dataclasses.replace(cfg, hybrid_layers=["mamba2", "attention"],
                                   ssm=SsmConfig())
     mamba3 = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, variant="mamba3"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tllama.check_config(mamba3)
+    tllama.check_config(mamba3)
     from blazr_tpu_torch.config.model_config import VisionConfig
 
     with pytest.raises(NotImplementedError, match="dense and MoE families only"):
@@ -613,14 +612,36 @@ def test_unserved_families_raise_item_11(kind):
 
 @pytest.mark.parametrize("what,item", [("offload", 12), ("ep", 13)])
 def test_offload_and_expert_parallelism_raise(what, item):
-    tp = _to_port(_moe_params(False, False))
+    """Expert parallelism raises naming item 13. Expert offload (item 12)
+    is served: a layer with 2 of 4 experts resident gives ``moe_ffn``'s
+    output within 1e-5 of its largest, at decode and prefill rows (the cold
+    term on the host; tests/test_torch_offload.py holds the engines to the
+    JAX package)."""
+    import types
+
+    from blazr_tpu_torch.engine.moe_offload import install_offload
+
     moe = MoeConfig(num_experts=E, experts_per_tok=2)
-    if what == "offload":
-        tp["resident_ids"] = torch.arange(2)
-    else:
+    if what == "ep":
         moe.use_ep = True
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tmoe.moe_forward(torch.zeros(1, 1, H), tp, moe)
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            tmoe.moe_forward(torch.zeros(1, 1, H), _to_port(_moe_params(False, False)), moe)
+        return
+    for quant in (False, True):
+        ref = _to_port(_moe_params(quant, False))
+        tp = _to_port(_moe_params(quant, False))
+        inf = AppConfig().inference
+        inf.moe_offload, inf.moe_device_experts = "hybrid", 2
+        _, rt = install_offload({"layers": [{"moe": tp}]}, types.SimpleNamespace(moe=moe),
+                                inf, torch.device("cpu"))
+        assert rt is not None and tp["resident_ids"].tolist() == [0, 1]
+        x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 6, H),
+                                                                      dtype=np.float32))
+        for t in (1, 6):
+            want = tmoe.moe_ffn(x[:, :t], ref, moe)
+            got = tmoe.moe_forward(x[:, :t], tp, moe)
+            assert _rel(got, want) < 1e-5
+        assert rt.cold_accesses == 2
 
 
 def test_pre_stacked_expert_names_raise(tmp_path):
