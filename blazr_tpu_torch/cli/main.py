@@ -21,7 +21,16 @@ offload: the other layers stream from host RAM, through the Executor; ``serve
 auto|gpu|cpu|hybrid`` and ``--moe-device-experts K`` (MoE expert offload), as
 the JAX ``run`` and ``generate`` do (cli/main.py:40-70, :299-320); the JAX
 ``serve`` lacks the three.
-``swarm`` and ``disagg`` exit 2 and name their ROADMAP item.
+``run``, ``generate`` and ``serve`` take ``--tp``, ``--sp`` and ``--ep``
+(``auto``: every card): without ``--num-processes`` the command starts the
+mesh's other ranks on this host itself (``parallel/multihost.py``;
+``--device cpu`` runs them on the CPU over gloo), and ``serve`` then serves
+HTTP from rank 0 through ``distributed/lockstep.py`` (continuous batching is
+forced, as the JAX ``serve`` forces it in a multi-process world). With the
+global ``--coordinator/--num-processes/--process-id`` each command is one
+rank (JAX cli/main.py:225-252). ``swarm`` (leader and workers, pipeline
+stages over TCP) and ``disagg`` (router, prefill and decode workers; the
+router serves ``/v1/completions`` with ``--port``) are the JAX commands.
 
     python -m blazr_tpu_torch.cli serve --model FILE.gguf --continuous-batching
     python -m blazr_tpu_torch.cli serve --model DIR --tls-cert cert.pem --tls-key key.pem
@@ -32,6 +41,11 @@ the JAX ``run`` and ``generate`` do (cli/main.py:40-70, :299-320); the JAX
     python -m blazr_tpu_torch.cli run DIR --prompt "..." --device-layers 16
     python -m blazr_tpu_torch.cli run MIXTRAL --prompt "..." --moe-offload hybrid
     python -m blazr_tpu_torch.cli info DIR
+    python -m blazr_tpu_torch.cli --device cpu serve --model DIR --tp 2 --continuous-batching
+    python -m blazr_tpu_torch.cli run DIR --prompt "..." --ep 2
+    python -m blazr_tpu_torch.cli swarm leader --model DIR --world-size 2 &
+    python -m blazr_tpu_torch.cli swarm worker
+    python -m blazr_tpu_torch.cli disagg router --model DIR --port 8090 &
     python -m blazr_tpu_torch.cli bench FILE.gguf --prompt-lens 32,128,512
     python -m blazr_tpu_torch.cli convert DIR out.gguf --quant Q4_K
 """
@@ -49,8 +63,11 @@ from pathlib import Path
 from typing import Optional
 
 # Commands of the JAX CLI this one does not run, with the ROADMAP queue A
-# item that ports them.
-NOT_PORTED = {"swarm": "item 13", "disagg": "item 13"}
+# item that ports them: none since swarm and disagg (item 13) were ported.
+NOT_PORTED: dict[str, str] = {}
+
+# The commands that load a model onto a mesh's ranks (--tp/--sp/--ep).
+MESH_COMMANDS = ("run", "generate", "serve")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,6 +77,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the default) or cpu")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process coordinator address host:port")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-process world size")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank in the multi-process world")
     sub = p.add_subparsers(dest="command", required=True)
 
     loadopts = argparse.ArgumentParser(add_help=False)
@@ -79,6 +102,13 @@ def build_parser() -> argparse.ArgumentParser:
     loadopts.add_argument("--moe-device-experts", type=int, default=None, metavar="K",
                           help="card-resident experts a layer under --moe-offload "
                                "(default: half for hybrid, one for cpu)")
+    loadopts.add_argument("--tp", default=None, metavar="N",
+                          help="tensor-parallel degree ('auto' = every card)")
+    loadopts.add_argument("--sp", default=None, metavar="N",
+                          help="sequence-parallel degree: long prompts prefill with ring "
+                               "attention over the ranks")
+    loadopts.add_argument("--ep", default=None, metavar="N",
+                          help="expert-parallel degree: MoE experts split over the ranks")
     loadopts.add_argument("--mmproj", default=None, metavar="PATH",
                           help="GGUF vision projector (mmproj) sidecar for multimodal "
                                "models (auto-detected when colocated with the model)")
@@ -177,9 +207,28 @@ def build_parser() -> argparse.ArgumentParser:
     conv.add_argument("--quant", default=None,
                       help="ggml quant type for GGUF output (Q8_0, Q4_K, ...)")
 
-    for name, item in NOT_PORTED.items():
-        sub.add_parser(name, help=f"not ported yet (ROADMAP queue A {item})",
-                       add_help=False).add_argument("rest", nargs=argparse.REMAINDER)
+    swarm = sub.add_parser("swarm", help="pipeline-parallel swarm node")
+    swarm.add_argument("role", choices=["leader", "worker"])
+    swarm.add_argument("--model", help="model dir (leader)")
+    swarm.add_argument("--seed", default="127.0.0.1:29500",
+                       help="leader seed address host:port")
+    swarm.add_argument("--world-size", type=int, default=2)
+    swarm.add_argument("--capacity", type=int, default=2048)
+    swarm.add_argument("--dtype", choices=["f32", "f16", "bf16"])
+    swarm.add_argument("--mdns", action="store_true",
+                       help="find the leader by a LAN broadcast beacon (no --seed)")
+
+    disagg = sub.add_parser("disagg", help="disaggregated prefill/decode node")
+    disagg.add_argument("role", choices=["router", "prefill", "decode"])
+    disagg.add_argument("--model", help="model dir (workers; the router's tokenizer)")
+    disagg.add_argument("--seed", default="127.0.0.1:29501")
+    disagg.add_argument("--world-size", type=int, default=3)
+    disagg.add_argument("--prefill-ranks", default="1")
+    disagg.add_argument("--decode-ranks", default="2")
+    disagg.add_argument("--capacity", type=int, default=2048)
+    disagg.add_argument("--dtype", choices=["f32", "f16", "bf16"])
+    disagg.add_argument("--port", type=int,
+                        help="serve /v1/completions over HTTP on this port (router)")
     return p
 
 
@@ -193,15 +242,65 @@ def main(argv=None) -> int:
               f"package yet (ROADMAP queue A {NOT_PORTED[args.command]}); "
               "run it with python -m blazr_tpu.cli", file=sys.stderr)
         return 2
-    return {"run": cmd_run, "generate": cmd_generate, "chat": cmd_chat,
-            "serve": cmd_serve, "bench": cmd_bench, "info": cmd_info, "list": cmd_list,
-            "ps": cmd_ps, "tokenize": cmd_tokenize, "convert": cmd_convert,
-            "pull": cmd_pull, "completions": cmd_completions}[args.command](args)
+    command = {"run": cmd_run, "generate": cmd_generate, "chat": cmd_chat,
+               "serve": cmd_serve, "bench": cmd_bench, "info": cmd_info, "list": cmd_list,
+               "ps": cmd_ps, "tokenize": cmd_tokenize, "convert": cmd_convert,
+               "pull": cmd_pull, "completions": cmd_completions, "swarm": cmd_swarm,
+               "disagg": cmd_disagg}[args.command]
+    from ..parallel import multihost
+
+    if args.coordinator or args.num_processes:
+        # One rank of a world started by hand (or by launch_local).
+        multihost.watch_parent()
+        multihost.init_distributed(args.coordinator, args.num_processes, args.process_id,
+                                   device=args.device)
+        return command(args)
+    world = _mesh_ranks(args) if args.command in MESH_COMMANDS else 1
+    if world <= 1:
+        return command(args)
+    # The one-command form: this process is rank 0 and starts the others.
+    coordinator, procs = multihost.launch_local(
+        list(argv if argv is not None else sys.argv[1:]), world)
+    try:
+        multihost.init_distributed(coordinator, world, 0, device=args.device)
+        rc = command(args)
+    finally:
+        codes = multihost.stop_ranks(procs)
+        multihost.shutdown()
+    bad = [c for c in codes if c != 0]
+    if bad and rc == 0:
+        print(f"error: ranks exited with {bad}", file=sys.stderr)
+        return 1
+    return rc
+
+
+def _resolve_degree(value) -> int:
+    """A --tp/--sp/--ep value: 'auto' → every card (JAX ``_resolve_tp``,
+    cli/main.py:288); None → 1."""
+    if value in (None, "", "1"):
+        return 1
+    if value == "auto":
+        import torch
+
+        return max(1, torch.cuda.device_count())
+    return int(value)
+
+
+def _mesh(args) -> dict:
+    return dict(tp=_resolve_degree(getattr(args, "tp", None)),
+                ep=_resolve_degree(getattr(args, "ep", None)),
+                sp=_resolve_degree(getattr(args, "sp", None)))
+
+
+def _mesh_ranks(args) -> int:
+    m = _mesh(args)
+    return m["tp"] * m["ep"] * m["sp"]
 
 
 def _load_executor(model_path: str, dtype, device: str, kv_cache_dtype=None,
                    quant_compute=None, prefix_cache: bool = False, mmproj=None,
-                   device_layers=None, moe_offload=None, moe_device_experts=None):
+                   device_layers=None, moe_offload=None, moe_device_experts=None,
+                   tp: int = 1, ep: int = 1, sp: int = 1):
     from ..engine.executor import Executor
     from ..loader import load_model
     from ..tokenizer import load_tokenizer
@@ -219,6 +318,9 @@ def _load_executor(model_path: str, dtype, device: str, kv_cache_dtype=None,
         app_cfg.inference.quant_compute = quant_compute
     if prefix_cache:
         app_cfg.inference.prefix_cache = True
+    app_cfg.inference.tensor_parallel_size = tp
+    app_cfg.inference.expert_parallel_size = ep
+    app_cfg.inference.sequence_parallel_size = sp
     p = Path(model_path)
     tok = load_tokenizer(p.parent if p.is_file() else p)
     ex = Executor(model, tok, app_cfg)
@@ -229,8 +331,10 @@ def _load_executor(model_path: str, dtype, device: str, kv_cache_dtype=None,
 
 
 def _offload_flags(args) -> dict:
+    """The load flags every model-loading command passes on: offload and
+    the mesh."""
     return dict(device_layers=args.device_layers, moe_offload=args.moe_offload,
-                moe_device_experts=args.moe_device_experts)
+                moe_device_experts=args.moe_device_experts, **_mesh(args))
 
 
 def _spec_flags(args) -> Optional[str]:
@@ -395,6 +499,13 @@ def cmd_serve(args) -> int:
     if why:
         print(f"error: {why}", file=sys.stderr)
         return 2
+    from ..parallel import multihost
+
+    multi = multihost.process_info()["process_count"] > 1
+    if multi and not args.continuous_batching:
+        print("serve: a multi-process world serves through the batch engine in "
+              "lockstep; forcing --continuous-batching", file=sys.stderr)
+        args.continuous_batching = True
     api_keys = args.api_key or []
     env_key = os.environ.get("BLAZR_TPU_API_KEY")
     if env_key:
@@ -443,7 +554,131 @@ def cmd_serve(args) -> int:
             print(f"batch engine warmed in {dt:.1f}s", file=sys.stderr)
         print(f"continuous batching enabled (max_batch={args.max_batch_size})",
               file=sys.stderr)
+    if multi:
+        import asyncio
+
+        from ..distributed.lockstep import LockstepEngine
+
+        lockstep = LockstepEngine(batch_engine)
+        if not multihost.is_primary():
+            # A follower: no HTTP; it mirrors rank 0's op stream until stopped.
+            print("serve: lockstep follower (HTTP on rank 0 only)", file=sys.stderr)
+            asyncio.run(lockstep.run())
+            return 0
+        batch_engine = lockstep
     run_server(scheduler, cfg, batch_engine=batch_engine)
+    return 0
+
+
+def _lines():
+    """JSON requests on standard input, one a line, until its end."""
+    while True:
+        try:
+            line = input()
+        except EOFError:
+            return
+        if line.strip():
+            yield json.loads(line)
+
+
+def cmd_swarm(args) -> int:
+    """Pipeline-parallel swarm mode (the JAX ``cmd_swarm``, cli/main.py:675):
+    the leader assigns layer ranges and answers ``{"tokens": [...],
+    "max_tokens": N}`` lines on standard input with greedy tokens; a worker
+    runs its stage on its device."""
+    from ..distributed.swarm import SwarmLeader, SwarmWorker
+    from ..distributed.transport import TcpMesh, announce_seed, discover_seed
+
+    host, port = args.seed.rsplit(":", 1)
+    if args.role == "worker" and args.mdns:
+        host, port = discover_seed()
+        print(f"discovered leader at {host}:{port}", file=sys.stderr)
+    if args.role == "leader":
+        if not args.model:
+            print("--model required for the leader", file=sys.stderr)
+            return 2
+        from ..formats import detect_model_source
+        from ..loader import resolve_config
+
+        cfg = resolve_config(detect_model_source(args.model))
+        beacon = announce_seed(host, int(port)) if args.mdns else None
+        mesh = TcpMesh.bootstrap_leader(args.world_size, host=host, seed_port=int(port))
+        if beacon is not None:
+            beacon.set()            # every worker connected
+        leader = SwarmLeader(mesh, str(Path(args.model).resolve()), cfg.model.num_layers)
+        leader.start_workers()
+        print(f"swarm ready: {len(leader.schedule.stages)} stages", file=sys.stderr)
+        try:
+            for req in _lines():
+                toks = leader.generate_greedy(req["tokens"], req.get("max_tokens", 32))
+                print(json.dumps({"tokens": toks}), flush=True)
+        finally:
+            leader.shutdown()
+            mesh.close()
+        return 0
+    mesh = TcpMesh.bootstrap_worker((host, int(port)))
+    w = SwarmWorker(mesh, capacity=args.capacity, dtype=args.dtype or "bf16",
+                    device=args.device)
+    w.receive_assignment()
+    try:
+        w.run_compute_loop()
+    finally:
+        mesh.close()
+    return 0
+
+
+def cmd_disagg(args) -> int:
+    """Disaggregated prefill/decode mode (the JAX ``cmd_disagg``,
+    cli/main.py:721): the router routes ``{"tokens", "max_tokens"}`` lines
+    on standard input, or serves ``/v1/completions`` with ``--port``; the
+    workers run their pool's loop on their device."""
+    from ..distributed.disagg import DecodeWorker, DisaggConfig, DisaggRouter, PrefillWorker
+    from ..distributed.transport import TcpMesh
+
+    host, port = args.seed.rsplit(":", 1)
+    if args.role == "router":
+        if args.port and not args.model:
+            print("disagg router --port needs --model for the tokenizer", file=sys.stderr)
+            return 2
+        mesh = TcpMesh.bootstrap_leader(args.world_size, host=host, seed_port=int(port))
+        router = DisaggRouter(mesh, DisaggConfig(
+            prefill_workers=[int(x) for x in args.prefill_ranks.split(",")],
+            decode_workers=[int(x) for x in args.decode_ranks.split(",")]))
+        router.wait_workers()
+        try:
+            if args.port:
+                import asyncio
+
+                from ..distributed.disagg import make_router_app
+                from ..server.app import serve
+                from ..tokenizer import load_tokenizer
+
+                p = Path(args.model)
+                app = make_router_app(router, load_tokenizer(p.parent if p.is_file() else p))
+                print(f"disagg router serving on :{args.port}", file=sys.stderr)
+                try:
+                    asyncio.run(serve(app, "0.0.0.0", args.port))
+                except KeyboardInterrupt:
+                    pass
+                return 0
+            print("disagg router ready", file=sys.stderr)
+            for req in _lines():
+                toks = router.route_request(req["tokens"], req.get("max_tokens", 32))
+                print(json.dumps({"tokens": toks}), flush=True)
+            return 0
+        finally:
+            router.shutdown()
+            mesh.close()
+    if not args.model:
+        print("--model required for a disagg worker", file=sys.stderr)
+        return 2
+    mesh = TcpMesh.bootstrap_worker((host, int(port)))
+    worker = PrefillWorker if args.role == "prefill" else DecodeWorker
+    try:
+        worker(mesh, args.model, capacity=args.capacity, dtype=args.dtype or "bf16",
+               device=args.device).run_loop()
+    finally:
+        mesh.close()
     return 0
 
 

@@ -79,6 +79,9 @@ class AttentionConfig:
     qkv_bias: bool = False
     # MLA decoupled-RoPE pairing convention (HF deepseek rope_interleave)
     rope_interleave: bool = True
+    # A tensor-parallel rank's heads: (its first head, the model's heads),
+    # set on the rank's copy of the config (parallel/tp.py::rank_config).
+    rank_heads: Optional[tuple[int, int]] = None
 
     def kv_heads(self) -> int:
         return self.num_kv_heads if self.num_kv_heads is not None else self.num_heads

@@ -99,8 +99,22 @@ forward reads the host once a MoE layer, so the engine's steps run eagerly,
 without graphs (ROADMAP §C). Prefill and decode phases are traced by
 ``utils/tracing.span`` (JAX :1125, :1136), outside any graph.
 
-Left out: tensor and sequence parallel meshes raise, naming ROADMAP queue A
-item 13. A streaming model (layer offload) raises too: the JAX engine cannot
+Tensor, expert and sequence parallelism (JAX :263-285, :490-520; ROADMAP
+queue A item 13): with ``tensor_parallel_size``, ``expert_parallel_size`` or
+``sequence_parallel_size`` above 1 the engine slices the model to its rank
+(``parallel/tp.py::shard_model``) before it allocates its cache, which then
+holds the rank's kv heads (int8 scale planes too). Every rank runs the same
+steps (``distributed/lockstep.py`` replays rank 0's op stream), eagerly: a
+CUDA graph cannot capture a gloo collective (ROADMAP §C). ``sync_device``
+drains the device before the lockstep broadcast. Under sp a prompt of at
+least ``sp_prefill_threshold`` tokens from position 0 prefills in one
+unchunked ring-attention pass (``_sp_prefill``), its K/V then gathered into
+every rank's pages. ``data_parallel_size`` is replica routing
+(``engine/data_parallel.py``), as in JAX. Under a mesh the MLA, Mamba2 and
+hybrid families, LoRA adapters and speculative decoding raise naming ROADMAP
+queue A item 13; MoE offload is not installed.
+
+Left out: a streaming model (layer offload) raises: the JAX engine cannot
 be built over one (ROADMAP §C). int4 KV on the paged path raises instead of
 being downgraded.
 
@@ -133,11 +147,14 @@ from ..config.app import AppConfig
 from ..config.generation import GenerationConfig
 from ..kvcache.block_allocator import BlockAllocator, blocks_needed
 from ..kvcache.host_tier import attach_host_tier
-from ..kvcache.paged import PAD_BLOCK, compute_slot_mapping, pad_block_table
+from ..kvcache.paged import (PAD_BLOCK, compute_slot_mapping, pad_block_table,
+                             write_paged_layer)
 from ..kvcache.prefix_cache import PrefixCache, PrefixCacheConfig
 from ..models.paged_multi import trash_slot, zero_state_rows
 from ..models.registry import init_engine_cache, make_paged_forward
 from ..models.registry import Model
+from ..parallel.ring_attention import ring_eligible, ring_prefill
+from ..parallel.tp import not_served_under_mesh, shard_model
 from ..quant.qtensor import apply_quant_compute, quant_leaves
 from ..utils.tracing import span
 from .decode_graph import TOPK_K, BatchStep, DraftChain, StepGraphs, VerifyStep, pack_rows
@@ -214,11 +231,6 @@ def _streaming_refused() -> NotImplementedError:
         "the Executor (ROADMAP §C)")
 
 
-def _not_served(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not served by blazr_tpu_torch yet (ROADMAP queue A item {item})")
-
-
 class BatchEngine:
     """Paged-KV continuous-batching executor + scheduler loop. Runs on the
     device the model's params lie on."""
@@ -259,7 +271,13 @@ class BatchEngine:
             ),
             prefix_cache=self.prefix_cache)
         model.params = apply_quant_compute(model.params, inf.quant_compute)
-        self._moe_rt = ensure_offload(model, inf)
+        self.mesh = shard_model(model, inf)
+        if self.mesh is None:
+            self._moe_rt = ensure_offload(model, inf)
+        else:
+            self._moe_rt = None
+            if inf.moe_offload:
+                logger.warning("moe_offload is not installed under a mesh (JAX executor.py:106)")
         # Row-count routing (w4a8-prefill) needs the JAX engine's padded
         # prefill groups; other modes run the real number of prompts.
         self._pad_groups = any(qt.act_quant_min_m > 0
@@ -297,10 +315,16 @@ class BatchEngine:
         self._side_steps: dict[int, BatchStep] = {}     # the side step's, by bmax
         self._verify_steps: dict[int, VerifyStep] = {}  # the speculative round's, by bmax
         self._chains: dict[int, DraftChain] = {}        # the draft chain's, by bmax
-        if self._moe_rt is not None and inf.graphs and self.device.type == "cuda":
-            logger.info("decode steps run eagerly: the MoE offload forward reads host "
-                        "memory inside the step")
-        self.graphs = StepGraphs(self.device, inf.graphs and self._moe_rt is None)
+        eager = self._moe_rt is not None or self.mesh is not None
+        if eager and inf.graphs and self.device.type == "cuda":
+            logger.info("decode steps run eagerly: the %s", "MoE offload forward reads host "
+                        "memory inside the step" if self._moe_rt is not None
+                        else "mesh's collectives cannot be captured")
+        self.graphs = StepGraphs(self.device, inf.graphs and not eager)
+        # Sequence-parallel prefill (JAX :490-520): the llama forward without
+        # ALiBi or a softcap, on an sp axis.
+        self._sp = self.mesh.size("sp") if self.mesh is not None else 1
+        self._sp_ok = self._sp > 1 and not needs_state_rows and ring_eligible(model.cfg)
         self._preemptions = 0
         # Wall time by phase (seconds; "<phase>_n" counts calls) and the
         # prompt tokens the prefills computed ("prefill_tokens").
@@ -339,9 +363,6 @@ class BatchEngine:
                              "paged path (use 'int8' or 'auto')")
         if inf.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(f"unknown kv_cache_dtype {inf.kv_cache_dtype!r}")
-        if max(inf.tensor_parallel_size, inf.data_parallel_size,
-               inf.expert_parallel_size, inf.sequence_parallel_size) > 1:
-            raise _not_served("multi-device serving", "13")
         if inf.num_device_layers is not None:
             raise _streaming_refused()
 
@@ -443,6 +464,11 @@ class BatchEngine:
         return host_sample(logits_row, seq.gen_cfg, self._windows[seq.seq_id],
                            st["mirostat"], st["breakers"], st["rng"])
 
+    def detach_handle(self, seq_id: int) -> None:
+        """Stop streaming a sequence's tokens while it keeps decoding (JAX
+        :1175): a lockstep follower runs every sequence and serves no one."""
+        self._handles.pop(seq_id, None)
+
     def cancel(self, seq_id: int) -> None:
         """Abort a sequence (a stop sequence matched, or its client left):
         its blocks go back to the pool and its stream ends."""
@@ -460,6 +486,8 @@ class BatchEngine:
         """Queue a switch to ``adapter`` (None: the base) for the next step
         boundary; the future ends when it landed (its exception: an adapter
         the model cannot take). With no loop running, now is a boundary."""
+        if self.mesh is not None and adapter is not None:
+            raise not_served_under_mesh("a LoRA adapter")
         fut: concurrent.futures.Future = concurrent.futures.Future()
         with self._lora_mu:
             self._lora_pending.append((adapter, fut))
@@ -510,7 +538,9 @@ class BatchEngine:
     # ------------------------------------------------------------------
     # main loop
     # ------------------------------------------------------------------
-    async def run(self) -> None:
+    def bind_loop(self) -> None:
+        """Take the running event loop as the one tokens are delivered on
+        (``run``, or a ``LockstepEngine`` driving ``step_once``)."""
         self._stop = False
         # Tokens are emitted on to_thread workers; call_soon_threadsafe
         # wakes the loop for each delivery (see _put_now).
@@ -518,13 +548,28 @@ class BatchEngine:
         self._loop_thread = threading.get_ident()
         self._notify = asyncio.Event()      # of this loop (an engine may serve again)
         self._running = True
+
+    def sync_device(self) -> None:
+        """Wait until every queued device operation is done (JAX
+        :1154-1165): a lockstep broadcast must not overlap the collectives of
+        work still in flight on the same transport (the JAX package's
+        dede0e4 fix). Unread rounds stay unread."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def unbind_loop(self) -> None:
+        """The loop that drove ``step_once`` has ended."""
+        self._running = False
+        self._lora_boundary()           # a switch queued as the loop ended
+
+    async def run(self) -> None:
+        self.bind_loop()
         logger.info("batch engine started (max_batch=%d, blocks=%d, device=%s)",
                     self.max_batch, self.allocator.num_blocks, self.device)
         try:
             await self._serve()
         finally:
-            self._running = False
-            self._lora_boundary()       # a switch queued as the loop ended
+            self.unbind_loop()
         logger.info("batch engine stopped")
 
     async def _serve(self) -> None:
@@ -552,6 +597,10 @@ class BatchEngine:
         """One scheduling iteration: schedule, dispatch prefills, run ONE
         decode round, then fetch the prefills' first tokens. Returns False
         when the batch was empty."""
+        if not self.scheduler.has_work:
+            # Unread rounds are overrun of finished or aborted sequences.
+            self._pipe_q.clear()
+            return False
         t0 = time.perf_counter()
         batch = self.scheduler.schedule()
         self.perf["schedule"] += time.perf_counter() - t0
@@ -630,11 +679,19 @@ class BatchEngine:
                 seqs = kept
         if self._needs_state_rows:
             return [self._prefill_rows(seq) for seq in seqs]
+        pending = []
+        if self._sp_ok:
+            # Sequence-parallel rows (JAX :1226-1237, :1273-1278): whole
+            # prompts from position 0, one ring pass each, unchunked.
+            thr = self.app_cfg.inference.sp_prefill_threshold
+            ring = [s for s in seqs
+                    if s.prefilled_tokens == 0 and len(s.prompt_tokens) >= thr]
+            seqs = [s for s in seqs if s not in ring]
+            pending += [self._sp_prefill(s) for s in ring]
         groups: dict[int, list[Sequence]] = {}
         for seq in seqs:
             remaining = len(seq.prompt_tokens) - seq.prefilled_tokens
             groups.setdefault(_next_pow2(min(chunk_cfg, remaining)), []).append(seq)
-        pending = []
         first = self.app_cfg.inference.prefill_first_group
         for bucket in sorted(groups):
             group = groups[bucket]
@@ -698,6 +755,28 @@ class BatchEngine:
             self._draft_prefill(*inputs, last_idx)
         packed, last = self._first_tokens(logits[:n_real, 0, :], finishing, cfgs, wins)
         return group, chunks, finishing, packed, last
+
+    def _sp_prefill(self, seq: Sequence):
+        """One whole prompt through ring attention over sp (JAX
+        ``_prefill_group(step=sp_prefill_step)``; ``parallel/
+        ring_attention.py::ring_prefill``) into the sequence's pages, and
+        the first token sampled from the last position's logits. Returns
+        the pending entry of ``_prefill_group``."""
+        n = len(seq.prompt_tokens)
+        slots = compute_slot_mapping(seq.block_table, 0, n, self.block_size, self._trash)
+        planes = [self.cache.k, self.cache.v]
+        if self.cache.quantized:
+            planes += [self.cache.k_scale, self.cache.v_scale]
+        logits = ring_prefill(
+            self.model.params, self.model.cfg, seq.prompt_tokens, slots, self._trash,
+            self.mesh.axis("sp"),
+            lambda li, k, v, idx: write_paged_layer(self.cache, li, k, v, idx), planes)
+        self.perf["prefill_tokens"] += n
+        self.perf["sp_prefill_n"] += 1
+        win = make_window(self._windows[seq.seq_id], seq.gen_cfg.repeat_last_n)
+        finishing = [(seq, 0)]
+        packed, last = self._first_tokens(logits[:, 0, :], finishing, [seq.gen_cfg], [win])
+        return [seq], [n], finishing, packed, last
 
     def _draft_prefill(self, toks, pos, slots, bt, seq_lens, last_idx) -> None:
         """The draft's mirror of a target prefill group (JAX

@@ -57,9 +57,19 @@ given a ``quant_compute`` mode or ``moe_offload`` raises ``ValueError``:
 the JAX Executor serves it with neither, without a word (ROADMAP §C). The
 prefill is traced by ``utils/tracing.span`` (JAX :453).
 
-Not served yet: TP/EP/SP meshes and ring prefill raise
-``NotImplementedError`` naming ROADMAP queue A item 13, as ``BatchEngine``
-does.
+Tensor, expert and sequence parallelism (JAX :77-101, :225-259; ROADMAP
+queue A item 13): under ``tensor_parallel_size``, ``expert_parallel_size`` or
+``sequence_parallel_size`` above 1 the executor slices the model to its rank
+(``parallel/tp.py::shard_model``, in a world started by
+``parallel/multihost.py``; every rank runs the same ``generate`` calls) and
+its steps run eagerly (a CUDA graph cannot hold a gloo collective; ROADMAP
+§C). Under sp a prompt from position 0 of at least ``sp_prefill_threshold``
+tokens prefills with ring attention (``_ring_prefill``), its K/V gathered
+into every rank's cache. ``data_parallel_size`` is replica routing
+(``engine/data_parallel.py``) and changes nothing here, as in JAX. Under a
+mesh the MLA, Mamba2 and hybrid families, vision towers and LoRA adapters
+raise ``NotImplementedError`` naming ROADMAP queue A item 13, and MoE
+offload is not installed (JAX :106).
 """
 
 from __future__ import annotations
@@ -78,7 +88,10 @@ from ..config.generation import GenerationConfig
 from ..models.registry import Model
 from ..quant.qtensor import apply_quant_compute
 from ..utils.tracing import span
-from .batch_engine import _next_pow2, _not_served
+from ..kvcache.contiguous import write_layer
+from ..parallel.ring_attention import ring_eligible, ring_prefill
+from ..parallel.tp import check_mesh_model, mesh_config, not_served_under_mesh, shard_model
+from .batch_engine import _next_pow2
 from .decode_graph import TOPK_K, ExecutorStep, StepGraphs, pack_rows
 from .grammar import make_grammar_state, padded_mask
 from .grammar_json import request_grammar_source
@@ -117,16 +130,27 @@ class Executor:
         if streaming:
             self._check_streaming(inf)
         self._moe_rt = None
+        self.mesh = None
         if not streaming:
             # In place: a w8a8-widened weight replaces its 4-bit copy one
             # leaf at a time, so the 4-bit copy is freed.
             apply_quant_compute(model.params, inf.quant_compute, inplace=True)
-            self._moe_rt = ensure_offload(model, inf)
-        eager = streaming or self._moe_rt is not None
+            self.mesh = shard_model(model, inf)
+            if self.mesh is None:
+                self._moe_rt = ensure_offload(model, inf)
+            elif inf.moe_offload:
+                logger.warning("moe_offload is not installed under a mesh (JAX :106)")
+        elif mesh_config(inf).ranks > 1:
+            check_mesh_model(model)
+        eager = streaming or self._moe_rt is not None or self.mesh is not None
         if eager and inf.graphs and model.device.type == "cuda":
-            logger.info("decode steps run eagerly: the %s forward reads host memory "
-                        "inside the step", "streaming" if streaming else "MoE offload")
+            logger.info("decode steps run eagerly: the %s", "streaming forward reads host "
+                        "memory inside the step" if streaming else "MoE offload forward "
+                        "reads host memory inside the step" if self._moe_rt is not None
+                        else "mesh's collectives cannot be captured")
         self.graphs = StepGraphs(model.device, inf.graphs and not eager)
+        self._ring = self.mesh is not None and self.mesh.size("sp") > 1 and ring_eligible(
+            model.cfg)
         self._lora = lora_state(model)
         self._lora_sig = self._lora.sig
         # Where a request's ``lora_adapter`` is looked up (the server's).
@@ -136,9 +160,6 @@ class Executor:
     def _check_config(inf) -> None:
         if inf.kv_cache_dtype not in ("auto", "int8", "int4"):
             raise ValueError(f"unknown kv_cache_dtype {inf.kv_cache_dtype!r}")
-        if max(inf.tensor_parallel_size, inf.data_parallel_size,
-               inf.expert_parallel_size, inf.sequence_parallel_size) > 1:
-            raise _not_served("multi-device serving and ring prefill", "13")
 
     @staticmethod
     def _check_streaming(inf) -> None:
@@ -180,6 +201,8 @@ class Executor:
         """Make ``adapter`` (None: the base) the model's live adapter: over
         the clean base, so adapters replace each other. Raises
         ``ValueError`` for an adapter with modules the model cannot take."""
+        if self.mesh is not None and adapter is not None:
+            raise not_served_under_mesh("a LoRA adapter")
         engine = self._lora.engine
         if engine is not None:
             engine.set_lora(adapter).result()
@@ -301,6 +324,9 @@ class Executor:
     def _prefill(self, cache, prompt_ids: list[int], start_pos: int):
         n = len(prompt_ids)
         assert n > 0, "empty prompt"
+        if (self._ring and start_pos == 0
+                and n >= self.app_cfg.inference.sp_prefill_threshold):
+            return self._ring_prefill(cache, prompt_ids)
         bucket = min(_next_pow2(n), self.capacity)
         chunk = min(self.app_cfg.inference.prefill_chunk_size or bucket, bucket)
         dev = self.device
@@ -334,6 +360,22 @@ class Executor:
             pos += len(piece)
             self._moe_tick()
         return last, cache
+
+    def _ring_prefill(self, cache, prompt_ids: list[int]):
+        """The whole prompt in one sequence-parallel pass (JAX
+        ``_ring_prefill``, :403-423; ``parallel/ring_attention.py::
+        ring_prefill``): positions 0..n-1 of the one-row cache. The last
+        position's logits [1, V]."""
+        n = len(prompt_ids)
+        planes = [cache.k[:, 0], cache.v[:, 0]]
+        if cache.quantized:
+            planes += [cache.k_scale[:, 0], cache.v_scale[:, 0]]
+        logits = ring_prefill(self.model.params, self.model.cfg, prompt_ids, np.arange(n),
+                              cache.trash_position, self.mesh.axis("sp"),
+                              lambda li, k, v, idx: write_layer(cache, li, k, v, idx), planes)
+        cache.length.fill_(n)
+        self._moe_tick()
+        return logits[:, -1, :], cache
 
     @torch.no_grad()
     def prefill_embeddings(self, cache, hidden: torch.Tensor) -> torch.Tensor:

@@ -67,8 +67,12 @@ class ModelScheduler:
                  dtype: Optional[str] = None, quant_compute: Optional[str] = None,
                  device: DeviceLike = None, mmproj: Optional[str] = None,
                  device_layers: Optional[int] = None, moe_offload: Optional[str] = None,
-                 moe_device_experts: Optional[int] = None):
+                 moe_device_experts: Optional[int] = None, tp: int = 1, ep: int = 1,
+                 sp: int = 1):
         self.device = resolve_device(device)
+        # The mesh every model is served on (the CLI's --tp, --ep, --sp).
+        self.parallel = dict(tensor_parallel_size=tp, expert_parallel_size=ep,
+                             sequence_parallel_size=sp)
         # Layer and MoE expert offload for every model loaded (the CLI's
         # --device-layers, --moe-offload, --moe-device-experts).
         self.device_layers = device_layers
@@ -156,6 +160,8 @@ class ModelScheduler:
             app_cfg.inference.moe_device_experts = self.moe_device_experts
         if self.quant_compute:
             app_cfg.inference.quant_compute = self.quant_compute
+        for key, value in self.parallel.items():
+            setattr(app_cfg.inference, key, value)
         gguf_path = path if path.suffix == ".gguf" else None
         tok_dir = path.parent if path.is_file() else path
         tokenizer = load_tokenizer(tok_dir, gguf_path=gguf_path)

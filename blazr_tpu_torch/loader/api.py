@@ -35,11 +35,13 @@ from .varmap import (VarMap, varmap_from_awq, varmap_from_gguf, varmap_from_gptq
 logger = logging.getLogger(__name__)
 
 
-def load_varmap(source: ModelSource) -> VarMap:
+def load_varmap(source: ModelSource, work_device=None) -> VarMap:
+    """The checkpoint's tensors on the CPU; AWQ and GGUF words are packed on
+    ``work_device`` (the card ``load_model`` loads onto, where one is)."""
     if source.format == ModelFormat.GGUF:
-        vm = varmap_from_gguf(source.path)
+        vm = varmap_from_gguf(source.path, work_device=work_device)
     elif source.quant == QuantMethod.AWQ:
-        vm = varmap_from_awq(source.path)
+        vm = varmap_from_awq(source.path, work_device=work_device)
     elif source.quant == QuantMethod.GPTQ:
         vm = varmap_from_gptq(source.path)
     else:
@@ -86,7 +88,7 @@ def load_model(path: str | Path, dtype: Optional[str] = None,
     source = detect_model_source(path)
     logger.info("Loading %s model from %s (quant=%s)",
                 source.format.value, source.path, source.quant.value)
-    vm = load_varmap(source)
+    vm = load_varmap(source, work_device=dev if dev.type == "cuda" else None)
     app_cfg = resolve_config(source, vm)
     if dtype is not None:
         app_cfg.inference.dtype = dtype

@@ -76,9 +76,11 @@ def varmap_from_safetensors(path: str | Path) -> VarMap:
     return vm
 
 
-def varmap_from_awq(path: str | Path, group_size: Optional[int] = None) -> VarMap:
+def varmap_from_awq(path: str | Path, group_size: Optional[int] = None,
+                    work_device=None) -> VarMap:
     """Load an AWQ checkpoint: .qweight/.qzeros/.scales triplets become
-    QuantTensors stored under ``base.weight``."""
+    QuantTensors stored under ``base.weight`` (held on the CPU; repacked on
+    ``work_device`` where given, the card when loading onto it)."""
     path = Path(path)
     model_dir = path if path.is_dir() else path.parent
     if group_size is None:
@@ -95,7 +97,8 @@ def varmap_from_awq(path: str | Path, group_size: Optional[int] = None) -> VarMa
             qw = r.load_numpy(base + ".qweight", dtype=np.uint32)
             sc = r.load_numpy(base + ".scales").astype(np.float32)
             qz = r.load_numpy(base + ".qzeros", dtype=np.uint32)
-            vm.insert(base + ".weight", from_awq(qw, sc, qz, group_size, device=_CPU))
+            vm.insert(base + ".weight", from_awq(qw, sc, qz, group_size, device=_CPU,
+                                                 work_device=work_device))
     return vm
 
 
@@ -142,17 +145,19 @@ _DENSE_PATTERNS = re.compile(
 )
 
 
-def _stacked_from_ggml(raw, gt: GgmlType, shape: tuple[int, ...]) -> QuantTensor:
+def _stacked_from_ggml(raw, gt: GgmlType, shape: tuple[int, ...],
+                       work_device=None) -> QuantTensor:
     """A pre-stacked [E, N, K] expert tensor → a stacked QuantTensor, one
     ``from_ggml`` per expert slice (the JAX loader dequantizes it to dense
     f32: ROADMAP §C)."""
     e, n, k = shape
     per = len(raw) // e
-    return stack_quant([from_ggml(raw[i * per:(i + 1) * per], gt, (n, k), device=_CPU)
+    return stack_quant([from_ggml(raw[i * per:(i + 1) * per], gt, (n, k), device=_CPU,
+                                  work_device=work_device)
                         for i in range(e)])
 
 
-def varmap_from_gguf(path: str | Path) -> VarMap:
+def varmap_from_gguf(path: str | Path, work_device=None) -> VarMap:
     """Load a GGUF checkpoint with GGUF→HF name mapping (the JAX package's
     varmap.py:151-184). 2-D weights in a canonical ggml type stay quantized
     (QuantTensor), and so do pre-stacked 3-D expert tensors (one stacked
@@ -175,9 +180,10 @@ def varmap_from_gguf(path: str | Path) -> VarMap:
             quantized = (gt in CANONICAL_GGML_TYPES
                          and _DENSE_PATTERNS.search(hf_name) is None)
             if quantized and len(info.shape) == 2:
-                vm.insert(hf_name, from_ggml(raw, gt, info.shape, device=_CPU))
+                vm.insert(hf_name, from_ggml(raw, gt, info.shape, device=_CPU,
+                                             work_device=work_device))
             elif quantized and len(info.shape) == 3:
-                vm.insert(hf_name, _stacked_from_ggml(raw, gt, info.shape))
+                vm.insert(hf_name, _stacked_from_ggml(raw, gt, info.shape, work_device))
             else:
                 vm.insert(hf_name, torch.from_numpy(
                     np.ascontiguousarray(dequantize_ggml(raw, gt, info.shape))))

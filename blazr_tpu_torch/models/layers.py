@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config.model_config import AttentionConfig, RopeScaling
+from ..parallel.comm import Axis, all_reduce
 from ..quant.matmul import quant_matmul
 from ..quant.qtensor import QuantTensor
 
@@ -39,6 +40,17 @@ class LoraLinear:
     b: torch.Tensor                 # [r, out], the scale folded in
 
 
+@dataclasses.dataclass
+class RowParallel:
+    """A tensor-parallel rank's K rows of a row-parallel weight (``o``,
+    ``down``; ``parallel/tp.py``): ``linear`` sums the ranks' partial
+    products over ``axis`` (the psum GSPMD inserts in the JAX package),
+    then adds the whole bias once."""
+
+    weight: Any
+    axis: Axis
+
+
 def lora_matmul(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(x @ a) @ b`` in x's dtype: two plain matmuls, counted in
     ``launches`` (two a call) so that a replayed graph's share is known."""
@@ -50,8 +62,12 @@ lora_matmul.launches = 0
 
 
 def linear(x: torch.Tensor, w: Any, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x @ w`` where ``w`` is a plain [K, N] tensor, a QuantTensor, or a
-    LoraLinear (its base's route, then the low-rank term, then the bias)."""
+    """``x @ w`` where ``w`` is a plain [K, N] tensor, a QuantTensor, a
+    LoraLinear (its base's route, then the low-rank term, then the bias), or
+    a RowParallel slice (its product summed over its ranks, then the bias)."""
+    if isinstance(w, RowParallel):
+        y = all_reduce(linear(x, w.weight), w.axis)
+        return y if bias is None else y + bias.to(y.dtype)
     lora = None
     if isinstance(w, LoraLinear):
         lora, w = w, w.base

@@ -32,6 +32,7 @@ import torch
 
 from ..config.model_config import UniversalConfig
 from ..kvcache.contiguous import KVCache, advance, kv_length, layer_kv, write_layer
+from ..parallel.comm import all_gather, all_reduce
 from .layers import (activation, alibi_slopes, apply_rope, attend, device_scalar,
                      layer_norm, linear, plain_mlp, rms_norm, rope_cos_sin,
                      rope_frequencies)
@@ -182,15 +183,27 @@ def rope_and_alibi(cfg: UniversalConfig, positions: torch.Tensor):
     head_dim = att.resolved_head_dim(cfg.hidden_size)
     cos, sin = rope_cos_sin(positions, rope_frequencies(att, head_dim,
                                                         positions.device))
-    alibi = (alibi_slopes(att.num_heads, positions.device) * head_dim ** -0.5
-             if att.use_alibi else None)
+    alibi = None
+    if att.use_alibi:
+        first, total = att.rank_heads or (0, att.num_heads)
+        alibi = (alibi_slopes(total, positions.device)[first:first + att.num_heads]
+                 * head_dim ** -0.5)
     return cos, sin, alibi
 
 
 def forward_embed(params: dict[str, Any], cfg: UniversalConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
-    """Token embeddings only."""
-    x = params["embed"][tokens.to(torch.long)]
+    """Token embeddings only. A tensor-parallel rank holds a slice of the
+    vocab rows (``params["rank"]``): it looks up the tokens it holds, zeros
+    elsewhere, and the ranks' rows are summed (exact: one term is not 0)."""
+    shard = params.get("rank")
+    if shard is None:
+        x = params["embed"][tokens.to(torch.long)]
+    else:
+        local = tokens.to(torch.long) - shard.start
+        held = (local >= 0) & (local < shard.rows)
+        x = params["embed"][local.clamp(0, shard.rows - 1)]
+        x = all_reduce(x * held[..., None].to(x.dtype), shard.axis)
     if cfg.scale_embeddings:
         x = x * device_scalar(cfg.hidden_size ** 0.5, x.dtype, x.device)
     return x
@@ -230,7 +243,9 @@ def last_positions(x: torch.Tensor, last_idx: Optional[torch.Tensor]) -> torch.T
 
 def forward_head(params: dict[str, Any], cfg: UniversalConfig,
                  hidden: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head → float32 logits, Gemma2's final softcap last."""
+    """Final norm + LM head → float32 logits, Gemma2's final softcap last.
+    A tensor-parallel rank's head (tied or not) computes its vocab columns,
+    gathered whole on every rank, so every rank samples the same bits."""
     x = norm(cfg, hidden, params["final_norm"], params.get("final_norm_bias"))
     lm_head = params.get("lm_head")
     if lm_head is None:                         # tied embeddings
@@ -247,6 +262,8 @@ def forward_head(params: dict[str, Any], cfg: UniversalConfig,
     else:
         logits = linear(x, lm_head)
     logits = logits.to(torch.float32)
+    if params.get("rank") is not None:
+        logits = all_gather(logits, params["rank"].axis, dim=-1)
     if cfg.final_logit_softcapping:
         c = cfg.final_logit_softcapping
         logits = torch.tanh(logits / c) * c

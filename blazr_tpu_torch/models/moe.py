@@ -27,7 +27,11 @@ Qwen2-MoE's shared expert, scaled by ``sigmoid(shared_expert_gate(x))``,
 follows transformers' ``Qwen2MoeSparseMoeBlock``; the JAX package drops it
 (ROADMAP §C). An offloaded layer (``engine/moe_offload.py``) takes
 ``moe_ffn_offload`` (JAX :150): its resident experts as above, its cold
-experts' term on the host. Expert parallelism (item 13) raises.
+experts' term on the host. Under a mesh a layer holds its rank's slice
+(``parallel/tp.py``): tensor-parallel slices reduce the routed sum over the
+ranks before the shared expert is added, and an ep axis takes
+``parallel/ep.py::moe_ffn_ep`` (capacity dispatch, each rank's experts on
+their kept rows through B1).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config.model_config import MoeConfig, UniversalConfig
+from ..parallel.comm import all_reduce
 from ..quant.qtensor import QuantTensor, expert_slice, stack_quant
 from .layers import linear
 
@@ -165,6 +170,10 @@ def moe_ffn(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig,
         out = _weighted_expert_sum(flat, gate, up, down, weights)
     else:
         out = _routed_expert_sum(flat, gate, up, down, topk_idx, weights)
+    if p.get("mesh") is not None:
+        # Tensor-parallel expert slices: each rank's routed sum is a partial
+        # of the layer's; the shared expert is whole on every rank.
+        out = all_reduce(out, p["mesh"].axis)
     out = _shared_expert_add(out, flat, p)
     return out.reshape(b, t, h).to(x.dtype)
 
@@ -201,13 +210,15 @@ def moe_ffn_offload(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig,
 
 def moe_forward(x: torch.Tensor, p: dict[str, Any], moe: MoeConfig,
                 every_expert: bool = False) -> torch.Tensor:
-    """The serving path's MoE call: an offloaded layer's form, else
-    ``moe_ffn``. Expert parallelism (ROADMAP queue A item 13) raises."""
+    """The serving path's MoE call (JAX :195-205): an offloaded layer's
+    form, the expert-parallel one under an ep axis
+    (``parallel/ep.py::moe_ffn_ep``), else ``moe_ffn``."""
     if p.get("resident_ids") is not None:
         return moe_ffn_offload(x, p, moe, every_expert)
     if moe.use_ep:
-        raise NotImplementedError("expert parallelism is not served by "
-                                  "blazr_tpu_torch yet (ROADMAP queue A item 13)")
+        from ..parallel.ep import moe_ffn_ep
+
+        return moe_ffn_ep(x, p, moe)
     return moe_ffn(x, p, moe, every_expert)
 
 

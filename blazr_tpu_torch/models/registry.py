@@ -358,6 +358,9 @@ class Model:
     vision_cfg: Any = None
     # The live LoRA adapter's state (``engine/lora.py::lora_state``).
     lora: Any = None
+    # The rank mesh the params were sliced for (``parallel/tp.py::
+    # shard_model``; ``cfg`` is then the rank's view), or None.
+    mesh: Any = None
 
     @property
     def is_multimodal(self) -> bool:

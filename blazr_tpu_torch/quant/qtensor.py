@@ -99,18 +99,40 @@ def unpack_k(words: np.ndarray, bits: int, signed: bool) -> np.ndarray:
     return out.reshape(kw * r, n)
 
 
+def _pack_words(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """:func:`_pack_k` in vectorized torch integer ops, bit for bit, on q's
+    device: int rows [K, N] → the int32 view of the uint32 words
+    [K*bits/32, N] (the loaders' path; ``_pack_k`` is its reference)."""
+    k, n = q.shape
+    r = 32 // bits
+    if k % r:
+        raise ValueError(f"K={k} is not a multiple of {r} rows per word")
+    q = (q.to(torch.int64) & ((1 << bits) - 1)).reshape(k // r, r, n)
+    words = torch.zeros((k // r, n), dtype=torch.int64, device=q.device)
+    for j in range(r):
+        words |= q[:, j, :] << (bits * j)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
 def words_to_torch(words: np.ndarray, device: torch.device) -> torch.Tensor:
     """uint32 words → the int32 tensor view the port holds."""
     arr = np.ascontiguousarray(np.asarray(words).view(np.int32))
     return torch.from_numpy(arr.copy()).to(device)
 
 
-def _finish(q_int: np.ndarray, scales: np.ndarray, mins: np.ndarray, *,
+def _finish(q_int, scales: np.ndarray, mins: np.ndarray, *,
             bits: int, group_size: int, signed: bool, fmt: str,
             perm: Optional[np.ndarray] = None,
-            device: DeviceLike = None) -> QuantTensor:
+            device: DeviceLike = None, work_device: DeviceLike = None) -> QuantTensor:
+    """Integer rows ``q_int`` [K, N] (numpy, or a torch tensor on
+    ``work_device``) and group planes → a canonical QuantTensor on
+    ``device``; the words are packed on ``work_device`` (default
+    ``device``), the card when a loader loads onto it."""
     dev = resolve_device(device)
-    k, n = q_int.shape
+    work = dev if work_device is None else resolve_device(work_device)
+    q = (q_int if isinstance(q_int, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(q_int))).to(work)
+    k, n = q.shape
     if scales.shape != (k // group_size, n):
         raise ValueError(f"scales {scales.shape} do not match K={k} N={n} "
                          f"gs={group_size}")
@@ -118,11 +140,11 @@ def _finish(q_int: np.ndarray, scales: np.ndarray, mins: np.ndarray, *,
         # Sign-bias the nibbles (q' = q - 8 as int4 two's complement, i.e.
         # n' = n XOR 8); the +8 offset folds into the affine:
         # w = q·s − m = (q' + 8)·s − m = q'·s − (m − 8·s).
-        q_int = np.bitwise_xor(q_int.astype(np.uint8), 8)
+        q = q.to(torch.uint8) ^ 8
         mins = mins - 8.0 * scales
         signed = True
     return QuantTensor(
-        qweight=words_to_torch(_pack_k(q_int, bits), dev),
+        qweight=_pack_words(q, bits).to(dev),
         scales=torch.as_tensor(np.asarray(scales, np.float32)).to(dev),
         mins=torch.as_tensor(np.asarray(mins, np.float32)).to(dev),
         perm=None if perm is None else torch.as_tensor(
@@ -134,27 +156,31 @@ def _finish(q_int: np.ndarray, scales: np.ndarray, mins: np.ndarray, *,
 
 def from_awq(qweight_u32: np.ndarray, scales: np.ndarray,
              qzeros_u32: np.ndarray, group_size: int, *,
-             device: DeviceLike = None) -> QuantTensor:
-    """AWQ triplet (HF-AWQ checkpoint layout) → canonical.
+             device: DeviceLike = None, work_device: DeviceLike = None) -> QuantTensor:
+    """AWQ triplet (HF-AWQ checkpoint layout) → canonical, on ``device``.
 
       qweight [K, N/8] uint32 (AWQ interleaved nibbles along N)
       scales  [K/gs, N] (f16/f32)
       qzeros  [K/gs, N/8] uint32 (same interleave)
-    """
+
+    The words are repacked on ``work_device`` (default ``device``): the
+    loader passes the card, whose integer ops are the fast place for it."""
     qweight_u32 = np.asarray(qweight_u32).view(np.uint32)
     qzeros_u32 = np.asarray(qzeros_u32).view(np.uint32)
     k, n8 = qweight_u32.shape
     n = n8 * 8
-    q = np.empty((k, n), dtype=np.uint8)
-    for j in range(8):
-        q[:, j::8] = (qweight_u32 >> AWQ_SHIFTS[j]).astype(np.uint32) & 0xF
     g = qzeros_u32.shape[0]
     z = np.empty((g, n), dtype=np.float32)
     for j in range(8):
         z[:, j::8] = ((qzeros_u32 >> AWQ_SHIFTS[j]) & 0xF).astype(np.float32)
     s = np.asarray(scales).astype(np.float32)
-    return _finish(q, s, s * z, bits=4, group_size=group_size, signed=False,
-                   fmt="awq", device=device)
+    # The nibbles unpacked on the work device: the low nibble of an
+    # arithmetic shift is the word's bits [s, s+4).
+    work = resolve_device(device) if work_device is None else resolve_device(work_device)
+    w = torch.from_numpy(np.array(qweight_u32.view(np.int32))).to(work)
+    nib = (w[:, :, None] >> torch.from_numpy(AWQ_SHIFTS.astype(np.int32)).to(work)) & 0xF
+    return _finish(nib.reshape(k, n), s, s * z, bits=4, group_size=group_size, signed=False,
+                   fmt="awq", device=device, work_device=work_device)
 
 
 def from_gptq(qweight_u32: np.ndarray, scales: np.ndarray,
@@ -364,18 +390,20 @@ CANONICAL_GGML_TYPES = {
 
 
 def from_ggml(raw: bytes | memoryview, gt: GgmlType, shape: tuple[int, int], *,
-              device: DeviceLike = None) -> QuantTensor:
+              device: DeviceLike = None, work_device: DeviceLike = None) -> QuantTensor:
     """GGUF tensor blocks → canonical. ``shape`` is the GGUF logical
     [N, K] (out, in); blocks run along K within each output row. The words
-    and planes are bit-exact with the JAX package's ``from_ggml``."""
+    and planes are bit-exact with the JAX package's ``from_ggml``; the rows
+    are transposed and packed on ``work_device`` (default ``device``)."""
     n, k = shape
     q_nk, s_nk, m_nk, gs, bits, signed = _ggml_to_int_grouped(raw, gt, n, k)
+    work = resolve_device(device) if work_device is None else resolve_device(work_device)
     # Transpose to the [K, N] convention.
+    q = torch.from_numpy(np.ascontiguousarray(q_nk)).to(work).t()
     return _finish(
-        np.ascontiguousarray(q_nk.T), np.ascontiguousarray(s_nk.T),
-        np.ascontiguousarray(m_nk.T),
+        q, np.ascontiguousarray(s_nk.T), np.ascontiguousarray(m_nk.T),
         bits=bits, group_size=gs, signed=signed, fmt=f"ggml_{gt.name.lower()}",
-        device=device,
+        device=device, work_device=work_device,
     )
 
 

@@ -418,8 +418,18 @@ def generation_defaults(state: AppState, executor) -> GenerationConfig:
     return GenerationConfig.from_dict({**executor.app_cfg.generation.to_dict(), **over})
 
 
+def _lockstep(state: AppState) -> bool:
+    from ..distributed.lockstep import LockstepEngine
+
+    return isinstance(state.batch_engine, LockstepEngine)
+
+
 def _get_executor(state: AppState, body: dict):
     name = body.get("model") or "default"
+    if _lockstep(state):
+        # A lockstep world serves its one model on every rank: loading
+        # another on rank 0 alone would build a mesh no follower joins.
+        name = "default"
     try:
         ex = state.scheduler.get_executor(name, body.get("keep_alive"))
     except FileNotFoundError as e:
@@ -450,6 +460,8 @@ async def _engine_tokens(state: AppState, prompt_ids: list[int], cfg: Generation
     cancelled once a stop sequence matches."""
     eng = state.batch_engine
     handle = eng.submit(prompt_ids, cfg)
+    if asyncio.iscoroutine(handle):          # a LockstepEngine admits on every rank first
+        handle = await handle
     seq_ref["id"] = handle.seq_id
     scanner = StopScanner(cfg.stop_sequences)
     while True:
@@ -514,6 +526,18 @@ async def _thread_tokens(executor, prompt_ids, cfg):
             yield item
     finally:
         await task
+
+
+async def embed_ids(state: AppState, executor, ids: list[int]):
+    """[T, H] f32 token embeddings of ``ids`` (``Executor.get_embeddings``).
+    Where a lockstep engine serves, the lookup is one of its ops: a sharded
+    embedding all-reduces over the mesh, so every rank must run it."""
+    if not _lockstep(state):
+        return await asyncio.to_thread(executor.get_embeddings, ids)
+    try:
+        return await state.batch_engine.get_embeddings(ids)
+    except ValueError as e:
+        raise ApiError(400, str(e))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ Counterpart of ``blazr_tpu/server/embeddings.py``, the reference embeddings
 endpoint (src/server/embeddings.rs): string-or-array input (a flat id array
 is one pre-tokenized input), mean/cls/last pooling, optional L2
 normalization, float or base64 output. The vectors pool the model's token
-embedding rows (``Executor.get_embeddings``), as the JAX package's do.
+embedding rows (``Executor.get_embeddings``; a lockstep op under a
+multi-process mesh, ``app.embed_ids``), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import asyncio
 from .api_types import ApiError, usage_dict
 from .encoding import encode_embedding
 from .pooling import pool
-from .app import Response, _get_executor
+from .app import Response, _get_executor, embed_ids
 
 
 async def embeddings_handler(request):
@@ -44,7 +45,7 @@ async def embeddings_handler(request):
         if not ids:
             raise ApiError(400, f"input[{i}] is empty after tokenization")
         total_tokens += len(ids)
-        emb = await asyncio.to_thread(executor.get_embeddings, ids)
+        emb = await embed_ids(request.app.state, executor, ids)
         data.append({"object": "embedding", "index": i,
                      "embedding": encode_embedding(pool(emb, strategy, normalize), fmt)})
     return Response.json({"object": "list", "data": data,

@@ -228,6 +228,7 @@ def refresh(metrics: Metrics, scheduler, engine: Optional[object]) -> None:
     sets: the prefix cache's hits and misses from ``PrefixCache.stats`` and
     the device memory in use."""
     metrics.models_loaded.set(scheduler.num_loaded)
+    engine = getattr(engine, "engine", engine)          # a LockstepEngine's BatchEngine
     if engine is not None:
         st = engine.scheduler.stats()
         metrics.queue_depth.set(st["waiting"])
@@ -242,7 +243,9 @@ def refresh(metrics: Metrics, scheduler, engine: Optional[object]) -> None:
         if drafted:
             metrics.spec_acceptance_rate.set(accepted / drafted)
         metrics.spec_depth.set(getattr(engine, "_spec_depth", 0))
-        # The port has no expert-parallel dispatch: that gauge stays 0.
+        from ..parallel.ep import DROPPED_TOKENS
+
+        metrics.moe_tokens_dropped.set(DROPPED_TOKENS["count"])
         if engine.horizon_dispatches:
             metrics.horizon_steps_per_dispatch.set(
                 engine.horizon_steps / engine.horizon_dispatches)

@@ -14,7 +14,7 @@ import numpy as np
 
 from .api_types import ApiError
 from .pooling import pool
-from .app import Response, _get_executor
+from .app import Response, _get_executor, embed_ids
 
 
 async def rerank_handler(request):
@@ -27,19 +27,19 @@ async def rerank_handler(request):
     top_n = int(body.get("top_n", len(documents)))
     return_docs = bool(body.get("return_documents", True))
 
-    def embed(text: str):
-        ids = executor.tokenizer.encode(text)
+    async def embed(text: str):
+        ids = await asyncio.to_thread(executor.tokenizer.encode, text)
         if not ids:
             return None               # an empty document scores 0
-        return pool(executor.get_embeddings(ids), "mean", True)
+        return pool(await embed_ids(request.app.state, executor, ids), "mean", True)
 
-    q_vec = await asyncio.to_thread(embed, query)
+    q_vec = await embed(query)
     if q_vec is None:
         raise ApiError(400, "query must not be empty")
     results = []
     for i, doc in enumerate(documents):
         text = doc if isinstance(doc, str) else doc.get("text", "")
-        d_vec = await asyncio.to_thread(embed, text)
+        d_vec = await embed(text)
         entry = {"index": i,
                  "relevance_score": 0.0 if d_vec is None else float(np.dot(q_vec, d_vec))}
         if return_docs:

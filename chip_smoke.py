@@ -287,7 +287,37 @@ Phases, in order; any failure raises and the script exits non-zero:
       BatchEngine replicas of a 4-layer Mistral-7B (2 in a full run), the
       card in f32, behind a cache-aware DataParallelGroup, the trace spans
       captured; their 8 greedy streams equal one engine's.
-Phases 7b, 7c and 10-18 run between phases 7 and 8.
+  19. (``parallel``) tensor, expert and sequence parallelism over
+      torch.distributed, AWQ-INT4 groups of 128, random weights from seed 0.
+      Four rank processes (``parallel/multihost.py::RankPool``, running this
+      script's ``rank_job``) share the card over gloo (the backend rule:
+      ranks share a card); each job's ranks join a fresh world through a
+      file store. (a) Mistral-7B at tp 2, 32 layers
+      (4 in a full run): a LockstepEngine over BatchEngine on both ranks, 8
+      greedy requests of phase 5's prompt lengths, 64 new tokens, twice (the
+      second with the collectives timed): tok/s, ms a decode step, lockstep
+      steps on each rank, collectives a forward and their ms, B1 and B2
+      launches and the rank's shapes; the f32 check at 2 layers (tp 2
+      prefill logits within PAR_F32_TOL of one rank's, the 8 streams equal);
+      ``cli serve --tp 2 --continuous-batching`` on phase 7's checkpoint: 4
+      chats at once over HTTP from rank 0, then SIGINT, both ranks' lockstep
+      step counts equal. (b) Mixtral-8x7B widths, 2 layers (1), ep 2 and
+      ep 2 x tp 2 (4 ranks): layer 0's moe_ffn_ep on 512 and 8 rows in f32
+      against moe_ffn on the whole layer (EP_TOL), timed beside it; a capacity
+      that drops, its count equal to the plain make_dispatch's; a 512-token
+      and 7 short requests through the lockstep BatchEngine. (c) Mistral-7B
+      in f32, 2 layers, sp 4: an 8192-token prompt's ring prefill (window
+      4096: 3 hops of 4) timed against one rank's, its logits within
+      PAR_F32_TOL, then 16 greedy tokens equal. (d) swarm: a leader and two
+      workers (16 + 16 layers; 2 + 2 in a full run) over TcpMesh on
+      127.0.0.1 in this process, Mistral-7B in f32 from phase 7's kind of
+      checkpoint: 32 greedy tokens of a 128-token prompt equal the
+      Executor's; ms a token and bytes a hop. (e) disagg: a router (its HTTP
+      app), a prefill and a decode worker, 32 layers (2): one
+      /v1/completions equal to the Executor's greedy tokens; the KV shipped
+      and its ms. Phase 9 adds B1 at a tp 2 rank's shapes and B2 at its
+      16/4 heads, with (a)'s launches.
+Phases 7b, 7c and 10-19 run between phases 7 and 8.
 Each serving run sets the launch counts to 0 just before it and reads
 them just after; a replayed graph adds the launches it holds, and the
 kernels line counts the first run with graphs (the default path). Under
@@ -1225,18 +1255,26 @@ FAMILY_B2_POINTS = (("gemma d=256 16/16", 16, 16, 256, None, None, None),
                     ("gemma2 d=256 16/8 softcap 50", 16, 8, 256, 4096, 50.0, 256 ** -0.5))
 
 
-def time_b2_families(dev, gen) -> dict:
-    """B2 at FAMILY_B2_POINTS: kernel, bound, plain version and SDPA on
-    pre-gathered KV (none under a softcap: SDPA computes another function)."""
+def time_b2_families(dev, gen, points=FAMILY_B2_POINTS) -> dict:
+    """B2 at ``points`` (FAMILY_B2_POINTS; phase 19's tensor-parallel heads):
+    kernel, bound, plain version and SDPA on pre-gathered KV (none under a
+    softcap: SDPA computes another function); each point's kernel output is
+    held to the plain version at 1e-2 of its largest (bf16)."""
     from blazr_tpu_torch.attention.paged_attention import (
         paged_attention_decode, paged_attention_reference)
     from blazr_tpu_torch.kvcache.paged import page_slot_index
 
     b, ctx, bs = 8, 1024, 64
     rows = {}
-    for name, h_q, h_kv, d, window, softcap, scale in FAMILY_B2_POINTS:
+    for name, h_q, h_kv, d, window, softcap, scale in points:
         s = pa_inputs(dev, gen, b=b, h_q=h_q, h_kv=h_kv, d=d, bs=bs, seq_lens=[ctx] * b)
         kw = dict(block_size=bs, sliding_window=window, logit_softcap=softcap, scale=scale)
+        got = paged_attention_decode(s["q"], s["kc"], s["vc"], s["bt"], s["sl"],
+                                     num_blocks=s["nb"], device=dev, **kw).float()
+        want = paged_attention_reference(s["q"], s["kc"], s["vc"], s["bt"], s["sl"],
+                                         **kw).float()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-2 * want.abs().max().item(), f"B2 {name}: {err}"
         ms = time_ms(lambda: paged_attention_decode(
             s["q"], s["kc"], s["vc"], s["bt"], s["sl"], num_blocks=s["nb"], device=dev,
             **kw), iters=100)
@@ -1251,7 +1289,7 @@ def time_b2_families(dev, gen) -> dict:
         nbytes = (2 * b * keys * h_kv * d * 2 + 2 * b * h_q * d * 2
                   + s["bt"].numel() * 4 + b * 4)
         bms, by = bound(nbytes, 4.0 * b * h_q * keys * d)
-        row = dict(ms=ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
+        row = dict(ms=ms, library_ms=library_ms, bound_ms=bms, bound_by=by, max_abs_err=err,
                    plain_ms=time_eager(lambda: paged_attention_reference(
                        s["q"], s["kc"], s["vc"], s["bt"], s["sl"], **kw), iters=10),
                    shape=f"{name} B={b} ctx={ctx}")
@@ -1567,7 +1605,10 @@ def teacher_forced(dev) -> None:
     cfg.num_layers = 2
     params = synth_llama_params(cfg, quant="awq", dtype=torch.bfloat16, seed=SEED,
                                 device=dev)
-    card_vs_cpu(dev, cfg, params, to_cpu_f32(params), [64, 100, 37, 128], "forward")
+    # The CPU's weights dequantized once on the card: its plain B1 would
+    # dequantize every weight at every call (~15 s of the phase).
+    card_vs_cpu(dev, cfg, params, to_cpu_f32(params, dense=True), [64, 100, 37, 128],
+                "forward")
     del params
     torch.cuda.empty_cache()
 
@@ -1655,7 +1696,7 @@ def read_counts() -> dict:
 # The depth of phases 5-6's Mistral-7B: 32 layers, FULL_RUN_SERVE_LAYERS in
 # a full run (``main`` sets it); ``--phases build,serve,...`` serves 32.
 SERVE_LAYERS = 32
-FULL_RUN_SERVE_LAYERS = 16
+FULL_RUN_SERVE_LAYERS = 8             # cut from 16 for phase 19's time
 
 
 def mistral_model(dev, layers: int | None = None):
@@ -3818,7 +3859,7 @@ def ppl_gate(dev) -> dict:
 # 1200 s limit (on an H100, the full run took 1157.7 s with phases 10 and
 # 11 at their depths before phase 12, and 862.6-937.7 s with these cuts);
 # ``--phases build,families`` serves them whole.
-FAMILY_SERVING = (("qwen3", 36, 4096, 6), ("gemma2", 42, 8192, 6))
+FAMILY_SERVING = (("qwen3", 36, 4096, 2), ("gemma2", 42, 8192, 2))   # full run: 2, was 6
 # The 2-layer forwards held to the CPU, 1 layer in a full run (the CPU's f32
 # reference is host-bound); Gemma2 keeps 2 for its window check.
 FAMILY_FORWARD_LAYERS = 2
@@ -4034,7 +4075,7 @@ MOE_B1_ROWS = (1, 2, 4, 8, 16, 512)
 # Qwen3-30B-A3B's warmup with graphs (72.5 s) and its graphs-off wave
 # (121 s) alone leave the other phases too little of the 1200 s limit;
 # ``--phases build,moe`` serves both whole.
-MOE_SERVING = (("mixtral", 32, 4096, 4), ("qwen3_moe", 48, 4096, 2))
+MOE_SERVING = (("mixtral", 32, 4096, 2), ("qwen3_moe", 48, 4096, 1))   # full run: was 4, 2
 # A free-running forward with the card in f32 against the CPU f32: the same
 # weights and arithmetic, f32 sums in another order (B1's split-K over K,
 # B2's splits, cuBLAS's f32 GEMMs in attention): 1e-3 of the largest logit.
@@ -4713,8 +4754,8 @@ RECURRENT_B1_ROWS = (1, 8, 512)
 # The served models: family -> (published depth, the engine's max_seq_len,
 # the depth a full run serves). ``--phases build,mla`` and ``build,ssm``
 # serve them whole.
-RECURRENT_SERVING = {"deepseek": (27, 4096, 2), "mamba2": (64, 4096, 4),
-                     "bamba": (32, 4096, 4)}
+RECURRENT_SERVING = {"deepseek": (27, 4096, 2), "mamba2": (64, 4096, 2),   # full run: was 4
+                     "bamba": (32, 4096, 2)}
 # The families' 2-layer checkpoints: DeepSeek-V2-Lite's layer 0 dense and
 # layer 1 with 64 experts; the hybrid's layers one Mamba2 mixer and one
 # attention layer.
@@ -5659,8 +5700,8 @@ def vision_phase(dev, gen, card: str, full_run: bool) -> dict:
 # phase 16: speculative decoding
 # ---------------------------------------------------------------------------
 
-FULL_RUN_SPEC_LAYERS = 4            # --phases build,spec serves all 32
-FULL_RUN_SPEC_DRAFT_LAYERS = 4      # the TinyLlama-width draft's 22, cut alike
+FULL_RUN_SPEC_LAYERS = 2            # --phases build,spec serves all 32 (was 4)
+FULL_RUN_SPEC_DRAFT_LAYERS = 2      # the TinyLlama-width draft's 22, cut alike
 SPEC_CLI_LAYERS = 1                 # the checkpoint cli run and cli serve load (5 times)
 SPEC_K = 5                          # num_speculative_tokens
 SPEC_TOKENS = 64                    # greedy tokens a request
@@ -6281,7 +6322,7 @@ def spec_phase(dev, gen, card: str, full_run: bool) -> dict:
 # phase 17: LoRA adapters and the C++ BPE core
 # ---------------------------------------------------------------------------
 
-FULL_RUN_LORA_LAYERS = 4            # --phases build,lora serves all 32
+FULL_RUN_LORA_LAYERS = 2            # --phases build,lora serves all 32 (was 4)
 LORA_CHECK_LAYERS = 2               # the f32 and the dense-merge checks
 LORA_TOKENS = 64                    # greedy tokens a request
 LORA_SCALE = 0.05                   # std of the adapters' random A and B
@@ -7527,6 +7568,32 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
             replaces="blazr_tpu/attention/paged_attention.py:34",
             launches=got("spec", "paged_attention"), max_abs_err=sp["b2"]["max_abs_err"],
             gather_ms=sp["b2"]["gather_ms"], **{key: sp["b2"][key] for key in keys}))
+    # B1 at a tp 2 rank's Mistral-7B shapes and B2 at its 16/4 heads, with
+    # phase 19's launches on rank 0 (its tensor- and expert-parallel runs).
+    tb1 = b1_at_shapes(dev, gen, TP_B1_SHAPES, (8, 512))
+    tb2 = time_b2_families(dev, gen, TP_B2_POINTS)[TP_B2_POINTS[0][0]]
+    par = res.get("parallel")
+    by_part = None
+    if par:
+        by_part = {"tp 2 (a), rank 0": par["tp"]["qmm"],
+                   **{f"{k} (b), rank 0": v["qmm"] for k, v in par["ep"].items()}}
+    rows = tb1["rows"]
+    line.append(dict(
+        name="qmm_w4a16 (B1), tensor- and expert-parallel ranks (tp 2 rank shapes)",
+        route="cuda", source="blazr_tpu_torch/csrc/qmm.cu",
+        replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
+        launches=got("parallel", "qmm"), launches_by_part=by_part,
+        max_abs_err=tb1["max_abs_err"],
+        **{key: rows[("gate/up tp2", 512)][key] for key in keys},
+        decode={key: rows[("gate/up tp2", 8)][key] for key in keys},
+        at=[{key: row[key] for key in keys} for sh, row in rows.items()
+            if sh[0] != "gate/up tp2"]))
+    line.append(dict(
+        name="paged_attention_decode (B2), tensor-parallel rank heads (16/4)", route="cuda",
+        source="blazr_tpu_torch/csrc/paged_attention.cu",
+        replaces="blazr_tpu/attention/paged_attention.py:34",
+        launches=got("parallel", "paged_attention"), max_abs_err=tb2["max_abs_err"],
+        **{key: tb2[key] for key in keys}))
     if gguf:           # B3 and B4 on the file's Q4_K gate weight, beside their rows
         for row in line:
             kernel = row["name"].split("(")[-1].rstrip(")")
@@ -7536,10 +7603,750 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 19: tensor, expert and sequence parallelism; lockstep; swarm; disagg
+# ---------------------------------------------------------------------------
+
+# Depths of phase 19: --phases build,parallel serves the first of each pair,
+# a full run the second (``main`` sets PAR_DEPTH).
+PAR_DEPTHS = {"tp": (32, 4), "ep": (2, 1), "sp": (2, 2), "swarm": (32, 4), "disagg": (32, 2)}
+PAR_DEPTH = {k: v[0] for k, v in PAR_DEPTHS.items()}
+PAR_CHECK_LAYERS = 2                # (a)'s f32 check
+PAR_TOKENS = 64                     # (a)'s greedy tokens a request
+SP_PROMPT, SP_TOKENS = 8192, 16     # (c): one prompt past Mistral's 4096 window
+PIPE_PROMPT, PIPE_TOKENS = 128, 32  # (d), (e)
+PAR_F32_TOL = 1e-3                  # f32 logits of a mesh vs one rank, of the largest
+EP_TOL = 1e-3                       # moe_ffn_ep vs moe_ffn in f32, of the largest
+# The rank shapes of Mistral-7B at tp 2 (K, N): phase 9's B1 rows.
+TP_B1_SHAPES = {"q tp2": (4096, 2048), "k/v tp2": (4096, 512), "o tp2": (2048, 4096),
+                "gate/up tp2": (4096, 7168), "down tp2": (7168, 4096)}
+TP_B2_POINTS = (("mistral tp2 d=128 16/4", 16, 4, 128, 4096, None, None),)
+# What the rank processes run on, and configs standing in for the published
+# ones (a CPU rehearsal sets both; a RankPool job carries them to its ranks).
+PAR_RUN = {"device": "cuda", "configs": {}}
+
+
+def _config(name: str):
+    import copy
+
+    from blazr_tpu_torch.utils.synthetic import mistral_7b_config, mixtral_8x7b_config
+
+    cfg = PAR_RUN["configs"].get(name)
+    if cfg is not None:
+        return copy.deepcopy(cfg)
+    return {"mistral": mistral_7b_config, "mixtral": mixtral_8x7b_config}[name]()
+
+
+def _sync() -> None:
+    import torch
+
+    if PAR_RUN["device"] == "cuda":
+        torch.cuda.synchronize()
+
+
+def _wall_ms(fn, iters: int = 3) -> float:
+    """Wall ms of one ``fn()`` (after one warm call), the device drained on
+    each side: a MoE FFN reads its routing to the host, so its wall is what
+    a step pays."""
+    fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def rank_job(a: dict):
+    """A phase 19 job on one rank of a ``multihost.RankPool`` of four
+    processes sharing the card: PAR_RUN as the phase set it, f32 references
+    in f32, the card's cache emptied after."""
+    import torch
+
+    PAR_RUN.update(a["run"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return PAR_JOBS[a["job"]](a)
+    finally:
+        free_card()
+
+
+def _par_app(cfg, mesh: dict, **inf):
+    from blazr_tpu_torch.config import AppConfig
+
+    app = AppConfig(model=cfg)
+    app.inference.tensor_parallel_size = mesh.get("tp", 1)
+    app.inference.expert_parallel_size = mesh.get("ep", 1)
+    app.inference.sequence_parallel_size = mesh.get("sp", 1)
+    for k, v in inf.items():
+        setattr(app.inference, k, v)
+    return app
+
+
+def _mistral(layers: int, dtype, max_seq_len: int | None = None):
+    """Mistral-7B at ``layers`` layers, AWQ-INT4 from seed 0 on the ranks'
+    device; ``max_seq_len`` past the synthetic config's 4096 (the model's
+    32,768 positions) for (c)'s prompt."""
+    import torch
+
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.utils.synthetic import synth_llama_params
+
+    cfg = _config("mistral")
+    cfg.num_layers = layers
+    cfg.max_seq_len = max_seq_len or cfg.max_seq_len
+    return Model(cfg, synth_llama_params(cfg, quant="awq", dtype=dtype, seed=SEED,
+                                         device=torch.device(PAR_RUN["device"])), dtype)
+
+
+def _lockstep_waves(engine, waves: list, timed_wave: int = -1) -> dict:
+    """Every rank drives ``engine`` through a LockstepEngine; rank 0 submits
+    ``waves`` of (prompt, GenerationConfig), each after the previous wave
+    ended, and times each; ``comm.stats.timed`` is on during wave
+    ``timed_wave`` only (its collectives' ms; a device sync each side)."""
+    import torch
+    import torch.distributed as dist
+
+    from blazr_tpu_torch.distributed.lockstep import LockstepEngine
+    from blazr_tpu_torch.parallel import comm
+
+    ls = LockstepEngine(engine, heartbeat_s=2.0)
+    out: dict = {"waves": []}
+
+    async def primary():
+        task = asyncio.create_task(ls.run())
+        for w, wave in enumerate(waves):
+            comm.stats.timed = w == timed_wave
+            counts0 = read_counts()
+            comm.stats.reset()
+            steps0, hsteps0 = ls.steps, engine.horizon_steps
+            dec0, pre0 = engine.perf["decode"], engine.perf["prefill"]
+            t0 = time.perf_counter()
+            handles = await asyncio.gather(*[ls.submit(p, g) for p, g in wave])
+
+            async def collect(h):
+                return [t.token_id async for t in h.tokens()]
+
+            streams = await asyncio.wait_for(asyncio.gather(*[collect(h) for h in handles]),
+                                             1500)
+            _sync()
+            wall = time.perf_counter() - t0
+            hsteps = engine.horizon_steps - hsteps0
+            out["waves"].append(dict(
+                streams=streams, wall=wall, tokens=sum(len(s) for s in streams),
+                engine_steps=ls.steps - steps0, decode_steps=hsteps,
+                decode_ms=(engine.perf["decode"] - dec0) * 1e3 / max(1, hsteps),
+                prefill_s=engine.perf["prefill"] - pre0,
+                counts={k: v - counts0[k] for k, v in read_counts().items()},
+                comm=comm.stats.snapshot()))
+        comm.stats.timed = False
+        ls.stop()
+        await task
+
+    reset_counts()
+    if dist.get_rank() == 0:
+        asyncio.run(primary())
+    else:
+        asyncio.run(ls.run())
+    out["steps"] = ls.steps
+    out["counts_total"] = read_counts()           # this rank's, every wave: the
+    # ranks reset together, run the same steps, and read after the last
+    return out
+
+
+def _rank_shapes(model) -> dict:
+    """The (K, N) of each B1 projection of a rank's first layer, and its
+    attention heads."""
+    from blazr_tpu_torch.models.layers import RowParallel
+
+    layer = model.params["layers"][0]
+    out = {}
+    for key in ("q", "k", "v", "o", "gate", "up", "down"):
+        w = layer.get(key)
+        if isinstance(w, RowParallel):
+            w = w.weight
+        if w is not None:
+            out[key] = (w.in_features, w.out_features)
+    att = model.cfg.attention
+    out["heads"] = (att.num_heads, att.kv_heads())
+    return out
+
+
+def job_tp_serve(a: dict) -> dict:
+    """(a): Mistral-7B at tp 2, bf16, lockstep over BatchEngine: phase 5's 8
+    greedy requests (64 tokens), then again with the collectives timed."""
+    import torch
+    import torch.distributed as dist
+
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+
+    model = _mistral(a["layers"], torch.bfloat16)
+    reqs = family_requests(model.cfg, greedy_only=True)
+    eng = BatchEngine(model, StubTokenizer(), _par_app(model.cfg, {"tp": 2}))
+    out = _lockstep_waves(eng, [reqs, reqs], timed_wave=1)
+    out.update(shapes=_rank_shapes(model), backend=dist.get_backend(),
+               graphs=eng.graphs.enabled)
+    return out
+
+
+def job_tp_f32(a: dict) -> dict:
+    """(a)'s f32 check: 2-layer Mistral-7B in f32 at tp 2: a prefill's logits
+    through the Executor and the 8 greedy streams (16 tokens) through the
+    lockstep BatchEngine."""
+    import torch
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.executor import Executor
+
+    model = _mistral(PAR_CHECK_LAYERS, torch.float32)
+    reqs = [(p, GenerationConfig(max_tokens=16, temperature=0.0))
+            for p, _ in family_requests(model.cfg, greedy_only=True)]
+    ex = Executor(model, StubTokenizer(), _par_app(model.cfg, {"tp": 2}))
+    last, _ = ex.prefill(ex._init_cache(1), reqs[1][0])
+    eng = BatchEngine(model, StubTokenizer(), _par_app(model.cfg, {"tp": 2}))
+    out = _lockstep_waves(eng, [reqs])
+    out["logits"] = last.float().cpu()
+    return out
+
+
+def job_ep(a: dict) -> dict:
+    """(b): Mixtral-8x7B widths on an ep (x tp) mesh, f32 activations: layer
+    0's moe_ffn_ep on 512 prefill rows and 8 decode rows at a capacity that
+    drops nothing, against moe_ffn on the whole layer (rank 0), timed; a
+    capacity that drops, its count against the plain make_dispatch's; then
+    one 512-token and 7 short requests through the lockstep BatchEngine."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.models.moe import moe_ffn, route
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.parallel.ep import DROPPED_TOKENS, make_dispatch, moe_ffn_ep
+    from blazr_tpu_torch.utils.synthetic import synth_llama_params
+
+    dev = torch.device(PAR_RUN["device"])
+    cfg = _config("mixtral")
+    cfg.num_layers = a["layers"]
+    params = synth_llama_params(cfg, quant="awq", dtype=torch.float32, seed=SEED, device=dev)
+    whole = params["layers"][0]["moe"]          # layer 0 unsliced (rank 0's reference)
+    model = Model(cfg, params, torch.float32)
+    eng = BatchEngine(model, StubTokenizer(), _par_app(model.cfg, a["mesh"]))
+    rank = dist.get_rank()
+    mine, moe = model.params["layers"][0]["moe"], model.cfg.moe
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    out: dict = {"experts": (mine["mesh"].first, mine["mesh"].count),
+                 "rows": {}, "backend": dist.get_backend()}
+    if rank != 0:
+        whole = None
+    for rows in (512, 8):
+        x = torch.randn((1 if rows == 512 else 8, rows if rows == 512 else 1, cfg.hidden_size),
+                        device=dev, generator=g) * 0.5
+        cap = x.shape[0] * x.shape[1] * moe.experts_per_tok      # no expert can overflow
+        reset_counts()
+        got = moe_ffn_ep(x, mine, moe, capacity=cap)
+        launches = read_counts()["qmm"]
+        ms = _wall_ms(lambda: moe_ffn_ep(x, mine, moe, capacity=cap))
+        row = dict(ms=ms, qmm=launches)
+        if whole is not None:
+            want = moe_ffn(x, whole, cfg.moe)
+            row["err"] = ((got - want).abs().max() / want.abs().max()).item()
+            row["one_rank_ms"] = _wall_ms(lambda: moe_ffn(x, whole, cfg.moe))
+        out["rows"][rows] = row
+        if rows == 512:
+            moe.ep_count_drops = True
+            before = DROPPED_TOKENS["count"]
+            moe_ffn_ep(x, mine, moe, capacity=64)
+            out["dropped"] = DROPPED_TOKENS["count"] - before
+            moe.ep_count_drops = False
+            if whole is not None:
+                idx, w = route(x.reshape(-1, cfg.hidden_size), whole["router"], cfg.moe)
+                out["plain_dropped"] = int(make_dispatch(idx, w, moe.num_experts, 64)[2])
+    del whole
+    rng = np.random.default_rng(SEED + 11)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(),
+             GenerationConfig(max_tokens=8, temperature=0.0)) for n in [512] + [64] * 7]
+    out.update(_lockstep_waves(eng, [reqs]))
+    return out
+
+
+def job_sp(a: dict) -> dict:
+    """(c): 2-layer Mistral-7B in f32 at sp 4: an 8192-token prompt through
+    the Executor's ring prefill (timed, its logits), then 16 greedy
+    tokens."""
+    import torch
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.parallel import comm
+
+    model = _mistral(a["layers"], torch.float32, SP_PROMPT + 64)
+    ex = Executor(model, StubTokenizer(), _par_app(model.cfg, {"sp": 4}))
+    prompt = a["prompt"]
+    cache = ex._init_cache(1)
+    ex.prefill(cache, prompt[:512])                 # a first ring (allocations)
+    comm.stats.reset()
+    _sync()
+    t0 = time.perf_counter()
+    last, _ = ex.prefill(ex._init_cache(1), prompt)
+    _sync()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    stats = comm.stats.snapshot()
+    reset_counts()
+    toks = [t.token_id for t in ex.generate(prompt, GenerationConfig(
+        max_tokens=SP_TOKENS, temperature=0.0))]
+    return dict(logits=last.float().cpu(), ms=ring_ms, comm=stats, tokens=toks,
+                counts=read_counts())
+
+
+PAR_JOBS = {"tp_serve": job_tp_serve, "tp_f32": job_tp_f32, "ep": job_ep, "sp": job_sp}
+
+
+def _one_rank_f32(dev) -> dict:
+    """(a)'s reference: the 2-layer f32 model on one rank, in this process."""
+    import torch
+
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.executor import Executor
+
+    model = _mistral(PAR_CHECK_LAYERS, torch.float32)
+    reqs = [(p, GenerationConfig(max_tokens=16, temperature=0.0))
+            for p, _ in family_requests(model.cfg, greedy_only=True)]
+    ex = Executor(model, StubTokenizer(), AppConfig(model=model.cfg))
+    last, _ = ex.prefill(ex._init_cache(1), reqs[1][0])
+    recs = asyncio.run(serve(BatchEngine(model, StubTokenizer(), AppConfig(model=model.cfg)),
+                             [reqs]))
+    out = dict(logits=last.float().cpu(), streams=[r["tokens"] for r in recs])
+    del model, ex
+    free_card()
+    return out
+
+
+def _cli_serve_tp2_start(ckpt: Path, root: Path) -> dict:
+    """Start ``cli serve --tp 2 --continuous-batching`` (warmed) on phase 7's
+    checkpoint; it comes up while the rank pool's jobs run
+    (``_cli_serve_tp2_finish`` waits for it)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    errp = root / "cli_serve_tp2.log"
+    err = open(errp, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "blazr_tpu_torch.cli", "--device", PAR_RUN["device"], "serve",
+         "--model", str(ckpt), "--continuous-batching", "--tp", "2", "--host", "127.0.0.1",
+         "--port", str(port)],
+        cwd=TREE, env=dict(os.environ, PYTHONPATH=str(TREE)), stdout=subprocess.DEVNULL,
+        stderr=err)
+    return dict(proc=proc, port=port, errp=errp, err=err, t0=time.perf_counter())
+
+
+def _cli_serve_tp2_finish(st: dict, card: str) -> dict:
+    """4 chats at once from rank 0 over HTTP, their embeddings, one more
+    chat, then SIGINT; both ranks log the steps
+    they ran (rank 1 shares rank 0's stderr) and must agree."""
+    import concurrent.futures
+    import re
+    import signal
+
+    import numpy as np
+
+    proc, port, errp = st["proc"], st["port"], st["errp"]
+    try:
+        while True:
+            assert proc.poll() is None, errp.read_text()[-4000:]
+            try:
+                if _http(port, "GET", "/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            assert time.perf_counter() - st["t0"] < 600, "cli serve --tp 2 did not come up"
+            time.sleep(1.0)
+        up = time.perf_counter() - st["t0"]
+        texts = [f"Question {i}: say something about the number {i * 7}." for i in range(4)]
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            chats = list(pool.map(lambda t: _stream_chat(port, {
+                "messages": [{"role": "user", "content": t}], "max_tokens": 32,
+                "temperature": 0.0, "stream": True}), texts))
+        wall = time.perf_counter() - t1
+        assert all(c["done"] and c["finish"] and c["deltas"] for c in chats), chats
+        # The embedding lookup of a sharded vocab: a lockstep op on both ranks.
+        status, body = _http(port, "POST", "/v1/embeddings", {"input": texts})
+        assert status == 200, body[-2000:]
+        vecs = np.array([d["embedding"] for d in json.loads(body)["data"]])
+        assert vecs.shape == (4, _config("mistral").hidden_size), vecs.shape
+        assert np.isfinite(vecs).all() and np.allclose(np.linalg.norm(vecs, axis=1), 1, atol=1e-4)
+        again = _stream_chat(port, {"messages": [{"role": "user", "content": texts[0]}],
+                                    "max_tokens": 32, "temperature": 0.0, "stream": True})
+        assert again["done"] and again["finish"] and again["deltas"], again
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(180)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+        st["err"].close()
+    text = errp.read_text()
+    assert rc == 0, text[-4000:]
+    steps = [int(n) for n in re.findall(r"lockstep engine stopped after (\d+) steps", text)]
+    assert len(steps) == 2 and steps[0] == steps[1] > 0, (steps, text[-3000:])
+    assert "lockstep follower" in text and "over gloo" in text
+    tokens = sum(c["usage"]["completion_tokens"] for c in chats if c.get("usage")) or sum(
+        len(c["deltas"]) for c in chats)
+    log(f"  cli serve --tp 2 --continuous-batching: up in {up:.1f} s (two ranks on the card "
+        f"over gloo, warmed; started beside the pool's jobs); 4 streamed chats at once "
+        f"answered from rank 0 in {wall:.2f} s ({tokens} tokens); /v1/embeddings of the 4 "
+        f"(the sharded lookup a lockstep op) unit-norm, then one more chat answered; "
+        f"SIGINT: both ranks ran "
+        f"{steps[0]} lockstep steps ({card})")
+    return dict(up=up, wall=wall, steps=steps)
+
+
+def _swarm(dev, ckpt: Path, layers: int, card: str) -> dict:
+    """(d): leader and one worker over TcpMesh on 127.0.0.1 (this process,
+    two threads), Mistral-7B from disk in f32 split into two stages: the
+    greedy tokens of a 128-token prompt against the one-process Executor's."""
+    import threading
+
+    import numpy as np
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.distributed.swarm import SwarmLeader, SwarmWorker
+    from blazr_tpu_torch.distributed.transport import TcpMesh
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.loader import load_model
+    from blazr_tpu_torch.parallel.multihost import free_port
+
+    prompt = np.random.default_rng(SEED + 3).integers(0, 32000, PIPE_PROMPT).tolist()
+    model, app = load_model(ckpt, dtype="f32", device=dev)
+    ex = Executor(model, StubTokenizer(), app)
+    t0 = time.perf_counter()
+    want = [t.token_id for t in ex.generate(prompt, GenerationConfig(
+        max_tokens=PIPE_TOKENS, temperature=0.0, repeat_penalty=1.0))]
+    one_ms = (time.perf_counter() - t0) * 1e3 / PIPE_TOKENS
+    capacity = ex.capacity
+    del ex, model
+    free_card()
+    port = free_port()
+
+    workers = []
+
+    def worker():
+        mesh = TcpMesh.bootstrap_worker(("127.0.0.1", port))
+        w = SwarmWorker(mesh, capacity=capacity, dtype="f32", device=str(dev))
+        workers.append(w)
+        w.receive_assignment()
+        w.run_compute_loop()
+        mesh.close()
+
+    threads = [threading.Thread(target=worker, daemon=True) for _ in range(2)]
+    for th in threads:
+        th.start()
+    mesh = TcpMesh.bootstrap_leader(3, seed_port=port)
+    leader = SwarmLeader(mesh, str(ckpt), num_layers=layers)
+    leader.start_workers()
+    got = leader.generate_greedy(prompt, 4)            # allocations, then timed
+    t0 = time.perf_counter()
+    got = leader.generate_greedy(prompt, PIPE_TOKENS)
+    ms = (time.perf_counter() - t0) * 1e3 / PIPE_TOKENS
+    hop = leader.hop_bytes / PIPE_TOKENS
+    stages = [(st.start_layer, st.end_layer) for st in leader.schedule.stages]
+    first = next(w for w in workers if w.stage.has_embedding)
+    stage_hop = first.sent_bytes / PIPE_TOKENS
+    leader.shutdown()
+    for th in threads:
+        th.join(120)
+        assert not th.is_alive()
+    mesh.close()
+    free_card()
+    assert got == want, (got, want)
+    log(f"  swarm: leader and two workers over TcpMesh on 127.0.0.1, stages {stages} of "
+        f"{layers}-layer Mistral-7B (f32, from disk): {PIPE_TOKENS} greedy tokens of a "
+        f"{PIPE_PROMPT}-token prompt equal the one-process Executor's; {ms:.2f} ms a token "
+        f"(Executor {one_ms:.2f}); bytes a token: stage 0 to stage 1 {stage_hop / 1e3:.1f} kB "
+        f"(f32 hidden rows), leader to and from the pipeline {hop / 1e3:.1f} kB (tokens up, "
+        f"f32 logits back); the prefill's {PIPE_PROMPT} rows included ({card})")
+    return dict(ms=ms, one_ms=one_ms, hop_bytes=hop, stage_hop_bytes=stage_hop, stages=stages)
+
+
+def _disagg(dev, ckpt: Path, layers: int, card: str) -> dict:
+    """(e): router, one prefill and one decode worker (this process, two
+    threads and the router's HTTP app), Mistral-7B from disk in f32: one
+    /v1/completions answered with the one-process Executor's greedy
+    tokens; the KV bytes shipped once and the time to serialize and send
+    them."""
+    import threading
+
+    import numpy as np
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.distributed.disagg import (DecodeWorker, DisaggConfig, DisaggRouter,
+                                                    PrefillWorker, make_router_app)
+    from blazr_tpu_torch.distributed.transport import TcpMesh
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.loader import load_model
+    from blazr_tpu_torch.parallel.multihost import free_port
+    from blazr_tpu_torch.server.app import serve as http_serve
+    from blazr_tpu_torch.tokenizer import load_tokenizer
+
+    prompt = np.random.default_rng(SEED + 4).integers(0, 32000, PIPE_PROMPT).tolist()
+    model, app = load_model(ckpt, dtype="f32", device=dev)
+    ex = Executor(model, StubTokenizer(), app)
+    want = [t.token_id for t in ex.generate(prompt, GenerationConfig(
+        max_tokens=PIPE_TOKENS, temperature=0.0, repeat_penalty=1.0))]
+    capacity = ex.capacity
+    del ex, model
+    free_card()
+    port = free_port()
+    workers = {}
+
+    def worker(role):
+        def run():
+            mesh = TcpMesh.bootstrap_worker(("127.0.0.1", port))
+            cls = PrefillWorker if role == "prefill" else DecodeWorker
+            workers[role] = cls(mesh, str(ckpt), capacity=capacity, dtype="f32",
+                                device=str(dev))
+            workers[role].run_loop()
+            mesh.close()
+        return run
+
+    threads = [threading.Thread(target=worker(r), daemon=True) for r in ("prefill", "decode")]
+    for th in threads:
+        th.start()
+    mesh = TcpMesh.bootstrap_leader(3, seed_port=port)
+    router = DisaggRouter(mesh, DisaggConfig())
+    router.wait_workers()
+    app = make_router_app(router, load_tokenizer(ckpt))
+    http = free_port()
+
+    async def client():
+        stop = asyncio.Event()
+        started = asyncio.get_running_loop().create_future()
+        task = asyncio.create_task(http_serve(app, "127.0.0.1", http, started.set_result,
+                                              stop))
+        await started
+        t0 = time.perf_counter()
+        st, body = await asyncio.to_thread(_http, http, "POST", "/v1/completions",
+                                           {"prompt": prompt, "max_tokens": PIPE_TOKENS})
+        wall = time.perf_counter() - t0
+        stop.set()
+        await task
+        assert st == 200, body
+        return json.loads(body), wall
+
+    res, wall = asyncio.run(client())
+    router.shutdown()
+    for th in threads:
+        th.join(120)
+        assert not th.is_alive()
+    mesh.close()
+    free_card()
+    got = res["choices"][0]["tokens"]
+    assert got == want, (got, want)
+    kv, ship = workers["prefill"].kv_bytes, workers["prefill"].ship_ms
+    log(f"  disagg: router (HTTP /v1/completions), a prefill and a decode worker over "
+        f"TcpMesh, {layers}-layer Mistral-7B (f32, from disk): {PIPE_TOKENS} tokens equal "
+        f"the one-process Executor's in {wall:.2f} s; KV shipped once: {kv / 1e6:.1f} MB "
+        f"(a {capacity}-slot f32 cache), serialized and sent in {ship:.1f} ms ({card})")
+    return dict(wall=wall, kv_bytes=kv, ship_ms=ship)
+
+
+def parallel_phase(dev, card: str) -> dict:
+    """Phase 19 (``parallel``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from blazr_tpu_torch.parallel.ring_attention import ring_hops
+
+    t_phase = time.perf_counter()
+    PAR_RUN["device"] = dev.type
+    on_card = dev.type == "cuda"        # launches are counted on the card only
+    free_card()
+    root = Path(tempfile.mkdtemp(prefix="blazr_ranks_"))
+    res: dict = {}
+    from blazr_tpu_torch.parallel.multihost import RankPool
+
+    ranks_pool = RankPool(4, root, dev.type, dict(os.environ, PYTHONPATH=str(TREE)))
+
+    def pool_run(job: str, world: int, **args) -> list:
+        return ranks_pool.run(f"{Path(__file__).resolve()}:rank_job", world,
+                              dict(args, job=job, run=PAR_RUN), timeout=1500)
+
+    cli = _cli_serve_tp2_start(http_checkpoint(), root)
+    try:
+        # (a) tensor parallel, lockstep serving
+        layers = PAR_DEPTH["tp"]
+        t0 = time.perf_counter()
+        r0, r1 = pool_run("tp_serve", 2, layers=layers)
+        assert r0["steps"] == r1["steps"] > 0, (r0["steps"], r1["steps"])
+        for w, wave in enumerate(r0["waves"]):
+            assert all(len(s) == PAR_TOKENS for s in wave["streams"])
+            assert on_card <= (wave["counts"]["qmm"] > 0 and wave["counts"]["paged_attention"] > 0)
+        w0, w1 = r0["waves"]
+        assert w0["streams"] == w1["streams"]
+        per_rank = [(r["counts_total"]["qmm"], r["counts_total"]["paged_attention"])
+                    for r in (r0, r1)]
+        assert per_rank[0] == per_rank[1], f"tp ranks launched differently: {per_rank}"
+        c = w1["comm"]
+        fwd = c["all_gather"]["calls"]
+        log(f"  (a) Mistral-7B {layers} layers at tp 2: two ranks on the card over "
+            f"{r0['backend']} (2 ranks a card), lockstep over BatchEngine, steps eager; "
+            f"rank 0's shapes {r0['shapes']}")
+        log(f"  (a) 8 greedy requests (64-512-token prompts, {PAR_TOKENS} tokens): "
+            f"{w0['tokens'] / w0['wall']:.1f} tok/s, {w0['decode_ms']:.2f} ms a decode step "
+            f"({w0['decode_steps']} steps, prefill {w0['prefill_s']:.2f} s), "
+            f"{r0['steps']} lockstep steps on each rank; launches on rank 0 B1 "
+            f"{w0['counts']['qmm']}, B2 {w0['counts']['paged_attention']}; over both "
+            f"waves (B1, B2) a rank: " + ", ".join(
+                f"rank {i} {c}" for i, c in enumerate(per_rank)) + " (equal)")
+        log(f"  (a) collectives a forward: all_reduce {c['all_reduce']['calls'] / fwd:.1f} "
+            f"(2 a layer + the embedding), all_gather 1 (the logits); timed wave: all_reduce "
+            f"{c['all_reduce']['ms'] / max(1, c['all_reduce']['calls']):.3f} ms each, "
+            f"all_gather {c['all_gather']['ms'] / fwd:.3f} ms each; "
+            f"{(c['all_reduce']['ms'] + c['all_gather']['ms']) / max(1, w1['decode_steps'] + 1):.2f} "
+            f"ms of collectives a step of {w1['decode_ms']:.2f} ({card})")
+        res["tp"] = dict(tok_s=w0["tokens"] / w0["wall"], decode_ms=w0["decode_ms"],
+                         qmm=w0["counts"]["qmm"], paged_attention=w0["counts"]["paged_attention"],
+                         launches_per_rank=per_rank, comm=c, steps=r0["steps"])
+        log(f"  ((a) serving: {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        ranks = pool_run("tp_f32", 2)
+        ref = _one_rank_f32(dev)
+        want = ref["logits"]
+        for r in ranks:
+            err = ((r["logits"] - want).abs().max() / want.abs().max()).item()
+            assert err <= PAR_F32_TOL, f"tp 2 f32 logits: {err} > {PAR_F32_TOL}"
+        streams = ranks[0]["waves"][0]["streams"]
+        assert streams == ref["streams"], "tp 2 streams differ from one rank's (f32)"
+        log(f"  (a) f32 check, {PAR_CHECK_LAYERS} layers: tp 2 prefill logits within "
+            f"{err:.3g} of the largest of one rank's (tol {PAR_F32_TOL}); the 8 greedy "
+            f"streams (16 tokens) equal one rank's ({time.perf_counter() - t0:.1f} s)")
+        res["tp"]["f32_err"] = err
+
+        # (b) expert parallel
+        t0 = time.perf_counter()
+        res["ep"] = {}
+        for name, world, mesh in (("ep 2", 2, {"ep": 2}), ("ep 2 x tp 2", 4, {"ep": 2, "tp": 2})):
+            ranks = pool_run("ep", world, layers=PAR_DEPTH["ep"], mesh=mesh)
+            r0 = ranks[0]
+            for rows, row in r0["rows"].items():
+                assert row["err"] <= EP_TOL, f"{name} moe_ffn_ep {rows} rows: {row['err']}"
+            assert r0["dropped"] == r0["plain_dropped"] > 0, (r0["dropped"],
+                                                             r0["plain_dropped"])
+            assert all(r["dropped"] == r0["dropped"] for r in ranks)
+            wave = r0["waves"][0]
+            assert on_card <= (wave["counts"]["qmm"] > 0)
+            per_rank = [(r["rows"][512]["qmm"], r["rows"][8]["qmm"],
+                         r["counts_total"]["qmm"], r["counts_total"]["paged_attention"])
+                        for r in ranks]
+            tp = mesh.get("tp", 1)
+            for r in range(0, world, tp):          # the tp ranks of one ep index
+                assert len(set(per_rank[r:r + tp])) == 1, f"{name}: {per_rank}"
+            log(f"  (b) Mixtral-8x7B widths, {PAR_DEPTH['ep']} layer(s), {name} ({world} ranks "
+                f"on the card over {r0['backend']}; experts a rank "
+                f"{[r['experts'] for r in ranks]}): layer 0's moe_ffn_ep within "
+                f"{max(row['err'] for row in r0['rows'].values()):.3g} of moe_ffn (f32, no "
+                f"drops); 512 rows {r0['rows'][512]['ms']:.2f} ms (one rank "
+                f"{r0['rows'][512]['one_rank_ms']:.2f}), 8 rows {r0['rows'][8]['ms']:.2f} ms "
+                f"(one rank {r0['rows'][8]['one_rank_ms']:.2f}); B1 launches on rank 0 "
+                f"{r0['rows'][512]['qmm']} and {r0['rows'][8]['qmm']}; capacity 64 drops "
+                f"{r0['dropped']} = make_dispatch's {r0['plain_dropped']}")
+            log(f"  (b) {name} served: a 512-token and 7 short prompts, 8 tokens: "
+                f"{wave['decode_ms']:.2f} ms a decode step of 8 rows, prefill "
+                f"{wave['prefill_s']:.2f} s, B1 {wave['counts']['qmm']} and B2 "
+                f"{wave['counts']['paged_attention']} launches on rank 0")
+            log(f"  (b) {name} launches a rank (B1 in moe_ffn_ep at 512 and 8 rows; B1, B2 "
+                f"served): " + ", ".join(f"rank {i} {c}" for i, c in enumerate(per_rank))
+                + (" (equal across each ep index's tp ranks)" if tp > 1 else ""))
+            res["ep"][name] = dict(rows=r0["rows"], dropped=r0["dropped"],
+                                   decode_ms=wave["decode_ms"], qmm=wave["counts"]["qmm"],
+                                   launches_per_rank=per_rank)
+        log(f"  ((b): {time.perf_counter() - t0:.1f} s)")
+
+        # (c) sequence parallel
+        t0 = time.perf_counter()
+        prompt = np.random.default_rng(SEED + 8).integers(0, _config("mistral").vocab_size, SP_PROMPT).tolist()
+        ranks = pool_run("sp", 4, layers=PAR_DEPTH["sp"], prompt=prompt)
+        window = _config("mistral").attention.sliding_window
+        hops = ring_hops(4, SP_PROMPT // 4, window)
+        ref = _one_rank_sp(dev, prompt)
+        for r in ranks:
+            err = ((r["logits"] - ref["logits"]).abs().max() / ref["logits"].abs().max()).item()
+            assert err <= PAR_F32_TOL, f"sp 4 logits: {err}"
+            assert r["tokens"] == ref["tokens"], (r["tokens"], ref["tokens"])
+        st = ranks[0]["comm"]
+        log(f"  (c) Mistral-7B {PAR_DEPTH['sp']} layers in f32 at sp 4 (4 ranks on the card "
+            f"over gloo): an {SP_PROMPT}-token prompt, window {window}: ring_hops {hops} of 4; "
+            f"ring prefill {ranks[0]['ms']:.1f} ms against one rank's {ref['ms']:.1f} ms "
+            f"(chunks of 2048); shifts {st.get('shift', {}).get('calls', 0)}, K/V all-gathers "
+            f"{st.get('all_gather', {}).get('calls', 0)}; logits within {err:.3g} of the "
+            f"largest of one rank's (tol {PAR_F32_TOL}); {SP_TOKENS} greedy tokens equal; "
+            f"B1 {ranks[0]['counts']['qmm']} and B2 {ranks[0]['counts']['paged_attention']} "
+            f"launches on rank 0 in the decode ({card})")
+        res["sp"] = dict(ms=ranks[0]["ms"], one_rank_ms=ref["ms"], hops=hops, err=err)
+        log(f"  ((c): {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        res["cli"] = _cli_serve_tp2_finish(cli, card)
+        log(f"  ((a) cli serve, after (c): {time.perf_counter() - t0:.1f} s)")
+    finally:
+        ranks_pool.close()
+        if cli["proc"].poll() is None:
+            cli["proc"].kill()
+            cli["proc"].wait(60)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (d) swarm and (e) disagg, in this process
+    t0 = time.perf_counter()
+    res["swarm"] = _swarm(dev, http_checkpoint(PAR_DEPTH["swarm"]), PAR_DEPTH["swarm"], card)
+    log(f"  ((d): {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    res["disagg"] = _disagg(dev, http_checkpoint(PAR_DEPTH["disagg"]), PAR_DEPTH["disagg"],
+                            card)
+    log(f"  ((e): {time.perf_counter() - t0:.1f} s)")
+    log(f"  parallel phase: {time.perf_counter() - t_phase:.1f} s ({card})")
+    res.update(qmm=res["tp"]["qmm"], paged_attention=res["tp"]["paged_attention"])
+    return res
+
+
+def _one_rank_sp(dev, prompt: list) -> dict:
+    """(c)'s reference: the prompt's prefill on one rank (chunks of 2048),
+    its logits and 16 greedy tokens."""
+    import torch
+
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.engine.executor import Executor
+
+    model = _mistral(PAR_DEPTH["sp"], torch.float32, SP_PROMPT + 64)
+    app = AppConfig(model=model.cfg)
+    app.inference.prefill_chunk_size = 2048
+    ex = Executor(model, StubTokenizer(), app)
+    ex.prefill(ex._init_cache(1), prompt[:512])
+    _sync()
+    t0 = time.perf_counter()
+    last, _ = ex.prefill(ex._init_cache(1), prompt)
+    _sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    toks = [t.token_id for t in ex.generate(prompt, GenerationConfig(
+        max_tokens=SP_TOKENS, temperature=0.0))]
+    out = dict(logits=last.float().cpu(), ms=ms, tokens=toks)
+    del ex, model
+    free_card()
+    return out
+
+
 PHASES = ("build", "b1", "b2", "b3", "b4", "b5", "b6", "tools", "forward",
           "forward_w8a8", "ppl", "serve", "executor", "serve_int8", "prefix", "http",
           "routes", "constrained", "families", "moe", "gguf", "mla", "ssm", "vision", "spec",
-          "lora", "offload", "sweep", "timings", "layout_times")
+          "lora", "offload", "parallel", "sweep", "timings", "layout_times")
 FULL_RUN = PHASES[:-1]              # layout_times repeats part of timings
 
 
@@ -7556,12 +8363,16 @@ def main() -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    global TREE, SERVE_LAYERS, HTTP_LAYERS, GGUF_LAYERS
+    global TREE, SERVE_LAYERS, HTTP_LAYERS, GGUF_LAYERS, GRAPH_TURNS, PREFIX_TURNS, HTTP_TURNS
     TREE = args.tree.resolve()
     if phases == list(FULL_RUN):
         SERVE_LAYERS = FULL_RUN_SERVE_LAYERS
+        # One turn each way in a full run (for phase 19's time): the
+        # equalities across turns hold on a pair as on four.
+        GRAPH_TURNS = PREFIX_TURNS = HTTP_TURNS = (True, False)
         HTTP_LAYERS = FULL_RUN_HTTP_LAYERS
         GGUF_LAYERS = FULL_RUN_GGUF_LAYERS
+        PAR_DEPTH.update({k: v[1] for k, v in PAR_DEPTHS.items()})
     other = TREE != REPO
     if other and phases == list(FULL_RUN):
         ap.error("--tree runs a subset of phases")
@@ -7685,6 +8496,9 @@ def main() -> int:
          "layer offload (Mistral-7B, half its layers streamed), the Mamba3 mixer at "
          "Codestral's widths, two BatchEngine replicas behind a DataParallelGroup with "
          "the trace spans", lambda: offload_phase(dev, card, phases == list(FULL_RUN))),
+        ("parallel", "phase 19: tensor, expert and sequence parallelism over "
+         "torch.distributed (ranks sharing the card over gloo), lockstep serving and cli "
+         "serve --tp 2, swarm and disagg", lambda: parallel_phase(dev, card)),
         ("sweep", "phase 8: the sweeps behind the launch plans of B1-B6",
          lambda: (b1_variants(dev, gen), b2_splits(dev, gen), b3_sweeps(dev, gen),
                   b4_splits(dev, gen), layout_splits(dev, gen))),

@@ -32,15 +32,23 @@ def _queue_a_entries() -> dict[str, str]:
     return entries
 
 
-@pytest.mark.parametrize("command", sorted(NOT_PORTED))
+@pytest.mark.parametrize("command", ["disagg", "swarm"])
 def test_not_ported_commands_point_at_their_queue_item(command):
-    item = NOT_PORTED[command]
-    assert re.fullmatch(r"item \d+", item), item
+    """The last two commands the CLI refused, ``swarm`` and ``disagg``, are
+    served since item 13 was ported: no command is left in ``NOT_PORTED``,
+    the parser takes their roles, and item 13's entry names them in code
+    spans among what landed (tests/test_torch_distributed.py runs them)."""
+    from blazr_tpu_torch.cli.main import build_parser
+
+    assert NOT_PORTED == {}
+    roles = {"swarm": ["leader", "worker"], "disagg": ["router", "prefill", "decode"]}
+    for role in roles[command]:
+        args = build_parser().parse_args([command, role, "--seed", "127.0.0.1:1"])
+        assert (args.command, args.role) == (command, role)
     entries = _queue_a_entries()
-    number = item.split()[1]
-    assert number in entries, f"ROADMAP queue A has no item {number}"
-    named = re.search(rf"`[^`]*\b{command}\b[^`]*`", entries[number])   # in code spans
-    assert named, f"ROADMAP queue A item {number} does not name `{command}`"
+    named = [n for n, body in entries.items()
+             if re.search(rf"`[^`]*\b{command}\b[^`]*`", body)]       # in code spans
+    assert "13" in named, f"ROADMAP queue A item 13 does not name `{command}`"
 
 
 def test_loader_points_vision_and_offload_at_item_12():
@@ -97,12 +105,25 @@ def _tiny_model():
                                          device="cpu"), torch.float32)
 
 
+def _recurrent_model():
+    import torch
+
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.utils.synthetic import synth_recurrent_params, tiny_recurrent_config
+
+    cfg = tiny_recurrent_config("mamba2")
+    return Model(cfg, synth_recurrent_params(cfg, quant="dense", dtype=torch.float32,
+                                             device="cpu"), torch.float32)
+
+
 @pytest.mark.parametrize("what,item", [("moe_offload", "12"), ("tp", "13"),
                                        ("offload", "12")])
 def test_engine_config_refusals_name_their_queue_item(what, item):
-    """Meshes raise naming item 13. Of item 12, MoE offload is served and
-    passes the check; layer offload raises naming ROADMAP §C, where the JAX
-    engine's failure over a streaming model is pinned."""
+    """Meshes are served (item 13) and pass the check; what a mesh does not
+    serve yet (here a Mamba2 model) raises naming item 13, which item 13's
+    later entry lists. Of item 12, MoE offload is served and passes the
+    check; layer offload raises naming ROADMAP §C, where the JAX engine's
+    failure over a streaming model is pinned."""
     inf = AppConfig().inference
     if what == "moe_offload":
         inf.moe_offload = "hybrid"
@@ -110,22 +131,25 @@ def test_engine_config_refusals_name_their_queue_item(what, item):
         return
     if what == "tp":
         inf.tensor_parallel_size = 2
-    else:
-        inf.num_device_layers = 1
+        batch_engine.BatchEngine._check_config(inf)
+        with pytest.raises(NotImplementedError) as e:
+            batch_engine.BatchEngine(_recurrent_model(), None, AppConfig(inference=inf))
+        assert _item_of(str(e.value)) == item and _in_queue_a(item)
+        assert "Mamba2" in _queue_a_entries()[item]
+        return
+    inf.num_device_layers = 1
     with pytest.raises(NotImplementedError) as e:
         batch_engine.BatchEngine._check_config(inf)
-    if what == "offload":
-        assert "ROADMAP §C" in str(e.value) and "queue A" not in str(e.value)
-        assert "Executor" in str(e.value)
-    else:
-        assert _item_of(str(e.value)) == item and _in_queue_a(item)
+    assert "ROADMAP §C" in str(e.value) and "queue A" not in str(e.value)
+    assert "Executor" in str(e.value)
 
 
 @pytest.mark.parametrize("what,item", [("tp", "13"), ("moe_offload", "12"),
                                        ("stream", "12")])
 def test_executor_refusals_name_their_queue_item(what, item):
-    """Meshes raise naming item 13; MoE offload and streaming models (item
-    12) are served and pass the check."""
+    """Meshes pass the check (item 13 is served); a LoRA adapter under one,
+    not yet served, raises naming item 13. MoE offload and streaming models
+    (item 12) are served and pass the check."""
     inf = AppConfig().inference
     if what == "tp":
         inf.expert_parallel_size = 2
@@ -133,12 +157,14 @@ def test_executor_refusals_name_their_queue_item(what, item):
         inf.moe_offload = "hybrid"
     else:
         inf.num_device_layers = 2
+    executor.Executor._check_config(inf)
     if what != "tp":
-        executor.Executor._check_config(inf)
         return
-    with pytest.raises(NotImplementedError) as e:
-        executor.Executor._check_config(inf)
-    assert _item_of(str(e.value)) == item and _in_queue_a(item)
+    from blazr_tpu_torch.parallel.tp import not_served_under_mesh
+
+    e = not_served_under_mesh("a LoRA adapter")
+    assert _item_of(str(e)) == item and _in_queue_a(item)
+    assert "LoRA" in _queue_a_entries()[item]
 
 
 def test_loader_refusals_name_item_12(tmp_path):

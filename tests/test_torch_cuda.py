@@ -1299,3 +1299,97 @@ def test_cold_term_stays_under_its_cap_at_mixtral_width(cuda):
     rt.cold_cache = ColdExpertCache(8 * one)
     free = rt.cold_term(0, x, w.to(cuda))
     assert torch.equal(capped[0], free) and torch.equal(capped[1], free)
+
+
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism on the card
+# ---------------------------------------------------------------------------
+
+def test_tp2_gloo_ranks_on_the_card_match_one_rank(cuda, tmp_path):
+    """Two ranks sharing the card over gloo (tests/torch_ranks.py), tp 2:
+    their f32 prefill logits within 1e-3 of the largest of one rank's, the
+    greedy tokens equal, and B1 launched on each rank (column and row
+    slices)."""
+    import numpy as np
+
+    from blazr_tpu_torch.config import AppConfig, GenerationConfig
+    from blazr_tpu_torch.config.model_config import AttentionConfig, UniversalConfig
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.utils.synthetic import synth_llama_params
+    from torch_ranks import Tok, run_ranks
+
+    cfg = UniversalConfig(model_type="mistral", vocab_size=512, hidden_size=256, num_layers=2,
+                          max_seq_len=128, intermediate_size=512,
+                          attention=AttentionConfig(num_heads=8, num_kv_heads=4, head_dim=32,
+                                                    sliding_window=64))
+    prompt = [int(t) for t in torch.randint(0, 512, (40,), generator=torch.Generator()
+                                            .manual_seed(1))]
+    app = AppConfig(model=cfg)
+    app.inference.max_seq_len = 128
+    ex = Executor(Model(cfg, synth_llama_params(cfg, quant="awq", dtype=torch.float32,
+                                                group_size=32, seed=9, device=cuda),
+                        torch.float32), Tok(), app)
+    last, _ = ex.prefill(ex._init_cache(1), prompt)
+    want = last.float().cpu().numpy()
+    toks = [t.token_id for t in ex.generate(prompt, GenerationConfig(max_tokens=8,
+                                                                     temperature=0.0))]
+    ranks = run_ranks("card_tp", 2, {"cfg": cfg, "mesh": {"tp": 2}, "seed": 9, "n": 8,
+                                     "prompt": prompt}, tmp_path)
+    for r in ranks:
+        assert r["backend"] == "gloo"
+        assert np.abs(r["logits"] - want).max() <= 1e-3 * np.abs(want).max()
+        assert r["tokens"] == toks
+        assert r["qmm"] > 0
+
+
+def test_moe_ffn_ep_b1_path_matches_plain(cuda):
+    """moe_ffn_ep over AWQ expert stacks: B1 on the card (the kept rows of
+    each expert) against the plain version on the CPU, at a capacity that
+    drops, within 1e-3 of the largest output (f32 activations)."""
+    from blazr_tpu_torch.config.model_config import MoeConfig
+    from blazr_tpu_torch.parallel.ep import DROPPED_TOKENS, moe_ffn_ep
+    from blazr_tpu_torch.quant.kernels import qmm
+    from blazr_tpu_torch.utils.synthetic import _rand_awq_qt
+
+    e, h, inter = 8, 512, 256
+    g = torch.Generator().manual_seed(3)
+    p = {"router": torch.randn(h, e, generator=g) * 0.05,
+         "experts_gate": qtensor.stack_quant([_rand_awq_qt(g, h, inter, 128, "cpu")
+                                              for _ in range(e)]),
+         "experts_up": qtensor.stack_quant([_rand_awq_qt(g, h, inter, 128, "cpu")
+                                            for _ in range(e)]),
+         "experts_down": qtensor.stack_quant([_rand_awq_qt(g, inter, h, 128, "cpu")
+                                              for _ in range(e)])}
+    moe = MoeConfig(num_experts=e, experts_per_tok=2, norm_topk_prob=True, ep_count_drops=True)
+    x = torch.randn(1, 64, h, generator=g)
+    before = DROPPED_TOKENS["count"]
+    want = moe_ffn_ep(x, p, moe, capacity=16)
+    drops = DROPPED_TOKENS["count"] - before
+
+    def to(v):
+        if isinstance(v, qtensor.QuantTensor):
+            return qtensor.QuantTensor(**{**v.__dict__, "qweight": v.qweight.to(cuda),
+                                          "scales": v.scales.to(cuda), "mins": v.mins.to(cuda)})
+        return v.to(cuda)
+
+    qmm.launches = 0
+    got = moe_ffn_ep(x.to(cuda), {k: to(v) for k, v in p.items()}, moe, capacity=16).cpu()
+    assert drops > 0 and DROPPED_TOKENS["count"] - before == 2 * drops
+    assert qmm.launches > 0
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+def test_awq_repack_on_the_card_matches_the_cpu(cuda):
+    """``load_model`` repacks AWQ words on the card (``from_awq``'s
+    ``work_device``): the same words, scales and mins as the CPU's."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    qw = rng.integers(0, 2 ** 32, (256, 48), dtype=np.uint64).astype(np.uint32)
+    qz = rng.integers(0, 2 ** 32, (2, 48), dtype=np.uint64).astype(np.uint32)
+    sc = rng.random((2, 384), dtype=np.float32)
+    cpu = qtensor.from_awq(qw, sc, qz, 128, device="cpu")
+    card = qtensor.from_awq(qw, sc, qz, 128, device="cpu", work_device=cuda)
+    for name in ("qweight", "scales", "mins"):
+        assert torch.equal(getattr(cpu, name), getattr(card, name))

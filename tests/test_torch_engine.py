@@ -301,7 +301,11 @@ def test_port_imports_without_jax_or_blazr_tpu():
         "server.config_watch", "config.user", "engine.speculative", "engine.lora",
         "server.lora_routes", "tokenizer.bpe_native", "engine.moe_offload",
         "engine.offload_stream", "engine.data_parallel", "engine.cache_router",
-        "loader.offloading", "utils.tracing")} <= names
+        "loader.offloading", "utils.tracing", "parallel", "parallel.comm",
+        "parallel.mesh", "parallel.multihost", "parallel.tp", "parallel.ep",
+        "parallel.ring_attention", "distributed", "distributed.lockstep",
+        "distributed.transport", "distributed.topology", "distributed.kv_serialize",
+        "distributed.swarm", "distributed.disagg")} <= names
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -229,9 +229,20 @@ def test_prefill_chunks_match_one_pass():
 
 
 def test_executor_refuses_what_it_does_not_serve():
+    """A mesh is served (item 13; tests/test_torch_parallel.py runs its
+    ranks), but needs a world of its ranks: without one the executor says
+    how to start it. Under a mesh a LoRA adapter is not served yet and
+    raises naming queue A item 13."""
     _, tmodel = _pair()
-    with pytest.raises(NotImplementedError, match="queue A"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         Executor(tmodel, _Tok(), _apps(tensor_parallel_size=2)[1])
+    from blazr_tpu_torch.parallel.tp import not_served_under_mesh
+
+    mesh_ex = object.__new__(Executor)
+    mesh_ex.mesh = object()
+    with pytest.raises(NotImplementedError, match="queue A item 13"):
+        Executor.set_lora(mesh_ex, object())
+    assert "queue A item 13" in str(not_served_under_mesh("x"))
     ex = Executor(tmodel, _Tok(), _apps()[1])
     # A LoRA adapter is served (tests/test_torch_lora.py); one the registry
     # lacks fails as not loaded.

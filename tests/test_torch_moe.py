@@ -612,20 +612,29 @@ def test_unserved_families_raise_item_11(kind):
 
 @pytest.mark.parametrize("what,item", [("offload", 12), ("ep", 13)])
 def test_offload_and_expert_parallelism_raise(what, item):
-    """Expert parallelism raises naming item 13. Expert offload (item 12)
-    is served: a layer with 2 of 4 experts resident gives ``moe_ffn``'s
-    output within 1e-5 of its largest, at decode and prefill rows (the cold
-    term on the host; tests/test_torch_offload.py holds the engines to the
-    JAX package)."""
+    """Both are served now. Expert parallelism (item 13): ``moe_forward``
+    under ``use_ep`` takes ``parallel/ep.py::moe_ffn_ep``, which on one rank
+    at a capacity that drops nothing gives ``moe_ffn``'s output within 1e-5
+    of its largest, dense and AWQ, at decode and prefill rows
+    (tests/test_torch_ep_ring.py holds it to the JAX package over ranks).
+    Expert offload (item 12): a layer with 2 of 4 experts resident gives
+    ``moe_ffn``'s output within 1e-5 of its largest, at decode and prefill
+    rows (the cold term on the host; tests/test_torch_offload.py holds the
+    engines to the JAX package)."""
     import types
 
     from blazr_tpu_torch.engine.moe_offload import install_offload
 
     moe = MoeConfig(num_experts=E, experts_per_tok=2)
     if what == "ep":
-        moe.use_ep = True
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tmoe.moe_forward(torch.zeros(1, 1, H), _to_port(_moe_params(False, False)), moe)
+        x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 6, H),
+                                                                      dtype=np.float32))
+        ep = MoeConfig(num_experts=E, experts_per_tok=2, use_ep=True)
+        for quant in (False, True):
+            p = _to_port(_moe_params(quant, False))
+            for t in (1, 6):
+                want = tmoe.moe_ffn(x[:, :t], p, moe)
+                assert _rel(tmoe.moe_forward(x[:, :t], p, ep), want) < 1e-5
         return
     for quant in (False, True):
         ref = _to_port(_moe_params(quant, False))

@@ -211,3 +211,14 @@ def test_qmm_plain_f16_matches_pallas_interpret(bits, signed):
     tol = 2e-3 * float(np.abs(ref.astype(np.float32)).max())
     np.testing.assert_allclose(got.float().numpy(), ref.astype(np.float32),
                                rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("bits,signed", [(2, False), (4, False), (4, True), (8, True)])
+def test_torch_packing_equals_the_numpy_reference(bits, signed):
+    """The loaders' ``_pack_words`` (torch integer ops) gives ``_pack_k``'s
+    words bit for bit, negative (two's complement) rows included."""
+    rng = np.random.default_rng(bits)
+    lo, hi = (-(1 << (bits - 1)), 1 << (bits - 1)) if signed else (0, 1 << bits)
+    q = rng.integers(lo, hi, (64, 24)).astype(np.int8 if signed else np.uint8)
+    got = tq._pack_words(torch.from_numpy(q), bits).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, tq._pack_k(q, bits))
