@@ -28,7 +28,11 @@ mesh's other ranks on this host itself (``parallel/multihost.py``;
 HTTP from rank 0 through ``distributed/lockstep.py`` (continuous batching is
 forced, as the JAX ``serve`` forces it in a multi-process world). With the
 global ``--coordinator/--num-processes/--process-id`` each command is one
-rank (JAX cli/main.py:225-252). ``swarm`` (leader and workers, pipeline
+rank (JAX cli/main.py:225-252). Every family is served on such a mesh, and
+the mesh flags combine with ``--mmproj``, ``--draft-model`` and
+``--prompt-lookup`` (``run``'s draft Executor is loaded whole on every rank,
+as the JAX ``run`` loads it; ``serve``'s draft is sliced like the target by
+the batch engine, or left whole where it cannot be). ``swarm`` (leader and workers, pipeline
 stages over TCP) and ``disagg`` (router, prefill and decode workers; the
 router serves ``/v1/completions`` with ``--port``) are the JAX commands.
 
@@ -559,7 +563,7 @@ def cmd_serve(args) -> int:
 
         from ..distributed.lockstep import LockstepEngine
 
-        lockstep = LockstepEngine(batch_engine)
+        lockstep = LockstepEngine(batch_engine, executor=ex)
         if not multihost.is_primary():
             # A follower: no HTTP; it mirrors rank 0's op stream until stopped.
             print("serve: lockstep follower (HTTP on rank 0 only)", file=sys.stderr)

@@ -11,6 +11,14 @@ runs one ``step_once``. Scheduling, sequence ids and sampling keys are
 functions of the op stream, and every rank samples the same gathered
 logits, so the ranks stay in step with no other coordination.
 
+An image chat is an Executor route (the batch engine takes no image rows),
+so under a mesh it is an op too (``media``): rank 0 checks and decodes the
+request's images (``server/app.py::_bind_media``), ships their bytes, the
+prompt and the generation config, and every rank runs the same
+``MultimodalExecutor.generate_multimodal`` on its own Executor over the
+sharded model between two steps (the tower whole on every rank); rank 0
+streams its tokens to the handler (``LockstepMedia``).
+
 Before each broadcast the engine drains its device work
 (``BatchEngine.sync_device``): the JAX package found that a host broadcast
 overlapping the previous step's collectives on the same transport corrupts
@@ -20,9 +28,11 @@ both (its dede0e4 fix). With one process the broadcast is the identity.
 from __future__ import annotations
 
 import asyncio
+import base64
 import json
 import logging
-from typing import Any, Optional
+import queue
+from typing import Any, Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -70,10 +80,12 @@ class LockstepEngine:
         async for tok in handle.tokens(): ...
 
     The other ranks ``await lockstep.run()`` and mirror every step.
-    ``submit``/``cancel`` raise off the primary."""
+    ``submit``/``cancel`` raise off the primary. ``executor`` (the Executor
+    over the engine's model, on every rank) runs the image chats."""
 
-    def __init__(self, engine, heartbeat_s: float = HEARTBEAT_S):
+    def __init__(self, engine, heartbeat_s: float = HEARTBEAT_S, executor=None):
         self.engine = engine
+        self.executor = executor
         self.heartbeat_s = heartbeat_s
         up = dist.is_initialized()
         self.is_primary = not up or dist.get_rank() == 0
@@ -82,6 +94,7 @@ class LockstepEngine:
         self._group = mesh.control if mesh is not None else None
         self._pending: list[tuple[dict[str, Any], Optional[asyncio.Future]]] = []
         self._wake: Optional[asyncio.Event] = None
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._stop = False
         self._steps = 0
 
@@ -108,6 +121,29 @@ class LockstepEngine:
         self._pending.append(({"op": "embed", "tokens": [int(t) for t in prompt_ids]}, fut))
         self._notify()
         return await fut
+
+    def submit_media(self, prompt_ids: list[int], images: list[bytes],
+                     gen_cfg: GenerationConfig, sink: "queue.Queue",
+                     loop: Optional[asyncio.AbstractEventLoop] = None) -> None:
+        """Queue an image chat from any thread (the handler's worker) onto
+        the loop that runs (or will run) ``run()``: every rank runs it; rank
+        0 puts each GeneratedToken into ``sink``, then None, or the
+        exception that ended it."""
+        if not self.is_primary:
+            raise RuntimeError("submit_media() is primary-only in lockstep mode")
+        loop = self._loop or loop
+        if self.executor is None or loop is None:
+            raise RuntimeError("the lockstep engine serves no image chats: no executor "
+                               "or no event loop")
+        op = {"op": "media", "tokens": [int(t) for t in prompt_ids],
+              "images": [base64.b64encode(b).decode() for b in images],
+              "gen": gen_cfg.to_dict()}
+
+        def enqueue():
+            self._pending.append((op, sink))
+            self._notify()
+
+        loop.call_soon_threadsafe(enqueue)
 
     def cancel(self, seq_id: int) -> None:
         if not self.is_primary:
@@ -143,6 +179,7 @@ class LockstepEngine:
     # -- lockstep loop (every rank) --------------------------------------
     async def run(self) -> None:
         self._wake = asyncio.Event()
+        self._loop = asyncio.get_running_loop()
         self.engine.bind_loop()
         logger.info("lockstep engine started (primary=%s, %d processes)",
                     self.is_primary, self._nprocs)
@@ -170,7 +207,10 @@ class LockstepEngine:
                 if self._nprocs > 1:
                     await asyncio.to_thread(self.engine.sync_device)
                 payload = await asyncio.to_thread(broadcast_payload, payload, self._group)
-                if self._apply(decode_ops(payload), [f for _, f in items]):
+                stopping, media = self._apply(decode_ops(payload), [f for _, f in items])
+                for op, sink in media:           # after the batch ops, in op order
+                    await asyncio.to_thread(self._media, op, sink)
+                if stopping:
                     break
                 if not await self.engine.step_once():
                     await asyncio.sleep(0.001)
@@ -189,13 +229,16 @@ class LockstepEngine:
 
     # -- op application (identical on every rank) ------------------------
     def _apply(self, ops: list[dict[str, Any]],
-               futs: list[Optional[asyncio.Future]]) -> bool:
+               futs: list[Optional[asyncio.Future]]) -> tuple[bool, list]:
+        """Apply the batch engine's ops; (whether a stop came, the image
+        chats to run after them with their sinks: rank 0's, None elsewhere)."""
         stopping = False
+        media = []
         fi = 0
         for op in ops:
             kind = op["op"]
             fut = None
-            if kind in ("submit", "cancel", "embed"):
+            if kind in ("submit", "cancel", "embed", "media"):
                 if fi < len(futs):
                     fut = futs[fi]
                 fi += 1
@@ -231,11 +274,37 @@ class LockstepEngine:
                     fut.set_result(emb)
             elif kind == "cancel":
                 self.engine.cancel(op["seq"])
+            elif kind == "media":
+                media.append((op, fut))
             elif kind == "stop":
                 stopping = True
             else:       # an op skipped on one rank would desynchronize the world
                 raise ValueError(f"unknown lockstep op {kind!r}")
-        return stopping
+        return stopping, media
+
+    def _media(self, op: dict[str, Any], sink: Optional["queue.Queue"]) -> None:
+        """One image chat on this rank's Executor (every rank, the same
+        calls); rank 0's tokens go to ``sink``. A failure (an image that
+        does not decode, a config that does not validate) raises alike on
+        every rank before any collective, so it ends the chat alone."""
+        from ..engine.executor_multimodal import MultimodalExecutor
+
+        ex = self.executor
+        model = ex.model
+        mm = MultimodalExecutor(ex, model.vision_params, model.vision_cfg)
+        images = [base64.b64decode(b) for b in op["images"]]
+        try:
+            for tok in mm.generate_multimodal(op["tokens"], images=images,
+                                              gen_cfg=GenerationConfig.from_dict(op["gen"])):
+                if sink is not None:
+                    sink.put(tok)
+        except Exception as e:
+            logger.warning("lockstep image chat failed: %s", e)
+            if sink is not None:
+                sink.put(e)
+            return
+        if sink is not None:
+            sink.put(None)
 
     def _embed(self, tokens: list[int]):
         from ..models.llama import forward_embed
@@ -247,3 +316,38 @@ class LockstepEngine:
         ids = torch.tensor([tokens], dtype=torch.long, device=self.engine.device)
         with torch.inference_mode():
             return forward_embed(model.params, model.cfg, ids)[0].float().cpu().numpy()
+
+
+class LockstepMedia:
+    """An image chat bound for the lockstep world, on rank 0's handler side:
+    a ``MediaBoundExecutor`` whose ``generate`` runs as a ``media`` op on
+    every rank and yields rank 0's tokens."""
+
+    def __init__(self, lockstep: LockstepEngine, bound):
+        self.lockstep = lockstep
+        self.bound = bound
+        try:            # bound on the server's loop, which runs the engine
+            self._loop: Optional[asyncio.AbstractEventLoop] = asyncio.get_running_loop()
+        except RuntimeError:
+            self._loop = None
+
+    def __getattr__(self, name):
+        return getattr(self.bound, name)
+
+    @property
+    def rows(self) -> int:
+        return self.bound.rows
+
+    def generate(self, prompt_ids: list[int],
+                 gen_cfg: Optional[GenerationConfig] = None) -> Iterator:
+        sink: queue.Queue = queue.Queue()
+        self.lockstep.submit_media(prompt_ids, self.bound.images,
+                                   gen_cfg or self.bound.executor.app_cfg.generation, sink,
+                                   self._loop)
+        while True:
+            item = sink.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item

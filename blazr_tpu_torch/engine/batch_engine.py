@@ -99,20 +99,27 @@ forward reads the host once a MoE layer, so the engine's steps run eagerly,
 without graphs (ROADMAP §C). Prefill and decode phases are traced by
 ``utils/tracing.span`` (JAX :1125, :1136), outside any graph.
 
-Tensor, expert and sequence parallelism (JAX :263-285, :490-520; ROADMAP
-queue A item 13): with ``tensor_parallel_size``, ``expert_parallel_size`` or
+Tensor, expert and sequence parallelism (JAX :263-285, :490-520): with
+``tensor_parallel_size``, ``expert_parallel_size`` or
 ``sequence_parallel_size`` above 1 the engine slices the model to its rank
 (``parallel/tp.py::shard_model``) before it allocates its cache, which then
-holds the rank's kv heads (int8 scale planes too). Every rank runs the same
+holds the rank's kv heads (int8 scale planes too); MLA latent pages and the
+Mamba2 state rows have no head axis and stay whole, and a hybrid's KV part
+holds the rank's kv heads (JAX :279-284). Every rank runs the same
 steps (``distributed/lockstep.py`` replays rank 0's op stream), eagerly: a
 CUDA graph cannot capture a gloo collective (ROADMAP §C). ``sync_device``
 drains the device before the lockstep broadcast. Under sp a prompt of at
 least ``sp_prefill_threshold`` tokens from position 0 prefills in one
 unchunked ring-attention pass (``_sp_prefill``), its K/V then gathered into
 every rank's pages. ``data_parallel_size`` is replica routing
-(``engine/data_parallel.py``), as in JAX. Under a mesh the MLA, Mamba2 and
-hybrid families, LoRA adapters and speculative decoding raise naming ROADMAP
-queue A item 13; MoE offload is not installed.
+(``engine/data_parallel.py``), as in JAX. The recurrent and MLA families
+take the ordinary prefill under sp (the JAX ring is llama-only, :498-510).
+A draft model is sliced like the target; where it cannot be (its heads,
+groups or widths do not divide), it stays whole on every rank with a log
+line, as the JAX engine leaves it replicated (:352-360), and the verify and
+draft-chain steps run eagerly like every step under a mesh. Under a mesh a
+LoRA adapter raises the JAX Executor's ``ValueError``; MoE offload is not
+installed.
 
 Left out: a streaming model (layer offload) raises: the JAX engine cannot
 be built over one (ROADMAP §C). int4 KV on the paged path raises instead of
@@ -154,13 +161,13 @@ from ..models.paged_multi import trash_slot, zero_state_rows
 from ..models.registry import init_engine_cache, make_paged_forward
 from ..models.registry import Model
 from ..parallel.ring_attention import ring_eligible, ring_prefill
-from ..parallel.tp import not_served_under_mesh, shard_model
+from ..parallel.tp import shard_model
 from ..quant.qtensor import apply_quant_compute, quant_leaves
 from ..utils.tracing import span
 from .decode_graph import TOPK_K, BatchStep, DraftChain, StepGraphs, VerifyStep, pack_rows
 from .grammar import GrammarState, make_grammar_state, padded_mask
 from .grammar_json import request_grammar_source
-from .lora import LoraAdapter, LoraAdapterRegistry, lora_state
+from .lora import LoraAdapter, LoraAdapterRegistry, lora_state, lora_under_mesh
 from .moe_offload import ensure_offload
 from .samplers import MirostatState, dry_breaker_ids, host_sample, needs_host_sampling
 from .sampling import SamplingParams, make_bias_rows, make_window, sample_tokens
@@ -398,6 +405,11 @@ class BatchEngine:
                              f"vocab ({self.model.vocab_size})")
         if draft_model.device != self.device:
             raise ValueError(f"draft model on {draft_model.device}, target on {self.device}")
+        if self.mesh is not None:
+            try:
+                shard_model(draft_model, inf)
+            except ValueError as e:        # heads, groups or widths that do not divide
+                logger.warning("draft model left whole on every rank of the mesh: %s", e)
         self._draft = draft_model
         self._draft_cache, _ = init_engine_cache(
             draft_model.cfg, num_blocks, self.block_size, self.max_batch,
@@ -487,7 +499,7 @@ class BatchEngine:
         boundary; the future ends when it landed (its exception: an adapter
         the model cannot take). With no loop running, now is a boundary."""
         if self.mesh is not None and adapter is not None:
-            raise not_served_under_mesh("a LoRA adapter")
+            raise lora_under_mesh()
         fut: concurrent.futures.Future = concurrent.futures.Future()
         with self._lora_mu:
             self._lora_pending.append((adapter, fut))

@@ -57,19 +57,25 @@ given a ``quant_compute`` mode or ``moe_offload`` raises ``ValueError``:
 the JAX Executor serves it with neither, without a word (ROADMAP §C). The
 prefill is traced by ``utils/tracing.span`` (JAX :453).
 
-Tensor, expert and sequence parallelism (JAX :77-101, :225-259; ROADMAP
-queue A item 13): under ``tensor_parallel_size``, ``expert_parallel_size`` or
+Tensor, expert and sequence parallelism (JAX :77-101, :225-259): under
+``tensor_parallel_size``, ``expert_parallel_size`` or
 ``sequence_parallel_size`` above 1 the executor slices the model to its rank
 (``parallel/tp.py::shard_model``, in a world started by
 ``parallel/multihost.py``; every rank runs the same ``generate`` calls) and
 its steps run eagerly (a CUDA graph cannot hold a gloo collective; ROADMAP
-§C). Under sp a prompt from position 0 of at least ``sp_prefill_threshold``
-tokens prefills with ring attention (``_ring_prefill``), its K/V gathered
-into every rank's cache. ``data_parallel_size`` is replica routing
-(``engine/data_parallel.py``) and changes nothing here, as in JAX. Under a
-mesh the MLA, Mamba2 and hybrid families, vision towers and LoRA adapters
-raise ``NotImplementedError`` naming ROADMAP queue A item 13, and MoE
-offload is not installed (JAX :106).
+§C). Every family is served so: the MLA, Mamba2/Mamba3 and hybrid caches
+are allocated from the rank's config (the latent and the state rows whole,
+a hybrid's KV with the rank's kv heads), and a vision tower runs whole on
+every rank around the sharded text forward (``executor_multimodal.py``).
+Under sp a prompt from position 0 of at least ``sp_prefill_threshold``
+tokens of the llama forward prefills with ring attention
+(``_ring_prefill``), its K/V gathered into every rank's cache; the other
+families take the ordinary prefill, as the JAX ring is llama-only.
+``data_parallel_size`` is replica routing (``engine/data_parallel.py``) and
+changes nothing here, as in JAX. Under a mesh a LoRA adapter raises the
+JAX ``ValueError`` (JAX :572-574), a streamed model is refused (the JAX
+Executor ignores the mesh; ROADMAP §C), and MoE offload is not installed
+(JAX :106).
 """
 
 from __future__ import annotations
@@ -90,12 +96,12 @@ from ..quant.qtensor import apply_quant_compute
 from ..utils.tracing import span
 from ..kvcache.contiguous import write_layer
 from ..parallel.ring_attention import ring_eligible, ring_prefill
-from ..parallel.tp import check_mesh_model, mesh_config, not_served_under_mesh, shard_model
+from ..parallel.tp import check_mesh_model, mesh_config, shard_model
 from .batch_engine import _next_pow2
 from .decode_graph import TOPK_K, ExecutorStep, StepGraphs, pack_rows
 from .grammar import make_grammar_state, padded_mask
 from .grammar_json import request_grammar_source
-from .lora import LoraAdapter, LoraAdapterRegistry, lora_state
+from .lora import LoraAdapter, LoraAdapterRegistry, lora_state, lora_under_mesh
 from .moe_offload import ensure_offload
 from .samplers import MirostatState, dry_breaker_ids, host_sample, needs_host_sampling
 from .sampling import SamplingParams, make_bias_rows, make_window, sample_tokens
@@ -202,7 +208,7 @@ class Executor:
         the clean base, so adapters replace each other. Raises
         ``ValueError`` for an adapter with modules the model cannot take."""
         if self.mesh is not None and adapter is not None:
-            raise not_served_under_mesh("a LoRA adapter")
+            raise lora_under_mesh()
         engine = self._lora.engine
         if engine is not None:
             engine.set_lora(adapter).result()

@@ -13,6 +13,12 @@ by ``argmax`` whatever the request asks (:107, :128); greedy rows with no
 penalty are its tokens exactly (ROADMAP §C). Audio without an audio
 encoder raises instead of being dropped (the JAX :67-68 drops it), and
 no model of the port has one.
+
+Under a mesh (JAX :46-52) the text Executor is the rank's sharded one and
+the tower runs whole on every rank: ``vision_params`` are not sliced, every
+rank encodes the same images, and the merged rows enter the rank's decoder
+layers, whose collectives the ranks run in step (``serve --tp`` drives an
+image chat as a lockstep op, ``distributed/lockstep.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config.generation import GenerationConfig
+from ..models.llama import embed_rows
 from ..models.vision import encode_images
 from ..utils.preprocess import MultimodalError, compute_mel_spectrogram, preprocess_image
 from .types import GeneratedToken
@@ -89,13 +96,14 @@ class MultimodalExecutor:
     def merged_embeddings(self, prompt_ids: list[int], images: Optional[list[bytes]] = None,
                           audio: Optional[list[np.ndarray]] = None) -> torch.Tensor:
         """[1, T_total, H] in the model's dtype: image rows, then the
-        prompt's token embeddings (the raw table rows, as JAX takes them),
-        then audio rows."""
+        prompt's token embeddings (the raw table rows, as JAX takes them;
+        looked up over the tp ranks' vocab slices under a mesh), then audio
+        rows."""
         model = self.executor.model
         aud = self.embed_audio(audio or [])        # refused before any image compute
         img = self.embed_images(images or [])
-        embed = model.params["embed"]
-        text = embed[torch.tensor(prompt_ids, dtype=torch.long, device=embed.device)]
+        text = embed_rows(model.params, torch.tensor(prompt_ids, dtype=torch.long,
+                                                     device=model.params["embed"].device))
         parts = [p.to(text.dtype) for p in (img, text, aud) if p is not None]
         return torch.cat(parts, dim=0)[None]
 

@@ -59,6 +59,13 @@ from ..quant.qtensor import QuantTensor
 logger = logging.getLogger(__name__)
 
 
+def lora_under_mesh() -> ValueError:
+    """Either engine's refusal of an adapter on a model sliced to a mesh's
+    rank: the JAX Executor's error, word for word
+    (``blazr_tpu/engine/executor.py:572-574``)."""
+    return ValueError("LoRA under mesh-sharded serving is not supported yet")
+
+
 @dataclass
 class LoraAdapter:
     """One loaded adapter (JAX ``LoraAdapter``)."""

@@ -70,13 +70,10 @@ def prompt_lookup_draft(tokens: list[int], budget: int,
 
 
 def check_speculative(*models) -> None:
-    """Raise for a model whose cache holds a recurrent state, and for a
-    model sliced to a mesh's rank (ROADMAP queue A item 13's rest)."""
+    """Raise for a model whose cache holds a recurrent state. A model sliced
+    to a mesh's rank is served: its verify and draft forwards cross the mesh
+    like its other steps, and every rank drafts the same tokens."""
     for m in models:
-        if getattr(m, "mesh", None) is not None:
-            from ..parallel.tp import not_served_under_mesh
-
-            raise not_served_under_mesh("speculative decoding")
         if m.needs_ssm_state:
             raise ValueError(
                 f"speculative decoding needs a positional cache: {m.cfg.model_type} "

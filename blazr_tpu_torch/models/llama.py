@@ -191,19 +191,25 @@ def rope_and_alibi(cfg: UniversalConfig, positions: torch.Tensor):
     return cos, sin, alibi
 
 
-def forward_embed(params: dict[str, Any], cfg: UniversalConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    """Token embeddings only. A tensor-parallel rank holds a slice of the
-    vocab rows (``params["rank"]``): it looks up the tokens it holds, zeros
-    elsewhere, and the ranks' rows are summed (exact: one term is not 0)."""
+def embed_rows(params: dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding table's rows of ``tokens``. A tensor-parallel rank
+    holds a slice of the vocab rows (``params["rank"]``): it looks up the
+    tokens it holds, zeros elsewhere, and the ranks' rows are summed (exact:
+    one term is not 0)."""
     shard = params.get("rank")
     if shard is None:
-        x = params["embed"][tokens.to(torch.long)]
-    else:
-        local = tokens.to(torch.long) - shard.start
-        held = (local >= 0) & (local < shard.rows)
-        x = params["embed"][local.clamp(0, shard.rows - 1)]
-        x = all_reduce(x * held[..., None].to(x.dtype), shard.axis)
+        return params["embed"][tokens.to(torch.long)]
+    local = tokens.to(torch.long) - shard.start
+    held = (local >= 0) & (local < shard.rows)
+    x = params["embed"][local.clamp(0, shard.rows - 1)]
+    return all_reduce(x * held[..., None].to(x.dtype), shard.axis)
+
+
+def forward_embed(params: dict[str, Any], cfg: UniversalConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings only (``embed_rows``, scaled where the family scales
+    them)."""
+    x = embed_rows(params, tokens)
     if cfg.scale_embeddings:
         x = x * device_scalar(cfg.hidden_size ** 0.5, x.dtype, x.device)
     return x

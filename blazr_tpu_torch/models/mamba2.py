@@ -22,6 +22,10 @@ kernel, so they stay plain PyTorch. A block reads and writes its layer of
 the state IN PLACE, all rows or the rows ``rows`` names (the engine's state
 slots), so a captured decode graph holds the state.
 
+Under a mesh every rank runs the whole mixer on whole state rows (no
+mixer weight is split, as in the JAX key rules); only the vocab-split
+embedding lookup and the gathered head cross the ranks.
+
 The Mamba3 mixer (``_m3`` :235, ``_m3_widths`` :245, ``_rot_half``,
 ``_m3_default_omega`` :260, ``_ssm_scan_m3`` :268, ``_mamba3_mixer`` :348;
 the optional conv and the ``lam``/``omega`` weights of the builder,

@@ -16,6 +16,11 @@ and the latent writes are XLA in the JAX package, no Pallas kernel, so they
 stay plain PyTorch. Layers with experts take ``models/moe.py``, the others
 the dense MLP.
 
+Under a tensor-parallel mesh (``parallel/tp.py``) a rank holds its heads'
+``q``/``q_b`` columns, their slice of ``kv_b_k``/``kv_b_v`` and ``o``'s rows
+(``layers.RowParallel``: summed over tp), and the whole latent cache: every
+rank writes the same latents and attends its heads over all of them.
+
 Two corrections to the reference (ROADMAP §C):
   * ``kv_b_proj`` is dequantized to f32 at load (a QuantTensor cannot be
     reshaped into the absorbed halves; the JAX builder fails on one);

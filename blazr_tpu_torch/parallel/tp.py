@@ -5,10 +5,10 @@ gives each leaf a ``PartitionSpec`` and lets GSPMD split the matmuls and
 insert the psums. The port turns the same key rules (``_leaf_spec``,
 :47-72) into the slice a rank keeps, and marks where a collective follows:
 
-  * column keys (``q k v gate up lm_head``, and Starcoder2/Falcon's plain
-    ``fc``, which the JAX package leaves to GSPMD to reshard) split N of a
-    dense weight, or of ``qweight``, ``scales`` and ``mins``; their biases
-    split alike;
+  * column keys (``q k v gate up lm_head``, MLA's ``q_b``, and
+    Starcoder2/Falcon's plain ``fc``, which the JAX package leaves to GSPMD
+    to reshard) split N of a dense weight, or of ``qweight``, ``scales`` and
+    ``mins``; their biases split alike;
   * row keys (``o down``) split K: a QuantTensor's packed rows and its
     scale and min planes in whole groups. The rank's slice is wrapped in
     ``layers.RowParallel``, whose ``linear`` sums the ranks' partials over
@@ -20,6 +20,16 @@ insert the psums. The port turns the same key rules (``_leaf_spec``,
     down K); the router and shared experts stay whole. ``params[...]
     ["moe"]["mesh"]`` (``MoeShard``) gives the layer its experts and the
     ep×tp group its routed sum is reduced over.
+  * MLA's absorbed halves ``kv_b_k``/``kv_b_v`` ([r, H, d]) are sliced on
+    their head axis to the rank's heads. The JAX layout keeps them whole
+    (no key set names them) and GSPMD reshards them to the q heads' split;
+    the rank computes the same function on its heads. ``q_a``, ``kv_a``,
+    the latent norms and the latent cache stay whole.
+  * every other key stays whole on every rank, as in the JAX package: the
+    norms, the router and shared experts, and the Mamba2/Mamba3 mixer
+    (``in_proj``, ``out_proj``, ``conv_w``, the gated norm, ``A_log``,
+    ``D``, ``dt_bias``, ``lam``, ``omega``), whose whole state rows every
+    rank runs. A hybrid's attention and MLP split like the llama family's.
 
 kv heads that do not divide tp (MQA under wide tp, JAX :260-262) are not
 split: the ranks whose q heads share one kv head each hold that head's k and
@@ -43,11 +53,12 @@ from ..quant.qtensor import QuantTensor
 from .comm import Axis
 from .mesh import MeshConfig, RankMesh, validate_tp_size
 
-_COL_KEYS = {"q", "k", "v", "gate", "up", "lm_head", "fc"}
+_COL_KEYS = {"q", "k", "v", "gate", "up", "lm_head", "fc", "q_b"}
 _ROW_KEYS = {"o", "down"}
 _COL_BIAS = {"q_bias", "k_bias", "v_bias", "fc_bias"}
 _EXPERT_COL = {"experts_gate", "experts_up"}      # [E, K, N] stacked
 _EXPERT_ROW = {"experts_down"}
+_HEAD_KEYS = {"kv_b_k", "kv_b_v"}                 # MLA [r, H, d], split on H
 
 
 @dataclasses.dataclass
@@ -264,6 +275,9 @@ def shard_params(params: dict, mesh: RankMesh, model_cfg) -> dict:
                 out[key] = col_slice(val, tp_i, tp)
             elif key in _ROW_KEYS:
                 out[key] = RowParallel(row_slice(val, tp_i, tp), mesh.axis("tp"))
+            elif key in _HEAD_KEYS:
+                h = val.shape[1]
+                out[key] = _own(val[:, tp_i * h // tp:(tp_i + 1) * h // tp])
             else:
                 out[key] = val
         layers.append(out)
@@ -281,8 +295,10 @@ def shard_params(params: dict, mesh: RankMesh, model_cfg) -> dict:
 
 def rank_config(cfg, mesh: RankMesh):
     """The model config as one rank computes it: its q and kv heads (the
-    head dim fixed), its share of the intermediate width, and the EP route
-    on when the mesh has an ep axis."""
+    head dim fixed; an MLA rank's heads with d_nope, d_rope, v_head_dim and
+    the latent width unchanged), its share of the intermediate width, and
+    the EP route on when the mesh has an ep axis. The SSM widths stay
+    whole: every rank runs the whole mixer."""
     rc = copy.deepcopy(cfg)
     tp, tp_i = mesh.size("tp"), mesh.index("tp")
     att = rc.attention
@@ -305,27 +321,16 @@ def mesh_config(inference_cfg) -> MeshConfig:
                       sp=inference_cfg.sequence_parallel_size)
 
 
-def not_served_under_mesh(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} under a tensor, expert or sequence parallel mesh is not served by "
-        "blazr_tpu_torch yet (ROADMAP queue A item 13)")
-
-
 def check_mesh_model(model) -> None:
-    """Raise for what a mesh does not serve yet (ROADMAP queue A entry 8,
-    item 13's rest): the MLA, Mamba2/Mamba3 and hybrid families and a
-    vision tower."""
-    from ..models.registry import resolve_paged_kind
-
-    kind = resolve_paged_kind(model.cfg)
-    if kind != "llama":
-        raise not_served_under_mesh(
-            {"mla": "an MLA model", "mamba2": "a Mamba2 model",
-             "hybrid": "a Mamba2/attention hybrid"}[kind])
-    if getattr(model, "is_multimodal", False):
-        raise not_served_under_mesh("a vision tower")
+    """Raise for a model a mesh does not serve: one whose layers stream from
+    host RAM. The JAX Executor keeps such a model on one device and ignores
+    the mesh it was asked for (``executor.py:81-84``); the port refuses it
+    (ROADMAP §C)."""
     if getattr(model, "is_streaming", False):
-        raise not_served_under_mesh("layer offload")
+        raise NotImplementedError(
+            "a model with layers streamed from host RAM (device_layers) is served on one "
+            "device: it is not sharded over a tensor, expert or sequence parallel mesh "
+            "(the JAX Executor ignores the mesh; ROADMAP §C)")
 
 
 def maybe_serving_mesh(inference_cfg, model_cfg, params: Optional[dict] = None,

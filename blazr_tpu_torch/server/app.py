@@ -700,7 +700,7 @@ async def chat_completions(request: Request):
     await compile_grammar(executor, cfg)
     prompt = _context_prefix(executor, body) + _build_prompt(body, executor.model.cfg)
     prompt_ids = executor.tokenizer.encode(prompt)
-    executor, image_rows = await _bind_media(executor, body.get("messages", []))
+    executor, image_rows = await _bind_media(state, executor, body.get("messages", []))
     media = image_rows > 0
     n = max(1, int(body.get("n", 1)))
     budget = len(prompt_ids) + image_rows + cfg.max_tokens * n
@@ -757,14 +757,16 @@ async def chat_completions(request: Request):
         state.request_done("chat", t0)
 
 
-async def _bind_media(executor, messages: list) -> tuple[Any, int]:
+async def _bind_media(state: AppState, executor, messages: list) -> tuple[Any, int]:
     """(executor, the context rows its images add; 0 without media): a
     request with image or audio parts gets its images decoded and bound to
     a MultimodalExecutor (the JAX chat route, app.py:481-496). A text model answers 400 before
     any fetch, and so does an audio part (no model of the port has an audio
     encoder; the JAX executor drops the audio); an image that does not
     decode, or that is not a PNG or a baseline JPEG (its header says),
-    answers 400 before any compute."""
+    answers 400 before any compute. Where a lockstep engine serves, the
+    bound chat runs as one of its ops on every rank (a sharded model's
+    forwards cross the mesh)."""
     parts = [m.get("content") for m in messages if isinstance(m, dict)]
     if not any(has_images(c) or has_audio(c) for c in parts):
         return executor, 0
@@ -781,6 +783,10 @@ async def _bind_media(executor, messages: list) -> tuple[Any, int]:
     model = executor.model
     mm = MultimodalExecutor(executor, model.vision_params, model.vision_cfg)
     bound = MediaBoundExecutor(mm, images, audio)
+    if _lockstep(state):
+        from ..distributed.lockstep import LockstepMedia
+
+        bound = LockstepMedia(state.batch_engine, bound)
     return bound, bound.rows
 
 

@@ -315,8 +315,27 @@ Phases, in order; any failure raises and the script exits non-zero:
       Executor's; ms a token and bytes a hop. (e) disagg: a router (its HTTP
       app), a prefill and a decode worker, 32 layers (2): one
       /v1/completions equal to the Executor's greedy tokens; the KV shipped
-      and its ms. Phase 9 adds B1 at a tp 2 rank's shapes and B2 at its
-      16/4 heads, with (a)'s launches.
+      and its ms. Parts (f)-(i) serve what entry 8 of ROADMAP queue A
+      added, each at the published widths, 2 layers (LLaVA 4), in f32 on
+      the card so that a rank's streams can equal one rank's: (f)
+      DeepSeek-V2-Lite (layer 0 dense, layer 1 MoE) at tp 2 (AWQ groups of
+      32: the dense down's K 10944 / 2 is no multiple of 64) and at ep 2
+      (groups of 64); (g) Mamba-Codestral-7B, Bamba-9B (cut to a Mamba2 and
+      an attention layer) and the Mamba3 mixer at Codestral's widths, each
+      at tp 2; (h) Mistral-7B at tp 2 with k = 5, prompt-lookup drafts and
+      then a 2-layer TinyLlama-width draft sliced like the target, on
+      phase 16's extractive prompts; (i) LLaVA-1.5-7B (4 layers, an mmproj
+      sidecar beside the text checkpoint on disk) at tp 2: a PNG image chat
+      through the MultimodalExecutor on the ranks and the same chat through
+      ``cli serve --tp 2`` (a lockstep op). Each part: phase 5's 8 greedy
+      requests (32 new tokens) through the lockstep BatchEngine, their
+      streams and the f32 prefill logits held to one rank's (MESH_TOL), ms a
+      decode step beside one rank's, the collectives a step and their ms,
+      B1 and B2 launches a rank (a tp pair's equal), and a LoRA adapter
+      refused with the JAX ``ValueError``; a streamed model under tp 2 is
+      refused after (e). Phase 9 adds B1 at a tp 2 rank's shapes and B2 at
+      its 16/4 heads, with (a)'s launches, and B1 at DeepSeek-V2-Lite's and
+      B2 at Bamba-9B's tp 2 rank shapes, with (f)-(i)'s.
 Phases 7b, 7c and 10-19 run between phases 7 and 8.
 Each serving run sets the launch counts to 0 just before it and reads
 them just after; a replayed graph adds the launches it holds, and the
@@ -4097,9 +4116,10 @@ def b1_at_shapes(dev, gen, shapes: dict, row_counts: tuple) -> dict:
     from blazr_tpu_torch.quant.kernels import qmm, qmm_reference
     from blazr_tpu_torch.quant.qtensor import dequantize_planes
 
-    gs, rel_tol = 128, 8e-3
+    rel_tol = 8e-3
     rows, worst = {}, 0.0
-    for pname, (k, n) in shapes.items():
+    for pname, spec in shapes.items():
+        k, n, gs = (*spec, 128)[:3]           # (K, N) in groups of 128, or (K, N, group)
         qw, s, mn = rand_planes(k, n, 4, gs, gen, dev)
         w = dequantize_planes(qw, s, mn, 4, True, gs, torch.bfloat16)
         for m in row_counts:
@@ -4121,9 +4141,9 @@ def b1_at_shapes(dev, gen, shapes: dict, row_counts: tuple) -> dict:
                        plain_ms=time_eager(lambda: qmm_reference(
                            x, qw, s, mn, bits=4, signed=True, group_size=gs), iters=3,
                            warmup=1),
-                       shape=f"{pname} m={m} K={k} N={n}")
+                       shape=f"{pname} m={m} K={k} N={n} group {gs}")
             rows[(pname, m)] = row
-            log(f"  B1 {pname} m={m} K={k} N={n}: max_abs_err {err:.4g} (tol {tol:.4g}); "
+            log(f"  B1 {pname} m={m} K={k} N={n} gs={gs}: max_abs_err {err:.4g} (tol {tol:.4g}); "
                 f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, x{ms / bms:.1f}), "
                 f"torch.matmul(bf16 dequantized) {row['library_ms']:.4f} ms "
                 f"(x{ms / row['library_ms']:.2f}), plain {row['plain_ms']:.4f} ms")
@@ -7072,13 +7092,18 @@ def mamba3_model(dev, flags: dict, layers: int):
     phase-14 model's params, each layer's in_proj widened for the rank (a
     new random AWQ-INT4 weight, groups of 128), the conv where it is on, and
     random ``lam`` [H] and ``omega`` [H, N/2]."""
+    return to_mamba3(recurrent_model(dev, "mamba2", layers), flags, dev)
+
+
+def to_mamba3(model, flags: dict, dev):
+    """``mamba3_model``'s change of a Mamba2 model, in place: the Mamba3
+    flags on its config and each layer's widened in_proj, conv, ``lam`` and
+    ``omega`` from seed SEED + 21, in the model's dtype."""
     import torch
 
     from blazr_tpu_torch.models.mamba2 import _m3_widths
-    from blazr_tpu_torch.models.registry import Model
     from blazr_tpu_torch.utils.synthetic import _rand_awq_qt
 
-    model = recurrent_model(dev, "mamba2", layers)
     cfg = model.cfg
     cfg.ssm = dataclasses.replace(cfg.ssm, variant="mamba3", **flags)
     ssm = cfg.ssm
@@ -7087,9 +7112,9 @@ def mamba3_model(dev, flags: dict, layers: int):
     g.manual_seed(SEED + 21)
     for p in model.params["layers"]:
         p["in_proj"] = _rand_awq_qt(g, cfg.hidden_size, ssm.inner_size + x_w + b_w + c_w
-                                    + ssm.num_heads, 128, dev)
+                                    + ssm.num_heads, min(128, cfg.hidden_size), dev)
         p["conv_w"] = (torch.randn((x_w + b_w + c_w, ssm.conv_kernel), device=dev,
-                                   generator=g) * 0.2).to(torch.bfloat16) \
+                                   generator=g) * 0.2).to(model.dtype) \
             if flags["use_conv"] else None
         p["conv_b"] = None
         p["lam"] = torch.randn((ssm.num_heads,), device=dev, generator=g)
@@ -7594,6 +7619,33 @@ def timings(dev, gen, res: dict, quant: bool = True, families: bool = True) -> l
         replaces="blazr_tpu/attention/paged_attention.py:34",
         launches=got("parallel", "paged_attention"), max_abs_err=tb2["max_abs_err"],
         **{key: tb2[key] for key in keys}))
+    # B1 at DeepSeek-V2-Lite's tp 2 rank shapes and B2 at Bamba-9B's rank
+    # heads, with the launches of phase 19's parts (f)-(i) on rank 0.
+    mb1 = b1_at_shapes(dev, gen, MESH_B1_SHAPES, (8, 512))
+    mb2 = time_b2_families(dev, gen, MESH_B2_POINTS)[MESH_B2_POINTS[0][0]]
+    mesh = (par or {}).get("mesh")
+    by_part = None
+    if mesh:
+        by_part = {f"{label}{', ' + run if run else ''}": r["launches_per_rank"][0]
+                   for label, rep in mesh.items() if isinstance(rep, dict)
+                   for run, r in rep.items() if run in ("", "lookup", "draft")}
+    rows = mb1["rows"]
+    line.append(dict(
+        name="qmm_w4a16 (B1), the families' mesh ranks (DeepSeek-V2-Lite tp 2 rank shapes)",
+        route="cuda", source="blazr_tpu_torch/csrc/qmm.cu",
+        replaces="blazr_tpu/quant/pallas/int_matmul.py:69",
+        launches=got("parallel", "mesh_qmm"), launches_by_part=by_part,
+        max_abs_err=mb1["max_abs_err"],
+        **{key: rows[("deepseek dense gate/up tp2", 512)][key] for key in keys},
+        decode={key: rows[("deepseek dense gate/up tp2", 8)][key] for key in keys},
+        at=[{key: row[key] for key in keys} for sh, row in rows.items()
+            if sh[0] != "deepseek dense gate/up tp2"]))
+    line.append(dict(
+        name="paged_attention_decode (B2), the families' mesh ranks (Bamba-9B tp 2 heads, "
+             "16/4)", route="cuda", source="blazr_tpu_torch/csrc/paged_attention.cu",
+        replaces="blazr_tpu/attention/paged_attention.py:34",
+        launches=got("parallel", "mesh_paged_attention"), max_abs_err=mb2["max_abs_err"],
+        **{key: mb2[key] for key in keys}))
     if gguf:           # B3 and B4 on the file's Q4_K gate weight, beside their rows
         for row in line:
             kernel = row["name"].split("(")[-1].rstrip(")")
@@ -7661,14 +7713,21 @@ def rank_job(a: dict):
     """A phase 19 job on one rank of a ``multihost.RankPool`` of four
     processes sharing the card: PAR_RUN as the phase set it, f32 references
     in f32, the card's cache emptied after."""
+    import faulthandler
+
     import torch
 
     PAR_RUN.update(a["run"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # A job near its deadline (a rank waiting in a collective its peer never
+    # joins) writes every thread's stack to the rank's log, which the pool's
+    # error carries.
+    faulthandler.dump_traceback_later(a["dump_s"], exit=False)
     try:
         return PAR_JOBS[a["job"]](a)
     finally:
+        faulthandler.cancel_dump_traceback_later()
         free_card()
 
 
@@ -7714,6 +7773,20 @@ def _lockstep_waves(engine, waves: list, timed_wave: int = -1) -> dict:
     ls = LockstepEngine(engine, heartbeat_s=2.0)
     out: dict = {"waves": []}
 
+    async def beside(aw, task):
+        """``aw``'s result, or the loop task's error if it ends first (a
+        step that raised leaves every stream waiting)."""
+        fut = asyncio.ensure_future(aw)
+        done, _ = await asyncio.wait({fut, task}, timeout=1500,
+                                     return_when=asyncio.FIRST_COMPLETED)
+        if fut in done:
+            return fut.result()
+        fut.cancel()
+        if task in done:
+            task.result()
+            raise RuntimeError("the lockstep loop ended before its requests")
+        raise TimeoutError("a lockstep wave did not end within 1500 s")
+
     async def primary():
         task = asyncio.create_task(ls.run())
         for w, wave in enumerate(waves):
@@ -7722,14 +7795,15 @@ def _lockstep_waves(engine, waves: list, timed_wave: int = -1) -> dict:
             comm.stats.reset()
             steps0, hsteps0 = ls.steps, engine.horizon_steps
             dec0, pre0 = engine.perf["decode"], engine.perf["prefill"]
+            spec0 = (engine.perf["spec"], engine.perf["spec_n"], engine.spec_drafted,
+                     engine.spec_accepted)
             t0 = time.perf_counter()
-            handles = await asyncio.gather(*[ls.submit(p, g) for p, g in wave])
+            handles = await beside(asyncio.gather(*[ls.submit(p, g) for p, g in wave]), task)
 
             async def collect(h):
                 return [t.token_id async for t in h.tokens()]
 
-            streams = await asyncio.wait_for(asyncio.gather(*[collect(h) for h in handles]),
-                                             1500)
+            streams = await beside(asyncio.gather(*[collect(h) for h in handles]), task)
             _sync()
             wall = time.perf_counter() - t0
             hsteps = engine.horizon_steps - hsteps0
@@ -7738,6 +7812,10 @@ def _lockstep_waves(engine, waves: list, timed_wave: int = -1) -> dict:
                 engine_steps=ls.steps - steps0, decode_steps=hsteps,
                 decode_ms=(engine.perf["decode"] - dec0) * 1e3 / max(1, hsteps),
                 prefill_s=engine.perf["prefill"] - pre0,
+                spec_rounds=engine.perf["spec_n"] - spec0[1],
+                spec_ms=(engine.perf["spec"] - spec0[0]) * 1e3
+                / max(1, engine.perf["spec_n"] - spec0[1]),
+                drafted=engine.spec_drafted - spec0[2], accepted=engine.spec_accepted - spec0[3],
                 counts={k: v - counts0[k] for k, v in read_counts().items()},
                 comm=comm.stats.snapshot()))
         comm.stats.timed = False
@@ -7745,7 +7823,7 @@ def _lockstep_waves(engine, waves: list, timed_wave: int = -1) -> dict:
         await task
 
     reset_counts()
-    if dist.get_rank() == 0:
+    if not dist.is_initialized() or dist.get_rank() == 0:     # a world of one: no group
         asyncio.run(primary())
     else:
         asyncio.run(ls.run())
@@ -7756,20 +7834,22 @@ def _lockstep_waves(engine, waves: list, timed_wave: int = -1) -> dict:
 
 
 def _rank_shapes(model) -> dict:
-    """The (K, N) of each B1 projection of a rank's first layer, and its
-    attention heads."""
+    """The (K, N) of each B1 projection of a rank (its first layer that has
+    one), and its attention heads."""
     from blazr_tpu_torch.models.layers import RowParallel
 
-    layer = model.params["layers"][0]
     out = {}
-    for key in ("q", "k", "v", "o", "gate", "up", "down"):
-        w = layer.get(key)
-        if isinstance(w, RowParallel):
-            w = w.weight
-        if w is not None:
-            out[key] = (w.in_features, w.out_features)
+    for layer in model.params["layers"]:          # each key's first layer (a hybrid's
+        for key in ("q", "q_b", "k", "v", "o", "gate", "up", "down", "in_proj",
+                    "out_proj"):                  # attention layer is not layer 0)
+            w = layer.get(key)
+            if isinstance(w, RowParallel):
+                w = w.weight
+            if w is not None and key not in out and hasattr(w, "in_features"):
+                out[key] = (w.in_features, w.out_features)
     att = model.cfg.attention
-    out["heads"] = (att.num_heads, att.kv_heads())
+    if att is not None:
+        out["heads"] = (att.num_heads, att.kv_heads())
     return out
 
 
@@ -7902,7 +7982,208 @@ def job_sp(a: dict) -> dict:
                 counts=read_counts())
 
 
-PAR_JOBS = {"tp_serve": job_tp_serve, "tp_f32": job_tp_f32, "ep": job_ep, "sp": job_sp}
+# Parts (f)-(i): what entry 8 of ROADMAP queue A serves under a mesh, at the
+# published widths, in f32 on the card (a rank's greedy streams can then be
+# held to one rank's), AWQ-INT4 from seed 0.
+MESH_LAYERS = 2                     # (f)-(h); DeepSeek's dense layer 0 and MoE layer 1
+MESH_LLAVA_LAYERS = 4               # (i), as phase 15 cuts LLaVA-1.5-7B
+MESH_TOKENS = 32                    # greedy tokens a request
+MESH_SPEC_K = 5                     # (h)'s num_speculative_tokens
+MESH_JOB_S = 600                    # a part's job deadline (seconds)
+# f32 prefill logits of a rank against one rank's, of the largest (the SSM
+# scans' sums run in another order on a rank's fewer columns: 1e-4).
+MESH_TOL = {"deepseek": 1e-5, "mistral": 1e-5, "llava": 1e-5, "mamba2": 1e-4,
+            "bamba": 1e-4, "mamba3": 1e-4}
+# (part, label, family, AWQ group, mesh): DeepSeek's dense down (K 10944)
+# splits at tp 2 only in groups of 32.
+MESH_PARTS = (("f", "DeepSeek-V2-Lite tp 2", "deepseek", 32, {"tp": 2}),
+              ("f", "DeepSeek-V2-Lite ep 2", "deepseek", 64, {"ep": 2}),
+              ("g", "Mamba-Codestral-7B tp 2", "mamba2", 128, {"tp": 2}),
+              ("g", "Bamba-9B tp 2", "bamba", 128, {"tp": 2}),
+              ("g", "Mamba3 mixer (Codestral widths) tp 2", "mamba3", 128, {"tp": 2}),
+              ("h", "Mistral-7B tp 2, speculative (k = 5)", "mistral", 128, {"tp": 2}))
+LORA_REFUSAL = "LoRA under mesh-sharded serving is not supported yet"
+# Phase 9's rows at the parts' rank shapes: DeepSeek-V2-Lite at tp 2 in groups
+# of 32 (K, N, group) and Bamba-9B's B2 at a rank's 16 of 32 heads, 4 of 8 kv.
+MESH_B1_SHAPES = {"deepseek q tp2": (2048, 1536, 32), "deepseek o tp2": (1024, 2048, 32),
+                  "deepseek dense gate/up tp2": (2048, 5472, 32),
+                  "deepseek dense down tp2": (5472, 2048, 32),
+                  "deepseek expert gate/up tp2": (2048, 704, 32)}
+MESH_B2_POINTS = (("bamba tp2 d=128 16/4", 16, 4, 128, None, None, None),)
+
+
+def _mesh_config(fam: str, layers: int):
+    """A part's config at ``layers`` layers: PAR_RUN's stand-in where a
+    rehearsal set one, else the published one (a hybrid cut as phase 14
+    cuts it: an attention layer kept)."""
+    import copy
+
+    from blazr_tpu_torch.utils.synthetic import mistral_7b_config
+
+    base = "mamba2" if fam == "mamba3" else fam
+    cfg = PAR_RUN["configs"].get(base)
+    if cfg is None:
+        if base in ("deepseek", "mamba2", "bamba"):
+            return recurrent_config(base, layers)
+        cfg = {"mistral": mistral_7b_config, "tinyllama": tinyllama_config}[base]()
+    cfg = copy.deepcopy(cfg)
+    cfg.num_layers = layers
+    if cfg.hybrid_layers is not None:
+        cfg.hybrid_layers = cfg.hybrid_layers[:layers]
+    return cfg
+
+
+def _mesh_model(fam: str, group: int, layers: int = MESH_LAYERS):
+    """A part's model in f32 on the ranks' device, AWQ-INT4 in groups of
+    ``group`` from seed 0 (Mamba3: Codestral's with ``to_mamba3``)."""
+    import torch
+
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.utils.synthetic import synth_llama_params, synth_recurrent_params
+
+    dev = torch.device(PAR_RUN["device"])
+    cfg = _mesh_config(fam, layers)
+    synth = synth_llama_params if fam in ("mistral", "tinyllama") else synth_recurrent_params
+    params = synth(cfg, quant="awq", dtype=torch.float32, group_size=group, seed=SEED,
+                   device=dev)
+    model = Model(cfg, params, torch.float32)
+    if fam == "mamba3":
+        to_mamba3(model, MAMBA3_VARIANTS["rope, rank 2, no conv"], dev)
+    return model
+
+
+def _mesh_inf(mesh: dict, **inf) -> dict:
+    """The engines' knobs of parts (f)-(i): 8 rows, contexts of 1024."""
+    return dict(max_batch_size=8, max_seq_len=1024, **inf)
+
+
+def _lora_refusal(ex) -> str | None:
+    """A LoRA adapter on a sliced model: the error's text, or None."""
+    try:
+        ex.set_lora(object())
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def job_mesh_family(a: dict) -> dict:
+    """Parts (f)-(h) on one rank of ``a["mesh"]`` (``{}``: the one-rank
+    reference, a world of one; ``use_ep``: the expert-parallel function
+    there, as an ep part's reference): the f32 prefill logits of request 1 through
+    the Executor and, on a mesh, the LoRA refusal; then the 8 greedy
+    requests (32 tokens) through the lockstep BatchEngine, and again at 4
+    tokens with the collectives timed. (h) serves phase 16's extractive
+    prompts with prompt-lookup drafts, then with the TinyLlama-width draft."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.config.inference import SpeculativeDecodingConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.executor import Executor
+
+    fam, mesh = a["fam"], a["mesh"]
+    model = _mesh_model(fam, a["group"])
+    if a.get("use_ep"):
+        # An ep part's one-rank reference computes the expert-parallel
+        # function (capacity drops included) on every expert, eagerly as
+        # under a mesh: it reads its routing to the host in every step.
+        model.cfg.moe.use_ep = True
+        mesh_inf = dict(graphs=False)
+    else:
+        mesh_inf = {}
+    spec = fam == "mistral"
+    prompts = (spec_prompts(np.random.default_rng(SEED + 16)) if spec
+               else [p for p, _ in family_requests(model.cfg, greedy_only=True)])
+
+    def reqs(n):
+        return [(p, GenerationConfig(max_tokens=n, temperature=0.0, repeat_penalty=1.0))
+                for p in prompts]
+
+    ex = Executor(model, StubTokenizer(),
+                  _par_app(model.cfg, mesh, **_mesh_inf(mesh, **mesh_inf)))
+    last, _ = ex.prefill(ex._init_cache(1), prompts[1])
+    out = {"logits": last.float().cpu(), "shapes": _rank_shapes(model),
+           "lora": _lora_refusal(ex) if mesh else None,
+           "backend": dist.get_backend() if dist.is_initialized() else None}
+    del ex
+    runs = {"": None} if not spec else {"lookup": None,
+                                         "draft": _mesh_model("tinyllama", a["group"])}
+    for name, draft in runs.items():
+        inf = dict(mesh_inf, **({"speculative": SpeculativeDecodingConfig(
+            num_speculative_tokens=MESH_SPEC_K)} if spec else {}))
+        eng = BatchEngine(model, StubTokenizer(),
+                          _par_app(model.cfg, mesh, **_mesh_inf(mesh, **inf)),
+                          draft_model=draft)
+        res = _lockstep_waves(eng, [reqs(MESH_TOKENS), reqs(4)], timed_wave=1)
+        res["draft_sliced"] = draft is not None and draft.mesh is not None
+        out[name] = res
+        del eng
+    return out
+
+
+def job_mesh_llava(a: dict) -> dict:
+    """Part (i) on one rank of ``a["mesh"]``: the 4-layer LLaVA-1.5-7B from
+    disk in f32 (its mmproj sidecar found beside it), the f32 prefill logits
+    of its first MESH_LAYERS layers, a PNG image chat built
+    as the chat route builds it (the template, the body's config) through
+    the MultimodalExecutor over the rank's Executor, its text and ms a
+    token; then the 8 greedy requests through the lockstep BatchEngine."""
+    import torch.distributed as dist
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.engine.executor_multimodal import (MediaBoundExecutor,
+                                                             MultimodalExecutor)
+    from blazr_tpu_torch.engine.generate_text import collect_generation
+    from blazr_tpu_torch.loader import load_model
+    from blazr_tpu_torch.models.registry import Model
+    from blazr_tpu_torch.server import app as server_app
+    from blazr_tpu_torch.tokenizer import load_tokenizer
+
+    mesh = a["mesh"]
+    model, app = load_model(a["dir"], dtype="f32", device=PAR_RUN["device"])
+    assert model.is_multimodal
+    for k, v in _mesh_inf(mesh).items():
+        setattr(app.inference, k, v)
+    app.inference.tensor_parallel_size = mesh.get("tp", 1)
+    tok = load_tokenizer(a["dir"])
+    reqs = [(p, GenerationConfig(max_tokens=n, temperature=0.0, repeat_penalty=1.0))
+            for n in (MESH_TOKENS, 4)
+            for p, _ in family_requests(model.cfg, greedy_only=True)]
+    # The f32 logits check at the other parts' depth: the first MESH_LAYERS
+    # layers of the same weights as a model of their own, sliced on its own.
+    view = Model(dataclasses.replace(model.cfg, num_layers=MESH_LAYERS),
+                 dict(model.params, layers=model.params["layers"][:MESH_LAYERS]), model.dtype)
+    check = Executor(view, tok, app)
+    last, _ = check.prefill(check._init_cache(1), reqs[1][0])
+    del check, view
+    ex = Executor(model, tok, app)
+    body = a["body"]
+    ids = tok.encode(server_app._build_prompt(body, model.cfg))
+    cfg = server_app.gen_config_from_body(body, app.generation)
+    bound = MediaBoundExecutor(MultimodalExecutor(ex, model.vision_params, model.vision_cfg),
+                               [a["png"]], [])
+    reset_counts()
+    _sync()
+    t0 = time.perf_counter()
+    chat = collect_generation(bound, ids, cfg, True)
+    _sync()
+    chat_s = time.perf_counter() - t0
+    out = {"logits": last.float().cpu(), "chat": chat.text, "chat_tokens": chat.tokens,
+           "chat_s": chat_s,
+           "chat_counts": read_counts(), "rows": bound.rows,
+           "lora": _lora_refusal(ex) if mesh else None,
+           "backend": dist.get_backend() if dist.is_initialized() else None}
+    eng = BatchEngine(model, StubTokenizer(), app)
+    out[""] = _lockstep_waves(eng, [reqs[:8], reqs[8:]], timed_wave=1)
+    out["shapes"] = _rank_shapes(model)
+    return out
+
+
+PAR_JOBS = {"tp_serve": job_tp_serve, "tp_f32": job_tp_f32, "ep": job_ep, "sp": job_sp,
+            "mesh_family": job_mesh_family, "mesh_llava": job_mesh_llava}
 
 
 def _one_rank_f32(dev) -> dict:
@@ -7926,21 +8207,23 @@ def _one_rank_f32(dev) -> dict:
     return out
 
 
-def _cli_serve_tp2_start(ckpt: Path, root: Path) -> dict:
-    """Start ``cli serve --tp 2 --continuous-batching`` (warmed) on phase 7's
-    checkpoint; it comes up while the rank pool's jobs run
-    (``_cli_serve_tp2_finish`` waits for it)."""
+def _cli_serve_tp2_start(ckpt: Path, root: Path, extra: tuple = (),
+                         name: str = "cli_serve_tp2") -> dict:
+    """Start ``cli serve --tp 2 --continuous-batching`` (warmed unless
+    ``extra`` says otherwise) on phase 7's checkpoint, or (i)'s; it comes up
+    while the rank pool's jobs run (``_cli_serve_tp2_finish`` and
+    ``_cli_serve_llava_finish`` wait for it)."""
     import socket
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    errp = root / "cli_serve_tp2.log"
+    errp = root / f"{name}.log"
     err = open(errp, "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "blazr_tpu_torch.cli", "--device", PAR_RUN["device"], "serve",
          "--model", str(ckpt), "--continuous-batching", "--tp", "2", "--host", "127.0.0.1",
-         "--port", str(port)],
+         "--port", str(port), *extra],
         cwd=TREE, env=dict(os.environ, PYTHONPATH=str(TREE)), stdout=subprocess.DEVNULL,
         stderr=err)
     return dict(proc=proc, port=port, errp=errp, err=err, t0=time.perf_counter())
@@ -8157,6 +8440,218 @@ def _disagg(dev, ckpt: Path, layers: int, card: str) -> dict:
     return dict(wall=wall, kv_bytes=kv, ship_ms=ship)
 
 
+def _mesh_llava_checkpoint(root: Path) -> Path:
+    """(i)'s checkpoint: LLaVA-1.5-7B's text model at MESH_LLAVA_LAYERS
+    layers (AWQ-INT4, groups of 128), its BPE tokenizer.json, and an F16
+    mmproj sidecar of VISION_MMPROJ_BLOCKS blocks beside it."""
+    import dataclasses
+
+    from blazr_tpu_torch.utils.synthetic import (llava_1_5_7b_config, write_bpe_tokenizer_json,
+                                                 write_hf_checkpoint, write_mmproj_gguf)
+
+    cfg = PAR_RUN["configs"].get("llava") or llava_1_5_7b_config()
+    d = root / "llava_text"
+    t0 = time.perf_counter()
+    write_hf_checkpoint(d, dataclasses.replace(cfg, num_layers=MESH_LLAVA_LAYERS, vision=None),
+                        group_size=min(128, cfg.hidden_size // 4), seed=SEED)
+    write_bpe_tokenizer_json(d, cfg.vocab_size, seed=SEED)
+    write_mmproj_gguf(d / "mmproj-llava-1.5-7b-f16.gguf", cfg.vision, cfg.hidden_size,
+                      seed=SEED + 1, blocks=min(VISION_MMPROJ_BLOCKS, cfg.vision.num_layers))
+    log(f"  (i) wrote the {MESH_LLAVA_LAYERS}-layer LLaVA-1.5-7B text checkpoint with its "
+        f"mmproj sidecar ({sum(f.stat().st_size for f in d.iterdir()) / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return d
+
+
+def _mesh_report(part: str, label: str, fam: str, ranks: list, one: dict, card: str,
+                 secs: float) -> dict:
+    """Hold a part's ranks to one rank's and log what they measured."""
+    tp = len(ranks)
+    out: dict = {}
+    want = one["logits"]
+    err = max(((r["logits"] - want).abs().max() / want.abs().max()).item() for r in ranks)
+    assert err <= MESH_TOL[fam], f"({part}) {label}: f32 logits {err} > {MESH_TOL[fam]}"
+    assert all(r["lora"] == LORA_REFUSAL for r in ranks), [r["lora"] for r in ranks]
+    for run in [k for k in one if k in ("", "lookup", "draft")]:
+        rs = [r[run] for r in ranks]
+        w0, w1 = rs[0]["waves"]
+        streams = w0["streams"]
+        assert all(len(st) == MESH_TOKENS for st in streams), [len(st) for st in streams]
+        assert streams == one[run]["waves"][0]["streams"], \
+            f"({part}) {label} {run}: the streams differ from one rank's"
+        assert len({r["steps"] for r in rs}) == 1, [r["steps"] for r in rs]
+        per_rank = [(r["counts_total"]["qmm"], r["counts_total"]["paged_attention"])
+                    for r in rs]
+        if "ep" not in label:
+            assert len(set(per_rank)) == 1, f"({part}) {label}: ranks launched {per_rank}"
+        attention = fam in ("bamba", "mistral", "llava")
+        assert PAR_RUN["device"] != "cuda" or (per_rank[0][0] > 0 and (
+            per_rank[0][1] > 0) == attention), per_rank
+        c, steps = w1["comm"], max(1, w1["engine_steps"])
+        calls = {k: v["calls"] / steps for k, v in c.items()}
+        each = {k: v["ms"] / max(1, v["calls"]) for k, v in c.items()}
+        one_w0 = one[run]["waves"][0]
+        tag = f"{label}{', ' + run if run else ''}"
+        spec = ""
+        if run:
+            # A random draft seldom agrees with a random target: its drafts
+            # are counted, prompt lookup's must also be accepted.
+            assert w0["drafted"] > 0 and (w0["accepted"] > 0 or run == "draft"), (
+                w0["drafted"], w0["accepted"])
+            assert rs[0]["draft_sliced"] is (run == "draft")
+            spec = (f"; accepted {w0['accepted']} of {w0['drafted']} drafts "
+                    f"({w0['accepted'] / w0['drafted']:.2f}; one rank "
+                    f"{one_w0['accepted']} of {one_w0['drafted']}), {w0['spec_rounds']} "
+                    f"verify rounds of {w0['spec_ms']:.2f} ms (one rank "
+                    f"{one_w0['spec_ms']:.2f})"
+                    + (", the draft sliced like the target" if run == "draft" else ""))
+        log(f"  ({part}) {tag}, {tp} ranks on the card over {ranks[0]['backend']}, f32: "
+            f"prefill logits within {err:.3g} of the largest of one rank's (tol "
+            f"{MESH_TOL[fam]}); the 8 greedy streams ({MESH_TOKENS} tokens) equal one rank's; "
+            + (f"{w0['decode_ms']:.2f} ms a decode step ({w0['decode_steps']} steps; one rank "
+               f"{one_w0['decode_ms']:.2f})" if w0["decode_steps"] else "no plain decode step")
+            + f", prefill {w0['prefill_s']:.2f} s (one rank "
+            f"{one_w0['prefill_s']:.2f}){spec}; collectives a step "
+            + ", ".join(f"{k} {v:.1f} ({each[k]:.3f} ms each)" for k, v in calls.items())
+            + f" (timed wave, {steps} steps); B1, B2 launches a rank "
+            + ", ".join(f"rank {i} {pr}" for i, pr in enumerate(per_rank))
+            + f"; LoRA refused with the JAX ValueError ({secs:.1f} s; {card})")
+        out[run] = dict(decode_ms=w0["decode_ms"], one_rank_decode_ms=one_w0["decode_ms"],
+                        prefill_s=w0["prefill_s"], one_rank_prefill_s=one_w0["prefill_s"],
+                        calls_a_step=calls, ms_each=each, launches_per_rank=per_rank,
+                        drafted=w0["drafted"], accepted=w0["accepted"],
+                        spec_ms=w0["spec_ms"], one_rank_spec_ms=one_w0["spec_ms"],
+                        streams=streams)
+    out.update(err=err, shapes=ranks[0]["shapes"])
+    return out
+
+
+def _cli_serve_llava_finish(st: dict, body: dict, want: str, card: str) -> dict:
+    """(i) over HTTP: the PNG image chat through ``cli serve --tp 2`` (a
+    lockstep op on both ranks) answers ``want``; a text chat after it; then
+    SIGINT, both ranks' lockstep step counts equal."""
+    import re
+    import signal
+
+    proc, port, errp = st["proc"], st["port"], st["errp"]
+    try:
+        while True:
+            assert proc.poll() is None, errp.read_text()[-4000:]
+            try:
+                if _http(port, "GET", "/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            assert time.perf_counter() - st["t0"] < 600, "(i) cli serve --tp 2 did not come up"
+            time.sleep(1.0)
+        up = time.perf_counter() - st["t0"]
+        t1 = time.perf_counter()
+        status, text = _http(port, "POST", "/v1/chat/completions", body)
+        chat_s = time.perf_counter() - t1
+        assert status == 200, text[-2000:]
+        reply = json.loads(text)
+        content = reply["choices"][0]["message"]["content"]
+        assert content == want, (content, want)
+        status, text = _http(port, "POST", "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "and in words?"}], "max_tokens": 8,
+            "temperature": 0})
+        assert status == 200, text[-2000:]
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(180)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+        st["err"].close()
+    log_text = errp.read_text()
+    assert rc == 0, log_text[-4000:]
+    steps = [int(n) for n in re.findall(r"lockstep engine stopped after (\d+) steps", log_text)]
+    assert len(steps) == 2 and steps[0] == steps[1] > 0, (steps, log_text[-3000:])
+    log(f"  (i) cli serve --tp 2 --dtype f32 (two ranks over gloo, the mmproj sidecar found "
+        f"beside the checkpoint): up in {up:.1f} s; the PNG image chat, a lockstep op on both "
+        f"ranks, answered in {chat_s:.2f} s with the ranks' and one rank's text "
+        f"({reply['usage']['completion_tokens']} tokens); a text chat after it; SIGINT: both "
+        f"ranks ran {steps[0]} lockstep steps ({card})")
+    return dict(up=up, chat_s=chat_s, steps=steps)
+
+
+def mesh_parts(dev, card: str, pool_run, root: Path) -> dict:
+    """Parts (f)-(i) on the phase's RankPool: each part's ranks, then its
+    one-rank reference (a world of one), then (i)'s chat over HTTP."""
+    import numpy as np
+
+    out: dict = {}
+    llava = _mesh_llava_checkpoint(root)
+    cli = _cli_serve_tp2_start(llava, root, ("--dtype", "f32", "--no-warmup"),
+                               "cli_serve_llava")
+    try:
+        for part, label, fam, group, mesh in MESH_PARTS:
+            t0 = time.perf_counter()
+            ranks = pool_run("mesh_family", 2, MESH_JOB_S, fam=fam, group=group, mesh=mesh)
+            one = pool_run("mesh_family", 1, MESH_JOB_S, fam=fam, group=group, mesh={},
+                           use_ep="ep" in mesh)[0]
+            out[label] = _mesh_report(part, label, fam, ranks, one, card,
+                                      time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED + 19)
+        y, x = np.mgrid[0:336, 0:336]
+        field = np.stack([128 + 90 * np.sin(x / 29.0 + c) * np.cos(y / 17.0 + c)
+                          for c in range(3)], -1)
+        png = write_png(np.clip(field + rng.normal(0, 8, field.shape), 0, 255)
+                        .astype(np.uint8))
+        body = _image_chat(_data_uri(png, "image/png"), "What is in this image?")
+        body["max_tokens"] = MESH_TOKENS
+        args = dict(dir=str(llava), png=png, body=body)
+        ranks = pool_run("mesh_llava", 2, MESH_JOB_S, mesh={"tp": 2}, **args)
+        one = pool_run("mesh_llava", 1, MESH_JOB_S, mesh={}, **args)[0]
+        label = f"LLaVA-1.5-7B ({MESH_LLAVA_LAYERS} layers) tp 2"
+        rep = _mesh_report("i", label, "llava", ranks, one, card, time.perf_counter() - t0)
+        assert all(r["chat"] == one["chat"] and r["chat_tokens"] == one["chat_tokens"]
+                   for r in ranks), [r["chat_tokens"] for r in ranks]
+        n = len(one["chat_tokens"])
+        log(f"  (i) the PNG image chat ({ranks[0]['rows']} image rows, {n} greedy tokens "
+            f"through the MultimodalExecutor, the tower whole on each rank): tokens equal one "
+            f"rank's; {ranks[0]['chat_s'] * 1e3 / max(1, n):.1f} ms a token with the merged "
+            f"prefill (one rank {one['chat_s'] * 1e3 / max(1, n):.1f}); B1 {ranks[0]['chat_counts']['qmm']} "
+            f"launches on rank 0 ({card})")
+        rep.update(chat_s=ranks[0]["chat_s"], one_rank_chat_s=one["chat_s"], chat_tokens=n,
+                   chat_qmm=[r["chat_counts"]["qmm"] for r in ranks])
+        rep["http"] = _cli_serve_llava_finish(cli, body, one["chat"], card)
+        out[label] = rep
+    finally:
+        if cli["proc"].poll() is None:
+            cli["proc"].kill()
+            cli["proc"].wait(60)
+    # The kernels line: B1 and B2 launches on rank 0 over every part's mesh run.
+    runs = [r for rep in out.values() for k, r in rep.items() if k in ("", "lookup", "draft")]
+    out["qmm"] = sum(r["launches_per_rank"][0][0] for r in runs)
+    out["paged_attention"] = sum(r["launches_per_rank"][0][1] for r in runs)
+    return out
+
+
+def _mesh_streamed_refusal(dev, ckpt: Path, card: str) -> str:
+    """A model with a layer streamed from host RAM under tp 2: the Executor
+    refuses it before any process group is needed, naming ROADMAP §C."""
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.loader import load_model
+
+    part, app = load_model(ckpt, dtype="f32", device=dev, device_layers=1)
+    assert part.is_streaming
+    app.inference.tensor_parallel_size = 2
+    try:
+        Executor(part, StubTokenizer(), app)
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("a streamed model was served under tp 2")
+    assert "ROADMAP §C" in msg and "queue A" not in msg, msg
+    del part
+    free_card()
+    log(f"  a streamed model (1 of its layers on the card) under tp 2: refused, naming "
+        f"ROADMAP §C ({card})")
+    return msg
+
+
 def parallel_phase(dev, card: str) -> dict:
     """Phase 19 (``parallel``)."""
     import shutil
@@ -8177,9 +8672,10 @@ def parallel_phase(dev, card: str) -> dict:
 
     ranks_pool = RankPool(4, root, dev.type, dict(os.environ, PYTHONPATH=str(TREE)))
 
-    def pool_run(job: str, world: int, **args) -> list:
+    def pool_run(job: str, world: int, timeout: float = 1500, **args) -> list:
         return ranks_pool.run(f"{Path(__file__).resolve()}:rank_job", world,
-                              dict(args, job=job, run=PAR_RUN), timeout=1500)
+                              dict(args, job=job, run=PAR_RUN, dump_s=0.9 * timeout),
+                              timeout=timeout)
 
     cli = _cli_serve_tp2_start(http_checkpoint(), root)
     try:
@@ -8297,6 +8793,11 @@ def parallel_phase(dev, card: str) -> dict:
         t0 = time.perf_counter()
         res["cli"] = _cli_serve_tp2_finish(cli, card)
         log(f"  ((a) cli serve, after (c): {time.perf_counter() - t0:.1f} s)")
+
+        # (f)-(i) the families and features of ROADMAP queue A entry 8
+        t0 = time.perf_counter()
+        res["mesh"] = mesh_parts(dev, card, pool_run, root)
+        log(f"  ((f)-(i): {time.perf_counter() - t0:.1f} s)")
     finally:
         ranks_pool.close()
         if cli["proc"].poll() is None:
@@ -8312,8 +8813,11 @@ def parallel_phase(dev, card: str) -> dict:
     res["disagg"] = _disagg(dev, http_checkpoint(PAR_DEPTH["disagg"]), PAR_DEPTH["disagg"],
                             card)
     log(f"  ((e): {time.perf_counter() - t0:.1f} s)")
+    res["mesh"]["streamed"] = _mesh_streamed_refusal(
+        dev, http_checkpoint(PAR_DEPTH["disagg"]), card)
     log(f"  parallel phase: {time.perf_counter() - t_phase:.1f} s ({card})")
-    res.update(qmm=res["tp"]["qmm"], paged_attention=res["tp"]["paged_attention"])
+    res.update(qmm=res["tp"]["qmm"], paged_attention=res["tp"]["paged_attention"],
+               mesh_qmm=res["mesh"]["qmm"], mesh_paged_attention=res["mesh"]["paged_attention"])
     return res
 
 

@@ -64,19 +64,6 @@ def test_loader_points_vision_and_offload_at_item_12():
     assert "loader/offloading.py" in entry
 
 
-def _item_of(message: str) -> str:
-    m = re.search(r"ROADMAP queue A item ([0-9a-z.]+)\)", message)
-    assert m, message
-    return m.group(1)
-
-
-def _in_queue_a(item: str) -> bool:
-    """An entry's own number, or one an entry names in parentheses (item 8
-    lists 5a.3-5a.6 so)."""
-    entries = _queue_a_entries()
-    return item in entries or any(f"({item})" in body for body in entries.values())
-
-
 # Grammars (5a.4), the host samplers (5a.3) and LoRA (5a.6) are served
 # since they were ported: no request feature is refused any more. A request
 # that names a LoRA adapter the engine's registry lacks fails as not loaded.
@@ -119,11 +106,13 @@ def _recurrent_model():
 @pytest.mark.parametrize("what,item", [("moe_offload", "12"), ("tp", "13"),
                                        ("offload", "12")])
 def test_engine_config_refusals_name_their_queue_item(what, item):
-    """Meshes are served (item 13) and pass the check; what a mesh does not
-    serve yet (here a Mamba2 model) raises naming item 13, which item 13's
-    later entry lists. Of item 12, MoE offload is served and passes the
-    check; layer offload raises naming ROADMAP §C, where the JAX engine's
-    failure over a streaming model is pinned."""
+    """Meshes are served (item 13, both entries done) and pass the check; a
+    Mamba2 model under tp 2 passes the mesh check too and reaches the
+    process group (without a world, the ``RuntimeError`` naming
+    ``init_distributed``), and no message names item 13, whose entry says
+    it is done. Of item 12, MoE offload is served and passes the check;
+    layer offload raises naming ROADMAP §C, where the JAX engine's failure
+    over a streaming model is pinned."""
     inf = AppConfig().inference
     if what == "moe_offload":
         inf.moe_offload = "hybrid"
@@ -132,10 +121,11 @@ def test_engine_config_refusals_name_their_queue_item(what, item):
     if what == "tp":
         inf.tensor_parallel_size = 2
         batch_engine.BatchEngine._check_config(inf)
-        with pytest.raises(NotImplementedError) as e:
+        with pytest.raises(RuntimeError, match="init_distributed") as e:
             batch_engine.BatchEngine(_recurrent_model(), None, AppConfig(inference=inf))
-        assert _item_of(str(e.value)) == item and _in_queue_a(item)
-        assert "Mamba2" in _queue_a_entries()[item]
+        assert "queue A" not in str(e.value)
+        entry = _queue_a_entries()[item]
+        assert "Mamba2" in entry and "done" in entry.split("\n")[0]
         return
     inf.num_device_layers = 1
     with pytest.raises(NotImplementedError) as e:
@@ -147,9 +137,11 @@ def test_engine_config_refusals_name_their_queue_item(what, item):
 @pytest.mark.parametrize("what,item", [("tp", "13"), ("moe_offload", "12"),
                                        ("stream", "12")])
 def test_executor_refusals_name_their_queue_item(what, item):
-    """Meshes pass the check (item 13 is served); a LoRA adapter under one,
-    not yet served, raises naming item 13. MoE offload and streaming models
-    (item 12) are served and pass the check."""
+    """Meshes pass the check (item 13 is served); a LoRA adapter under one
+    raises the JAX Executor's ``ValueError``, and a streamed model under one
+    is refused naming ROADMAP §C, neither naming a queue item; item 13's
+    entry names LoRA among the two refusals kept. MoE offload and streaming
+    models (item 12) are served and pass the check."""
     inf = AppConfig().inference
     if what == "tp":
         inf.expert_parallel_size = 2
@@ -160,11 +152,19 @@ def test_executor_refusals_name_their_queue_item(what, item):
     executor.Executor._check_config(inf)
     if what != "tp":
         return
-    from blazr_tpu_torch.parallel.tp import not_served_under_mesh
+    from blazr_tpu_torch.engine.lora import lora_under_mesh
+    from blazr_tpu_torch.parallel.tp import check_mesh_model
 
-    e = not_served_under_mesh("a LoRA adapter")
-    assert _item_of(str(e)) == item and _in_queue_a(item)
+    e = lora_under_mesh()
+    assert isinstance(e, ValueError) and "queue A" not in str(e)
     assert "LoRA" in _queue_a_entries()[item]
+
+    class Streamed:
+        is_streaming = True
+
+    with pytest.raises(NotImplementedError, match="ROADMAP §C") as err:
+        check_mesh_model(Streamed())
+    assert "queue A" not in str(err.value)
 
 
 def test_loader_refusals_name_item_12(tmp_path):

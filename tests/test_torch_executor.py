@@ -231,18 +231,20 @@ def test_prefill_chunks_match_one_pass():
 def test_executor_refuses_what_it_does_not_serve():
     """A mesh is served (item 13; tests/test_torch_parallel.py runs its
     ranks), but needs a world of its ranks: without one the executor says
-    how to start it. Under a mesh a LoRA adapter is not served yet and
-    raises naming queue A item 13."""
+    how to start it. Under a mesh a LoRA adapter raises the JAX Executor's
+    ``ValueError`` (blazr_tpu/engine/executor.py:572-574), naming no queue
+    item."""
     _, tmodel = _pair()
     with pytest.raises(RuntimeError, match="init_distributed"):
         Executor(tmodel, _Tok(), _apps(tensor_parallel_size=2)[1])
-    from blazr_tpu_torch.parallel.tp import not_served_under_mesh
+    import blazr_tpu_torch.parallel.tp as ttp
 
     mesh_ex = object.__new__(Executor)
     mesh_ex.mesh = object()
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
+    with pytest.raises(ValueError) as e:
         Executor.set_lora(mesh_ex, object())
-    assert "queue A item 13" in str(not_served_under_mesh("x"))
+    assert str(e.value) == "LoRA under mesh-sharded serving is not supported yet"
+    assert not hasattr(ttp, "not_served_under_mesh")
     ex = Executor(tmodel, _Tok(), _apps()[1])
     # A LoRA adapter is served (tests/test_torch_lora.py); one the registry
     # lacks fails as not loaded.

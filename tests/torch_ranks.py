@@ -101,6 +101,21 @@ async def _collect(handle):
     return [t.token_id async for t in handle.tokens()]
 
 
+def cache_shapes(cache, prefix: str = "") -> dict:
+    """Every tensor plane of a cache (a hybrid's parts under ``kv.``/``ssm.``)
+    by name: its shape."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(cache):
+        v = getattr(cache, f.name)
+        if isinstance(v, torch.Tensor):
+            out[prefix + f.name] = list(v.shape)
+        elif dataclasses.is_dataclass(v):
+            out.update(cache_shapes(v, f"{prefix}{f.name}."))
+    return out
+
+
 def engines(inp: dict) -> dict:
     """Each case: the Executor's prefill logits and greedy streams, and the
     BatchEngine's greedy streams, on the case's mesh."""
@@ -121,14 +136,16 @@ def engines(inp: dict) -> dict:
             res["ex_tokens"] = [[t.token_id for t in ex.generate(
                 p, GenerationConfig(max_tokens=case["n"], temperature=0.0))]
                 for p in case["prompts"]]
-            res["shape_k"] = list(cache.k.shape)
+            res["shape_k"] = list(cache.k.shape) if hasattr(cache, "k") else None
+            res["ex_cache"] = cache_shapes(cache)
         if case.get("engine", True):
             model = _model(case)
             eng = BatchEngine(model, Tok(), _app(model.cfg, mesh, **case.get("inf", {})))
             res["be_tokens"] = asyncio.run(_serve(
                 eng, case["waves"],
                 lambda: GenerationConfig(max_tokens=case["n"], temperature=0.0)))
-            res["be_cache_k"] = list(eng.cache.k.shape)
+            res["be_cache_k"] = list(eng.cache.k.shape) if hasattr(eng.cache, "k") else None
+            res["be_cache"] = cache_shapes(eng.cache)
             res["sp_prefills"] = eng.perf.get("sp_prefill_n", 0)
         out[name] = res
     return out
@@ -222,6 +239,106 @@ def lockstep(inp: dict) -> dict:
     return res
 
 
+def features(inp: dict) -> dict:
+    """Under tp 2: BatchEngine speculation (prompt lookup, a draft sliced
+    like the target, a draft left whole), the speculative executors, an image
+    chat through the MultimodalExecutor and as a lockstep op driven by rank 0,
+    and both engines' LoRA refusal."""
+    import logging
+
+    import torch.distributed as dist
+
+    from blazr_tpu_torch.config import GenerationConfig
+    from blazr_tpu_torch.config.inference import SpeculativeDecodingConfig
+    from blazr_tpu_torch.distributed.lockstep import LockstepEngine, LockstepMedia
+    from blazr_tpu_torch.engine.batch_engine import BatchEngine
+    from blazr_tpu_torch.engine.executor import Executor
+    from blazr_tpu_torch.engine.executor_multimodal import (MediaBoundExecutor,
+                                                             MultimodalExecutor)
+    from blazr_tpu_torch.engine.speculative import PromptLookupExecutor, SpeculativeExecutor
+    from blazr_tpu_torch.loader import load_model
+
+    mesh, k, n = {"tp": 2}, inp["k"], inp["n"]
+
+    def load(name):
+        return load_model(inp["dirs"][name], dtype="f32", device="cpu")[0]
+
+    def gen(m):
+        return GenerationConfig(max_tokens=m, temperature=0.0, repeat_penalty=1.0)
+
+    def spec_app(cfg):
+        return _app(cfg, mesh, speculative=SpeculativeDecodingConfig(num_speculative_tokens=k))
+
+    warnings: list[str] = []
+
+    class Grab(logging.Handler):
+        def emit(self, rec):
+            warnings.append(rec.getMessage())
+
+    logging.getLogger("blazr_tpu_torch.engine.batch_engine").addHandler(Grab(logging.WARNING))
+    out: dict = {"spec": {}}
+    for draft in ("lookup", "llama", "draft3"):
+        model = load("llama")
+        dm = None if draft == "lookup" else load(draft)
+        eng = BatchEngine(model, Tok(), spec_app(model.cfg), draft_model=dm)
+        streams = asyncio.run(_serve(eng, inp["waves"], lambda: gen(n)))
+        out["spec"][draft] = {"streams": streams, "drafted": eng.spec_drafted,
+                              "accepted": eng.spec_accepted,
+                              "draft_sliced": dm is not None and dm.mesh is not None}
+    out["warnings"] = warnings
+    target, draft = load("llama"), load("llama")
+    ex = Executor(target, Tok(), _app(target.cfg, mesh))
+    pl = PromptLookupExecutor(ex, num_speculative_tokens=k)
+    out["pl"] = ([t.token_id for t in pl.generate(inp["spec_prompt"], gen(n))],
+                 pl.stats.drafted, pl.stats.accepted)
+    dex = Executor(draft, Tok(), _app(draft.cfg, mesh))
+    se = SpeculativeExecutor(dex, ex, SpeculativeDecodingConfig(num_speculative_tokens=k))
+    out["se"] = ([t.token_id for t in se.generate(inp["spec_prompt"], gen(n))],
+                 se.stats.drafted, se.stats.accepted)
+
+    model = load("llava")
+    ex = Executor(model, Tok(), _app(model.cfg, mesh))
+    eng = BatchEngine(model, Tok(), _app(model.cfg, mesh))
+    out["lora"] = []
+    for obj in (ex, eng):
+        try:
+            obj.set_lora(object())
+            out["lora"].append(None)
+        except ValueError as e:
+            out["lora"].append(str(e))
+    mm = MultimodalExecutor(ex, model.vision_params, model.vision_cfg)
+    out["mm"] = [t.token_id for t in mm.generate_multimodal(
+        inp["mm_prompt"], images=[inp["png"]], gen_cfg=gen(8))]
+    ls = LockstepEngine(eng, heartbeat_s=0.5, executor=ex)
+
+    def chat(bound, prompt, m):
+        return [t.token_id for t in bound.generate(prompt, gen(m))]
+
+    async def primary():
+        def bind(images):           # on the loop, as the server binds a chat
+            return LockstepMedia(ls, MediaBoundExecutor(mm, images, []))
+
+        task = asyncio.create_task(ls.run())
+        got = await asyncio.to_thread(chat, bind([inp["png"]]), inp["mm_prompt"], 8)
+        bad = None
+        try:
+            await asyncio.to_thread(chat, bind([b"not an image"]), [1, 2], 2)
+        except Exception as e:                # fails alone, the world goes on
+            bad = type(e).__name__
+        text = await asyncio.wait_for(_collect(await ls.submit(inp["mm_prompt"], gen(4))),
+                                      120)
+        again = await asyncio.to_thread(chat, bind([inp["png"]]), inp["mm_prompt"], 8)
+        ls.stop()
+        await task
+        return {"chat": got, "bad": bad, "text": text, "again": again}
+
+    if dist.get_rank() == 0:
+        out["lockstep"] = asyncio.run(primary())
+    else:
+        asyncio.run(ls.run())
+    return out
+
+
 def card_tp(inp: dict) -> dict:
     """On the card (ranks sharing it over gloo): the tp Executor's prefill
     logits and greedy tokens, with B1's and B2's launches."""
@@ -246,7 +363,7 @@ def card_tp(inp: dict) -> dict:
 
 
 SCENARIOS = {"engines": engines, "ring": ring, "moe_ep": moe_ep, "lockstep": lockstep,
-             "card_tp": card_tp}
+             "features": features, "card_tp": card_tp}
 
 
 def scenario(job: dict) -> dict:
